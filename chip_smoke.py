@@ -9,26 +9,53 @@ Phases (each raises on failure; nothing is caught, so any failure exits
 non-zero and no result line is printed):
 
   1. require CUDA; print the card's name and power limit; turn TF32 off;
-  2. build every kernel of the serving path from ``csrc/`` with nvcc;
-  3. hold the flash-attention forward kernel against its plain PyTorch
-     version on the card (decode and causal-prefill shapes, ragged
-     lengths, an all-masked row; fp32 within 2e-5 — summation order —
-     and bf16 within 2e-2 — output rounding; fp32 outputs and lse of bf16
-     inputs within 2e-5 and 2e-4);
+  2. build every kernel of the serving and training paths from ``csrc/``
+     with nvcc, one process per source, all started together;
+  3. hold each kernel against its plain PyTorch version on the card:
+     - K1, the flash-attention forward (decode and causal-prefill shapes,
+       ragged lengths, an all-masked row; fp32 within 2e-5 — summation
+       order — and bf16 within 2e-2 — output rounding; fp32 outputs and
+       lse of bf16 inputs within 2e-5 and 2e-4);
+     - K2 and K3, the backward's dQ and dK/dV (the training shape
+       [4, 1024, 12, 64] causal, a holey mask, ragged S = 13 and 136, an
+       all-masked row; the largest error over the largest |plain value|,
+       at most 1e-4 in fp32 — summation order over up to 1024 keys — and
+       2e-2 in bf16 — output rounding), and autograd through K1+K2+K3
+       against autograd through the plain forward;
+     - the shard update (the K5 epilogue): bitwise, SGD (momentum, its
+       first and second step; nesterov with weight decay) and AdamW, on a
+       ragged shard and a 25 MB one, bf16 and fp32 gradients, with and
+       without a clip scale;
+     and again at the main paths' own shapes in phases 5 and 6: K1 at
+     decode B = 4 and train [16, 1024, 12, 64] bf16 causal, K2 and K3 at
+     the train shape, the shard update at every shard size of the training
+     run's plan with its optimizer; the kernels line reports the largest
+     error of all of these;
   4. serve GPT-2 small at full width (random weights from a seed) through
      `DecodeEngine` with ``decode_use_flash=True`` — fp32 at
      ``prefill_chunk`` 1 and 16, then bf16 — and check that every request
      finishes, that the flash kernel ran 12 times per decode tick, and that
      the fp32 tokens equal the port's own greedy `generate` (a divergence
      is accepted only at a near-tie: top-2 logit gap < 1e-3);
-  5. trace steady bf16 decode ticks with ``torch.profiler`` (launches,
-     device busy and idle share per tick); time the kernel, its plain
-     version and PyTorch's ``scaled_dot_product_attention`` (a yardstick
-     the port never calls) at the main path's shapes, beside the card's
-     bound.
+  5. train GPT-2 small at full width through the port's training CLI
+     (``benchmarks/gpt.py --fp16 --flash-attention --dropout0``, batch 16,
+     S = 1024, the DeAR schedule over a one-rank NCCL group) for 20 steps:
+     the losses are finite and fall, and every step launches K1, K2 and K3
+     12 times each and one shard update, reduce-scatter and all-gather per
+     bucket; then one fp32 step with the flash kernels against one with
+     the dense attention core (2 layers, batch 2), and 3 steps with the
+     CLI's default dropout;
+  6. trace steady bf16 decode ticks and training steps with
+     ``torch.profiler`` (device ops, busy time and idle share, the top
+     device ops of a step); time each kernel, its plain version and
+     PyTorch's own call where one computes the same function (SDPA, its
+     backward and ``torch.optim.SGD(fused=True)``: yardsticks the port
+     never calls) at the main path's shapes, beside the card's bound;
+     step time p50/p99, tokens/s and MFU.
 
-The line before the last lists the kernels as JSON; the last line is
-``{"ok": true, "device": {...}}``.
+``python3 chip_smoke.py --kernels-only`` runs phases 1–3 and stops without
+a result line. In a full run the line before the last lists the kernels
+as JSON; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -44,10 +71,17 @@ import torch
 import torch.nn.functional as F
 
 import dear_pytorch_tpu_torch.ops.flash_attention as FA
+import dear_pytorch_tpu_torch.ops.fused_sgd as FS
+from dear_pytorch_tpu_torch.benchmarks import gpt as train_cli
+from dear_pytorch_tpu_torch.comm import backend
+from dear_pytorch_tpu_torch.models import dropout_free
+from dear_pytorch_tpu_torch.models.data import synthetic_gpt_batch
 from dear_pytorch_tpu_torch.models.gpt import (
-    GPT2_SMALL, GptLmHeadModel, generate,
+    GPT2_SMALL, GptLmHeadModel, flash_causal_attention_impl, generate,
+    gpt_lm_loss,
 )
 from dear_pytorch_tpu_torch.ops import _build
+from dear_pytorch_tpu_torch.parallel.dear import build_train_step
 from dear_pytorch_tpu_torch.serving.engine import DecodeEngine
 
 # the card's peak rates (NVIDIA data sheets, dense)
@@ -78,11 +112,12 @@ def _hbm_bytes_per_s(name: str) -> float:
 # ---------------------------------------------------------------------------
 
 
-def _case(gen, B, Sq, Sk, dtype, causal, lengths=None, holey=False):
+def _case(gen, B, Sq, Sk, dtype, causal, lengths=None, holey=False, D=None):
     dev = _DEV
-    q = torch.randn(B, Sq, _H, _D, generator=gen, device=dev).to(dtype)
-    k = torch.randn(B, Sk, _H, _D, generator=gen, device=dev).to(dtype)
-    v = torch.randn(B, Sk, _H, _D, generator=gen, device=dev).to(dtype)
+    D = D or _D
+    q = torch.randn(B, Sq, _H, D, generator=gen, device=dev).to(dtype)
+    k = torch.randn(B, Sk, _H, D, generator=gen, device=dev).to(dtype)
+    v = torch.randn(B, Sk, _H, D, generator=gen, device=dev).to(dtype)
     ar = torch.arange(Sk, device=dev)
     if lengths is not None:
         mask = ar[None, :] < torch.tensor(lengths, device=dev)[:, None]
@@ -148,6 +183,196 @@ def check_kernel() -> float:
             _check(bool((lse_rows == -1e30).all()),
                    "all-masked row: lse != -1e30")
         worst = max(worst, err_o)
+    return worst
+
+
+def _fold(x):
+    """[B, S, H, D] -> [B*H, S, D] (a copy)."""
+    return x.transpose(1, 2).reshape(-1, x.shape[1], x.shape[-1])
+
+
+def _bwd_operands(gen, B, S, dtype, causal, lengths=None, holey=False,
+                  D=None):
+    """q, k, v, dO, mask and the forward's fp32 lse and delta = rowsum(dO *
+    O), all [B, S, H, D] / [B, S] / [B, H, S]."""
+    q, k, v, mask = _case(gen, B, S, S, dtype, causal, lengths, holey, D)
+    do = torch.randn(q.shape, generator=gen, device=_DEV).to(dtype)
+    o, lse = FA.flash_attention_reference(q, k, v, causal=causal,
+                                          kv_mask=mask,
+                                          out_dtype=torch.float32)
+    delta = (do.float() * o).sum(-1).transpose(1, 2).contiguous()
+    return q, k, v, do, mask, lse, delta
+
+
+def _rel(got, ref) -> tuple:
+    """(max |got - ref|, that over max(1, max |ref|))."""
+    err = float((got.float() - ref.float()).abs().max())
+    return err, err / max(1.0, float(ref.float().abs().max()))
+
+
+def check_bwd_kernels() -> tuple:
+    """K2 (dQ) and K3 (dK, dV) against their plain versions through the
+    folded `flash_pair_dq` / `flash_pair_dkv`, then autograd through
+    `flash_attention` (K1 forward, K2 and K3 backward) against autograd
+    through the plain forward at the [B, S, H, D] layout the model uses.
+    Returns the largest absolute error of dQ and of dK/dV."""
+    gen = torch.Generator(device=_DEV).manual_seed(2)
+    tol = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+    cases = []
+    for dt in (torch.float32, torch.bfloat16):
+        cases += [
+            (f"train causal B=4 S=1024 {dt}",
+             _bwd_operands(gen, 4, 1024, dt, True), True),
+            (f"holey S=256 {dt}",
+             _bwd_operands(gen, 2, 256, dt, False, holey=True), False),
+            (f"ragged causal S=13 {dt}",
+             _bwd_operands(gen, 2, 13, dt, True, holey=True), True),
+            (f"ragged S=136 {dt}",
+             _bwd_operands(gen, 2, 136, dt, False, holey=True), False),
+            (f"all-masked row S=136 {dt}",
+             _bwd_operands(gen, 2, 136, dt, False, lengths=[0, 100]), False),
+            # the D <= 128 instances, and a D that no warp width divides
+            (f"D=128 causal S=200 {dt}",
+             _bwd_operands(gen, 2, 200, dt, True, holey=True, D=128), True),
+            (f"D=40 S=77 {dt}",
+             _bwd_operands(gen, 2, 77, dt, False, holey=True, D=40), False),
+        ]
+    worst = {"dq": 0.0, "dkv": 0.0}
+    for name, (q, k, v, do, mask, lse, delta), causal in cases:
+        dt = q.dtype
+        scale = q.shape[-1] ** -0.5
+        args = (_fold(q), _fold(k), _fold(v), mask.repeat_interleave(_H, 0),
+                _fold(do), lse.reshape(-1, lse.shape[-1]),
+                delta.reshape(-1, delta.shape[-1]), scale, causal)
+        dq = FA.flash_pair_dq(*args)
+        dk, dv = FA.flash_pair_dkv(*args)
+        ref_dq = FA.flash_pair_dq_reference(*args)
+        ref_dk, ref_dv = FA.flash_pair_dkv_reference(*args)
+        torch.cuda.synchronize()
+        errs = {"dq": _rel(dq, ref_dq), "dk": _rel(dk, ref_dk),
+                "dv": _rel(dv, ref_dv)}
+        print(f"backward kernel check {name}: " + ", ".join(
+            f"max|{n}-plain| {a:.3e} (rel {r:.3e})"
+            for n, (a, r) in errs.items()))
+        for n, out in (("dq", dq), ("dk", dk), ("dv", dv)):
+            _check(out.dtype == dt, f"{name}: {n} dtype {out.dtype}")
+            _check(bool(torch.isfinite(out.float()).all()),
+                   f"{name}: {n} not finite")
+            _check(errs[n][1] <= tol[dt],
+                   f"{name}: {n} disagrees with its plain version")
+        if name.startswith("all-masked"):
+            dead = (mask.sum(1) == 0).repeat_interleave(_H, 0)
+            _check(bool((dq[dead] == 0).all() and (dk[dead] == 0).all()
+                        and (dv[dead] == 0).all()),
+                   "all-masked row: a gradient is not 0")
+        worst["dq"] = max(worst["dq"], errs["dq"][0])
+        worst["dkv"] = max(worst["dkv"], errs["dk"][0], errs["dv"][0])
+
+    # autograd through K1+K2+K3 against autograd through the plain forward
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v, mask = _case(gen, 4, 1024, 1024, dt, True)
+        w = torch.randn(q.shape, generator=gen, device=_DEV).to(dt)
+        grads = []
+        for fn in (FA.flash_attention, lambda *a, **kw:
+                   FA.flash_attention_reference(*a, **kw)[0]):
+            xs = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+            o = fn(*xs, causal=True)
+            grads.append(torch.autograd.grad(o, xs, w))
+        torch.cuda.synchronize()
+        errs = [_rel(g, r) for g, r in zip(*grads)]
+        print(f"autograd check causal B=4 S=1024 {dt}: " + ", ".join(
+            f"max|d{n}-plain| {a:.3e} (rel {r:.3e})"
+            for n, (a, r) in zip("qkv", errs)))
+        _check(all(r <= tol[dt] for _, r in errs),
+               f"autograd {dt}: flash gradients disagree with the plain "
+               "forward's")
+    return worst["dq"], worst["dkv"]
+
+
+def _ulps(a, b) -> int:
+    """The largest distance in units in the last place between two fp32
+    tensors of one sign pattern (0 when bitwise equal)."""
+    ia = a.contiguous().view(torch.int32).long()
+    ib = b.contiguous().view(torch.int32).long()
+    return int((ia - ib).abs().max()) if a.numel() else 0
+
+
+def check_update_kernel() -> float:
+    """The shard update (K5's epilogue) against `fused_update_reference`
+    on the card, bitwise for SGD; AdamW's ulp distance is printed and must
+    be 0 as well (both run the same IEEE operations in the same order).
+    Returns the largest absolute difference (0.0)."""
+    gen = torch.Generator(device=_DEV).manual_seed(3)
+    opts = [
+        ("sgd", FS.fused_sgd(lr=0.01)),
+        ("sgd momentum", FS.fused_sgd(lr=0.01, momentum=0.9)),
+        ("nesterov wd", FS.fused_sgd(lr=0.01, momentum=0.9, nesterov=True,
+                                     weight_decay=1e-4)),
+        ("adamw", FS.fused_adamw(lr=1e-3, weight_decay=0.01)),
+    ]
+    worst = 0.0
+    n_cases = 0
+    for n in (1_000_003, 25 * 2**20 // 4):     # ragged, one 25 MB bucket
+        for gdt in (torch.bfloat16, torch.float32):
+            for mean_world, clip in ((1, None), (2, 0.37)):
+                for name, opt in opts:
+                    worst = max(worst, _update_pair(
+                        f"{name} n={n} {gdt} clip={clip}", opt, n, gdt,
+                        mean_world, clip, gen))
+                    n_cases += 2
+    print(f"update kernel check: {n_cases} cases (SGD, momentum first and "
+          "second step, nesterov + wd, AdamW; n = 1000003 and 6553600; "
+          "bf16 and fp32 grads; clip 0.37 at mean_world 2) bitwise equal "
+          "to the plain version")
+    return worst
+
+
+def _update_pair(name, opt, n, gdt, mean_world, clip, gen) -> float:
+    """Two steps (the first and second) of the kernel and of its plain
+    version from one start on ``n`` elements; raises unless every state
+    tensor is bitwise equal after each step. Returns the largest absolute
+    difference (0.0)."""
+    clip_t = (None if clip is None else
+              torch.tensor(clip, dtype=torch.float32, device=_DEV))
+    p0 = torch.randn(n, generator=gen, device=_DEV)
+    pk, pr = p0.clone(), p0.clone()
+    sk, sr = opt.init(pk), opt.init(pr)
+    worst = 0.0
+    for step in range(2):
+        rs = torch.randn(n, generator=gen, device=_DEV).to(gdt)
+        scal = opt.scalars(sr, mean_world, step)
+        FS.fused_update_reference(opt, rs, sr, pr, scal, clip_t)
+        opt.update(rs, sk, pk, mean_world=mean_world, clip_scale=clip_t,
+                   step=step)
+        for key, val in sk.items():    # host bookkeeping
+            if not torch.is_tensor(val):
+                sr[key] = val
+        pairs = [(pk, pr)] + [(sk[key], sr[key]) for key in sk
+                              if torch.is_tensor(sk[key])]
+        torch.cuda.synchronize()
+        ulps = max(_ulps(a, b) for a, b in pairs)
+        diff = max(float((a - b).abs().max()) for a, b in pairs)
+        if ulps:
+            print(f"update check {name} step {step}: {ulps} ulp, "
+                  f"max |diff| {diff:.3e}")
+        _check(ulps == 0, f"update {name}: not bitwise equal to its plain "
+               "version")
+        worst = max(worst, diff)
+    return worst
+
+
+def check_update_main_path(ts) -> float:
+    """The shard update at every shard size of the training run's plan,
+    with the run's own optimizer, bf16 gradients and one rank: bitwise
+    equal to the plain version after the first and the second step.
+    Returns the largest absolute difference (0.0)."""
+    gen = torch.Generator(device=_DEV).manual_seed(7)
+    sizes = sorted({b.shard_size for b in ts.plan.buckets})
+    worst = max(_update_pair(f"main path n={n}", ts.optimizer, n,
+                             torch.bfloat16, 1, None, gen) for n in sizes)
+    print(f"update kernel check main path: {len(sizes)} shard sizes of the "
+          f"plan ({sizes[0]} to {sizes[-1]}), {ts.optimizer}, bf16 "
+          "grads, first and second step: bitwise equal to the plain version")
     return worst
 
 
@@ -249,7 +474,169 @@ def check_serving():
 
 
 # ---------------------------------------------------------------------------
-# phase 5: timings
+# phase 5: train GPT-2 small through the training CLI
+# ---------------------------------------------------------------------------
+
+_TRAIN_ARGS = ["--model", "gpt2", "--fp16", "--flash-attention",
+               "--dropout0", "--batch-size", "16", "--sequence-len", "1024",
+               "--base-lr", "0.01", "--momentum", "0.9", "--threshold", "25",
+               "--num-warmup-batches", "5", "--num-batches-per-iter", "5",
+               "--num-iters", "3"]
+_TRAIN_WARMUP = 5
+
+
+def _train_counts(ts) -> dict:
+    return {"flash_fwd": FA.flash_fwd_launches,
+            "flash_bwd_dq": FA.flash_bwd_dq_launches,
+            "flash_bwd_dkv": FA.flash_bwd_dkv_launches,
+            "fused_update": FS.fused_update_launches,
+            "rs": ts.rs_launches, "ag": ts.ag_launches,
+            "update": ts.update_launches}
+
+
+def train_gpt2():
+    """20 steps of ``benchmarks/gpt.py`` (the main training path), every
+    step's launches checked: K1, K2 and K3 12 times each (one per layer),
+    one shard update, reduce-scatter and all-gather per bucket. Returns
+    (result, launches, step times in ms of the timed steps)."""
+    cfg = GPT2_SMALL
+    FA.flash_fwd_launches = FA.flash_bwd_dq_launches = 0  # the main
+    FA.flash_bwd_dkv_launches = FS.fused_update_launches = 0  # path starts
+    marks, prev = [], {}
+
+    def on_step(ts, state, metrics):
+        del state, metrics
+        now = _train_counts(ts)
+        nb = ts.plan.num_buckets
+        before = prev or {k: 0 for k in now} | {"ag": nb}   # init's gathers
+        want = {"flash_fwd": cfg.num_hidden_layers,
+                "flash_bwd_dq": cfg.num_hidden_layers,
+                "flash_bwd_dkv": cfg.num_hidden_layers,
+                "fused_update": nb, "rs": nb, "ag": nb, "update": nb}
+        got = {k: now[k] - before[k] for k in now}
+        _check(got == want, f"train step {len(marks) + 1}: launches {got}, "
+               f"expected {want}")
+        prev.update(now)
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append(ev)
+
+    res = train_cli.main(_TRAIN_ARGS + ["--device", _DEV],
+                         on_step=on_step)
+    launches = _train_counts(res.train_step)      # ... and ends here
+    losses = res.losses
+    print(f"train losses: {[round(x, 4) for x in losses]}")
+    _check(len(losses) == 20 and all(np.isfinite(losses)),
+           f"train: losses {losses}")
+    _check(losses[-1] < losses[0], "train: the loss did not fall")
+    step_ms = [a.elapsed_time(b) for a, b in
+               zip(marks[_TRAIN_WARMUP - 1:-1], marks[_TRAIN_WARMUP:])]
+    print(f"main path (train): 20 steps, {res.train_step.plan.num_buckets} "
+          f"buckets, launches {launches}")
+    return res, launches, step_ms
+
+
+def _loss_fn(m, b):
+    return gpt_lm_loss(m(b["input_ids"], train=True), b["input_ids"],
+                       vocab_size=GPT2_SMALL.vocab_size)
+
+
+def check_flash_step_vs_dense():
+    """One fp32 step at full width, 2 layers, batch 2: the flash kernels
+    (K1, K2, K3) against the dense attention core. The updated parameters
+    agree within 1e-5 and the gradients they imply, (p0 - p1) / lr, within
+    1e-3 of the largest gradient."""
+    cfg = dataclasses.replace(dropout_free(GPT2_SMALL), num_hidden_layers=2)
+    batch = synthetic_gpt_batch(
+        torch.Generator(device=_DEV).manual_seed(4), 2, 1024,
+        cfg.vocab_size)
+    lr = 0.01
+    runs = []
+    for impl in (flash_causal_attention_impl(), None):
+        model = GptLmHeadModel(cfg, attention_impl=impl, device=_DEV, seed=0)
+        p0 = {n: p.detach().clone() for n, p in model.named_parameters()}
+        ts = build_train_step(_loss_fn, model, device=_DEV,
+                              optimizer=FS.fused_sgd(lr=lr, momentum=0.9))
+        state, metrics = ts.step(ts.init(), batch)
+        runs.append((float(metrics["loss"]), ts.gather_params(state), p0))
+    (lf, pf, p0), (ld, pd, _) = runs
+    p_err = max(float((pf[n] - pd[n]).abs().max()) for n in pf)
+    g_max = max(float((p0[n] - pd[n]).abs().max()) / lr for n in pd)
+    g_err = max(float((pf[n] - pd[n]).abs().max()) / lr for n in pf)
+    print(f"fp32 step, flash vs dense (2 layers, B=2, S=1024): loss "
+          f"{lf:.6f} vs {ld:.6f}, max |param diff| {p_err:.3e}, implied "
+          f"gradients {g_err:.3e} of max {g_max:.3e}")
+    _check(abs(lf - ld) <= 1e-5 * abs(ld), "flash vs dense: losses differ")
+    _check(p_err <= 1e-5 and g_err <= 1e-3 * g_max,
+           "flash vs dense: the updated parameters differ")
+
+
+def train_with_dropout():
+    """3 steps through the CLI with its default dropout (the kernel rule
+    zeroes the attention-probs dropout; embedding and hidden dropout draw
+    from the step's generator), 2 layers, batch 4."""
+    res = train_cli.main(["--fp16", "--flash-attention",
+                          "--num-hidden-layers", "2", "--batch-size", "4",
+                          "--sequence-len", "1024", "--num-warmup-batches",
+                          "0", "--num-batches-per-iter", "3",
+                          "--num-iters", "1", "--device", _DEV])
+    print(f"train with dropout (2 layers, B=4): losses "
+          f"{[round(x, 4) for x in res.losses]}")
+    _check(len(res.losses) == 3 and all(np.isfinite(res.losses)),
+           "train with dropout: a loss is not finite")
+
+
+def train_flops_per_step(cfg, B, S) -> float:
+    """6 x (matmul parameters) x tokens, plus causal attention: QK^T and
+    PV over the S(S+1)/2 causal pairs, forward and backward (x3)."""
+    h, L, V = cfg.hidden_size, cfg.num_hidden_layers, cfg.padded_vocab_size
+    n_matmul = L * (4 * h * h + 2 * h * cfg.intermediate_size) + V * h
+    attn = 3 * 4 * h * L * B * S * (S + 1) // 2
+    return 6 * n_matmul * B * S + attn
+
+
+def trace_train_steps(ts, state, batch, step_p50_ms, n=2):
+    """``torch.profiler`` over ``n`` training steps: device ops per step,
+    device busy time, idle share (of the profiled wall, an upper bound, and
+    of the unprofiled step p50) and the top device ops by time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    state, _ = ts.step(state, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            state, _ = ts.step(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / n
+    if not kernels or busy <= 0:
+        print("train step trace: no device time in the profile "
+              "(not measured)")
+        return None
+    by_name: dict = {}
+    for e in kernels:
+        t, c = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + e.time_range.elapsed_us() / 1e3, c + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    print(f"train step trace (bf16, B=16, S=1024, {n} steps): "
+          f"{len(kernels) / n:.1f} device ops/step, device busy "
+          f"{busy:.3f} ms/step, wall {wall / n * 1e3:.3f} ms/step under the "
+          f"profiler (idle {1 - busy / (wall / n * 1e3):.1%}), idle "
+          f"{1 - busy / step_p50_ms:.1%} of the unprofiled step p50 "
+          f"{step_p50_ms:.3f} ms")
+    for name, (ms, count) in top:
+        print(f"  top op {ms / n:9.3f} ms/step {count // n:5d}x/step "
+              f"{name[:110]}")
+    return {"ops_per_step": len(kernels) / n, "busy_ms": busy,
+            "top": [(name, ms / n) for name, (ms, _) in top]}
+
+
+# ---------------------------------------------------------------------------
+# phase 6: timings
 # ---------------------------------------------------------------------------
 
 
@@ -319,8 +706,22 @@ def device_ms(fn, sets, reps):
 
 
 def time_shape(name, B, Sq, Sk, dtype, causal, n_sets, hbm):
+    """K1 at one shape: first held against its plain version on the first
+    input set (the tolerance of `check_kernel`), then timed beside its
+    plain version, SDPA and the card's bound."""
     gen = torch.Generator(device=_DEV).manual_seed(1)
     sets = [_case(gen, B, Sq, Sk, dtype, causal) for _ in range(n_sets)]
+    q, k, v, m = sets[0]
+    o = FA.flash_attention(q, k, v, causal=causal, kv_mask=m)
+    ref, _ = FA.flash_attention_reference(q, k, v, causal=causal, kv_mask=m,
+                                          out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    err = float((o.float() - ref.to(dtype).float()).abs().max())
+    _check(bool(torch.isfinite(o.float()).all())
+           and err <= {torch.float32: 2e-5, torch.bfloat16: 2e-2}[dtype],
+           f"{name} {dtype}: kernel disagrees with its plain version "
+           f"(max |o - plain| {err:.3e})")
+    del o, ref
 
     def kernel(q, k, v, m):
         FA.flash_attention(q, k, v, causal=causal, kv_mask=m)
@@ -345,6 +746,7 @@ def time_shape(name, B, Sq, Sk, dtype, causal, n_sets, hbm):
     bytes_ms = nbytes / hbm * 1e3
     ops_ms = flops / _PEAK_FLOPS[dtype] * 1e3
     row = {"shape": name, "dtype": str(dtype).replace("torch.", ""),
+           "max_abs_err": err,
            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
            "bound_ms": max(bytes_ms, ops_ms),
            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
@@ -353,7 +755,152 @@ def time_shape(name, B, Sq, Sk, dtype, causal, n_sets, hbm):
     return row
 
 
-def main() -> int:
+def time_bwd(B, S, hbm, launches_per_step):
+    """K2 and K3 at the training shape ([B, S, 12, 64], causal, bf16,
+    through the [B, S, H, D] dispatch the autograd Function uses): first
+    held against their plain versions on the first input set (the largest
+    error over the largest |plain value|, at most 2e-2 as in
+    `check_bwd_kernels`), then timed beside their plain versions and the
+    backward of SDPA (is_causal; dq, dk and dv in one call), the yardstick
+    for K2 + K3 together. Returns (rows, the largest absolute error of dQ
+    and of dK/dV)."""
+    gen = torch.Generator(device=_DEV).manual_seed(5)
+    dt = torch.bfloat16
+    scale = _D ** -0.5
+    sets = [_bwd_operands(gen, B, S, dt, True) for _ in range(2)]
+    q, k, v, do, mask, lse, delta = sets[0]
+    args = (q, k, v, mask, do, lse, delta, scale, True)
+    got = {"dq": FA._dispatch_dq(*args)}
+    got["dk"], got["dv"] = FA._dispatch_dkv(*args)
+    ref = {"dq": FA._dq_reference(*args)}
+    ref["dk"], ref["dv"] = FA._dkv_reference(*args)
+    torch.cuda.synchronize()
+    errs = {n: _rel(got[n], ref[n]) for n in got}
+    print(f"backward kernel check main path causal B={B} S={S} bf16: "
+          + ", ".join(f"max|{n}-plain| {a:.3e} (rel {r:.3e})"
+                      for n, (a, r) in errs.items()))
+    for n, out in got.items():
+        _check(bool(torch.isfinite(out.float()).all()) and errs[n][1] <= 2e-2,
+               f"main path B={B}: {n} disagrees with its plain version")
+    main_err = (errs["dq"][0], max(errs["dk"][0], errs["dv"][0]))
+    del got, ref
+
+    def dq(q, k, v, do, mask, lse, delta):
+        FA._dispatch_dq(q, k, v, mask, do, lse, delta, scale, True)
+
+    def dkv(q, k, v, do, mask, lse, delta):
+        FA._dispatch_dkv(q, k, v, mask, do, lse, delta, scale, True)
+
+    def dq_plain(q, k, v, do, mask, lse, delta):
+        FA._dq_reference(q, k, v, mask, do, lse, delta, scale, True)
+
+    def dkv_plain(q, k, v, do, mask, lse, delta):
+        FA._dkv_reference(q, k, v, mask, do, lse, delta, scale, True)
+
+    sdpa = []
+    for q, k, v, do, *_ in sets:
+        xs = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
+        out = F.scaled_dot_product_attention(*xs, is_causal=True)
+        sdpa.append((out, xs, do.transpose(1, 2)))
+
+    def library(out, xs, do):
+        torch.autograd.grad(out, xs, do, retain_graph=True)
+
+    rows = {}
+    esize = 2
+    pairs = B * _H * S * (S + 1) // 2
+    elems = B * S * _H * _D
+    for name, fn, plain, flops_per_pair, n_out in (
+            ("flash_bwd_dq", dq, dq_plain, 6 * _D, 1),
+            ("flash_bwd_dkv", dkv, dkv_plain, 8 * _D, 2)):
+        ms = device_ms(fn, sets, 20)
+        plain_ms = device_ms(plain, sets, 4)
+        # q, k, v, dO read, the outputs written; lse, delta and the mask
+        nbytes = (4 + n_out) * elems * esize + 2 * B * _H * S * 4 + B * S * 4
+        flops = flops_per_pair * pairs
+        bytes_ms, ops_ms = nbytes / hbm * 1e3, flops / _PEAK_FLOPS[dt] * 1e3
+        rows[name] = {"shape": f"train causal B={B} S={S} H={_H} D={_D}",
+                      "dtype": "bfloat16", "ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": max(bytes_ms, ops_ms),
+                      "bound_by": ("bytes" if bytes_ms >= ops_ms
+                                   else "operations"),
+                      "bytes": nbytes, "flops": flops,
+                      "launches_per_step": launches_per_step}
+    # one SDPA backward computes dq, dk and dv: the yardstick of K2 + K3
+    # together, so both rows carry it with that scope
+    sdpa_ms = device_ms(library, sdpa, 20)
+    for row in rows.values():
+        row.update(library_ms=sdpa_ms, library_scope="dq+dk+dv")
+        print("kernel time " + json.dumps(row))
+    both = rows["flash_bwd_dq"]["ms"] + rows["flash_bwd_dkv"]["ms"]
+    print(f"backward yardstick: SDPA backward (is_causal, dq+dk+dv) "
+          f"{sdpa_ms:.4f} ms vs K2 + K3 {both:.4f} ms "
+          f"({both / sdpa_ms:.1f}x) at B={B} S={S} bf16")
+    return rows, main_err
+
+
+def time_update(n, hbm, launches_per_step):
+    """The shard update on one bucket of the main path (``n`` elements, bf16
+    gradient, SGD momentum 0.9 past its first step), its plain version, and
+    ``torch.optim.SGD(fused=True)`` over the same elements (an fp32
+    gradient: the fused SGD needs the parameter's dtype) as the yardstick."""
+    gen = torch.Generator(device=_DEV).manual_seed(6)
+    opt = FS.fused_sgd(lr=0.01, momentum=0.9)
+    sets = []
+    for _ in range(2):
+        p = torch.randn(n, generator=gen, device=_DEV)
+        st = opt.init(p)
+        st["buf"].normal_(generator=gen)
+        st["initialized"] = True
+        sets.append((torch.randn(n, generator=gen, device=_DEV).bfloat16(),
+                     st, p))
+    scal = opt.scalars(sets[0][1], 1, 0)
+
+    def kernel(g, st, p):
+        opt.update(g, st, p)
+
+    def plain(g, st, p):
+        FS.fused_update_reference(opt, g, st, p, scal)
+
+    lib = []
+    for g, _, p in sets:
+        w = torch.nn.Parameter(p.clone())
+        w.grad = g.float()
+        sgd = torch.optim.SGD([w], lr=0.01, momentum=0.9, fused=True)
+        sgd.step()                         # seed the momentum buffer
+        lib.append((sgd,))
+
+    ms = device_ms(kernel, sets, 50)
+    plain_ms = device_ms(plain, sets, 20)
+    library_ms = device_ms(lambda sgd: sgd.step(), lib, 50)
+    nbytes = n * (2 + 4 * 4)               # grad; param and buf in and out
+    row = {"shape": f"bucket shard n={n}", "dtype": "bf16 grad, fp32 state",
+           "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": nbytes / hbm * 1e3, "bound_by": "bytes",
+           "bytes": nbytes, "flops": 6 * n,
+           "launches_per_step": launches_per_step}
+    print("kernel time " + json.dumps(row))
+    return row
+
+
+def _kernel_entry(name, source, replaces, launches, err, row):
+    entry = {"name": name, "route": "cuda",
+             "source": f"dear_pytorch_tpu_torch/csrc/{source}",
+             "replaces": replaces, "launches": launches, "max_abs_err": err,
+             "ms": row["ms"], "plain_ms": row["plain_ms"],
+             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+             "library_ms": row["library_ms"]}
+    if "library_scope" in row:   # one library call for several kernels
+        entry["library_scope"] = row["library_scope"]
+    return entry
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    kernels_only = argv == ["--kernels-only"]
+    if argv and not kernels_only:
+        print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's chip check needs the "
               "card", file=sys.stderr)
@@ -370,7 +917,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    logs = _build.build(["flash_fwd"])
+    logs = _build.build(["flash_fwd", "flash_bwd", "fused_update"])
     print(f"build: {time.perf_counter() - t0:.1f} s "
           f"({', '.join(logs) or 'cached'}) into {_build.BUILD_DIR}")
     for log in logs.values():
@@ -378,32 +925,85 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print("  ptxas " + line.strip())
 
+    t0 = time.perf_counter()
     max_err = check_kernel()
+    dq_err, dkv_err = check_bwd_kernels()
+    upd_err = check_update_kernel()
+    print(f"kernel checks: {time.perf_counter() - t0:.1f} s")
+    if kernels_only:
+        return 0
+
     launches, runs = check_serving()
+    t0 = time.perf_counter()
+    res, train_launches, step_ms = train_gpt2()
+    print(f"train phase: {time.perf_counter() - t0:.1f} s")
+    upd_err = max(upd_err, check_update_main_path(res.train_step))
+    check_flash_step_vs_dense()
+    train_with_dropout()
     trace_decode_ticks(runs[-1][3].model)
+
+    B, S = 16, 1024
+    p50, p99 = (float(np.percentile(step_ms, q)) for q in (50, 99))
+    tok_s = res.total_mean * S
+    flops = train_flops_per_step(GPT2_SMALL, B, S)
+    print(f"train step (GPT-2 small, bf16, B={B}, S={S}, "
+          f"{res.train_step.plan.num_buckets} buckets, {len(step_ms)} timed "
+          f"steps): p50 {p50:.3f} ms p99 {p99:.3f} ms; {tok_s:.1f} tokens/s "
+          f"(the CLI's timed mean); {flops / 1e12:.3f} TFLOP per step "
+          f"(6 x matmul params x tokens + causal attention) -> MFU "
+          f"{tok_s / (B * S) * flops / _PEAK_FLOPS[torch.bfloat16]:.2%} of "
+          f"{_PEAK_FLOPS[torch.bfloat16] / 1e12:.0f} TF/s bf16")
+    trace_train_steps(res.train_step, res.state, res.batch, p50)
 
     hbm = _hbm_bytes_per_s(name)
     print(f"bounds: {hbm / 1e12} TB/s memory ({name}), peak "
           f"{_PEAK_FLOPS[torch.bfloat16] / 1e12} TF/s bf16, "
           f"{_PEAK_FLOPS[torch.float32] / 1e12} TF/s fp32; power limit as "
           f"above: {card}")
-    decode = time_shape("decode B=4 Sq=1 Sk=1024 H=12 D=64", _SLOTS, 1, _L,
-                        torch.bfloat16, False, 8, hbm)
-    time_shape("decode B=4 Sq=1 Sk=1024 H=12 D=64", _SLOTS, 1, _L,
-               torch.float32, False, 4, hbm)
-    time_shape("causal prefill B=2 S=1024 H=12 D=64", 2, _L, _L,
-               torch.bfloat16, True, 2, hbm)
-    time_shape("causal prefill B=2 S=1024 H=12 D=64", 2, _L, _L,
-               torch.float32, True, 2, hbm)
+    # each K1 shape is held against the plain version before it is timed;
+    # decode B=4 and train B=16 are the main paths' own shapes
+    fwd_rows = [
+        time_shape("decode B=4 Sq=1 Sk=1024 H=12 D=64", _SLOTS, 1, _L,
+                   torch.bfloat16, False, 8, hbm),
+        time_shape("decode B=4 Sq=1 Sk=1024 H=12 D=64", _SLOTS, 1, _L,
+                   torch.float32, False, 4, hbm),
+        time_shape("causal prefill B=2 S=1024 H=12 D=64", 2, _L, _L,
+                   torch.bfloat16, True, 2, hbm),
+        time_shape("causal prefill B=2 S=1024 H=12 D=64", 2, _L, _L,
+                   torch.float32, True, 2, hbm),
+        time_shape("causal train B=16 S=1024 H=12 D=64", B, S, S,
+                   torch.bfloat16, True, 2, hbm)]
+    decode = fwd_rows[0]
+    max_err = max([max_err] + [r["max_abs_err"] for r in fwd_rows])
+    layers = GPT2_SMALL.num_hidden_layers
+    bwd, (dq_main, dkv_main) = time_bwd(B, S, hbm, layers)
+    dq_err, dkv_err = max(dq_err, dq_main), max(dkv_err, dkv_main)
+    buckets = res.train_step.plan.buckets
+    nb = len(buckets)
+    # a bucket of the 25 MB threshold (the kernels line) and the largest
+    # one (wte alone: a layer over the threshold gets its own bucket)
+    upd = time_update(max(b.shard_size for b in buckets
+                          if b.size * 4 <= 25 * 2**20), hbm, nb)
+    time_update(max(b.shard_size for b in buckets), hbm, nb)
 
-    print(json.dumps({"kernels": [{
-        "name": "flash_fwd", "route": "cuda",
-        "source": "dear_pytorch_tpu_torch/csrc/flash_fwd.cu",
-        "replaces": "dear_pytorch_tpu/ops/flash_attention.py:97",
-        "launches": launches, "max_abs_err": max_err,
-        "ms": decode["ms"], "plain_ms": decode["plain_ms"],
-        "bound_ms": decode["bound_ms"], "bound_by": decode["bound_by"],
-        "library_ms": decode["library_ms"]}]}))
+    print(json.dumps({"kernels": [
+        _kernel_entry("flash_fwd", "flash_fwd.cu",
+                      "dear_pytorch_tpu/ops/flash_attention.py:97",
+                      launches + train_launches["flash_fwd"], max_err,
+                      decode),
+        _kernel_entry("flash_bwd_dq", "flash_bwd.cu",
+                      "dear_pytorch_tpu/ops/flash_attention.py:152",
+                      train_launches["flash_bwd_dq"], dq_err,
+                      bwd["flash_bwd_dq"]),
+        _kernel_entry("flash_bwd_dkv", "flash_bwd.cu",
+                      "dear_pytorch_tpu/ops/flash_attention.py:195",
+                      train_launches["flash_bwd_dkv"], dkv_err,
+                      bwd["flash_bwd_dkv"]),
+        _kernel_entry("fused_update", "fused_update.cu",
+                      "dear_pytorch_tpu/ops/collective_matmul.py:317",
+                      train_launches["fused_update"], upd_err, upd),
+    ]}))
+    backend.shutdown()
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

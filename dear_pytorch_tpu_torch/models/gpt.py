@@ -1,5 +1,5 @@
 """Decoder-only causal LM (the GPT-2 family) in PyTorch — the port of
-``dear_pytorch_tpu/models/gpt.py`` for inference and serving.
+``dear_pytorch_tpu/models/gpt.py`` for training and serving.
 
 The numerics follow the flax model it is held against: parameters are
 stored in fp32 and every op casts its inputs and parameters to
@@ -16,10 +16,17 @@ tick; ``[B, C]`` with ``prefill_lengths`` is a chunked-prefill tick.
 ``config.decode_use_flash`` sends every decode-tick attention through the
 Hopper flash-attention kernel.
 
-Not in this slice (each raises ``NotImplementedError``): mixture of
-experts (``num_experts > 0``), ring tensor-parallel projections
-(``projection_impl``), ``remat``, dropout in training mode, and the LM
-loss — the training and tensor-parallel slices bring them.
+Training mode is ``forward(input_ids, train=True, generator=g)``: flax's
+three dropouts (after the embeddings, on the attention probabilities in the
+dense core, and on each block's attention and MLP outputs) draw their keep
+masks from the explicit ``torch.Generator`` ``g``. The bits cannot match
+JAX's PRNG, so dropout is held to its statistics, not to JAX's masks.
+`gpt_lm_loss` is the streamed-logsumexp next-token loss over the unpadded
+vocab.
+
+Not ported yet (each raises ``NotImplementedError``): mixture of experts
+(``num_experts > 0``), ring tensor-parallel projections
+(``projection_impl``) and ``remat``.
 """
 
 from __future__ import annotations
@@ -82,10 +89,25 @@ GPT2_LARGE = GptConfig(hidden_size=1280, num_hidden_layers=36,
                        num_attention_heads=20, intermediate_size=5120)
 
 
-def causal_dot_product_attention(q, k, v, mask, *, dtype=torch.float32):
+def dropout(x, rate: float, generator):
+    """flax ``nn.Dropout``: keep each element with probability ``1 - rate``
+    (a mask drawn from ``generator``) and scale the kept ones by
+    ``1 / (1 - rate)``."""
+    if rate <= 0.0:
+        return x
+    keep_prob = 1.0 - rate
+    keep = torch.rand(x.shape, generator=generator,
+                      device=x.device) < keep_prob
+    return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype,
+                                                        device=x.device))
+
+
+def causal_dot_product_attention(q, k, v, mask, *, dropout_rate=0.0,
+                                 generator=None, dtype=torch.float32):
     """Dense causal attention core (the `models.bert.dot_product_attention`
     convention; ``mask`` is an additive key mask or None — the causal
-    triangle is applied here)."""
+    triangle is applied here). ``dropout_rate > 0`` drops attention
+    probabilities with masks from ``generator``."""
     S = q.shape[1]
     scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / q.shape[-1] ** 0.5
     tri = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
@@ -93,15 +115,25 @@ def causal_dot_product_attention(q, k, v, mask, *, dtype=torch.float32):
     if mask is not None:
         scores = scores + mask
     probs = torch.softmax(scores.float(), dim=-1).to(dtype)
+    if dropout_rate > 0.0:
+        keep = torch.rand(probs.shape, generator=generator,
+                          device=probs.device) < 1.0 - dropout_rate
+        probs = probs * keep / (1.0 - dropout_rate)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
 def flash_causal_attention_impl() -> Callable:
-    """Causal attention through the flash-attention kernel (full
-    sequences, so the key mask is not used)."""
+    """Causal attention through the flash-attention kernels (forward K1,
+    backward K2 and K3; full sequences, so the key mask is not used). The
+    kernels have no attention-dropout path: an active rate raises."""
 
-    def impl(q, k, v, mask, *, dtype=torch.float32):
-        del mask, dtype
+    def impl(q, k, v, mask, *, dropout_rate=0.0, generator=None,
+             dtype=torch.float32):
+        del mask, generator, dtype
+        if dropout_rate > 0.0:
+            raise ValueError(
+                "flash attention kernel has no attention-dropout path; "
+                "set attention_probs_dropout_prob=0")
         return flash_attention(q, k, v, causal=True)
 
     return impl
@@ -128,8 +160,11 @@ class LayerNorm(nn.LayerNorm):
         self.compute_dtype = compute_dtype
 
     def forward(self, x):
-        return F.layer_norm(x.float(), self.normalized_shape, self.weight,
-                            self.bias, self.eps).to(self.compute_dtype)
+        # the weight and bias are cast too: a train step may keep them as
+        # bf16 views (gather_dtype); the statistics stay fp32 either way
+        return F.layer_norm(x.float(), self.normalized_shape,
+                            self.weight.float(), self.bias.float(),
+                            self.eps).to(self.compute_dtype)
 
 
 class GptBlock(nn.Module):
@@ -157,21 +192,30 @@ class GptBlock(nn.Module):
         self.mlp_out = dense(cfg.intermediate_size, h)
 
     def forward(self, x, cache=None, positions=None, valid=None,
-                prefill_lengths=None):
+                prefill_lengths=None, generator=None):
+        """``generator`` (training mode only) draws the dropout masks."""
         cfg = self.config
         B, S, h = x.shape
         nh = cfg.num_attention_heads
+        train = generator is not None
         y = self.ln_1(x)
         q, k, v = (m(y).view(B, S, nh, h // nh)
                    for m in (self.query, self.key, self.value))
         if cache is None:
-            ctx = self.attention_impl(q, k, v, None, dtype=cfg.dtype)
+            rate = cfg.attention_probs_dropout_prob if train else 0.0
+            ctx = self.attention_impl(q, k, v, None, dropout_rate=rate,
+                                      generator=generator, dtype=cfg.dtype)
         else:
             ctx = self._decode_attend(q, k, v, cache, positions, valid,
                                       prefill_lengths)
-        x = x + self.output(ctx.reshape(B, S, h))
+        attn = self.output(ctx.reshape(B, S, h))
+        if train:
+            attn = dropout(attn, cfg.hidden_dropout_prob, generator)
+        x = x + attn
         y = self.mlp_in(self.ln_2(x))
         y = self.mlp_out(F.gelu(y, approximate="tanh"))
+        if train:
+            y = dropout(y, cfg.hidden_dropout_prob, generator)
         return x + y
 
     def _decode_attend(self, q, k, v, cache, positions, valid,
@@ -275,10 +319,12 @@ class GptLmHeadModel(nn.Module):
                       for _ in range(2))
                 for _ in range(cfg.num_hidden_layers)]
 
-    def forward(self, input_ids, *, train: bool = False, position_offset=0,
-                cache=None, prefill_lengths=None):
+    def forward(self, input_ids, *, train: bool = False, generator=None,
+                position_offset=0, cache=None, prefill_lengths=None):
         """``cache=None``: a full causal forward over ``input_ids``
-        ``[B, S]`` starting at ``position_offset``.
+        ``[B, S]`` starting at ``position_offset``. ``train=True`` turns the
+        dropouts on, with masks from ``generator`` (a ``torch.Generator``
+        on the model's device; required when any dropout rate is > 0).
 
         ``cache=`` (decode mode): ``position_offset`` is each row's global
         position — a scalar or a per-row ``[B]`` tensor (a
@@ -289,10 +335,14 @@ class GptLmHeadModel(nn.Module):
         clamped to the position table in decode mode (a partial final
         chunk's padding tokens)."""
         cfg = self.config
-        if train and (cfg.embd_dropout_prob or cfg.hidden_dropout_prob
-                      or cfg.attention_probs_dropout_prob):
-            raise NotImplementedError(
-                "dropout in training mode is the training slice's work")
+        drops = (cfg.embd_dropout_prob or cfg.hidden_dropout_prob
+                 or cfg.attention_probs_dropout_prob)
+        if train and drops and generator is None:
+            raise ValueError("dropout in training mode needs a "
+                             "torch.Generator (generator=)")
+        if train and cache is not None:
+            raise ValueError("decode mode (cache=) is inference only")
+        gen = generator if train and drops else None
         B, S = input_ids.shape
         dev = input_ids.device
         ar = torch.arange(S, device=dev)
@@ -323,11 +373,13 @@ class GptLmHeadModel(nn.Module):
                                                   device=dev)
         dt = cfg.dtype
         x = self.wte(input_ids).to(dt) + self.wpe(pos).to(dt)
+        if gen is not None:
+            x = dropout(x, cfg.embd_dropout_prob, gen)
         for i, block in enumerate(self.blocks):
             if decode:
                 x = block(x, cache[i], positions, valid, prefill_lengths)
             else:
-                x = block(x)
+                x = block(x, generator=gen)
         x = self.ln_f(x)
         return F.linear(x, self.wte.weight.to(dt)).float()
 
@@ -395,3 +447,19 @@ def generate(model: GptLmHeadModel, prompt_ids, max_new_tokens: int, *,
             nxt = logits.argmax(dim=-1)
         tokens[:, t + 1] = nxt
     return tokens
+
+
+def gpt_lm_loss(logits, input_ids, *, vocab_size: Optional[int] = None):
+    """Next-token cross-entropy: ``logits[:, t]`` predict
+    ``input_ids[:, t + 1]``. Padded vocab ids (>= ``vocab_size``) are left
+    out of the softmax support, so the loss is the unpadded model's.
+    Streamed as ``logsumexp(valid logits) - logit[target]``: no [B, S, V]
+    log-prob tensor, and the pad excluded by slicing, not by a mask."""
+    logits = logits[:, :-1]
+    targets = input_ids[:, 1:].long()
+    V = logits.shape[-1]
+    valid = logits[..., :vocab_size] if (vocab_size is not None
+                                         and vocab_size < V) else logits
+    lse = torch.logsumexp(valid, dim=-1)
+    tgt = torch.gather(logits, -1, targets[..., None])[..., 0]
+    return (lse - tgt).mean()

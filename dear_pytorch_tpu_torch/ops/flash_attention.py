@@ -26,12 +26,20 @@ cache) reads K and V once — bytes; a causal prefill at ``S = 1024`` is
 O(S² D) flops — operations. The kernel's source note says what its first,
 simple design does about each; a split-K decode is later work.
 
+Backward: the TPU kernels ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` are
+``csrc/flash_bwd.cu`` (`flash_pair_dq`, `flash_pair_dkv`). A
+``torch.autograd.Function`` around the forward saves ``q, k, v, mask, o,
+lse``; its backward computes ``delta = rowsum(dO * O)`` in fp32 with plain
+PyTorch (the JAX package does it in XLA, ``_flash_bwd``) and launches the
+dQ and dK/dV kernels. They recompute ``p = exp(s - lse)`` where the key is
+valid and select 0 elsewhere (never ``exp(...) * 0``: an all-masked row has
+``lse = -1e30``), so such a row gives ``dq = 0`` and never-attended keys
+``dk = dv = 0``, with no NaN.
+
 Dispatch: a CPU tensor takes the plain version (the CPU tests use it);
 a CUDA tensor launches the kernel or raises; any other device raises.
-There is no fallback. ``flash_fwd_launches`` counts kernel launches.
-Forward only: backward (the TPU kernels ``_bwd_dq_kernel`` and
-``_bwd_dkv_kernel``) arrives with the training slice, and until then a
-backward through this op raises.
+There is no fallback. ``flash_fwd_launches``, ``flash_bwd_dq_launches`` and
+``flash_bwd_dkv_launches`` count kernel launches.
 """
 
 from __future__ import annotations
@@ -42,16 +50,19 @@ from typing import Optional
 import torch
 
 __all__ = [
-    "flash_attention", "flash_attention_reference", "flash_pair_fwd",
-    "flash_pair_fwd_reference",
+    "flash_attention", "flash_attention_reference", "flash_pair_dkv",
+    "flash_pair_dkv_reference", "flash_pair_dq", "flash_pair_dq_reference",
+    "flash_pair_fwd", "flash_pair_fwd_reference",
 ]
 
 _NEG_BIG = -1e30
 _TINY = 1e-30
 _DTYPES = (torch.float32, torch.bfloat16)
 
-#: kernel launches so far (incremented only where the kernel launches)
+#: kernel launches so far (incremented only where each kernel launches)
 flash_fwd_launches = 0
+flash_bwd_dq_launches = 0
+flash_bwd_dkv_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -59,23 +70,54 @@ flash_fwd_launches = 0
 # ---------------------------------------------------------------------------
 
 
+def _valid(mask, Sq, Sk, causal):
+    """Key validity [B, 1, Sq or 1, Sk]: the mask and, when causal, j <= i."""
+    valid = (mask > 0)[:, None, None, :]
+    if causal:
+        ar_k = torch.arange(Sk, device=mask.device)
+        ar_q = torch.arange(Sq, device=mask.device)
+        valid = valid & (ar_k[None, :] <= ar_q[:, None])
+    return valid
+
+
 def _reference(q, k, v, mask, scale, causal, out_dtype):
     """[B,Sq,H,D] x [B,Sk,H,D], int mask [B,Sk] -> (o [B,Sq,H,D],
     lse f32 [B,H,Sq]): one block, the same masks and floors."""
-    Sq, Sk = q.shape[1], k.shape[1]
     s = torch.einsum("bqhd,bkhd->bhqk", q.float() * scale, k.float())
-    valid = (mask > 0)[:, None, None, :]
-    if causal:
-        ar_k = torch.arange(Sk, device=q.device)
-        ar_q = torch.arange(Sq, device=q.device)
-        valid = valid & (ar_k[None, :] <= ar_q[:, None])
-    s = s.masked_fill(~valid, float("-inf"))
+    s = s.masked_fill(~_valid(mask, q.shape[1], k.shape[1], causal),
+                      float("-inf"))
     m = s.amax(dim=-1).clamp_min(_NEG_BIG)
     p = torch.exp(s - m[..., None])
     den = p.sum(dim=-1).clamp_min(_TINY)
     o = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
     o = o / den.transpose(1, 2)[..., None]
     return o.to(out_dtype), m + torch.log(den)
+
+
+def _bwd_terms(q, k, v, mask, do, lse, delta, scale, causal):
+    """(p, ds) [B,H,Sq,Sk] fp32 of the backward, with lse and delta
+    [B,H,Sq]: p = exp(s - lse) SELECTED where the key counts (an all-masked
+    row's lse is -1e30, so exp(s - lse) is inf there and a product with the
+    mask would be NaN), ds = p * (dO.v - delta)."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float() * scale, k.float())
+    p = torch.where(_valid(mask, q.shape[1], k.shape[1], causal),
+                    torch.exp(s - lse[..., None]),
+                    torch.zeros((), device=q.device))
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
+    return p, p * (dp - delta[..., None])
+
+
+def _dq_reference(q, k, v, mask, do, lse, delta, scale, causal):
+    _, ds = _bwd_terms(q, k, v, mask, do, lse, delta, scale, causal)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float()) * scale
+    return dq.to(q.dtype)
+
+
+def _dkv_reference(q, k, v, mask, do, lse, delta, scale, causal):
+    p, ds = _bwd_terms(q, k, v, mask, do, lse, delta, scale, causal)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do.float())
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float() * scale)
+    return dk.to(k.dtype), dv.to(v.dtype)
 
 
 def flash_attention_reference(q, k, v, *, causal: bool = False,
@@ -97,38 +139,73 @@ def flash_pair_fwd_reference(q, k, v, kv_mask, scale, causal,
     return o[:, :, 0], lse[:, 0]
 
 
+def _folded(q, k, v, kv_mask, do, lse, delta, out_dtype):
+    """Folded [BH,S,D] operands as [BH,S,1,D] views, an int32 mask, and
+    lse/delta as [BH,1,Sq]; the output dtype must be q's (the kernels write
+    the inputs' dtype)."""
+    if out_dtype not in (None, q.dtype):
+        raise ValueError(f"flash attention backward: out_dtype {out_dtype} "
+                         f"is not q's dtype {q.dtype}")
+    return (q[:, :, None], k[:, :, None], v[:, :, None],
+            kv_mask.to(torch.int32), do[:, :, None],
+            lse.float()[:, None].contiguous(),
+            delta.float()[:, None].contiguous())
+
+
+def flash_pair_dq_reference(q, k, v, kv_mask, do, lse, delta, scale, causal,
+                            out_dtype=None):
+    """The plain version of `flash_pair_dq` over folded ``[BH, S, D]``."""
+    args = _folded(q, k, v, kv_mask, do, lse, delta, out_dtype)
+    return _dq_reference(*args, scale, causal)[:, :, 0]
+
+
+def flash_pair_dkv_reference(q, k, v, kv_mask, do, lse, delta, scale,
+                             causal, out_dtype=None):
+    """The plain version of `flash_pair_dkv` over folded ``[BH, S, D]``."""
+    args = _folded(q, k, v, kv_mask, do, lse, delta, out_dtype)
+    dk, dv = _dkv_reference(*args, scale, causal)
+    return dk[:, :, 0], dv[:, :, 0]
+
+
 # ---------------------------------------------------------------------------
 # the kernel
 # ---------------------------------------------------------------------------
 
-_lib = None
+_libs: dict = {}
 
 
-def _kernel_lib():
-    global _lib
-    if _lib is None:
+def _kernel_lib(name: str = "flash_fwd"):
+    """The loaded ``csrc/<name>.cu`` library with its argument types set."""
+    lib = _libs.get(name)
+    if lib is None:
         from dear_pytorch_tpu_torch.ops import _build
 
-        lib = _build.load("flash_fwd")
+        lib = _build.load(name)
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.flash_fwd.argtypes = (
-            [ptr] * 6 + [i32] * 5 + [i64] * 13
-            + [ctypes.c_float, i32, i32, i32, ptr])
-        lib.flash_fwd.restype = i32
-        lib.flash_fwd_error_string.argtypes = [i32]
-        lib.flash_fwd_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+        if name == "flash_fwd":
+            lib.flash_fwd.argtypes = (
+                [ptr] * 6 + [i32] * 5 + [i64] * 13
+                + [ctypes.c_float, i32, i32, i32, ptr])
+            lib.flash_fwd.restype = i32
+        else:
+            lib.flash_bwd_dq.argtypes = (
+                [ptr] * 8 + [i32] * 5 + [ptr, ctypes.c_float, i32, i32, ptr])
+            lib.flash_bwd_dkv.argtypes = (
+                [ptr] * 9 + [i32] * 5 + [ptr, ctypes.c_float, i32, i32, ptr])
+            lib.flash_bwd_dq.restype = lib.flash_bwd_dkv.restype = i32
+        err_string = getattr(lib, f"{name}_error_string")
+        err_string.argtypes = [i32]
+        err_string.restype = ctypes.c_char_p
+        _libs[name] = lib
+    return lib
 
 
-def _launch(q, k, v, mask, scale, causal, out_dtype):
-    """Launch ``csrc/flash_fwd.cu`` on [B,S,H,D] views (any strides with a
-    contiguous last dim) and an int32 [B,Sk] mask."""
-    global flash_fwd_launches
-    B, Sq, H, D = q.shape
-    Sk = k.shape[1]
-    align = 16 // q.element_size()  # the kernel loads K/V rows 16 B at a time
-    for name, t in (("q", q), ("k", k), ("v", v)):
+def _check_views(D, B, H, named):
+    """The kernels' layout contract: a contiguous last dim, rows on 16-byte
+    boundaries (base pointer and every stride), D a multiple of 8 up to
+    128, and B * H blocks along the grid's y axis."""
+    for name, t in named:
+        align = 16 // t.element_size()  # 16-byte row loads
         misaligned = t.data_ptr() % 16 or any(
             st % align for st, n in zip(t.stride()[:-1], t.shape[:-1])
             if n > 1)
@@ -137,18 +214,27 @@ def _launch(q, k, v, mask, scale, causal, out_dtype):
                 f"flash attention kernel: {name} needs a contiguous last "
                 "dim and rows on 16-byte boundaries, got strides "
                 f"{t.stride()} at offset {t.data_ptr() % 16}")
-    if mask.stride(-1) != 1:
-        raise ValueError("flash attention kernel: kv_mask needs a "
-                         "contiguous last dim")
     if D % 8 or not 8 <= D <= 128:
         raise ValueError(
             f"flash attention kernel: head dim {D} is not a multiple of 8 "
             "in [8, 128]")
     if B * H > 65535:
         raise ValueError(f"flash attention kernel: B*H = {B * H} > 65535")
+
+
+def _launch(q, k, v, mask, scale, causal, out_dtype):
+    """Launch ``csrc/flash_fwd.cu`` on [B,S,H,D] views (any strides with a
+    contiguous last dim) and an int32 [B,Sk] mask."""
+    global flash_fwd_launches
+    B, Sq, H, D = q.shape
+    Sk = k.shape[1]
+    _check_views(D, B, H, (("q", q), ("k", k), ("v", v)))
+    if mask.stride(-1) != 1:
+        raise ValueError("flash attention kernel: kv_mask needs a "
+                         "contiguous last dim")
     o = torch.empty((B, Sq, H, D), dtype=out_dtype, device=q.device)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
-    lib = _kernel_lib()
+    lib = _kernel_lib("flash_fwd")
     with torch.cuda.device(q.device):
         err = lib.flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
@@ -166,6 +252,63 @@ def _launch(q, k, v, mask, scale, causal, out_dtype):
             + lib.flash_fwd_error_string(err).decode())
     flash_fwd_launches += 1
     return o, lse
+
+
+def _strides(*views):
+    """(batch, sequence, head) element strides of [B,S,H,D] views (None:
+    an unused slot), then the mask's batch stride, as the C array the
+    backward kernels take."""
+    vals = []
+    for t in views[:-1]:
+        vals += [0, 0, 0] if t is None else list(t.stride()[:3])
+    vals.append(views[-1].stride(0))
+    return (ctypes.c_longlong * len(vals))(*vals)
+
+
+def _launch_bwd(which, q, k, v, mask, do, lse, delta, scale, causal):
+    """Launch ``csrc/flash_bwd.cu``'s dQ (``which="dq"``) or dK/dV kernel
+    on [B,S,H,D] views, an int32 [B,Sk] mask and contiguous fp32 lse and
+    delta [B,H,Sq]."""
+    global flash_bwd_dq_launches, flash_bwd_dkv_launches
+    B, Sq, H, D = q.shape
+    Sk = k.shape[1]
+    _check_views(D, B, H, (("q", q), ("k", k), ("v", v), ("do", do)))
+    if mask.stride(-1) != 1 or not (lse.is_contiguous()
+                                    and delta.is_contiguous()):
+        raise ValueError("flash attention backward kernel: kv_mask needs a "
+                         "contiguous last dim, lse and delta contiguity")
+    lib = _kernel_lib("flash_bwd")
+    bf16 = int(q.dtype == torch.bfloat16)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        if which == "dq":
+            dq = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
+            st = _strides(q, k, v, do, dq, None, None, mask)
+            err = lib.flash_bwd_dq(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                mask.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                dq.data_ptr(), B, H, Sq, Sk, D, st, scale, int(causal), bf16,
+                stream)
+            out = dq
+        else:
+            dk = torch.empty((B, Sk, H, D), dtype=k.dtype, device=q.device)
+            dv = torch.empty((B, Sk, H, D), dtype=v.dtype, device=q.device)
+            st = _strides(q, k, v, do, None, dk, dv, mask)
+            err = lib.flash_bwd_dkv(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                mask.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                dk.data_ptr(), dv.data_ptr(), B, H, Sq, Sk, D, st, scale,
+                int(causal), bf16, stream)
+            out = (dk, dv)
+    if err:
+        raise RuntimeError(
+            f"flash attention backward ({which}) kernel launch failed: "
+            + lib.flash_bwd_error_string(err).decode())
+    if which == "dq":
+        flash_bwd_dq_launches += 1
+    else:
+        flash_bwd_dkv_launches += 1
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -206,28 +349,70 @@ def _dispatch(q, k, v, mask, scale, causal, out_dtype):
     raise RuntimeError(f"flash attention: no kernel for device {q.device}")
 
 
-class _ForwardOnly(torch.autograd.Function):
-    """Gradients through the forward kernel are the training slice's work
-    (the TPU backward kernels are not ported yet)."""
+def _bwd_device(q, k, v, mask, do, lse, delta):
+    """The device type the backward runs on, after the input checks."""
+    devices = {t.device for t in (q, k, v, mask, do, lse, delta)}
+    if len(devices) != 1:
+        raise ValueError(f"flash attention backward: inputs on several "
+                         f"devices {sorted(map(str, devices))}")
+    if not (q.dtype == k.dtype == v.dtype == do.dtype) \
+            or q.dtype not in _DTYPES:
+        raise ValueError(
+            "flash attention backward: q, k, v, do must all be float32 or "
+            f"all bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}, {do.dtype}")
+    kind = q.device.type
+    if kind not in ("cpu", "cuda"):
+        raise RuntimeError(
+            f"flash attention backward: no kernel for device {q.device}")
+    return kind
+
+
+def _dispatch_dq(q, k, v, mask, do, lse, delta, scale, causal):
+    """dQ [B,Sq,H,D] from [B,S,H,D] operands and fp32 lse/delta [B,H,Sq]."""
+    if _bwd_device(q, k, v, mask, do, lse, delta) == "cpu":
+        return _dq_reference(q, k, v, mask, do, lse, delta, scale, causal)
+    return _launch_bwd("dq", q, k, v, mask, do, lse, delta, scale, causal)
+
+
+def _dispatch_dkv(q, k, v, mask, do, lse, delta, scale, causal):
+    """(dK, dV) [B,Sk,H,D], as `_dispatch_dq`."""
+    if _bwd_device(q, k, v, mask, do, lse, delta) == "cpu":
+        return _dkv_reference(q, k, v, mask, do, lse, delta, scale, causal)
+    return _launch_bwd("dkv", q, k, v, mask, do, lse, delta, scale, causal)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K1 forward; K2 and K3 backward (the JAX package's custom VJP
+    ``_flash``). ``lse`` is an output but not differentiable."""
 
     @staticmethod
     def forward(ctx, q, k, v, mask, scale, causal, out_dtype):
         o, lse = _dispatch(q, k, v, mask, scale, causal, out_dtype)
+        ctx.save_for_backward(q, k, v, mask, o, lse)
+        ctx.scale, ctx.causal = scale, causal
         ctx.mark_non_differentiable(lse)
         return o, lse
 
     @staticmethod
     def backward(ctx, do, dlse):
-        raise NotImplementedError(
-            "flash attention backward is not ported yet: the dQ and dK/dV "
-            "kernels (TPU _bwd_dq_kernel and _bwd_dkv_kernel) arrive with "
-            "the training slice")
+        del dlse  # lse is non-differentiable: its cotangent is zero
+        q, k, v, mask, o, lse = ctx.saved_tensors
+        # do may arrive non-contiguous (the cotangent of a transpose or a
+        # reshape): make it contiguous in q's dtype, which gives the kernels
+        # unit-stride rows on 16-byte boundaries
+        do = do.to(q.dtype).contiguous()
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+        dq = _dispatch_dq(q, k, v, mask, do, lse, delta, ctx.scale,
+                          ctx.causal)
+        dk, dv = _dispatch_dkv(q, k, v, mask, do, lse, delta, ctx.scale,
+                               ctx.causal)
+        return dq, dk, dv, None, None, None, None
 
 
 def _flash_fwd(q, k, v, mask, scale, causal, out_dtype):
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (q, k, v)):
-        return _ForwardOnly.apply(q, k, v, mask, scale, causal, out_dtype)
+        return _FlashAttention.apply(q, k, v, mask, scale, causal, out_dtype)
     return _dispatch(q, k, v, mask, scale, causal, out_dtype)
 
 
@@ -251,3 +436,22 @@ def flash_pair_fwd(q, k, v, kv_mask, scale, causal, out_dtype=None):
     o, lse = _flash_fwd(q[:, :, None], k[:, :, None], v[:, :, None], mask,
                         scale, causal, out_dtype)
     return o[:, :, 0], lse[:, 0]
+
+
+def flash_pair_dq(q, k, v, kv_mask, do, lse, delta, scale, causal,
+                  out_dtype=None):
+    """dQ over folded ``[BH, S, D]`` operands given the global ``lse`` and
+    ``delta`` ``[BH, Sq]`` (fp32) — the flash backward's dq leg, exposed for
+    ring attention. ``out_dtype`` may only be q's dtype."""
+    q, k, v, mask, do, lse, delta = _folded(q, k, v, kv_mask, do, lse,
+                                            delta, out_dtype)
+    return _dispatch_dq(q, k, v, mask, do, lse, delta, scale, causal)[:, :, 0]
+
+
+def flash_pair_dkv(q, k, v, kv_mask, do, lse, delta, scale, causal,
+                   out_dtype=None):
+    """(dK, dV) over folded ``[BH, S, D]`` operands (see `flash_pair_dq`)."""
+    q, k, v, mask, do, lse, delta = _folded(q, k, v, kv_mask, do, lse,
+                                            delta, out_dtype)
+    dk, dv = _dispatch_dkv(q, k, v, mask, do, lse, delta, scale, causal)
+    return dk[:, :, 0], dv[:, :, 0]

@@ -1,11 +1,12 @@
-"""The port's flash-attention forward (dear_pytorch_tpu_torch.ops.
-flash_attention) against the JAX package's Pallas kernel, which runs in
-interpret mode on the CPU. On a CPU tensor the port takes its plain
-version; the Hopper kernel itself is held against that plain version on
-the card by chip_smoke.py.
+"""The port's flash attention (dear_pytorch_tpu_torch.ops.flash_attention:
+the forward K1 and the backward K2 and K3) against the JAX package's Pallas
+kernels, which run in interpret mode on the CPU. On a CPU tensor the port
+takes its plain versions; the Hopper kernels themselves are held against
+those plain versions on the card by chip_smoke.py.
 
 Tolerance: 1e-5 in fp32 (the two differ only in summation order)."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -13,6 +14,8 @@ import torch
 
 from dear_pytorch_tpu.ops.flash_attention import (
     flash_attention as jax_flash_attention,
+    flash_pair_dkv as jax_flash_pair_dkv,
+    flash_pair_dq as jax_flash_pair_dq,
     flash_pair_fwd as jax_flash_pair_fwd,
 )
 import dear_pytorch_tpu_torch.ops.flash_attention as FA
@@ -116,10 +119,11 @@ def test_all_masked_row_gives_zero_and_floor_lse():
 
 def test_cpu_calls_launch_no_kernel():
     before = FA.flash_fwd_launches
-    x = torch.randn(1, 5, 2, 8)
-    FA.flash_attention(x, x, x, causal=True)
+    x = torch.randn(1, 5, 2, 8, requires_grad=True)
+    FA.flash_attention(x, x, x, causal=True).sum().backward()
     FA.flash_pair_fwd(x[:, :, 0], x[:, :, 0], x[:, :, 0], None, None, False)
     assert FA.flash_fwd_launches == before == 0
+    assert FA.flash_bwd_dq_launches == FA.flash_bwd_dkv_launches == 0
 
 
 def test_other_devices_and_bad_inputs_raise():
@@ -134,7 +138,126 @@ def test_other_devices_and_bad_inputs_raise():
 
 
 def test_backward_raises_until_the_training_slice():
-    q = torch.randn(1, 4, 2, 8, requires_grad=True)
-    o = FA.flash_attention(q, q.detach(), q.detach())
-    with pytest.raises(NotImplementedError, match="training slice"):
-        o.sum().backward()
+    """A gradient flows through `flash_attention` and equals the dense
+    attention's. (The name dates from before the training slice, when the
+    backward raised; the test kept it when the slice brought the backward,
+    K2 and K3, so its history stays under one name.)"""
+    rs = np.random.RandomState(12)
+    q, k, v = (torch.from_numpy(a).requires_grad_()
+               for a in _qkv(rs, 1, 4, 4, 2, 8))
+    o = FA.flash_attention(q, k, v)
+    w = torch.from_numpy(rs.randn(*o.shape).astype(np.float32))
+    (o * w).sum().backward()
+    q2, k2, v2 = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    s = torch.einsum("bqhd,bkhd->bhqk", q2, k2) / 8 ** 0.5
+    dense = torch.einsum("bhqk,bkhd->bqhd", s.softmax(-1), v2)
+    (dense * w).sum().backward()
+    for got, want in ((q, q2), (k, k2), (v, v2)):
+        np.testing.assert_allclose(got.grad.numpy(), want.grad.numpy(),
+                                   rtol=TOL, atol=TOL)
+
+
+def _pair_case(seed, BH, S, D, holey, dead_row=False):
+    """Folded operands, a key mask, and lse/delta from the JAX forward."""
+    rs = np.random.RandomState(seed)
+    q, k, v, do = (rs.randn(BH, S, D).astype(np.float32) for _ in range(4))
+    mask = _holey(rs, BH, S) if holey else np.ones((BH, S), bool)
+    mask = mask.astype(np.int32)
+    if dead_row:
+        mask[1] = 0
+    return q, k, v, do, mask
+
+
+@pytest.mark.parametrize("holey", [False, True])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_pair_dq_dkv_match_jax(causal, holey):
+    """The dQ and dK/dV legs on the same lse and delta."""
+    q, k, v, do, mask = _pair_case(20 + 2 * causal + holey, 4, 16, 16, holey)
+    scale = 16 ** -0.5
+    jo, jlse = jax_flash_pair_fwd(*(jnp.asarray(a) for a in (q, k, v, mask)),
+                                  scale, causal)
+    lse = np.asarray(jlse)
+    delta = np.sum(do * np.asarray(jo), axis=-1)
+    j = [jnp.asarray(a) for a in (q, k, v, mask, do, lse, delta)]
+    jdq = jax_flash_pair_dq(*j, scale, causal)
+    jdk, jdv = jax_flash_pair_dkv(*j, scale, causal)
+    t = [torch.from_numpy(np.array(a)) for a in (q, k, v, mask, do, lse,
+                                                   delta)]
+    dq = FA.flash_pair_dq(*t, scale, causal)
+    dk, dv = FA.flash_pair_dkv(*t, scale, causal)
+    for got, want in ((dq, jdq), (dk, jdk), (dv, jdv)):
+        assert got.dtype == torch.float32 and got.shape == (4, 16, 16)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=TOL, atol=TOL)
+    ref_dk, ref_dv = FA.flash_pair_dkv_reference(*t, scale, causal)
+    assert torch.equal(ref_dk, dk) and torch.equal(ref_dv, dv)
+    assert torch.equal(FA.flash_pair_dq_reference(*t, scale, causal), dq)
+
+
+@pytest.mark.parametrize("S", [16, 32])
+@pytest.mark.parametrize("causal", [False, True])
+def test_autograd_matches_jax_grad(causal, S):
+    """torch.autograd through `flash_attention` against jax.grad through
+    the JAX package's (its custom VJP over the Pallas kernels), with a
+    holey key mask."""
+    rs = np.random.RandomState(30 + S + causal)
+    q, k, v = _qkv(rs, 2, S, S, 2, 16)
+    w = rs.randn(2, S, 2, 16).astype(np.float32)
+    mask = _holey(rs, 2, S)
+
+    def jloss(q_, k_, v_):
+        o = jax_flash_attention(q_, k_, v_, causal=causal,
+                                kv_mask=jnp.asarray(mask))
+        return jnp.sum(o * jnp.asarray(w))
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    o = FA.flash_attention(tq, tk, tv, causal=causal,
+                           kv_mask=torch.from_numpy(mask))
+    (o * torch.from_numpy(w)).sum().backward()
+    for got, exp in zip((tq, tk, tv), want):
+        np.testing.assert_allclose(got.grad.numpy(), np.asarray(exp),
+                                   rtol=TOL, atol=TOL)
+
+
+def test_all_masked_row_backward_is_zero_not_nan():
+    """A query row with no valid key (lse = -1e30) gets dq = 0; a key no
+    query attends gets dk = dv = 0; nothing is NaN — in both packages."""
+    q, k, v, do, mask = _pair_case(40, 3, 13, 16, True, dead_row=True)
+    mask[2, 5] = 0                       # a key nobody may attend
+    scale = 16 ** -0.5
+    jo, jlse = jax_flash_pair_fwd(*(jnp.asarray(a) for a in (q, k, v, mask)),
+                                  scale, False)
+    lse, o = np.asarray(jlse), np.asarray(jo)
+    assert np.all(lse[1] == np.float32(-1e30))
+    delta = np.sum(do * o, axis=-1)
+    args = (q, k, v, mask, do, lse, delta)
+    jdq = np.asarray(jax_flash_pair_dq(*map(jnp.asarray, args), scale, False))
+    jdk, jdv = map(np.asarray, jax_flash_pair_dkv(*map(jnp.asarray, args),
+                                                  scale, False))
+    t = [torch.from_numpy(np.array(a)) for a in args]
+    dq = FA.flash_pair_dq(*t, scale, False).numpy()
+    dk, dv = (x.numpy() for x in FA.flash_pair_dkv(*t, scale, False))
+    for got, want in ((dq, jdq), (dk, jdk), (dv, jdv)):
+        assert np.all(np.isfinite(got))
+        np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
+    assert np.all(dq[1] == 0) and np.all(jdq[1] == 0)
+    assert np.all(dk[1] == 0) and np.all(dv[1] == 0)   # row 1: all keys dead
+    assert np.all(dk[2, 5] == 0) and np.all(dv[2, 5] == 0)
+
+
+def test_backward_rejects_other_devices_and_dtypes():
+    m = torch.empty(2, 4, 8, device="meta")
+    mask = torch.ones(2, 4, dtype=torch.int32, device="meta")
+    lse = torch.empty(2, 4, device="meta")
+    with pytest.raises(RuntimeError, match="no kernel for device meta"):
+        FA.flash_pair_dq(m, m, m, mask, m, lse, lse, 0.5, False)
+    x = torch.randn(2, 4, 8)
+    ones = torch.ones(2, 4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="float32 or all bfloat16"):
+        FA.flash_pair_dkv(x, x, x, ones, x.half(), x[..., 0], x[..., 0],
+                          0.5, False)
+    with pytest.raises(ValueError, match="out_dtype"):
+        FA.flash_pair_dq(x, x, x, ones, x, x[..., 0], x[..., 0], 0.5, False,
+                         out_dtype=torch.bfloat16)

@@ -4,7 +4,9 @@ from seed 0, carried across with `gpt_params_from_jax`, the same token ids
 through both.
 
 Tolerances: logits 2e-4 in fp32 (the JAX suite's own decode-parity
-bound), 5e-2 where bf16 is in play; tokens exactly."""
+bound), 5e-2 where bf16 is in play; tokens exactly; the LM loss and its
+gradients 1e-5 in fp32. Dropout cannot match JAX's PRNG bits: it is held
+to its statistics."""
 
 import dataclasses
 
@@ -14,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from dear_pytorch_tpu import models as jmodels
 from dear_pytorch_tpu.models import gpt as jgpt
 from dear_pytorch_tpu_torch import models as tmodels
 from dear_pytorch_tpu_torch.models import gpt as tgpt
@@ -263,6 +266,8 @@ def test_seeded_init_is_reproducible_and_flax_shaped():
 
 
 def test_unported_options_raise():
+    """MoE, remat and ring projections still raise; dropout in training
+    mode, ported now, needs an explicit generator and then runs."""
     cfg = _torch_config(_pair()[0].config)
     for bad in (dict(num_experts=2), dict(remat=True)):
         with pytest.raises(NotImplementedError):
@@ -273,5 +278,108 @@ def test_unported_options_raise():
                             device="cpu")
     model = tgpt.GptLmHeadModel(
         dataclasses.replace(cfg, hidden_dropout_prob=0.1), device="cpu")
-    with pytest.raises(NotImplementedError, match="dropout"):
-        model(torch.zeros((1, 3), dtype=torch.long), train=True)
+    ids = torch.zeros((1, 3), dtype=torch.long)
+    with pytest.raises(ValueError, match="torch.Generator"):
+        model(ids, train=True)
+    out = model(ids, train=True, generator=torch.Generator().manual_seed(0))
+    assert out.shape == (1, 3, 64) and bool(torch.isfinite(out).all())
+
+
+@pytest.mark.parametrize("padded", [False, True])
+def test_gpt_lm_loss_matches_jax(padded):
+    """Value and gradient of the streamed loss; with ``vocab_size`` < the
+    padded width the pad columns leave the softmax support (and get zero
+    gradient)."""
+    rs = np.random.RandomState(9)
+    logits = rs.randn(3, 7, 64).astype(np.float32) * 2
+    ids = rs.randint(0, 61, (3, 7))
+    vocab = 61 if padded else None
+
+    def jl(x):
+        return jgpt.gpt_lm_loss(x, jnp.asarray(ids), vocab_size=vocab)
+
+    want, want_g = jax.value_and_grad(jl)(jnp.asarray(logits))
+    t = torch.from_numpy(logits).requires_grad_()
+    got = tgpt.gpt_lm_loss(t, torch.from_numpy(ids), vocab_size=vocab)
+    got.backward()
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(t.grad.numpy(), np.asarray(want_g),
+                               rtol=1e-5, atol=1e-5)
+    if padded:
+        assert float(t.grad[..., 61:].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("flash", [False, True])
+def test_loss_gradients_match_jax(flash):
+    """d(loss)/d(param) of the whole model, dense and flash attention,
+    per parameter (the JAX gradients carried across like the weights)."""
+    jmodel, params, tmodel = _pair(flash=flash)
+    ids = _ids(10, (2, 13))
+
+    def jl(p):
+        logits = jmodel.apply({"params": p}, jnp.asarray(ids), train=False)
+        return jgpt.gpt_lm_loss(logits, jnp.asarray(ids), vocab_size=61)
+
+    want, grads = jax.value_and_grad(jl)(params)
+    want_g = gpt_params_from_jax(jax.tree.map(np.asarray, grads),
+                                 tmodel.config)
+    tids = torch.from_numpy(ids)
+    loss = tgpt.gpt_lm_loss(tmodel(tids, train=True), tids, vocab_size=61)
+    loss.backward()
+    np.testing.assert_allclose(float(loss), float(want), rtol=1e-5,
+                               atol=1e-5)
+    for name, p in tmodel.named_parameters():
+        np.testing.assert_allclose(p.grad.numpy(), want_g[name].numpy(),
+                                   rtol=1e-5, atol=1e-5, err_msg=name)
+
+
+def test_dropout_keep_rate_scale_and_determinism():
+    """Keep rate within 5 sigma of 1 - rate, kept values scaled by
+    1 / (1 - rate), one generator seed gives one mask."""
+    x = torch.ones(200, 500)
+    rate = 0.1
+    out = tgpt.dropout(x, rate, torch.Generator().manual_seed(1))
+    kept = out != 0
+    n = x.numel()
+    sigma = (rate * (1 - rate) / n) ** 0.5
+    assert abs(float(kept.float().mean()) - (1 - rate)) < 5 * sigma
+    np.testing.assert_allclose(out[kept].numpy(), 1 / (1 - rate), rtol=1e-6)
+    again = tgpt.dropout(x, rate, torch.Generator().manual_seed(1))
+    other = tgpt.dropout(x, rate, torch.Generator().manual_seed(2))
+    assert torch.equal(out, again) and not torch.equal(out, other)
+    # through the model: every dropout on, deterministic per seed, and
+    # different from the dropout-free forward
+    jmodel, _, _ = _pair()
+    cfg = dataclasses.replace(_torch_config(jmodel.config),
+                              embd_dropout_prob=0.1, hidden_dropout_prob=0.1,
+                              attention_probs_dropout_prob=0.1)
+    model = tgpt.GptLmHeadModel(cfg, device="cpu")
+    ids = torch.from_numpy(_ids(11, (2, 9)))
+    runs = [model(ids, train=True,
+                  generator=torch.Generator().manual_seed(s))
+            for s in (3, 3, 4)]
+    assert torch.equal(runs[0], runs[1])
+    assert not torch.equal(runs[0], runs[2])
+    assert not torch.equal(runs[0], model(ids))
+    # the flash impl has no attention-dropout path (the JAX message)
+    fmodel = tgpt.GptLmHeadModel(
+        cfg, attention_impl=tgpt.flash_causal_attention_impl(), device="cpu")
+    with pytest.raises(ValueError, match="no attention-dropout path"):
+        fmodel(ids, train=True, generator=torch.Generator().manual_seed(0))
+
+
+def test_dropout_free_and_model_registry():
+    jcfg = jgpt.GPT2_SMALL
+    want = jmodels.dropout_free(jcfg)
+    got = tmodels.dropout_free(tgpt.GPT2_SMALL)
+    assert got == _torch_config(want)
+    assert got.embd_dropout_prob == got.hidden_dropout_prob == \
+        got.attention_probs_dropout_prob == 0.0
+    assert tmodels.gpt_names() == jmodels.gpt_names()
+    cfg = tmodels.gpt_config("GPT2", dtype=torch.bfloat16)
+    assert cfg == dataclasses.replace(tgpt.GPT2_SMALL, dtype=torch.bfloat16)
+    for name in ("resnet50", "bert", "vit_b16"):
+        with pytest.raises(KeyError, match="models slice"):
+            tmodels.get_model(name, device="cpu")
+    with pytest.raises(KeyError, match="unknown model"):
+        tmodels.get_model("gpt5", device="cpu")

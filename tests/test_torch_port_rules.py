@@ -102,6 +102,27 @@ def test_entry_points_need_the_card_unless_told_otherwise(monkeypatch):
     assert DecodeEngine(model, device="cpu").device == torch.device("cpu")
 
 
+def test_training_entry_points_need_the_card_unless_told_otherwise(
+        monkeypatch):
+    """The train step, the process group and the training CLI run on the
+    card by default and raise without one; nothing falls back to the CPU
+    or to gloo."""
+    from dear_pytorch_tpu_torch.benchmarks import gpt as cli
+    from dear_pytorch_tpu_torch.comm import backend
+    from dear_pytorch_tpu_torch.parallel.dear import build_train_step
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        backend.init()
+    model = tgpt.GptLmHeadModel(_small_config(), device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_train_step(lambda m, b: m(b).sum(), model)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["--num-hidden-layers", "1", "--sequence-len", "8"])
+    with pytest.raises(ValueError, match="model lives on cpu"):
+        build_train_step(lambda m, b: m(b).sum(), model, device="meta")
+
+
 def test_entry_points_refuse_a_device_the_model_is_not_on():
     model = tgpt.GptLmHeadModel(_small_config(), device="cpu")
     with pytest.raises(ValueError, match="model lives on cpu"):
