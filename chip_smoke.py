@@ -10,7 +10,8 @@ non-zero and no result line is printed):
 
   1. require CUDA; print the card's name and power limit; turn TF32 off;
   2. build every kernel of the serving and training paths from ``csrc/``
-     with nvcc, one process per source, all started together;
+     with nvcc, one process per source, all started together (flash_fwd,
+     flash_bwd, fused_update, ring);
   3. hold each kernel against its plain PyTorch version on the card:
      - K1, the flash-attention forward (decode and causal-prefill shapes,
        ragged lengths, an all-masked row; fp32 within 2e-5 — summation
@@ -26,6 +27,12 @@ non-zero and no result line is printed):
        first and second step; nesterov with weight decay) and AdamW, on a
        ragged shard and a 25 MB one, bf16 and fp32 gradients, with and
        without a clip scale;
+     - K4 (ring all-gather) and the K5 ring (reduce-scatter + update) on a
+       one-process `LocalRing`, bitwise against their stacked plain
+       versions: W = 2, 4, 8, a ragged shard and a 25 MB bucket's shard,
+       fp32 and bf16, SGD momentum (two steps), nesterov + weight decay,
+       AdamW with an lr schedule; and every shard size of the training
+       run's plan at W = 2;
      and again at the main paths' own shapes in phases 5 and 6: K1 at
      decode B = 4 and train [16, 1024, 12, 64] bf16 causal, K2 and K3 at
      the train shape, the shard update at every shard size of the training
@@ -45,13 +52,24 @@ non-zero and no result line is printed):
      bucket; then one fp32 step with the flash kernels against one with
      the dense attention core (2 layers, batch 2), and 3 steps with the
      CLI's default dropout;
+  5b. train it at world 2 as two processes sharing the card (this script
+     with ``--train-rank R --out DIR --mode M``; the ``DEAR_*`` launcher
+     variables, a ``file://`` store, card ``r % device_count``), 8
+     sequences per rank, 20 steps, with ``--mode dear-fused`` (every
+     step on each rank: K1–K3 12 times each, K4 and the K5 ring once per
+     bucket, no separate update) and again with ``--mode dear``: losses
+     finite, falling and equal on both ranks, both ranks' gathered
+     parameters bitwise equal, dear-fused's step-20 loss within
+     `_FUSED_VS_DEAR_RTOL` of dear's; a rank's failure fails the run;
   6. trace steady bf16 decode ticks and training steps with
      ``torch.profiler`` (device ops, busy time and idle share, the top
      device ops of a step); time each kernel, its plain version and
      PyTorch's own call where one computes the same function (SDPA, its
      backward and ``torch.optim.SGD(fused=True)``: yardsticks the port
-     never calls) at the main path's shapes, beside the card's bound;
-     step time p50/p99, tokens/s and MFU.
+     never calls; none for K4 / the K5 ring on one card) at the main
+     path's shapes, beside the card's bound — K4 and the K5 ring per
+     bucket on a two-rank `LocalRing`; step time p50/p99, tokens/s and
+     MFU, and the two-rank step p50/p99 and tokens/s.
 
 ``python3 chip_smoke.py --kernels-only`` runs phases 1–3 and stops without
 a result line. In a full run the line before the last lists the kernels
@@ -61,26 +79,34 @@ as JSON; the last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
+import os
+import shutil
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+import dear_pytorch_tpu_torch.ops.collective_matmul as CM
 import dear_pytorch_tpu_torch.ops.flash_attention as FA
 import dear_pytorch_tpu_torch.ops.fused_sgd as FS
 from dear_pytorch_tpu_torch.benchmarks import gpt as train_cli
 from dear_pytorch_tpu_torch.comm import backend
-from dear_pytorch_tpu_torch.models import dropout_free
+from dear_pytorch_tpu_torch.comm.ring import LocalRing, Ring
+from dear_pytorch_tpu_torch.models import dropout_free, gpt_config
 from dear_pytorch_tpu_torch.models.data import synthetic_gpt_batch
 from dear_pytorch_tpu_torch.models.gpt import (
     GPT2_SMALL, GptLmHeadModel, flash_causal_attention_impl, generate,
     gpt_lm_loss,
 )
 from dear_pytorch_tpu_torch.ops import _build
+from dear_pytorch_tpu_torch.ops import fusion as FU
+from dear_pytorch_tpu_torch.ops.schedules import warmup_cosine
 from dear_pytorch_tpu_torch.parallel.dear import build_train_step
 from dear_pytorch_tpu_torch.serving.engine import DecodeEngine
 
@@ -88,6 +114,7 @@ from dear_pytorch_tpu_torch.serving.engine import DecodeEngine
 _PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 _SLOTS, _H, _D, _L = 4, 12, 64, 1024
 _DEV = "cuda"
+_ROOT = Path(__file__).resolve().parent
 
 
 def _check(ok: bool, msg: str) -> None:
@@ -291,9 +318,10 @@ def check_bwd_kernels() -> tuple:
 
 def _ulps(a, b) -> int:
     """The largest distance in units in the last place between two fp32
-    tensors of one sign pattern (0 when bitwise equal)."""
-    ia = a.contiguous().view(torch.int32).long()
-    ib = b.contiguous().view(torch.int32).long()
+    (or bf16) tensors of one sign pattern (0 when bitwise equal)."""
+    view = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+    ia = a.contiguous().view(view).long()
+    ib = b.contiguous().view(view).long()
     return int((ia - ib).abs().max()) if a.numel() else 0
 
 
@@ -374,6 +402,115 @@ def check_update_main_path(ts) -> float:
           f"plan ({sizes[0]} to {sizes[-1]}), {ts.optimizer}, bf16 "
           "grads, first and second step: bitwise equal to the plain version")
     return worst
+
+
+def _ring_ulps(pairs) -> tuple:
+    """(largest ulp distance, largest |a - b|) over pairs of tensors."""
+    return (max(_ulps(a, b) for a, b in pairs),
+            max(float((a.float() - b.float()).abs().max()) for a, b in pairs))
+
+
+def _ring_ag_pair(name, ring, n, dt, gen) -> float:
+    """K4 on ``ring`` against `ring_all_gather_stacked`: bitwise, or
+    raise. Returns the largest absolute difference (0.0)."""
+    shards = torch.randn(ring.world, n, generator=gen, device=_DEV).to(dt)
+    got = CM.ring_all_gather(shards, ring)
+    ref = CM.ring_all_gather_stacked(shards)
+    torch.cuda.synchronize()
+    ulps, diff = _ring_ulps([(got, ref)])
+    _check(ulps == 0, f"ring all-gather {name}: {ulps} ulp from its plain "
+           "version")
+    return diff
+
+
+def _ring_rs_pair(name, ring, n, gdt, opt, gen, steps=2) -> float:
+    """K5 ring on ``ring`` against `fused_reduce_scatter_update_stacked`
+    from one start, ``steps`` calls (the momentum's first and second):
+    every parameter and state tensor bitwise equal after each, or raise.
+    Returns the largest absolute difference (0.0)."""
+    world = ring.world
+    p0 = torch.randn(world, n, generator=gen, device=_DEV)
+    pk, pr = p0.clone(), p0.clone()
+    sk = [opt.init(pk[i]) for i in range(world)]
+    sr = [opt.init(pr[i]) for i in range(world)]
+    worst = 0.0
+    for step in range(steps):
+        g = torch.randn(world, world * n, generator=gen, device=_DEV).to(gdt)
+        CM.fused_reduce_scatter_update(g, pk, sk, opt, ring,
+                                       mean_world=world, step=step + 3)
+        CM.fused_reduce_scatter_update_stacked(g, pr, sr, opt,
+                                               mean_world=world,
+                                               step=step + 3)
+        pairs = [(pk, pr)] + [(a[k], b[k]) for a, b in zip(sk, sr)
+                              for k in a if torch.is_tensor(a[k])]
+        torch.cuda.synchronize()
+        ulps, diff = _ring_ulps(pairs)
+        _check(ulps == 0, f"ring reduce-scatter {name} step {step}: {ulps} "
+               "ulp from its plain version")
+        worst = max(worst, diff)
+    return worst
+
+
+_RING_OPTS = (
+    ("sgd momentum", FS.fused_sgd(lr=0.01, momentum=0.9)),
+    ("nesterov wd", FS.fused_sgd(lr=0.01, momentum=0.9, nesterov=True,
+                                 weight_decay=1e-4)),
+    ("adamw cosine", FS.fused_adamw(lr=warmup_cosine(1e-3, 2, 10),
+                                    weight_decay=0.01)),
+)
+
+
+def _plan_shard_sizes(world: int) -> list:
+    """The distinct shard sizes of the training run's plan (GPT-2 small,
+    25 MB buckets) at ``world`` ranks."""
+    cfg = dropout_free(gpt_config("gpt2", dtype=torch.bfloat16))
+    plan = FU.make_plan(GptLmHeadModel(cfg, device=_DEV), world,
+                        threshold_mb=25.0)
+    return sorted({b.shard_size for b in plan.buckets})
+
+
+def check_ring_kernels() -> tuple:
+    """K4 and K5 ring on a `LocalRing` against their stacked plain versions,
+    bitwise: at W = 2, 4 and 8 on a ragged shard and a 25 MB bucket's
+    shard, fp32 and bf16, SGD momentum (first and second step), nesterov
+    with weight decay and AdamW with an lr schedule (the step scalar); and
+    at W = 2 at every shard size of the training run's plan (fp32 and bf16
+    gathers; bf16 gradients with the run's optimizer). Returns the largest
+    absolute difference of each (0.0)."""
+    gen = torch.Generator(device=_DEV).manual_seed(8)
+    ag = rs = 0.0
+    n_ag = n_rs = 0
+    for world in (2, 4, 8):
+        sizes = (100_003, 25 * 2**20 // 4 // world)
+        ring = LocalRing(world, _DEV, max(sizes))
+        for n in sizes:
+            for dt in (torch.float32, torch.bfloat16):
+                tag = f"W={world} n={n} {dt}"
+                ag = max(ag, _ring_ag_pair(tag, ring, n, dt, gen))
+                n_ag += 1
+                for oname, opt in _RING_OPTS:
+                    rs = max(rs, _ring_rs_pair(f"{tag} {oname}", ring, n, dt,
+                                               opt, gen))
+                    n_rs += 1
+        ring.close()
+    plan = _plan_shard_sizes(2)
+    ring = LocalRing(2, _DEV, max(plan))
+    main_opt = FS.fused_sgd(lr=0.01, momentum=0.9)
+    for n in plan:
+        for dt in (torch.float32, torch.bfloat16):
+            ag = max(ag, _ring_ag_pair(f"plan W=2 n={n} {dt}", ring, n, dt,
+                                       gen))
+            n_ag += 1
+        rs = max(rs, _ring_rs_pair(f"plan W=2 n={n} bf16", ring, n,
+                                   torch.bfloat16, main_opt, gen))
+        n_rs += 1
+    ring.close()
+    print(f"ring kernel check: K4 {n_ag} cases, K5 ring {n_rs} cases (two "
+          "steps each) at W = 2, 4, 8 (n = 100003 and a 25 MB bucket's "
+          f"shard; fp32 and bf16; SGD momentum, nesterov + wd, AdamW with "
+          f"a cosine lr) and the plan's {len(plan)} shard sizes at W = 2 "
+          f"({plan[0]} to {plan[-1]}): 0 ulp from the plain versions")
+    return ag, rs
 
 
 # ---------------------------------------------------------------------------
@@ -586,6 +723,236 @@ def train_with_dropout():
            "train with dropout: a loss is not finite")
 
 
+# ---------------------------------------------------------------------------
+# phase 5b: two ranks on one card, mode dear-fused against dear
+# ---------------------------------------------------------------------------
+
+#: per-rank batch 8: 16 sequences of 1024 per step over the two ranks
+_TWO_RANK_ARGS = ["--model", "gpt2", "--fp16", "--flash-attention",
+                  "--dropout0", "--batch-size", "8", "--sequence-len",
+                  "1024", "--base-lr", "0.01", "--momentum", "0.9",
+                  "--threshold", "25", "--num-warmup-batches", "5",
+                  "--num-batches-per-iter", "5", "--num-iters", "3"]
+#: the step-20 loss of dear-fused against dear (relative): JAX's "fp32
+#: ~1e-5 rel" (docs/KERNELS.md:119-124) widened for bf16 — the dear run
+#: rounds each reduced gradient to bf16 (2^-9 relative), the ring keeps
+#: the sum in fp32, and bf16 compute carries that into the loss
+_FUSED_VS_DEAR_RTOL = 1e-3
+
+
+def _two_rank_counts(ts) -> dict:
+    return {"flash_fwd": FA.flash_fwd_launches,
+            "flash_bwd_dq": FA.flash_bwd_dq_launches,
+            "flash_bwd_dkv": FA.flash_bwd_dkv_launches,
+            "fused_update": FS.fused_update_launches,
+            "ring_ag": CM.ring_ag_launches, "ring_rs": CM.ring_rs_launches,
+            "rs": ts.rs_launches, "ag": ts.ag_launches,
+            "update": ts.update_launches}
+
+
+def check_ring_two_ranks(rank: int) -> tuple:
+    """K4 and K5 ring on the main path's own transport — the two
+    processes' IPC `Ring`, two contexts time-slicing the card, sys-scope
+    flags — against the stacked plain versions, bitwise, at every shard
+    size of the training run's plan: one K4 call in fp32 and one in bf16,
+    and two K5 ring calls (bf16 gradients, the run's SGD momentum: its
+    first and second step). Both ranks draw the stacked ``[2, ...]``
+    inputs of both ranks from one seed on the card, so each holds its
+    peer's input as the gathered one; each feeds its own row to the
+    kernel and holds its output against the stacked plain version's row.
+    Returns the largest absolute differences (0.0)."""
+    world = 2
+    group = backend.init(_DEV)
+    dev = backend.device()
+    sizes = _plan_shard_sizes(world)
+    ring = Ring(group, dev, max(sizes))
+    gen = torch.Generator(device=dev).manual_seed(11)
+    opt = FS.fused_sgd(lr=0.01, momentum=0.9)
+    ag = rs = 0.0
+    for n in sizes:
+        for dt in (torch.float32, torch.bfloat16):
+            shards = torch.randn(world, n, generator=gen, device=dev).to(dt)
+            got = CM.ring_all_gather(shards[rank].contiguous(), ring)
+            ref = CM.ring_all_gather_stacked(shards)[rank]
+            torch.cuda.synchronize(dev)
+            ulps, diff = _ring_ulps([(got, ref)])
+            _check(ulps == 0, f"rank {rank} IPC ring all-gather n={n} {dt}: "
+                   f"{ulps} ulp from its plain version")
+            ag = max(ag, diff)
+        p0 = torch.randn(world, n, generator=gen, device=dev)
+        pk, pr = p0[rank].clone(), p0.clone()
+        sk = opt.init(pk)
+        sr = [opt.init(pr[i]) for i in range(world)]
+        for step in range(2):
+            g = torch.randn(world, world * n, generator=gen,
+                            device=dev).bfloat16()
+            CM.fused_reduce_scatter_update(g[rank].contiguous(), pk, sk, opt,
+                                           ring, mean_world=world, step=step)
+            CM.fused_reduce_scatter_update_stacked(g, pr, sr, opt,
+                                                   mean_world=world,
+                                                   step=step)
+            pairs = [(pk, pr[rank])] + [(sk[k], sr[rank][k]) for k in sk
+                                        if torch.is_tensor(sk[k])]
+            torch.cuda.synchronize(dev)
+            ulps, diff = _ring_ulps(pairs)
+            _check(ulps == 0, f"rank {rank} IPC ring reduce-scatter n={n} "
+                   f"step {step}: {ulps} ulp from its plain version")
+            rs = max(rs, diff)
+    ring.close()
+    print(f"rank {rank}: IPC ring check: K4 fp32 and bf16, K5 ring bf16 "
+          f"(two steps) at the plan's {len(sizes)} shard sizes ({sizes[0]} "
+          f"to {sizes[-1]}): 0 ulp from the plain versions")
+    return ag, rs
+
+
+def rank_worker(rank: int, out: Path, mode: str) -> None:
+    """One of the two ranks (a process of its own, on card ``rank %
+    device_count``): in dear-fused, first `check_ring_two_ranks` (its
+    launches are not the main path's); then 20 steps of the training CLI
+    in ``mode`` over a gloo group that meets at a FileStore in ``out``,
+    every step's launches
+    checked; in dear-fused, a ``torch.profiler`` trace of 3 more steps
+    (both ranks; their ring calls pair up); then the gathered parameters'
+    digest, the losses, the launches, the step times and the trace into
+    ``out/rank<r>.json``."""
+    os.environ.update(
+        DEAR_NUM_PROCESSES="2", DEAR_PROCESS_ID=str(rank),
+        DEAR_COORDINATOR_ADDRESS=f"file://{out}/store",
+        DEAR_LOCAL_RANK=str(rank), DEAR_LOCAL_SIZE="2")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ring_errs = check_ring_two_ranks(rank) if mode == "dear-fused" else None
+    layers = GPT2_SMALL.num_hidden_layers
+    FA.flash_fwd_launches = FA.flash_bwd_dq_launches = 0   # the main path
+    FA.flash_bwd_dkv_launches = FS.fused_update_launches = 0   # starts
+    CM.ring_ag_launches = CM.ring_rs_launches = 0
+    marks, prev = [], {}
+    fused = mode == "dear-fused"
+
+    def on_step(ts, state, metrics):
+        del state, metrics
+        now = _two_rank_counts(ts)
+        nb = ts.plan.num_buckets
+        before = prev or {k: 0 for k in now} | {
+            "ag": nb, "ring_ag": nb if fused else 0}   # init's gathers
+        want = {"flash_fwd": layers, "flash_bwd_dq": layers,
+                "flash_bwd_dkv": layers, "rs": nb, "ag": nb, "update": nb,
+                "fused_update": 0 if fused else nb,
+                "ring_ag": nb if fused else 0, "ring_rs": nb if fused else 0}
+        got = {k: now[k] - before[k] for k in now}
+        _check(got == want, f"rank {rank} {mode} step {len(marks) + 1}: "
+               f"launches {got}, expected {want}")
+        prev.update(now)
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append(ev)
+
+    res = train_cli.main(_TWO_RANK_ARGS + ["--mode", mode, "--device",
+                                           _DEV], on_step=on_step)
+    ts = res.train_step
+    launches = _two_rank_counts(ts)               # ... and ends here
+    step_ms = [a.elapsed_time(b) for a, b in
+               zip(marks[_TRAIN_WARMUP - 1:-1], marks[_TRAIN_WARMUP:])]
+    # both ranks trace the same 3 further steps (their ring calls pair up)
+    trace = (trace_train_steps(ts, res.state, res.batch,
+                               float(np.percentile(step_ms, 50)),
+                               label=f"rank {rank} {mode}, 8 x 1024")
+             if fused else None)
+    params = ts.gather_params(res.state)          # dear-fused: through K4
+    digest = hashlib.sha256()
+    for name in sorted(params):
+        digest.update(params[name].detach().cpu().numpy().tobytes())
+    (out / f"rank{rank}.json").write_text(json.dumps({
+        "losses": res.losses, "launches": launches, "step_ms": step_ms,
+        "tokens_per_s": res.total_mean * 1024, "params": digest.hexdigest(),
+        "trace": trace, "ring_errs": ring_errs,
+        "shard_sizes": sorted({b.shard_size for b in ts.plan.buckets}),
+        "bucket_shards": [b.shard_size for b in ts.plan.buckets],
+        "buckets": ts.plan.num_buckets,
+        "device": str(backend.device()), "card_shared": backend.card_shared(),
+        "backend": torch.distributed.get_backend()}))
+    ts.close()
+    backend.shutdown()
+
+
+def train_two_ranks(mode: str, timeout: float = 600.0) -> list:
+    """Spawn the two ranks of ``mode`` (this script with ``--train-rank``),
+    wait for both, and return their results; any rank's failure, or the
+    deadline, fails the run with both ranks' logs."""
+    out = _ROOT / "build" / "chip_smoke" / f"{mode}-{os.getpid()}"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    torch.cuda.empty_cache()
+    logs = [out / f"rank{r}.log" for r in range(2)]
+    procs = []
+    for r, log in enumerate(logs):
+        with open(log, "w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()),
+                 "--train-rank", str(r), "--out", str(out), "--mode", mode],
+                stdout=f, stderr=subprocess.STDOUT, cwd=_ROOT))
+    deadline = time.monotonic() + timeout
+    try:
+        while time.monotonic() < deadline:
+            codes = [p.poll() for p in procs]
+            if all(c is not None for c in codes) or any(codes):
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    if any(p.returncode != 0 for p in procs):
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            print(f"--- rank {r} of {mode} (exit {p.returncode}):\n"
+                  + "\n".join(log.read_text().splitlines()[-40:]))
+        raise RuntimeError(f"chip_smoke: a rank of the two-rank {mode} run "
+                           f"failed or passed the {timeout:.0f} s deadline")
+    return [json.loads((out / f"rank{r}.json").read_text())
+            for r in range(2)]
+
+
+def train_dear_fused() -> tuple:
+    """The slice's main path: GPT-2 small at full width trained 20 steps
+    with ``--mode dear-fused`` by two ranks sharing card 0 (two processes,
+    one ring), then the same with ``--mode dear`` for the loss comparison.
+    Checks: finite and falling losses, equal on both ranks; both ranks'
+    gathered parameters bitwise equal; every step's launches (in each
+    rank); dear-fused's step-20 loss within `_FUSED_VS_DEAR_RTOL` of
+    dear's. Returns (the two ranks' dear-fused results, dear's)."""
+    t0 = time.perf_counter()
+    fused = train_two_ranks("dear-fused")
+    t1 = time.perf_counter()
+    dear = train_two_ranks("dear")
+    t2 = time.perf_counter()
+    for mode, ranks in (("dear-fused", fused), ("dear", dear)):
+        losses = ranks[0]["losses"]
+        print(f"two ranks {mode}: losses {[round(x, 4) for x in losses]}; "
+              f"{ranks[0]['buckets']} buckets, backend "
+              f"{ranks[0]['backend']}, devices "
+              f"{[r['device'] for r in ranks]}, card shared "
+              f"{ranks[0]['card_shared']}")
+        _check(len(losses) == 20 and all(np.isfinite(losses)),
+               f"two ranks {mode}: losses {losses}")
+        _check(losses[-1] < losses[0], f"two ranks {mode}: no fall")
+        _check(ranks[1]["losses"] == losses,
+               f"two ranks {mode}: the ranks' losses differ")
+        _check(ranks[1]["params"] == ranks[0]["params"],
+               f"two ranks {mode}: the ranks' gathered parameters differ")
+    _check(fused[0]["shard_sizes"] == _plan_shard_sizes(2),
+           "two ranks: the run's plan is not the one the kernels were "
+           "checked at")
+    lf, ld = fused[0]["losses"][-1], dear[0]["losses"][-1]
+    rel = abs(lf - ld) / abs(ld)
+    print(f"step-20 loss: dear-fused {lf:.6f}, dear {ld:.6f}, relative "
+          f"difference {rel:.3e} (limit {_FUSED_VS_DEAR_RTOL:g}); parameters "
+          "of the two ranks bitwise equal in both modes; wall "
+          f"{t1 - t0:.1f} s (dear-fused), {t2 - t1:.1f} s (dear)")
+    _check(rel <= _FUSED_VS_DEAR_RTOL, "dear-fused and dear losses differ")
+    return fused, dear
+
+
 def train_flops_per_step(cfg, B, S) -> float:
     """6 x (matmul parameters) x tokens, plus causal attention: QK^T and
     PV over the S(S+1)/2 causal pairs, forward and backward (x3)."""
@@ -595,10 +962,12 @@ def train_flops_per_step(cfg, B, S) -> float:
     return 6 * n_matmul * B * S + attn
 
 
-def trace_train_steps(ts, state, batch, step_p50_ms, n=2):
+def trace_train_steps(ts, state, batch, step_p50_ms, n=2,
+                      label="bf16, B=16, S=1024"):
     """``torch.profiler`` over ``n`` training steps: device ops per step,
     device busy time, idle share (of the profiled wall, an upper bound, and
-    of the unprofiled step p50) and the top device ops by time."""
+    of the unprofiled step p50), the top device ops by time, and the spans
+    of the ring kernels (K4, K5 ring), waits included."""
     from torch.profiler import ProfilerActivity, profile
 
     state, _ = ts.step(state, batch)
@@ -622,16 +991,20 @@ def trace_train_steps(ts, state, batch, step_p50_ms, n=2):
         t, c = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (t + e.time_range.elapsed_us() / 1e3, c + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
-    print(f"train step trace (bf16, B=16, S=1024, {n} steps): "
+    ring = sum(ms for name, (ms, _) in by_name.items()
+               if "::ring_" in name) / n
+    print(f"train step trace ({label}, {n} steps): "
           f"{len(kernels) / n:.1f} device ops/step, device busy "
           f"{busy:.3f} ms/step, wall {wall / n * 1e3:.3f} ms/step under the "
           f"profiler (idle {1 - busy / (wall / n * 1e3):.1%}), idle "
           f"{1 - busy / step_p50_ms:.1%} of the unprofiled step p50 "
-          f"{step_p50_ms:.3f} ms")
+          f"{step_p50_ms:.3f} ms; ring kernels resident {ring:.3f} ms/step "
+          "(their spans, waits included)")
     for name, (ms, count) in top:
         print(f"  top op {ms / n:9.3f} ms/step {count // n:5d}x/step "
               f"{name[:110]}")
     return {"ops_per_step": len(kernels) / n, "busy_ms": busy,
+            "wall_ms": wall / n * 1e3, "ring_ms": ring,
             "top": [(name, ms / n) for name, (ms, _) in top]}
 
 
@@ -883,6 +1256,102 @@ def time_update(n, hbm, launches_per_step):
     return row
 
 
+def time_ring(bucket_shards, hbm):
+    """K4 and K5 ring on a `LocalRing` of two ranks (one launch drives
+    both, as the two processes' launches share the card) at each shard
+    size of the main path's plan: the gather in fp32 (dear-fused gathers
+    the master shards in fp32, as the JAX CLI), the reduce-scatter of a
+    bf16 gradient with SGD momentum 0.9 past its first step; beside their
+    stacked plain versions and the bytes bound. Bytes per rank: K4 reads
+    its shard and writes the W chunks of the output, (1 + W)·n·4; K5 ring
+    reads its W·n bf16 gradient and reads and writes the parameter and the
+    momentum, W·n·2 + 16·n; both ranks' bytes over the card's memory rate
+    (they share it). NCCL refuses two ranks on one device, so K4's library
+    time is the one-card replicate of the stacked shards (one copy into
+    the same output, checked equal to K4's); K5 ring has no one library
+    call on one card. Returns the rows of each kernel by shard size."""
+    world = 2
+    sizes = sorted(set(bucket_shards))
+    gen = torch.Generator(device=_DEV).manual_seed(9)
+    ring = LocalRing(world, _DEV, max(sizes))
+    opt = FS.fused_sgd(lr=0.01, momentum=0.9)
+    note = ("none on one card: NCCL refuses two ranks on one device"
+            if torch.cuda.device_count() < 2 else "not measured")
+    rows = {"ring_all_gather": {}, "ring_rs_update": {}}
+    for n in sizes:
+        ag_sets, rs_sets = [], []
+        for _ in range(2):
+            x = torch.randn(world, n, generator=gen, device=_DEV)
+            ag_sets.append((x, torch.empty(world, world * n, device=_DEV)))
+            p = torch.randn(world, n, generator=gen, device=_DEV)
+            st = [opt.init(p[i]) for i in range(world)]
+            for one in st:
+                one["buf"].normal_(generator=gen)
+                one["initialized"] = True
+            g = torch.randn(world, world * n, generator=gen,
+                            device=_DEV).bfloat16()
+            rs_sets.append((g, p, st))
+
+        def ag(x, o):
+            CM.ring_all_gather(x, ring, out=o)
+
+        def ag_plain(x, o):
+            CM.ring_all_gather_stacked(x)
+
+        def ag_library(x, o):
+            o.copy_(x.reshape(1, -1).expand(world, -1))
+
+        x, o = ag_sets[0]
+        ag(x, o)
+        want = o.clone()
+        ag_library(x, o)
+        _check(torch.equal(o, want), f"the one-card replicate at n={n} is "
+               "not K4's all-gather")
+
+        def rs(g, p, st):
+            CM.fused_reduce_scatter_update(g, p, st, opt, ring,
+                                           mean_world=world)
+
+        def rs_plain(g, p, st):
+            CM.fused_reduce_scatter_update_stacked(g, p, st, opt,
+                                                   mean_world=world)
+
+        for name, fn, plain, library, sets, nbytes in (
+                ("ring_all_gather", ag, ag_plain, ag_library, ag_sets,
+                 world * (1 + world) * n * 4),
+                ("ring_rs_update", rs, rs_plain, None, rs_sets,
+                 world * (world * n * 2 + 16 * n))):
+            ms = device_ms(fn, sets, 20)
+            plain_ms = device_ms(plain, sets, 5)
+            row = {"shape": f"W=2 LocalRing shard n={n}",
+                   "dtype": ("fp32" if name == "ring_all_gather"
+                             else "bf16 grad, fp32 state"),
+                   "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                   "library_note": note, "bound_ms": nbytes / hbm * 1e3,
+                   "bound_by": "bytes", "bytes": nbytes,
+                   "launches_per_step": len(bucket_shards)}
+            if library is not None:
+                row.update(library_ms=device_ms(library, sets, 20),
+                           library_scope="one-card replicate",
+                           library_note="NCCL refuses two ranks on one "
+                           "device: one copy replicating the stacked "
+                           "shards stands in")
+            print("kernel time " + json.dumps({"kernel": name} | row))
+            rows[name][n] = row
+    ring.close()
+    for name, by_n in rows.items():
+        keys = ("ms", "plain_ms", "bound_ms", "library_ms")
+        per_step = {k: sum(by_n[n][k] for n in bucket_shards)
+                    for k in keys if by_n[sizes[0]][k] is not None}
+        library = (f", library {per_step['library_ms']:.4f} ms"
+                   if "library_ms" in per_step else "")
+        print(f"{name}: per step at W=2 (one launch per bucket, "
+              f"{len(bucket_shards)} buckets), both ranks: kernel "
+              f"{per_step['ms']:.4f} ms, plain {per_step['plain_ms']:.4f} "
+              f"ms, bound {per_step['bound_ms']:.4f} ms{library}")
+    return rows
+
+
 def _kernel_entry(name, source, replaces, launches, err, row):
     entry = {"name": name, "route": "cuda",
              "source": f"dear_pytorch_tpu_torch/csrc/{source}",
@@ -892,19 +1361,26 @@ def _kernel_entry(name, source, replaces, launches, err, row):
              "library_ms": row["library_ms"]}
     if "library_scope" in row:   # one library call for several kernels
         entry["library_scope"] = row["library_scope"]
+    if "library_note" in row:    # what the library time is, or why none
+        entry["library_note"] = row["library_note"]
     return entry
 
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     kernels_only = argv == ["--kernels-only"]
-    if argv and not kernels_only:
+    worker = len(argv) == 6 and argv[0::2] == ["--train-rank", "--out",
+                                               "--mode"]
+    if argv and not (kernels_only or worker):
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's chip check needs the "
               "card", file=sys.stderr)
         return 1
+    if worker:                   # one rank of phase 5b, spawned below
+        rank_worker(int(argv[1]), Path(argv[3]), argv[5])
+        return 0
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -917,7 +1393,7 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    logs = _build.build(["flash_fwd", "flash_bwd", "fused_update"])
+    logs = _build.build(["flash_fwd", "flash_bwd", "fused_update", "ring"])
     print(f"build: {time.perf_counter() - t0:.1f} s "
           f"({', '.join(logs) or 'cached'}) into {_build.BUILD_DIR}")
     for log in logs.values():
@@ -929,6 +1405,7 @@ def main(argv=None) -> int:
     max_err = check_kernel()
     dq_err, dkv_err = check_bwd_kernels()
     upd_err = check_update_kernel()
+    ag_err, rs_err = check_ring_kernels()
     print(f"kernel checks: {time.perf_counter() - t0:.1f} s")
     if kernels_only:
         return 0
@@ -940,6 +1417,14 @@ def main(argv=None) -> int:
     upd_err = max(upd_err, check_update_main_path(res.train_step))
     check_flash_step_vs_dense()
     train_with_dropout()
+    t0 = time.perf_counter()
+    fused, _ = train_dear_fused()
+    for rank in fused:      # the IPC ring's own checks, in each rank
+        ag_err = max(ag_err, rank["ring_errs"][0])
+        rs_err = max(rs_err, rank["ring_errs"][1])
+    print("IPC ring check, both ranks: K4 fp32 and bf16, K5 ring bf16 (two "
+          "steps) at the plan's shard sizes: 0 ulp from the plain versions")
+    print(f"two-rank phase: {time.perf_counter() - t0:.1f} s")
     trace_decode_ticks(runs[-1][3].model)
 
     B, S = 16, 1024
@@ -954,6 +1439,25 @@ def main(argv=None) -> int:
           f"{tok_s / (B * S) * flops / _PEAK_FLOPS[torch.bfloat16]:.2%} of "
           f"{_PEAK_FLOPS[torch.bfloat16] / 1e12:.0f} TF/s bf16")
     trace_train_steps(res.train_step, res.state, res.batch, p50)
+    for r, rank in enumerate(fused):
+        fp50, fp99 = (float(np.percentile(rank["step_ms"], q))
+                      for q in (50, 99))
+        print(f"two-rank dear-fused step, rank {r} (GPT-2 small, bf16, 8 "
+              f"sequences of {S} per rank, {len(rank['step_ms'])} timed "
+              f"steps): p50 {fp50:.3f} ms p99 {fp99:.3f} ms; "
+              f"{rank['tokens_per_s']:.1f} tokens/s over both ranks (the "
+              "CLI's timed mean); both ranks share one card, so this is "
+              "the card's time for 16 sequences plus the ring's waits, not "
+              "a per-card rate")
+        tr = rank["trace"]
+        if tr is not None:
+            print(f"  traced (2 steps, this rank's context): "
+                  f"{tr['ops_per_step']:.1f} device ops/step, kernels' "
+                  f"spans {tr['busy_ms']:.3f} ms/step of which the ring "
+                  f"kernels {tr['ring_ms']:.3f}, wall {tr['wall_ms']:.3f} "
+                  "ms/step under the profiler; top: "
+                  + "; ".join(f"{ms:.3f} {name[:48]}"
+                              for name, ms in tr["top"][:6]))
 
     hbm = _hbm_bytes_per_s(name)
     print(f"bounds: {hbm / 1e12} TB/s memory ({name}), peak "
@@ -985,23 +1489,41 @@ def main(argv=None) -> int:
     upd = time_update(max(b.shard_size for b in buckets
                           if b.size * 4 <= 25 * 2**20), hbm, nb)
     time_update(max(b.shard_size for b in buckets), hbm, nb)
+    ring_rows = time_ring(fused[0]["bucket_shards"], hbm)
+    # the kernels line: the 25 MB bucket's shard, as for the update
+    ring_n = max(n for n in fused[0]["shard_sizes"]
+                 if 2 * n * 4 <= 25 * 2**20)
+    fused_launches = {k: sum(r["launches"][k] for r in fused)
+                      for k in fused[0]["launches"]}
+    print(f"main path (two ranks, dear-fused): launches over both ranks "
+          f"{fused_launches}")
 
     print(json.dumps({"kernels": [
         _kernel_entry("flash_fwd", "flash_fwd.cu",
                       "dear_pytorch_tpu/ops/flash_attention.py:97",
-                      launches + train_launches["flash_fwd"], max_err,
-                      decode),
+                      launches + train_launches["flash_fwd"]
+                      + fused_launches["flash_fwd"], max_err, decode),
         _kernel_entry("flash_bwd_dq", "flash_bwd.cu",
                       "dear_pytorch_tpu/ops/flash_attention.py:152",
-                      train_launches["flash_bwd_dq"], dq_err,
+                      train_launches["flash_bwd_dq"]
+                      + fused_launches["flash_bwd_dq"], dq_err,
                       bwd["flash_bwd_dq"]),
         _kernel_entry("flash_bwd_dkv", "flash_bwd.cu",
                       "dear_pytorch_tpu/ops/flash_attention.py:195",
-                      train_launches["flash_bwd_dkv"], dkv_err,
+                      train_launches["flash_bwd_dkv"]
+                      + fused_launches["flash_bwd_dkv"], dkv_err,
                       bwd["flash_bwd_dkv"]),
         _kernel_entry("fused_update", "fused_update.cu",
                       "dear_pytorch_tpu/ops/collective_matmul.py:317",
                       train_launches["fused_update"], upd_err, upd),
+        _kernel_entry("ring_all_gather", "ring.cu",
+                      "dear_pytorch_tpu/ops/collective_matmul.py:218",
+                      fused_launches["ring_ag"], ag_err,
+                      ring_rows["ring_all_gather"][ring_n]),
+        _kernel_entry("ring_rs_update", "ring.cu",
+                      "dear_pytorch_tpu/ops/collective_matmul.py:317",
+                      fused_launches["ring_rs"], rs_err,
+                      ring_rows["ring_rs_update"][ring_n]),
     ]}))
     backend.shutdown()
     print(json.dumps({"ok": True, "device": {

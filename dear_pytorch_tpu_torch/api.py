@@ -14,6 +14,7 @@ import torch
 import torch.distributed as dist
 
 from dear_pytorch_tpu_torch.comm import backend
+from dear_pytorch_tpu_torch.comm import collectives as C
 
 __all__ = ["broadcast_optimizer_state", "broadcast_parameters", "world_info"]
 
@@ -45,7 +46,7 @@ def broadcast_parameters(params: Any, root_rank: int = 0,
         return params
     with torch.no_grad():
         for t in _tensors(params):
-            dist.broadcast(t, src=root_rank, group=g)
+            C.broadcast(t, root_rank, g)
     return params
 
 

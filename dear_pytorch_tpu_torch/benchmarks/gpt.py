@@ -12,7 +12,9 @@ Each process drives one device. Several processes form one data-parallel
 group through the launcher variables of `comm.backend`
 (``DEAR_NUM_PROCESSES``, ``DEAR_PROCESS_ID``, ``DEAR_COORDINATOR_ADDRESS``);
 every rank draws the same global batch and trains on its own slice.
-``--sp-degree > 1``, ``--ring-projections``, ``--remat`` and
+``--mode dear-fused`` runs both legs as the ring kernels (K4, K5 ring), also
+for ranks that share one card. ``--sp-degree > 1``, ``--ring-projections``
+(tensor parallelism: ROADMAP Queue 2, K6–K8), ``--remat`` and
 ``--num-experts`` are not ported yet and raise.
 """
 
@@ -49,8 +51,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--num-experts", type=int, default=0,
                    help="mixture of experts (not ported yet: > 0 raises)")
     p.add_argument("--ring-projections", action="store_true", default=False,
-                   help="ring collective-matmul projections (not ported "
-                        "yet: raises)")
+                   help="ring collective-matmul projections; requires "
+                        "--mode dear-fused (not ported yet: raises)")
     p.add_argument("--dropout0", action="store_true", default=False,
                    help="zero every dropout prob")
     p.add_argument("--remat", action="store_true", default=False,
@@ -73,17 +75,20 @@ def main(argv=None, on_step: Optional[Callable] = None
     rank's batch as ``.batch``. ``on_step(train_step, state, metrics)`` is
     called after every step (warmup included)."""
     args = build_parser().parse_args(argv)
+    if args.ring_projections:
+        raise NotImplementedError(
+            "--ring-projections (the ring collective-matmul projections, "
+            "K6-K8) is not ported yet: ROADMAP Queue 2, tensor parallelism")
     unported = [flag for flag, on in (
         ("--sp-degree > 1", args.sp_degree > 1),
-        ("--ring-projections", args.ring_projections),
         ("--remat", args.remat), ("--num-experts", args.num_experts > 0))
         if on]
     if unported:
         raise NotImplementedError(
             f"{', '.join(unported)}: not ported yet (ROADMAP Queue 1 items "
             "7 and 10)")
-    dev = resolve_device(args.device)
-    group = backend.init(dev)
+    resolve_device(args.device)          # raises without a card
+    group = backend.init(args.device)    # "cuda" or None: this rank's card
     dev = backend.device()
     world, rank = backend.size(), backend.rank()
 
@@ -158,4 +163,5 @@ def main(argv=None, on_step: Optional[Callable] = None
 
 
 if __name__ == "__main__":
-    main()
+    main().train_step.close()   # dear-fused: after every rank's last call
+    backend.shutdown()

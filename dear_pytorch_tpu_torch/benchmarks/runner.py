@@ -8,7 +8,8 @@ throughput per run and the mean ± 1.96σ), the common flags, and the flags
 Only the flags the port carries are registered: an unported flag of the
 JAX CLI (``--compressor``, ``--pipeline``, ``--scan-steps``, ...) is an
 argparse error, not silently ignored; ``--mode`` other than ``dear`` and
-``--optimizer lamb`` raise ``NotImplementedError`` when the step is built.
+``dear-fused``, and ``--optimizer lamb``, raise ``NotImplementedError``
+when the step is built.
 """
 
 from __future__ import annotations
@@ -117,8 +118,8 @@ def add_common_args(parser) -> None:
     parser.add_argument("--mode", type=str, default="dear",
                         choices=["dear", "dear-fused", "allreduce", "rsag",
                                  "rb", "bytescheduler", "fsdp"],
-                        help="communication schedule (only 'dear' is "
-                             "ported; the others raise)")
+                        help="communication schedule ('dear' and "
+                             "'dear-fused' are ported; the others raise)")
     parser.add_argument("--threshold", type=float, default=25.0,
                         help="tensor-fusion threshold in MB; <= 0: one "
                              "bucket")

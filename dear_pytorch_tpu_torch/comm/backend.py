@@ -1,7 +1,7 @@
 """Process group bootstrap — the port of ``dear_pytorch_tpu/comm/backend.py``.
 
 One ``torch.distributed`` group per process: NCCL when the process runs on
-the CUDA card, gloo on the CPU. The launcher contract is the JAX
+a CUDA card of its own, gloo on the CPU. The launcher contract is the JAX
 package's: ``DEAR_NUM_PROCESSES`` / ``DEAR_PROCESS_ID`` /
 ``DEAR_COORDINATOR_ADDRESS`` (or their ``JAX_*`` names; the first set one
 wins, a non-integer raises naming the variable). The coordinator address is
@@ -11,7 +11,17 @@ no launcher variables set, the group is a single rank that meets itself at
 back to gloo.
 
 Unlike the JAX package, one process drives one device here, so ``rank()``
-and ``size()`` are both the process and the data-parallel world.
+and ``size()`` are both the process and the data-parallel world. Rank r of
+a host takes card ``local_rank() % device_count``. When the launcher says
+a host runs more ranks than it has cards (``local_size()``: the JAX
+package's ``DEAR_LOCAL_SIZE`` and standard names, 1 when none is set; e.g.
+two ranks on a one-card machine), ranks share a card, and NCCL refuses two
+ranks on one device: the group is then gloo while the tensors stay on the
+card (`card_shared()`). Handles, barriers and the loss mean go through the
+host (`comm.collectives` stages CUDA tensors through host copies on such a
+group, and only there), and the data legs of ``mode="dear-fused"`` are the
+ring kernels alone (`comm.ring`), which need no collective library. At one
+card per rank, NCCL stays.
 """
 
 from __future__ import annotations
@@ -27,8 +37,9 @@ import torch.distributed as dist
 from dear_pytorch_tpu_torch._device import resolve_device
 
 __all__ = [
-    "barriar", "barrier", "device", "group", "init", "is_initialized",
-    "local_rank", "rank", "shutdown", "size",
+    "barriar", "barrier", "card_shared", "device", "group", "init",
+    "is_initialized", "local_rank", "local_size", "rank", "shutdown",
+    "size",
 ]
 
 _lock = threading.Lock()
@@ -67,9 +78,10 @@ def init(device=None) -> dist.ProcessGroup:
     """Join (or form) the process group and return it; idempotent.
 
     ``device``: where this process's tensors live — the card by default
-    (raises without one), ``"cpu"`` for a gloo group. With the launcher
-    variables set, the world is ``DEAR_NUM_PROCESSES`` ranks meeting at
-    ``DEAR_COORDINATOR_ADDRESS``; otherwise a single rank."""
+    (raises without one; ``"cuda"`` or None take this rank's card,
+    ``local_rank() % device_count``), ``"cpu"`` for a gloo group. With the
+    launcher variables set, the world is ``DEAR_NUM_PROCESSES`` ranks
+    meeting at ``DEAR_COORDINATOR_ADDRESS``; otherwise a single rank."""
     global _device
     with _lock:
         dev = resolve_device(device)
@@ -89,10 +101,11 @@ def init(device=None) -> dist.ProcessGroup:
         else:
             rank_, addr = 0, f"tcp://127.0.0.1:{_free_port()}"
         if dev.type == "cuda":
-            dev = torch.device("cuda", local_rank() if device is None
-                               else dev.index)
+            if device is None or torch.device(device).index is None:
+                dev = torch.device(
+                    "cuda", local_rank() % torch.cuda.device_count())
             torch.cuda.set_device(dev)
-            backend = "nccl"
+            backend = "gloo" if _shares_card(world) else "nccl"
         elif dev.type == "cpu":
             backend = "gloo"
         else:
@@ -145,6 +158,28 @@ def local_rank() -> int:
         if v is not None:
             return int(v)
     return 0
+
+
+def local_size() -> int:
+    """The number of processes on this host, from the launcher's variables
+    (the JAX package's names); 1 when none is set."""
+    for k in ("DEAR_LOCAL_SIZE", "LOCAL_WORLD_SIZE",
+              "OMPI_COMM_WORLD_LOCAL_SIZE", "SLURM_NTASKS_PER_NODE"):
+        v = os.environ.get(k)
+        if v is not None:
+            return int(v)
+    return 1
+
+
+def _shares_card(world: int) -> bool:
+    return world > 1 and local_size() > torch.cuda.device_count()
+
+
+def card_shared() -> bool:
+    """Whether this host's ranks share its cards (the group is then gloo
+    over tensors on the card)."""
+    dev = device()
+    return dev.type == "cuda" and _shares_card(size())
 
 
 def barrier() -> None:

@@ -1,0 +1,225 @@
+"""The ring transport of ``mode="dear-fused"``: what replaces the TPU's
+``pltpu.make_async_remote_copy`` and the DMA / REGULAR semaphores of
+``dear_pytorch_tpu/ops/collective_matmul.py::_ring_rounds`` (:130-193) and
+``_ring_scratch`` (:196).
+
+Each rank owns one ring buffer per leg (``"ag"``: the all-gather K4;
+``"rs"``: the reduce-scatter + update K5 ring): two comm slots sized for
+the plan's largest shard in fp32, then an arrival and a credit flag per
+slot and kernel block (``csrc/ring.cu`` describes the protocol). A rank's
+kernels write the hop into its RIGHT neighbour's slots and raise that
+neighbour's arrival flags, and raise its LEFT neighbour's credit flags when
+a slot is free again, so each rank needs pointers into both neighbours'
+buffers:
+
+  - `Ring`: one rank per process. The buffers are allocated with
+    ``cudaMalloc`` (through the built ``csrc/ring.cu``), their CUDA IPC
+    handles exchanged once over the process group's object collectives,
+    and the neighbours' handles opened in this process. This serves ranks
+    that share one card (two processes time-slicing it) and ranks on cards
+    of their own (peer access over NVLink) alike. `Ring.close` frees them
+    after a barrier, so no rank frees memory a neighbour may still write.
+  - `LocalRing`: W ranks in ONE process on one card, each launch driving
+    all W ranks' blocks together (a cooperative launch: every block
+    resident at once, since they wait on each other). For checking and
+    timing the kernels at real shard sizes without several processes.
+
+The flags are never reset: each ring counts its calls per leg, and the
+kernels compare against values derived from that count (``epoch``). Every
+rank must therefore issue its ring calls in the same order; the train step
+does (`parallel.dear`). On the CPU a `Ring` is just the group: the ring's
+plain version runs its hops over `comm.collectives.ring_shift`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.distributed as dist
+
+__all__ = ["LEGS", "LocalRing", "Ring", "ring_lib"]
+
+#: the two legs, each with its own buffers, flags and call counter
+LEGS = ("ag", "rs")
+
+_lib = None
+
+
+def ring_lib() -> ctypes.CDLL:
+    """The built ``csrc/ring.cu`` (compiled at first use)."""
+    global _lib
+    if _lib is None:
+        from dear_pytorch_tpu_torch.ops import _build
+
+        lib = _build.load("ring")
+        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        u32 = ctypes.c_uint
+        lib.ring_all_gather.argtypes = [ptr, i32, i32, i64, i32, u32, i32,
+                                        ptr]
+        lib.ring_rs_update.argtypes = [ptr, i32, i32, i64, i32, i32, ptr,
+                                       i32, i32, u32, i32, ptr]
+        lib.ring_alloc.argtypes = [i64, ctypes.POINTER(ptr), ptr]
+        lib.ring_open.argtypes = [ptr, ctypes.POINTER(ptr)]
+        lib.ring_close.argtypes = [ptr]
+        lib.ring_free.argtypes = [ptr]
+        lib.ring_error_string.argtypes = [i32]
+        lib.ring_error_string.restype = ctypes.c_char_p
+        for fn in (lib.ring_all_gather, lib.ring_rs_update, lib.ring_alloc,
+                   lib.ring_open, lib.ring_close, lib.ring_free,
+                   lib.ring_blocks, lib.ring_max_groups,
+                   lib.ring_handle_size):
+            fn.restype = i32
+        _lib = lib
+    return _lib
+
+
+def check(err: int, what: str) -> None:
+    if err:
+        raise RuntimeError(f"{what} failed: "
+                           + ring_lib().ring_error_string(err).decode())
+
+
+def _layout(max_elems: int) -> tuple:
+    """(slot bytes, arrive offset, credit offset, total bytes) of one leg's
+    buffer: two fp32 slots of ``max_elems``, then the two flag arrays."""
+    blocks = ring_lib().ring_blocks()
+    slot = -(-max(1, max_elems) * 4 // 256) * 256
+    arrive = 2 * slot
+    credit = arrive + 2 * blocks * 4
+    return slot, arrive, credit, credit + 2 * blocks * 4
+
+
+def _link(own: int, right: int, left: int, max_elems: int) -> tuple:
+    """The 8 pointers a rank's kernel block needs (csrc/ring.cu's order):
+    its slots, the right neighbour's slots, its arrival flags, the right
+    neighbour's, its credit flags, the left neighbour's."""
+    slot, arrive, credit, _ = _layout(max_elems)
+    return (own, own + slot, right, right + slot, own + arrive,
+            right + arrive, own + credit, left + credit)
+
+
+class Ring:
+    """This rank's end of the ring over ``group`` on ``device``, with slots
+    for shards of up to ``max_elems`` elements. Built on every rank at the
+    same point (it exchanges handles over the group)."""
+
+    stacked = False
+    cooperative = False
+
+    def __init__(self, group, device, max_elems: int):
+        self.group = group
+        self.world = dist.get_world_size(group)
+        self.rank = dist.get_rank(group)
+        self.right = (self.rank + 1) % self.world
+        self.left = (self.rank - 1) % self.world
+        self.device = torch.device(device)
+        self.max_elems = int(max_elems)
+        self.calls = dict.fromkeys(LEGS, 0)
+        self._own: dict = {}
+        self._opened: dict = {}
+        self._links: dict = {}
+        self.closed = False
+        if self.device.type == "cuda" and self.world > 1:
+            self._connect()
+
+    def _connect(self) -> None:
+        lib = ring_lib()
+        total = _layout(self.max_elems)[3]
+        handles = {}
+        with torch.cuda.device(self.device):
+            for leg in LEGS:
+                ptr = ctypes.c_void_p()
+                handle = ctypes.create_string_buffer(lib.ring_handle_size())
+                check(lib.ring_alloc(total, ctypes.byref(ptr), handle),
+                      "ring buffer allocation")
+                self._own[leg] = ptr.value
+                handles[leg] = handle.raw
+            every = [None] * self.world
+            dist.all_gather_object(every, handles, group=self.group)
+            peers = {}
+            for peer in sorted({self.right, self.left}):
+                for leg in LEGS:
+                    ptr = ctypes.c_void_p()
+                    check(lib.ring_open(every[peer][leg], ctypes.byref(ptr)),
+                          f"opening rank {peer}'s ring buffer")
+                    peers[peer, leg] = ptr.value
+            self._opened = peers
+        for leg in LEGS:
+            self._links[leg] = _link(self._own[leg],
+                                     peers[self.right, leg],
+                                     peers[self.left, leg], self.max_elems)
+        dist.barrier(group=self.group)
+
+    def next_epoch(self, leg: str) -> int:
+        """Count a call of ``leg``; the count is the kernel's epoch."""
+        self.calls[leg] += 1
+        return self.calls[leg]
+
+    def links(self, leg: str) -> list:
+        """[(rank, its 8 link pointers)] for the ranks one launch drives."""
+        if self.closed:
+            raise RuntimeError("the ring is closed")
+        return [(self.rank, self._links[leg])]
+
+    def close(self) -> None:
+        """Free the buffers once every rank is done with them: wait for this
+        rank's kernels, a barrier, close the neighbours' mappings, a second
+        barrier, free. Every rank calls it; a second call does nothing."""
+        if self.closed or not self._own:
+            self.closed = True
+            return
+        lib = ring_lib()
+        torch.cuda.synchronize(self.device)
+        dist.barrier(group=self.group)
+        with torch.cuda.device(self.device):
+            for ptr in self._opened.values():
+                check(lib.ring_close(ptr), "closing a peer's ring buffer")
+            dist.barrier(group=self.group)
+            for ptr in self._own.values():
+                check(lib.ring_free(ptr), "freeing the ring buffer")
+        self._own, self._opened, self._links = {}, {}, {}
+        self.closed = True
+
+
+class LocalRing:
+    """A ring of ``world`` ranks that all live in this process on one
+    card: the ring collectives then take stacked ``[world, ...]`` inputs
+    and drive every rank in one launch. ``max_elems``: the largest shard.
+    On the CPU it holds no buffers (the stacked plain versions run)."""
+
+    stacked = True
+    cooperative = True
+    group = None
+
+    def __init__(self, world: int, device, max_elems: int):
+        self.world = int(world)
+        self.device = torch.device(device)
+        self.max_elems = int(max_elems)
+        self.calls = dict.fromkeys(LEGS, 0)
+        self._bufs: dict = {}
+        if self.device.type == "cuda" and self.world > 1:
+            lib = ring_lib()
+            if self.world > lib.ring_max_groups():
+                raise ValueError(f"a LocalRing drives at most "
+                                 f"{lib.ring_max_groups()} ranks in one "
+                                 f"launch, got {self.world}")
+            total = _layout(self.max_elems)[3]
+            for leg in LEGS:
+                self._bufs[leg] = [
+                    torch.zeros(total, dtype=torch.uint8, device=self.device)
+                    for _ in range(self.world)]
+
+    def next_epoch(self, leg: str) -> int:
+        self.calls[leg] += 1
+        return self.calls[leg]
+
+    def links(self, leg: str) -> list:
+        bufs = [b.data_ptr() for b in self._bufs[leg]]
+        w = self.world
+        return [(r, _link(bufs[r], bufs[(r + 1) % w], bufs[(r - 1) % w],
+                          self.max_elems)) for r in range(w)]
+
+    def close(self) -> None:
+        self._bufs = {}
+

@@ -3,9 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into ``build/kernels/`` at the root of
 the checkout (listed in ``.gitignore``), at first use, then loaded with
-``ctypes``. The library's file name carries a digest of the source and
-the flags, so an edited source is rebuilt and a stale library is never
-loaded. Nothing is built when a module is imported: the CPU tests import
+``ctypes``. The library's file name carries a digest of the source, the
+headers of ``csrc/`` and the flags, so an edited source is rebuilt and a
+stale library is never loaded. Nothing is built when a module is imported: the CPU tests import
 every module, and this machine may have no ``nvcc``.
 """
 
@@ -45,8 +45,10 @@ def _nvcc() -> str:
 
 def _library(name: str) -> tuple[Path, Path]:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC.glob("*.cuh")):   # what a source may include
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:16]
     return src, BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -36,14 +36,14 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Callable, Optional, Union
+from typing import Any, Callable, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
 
 __all__ = [
-    "ShardOptimizer", "from_optax", "fused_adamw", "fused_lamb", "fused_sgd",
-    "fused_update_reference",
+    "LayerwiseShardOptimizer", "ShardOptimizer", "from_optax", "fused_adamw",
+    "fused_lamb", "fused_sgd", "fused_update_reference",
 ]
 
 #: kernel launches so far (incremented only where the kernel launches)
@@ -132,11 +132,28 @@ class ShardOptimizer:
         else:
             raise RuntimeError(f"shard update: no kernel for device "
                                f"{param.device}")
+        self.advance(state)
+        return param, state
+
+    def advance(self, state: dict) -> None:
+        """The host-side bookkeeping of one update: AdamW's step count,
+        SGD's ``initialized`` flag."""
         if self.kind == "adamw":
             state["t"] += 1
         elif "initialized" in state:
             state["initialized"] = True
-        return param, state
+
+
+class LayerwiseShardOptimizer(NamedTuple):
+    """The type of an optimizer that needs per-PARAMETER reductions over
+    the flat shards (LAMB's trust ratios), as the JAX package's
+    (dear_pytorch_tpu/ops/fused_sgd.py:54). The port builds none yet
+    (`fused_lamb` raises); the train step refuses one by this type with the
+    JAX package's messages."""
+
+    init: Callable[[torch.Tensor], Any]
+    update: Callable[..., tuple]
+    needs_step: bool = False
 
 
 def _kind(opt: ShardOptimizer) -> str:

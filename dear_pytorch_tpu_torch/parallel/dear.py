@@ -35,6 +35,24 @@ follows ``model.named_parameters()`` order (module order: the gather
 prefetch needs it), where the JAX package buckets in sorted-key order, so
 parity with it is held per parameter by name.
 
+``mode="dear-fused"`` (the JAX module's dear.py:58-73) runs both legs as
+the hand-written ring kernels of `ops.collective_matmul` over a
+`comm.ring.Ring` whose peer buffers are exchanged here, at build time:
+when a bucket's last gradient is in, ONE kernel (K5 ring) reduce-scatters
+it around the ring with fp32 partial sums and applies the shard update at
+the last hop, on the comm stream; after backward each bucket's gather is
+the ring all-gather (K4). No collective library and no separate update
+run on these legs. Every rank must issue its ring calls in the same order
+(they pair up across ranks), so the reduce-scatters are issued in one
+fixed order, descending bucket index (the order a backward over a
+module-order plan completes them): a bucket that completes early waits
+for its turn; the gathers run in ascending order. The mode takes the JAX
+package's build-time guards (dear.py:401-457): no ``clip_norm``, no
+`LayerwiseShardOptimizer` (LAMB), no compression and no ``dcn``, each a
+``ValueError`` with the JAX package's message. At world 1 both legs
+short-cut as in JAX: the update is the plain shard update, the gather the
+shard itself.
+
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
 item): the other modes, compression, ``exclude_parts``, model state (BN
 statistics), ``remat``, the multi-slice ``dcn`` schedule and
@@ -54,8 +72,14 @@ from torch import nn
 from dear_pytorch_tpu_torch._device import check_model_device
 from dear_pytorch_tpu_torch.comm import backend
 from dear_pytorch_tpu_torch.comm import collectives as C
+from dear_pytorch_tpu_torch.comm.ring import Ring
+from dear_pytorch_tpu_torch.ops import collective_matmul as CM
 from dear_pytorch_tpu_torch.ops import fusion as F
-from dear_pytorch_tpu_torch.ops.fused_sgd import ShardOptimizer, fused_sgd
+from dear_pytorch_tpu_torch.ops.fused_sgd import (
+    LayerwiseShardOptimizer,
+    ShardOptimizer,
+    fused_sgd,
+)
 
 __all__ = ["DearState", "MODES", "TrainStep", "build_train_step"]
 
@@ -87,6 +111,37 @@ _UNPORTED = {
 def _unported(what: str, item: str):
     return NotImplementedError(
         f"{what} is not ported yet: ROADMAP Queue 1 item {item}")
+
+
+def _fused_guards(optimizer, clip_norm, unported) -> None:
+    """The JAX package's build-time guards of ``mode="dear-fused"``, in its
+    order and with its messages (dear.py:401-457)."""
+    if unported.get("dcn") is not None:
+        raise ValueError(
+            "multislice (dcn=) cannot ride mode='dear-fused': the "
+            "Pallas ring kernels address devices by single-mesh axis "
+            "index and a ring spanning the DCN boundary would issue "
+            "remote copies to devices outside this slice's ICI mesh "
+            "— use mode='dear' (hierarchical RS+AG over ICI + host "
+            "DCN exchange)")
+    if clip_norm is not None:
+        raise ValueError(
+            "dear-fused applies the optimizer inside the per-bucket "
+            "reduce-scatter kernel; the cross-bucket global-norm clip "
+            "needs every bucket's reduced gradient first — use "
+            "mode='dear' with clip_norm")
+    if isinstance(optimizer, LayerwiseShardOptimizer):
+        raise ValueError(
+            "dear-fused cannot fuse LayerwiseShardOptimizer (LAMB) "
+            "into the epilogue kernel: trust ratios need cross-shard "
+            "psums — use mode='dear'")
+    if unported.get("compressor") not in (None, "none"):
+        raise ValueError(
+            "gradient compression cannot ride mode='dear-fused': the "
+            "Pallas ring kernels execute the reduce-scatter leg (fused "
+            "with the optimizer epilogue) on dense fp tiles and cannot "
+            "exchange sparse/sign/int8-packed payloads — use mode='dear' "
+            "(compressed decoupled schedule) or mode='allreduce'")
 
 
 def build_train_step(loss_fn: Callable, model: nn.Module, *,
@@ -125,8 +180,12 @@ def build_train_step(loss_fn: Callable, model: nn.Module, *,
     otherwise."""
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
-    if mode != "dear":
+    if mode == "dear-fused":
+        _fused_guards(optimizer, clip_norm, unported)
+    elif mode != "dear":
         raise _unported(f"mode={mode!r}", "7 (modes and ablations)")
+    if isinstance(optimizer, LayerwiseShardOptimizer):
+        raise _unported("LayerwiseShardOptimizer (LAMB)", "3")
     for name, value in unported.items():
         if name not in _UNPORTED:
             raise TypeError(f"build_train_step() got an unexpected keyword "
@@ -150,18 +209,21 @@ def build_train_step(loss_fn: Callable, model: nn.Module, *,
     return TrainStep(loss_fn, model, optimizer or fused_sgd(lr=0.01), group,
                      plan, comm_dtype=comm_dtype, gather_dtype=gather_dtype,
                      has_aux=has_aux, rng_seed=rng_seed,
-                     accum_steps=int(accum_steps), clip_norm=clip_norm)
+                     accum_steps=int(accum_steps), clip_norm=clip_norm,
+                     fused=mode == "dear-fused")
 
 
 class TrainStep:
     """What `build_train_step` returns: ``init``, ``step``,
     ``gather_params``, ``plan`` and ``group``, and the per-run counters
     ``rs_launches``, ``ag_launches`` and ``update_launches`` (one of each
-    per bucket per step) that show the schedule ran per bucket."""
+    per bucket per step) that show the schedule ran per bucket. In
+    ``dear-fused`` mode ``ring`` is the step's `comm.ring.Ring` (holding no
+    buffers at world 1); `close` frees it once every rank is done."""
 
     def __init__(self, loss_fn, model, optimizer, group, plan, *,
                  comm_dtype, gather_dtype, has_aux, rng_seed, accum_steps,
-                 clip_norm):
+                 clip_norm, fused=False):
         self.loss_fn, self.model, self.optimizer = loss_fn, model, optimizer
         self.group, self.plan = group, plan
         self.has_aux, self.rng_seed = has_aux, rng_seed
@@ -203,6 +265,16 @@ class TrainStep:
         self._last_mb = True
         self._comm = (torch.cuda.Stream(dev) if dev.type == "cuda" else None)
         self._bound = False
+        self.fused = fused
+        # every rank builds its ring here, at the same point: the peer
+        # buffers' handles are exchanged over the group (none at world 1)
+        self.ring = (Ring(group, dev, max(b.shard_size for b in bks))
+                     if fused else None)
+        #: dear-fused: the one order every rank issues its reduce-scatters in
+        self._rs_order = [b.index for b in reversed(bks)]
+        self._rs_next = 0
+        self._rs_ready: set = set()
+        self._state: Optional[DearState] = None
 
     # -- streams and collectives ---------------------------------------------
 
@@ -219,17 +291,43 @@ class TrainStep:
             yield
 
     def _reduce_scatter(self, g: int) -> None:
+        if self.fused:
+            self._rs_ready.add(g)
+            self._fused_reduce_scatters()
+            return
         with self._on_comm():
             _, self._rs_work[g] = C.reduce_scatter(
                 self._gbuf[g], self.group, async_op=True,
                 out=self._rs_out[g])
         self.rs_launches += 1
 
+    def _fused_reduce_scatters(self) -> None:
+        """Issue K5 ring for every bucket whose turn in the fixed order has
+        come and whose gradient is complete: the reduce-scatter and the
+        shard update in one launch per bucket."""
+        state = self._state
+        while (self._rs_next < len(self._rs_order)
+               and self._rs_order[self._rs_next] in self._rs_ready):
+            g = self._rs_order[self._rs_next]
+            with self._on_comm():
+                CM.fused_reduce_scatter_update(
+                    self._gbuf[g], state.shards[g], state.opt_state[g],
+                    self.optimizer, self.ring, mean_world=self.world,
+                    step=state.step)
+            self._rs_next += 1
+            self.rs_launches += 1
+            self.update_launches += 1
+
     def _gather(self, g: int, shard: torch.Tensor) -> None:
-        src = shard if self._send[g] is None else self._send[g].copy_(shard)
-        with self._on_comm():
-            _, self._ag_work[g] = C.all_gather(
-                src, self.group, async_op=True, out=self._full[g])
+        with self._on_comm():   # the cast too: K5 ring updates the shard there
+            src = (shard if self._send[g] is None
+                   else self._send[g].copy_(shard))
+            if self.fused:
+                CM.ring_all_gather(src, self.ring, out=self._full[g])
+                self._ag_work[g] = C.StreamEvent.after_current(self.device)
+            else:
+                _, self._ag_work[g] = C.all_gather(
+                    src, self.group, async_op=True, out=self._full[g])
         self.ag_launches += 1
 
     def _wait_gathers(self, buckets) -> None:
@@ -361,6 +459,8 @@ class TrainStep:
         if self._acc is not None:
             for a in self._acc:
                 a.zero_()
+        self._state = state
+        self._rs_next, self._rs_ready = 0, set()
         losses, auxs = [], []
         mbs = self._microbatches(batch)
         for i, mb in enumerate(mbs):
@@ -377,17 +477,48 @@ class TrainStep:
             if aux is not None:
                 auxs.append(torch.as_tensor(aux).detach().float())
         self._finish_buckets()
+        metrics: dict = {}
+        if self.fused:
+            self._fused_gathers(state)
+        else:
+            self._update_and_gather(state, metrics)
+        loss = torch.stack(losses).mean()
+        metrics["loss"] = self._mean_over_ranks(loss)
+        if auxs:
+            metrics["aux"] = self._mean_over_ranks(torch.stack(auxs).mean(0))
+        return DearState(state.shards, state.opt_state, state.step + 1), \
+            metrics
+
+    def _fused_gathers(self, state: DearState) -> None:
+        """dear-fused, after backward: every K5 ring was issued (in the one
+        order); the gathers follow on the comm stream, and the compute
+        stream waits for the reduce-scatters (the next backward rewrites
+        their gradient buffers), not for the gathers (the next forward's
+        pre-hooks wait for those)."""
+        if self._rs_next != len(self._rs_order):
+            raise RuntimeError(
+                f"dear-fused issued {self._rs_next} of "
+                f"{len(self._rs_order)} bucket reduce-scatters")
+        done = (self._comm.record_event() if self._comm is not None
+                else None)
+        with torch.no_grad():
+            for g, shard in enumerate(state.shards):
+                self._gather(g, shard)
+        if done is not None:
+            torch.cuda.current_stream(self.device).wait_event(done)
+
+    def _update_and_gather(self, state: DearState, metrics: dict) -> None:
+        """dear: wait for each bucket's reduce-scatter, clip, update each
+        shard, and start its gather."""
         for g, work in enumerate(self._rs_work):
             work.wait()
             self._rs_work[g] = None
-
-        metrics: dict = {}
         clip_scale = None
         if self.clip_norm is not None:
             mw = torch.tensor(float(self.world), device=self.device)
             sumsq = sum((r.float() / mw).square().sum() for r in self._rs_out)
             if self.world > 1:
-                dist.all_reduce(sumsq, group=self.group)
+                sumsq = C.all_reduce(sumsq, self.group)
             gnorm = sumsq.sqrt()
             clip_scale = torch.clamp(
                 self.clip_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
@@ -400,12 +531,6 @@ class TrainStep:
                     step=state.step)
                 self.update_launches += 1
                 self._gather(g, shard)
-        loss = torch.stack(losses).mean()
-        metrics["loss"] = self._mean_over_ranks(loss)
-        if auxs:
-            metrics["aux"] = self._mean_over_ranks(torch.stack(auxs).mean(0))
-        return DearState(state.shards, state.opt_state, state.step + 1), \
-            metrics
 
     def _mean_over_ranks(self, x: torch.Tensor) -> torch.Tensor:
         if self.world == 1:
@@ -414,9 +539,26 @@ class TrainStep:
 
     def gather_params(self, state: DearState) -> dict:
         """``{name: fp32 tensor}``: the full master parameters, gathered
-        from every rank's shards (for eval and checkpoints)."""
-        bufs = [C.all_gather(s, self.group) for s in state.shards]
+        from every rank's shards (for eval and checkpoints; in dear-fused
+        mode through the ring all-gather, K4)."""
+        if not self.fused:
+            bufs = [C.all_gather(s, self.group) for s in state.shards]
+            return F.unpack_all(bufs, self.plan)
+        bufs = [s.new_empty((self.world * s.shape[0],))
+                for s in state.shards]
+        with self._on_comm():
+            for s, buf in zip(state.shards, bufs):
+                CM.ring_all_gather(s, self.ring, out=buf)
+            done = C.StreamEvent.after_current(self.device)
+        if done is not None:
+            done.wait()
         return F.unpack_all(bufs, self.plan)
+
+    def close(self) -> None:
+        """Free the ring's buffers (dear-fused) once every rank's last ring
+        call is done; every rank calls it. Nothing to do otherwise."""
+        if self.ring is not None:
+            self.ring.close()
 
     def multi_step(self, n: int):
         raise _unported("multi_step (as CUDA-graph capture)", "7")

@@ -97,3 +97,24 @@ def test_cli_trains_on_the_cpu(capsys):
     assert ts.rs_launches == ts.update_launches == steps * n
     assert ts.ag_launches == (steps + 1) * n
     assert res.world == 1 and res.device == "CPU"
+
+
+def test_cli_dear_fused_trains_on_the_cpu():
+    """``--mode dear-fused`` at world 1: the ring collectives short-cut
+    (the update per bucket, the gather the shard), two steps, the loss
+    falls, the gathers in fp32 as the JAX CLI's (only 'dear' and 'fsdp'
+    gather in bf16)."""
+    res = cli.main(["--device", "cpu", "--mode", "dear-fused",
+                    "--num-hidden-layers", "1", "--batch-size", "2",
+                    "--sequence-len", "16", "--fp16", "--base-lr", "0.01",
+                    "--num-warmup-batches", "0", "--num-batches-per-iter",
+                    "2", "--num-iters", "1"])
+    ts = res.train_step
+    assert ts.fused and ts.ring.world == 1
+    assert len(res.losses) == 2 and res.losses[-1] < res.losses[0]
+    n = ts.plan.num_buckets
+    assert ts.rs_launches == ts.update_launches == 2 * n
+    assert ts.ag_launches == 3 * n
+    assert runner.config_from_args(
+        _args("--fp16", "--mode", "dear-fused"), world=2).gather_dtype is None
+    ts.close()

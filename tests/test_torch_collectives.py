@@ -15,7 +15,9 @@ import numpy as np
 import pytest
 import torch
 
+from dear_pytorch_tpu.comm import backend as jB
 from dear_pytorch_tpu.comm import collectives as jC
+from dear_pytorch_tpu_torch.comm import backend as tB
 from dear_pytorch_tpu_torch.comm import collectives as tC
 from tests.test_torch_dear import spawn_ranks
 
@@ -146,3 +148,25 @@ def test_padding_matches_jax(n, world):
     want = np.asarray(jC.pad_to_multiple(jnp.asarray(x), world))
     assert tC.padded_length(n, world) == jC.padded_length(n, world)
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+_LOCAL_SIZE_NAMES = ("DEAR_LOCAL_SIZE", "LOCAL_WORLD_SIZE",
+                     "OMPI_COMM_WORLD_LOCAL_SIZE", "SLURM_NTASKS_PER_NODE")
+
+
+@pytest.mark.parametrize("name", (None,) + _LOCAL_SIZE_NAMES)
+def test_local_size_reads_the_jax_names(name, monkeypatch):
+    """`backend.local_size` reads the JAX package's variables and defaults
+    to 1 as it does; ranks share a card only where the launcher says a
+    host holds more ranks than cards: a 2-host x 8-card world of 16 with
+    no local size set keeps a card per rank (NCCL)."""
+    for k in _LOCAL_SIZE_NAMES:
+        monkeypatch.delenv(k, raising=False)
+    if name is not None:
+        monkeypatch.setenv(name, "2")
+    assert tB.local_size() == jB.local_size() == (1 if name is None else 2)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 8)
+    assert not tB._shares_card(16)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    assert tB._shares_card(2) == (name is not None)
+    assert not tB._shares_card(1)

@@ -55,11 +55,15 @@ CASES = {
     "accum2": {"accum_steps": 2},
     "clip": {"clip_norm": 0.05},
     "adamw_cosine": {"opt": "adamw"},
+    "fused_sgd_bf16": {"mode": "dear-fused", "comm": "bf16"},
+    "fused_adamw": {"mode": "dear-fused", "opt": "adamw"},
 }
 WORLD2_CASES = {
     "dense": {},
     "flash": {"flash": True},
     "gather_bf16": {"comm": "bf16", "gather": "bf16"},
+    "fused_sgd": {"mode": "dear-fused"},
+    "fused_adamw": {"mode": "dear-fused", "opt": "adamw"},
 }
 
 
@@ -111,7 +115,8 @@ def _run_jax(opts, world, params, ids):
         opt = jopt.fused_sgd(lr=0.05, momentum=0.9)
     bf16 = jnp.bfloat16
     ts = jdear.build_train_step(
-        loss_fn, params, optimizer=opt, mesh=mesh, mode="dear",
+        loss_fn, params, optimizer=opt, mesh=mesh,
+        mode=opts.get("mode", "dear"),
         threshold_mb=THRESHOLD_MB,
         comm_dtype=bf16 if opts.get("comm") else None,
         gather_dtype=bf16 if opts.get("gather") else None,
@@ -156,7 +161,8 @@ def run_port(opts, group, rank, world, state_dict, ids, cfg):
     bf16 = torch.bfloat16
     ts = tdear.build_train_step(
         loss_fn, model, optimizer=opt, group=group, device="cpu",
-        threshold_mb=0.02, comm_dtype=bf16 if opts.get("comm") else None,
+        mode=opts.get("mode", "dear"), threshold_mb=0.02,
+        comm_dtype=bf16 if opts.get("comm") else None,
         gather_dtype=bf16 if opts.get("gather") else None,
         accum_steps=opts.get("accum_steps", 1),
         clip_norm=opts.get("clip_norm"))
@@ -172,6 +178,7 @@ def run_port(opts, group, rank, world, state_dict, ids, cfg):
     final = {k: v.numpy() for k, v in ts.gather_params(state).items()}
     counts = (ts.plan.num_buckets, ts.rs_launches, ts.ag_launches,
               ts.update_launches)
+    ts.close()
     return losses, norms, final, counts
 
 
@@ -334,21 +341,50 @@ def test_world2_matches_jax(case, world2_results, jax_params, state_dict):
     assert n_buckets >= 3 and rs == upd == STEPS * n_buckets
 
 
+def test_world2_fused_matches_port_dear(world2_results):
+    """At world 2 the ring's sum of two fp32 gradients is the gloo
+    reduce-scatter's (a + b is commutative), so dear-fused and dear agree
+    to the fp32 tolerance of the update's own arithmetic."""
+    def load(case):
+        r0 = np.load(os.path.join(world2_results, f"{case}.rank0.npz"))
+        return r0["losses"], {k: r0[k] for k in r0.files
+                              if k.startswith("p.")}
+
+    (lf, pf), (ld, pd) = load("fused_sgd"), load("dense")
+    np.testing.assert_allclose(lf, ld, rtol=TOL, atol=TOL)
+    for k in pf:
+        np.testing.assert_allclose(pf[k], pd[k], rtol=TOL, atol=TOL,
+                                   err_msg=k)
+
+
 def test_rejected_options_raise(group):
+    """What is not ported raises NotImplementedError naming its ROADMAP
+    item; ``mode="dear-fused"`` builds, and refuses what the JAX package's
+    dear-fused refuses with its ValueError."""
     model = tgpt.GptLmHeadModel(_torch_config(), device="cpu")
 
     def loss_fn(m, b):
         return m(b).sum()
 
-    bad = [dict(mode="allreduce"), dict(mode="dear-fused"),
-           dict(exclude_parts=("allgather",)), dict(compressor="eftopk"),
-           dict(gtopk=True), dict(momentum_correction=0.9),
-           dict(model_state_template={}), dict(remat="full"),
-           dict(dcn=object())]
+    lamb = topt.LayerwiseShardOptimizer(init=None, update=None)
+    bad = [dict(mode="allreduce"), dict(exclude_parts=("allgather",)),
+           dict(compressor="eftopk"), dict(gtopk=True),
+           dict(momentum_correction=0.9), dict(model_state_template={}),
+           dict(remat="full"), dict(dcn=object()), dict(optimizer=lamb)]
     for kw in bad:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tdear.build_train_step(loss_fn, model, group=group,
                                    device="cpu", **kw)
+    fused = tdear.build_train_step(loss_fn, model, group=group,
+                                   device="cpu", mode="dear-fused")
+    assert fused.fused and fused.ring.world == 1
+    for kw, match in ((dict(clip_norm=1.0), "global-norm clip"),
+                      (dict(optimizer=lamb), "LAMB"),
+                      (dict(compressor="eftopk"), "compression cannot ride"),
+                      (dict(dcn=object()), "multislice")):
+        with pytest.raises(ValueError, match=match):
+            tdear.build_train_step(loss_fn, model, group=group,
+                                   device="cpu", mode="dear-fused", **kw)
     ts = tdear.build_train_step(loss_fn, model, group=group, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ts.multi_step(2)

@@ -63,6 +63,9 @@ def test_importing_the_port_and_chip_smoke_loads_no_jax():
            if m.split(".")[0] in _FORBIDDEN_ROOTS or _is_jax_package(m)]
     assert not bad, bad
     assert "dear_pytorch_tpu_torch.ops.flash_attention" in loaded
+    for ring in ("dear_pytorch_tpu_torch.comm.ring",
+                 "dear_pytorch_tpu_torch.ops.collective_matmul"):
+        assert ring in modules and ring in loaded
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.name)
