@@ -11,7 +11,7 @@ non-zero and no result line is printed):
   1. require CUDA; print the card's name and power limit; turn TF32 off;
   2. build every kernel of the serving and training paths from ``csrc/``
      with nvcc, one process per source, all started together (flash_fwd,
-     flash_bwd, fused_update, ring);
+     flash_bwd, fused_update, ring, ring_matmul);
   3. hold each kernel against its plain PyTorch version on the card:
      - K1, the flash-attention forward (decode and causal-prefill shapes,
        ragged lengths, an all-masked row; fp32 within 2e-5 — summation
@@ -33,6 +33,12 @@ non-zero and no result line is printed):
        fp32 and bf16, SGD momentum (two steps), nesterov + weight decay,
        AdamW with an lr schedule; and every shard size of the training
        run's plan at W = 2;
+     - K6, K7 and K8 (the ring collective matmul: forward, dx, dw) on a
+       `LocalRing` against their stacked plain versions, within
+       `_CM_RTOL` of the largest plain value (8e-3 for bf16 outputs, 1e-5
+       for fp32, TF32 off): W = 2, 4, 8 on ragged and aligned shapes, fp32
+       and bf16, and the main path's M = 8192, K = 768, N = 768 and 3072
+       in bf16 at W = 2;
      and again at the main paths' own shapes in phases 5 and 6: K1 at
      decode B = 4 and train [16, 1024, 12, 64] bf16 causal, K2 and K3 at
      the train shape, the shard update at every shard size of the training
@@ -57,19 +63,25 @@ non-zero and no result line is printed):
      variables, a ``file://`` store, card ``r % device_count``), 8
      sequences per rank, 20 steps, with ``--mode dear-fused`` (every
      step on each rank: K1–K3 12 times each, K4 and the K5 ring once per
-     bucket, no separate update) and again with ``--mode dear``: losses
-     finite, falling and equal on both ranks, both ranks' gathered
-     parameters bitwise equal, dear-fused's step-20 loss within
-     `_FUSED_VS_DEAR_RTOL` of dear's; a rank's failure fails the run;
+     bucket, no separate update), again with ``--mode dear-fused
+     --ring-projections`` (each rank first holds K6–K8 against their plain
+     versions on its own IPC ring at the main path's shapes; then every
+     step also launches K6, K7 and K8 48 times each) and with ``--mode
+     dear``: losses finite, falling and equal on both ranks, both ranks'
+     gathered parameters bitwise equal, dear-fused's step-20 loss within
+     `_FUSED_VS_DEAR_RTOL` of dear's and the ring-projection run's within
+     `_RP_VS_FUSED_RTOL` of dear-fused's; a rank's failure fails the run;
   6. trace steady bf16 decode ticks and training steps with
      ``torch.profiler`` (device ops, busy time and idle share, the top
      device ops of a step); time each kernel, its plain version and
      PyTorch's own call where one computes the same function (SDPA, its
      backward and ``torch.optim.SGD(fused=True)``: yardsticks the port
-     never calls; none for K4 / the K5 ring on one card) at the main
+     never calls; none for the K5 ring on one card) at the main
      path's shapes, beside the card's bound — K4 and the K5 ring per
-     bucket on a two-rank `LocalRing`; step time p50/p99, tokens/s and
-     MFU, and the two-rank step p50/p99 and tokens/s.
+     bucket and K6–K8 per call on a two-rank `LocalRing` (K6–K8 beside
+     one cuBLAS call computing the same function for both ranks); step
+     time p50/p99, tokens/s and MFU, and the two-rank steps' p50/p99 and
+     tokens/s.
 
 ``python3 chip_smoke.py --kernels-only`` runs phases 1–3 and stops without
 a result line. In a full run the line before the last lists the kernels
@@ -513,6 +525,96 @@ def check_ring_kernels() -> tuple:
     return ag, rs
 
 
+#: the ring matmul (K6, K7, K8) against its plain version: largest error
+#: over the largest |plain value| — bf16 outputs round to 2^-8 relative
+#: (one ulp is 3.9e-3; two roundings of sums that differ only in their
+#: order are at most one ulp apart), fp32 only sums in another order
+_CM_RTOL = {torch.bfloat16: 8e-3, torch.float32: 1e-5}
+#: the main path's ring-matmul shapes at W = 2: M = 8 x 1024 tokens per
+#: rank, K = 768 (kc = 384), N = 768 (query, key, value) or 3072 (mlp_in)
+_CM_MAIN = ((8 * 1024, 384, 768), (8 * 1024, 384, 3072))
+
+
+def _cm_operands(world, m, kc, n, dt, gen, device=None):
+    """Every rank's x [W, M, W*kc], weight shard [W, kc, N] and dy [W, M,
+    N] on the card, scaled so that outputs stay O(1)."""
+    dev = device or _DEV
+    return (torch.randn(world, m, world * kc, generator=gen, device=dev)
+            .to(dt),
+            (torch.randn(world, kc, n, generator=gen, device=dev)
+             / (world * kc) ** 0.5).to(dt),
+            (torch.randn(world, m, n, generator=gen, device=dev)
+             / m ** 0.5).to(dt))
+
+
+def _cm_pairs(x, ws, dy, ring, rank=None):
+    """[(name, kernel output, plain output)] of K6, K7, K8 on ``ring`` (the
+    stacked operands on a `LocalRing`; row ``rank`` of them on a `Ring`)
+    against the stacked plain versions."""
+    pick = (lambda t: t) if rank is None else (lambda t: t[rank].contiguous())
+    got = (CM.ring_matmul(pick(x), pick(ws), ring),
+           CM.ring_matmul_dx(pick(dy), pick(ws), ring),
+           CM.ring_matmul_dw(pick(x), pick(dy), ring))
+    ref = (CM.ring_matmul_stacked(x, ws), CM.ring_matmul_dx_stacked(dy, ws),
+           CM.ring_matmul_dw_stacked(x, dy))
+    if rank is not None:
+        ref = tuple(r[rank] for r in ref)
+    return list(zip(("cm_fwd", "cm_dx", "cm_dw"), got, ref))
+
+
+def _cm_hold(tag, pairs, worst) -> None:
+    """Hold each kernel output within `_CM_RTOL` of its plain version;
+    fold the largest absolute errors into ``worst``."""
+    torch.cuda.synchronize()
+    for name, got, ref in pairs:
+        _check(bool(torch.isfinite(got).all()), f"{name} {tag}: not finite")
+        err = float((got.float() - ref.float()).abs().max())
+        scale = float(ref.float().abs().max())
+        rel = err / max(scale, 1e-30)
+        _check(rel <= _CM_RTOL[got.dtype], f"{name} {tag}: error {err:.3e} "
+               f"= {rel:.3e} of max |plain| {scale:.3e} (limit "
+               f"{_CM_RTOL[got.dtype]:g})")
+        worst[name] = max(worst.get(name, 0.0), err)
+
+
+def check_ring_matmul_kernels() -> dict:
+    """K6, K7 and K8 on a `LocalRing` against their stacked plain versions
+    (`_CM_RTOL`): at W = 2, 4 and 8 on ragged shapes (M, kc and N multiples
+    of no tile; fp32 and bf16) and on shapes the 16-byte path takes, and at
+    W = 2 at the main path's own shapes (`_CM_MAIN`, bf16), two calls in a
+    row (the second reuses the slots behind the first's credits). Returns
+    the largest absolute error of each."""
+    gen = torch.Generator(device=_DEV).manual_seed(12)
+    worst: dict = {}
+    cases = 0
+    for world in (2, 4, 8):
+        shapes = ((37, 5, 19), (200, 24, 72))
+        ring = LocalRing(world, _DEV, 1,
+                         cm_elems=max(kc * n for _, kc, n in shapes))
+        for m, kc, n in shapes:
+            for dt in (torch.float32, torch.bfloat16):
+                ops = _cm_operands(world, m, kc, n, dt, gen)
+                _cm_hold(f"W={world} M={m} kc={kc} N={n} {dt}",
+                         _cm_pairs(*ops, ring), worst)
+                cases += 1
+        ring.close()
+    ring = LocalRing(2, _DEV, 1, cm_elems=max(kc * n for _, kc, n in _CM_MAIN))
+    for m, kc, n in _CM_MAIN:
+        for call in range(2):
+            ops = _cm_operands(2, m, kc, n, torch.bfloat16, gen)
+            _cm_hold(f"main W=2 M={m} K={2 * kc} N={n} call {call}",
+                     _cm_pairs(*ops, ring), worst)
+            cases += 1
+    ring.close()
+    print(f"ring matmul check: K6, K7, K8 in {cases} cases each (W = 2, 4, "
+          "8 on ragged and aligned shapes, fp32 and bf16; the main path's "
+          "M=8192 K=768 N=768 and 3072 bf16 at W = 2, twice each): largest "
+          "errors " + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+          + f" (limits {_CM_RTOL[torch.bfloat16]:g} bf16, "
+          f"{_CM_RTOL[torch.float32]:g} fp32, of max |plain|)")
+    return worst
+
+
 # ---------------------------------------------------------------------------
 # phase 4: serve GPT-2 small through DecodeEngine
 # ---------------------------------------------------------------------------
@@ -740,14 +842,52 @@ _TWO_RANK_ARGS = ["--model", "gpt2", "--fp16", "--flash-attention",
 _FUSED_VS_DEAR_RTOL = 1e-3
 
 
+#: the two-rank runs: name -> the training CLI's mode flags
+_TWO_RANK_MODES = {
+    "dear-fused": ["--mode", "dear-fused"],
+    "dear": ["--mode", "dear"],
+    "ring-projections": ["--mode", "dear-fused", "--ring-projections"],
+}
+#: the step-20 loss with ring projections against dear-fused without
+#: (relative): slice 3's limit, kept — K6-K8 sum bf16 products in fp32 in
+#: another order than cuBLAS, which bf16 compute carries into the loss
+_RP_VS_FUSED_RTOL = 1e-3
+
+
 def _two_rank_counts(ts) -> dict:
     return {"flash_fwd": FA.flash_fwd_launches,
             "flash_bwd_dq": FA.flash_bwd_dq_launches,
             "flash_bwd_dkv": FA.flash_bwd_dkv_launches,
             "fused_update": FS.fused_update_launches,
             "ring_ag": CM.ring_ag_launches, "ring_rs": CM.ring_rs_launches,
+            "cm_fwd": CM.cm_fwd_launches, "cm_dx": CM.cm_dx_launches,
+            "cm_dw": CM.cm_dw_launches,
             "rs": ts.rs_launches, "ag": ts.ag_launches,
             "update": ts.update_launches}
+
+
+def check_ring_matmul_two_ranks(rank: int) -> dict:
+    """K6, K7 and K8 on the main path's own transport — the two processes'
+    IPC `Ring` — against the stacked plain versions at the main path's
+    shapes (`_CM_MAIN`, bf16), two calls each: both ranks draw both ranks'
+    operands from one seed, each feeds its own row to the kernels and
+    holds its outputs to `_CM_RTOL` of the plain versions' row. Returns
+    the largest absolute error of each."""
+    world = 2
+    group = backend.init(_DEV)
+    dev = backend.device()
+    ring = Ring(group, dev, 1, cm_elems=max(kc * n for _, kc, n in _CM_MAIN))
+    gen = torch.Generator(device=dev).manual_seed(14)
+    worst: dict = {}
+    for m, kc, n in _CM_MAIN:
+        for call in range(2):
+            ops = _cm_operands(world, m, kc, n, torch.bfloat16, gen, dev)
+            _cm_hold(f"rank {rank} IPC ring M={m} K={world * kc} N={n} "
+                     f"call {call}", _cm_pairs(*ops, ring, rank=rank), worst)
+    ring.close()
+    print(f"rank {rank}: IPC ring matmul check at the main path's shapes: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
+    return worst
 
 
 def check_ring_two_ranks(rank: int) -> tuple:
@@ -807,14 +947,14 @@ def check_ring_two_ranks(rank: int) -> tuple:
 
 def rank_worker(rank: int, out: Path, mode: str) -> None:
     """One of the two ranks (a process of its own, on card ``rank %
-    device_count``): in dear-fused, first `check_ring_two_ranks` (its
-    launches are not the main path's); then 20 steps of the training CLI
-    in ``mode`` over a gloo group that meets at a FileStore in ``out``,
-    every step's launches
-    checked; in dear-fused, a ``torch.profiler`` trace of 3 more steps
-    (both ranks; their ring calls pair up); then the gathered parameters'
-    digest, the losses, the launches, the step times and the trace into
-    ``out/rank<r>.json``."""
+    device_count``): in dear-fused, first `check_ring_two_ranks`, with ring
+    projections `check_ring_matmul_two_ranks` (their launches are not the
+    main path's); then 20 steps of the training CLI in ``mode`` (a key of
+    `_TWO_RANK_MODES`) over a gloo group that meets at a FileStore in
+    ``out``, every step's launches checked; in both dear-fused modes, a
+    ``torch.profiler`` trace of 3 more steps (both ranks; their ring calls
+    pair up); then the gathered parameters' digest, the losses, the
+    launches, the step times and the trace into ``out/rank<r>.json``."""
     os.environ.update(
         DEAR_NUM_PROCESSES="2", DEAR_PROCESS_ID=str(rank),
         DEAR_COORDINATOR_ADDRESS=f"file://{out}/store",
@@ -822,12 +962,16 @@ def rank_worker(rank: int, out: Path, mode: str) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     ring_errs = check_ring_two_ranks(rank) if mode == "dear-fused" else None
+    rp = mode == "ring-projections"
+    cm_errs = check_ring_matmul_two_ranks(rank) if rp else None
     layers = GPT2_SMALL.num_hidden_layers
     FA.flash_fwd_launches = FA.flash_bwd_dq_launches = 0   # the main path
     FA.flash_bwd_dkv_launches = FS.fused_update_launches = 0   # starts
     CM.ring_ag_launches = CM.ring_rs_launches = 0
+    CM.cm_fwd_launches = CM.cm_dx_launches = CM.cm_dw_launches = 0
     marks, prev = [], {}
-    fused = mode == "dear-fused"
+    fused = mode != "dear"
+    n_cm = 4 * layers if rp else 0     # query, key, value, mlp_in
 
     def on_step(ts, state, metrics):
         del state, metrics
@@ -838,7 +982,8 @@ def rank_worker(rank: int, out: Path, mode: str) -> None:
         want = {"flash_fwd": layers, "flash_bwd_dq": layers,
                 "flash_bwd_dkv": layers, "rs": nb, "ag": nb, "update": nb,
                 "fused_update": 0 if fused else nb,
-                "ring_ag": nb if fused else 0, "ring_rs": nb if fused else 0}
+                "ring_ag": nb if fused else 0, "ring_rs": nb if fused else 0,
+                "cm_fwd": n_cm, "cm_dx": n_cm, "cm_dw": n_cm}
         got = {k: now[k] - before[k] for k in now}
         _check(got == want, f"rank {rank} {mode} step {len(marks) + 1}: "
                f"launches {got}, expected {want}")
@@ -847,8 +992,8 @@ def rank_worker(rank: int, out: Path, mode: str) -> None:
         ev.record()
         marks.append(ev)
 
-    res = train_cli.main(_TWO_RANK_ARGS + ["--mode", mode, "--device",
-                                           _DEV], on_step=on_step)
+    res = train_cli.main(_TWO_RANK_ARGS + _TWO_RANK_MODES[mode]
+                         + ["--device", _DEV], on_step=on_step)
     ts = res.train_step
     launches = _two_rank_counts(ts)               # ... and ends here
     step_ms = [a.elapsed_time(b) for a, b in
@@ -865,7 +1010,7 @@ def rank_worker(rank: int, out: Path, mode: str) -> None:
     (out / f"rank{rank}.json").write_text(json.dumps({
         "losses": res.losses, "launches": launches, "step_ms": step_ms,
         "tokens_per_s": res.total_mean * 1024, "params": digest.hexdigest(),
-        "trace": trace, "ring_errs": ring_errs,
+        "trace": trace, "ring_errs": ring_errs, "cm_errs": cm_errs,
         "shard_sizes": sorted({b.shard_size for b in ts.plan.buckets}),
         "bucket_shards": [b.shard_size for b in ts.plan.buckets],
         "buckets": ts.plan.num_buckets,
@@ -914,19 +1059,24 @@ def train_two_ranks(mode: str, timeout: float = 600.0) -> list:
 
 
 def train_dear_fused() -> tuple:
-    """The slice's main path: GPT-2 small at full width trained 20 steps
-    with ``--mode dear-fused`` by two ranks sharing card 0 (two processes,
-    one ring), then the same with ``--mode dear`` for the loss comparison.
-    Checks: finite and falling losses, equal on both ranks; both ranks'
-    gathered parameters bitwise equal; every step's launches (in each
-    rank); dear-fused's step-20 loss within `_FUSED_VS_DEAR_RTOL` of
-    dear's. Returns (the two ranks' dear-fused results, dear's)."""
+    """The main paths of slices 3 and 4: GPT-2 small at full width trained
+    20 steps with ``--mode dear-fused`` by two ranks sharing card 0 (two
+    processes, one ring), again with ``--ring-projections``, then with
+    ``--mode dear`` for the loss comparison. Checks: finite and falling
+    losses, equal on both ranks; both ranks' gathered parameters bitwise
+    equal; every step's launches (in each rank); dear-fused's step-20
+    loss within `_FUSED_VS_DEAR_RTOL` of dear's, and with ring projections
+    within `_RP_VS_FUSED_RTOL` of dear-fused's. Returns the two ranks'
+    results of each run: (dear-fused, ring projections, dear)."""
     t0 = time.perf_counter()
     fused = train_two_ranks("dear-fused")
     t1 = time.perf_counter()
-    dear = train_two_ranks("dear")
+    rp = train_two_ranks("ring-projections")
     t2 = time.perf_counter()
-    for mode, ranks in (("dear-fused", fused), ("dear", dear)):
+    dear = train_two_ranks("dear")
+    t3 = time.perf_counter()
+    for mode, ranks in (("dear-fused", fused), ("ring-projections", rp),
+                        ("dear", dear)):
         losses = ranks[0]["losses"]
         print(f"two ranks {mode}: losses {[round(x, 4) for x in losses]}; "
               f"{ranks[0]['buckets']} buckets, backend "
@@ -944,13 +1094,19 @@ def train_dear_fused() -> tuple:
            "two ranks: the run's plan is not the one the kernels were "
            "checked at")
     lf, ld = fused[0]["losses"][-1], dear[0]["losses"][-1]
+    lr = rp[0]["losses"][-1]
     rel = abs(lf - ld) / abs(ld)
+    rel_rp = abs(lr - lf) / abs(lf)
     print(f"step-20 loss: dear-fused {lf:.6f}, dear {ld:.6f}, relative "
-          f"difference {rel:.3e} (limit {_FUSED_VS_DEAR_RTOL:g}); parameters "
-          "of the two ranks bitwise equal in both modes; wall "
-          f"{t1 - t0:.1f} s (dear-fused), {t2 - t1:.1f} s (dear)")
+          f"difference {rel:.3e} (limit {_FUSED_VS_DEAR_RTOL:g}); with ring "
+          f"projections {lr:.6f}, {rel_rp:.3e} from dear-fused (limit "
+          f"{_RP_VS_FUSED_RTOL:g}); parameters of the two ranks bitwise "
+          f"equal in every run; wall {t1 - t0:.1f} s (dear-fused), "
+          f"{t2 - t1:.1f} s (ring projections), {t3 - t2:.1f} s (dear)")
     _check(rel <= _FUSED_VS_DEAR_RTOL, "dear-fused and dear losses differ")
-    return fused, dear
+    _check(rel_rp <= _RP_VS_FUSED_RTOL,
+           "ring projections and dear-fused losses differ")
+    return fused, rp, dear
 
 
 def train_flops_per_step(cfg, B, S) -> float:
@@ -993,18 +1149,21 @@ def trace_train_steps(ts, state, batch, step_p50_ms, n=2,
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
     ring = sum(ms for name, (ms, _) in by_name.items()
                if "::ring_" in name) / n
+    cm = sum(ms for name, (ms, _) in by_name.items()
+             if "::cm_" in name) / n
     print(f"train step trace ({label}, {n} steps): "
           f"{len(kernels) / n:.1f} device ops/step, device busy "
           f"{busy:.3f} ms/step, wall {wall / n * 1e3:.3f} ms/step under the "
           f"profiler (idle {1 - busy / (wall / n * 1e3):.1%}), idle "
           f"{1 - busy / step_p50_ms:.1%} of the unprofiled step p50 "
-          f"{step_p50_ms:.3f} ms; ring kernels resident {ring:.3f} ms/step "
-          "(their spans, waits included)")
+          f"{step_p50_ms:.3f} ms; ring kernels resident {ring:.3f} ms/step, "
+          f"ring matmul kernels {cm:.3f} ms/step (their spans, waits "
+          "included)")
     for name, (ms, count) in top:
         print(f"  top op {ms / n:9.3f} ms/step {count // n:5d}x/step "
               f"{name[:110]}")
     return {"ops_per_step": len(kernels) / n, "busy_ms": busy,
-            "wall_ms": wall / n * 1e3, "ring_ms": ring,
+            "wall_ms": wall / n * 1e3, "ring_ms": ring, "cm_ms": cm,
             "top": [(name, ms / n) for name, (ms, _) in top]}
 
 
@@ -1352,6 +1511,80 @@ def time_ring(bucket_shards, hbm):
     return rows
 
 
+def time_ring_matmul(hbm, calls_per_step):
+    """K6, K7 and K8 on a two-rank `LocalRing` (one cooperative launch
+    drives both ranks, as the two processes' launches share the card) at
+    the main path's shapes (`_CM_MAIN`, bf16), each held to its plain
+    version first; beside the stacked plain versions, the bound and one
+    cuBLAS call computing the same function for both ranks (a yardstick
+    the port never calls): K6 ``x @ w`` (x stacked [2, M, K], w the full
+    [K, N]), K7 ``dy @ wᵀ``, K8 ``x_catᵀ @ dy_cat`` (the ranks' rows
+    concatenated: every rank's dw shard at once). Per call, both ranks:
+    operations 2 x 2·M·K·N, bytes 2 x (M·K + kc·N + M·N) x 2 (each input
+    read once, each output written once). Per step: ``calls_per_step[N]``
+    calls at each N. Returns the rows of each kernel by N."""
+    world = 2
+    gen = torch.Generator(device=_DEV).manual_seed(13)
+    ring = LocalRing(world, _DEV, 1,
+                     cm_elems=max(kc * n for _, kc, n in _CM_MAIN))
+    rows = {"cm_fwd": {}, "cm_dx": {}, "cm_dw": {}}
+    for m, kc, n in _CM_MAIN:
+        k = world * kc
+        sets = [_cm_operands(world, m, kc, n, torch.bfloat16, gen)
+                for _ in range(2)]
+        worst: dict = {}
+        _cm_hold(f"timed W=2 M={m} K={k} N={n}", _cm_pairs(*sets[0], ring),
+                 worst)
+        fns = {
+            "cm_fwd": (lambda x, ws, dy: CM.ring_matmul(x, ws, ring),
+                       lambda x, ws, dy: CM.ring_matmul_stacked(x, ws),
+                       lambda x, ws, dy: torch.matmul(x, ws.reshape(k, n))),
+            "cm_dx": (lambda x, ws, dy: CM.ring_matmul_dx(dy, ws, ring),
+                      lambda x, ws, dy: CM.ring_matmul_dx_stacked(dy, ws),
+                      lambda x, ws, dy: torch.matmul(
+                          dy, ws.reshape(k, n).T)),
+            "cm_dw": (lambda x, ws, dy: CM.ring_matmul_dw(x, dy, ring),
+                      lambda x, ws, dy: CM.ring_matmul_dw_stacked(x, dy),
+                      lambda x, ws, dy: x.reshape(-1, k).T
+                      @ dy.reshape(-1, n)),
+        }
+        flops = world * 2 * m * k * n
+        nbytes = world * (m * k + kc * n + m * n) * 2
+        bound = max(nbytes / hbm, flops / _PEAK_FLOPS[torch.bfloat16]) * 1e3
+        for name, (kernel, plain, library) in fns.items():
+            got = kernel(*sets[0]).reshape(-1)
+            lib = library(*sets[0]).reshape(-1)
+            _check(float((got.float() - lib.float()).abs().max())
+                   <= 2 * _CM_RTOL[torch.bfloat16]
+                   * float(lib.float().abs().max()),
+                   f"{name}'s cuBLAS yardstick computes another function")
+            ms = device_ms(kernel, sets, 20)
+            row = {"shape": f"W=2 LocalRing M={m} K={k} N={n}",
+                   "dtype": "bf16", "ms": ms,
+                   "plain_ms": device_ms(plain, sets, 5),
+                   "library_ms": device_ms(library, sets, 20),
+                   "library_scope": "one cuBLAS call for both ranks",
+                   "bound_ms": bound,
+                   "bound_by": ("operations" if flops
+                                / _PEAK_FLOPS[torch.bfloat16]
+                                >= nbytes / hbm else "bytes"),
+                   "flops": flops, "bytes": nbytes,
+                   "tflops": flops / ms / 1e9,
+                   "launches_per_step": calls_per_step[n]}
+            print("kernel time " + json.dumps({"kernel": name} | row))
+            rows[name][n] = row
+    ring.close()
+    for name, by_n in rows.items():
+        per_step = {key: sum(by_n[n][key] * calls_per_step[n] for n in by_n)
+                    for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
+        print(f"{name}: per step at W=2 ({sum(calls_per_step.values())} "
+              "calls, both ranks): kernel "
+              f"{per_step['ms']:.4f} ms, plain {per_step['plain_ms']:.4f} "
+              f"ms, bound {per_step['bound_ms']:.4f} ms, cuBLAS "
+              f"{per_step['library_ms']:.4f} ms")
+    return rows
+
+
 def _kernel_entry(name, source, replaces, launches, err, row):
     entry = {"name": name, "route": "cuda",
              "source": f"dear_pytorch_tpu_torch/csrc/{source}",
@@ -1393,7 +1626,8 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    logs = _build.build(["flash_fwd", "flash_bwd", "fused_update", "ring"])
+    logs = _build.build(["flash_fwd", "flash_bwd", "fused_update", "ring",
+                         "ring_matmul"])
     print(f"build: {time.perf_counter() - t0:.1f} s "
           f"({', '.join(logs) or 'cached'}) into {_build.BUILD_DIR}")
     for log in logs.values():
@@ -1406,6 +1640,7 @@ def main(argv=None) -> int:
     dq_err, dkv_err = check_bwd_kernels()
     upd_err = check_update_kernel()
     ag_err, rs_err = check_ring_kernels()
+    cm_err = check_ring_matmul_kernels()
     print(f"kernel checks: {time.perf_counter() - t0:.1f} s")
     if kernels_only:
         return 0
@@ -1418,10 +1653,13 @@ def main(argv=None) -> int:
     check_flash_step_vs_dense()
     train_with_dropout()
     t0 = time.perf_counter()
-    fused, _ = train_dear_fused()
+    fused, rp, _ = train_dear_fused()
     for rank in fused:      # the IPC ring's own checks, in each rank
         ag_err = max(ag_err, rank["ring_errs"][0])
         rs_err = max(rs_err, rank["ring_errs"][1])
+    for rank in rp:
+        for k, v in rank["cm_errs"].items():
+            cm_err[k] = max(cm_err[k], v)
     print("IPC ring check, both ranks: K4 fp32 and bf16, K5 ring bf16 (two "
           "steps) at the plan's shard sizes: 0 ulp from the plain versions")
     print(f"two-rank phase: {time.perf_counter() - t0:.1f} s")
@@ -1439,10 +1677,12 @@ def main(argv=None) -> int:
           f"{tok_s / (B * S) * flops / _PEAK_FLOPS[torch.bfloat16]:.2%} of "
           f"{_PEAK_FLOPS[torch.bfloat16] / 1e12:.0f} TF/s bf16")
     trace_train_steps(res.train_step, res.state, res.batch, p50)
-    for r, rank in enumerate(fused):
+    for label, r, rank in ([("dear-fused", r, x) for r, x in enumerate(fused)]
+                           + [("dear-fused --ring-projections", r, x)
+                              for r, x in enumerate(rp)]):
         fp50, fp99 = (float(np.percentile(rank["step_ms"], q))
                       for q in (50, 99))
-        print(f"two-rank dear-fused step, rank {r} (GPT-2 small, bf16, 8 "
+        print(f"two-rank {label} step, rank {r} (GPT-2 small, bf16, 8 "
               f"sequences of {S} per rank, {len(rank['step_ms'])} timed "
               f"steps): p50 {fp50:.3f} ms p99 {fp99:.3f} ms; "
               f"{rank['tokens_per_s']:.1f} tokens/s over both ranks (the "
@@ -1454,7 +1694,8 @@ def main(argv=None) -> int:
             print(f"  traced (2 steps, this rank's context): "
                   f"{tr['ops_per_step']:.1f} device ops/step, kernels' "
                   f"spans {tr['busy_ms']:.3f} ms/step of which the ring "
-                  f"kernels {tr['ring_ms']:.3f}, wall {tr['wall_ms']:.3f} "
+                  f"kernels {tr['ring_ms']:.3f} and the ring matmul "
+                  f"kernels {tr['cm_ms']:.3f}, wall {tr['wall_ms']:.3f} "
                   "ms/step under the profiler; top: "
                   + "; ".join(f"{ms:.3f} {name[:48]}"
                               for name, ms in tr["top"][:6]))
@@ -1493,10 +1734,14 @@ def main(argv=None) -> int:
     # the kernels line: the 25 MB bucket's shard, as for the update
     ring_n = max(n for n in fused[0]["shard_sizes"]
                  if 2 * n * 4 <= 25 * 2**20)
-    fused_launches = {k: sum(r["launches"][k] for r in fused)
+    cm_rows = time_ring_matmul(hbm, {768: 3 * layers, 3072: layers})
+    fused_launches = {k: sum(r["launches"][k] for r in fused + rp)
                       for k in fused[0]["launches"]}
-    print(f"main path (two ranks, dear-fused): launches over both ranks "
-          f"{fused_launches}")
+    rp_launches = {k: sum(r["launches"][k] for r in rp)
+                   for k in rp[0]["launches"]}
+    print(f"main paths (two ranks, dear-fused, with and without ring "
+          f"projections): launches over both ranks and runs "
+          f"{fused_launches}; with ring projections {rp_launches}")
 
     print(json.dumps({"kernels": [
         _kernel_entry("flash_fwd", "flash_fwd.cu",
@@ -1524,7 +1769,14 @@ def main(argv=None) -> int:
                       "dear_pytorch_tpu/ops/collective_matmul.py:317",
                       fused_launches["ring_rs"], rs_err,
                       ring_rows["ring_rs_update"][ring_n]),
-    ]}))
+    ] + [
+        # the mlp_in shape (N = 3072); PERF.md has both shapes and per step
+        _kernel_entry(kname, "ring_matmul.cu",
+                      f"dear_pytorch_tpu/ops/collective_matmul.py:{line}",
+                      rp_launches[kname], cm_err[kname],
+                      cm_rows[kname][3072])
+        for kname, line in (("cm_fwd", 510), ("cm_dx", 545),
+                            ("cm_dw", 572))]}))
     backend.shutdown()
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -13,9 +13,10 @@ group through the launcher variables of `comm.backend`
 (``DEAR_NUM_PROCESSES``, ``DEAR_PROCESS_ID``, ``DEAR_COORDINATOR_ADDRESS``);
 every rank draws the same global batch and trains on its own slice.
 ``--mode dear-fused`` runs both legs as the ring kernels (K4, K5 ring), also
-for ranks that share one card. ``--sp-degree > 1``, ``--ring-projections``
-(tensor parallelism: ROADMAP Queue 2, K6–K8), ``--remat`` and
-``--num-experts`` are not ported yet and raise.
+for ranks that share one card; ``--ring-projections`` (which requires it)
+also runs every block's query, key, value and MLP-up projections as the
+ring collective matmul (K6 forward, K7 and K8 backward). ``--sp-degree >
+1``, ``--remat`` and ``--num-experts`` are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -36,6 +37,9 @@ from dear_pytorch_tpu_torch.models.gpt import (
     flash_causal_attention_impl,
     gpt_lm_loss,
 )
+from dear_pytorch_tpu_torch.ops.collective_matmul import (
+    make_ring_projection_impl,
+)
 from dear_pytorch_tpu_torch.parallel.dear import build_train_step
 
 
@@ -52,7 +56,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="mixture of experts (not ported yet: > 0 raises)")
     p.add_argument("--ring-projections", action="store_true", default=False,
                    help="ring collective-matmul projections; requires "
-                        "--mode dear-fused (not ported yet: raises)")
+                        "--mode dear-fused")
     p.add_argument("--dropout0", action="store_true", default=False,
                    help="zero every dropout prob")
     p.add_argument("--remat", action="store_true", default=False,
@@ -75,10 +79,10 @@ def main(argv=None, on_step: Optional[Callable] = None
     rank's batch as ``.batch``. ``on_step(train_step, state, metrics)`` is
     called after every step (warmup included)."""
     args = build_parser().parse_args(argv)
-    if args.ring_projections:
-        raise NotImplementedError(
-            "--ring-projections (the ring collective-matmul projections, "
-            "K6-K8) is not ported yet: ROADMAP Queue 2, tensor parallelism")
+    if args.ring_projections and (args.mode != "dear-fused"
+                                  or args.sp_degree > 1):
+        raise SystemExit("--ring-projections requires --mode dear-fused "
+                         "on a pure dp mesh (no --sp-degree)")
     unported = [flag for flag, on in (
         ("--sp-degree > 1", args.sp_degree > 1),
         ("--remat", args.remat), ("--num-experts", args.num_experts > 0))
@@ -111,6 +115,8 @@ def main(argv=None, on_step: Optional[Callable] = None
     model = models.GptLmHeadModel(
         cfg, attention_impl=(flash_causal_attention_impl()
                              if args.flash_attention else None),
+        projection_impl=(make_ring_projection_impl()
+                         if args.ring_projections else None),
         device=dev, seed=0)
     broadcast_parameters(model, group=group)
 

@@ -10,7 +10,16 @@ slot and kernel block (``csrc/ring.cu`` describes the protocol). A rank's
 kernels write the hop into its RIGHT neighbour's slots and raise that
 neighbour's arrival flags, and raise its LEFT neighbour's credit flags when
 a slot is free again, so each rank needs pointers into both neighbours'
-buffers:
+buffers.
+
+A third leg, ``"cm"``, carries the ring collective matmul (K6, K7, K8 of
+``csrc/ring_matmul.cu``) when a ring is built with ``cm_elems``: a header
+of flags, then one slot per hop (W - 1) of ``cm_elems`` fp32 elements,
+the largest ``kc * N`` of the projections (K8's partials travel in fp32).
+It has its own buffer, flags and call counter because those kernels run
+on the compute stream during forward and backward while K4 and the K5
+ring run on the comm stream: the two sequences interleave differently on
+each rank, and each must pair up across ranks on its own.
 
   - `Ring`: one rank per process. The buffers are allocated with
     ``cudaMalloc`` (through the built ``csrc/ring.cu``), their CUDA IPC
@@ -38,12 +47,14 @@ import ctypes
 import torch
 import torch.distributed as dist
 
-__all__ = ["LEGS", "LocalRing", "Ring", "ring_lib"]
+__all__ = ["LEGS", "LocalRing", "Ring", "matmul_lib", "ring_lib"]
 
-#: the two legs, each with its own buffers, flags and call counter
-LEGS = ("ag", "rs")
+#: the legs, each with its own buffers, flags and call counter ("cm" only
+#: when the ring is built with ``cm_elems``)
+LEGS = ("ag", "rs", "cm")
 
 _lib = None
+_mm_lib = None
 
 
 def ring_lib() -> ctypes.CDLL:
@@ -74,6 +85,26 @@ def ring_lib() -> ctypes.CDLL:
     return _lib
 
 
+def matmul_lib() -> ctypes.CDLL:
+    """The built ``csrc/ring_matmul.cu`` (compiled at first use)."""
+    global _mm_lib
+    if _mm_lib is None:
+        from dear_pytorch_tpu_torch.ops import _build
+
+        lib = _build.load("ring_matmul")
+        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        for fn in (lib.rmm_forward, lib.rmm_dx, lib.rmm_dw):
+            fn.argtypes = [ptr, i32, i32, i64, i64, i64, i64, i32,
+                           ctypes.c_uint, i32, ptr]
+            fn.restype = i32
+        lib.rmm_header_bytes.argtypes = []
+        lib.rmm_header_bytes.restype = i64
+        lib.rmm_error_string.argtypes = [i32]
+        lib.rmm_error_string.restype = ctypes.c_char_p
+        _mm_lib = lib
+    return _mm_lib
+
+
 def check(err: int, what: str) -> None:
     if err:
         raise RuntimeError(f"{what} failed: "
@@ -90,6 +121,23 @@ def _layout(max_elems: int) -> tuple:
     return slot, arrive, credit, credit + 2 * blocks * 4
 
 
+def _cm_layout(cm_elems: int, world: int) -> tuple:
+    """(slot bytes, total bytes) of the cm leg's buffer: the flag header,
+    then W - 1 slots of ``cm_elems`` fp32 elements."""
+    slot = -(-max(1, cm_elems) * 4 // 256) * 256
+    return slot, matmul_lib().rmm_header_bytes() + (world - 1) * slot
+
+
+def _leg_bytes(leg: str, max_elems: int, cm_elems: int, world: int) -> int:
+    if leg == "cm":
+        return _cm_layout(cm_elems, world)[1]
+    return _layout(max_elems)[3]
+
+
+def _legs(cm_elems: int) -> tuple:
+    return LEGS if cm_elems > 0 else LEGS[:2]
+
+
 def _link(own: int, right: int, left: int, max_elems: int) -> tuple:
     """The 8 pointers a rank's kernel block needs (csrc/ring.cu's order):
     its slots, the right neighbour's slots, its arrival flags, the right
@@ -101,13 +149,14 @@ def _link(own: int, right: int, left: int, max_elems: int) -> tuple:
 
 class Ring:
     """This rank's end of the ring over ``group`` on ``device``, with slots
-    for shards of up to ``max_elems`` elements. Built on every rank at the
-    same point (it exchanges handles over the group)."""
+    for shards of up to ``max_elems`` elements and, with ``cm_elems``, the
+    ring-matmul leg for hops of up to ``cm_elems`` fp32 elements. Built on
+    every rank at the same point (it exchanges handles over the group)."""
 
     stacked = False
     cooperative = False
 
-    def __init__(self, group, device, max_elems: int):
+    def __init__(self, group, device, max_elems: int, cm_elems: int = 0):
         self.group = group
         self.world = dist.get_world_size(group)
         self.rank = dist.get_rank(group)
@@ -115,7 +164,9 @@ class Ring:
         self.left = (self.rank - 1) % self.world
         self.device = torch.device(device)
         self.max_elems = int(max_elems)
-        self.calls = dict.fromkeys(LEGS, 0)
+        self.cm_elems = int(cm_elems)
+        self.legs = _legs(self.cm_elems)
+        self.calls = dict.fromkeys(self.legs, 0)
         self._own: dict = {}
         self._opened: dict = {}
         self._links: dict = {}
@@ -125,10 +176,11 @@ class Ring:
 
     def _connect(self) -> None:
         lib = ring_lib()
-        total = _layout(self.max_elems)[3]
         handles = {}
         with torch.cuda.device(self.device):
-            for leg in LEGS:
+            for leg in self.legs:
+                total = _leg_bytes(leg, self.max_elems, self.cm_elems,
+                                   self.world)
                 ptr = ctypes.c_void_p()
                 handle = ctypes.create_string_buffer(lib.ring_handle_size())
                 check(lib.ring_alloc(total, ctypes.byref(ptr), handle),
@@ -139,16 +191,19 @@ class Ring:
             dist.all_gather_object(every, handles, group=self.group)
             peers = {}
             for peer in sorted({self.right, self.left}):
-                for leg in LEGS:
+                for leg in self.legs:
                     ptr = ctypes.c_void_p()
                     check(lib.ring_open(every[peer][leg], ctypes.byref(ptr)),
                           f"opening rank {peer}'s ring buffer")
                     peers[peer, leg] = ptr.value
             self._opened = peers
-        for leg in LEGS:
+        for leg in LEGS[:2]:
             self._links[leg] = _link(self._own[leg],
                                      peers[self.right, leg],
                                      peers[self.left, leg], self.max_elems)
+        if "cm" in self.legs:
+            self._links["cm"] = (self._own["cm"], peers[self.right, "cm"],
+                                 peers[self.left, "cm"])
         dist.barrier(group=self.group)
 
     def next_epoch(self, leg: str) -> int:
@@ -156,8 +211,15 @@ class Ring:
         self.calls[leg] += 1
         return self.calls[leg]
 
+    @property
+    def cm_slot_bytes(self) -> int:
+        """Bytes of one slot of the ring-matmul leg."""
+        return _cm_layout(self.cm_elems, self.world)[0]
+
     def links(self, leg: str) -> list:
-        """[(rank, its 8 link pointers)] for the ranks one launch drives."""
+        """[(rank, its link pointers)] for the ranks one launch drives: 8
+        for "ag" and "rs" (csrc/ring.cu's order); for "cm" the leg buffers
+        of the rank, its right and its left neighbour."""
         if self.closed:
             raise RuntimeError("the ring is closed")
         return [(self.rank, self._links[leg])]
@@ -185,18 +247,22 @@ class Ring:
 class LocalRing:
     """A ring of ``world`` ranks that all live in this process on one
     card: the ring collectives then take stacked ``[world, ...]`` inputs
-    and drive every rank in one launch. ``max_elems``: the largest shard.
-    On the CPU it holds no buffers (the stacked plain versions run)."""
+    and drive every rank in one launch. ``max_elems``: the largest shard;
+    ``cm_elems``: as for `Ring`. On the CPU it holds no buffers (the
+    stacked plain versions run)."""
 
     stacked = True
     cooperative = True
     group = None
 
-    def __init__(self, world: int, device, max_elems: int):
+    def __init__(self, world: int, device, max_elems: int,
+                 cm_elems: int = 0):
         self.world = int(world)
         self.device = torch.device(device)
         self.max_elems = int(max_elems)
-        self.calls = dict.fromkeys(LEGS, 0)
+        self.cm_elems = int(cm_elems)
+        self.legs = _legs(self.cm_elems)
+        self.calls = dict.fromkeys(self.legs, 0)
         self._bufs: dict = {}
         if self.device.type == "cuda" and self.world > 1:
             lib = ring_lib()
@@ -204,8 +270,9 @@ class LocalRing:
                 raise ValueError(f"a LocalRing drives at most "
                                  f"{lib.ring_max_groups()} ranks in one "
                                  f"launch, got {self.world}")
-            total = _layout(self.max_elems)[3]
-            for leg in LEGS:
+            for leg in self.legs:
+                total = _leg_bytes(leg, self.max_elems, self.cm_elems,
+                                   self.world)
                 self._bufs[leg] = [
                     torch.zeros(total, dtype=torch.uint8, device=self.device)
                     for _ in range(self.world)]
@@ -214,9 +281,14 @@ class LocalRing:
         self.calls[leg] += 1
         return self.calls[leg]
 
+    cm_slot_bytes = Ring.cm_slot_bytes
+
     def links(self, leg: str) -> list:
         bufs = [b.data_ptr() for b in self._bufs[leg]]
         w = self.world
+        if leg == "cm":
+            return [(r, (bufs[r], bufs[(r + 1) % w], bufs[(r - 1) % w]))
+                    for r in range(w)]
         return [(r, _link(bufs[r], bufs[(r + 1) % w], bufs[(r - 1) % w],
                           self.max_elems)) for r in range(w)]
 

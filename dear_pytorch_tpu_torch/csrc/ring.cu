@@ -44,9 +44,15 @@
 //
 // Ranks in two processes on one card run only because the GPU time-slices
 // between their contexts, so every wait backs off with __nanosleep and has a
-// deadline on %globaltimer (wall-clock ns; clock64 would stop counting while
-// the context is switched out): past kDeadlineNs the kernel prints what it
-// waited for and traps, so a broken ring fails loudly instead of hanging.
+// deadline on %globaltimer (csrc/ring_sync.cuh, shared with ring_matmul.cu):
+// past it the kernel prints what it waited for and traps, so a broken ring
+// fails loudly instead of hanging.
+//
+// A third leg, "cm", carries the ring collective matmul (K6, K7, K8 in
+// csrc/ring_matmul.cu). It has buffers, flags and a call counter of its own:
+// those kernels run on the compute stream during forward and backward while
+// K4 and the K5 ring run on the comm stream, so the legs' calls interleave
+// differently on different ranks and could not share one slot sequence.
 //
 // What bounds it on this card: bytes. Per rank, K4 reads W-1 arriving
 // chunks and its shard and writes W chunks of output and W-1 hops; K5 ring
@@ -65,14 +71,14 @@
 #include <stdio.h>
 #include <string.h>
 
+#include "ring_sync.cuh"
 #include "shard_update.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kBlocks = 32;      // blocks per rank, and flags per slot
-constexpr int kMaxGroups = 8;    // ranks in one launch (a LocalRing)
-constexpr unsigned long long kDeadlineNs = 30ull * 1000000000ull;
+constexpr int kBlocks = kRingBlocks;  // blocks per rank, and flags per slot
+constexpr int kMaxGroups = 8;         // ranks in one launch (a LocalRing)
 
 // One rank's view of the ring: its own slots and flags, its right
 // neighbour's slots and arrival flags, its left neighbour's credit flags.
@@ -118,44 +124,6 @@ struct RsArgs {
   unsigned epoch;
   long long n;
 };
-
-__device__ __forceinline__ unsigned ld_acquire_sys(const unsigned* p) {
-  unsigned v;
-  asm volatile("ld.acquire.sys.global.u32 %0, [%1];"
-               : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void st_release_sys(unsigned* p, unsigned v) {
-  asm volatile("st.release.sys.global.u32 [%0], %1;"
-               :: "l"(p), "r"(v) : "memory");
-}
-
-__device__ __forceinline__ unsigned long long global_ns() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
-// Thread 0 of a block: wait until *flag >= want (wrap-safe), or trap.
-__device__ void spin_until(const unsigned* flag, unsigned want,
-                           const char* what, int rank, int round) {
-  unsigned long long t0 = 0;
-  unsigned ns = 32;
-  while ((int)(ld_acquire_sys(flag) - want) < 0) {
-    const unsigned long long now = global_ns();
-    if (t0 == 0) {
-      t0 = now;
-    } else if (now - t0 > kDeadlineNs) {
-      printf("ring: rank %d round %d block %d waited %llu s for %s >= %u "
-             "(at %u); trapping\n", rank, round, (int)blockIdx.x,
-             (now - t0) / 1000000000ull, what, want, ld_acquire_sys(flag));
-      __trap();
-    }
-    __nanosleep(ns);
-    if (ns < 2048) ns <<= 1;
-  }
-}
 
 __device__ __forceinline__ unsigned hop_val(unsigned e, int world, int h) {
   return e * (unsigned)world + (unsigned)h;

@@ -24,9 +24,13 @@ JAX's PRNG, so dropout is held to its statistics, not to JAX's masks.
 `gpt_lm_loss` is the streamed-logsumexp next-token loss over the unpadded
 vocab.
 
+``projection_impl`` routes each block's query, key, value and ``mlp_in``
+through `models.bert.ProjDense` (``output`` and ``mlp_out`` stay dense), as
+the JAX model does; `ops.collective_matmul.make_ring_projection_impl` is
+the ring collective matmul of ``--ring-projections``.
+
 Not ported yet (each raises ``NotImplementedError``): mixture of experts
-(``num_experts > 0``), ring tensor-parallel projections
-(``projection_impl``) and ``remat``.
+(``num_experts > 0``) and ``remat``.
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from dear_pytorch_tpu_torch._device import check_model_device, resolve_device
+from dear_pytorch_tpu_torch.models.bert import ProjDense
 from dear_pytorch_tpu_torch.ops.flash_attention import flash_attention
 from dear_pytorch_tpu_torch.serving import kvcache as KV
 
@@ -170,7 +175,8 @@ class LayerNorm(nn.LayerNorm):
 class GptBlock(nn.Module):
     """Pre-LN residual block: attention, then a gelu(tanh) MLP."""
 
-    def __init__(self, config: GptConfig, attention_impl: Callable, device):
+    def __init__(self, config: GptConfig, attention_impl: Callable, device,
+                 projection_impl: Optional[Callable] = None):
         super().__init__()
         cfg = config
         h, dt = cfg.hidden_size, cfg.dtype
@@ -180,15 +186,21 @@ class GptBlock(nn.Module):
         def dense(i, o):
             return Dense(i, o, compute_dtype=dt, device=device)
 
+        def proj(i, o):   # the projection hook's paths: QKV and MLP-up
+            if projection_impl is None:
+                return dense(i, o)
+            return ProjDense(i, o, impl=projection_impl, compute_dtype=dt,
+                             device=device)
+
         def norm():
             return LayerNorm(h, eps=cfg.layer_norm_eps, compute_dtype=dt,
                              device=device)
 
         self.ln_1 = norm()
-        self.query, self.key, self.value = dense(h, h), dense(h, h), dense(h, h)
+        self.query, self.key, self.value = proj(h, h), proj(h, h), proj(h, h)
         self.output = dense(h, h)
         self.ln_2 = norm()
-        self.mlp_in = dense(h, cfg.intermediate_size)
+        self.mlp_in = proj(h, cfg.intermediate_size)
         self.mlp_out = dense(cfg.intermediate_size, h)
 
     def forward(self, x, cache=None, positions=None, valid=None,
@@ -263,10 +275,6 @@ class GptLmHeadModel(nn.Module):
                  projection_impl: Optional[Callable] = None,
                  device=None, seed: int = 0):
         super().__init__()
-        if projection_impl is not None:
-            raise NotImplementedError(
-                "projection_impl (ring tensor-parallel projections) is the "
-                "tensor-parallel slice's work")
         if config.num_experts > 0:
             raise NotImplementedError(
                 "num_experts > 0 (mixture of experts) is not ported yet")
@@ -282,7 +290,8 @@ class GptLmHeadModel(nn.Module):
                                 cfg.hidden_size, device=dev)
         for i in range(cfg.num_hidden_layers):
             self.add_module(f"h_{i}",
-                            GptBlock(cfg, self.attention_impl, dev))
+                            GptBlock(cfg, self.attention_impl, dev,
+                                     projection_impl))
         self.ln_f = LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps,
                               compute_dtype=cfg.dtype, device=dev)
         self.reset_parameters(seed)

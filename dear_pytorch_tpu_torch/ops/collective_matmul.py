@@ -1,5 +1,6 @@
-"""The ring collectives of ``mode="dear-fused"`` — the port of the ring
-half of ``dear_pytorch_tpu/ops/collective_matmul.py``, with its names:
+"""The ring collectives of ``mode="dear-fused"`` and the ring collective
+matmul of ``--ring-projections`` — the port of
+``dear_pytorch_tpu/ops/collective_matmul.py``, with its names:
 
   - `ring_all_gather` (K4; the TPU kernel ``_ag_kernel`` :218, via
     ``ring_all_gather`` :240): ``(n,) -> (W*n,)``, chunk order = rank
@@ -12,22 +13,36 @@ half of ``dear_pytorch_tpu/ops/collective_matmul.py``, with its names:
     hop, ``grad / mean_world`` and the shard update of `ops.fused_sgd` on
     the owned shard, in place.
 
-Both are CUDA kernels for ``sm_90a`` in ``csrc/ring.cu``, over the
-transport of `comm.ring`. The ``ring`` argument is a `comm.ring.Ring` (one
+  - `allgather_matmul` (K6 forward, ``_cm_fwd_kernel`` :510; K7 and K8
+    backward, ``_cm_dx_kernel`` :545 and ``_cm_dw_kernel`` :572, via the
+    custom VJP :651): ``x @ all_gather(w_shard over rows)`` as a
+    ``torch.autograd.Function`` over the kernel wrappers `ring_matmul`,
+    `ring_matmul_dx` and `ring_matmul_dw`; the weight gradient arrives as
+    this rank's row shard summed over the ranks. `make_ring_projection_impl`
+    is the models' ``projection_impl`` over it, on the ring `bind_ring`
+    binds.
+
+K4 and the K5 ring are CUDA kernels for ``sm_90a`` in ``csrc/ring.cu``,
+K6–K8 in ``csrc/ring_matmul.cu``, over the transport of `comm.ring`. The ``ring`` argument is a `comm.ring.Ring` (one
 rank per process: flat per-rank tensors) or a `comm.ring.LocalRing` (W
 ranks in this process: every tensor stacked ``[W, ...]``, one launch for
-all). At world 1 both short-cut as in the JAX package (:248, :417): the
-gather returns the shard, the update is `ShardOptimizer.update`.
+all). At world 1 they short-cut as in the JAX package (:248, :417,
+:639): the gather returns the shard, the update is
+`ShardOptimizer.update`, the ring matmul is the dense product.
 
 Beside each, the plain PyTorch version in two forms: *stacked*
 (`ring_all_gather_stacked`, `fused_reduce_scatter_update_stacked`: all W
 ranks' inputs in one process, the ring's exact fp32 association order, so
 the kernel is bitwise equal to it on the card), and *distributed* (the same
 hops over `comm.collectives.ring_shift`: what a CPU rank of the train step
-runs). Dispatch: a CPU tensor takes the plain version; a CUDA tensor
-launches the kernel or raises; any other device raises. ``ring_ag_launches``
-and ``ring_rs_launches`` count kernel launches (one per call, however many
-ranks it drives).
+runs). K6–K8's plain versions sum fp32 products in torch's order, the
+kernels in the tensor cores', so those agree at a tolerance, not bitwise;
+the ring order of K8's cross-rank sum is the same in both. Dispatch: a CPU
+tensor takes the plain version; a CUDA tensor launches the kernel or
+raises; any other device raises. ``ring_ag_launches``,
+``ring_rs_launches``, ``cm_fwd_launches``, ``cm_dx_launches`` and
+``cm_dw_launches`` count kernel launches (one per call, however many ranks
+it drives).
 
 The ring's reduction order differs from NCCL's (and XLA's psum_scatter), so
 ``dear-fused`` matches ``dear`` at dtype tolerance, not bitwise; the gather
@@ -36,8 +51,9 @@ and the update math are exact.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -47,13 +63,19 @@ from dear_pytorch_tpu_torch.comm.ring import check, ring_lib
 from dear_pytorch_tpu_torch.ops import fused_sgd as FS
 
 __all__ = [
+    "allgather_matmul", "bind_ring", "bound_ring",
     "fused_reduce_scatter_update", "fused_reduce_scatter_update_stacked",
-    "ring_all_gather", "ring_all_gather_stacked",
+    "make_ring_projection_impl", "ring_all_gather", "ring_all_gather_stacked",
+    "ring_matmul", "ring_matmul_dw", "ring_matmul_dw_stacked",
+    "ring_matmul_dx", "ring_matmul_dx_stacked", "ring_matmul_stacked",
 ]
 
 #: kernel launches so far (incremented only where a kernel launches)
 ring_ag_launches = 0
 ring_rs_launches = 0
+cm_fwd_launches = 0
+cm_dx_launches = 0
+cm_dw_launches = 0
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _LAMB = ("LayerwiseShardOptimizer (LAMB) needs cross-shard psums and cannot "
@@ -304,3 +326,320 @@ def _launch_rs(gbuf, param, states, optimizer, ring, mean_world, step):
             torch.cuda.current_stream(gbuf.device).cuda_stream)
     check(err, "ring reduce-scatter kernel launch")
     ring_rs_launches += 1
+
+
+# ---------------------------------------------------------------------------
+# the ring collective matmul (K6 forward, K7 dx, K8 dw)
+# ---------------------------------------------------------------------------
+
+#: ring-matmul calls made so far, by kernel, on any device (a `TrainStep`
+#: checks that every forward call got its two backward calls)
+ring_matmul_calls = {"fwd": 0, "dx": 0, "dw": 0}
+
+_CM_KINDS = {"fwd": "rmm_forward", "dx": "rmm_dx", "dw": "rmm_dw"}
+
+
+def _blk(x, j, kc):
+    """Columns ``[j*kc, (j+1)*kc)`` of ``x`` (the last axis)."""
+    return x[..., j * kc:(j + 1) * kc]
+
+
+def ring_matmul_stacked(x: torch.Tensor, w_shard: torch.Tensor
+                        ) -> torch.Tensor:
+    """K6's plain version over all W ranks: ``x [W, M, K]``, ``w_shard [W,
+    kc, N]`` -> ``y [W, M, N]``; rank i starts on its own shard and adds the
+    chunk of owner (i - r) mod W in round r, in fp32, then casts."""
+    world, kc = w_shard.shape[:2]
+    acc = [_blk(x[i], i, kc).float() @ w_shard[i].float()
+           for i in range(world)]
+    hop = list(w_shard)
+    for r in range(1, world):
+        hop = [hop[(i - 1) % world] for i in range(world)]  # from the left
+        acc = [acc[i] + _blk(x[i], (i - r) % world, kc).float()
+               @ hop[i].float() for i in range(world)]
+    return torch.stack(acc).to(x.dtype)
+
+
+def ring_matmul_dx_stacked(dy: torch.Tensor, w_shard: torch.Tensor
+                           ) -> torch.Tensor:
+    """K7's plain version: ``dy [W, M, N]``, ``w_shard [W, kc, N]`` ->
+    ``dx [W, M, W*kc]``; the column block of owner j is ``dy @ w_jᵀ``."""
+    world, kc = w_shard.shape[:2]
+    dx = dy.new_empty(dy.shape[:2] + (world * kc,))
+    for i in range(world):
+        for r in range(world):
+            j = (i - r) % world
+            _blk(dx[i], j, kc).copy_(dy[i].float() @ w_shard[j].float().T)
+    return dx
+
+
+def ring_matmul_dw_stacked(x: torch.Tensor, dy: torch.Tensor
+                           ) -> torch.Tensor:
+    """K8's plain version: ``x [W, M, W*kc]``, ``dy [W, M, N]`` -> ``dw
+    [W, kc, N]``, rank i's shard of ``sum over ranks of xᵀ·dy``, in the
+    ring's fp32 order: chunk c's sum starts at rank c+1 and adds ranks
+    c+2, ..., c (mod W)."""
+    world = x.shape[0]
+    kc = x.shape[-1] // world
+
+    def contrib(i, c):
+        return _blk(x[i], c, kc).float().T @ dy[i].float()
+
+    part = [contrib(i, (i - 1) % world) for i in range(world)]
+    for r in range(1, world):
+        recv = [part[(i - 1) % world] for i in range(world)]
+        part = [recv[i] + contrib(i, (i - 1 - r) % world)
+                for i in range(world)]
+    return torch.stack(part).to(x.dtype)
+
+
+def _ring_matmul_dist(x, w_shard, ring):
+    world, my, kc = ring.world, ring.rank, w_shard.shape[0]
+    acc = _blk(x, my, kc).float() @ w_shard.float()
+    hop = w_shard
+    for r in range(1, world):
+        hop = C.ring_shift(hop, ring.group)
+        acc = acc + _blk(x, (my - r) % world, kc).float() @ hop.float()
+    return acc.to(x.dtype)
+
+
+def _ring_matmul_dx_dist(dy, w_shard, ring):
+    world, my, kc = ring.world, ring.rank, w_shard.shape[0]
+    dx = dy.new_empty(dy.shape[:1] + (world * kc,))
+    hop = w_shard
+    for r in range(world):
+        if r:
+            hop = C.ring_shift(hop, ring.group)
+        _blk(dx, (my - r) % world, kc).copy_(dy.float() @ hop.float().T)
+    return dx
+
+
+def _ring_matmul_dw_dist(x, dy, ring):
+    world, my = ring.world, ring.rank
+    kc = x.shape[-1] // world
+
+    def contrib(c):
+        return _blk(x, c, kc).float().T @ dy.float()
+
+    part = contrib((my - 1) % world)
+    for r in range(1, world):
+        part = C.ring_shift(part, ring.group) + contrib((my - 1 - r) % world)
+    return part.to(x.dtype)
+
+
+def _cm_check(name, ring, a, b, a_shape, b_shape):
+    lead = (ring.world,) if ring.stacked else ()
+    for t, want, what in ((a, a_shape, "first"), (b, b_shape, "second")):
+        if tuple(t.shape) != lead + want:
+            raise ValueError(f"{name}: {what} operand of shape "
+                             f"{tuple(t.shape)}, expected {lead + want}")
+    if a.dtype != b.dtype or a.dtype not in _DTYPES:
+        raise ValueError(f"{name}: operands must share a dtype, float32 or "
+                         f"bfloat16; got {a.dtype} and {b.dtype}")
+    if a.device != b.device:
+        raise ValueError(f"{name}: operands on {a.device} and {b.device}")
+    return _device_kind(a, name)
+
+
+def ring_matmul(x: torch.Tensor, w_shard: torch.Tensor, ring
+                ) -> torch.Tensor:
+    """K6: ``x @ all_gather(w_shard over rows)`` through the ring, ``x [M,
+    W*kc]``, ``w_shard [kc, N]`` -> ``[M, N]`` in their dtype (every tensor
+    stacked ``[W, ...]`` on a `LocalRing`). No autograd: see
+    `allgather_matmul`. World 1 is the dense product."""
+    kc, n = w_shard.shape[-2:]
+    m = x.shape[-2]
+    kind = _cm_check("ring_matmul", ring, x, w_shard,
+                     (m, ring.world * kc), (kc, n))
+    ring_matmul_calls["fwd"] += 1
+    if ring.world == 1:
+        return (x.float() @ w_shard.float()).to(x.dtype)
+    if kind == "cpu":
+        if ring.stacked:
+            return ring_matmul_stacked(x, w_shard)
+        return _ring_matmul_dist(x, w_shard, ring)
+    y = x.new_empty(x.shape[:-1] + (n,))
+    _launch_cm("fwd", x, w_shard, y, ring, m, kc, n)
+    return y
+
+
+def ring_matmul_dx(dy: torch.Tensor, w_shard: torch.Tensor, ring
+                   ) -> torch.Tensor:
+    """K7: ``dy @ all_gather(w_shard)ᵀ`` as the shards re-stream, ``dy [M,
+    N]``, ``w_shard [kc, N]`` -> ``dx [M, W*kc]`` in their dtype."""
+    kc, n = w_shard.shape[-2:]
+    m = dy.shape[-2]
+    kind = _cm_check("ring_matmul_dx", ring, dy, w_shard, (m, n), (kc, n))
+    ring_matmul_calls["dx"] += 1
+    if ring.world == 1:
+        return (dy.float() @ w_shard.float().transpose(-1, -2)).to(dy.dtype)
+    if kind == "cpu":
+        if ring.stacked:
+            return ring_matmul_dx_stacked(dy, w_shard)
+        return _ring_matmul_dx_dist(dy, w_shard, ring)
+    dx = dy.new_empty(dy.shape[:-1] + (ring.world * kc,))
+    _launch_cm("dx", dy, w_shard, dx, ring, m, kc, n)
+    return dx
+
+
+def ring_matmul_dw(x: torch.Tensor, dy: torch.Tensor, ring) -> torch.Tensor:
+    """K8: this rank's row shard of ``sum over ranks of xᵀ·dy``, reduced
+    around the ring with fp32 partials, ``x [M, W*kc]``, ``dy [M, N]`` ->
+    ``dw_shard [kc, N]`` in their dtype."""
+    m, k = x.shape[-2:]
+    n = dy.shape[-1]
+    if k % ring.world:
+        raise ValueError(f"ring_matmul_dw: {k} input features do not split "
+                         f"over {ring.world} ranks")
+    kc = k // ring.world
+    kind = _cm_check("ring_matmul_dw", ring, x, dy, (m, k), (m, n))
+    ring_matmul_calls["dw"] += 1
+    if ring.world == 1:
+        return (x.float().transpose(-1, -2) @ dy.float()).to(x.dtype)
+    if kind == "cpu":
+        if ring.stacked:
+            return ring_matmul_dw_stacked(x, dy)
+        return _ring_matmul_dw_dist(x, dy, ring)
+    dw = x.new_empty(x.shape[:-2] + (kc, n))
+    _launch_cm("dw", x, dy, dw, ring, m, kc, n)
+    return dw
+
+
+def _launch_cm(kind, a, b, out, ring, m, kc, n) -> None:
+    """One launch of K6 (``fwd``), K7 (``dx``) or K8 (``dw``) over the
+    ranks ``ring`` drives."""
+    from dear_pytorch_tpu_torch.comm.ring import matmul_lib
+
+    global cm_fwd_launches, cm_dx_launches, cm_dw_launches
+    if "cm" not in ring.legs:
+        raise ValueError("ring matmul kernel: the ring has no cm leg (build "
+                         "it with cm_elems)")
+    hop = kc * n * (4 if kind == "dw" else a.element_size())
+    if hop > ring.cm_slot_bytes:
+        raise ValueError(f"ring matmul kernel: a hop of {hop} bytes does "
+                         f"not fit the ring's {ring.cm_slot_bytes}-byte slot")
+    if not (a.is_contiguous() and b.is_contiguous()):
+        raise ValueError("ring matmul kernel: operands not contiguous")
+    lead = ring.world if ring.stacked else 1
+    As, Bs, Os = (t.reshape((lead,) + t.shape[-2:]) for t in (a, b, out))
+    rec = []
+    for (rank, (own, right, left)), ai, bi, oi in zip(ring.links("cm"), As,
+                                                       Bs, Os):
+        rec += [rank, ai.data_ptr(), bi.data_ptr(), oi.data_ptr(), own,
+                right, left]
+    arr = (ctypes.c_longlong * len(rec))(*rec)
+    epoch = ring.next_epoch("cm")
+    lib = matmul_lib()
+    with torch.cuda.device(a.device):
+        err = getattr(lib, _CM_KINDS[kind])(
+            arr, lead, ring.world, m, kc, n, ring.cm_slot_bytes,
+            int(a.dtype == torch.bfloat16), epoch, int(ring.cooperative),
+            torch.cuda.current_stream(a.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"ring matmul kernel ({kind}) launch failed: "
+                           + lib.rmm_error_string(err).decode())
+    if kind == "fwd":
+        cm_fwd_launches += 1
+    elif kind == "dx":
+        cm_dx_launches += 1
+    else:
+        cm_dw_launches += 1
+
+
+class _AllgatherMatmul(torch.autograd.Function):
+    """K6 forward; K7 (dx) and K8 (dw_shard, summed over the ranks)
+    backward, both always, so every rank issues the same ring calls."""
+
+    @staticmethod
+    def forward(ctx, x, w_shard, ring):
+        ctx.ring = ring
+        ctx.save_for_backward(x, w_shard)
+        return ring_matmul(x, w_shard, ring)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w_shard = ctx.saved_tensors
+        dy = dy.contiguous()
+        dx = ring_matmul_dx(dy, w_shard, ctx.ring)
+        dw = ring_matmul_dw(x, dy, ctx.ring)
+        return dx, dw.to(w_shard.dtype), None
+
+
+def allgather_matmul(x: torch.Tensor, w_shard: torch.Tensor, ring
+                     ) -> torch.Tensor:
+    """``x @ all_gather(w_shard over rows)`` through the ring, with its
+    gradient (the JAX package's custom VJP, :631-696): ``x [M, K]`` (this
+    rank's activations), ``w_shard [K/W, N]`` (this rank's contiguous row
+    block in rank order) -> ``[M, N]`` in ``result_type(x, w)``; stacked
+    ``[W, ...]`` on a `LocalRing`. The gradient of ``w_shard`` arrives
+    summed over the ranks. World 1 is the dense product."""
+    dt = torch.promote_types(x.dtype, w_shard.dtype)
+    x, w_shard = x.to(dt), w_shard.to(dt)
+    if ring.world == 1:
+        return x @ w_shard
+    return _AllgatherMatmul.apply(x.contiguous(), w_shard.contiguous(), ring)
+
+
+# ---------------------------------------------------------------------------
+# model integration: the projection_impl hook
+# ---------------------------------------------------------------------------
+
+_bound: list = []
+
+
+@contextlib.contextmanager
+def bind_ring(ring):
+    """Bind ``ring`` for the ring projections run inside the block — the
+    analogue of the mesh axis that ``shard_map`` binds in the JAX package.
+    `parallel.dear.TrainStep` binds its ring around each step's forward
+    and backward; ``None`` binds nothing."""
+    _bound.append(ring)
+    try:
+        yield ring
+    finally:
+        _bound.pop()
+
+
+def bound_ring():
+    """The innermost bound ring, or ``None``."""
+    return _bound[-1] if _bound else None
+
+
+def make_ring_projection_impl() -> Callable:
+    """The models' ``projection_impl`` (`models.bert.ProjDense`'s contract:
+    ``impl(x2d [M, in], kernel2d [in, out], bias1d [out] or None, dtype)``)
+    backed by `allgather_matmul` over the bound ring (`bind_ring`).
+
+    It applies flax's dtype promotion (every operand to ``dtype``) and
+    computes the dense product where no ring is bound (building a model, an
+    eval outside a train step: the JAX impl outside ``shard_map``), at
+    world 1, or where ``in`` does not split over the ranks; otherwise it
+    takes this rank's row shard ``kernel2d[my*kc:(my+1)*kc]`` and runs the
+    ring, then adds the bias. The port keeps the weight as torch's ``[out,
+    in]``, so the shard is the strided column block ``weight[:,
+    my*kc:(my+1)*kc]``: it is sliced before the cast and copied contiguous
+    once (kc·out elements), which makes flax's promotion and the copy one
+    pass over the shard and gives the kernel dense 16-byte rows to stream.
+    The gradient of the slice lands at this rank's rows of the full-weight
+    gradient, zeros elsewhere; the bucket reduce-scatter then sums the
+    ranks. On a `LocalRing` every operand is stacked ``[W, ...]`` and rank
+    i takes its own rows of its own ``kernel2d[i]``."""
+
+    def impl(x2, kernel2, bias1, dtype):
+        ring = bound_ring()
+        world = 1 if ring is None else ring.world
+        k = kernel2.shape[-2]
+        if world == 1 or k % world:
+            y = x2.to(dtype) @ kernel2.to(dtype)
+        else:
+            kc = k // world
+            if ring.stacked:
+                w_shard = torch.stack([kernel2[i, i * kc:(i + 1) * kc]
+                                       for i in range(world)])
+            else:
+                w_shard = kernel2[ring.rank * kc:(ring.rank + 1) * kc]
+            y = allgather_matmul(x2.to(dtype),
+                                 w_shard.to(dtype).contiguous(), ring)
+        return y if bias1 is None else y + bias1.to(dtype).unsqueeze(-2)
+
+    return impl

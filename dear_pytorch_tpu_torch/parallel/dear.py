@@ -53,6 +53,19 @@ package's build-time guards (dear.py:401-457): no ``clip_norm``, no
 short-cut as in JAX: the update is the plain shard update, the gather the
 shard itself.
 
+A model built with `ops.collective_matmul.make_ring_projection_impl` (the
+CLI's ``--ring-projections``) runs its query, key, value and ``mlp_in``
+projections as the ring collective matmul (K6 forward, K7 and K8
+backward) on the compute stream. In ``dear-fused`` the step builds the
+ring's third leg, "cm", sized for the model's largest projection shard
+(`models.bert.ProjDense` modules), and binds the ring around each
+forward and backward (`ops.collective_matmul.bind_ring`: the analogue of
+the axis ``shard_map`` binds). Those calls pair up across ranks in the
+order the forward and autograd's backward issue them, the same on every
+rank; the step checks that every forward call got its two backward
+calls. Under ``mode="dear"`` no ring is bound and the impl is the dense
+product, the same function.
+
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
 item): the other modes, compression, ``exclude_parts``, model state (BN
 statistics), ``remat``, the multi-slice ``dcn`` schedule and
@@ -73,6 +86,7 @@ from dear_pytorch_tpu_torch._device import check_model_device
 from dear_pytorch_tpu_torch.comm import backend
 from dear_pytorch_tpu_torch.comm import collectives as C
 from dear_pytorch_tpu_torch.comm.ring import Ring
+from dear_pytorch_tpu_torch.models.bert import ProjDense
 from dear_pytorch_tpu_torch.ops import collective_matmul as CM
 from dear_pytorch_tpu_torch.ops import fusion as F
 from dear_pytorch_tpu_torch.ops.fused_sgd import (
@@ -213,13 +227,24 @@ def build_train_step(loss_fn: Callable, model: nn.Module, *,
                      fused=mode == "dear-fused")
 
 
+def _ring_matmul_elems(model, world: int) -> int:
+    """The cm leg's hop capacity: the largest row shard (in/W x out) of the
+    model's `ProjDense` projections that split over the ranks; 0 when
+    there are none (no leg)."""
+    return max((p.in_features // world * p.out_features
+                for p in model.modules() if isinstance(p, ProjDense)
+                and p.in_features % world == 0), default=0)
+
+
 class TrainStep:
     """What `build_train_step` returns: ``init``, ``step``,
     ``gather_params``, ``plan`` and ``group``, and the per-run counters
     ``rs_launches``, ``ag_launches`` and ``update_launches`` (one of each
-    per bucket per step) that show the schedule ran per bucket. In
-    ``dear-fused`` mode ``ring`` is the step's `comm.ring.Ring` (holding no
-    buffers at world 1); `close` frees it once every rank is done."""
+    per bucket per step) that show the schedule ran per bucket, and
+    ``cm_calls`` (ring-matmul calls, three per ring projection per step).
+    In ``dear-fused`` mode ``ring`` is the step's `comm.ring.Ring` (holding
+    no buffers at world 1; with a "cm" leg when the model has ring
+    projections); `close` frees it once every rank is done."""
 
     def __init__(self, loss_fn, model, optimizer, group, plan, *,
                  comm_dtype, gather_dtype, has_aux, rng_seed, accum_steps,
@@ -232,6 +257,7 @@ class TrainStep:
         self.rank = dist.get_rank(group)
         self.device = dev = model.device
         self.rs_launches = self.ag_launches = self.update_launches = 0
+        self.cm_calls = 0
 
         params = dict(model.named_parameters())
         for s in plan.leaves:
@@ -268,7 +294,8 @@ class TrainStep:
         self.fused = fused
         # every rank builds its ring here, at the same point: the peer
         # buffers' handles are exchanged over the group (none at world 1)
-        self.ring = (Ring(group, dev, max(b.shard_size for b in bks))
+        self.ring = (Ring(group, dev, max(b.shard_size for b in bks),
+                          cm_elems=_ring_matmul_elems(model, self.world))
                      if fused else None)
         #: dear-fused: the one order every rank issues its reduce-scatters in
         self._rs_order = [b.index for b in reversed(bks)]
@@ -470,9 +497,12 @@ class TrainStep:
             args = (self.model, mb)
             if self.rng_seed is not None:
                 args += (self._generator(state.step, i),)
-            out = self.loss_fn(*args)
-            loss, aux = out if self.has_aux else (out, None)
-            loss.backward()
+            calls = dict(CM.ring_matmul_calls)
+            with CM.bind_ring(self.ring):
+                out = self.loss_fn(*args)
+                loss, aux = out if self.has_aux else (out, None)
+                loss.backward()
+            self._count_ring_matmuls(calls)
             losses.append(loss.detach().float())
             if aux is not None:
                 auxs.append(torch.as_tensor(aux).detach().float())
@@ -488,6 +518,15 @@ class TrainStep:
             metrics["aux"] = self._mean_over_ranks(torch.stack(auxs).mean(0))
         return DearState(state.shards, state.opt_state, state.step + 1), \
             metrics
+
+    def _count_ring_matmuls(self, before: dict) -> None:
+        """Every ring projection's forward call (K6) must have had its two
+        backward calls (K7, K8): the ranks' ring calls pair up."""
+        got = {k: CM.ring_matmul_calls[k] - v for k, v in before.items()}
+        if not got["fwd"] == got["dx"] == got["dw"]:
+            raise RuntimeError(f"ring-matmul calls of one microbatch do not "
+                               f"pair up (forward, dx, dw): {got}")
+        self.cm_calls += 3 * got["fwd"]
 
     def _fused_gathers(self, state: DearState) -> None:
         """dear-fused, after backward: every K5 ring was issued (in the one

@@ -3,9 +3,10 @@ configuration (dear_pytorch_tpu_torch.config) on the CPU: the same
 `DearConfig` fields, defaults and ``DEAR_*`` names as the JAX package's;
 the CLI's flag rules (kernel attention zeroes the attention-probs dropout;
 with ``--fp16`` gradients travel in bf16 and gathers only when world > 1);
-unported flags and fields raise; and one short CPU run of GPT-2's full
-width at one layer, which must lower its loss and run the schedule once
-per bucket per step."""
+unported flags and fields raise; ``--ring-projections`` needs
+``--mode dear-fused`` (JAX's SystemExit); and short CPU runs of GPT-2's
+full width at one layer, which must lower their loss and run the schedule
+once per bucket per step."""
 
 import dataclasses
 
@@ -65,11 +66,43 @@ def test_cli_dtype_rules():
 
 
 @pytest.mark.parametrize("flags", [
-    ["--sp-degree", "2"], ["--ring-projections"], ["--remat"],
-    ["--num-experts", "4"]])
+    ["--sp-degree", "2"], ["--remat"], ["--num-experts", "4"]])
 def test_cli_unported_flags_raise(flags):
     with pytest.raises(NotImplementedError, match="not ported"):
         cli.main(flags + ["--device", "cpu"])
+
+
+@pytest.mark.parametrize("flags", [
+    [], ["--mode", "dear"], ["--mode", "dear-fused", "--sp-degree", "2"]])
+def test_cli_ring_projections_requires_dear_fused(flags):
+    """JAX's rule and message (dear_pytorch_tpu/benchmarks/gpt.py:127-129),
+    checked before anything else runs."""
+    with pytest.raises(SystemExit, match="requires --mode dear-fused"):
+        cli.main(["--ring-projections", "--device", "cpu"] + flags)
+
+
+def test_cli_ring_projections_trains_on_the_cpu():
+    """``--mode dear-fused --ring-projections`` at world 1: the query, key,
+    value and MLP-up projections are `ProjDense` modules over the ring
+    impl (dense at world 1, as JAX's), the plan has the dense model's
+    parameters, and two steps lower the loss."""
+    from dear_pytorch_tpu_torch.models.bert import ProjDense
+
+    res = cli.main(["--device", "cpu", "--mode", "dear-fused",
+                    "--ring-projections", "--num-hidden-layers", "1",
+                    "--batch-size", "2", "--sequence-len", "16", "--fp16",
+                    "--flash-attention", "--base-lr", "0.01",
+                    "--num-warmup-batches", "0", "--num-batches-per-iter",
+                    "2", "--num-iters", "1"])
+    ts = res.train_step
+    block = ts.model.h_0
+    assert all(isinstance(getattr(block, n), ProjDense)
+               for n in ("query", "key", "value", "mlp_in"))
+    assert not isinstance(block.output, ProjDense)
+    assert not isinstance(block.mlp_out, ProjDense)
+    assert len(res.losses) == 2 and res.losses[-1] < res.losses[0]
+    assert ts.cm_calls == 0 and ts.ring.world == 1
+    ts.close()
 
 
 def test_cli_unknown_flag_is_an_error():

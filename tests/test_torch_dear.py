@@ -16,7 +16,11 @@ bf16 (``comm_dtype``) or the parameters are gathered in bf16
 (``gather_dtype``), 2e-4: the two packages round the same fp32 gradient to
 bf16, but fp32 gradients that differ in their last bits can round to
 neighbouring bf16 values (one bf16 ulp is 2^-8 relative), and lr x that
-difference x 3 steps of momentum stays under 2e-4 here.
+difference x 3 steps of momentum stays under 2e-4 here. The
+``fused_ring_proj`` cases (``mode="dear-fused"`` with the ring-matmul
+projections of `ops.collective_matmul.make_ring_projection_impl` on both
+sides; the ring at world 2, the dense product at world 1) are fp32 too:
+1e-5.
 """
 
 import dataclasses
@@ -34,6 +38,7 @@ import pytest
 import torch
 
 from dear_pytorch_tpu.models import gpt as jgpt
+from dear_pytorch_tpu.ops import collective_matmul as JCM
 from dear_pytorch_tpu.ops import fused_sgd as jopt
 from dear_pytorch_tpu.ops import schedules as jsched
 from dear_pytorch_tpu.parallel import dear as jdear
@@ -57,6 +62,7 @@ CASES = {
     "adamw_cosine": {"opt": "adamw"},
     "fused_sgd_bf16": {"mode": "dear-fused", "comm": "bf16"},
     "fused_adamw": {"mode": "dear-fused", "opt": "adamw"},
+    "fused_ring_proj": {"mode": "dear-fused", "ring_proj": True},
 }
 WORLD2_CASES = {
     "dense": {},
@@ -64,6 +70,7 @@ WORLD2_CASES = {
     "gather_bf16": {"comm": "bf16", "gather": "bf16"},
     "fused_sgd": {"mode": "dear-fused"},
     "fused_adamw": {"mode": "dear-fused", "opt": "adamw"},
+    "fused_ring_proj": {"mode": "dear-fused", "ring_proj": True},
 }
 
 
@@ -102,7 +109,9 @@ def _run_jax(opts, world, params, ids):
     mesh = jax.sharding.Mesh(np.array(jax.devices()[:world]), ("dp",))
     model = jgpt.GptLmHeadModel(
         _jax_config(), attention_impl=jgpt.flash_causal_attention_impl()
-        if opts.get("flash") else None)
+        if opts.get("flash") else None,
+        projection_impl=JCM.make_ring_projection_impl("dp")
+        if opts.get("ring_proj") else None)
 
     def loss_fn(p, batch):
         logits = model.apply({"params": p}, batch["input_ids"], train=False)
@@ -139,13 +148,16 @@ def _run_jax(opts, world, params, ids):
 def run_port(opts, group, rank, world, state_dict, ids, cfg):
     import torch
     from dear_pytorch_tpu_torch.models import gpt as tgpt
+    from dear_pytorch_tpu_torch.ops import collective_matmul as tcm
     from dear_pytorch_tpu_torch.ops import fused_sgd as topt
     from dear_pytorch_tpu_torch.ops import schedules as tsched
     from dear_pytorch_tpu_torch.parallel import dear as tdear
 
     model = tgpt.GptLmHeadModel(
         cfg, attention_impl=tgpt.flash_causal_attention_impl()
-        if opts.get("flash") else None, device="cpu")
+        if opts.get("flash") else None,
+        projection_impl=tcm.make_ring_projection_impl()
+        if opts.get("ring_proj") else None, device="cpu")
     model.load_state_dict(state_dict)
 
     def loss_fn(m, batch):
@@ -177,7 +189,7 @@ def run_port(opts, group, rank, world, state_dict, ids, cfg):
             norms.append(float(m["grad_norm"]))
     final = {k: v.numpy() for k, v in ts.gather_params(state).items()}
     counts = (ts.plan.num_buckets, ts.rs_launches, ts.ag_launches,
-              ts.update_launches)
+              ts.update_launches, ts.cm_calls)
     ts.close()
     return losses, norms, final, counts
 
@@ -232,10 +244,11 @@ def test_world1_matches_jax(case, jax_params, state_dict, group):
     _compare(opts, got, want, state_dict)
     if opts.get("clip_norm"):
         assert len(got[1]) == STEPS
-    n_buckets, rs, ag, upd = got[3]
+    n_buckets, rs, ag, upd, cm = got[3]
     assert n_buckets >= 3
     assert rs == upd == STEPS * n_buckets      # one of each per bucket
     assert ag == (STEPS + 1) * n_buckets       # + init's gathers
+    assert cm == 0                             # world 1: the dense product
 
 
 _WORKER = '''
@@ -337,8 +350,10 @@ def test_world2_matches_jax(case, world2_results, jax_params, state_dict):
     got = (list(r0["losses"]), list(r0["norms"]), final)
     want = _run_jax(opts, 2, jax_params, _ids())
     _compare(opts, got, want, state_dict)
-    n_buckets, rs, ag, upd = r0["counts"]
+    n_buckets, rs, ag, upd, cm = r0["counts"]
     assert n_buckets >= 3 and rs == upd == STEPS * n_buckets
+    # K6, K7, K8 for 4 projections x 2 layers per step
+    assert cm == (STEPS * 2 * 4 * 3 if opts.get("ring_proj") else 0)
 
 
 def test_world2_fused_matches_port_dear(world2_results):

@@ -266,16 +266,28 @@ def test_seeded_init_is_reproducible_and_flax_shaped():
 
 
 def test_unported_options_raise():
-    """MoE, remat and ring projections still raise; dropout in training
-    mode, ported now, needs an explicit generator and then runs."""
+    """MoE and remat still raise; ``projection_impl``, ported now, builds a
+    model whose parameter names and shapes are the dense model's (with the
+    same seeded values), its QKV and MLP-up going through the impl; dropout
+    in training mode needs an explicit generator and then runs."""
+    from dear_pytorch_tpu_torch.ops.collective_matmul import (
+        make_ring_projection_impl,
+    )
+
     cfg = _torch_config(_pair()[0].config)
     for bad in (dict(num_experts=2), dict(remat=True)):
         with pytest.raises(NotImplementedError):
             tgpt.GptLmHeadModel(dataclasses.replace(cfg, **bad),
                                 device="cpu")
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
-        tgpt.GptLmHeadModel(cfg, projection_impl=lambda *a: None,
-                            device="cpu")
+    dense = tgpt.GptLmHeadModel(cfg, device="cpu", seed=1)
+    proj = tgpt.GptLmHeadModel(cfg, projection_impl=make_ring_projection_impl(),
+                               device="cpu", seed=1)
+    want = [(n, p.shape) for n, p in dense.named_parameters()]
+    assert [(n, p.shape) for n, p in proj.named_parameters()] == want
+    for (name, a), b in zip(dense.named_parameters(), proj.parameters()):
+        assert torch.equal(a, b), name
+    ids0 = torch.arange(5)[None] % cfg.vocab_size
+    torch.testing.assert_close(proj(ids0), dense(ids0), rtol=1e-6, atol=1e-6)
     model = tgpt.GptLmHeadModel(
         dataclasses.replace(cfg, hidden_dropout_prob=0.1), device="cpu")
     ids = torch.zeros((1, 3), dtype=torch.long)

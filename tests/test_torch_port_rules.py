@@ -64,7 +64,8 @@ def test_importing_the_port_and_chip_smoke_loads_no_jax():
     assert not bad, bad
     assert "dear_pytorch_tpu_torch.ops.flash_attention" in loaded
     for ring in ("dear_pytorch_tpu_torch.comm.ring",
-                 "dear_pytorch_tpu_torch.ops.collective_matmul"):
+                 "dear_pytorch_tpu_torch.ops.collective_matmul",
+                 "dear_pytorch_tpu_torch.models.bert"):
         assert ring in modules and ring in loaded
 
 

@@ -1,7 +1,9 @@
 """The ring collectives of ``mode="dear-fused"`` in the port
 (dear_pytorch_tpu_torch.ops.collective_matmul over comm.ring, and
 comm.collectives' send_recv / ring_shift) against the JAX package's Pallas
-ring kernels, on the CPU.
+ring kernels, on the CPU; its world-4 spawn also holds the ring matmul's
+distributed plain versions (tests/test_torch_ring_matmul.py) to the
+stacked ones.
 
 JAX runs its kernels in interpret mode on a W-device sub-mesh of the
 emulated CPU devices (tests/conftest.py), as tests/test_collective_matmul.py
@@ -244,6 +246,22 @@ _DIST_OPTS = {
 }
 
 
+#: (name, world, dtype, M, kc, N): the ring matmul (K6, K7, K8) in the
+#: same spawn
+_CM_DIST_CASES = [
+    ("cm_w2_bf16", 2, "bfloat16", 9, 8, 16),
+    ("cm_w4_f32", 4, "float32", 7, 3, 5),
+]
+
+
+def _cm_inputs(case_index, world, m, kc, n):
+    """Every rank's x [W, M, W*kc], its shard [W, kc, N] and its dy."""
+    rs = np.random.RandomState(100 + case_index)
+    return (rs.randn(world, m, world * kc).astype(np.float32),
+            rs.randn(world, kc, n).astype(np.float32),
+            rs.randn(world, m, n).astype(np.float32))
+
+
 def _dist_inputs(case_index, world, ss):
     """Two steps' gradient buffers of every rank, and every rank's shard."""
     rs = np.random.RandomState(case_index)
@@ -291,6 +309,18 @@ for i, (name, w, dtype, opt, ss) in enumerate({cases!r}):
     full = TCM.ring_all_gather(param.to(dt), ring)
     res[name + ".gather"] = full.view(torch.int16 if dt == torch.bfloat16
                                       else torch.int32).numpy()
+for i, (name, w, dtype, m, kc, n) in enumerate({cm_cases!r}):
+    if rank >= w:
+        continue
+    dt = getattr(torch, dtype)
+    ring = Ring(groups[w], "cpu", 1, cm_elems=kc * n)
+    x, ws, dy = (torch.from_numpy(a).to(dt) for a in _cm_inputs(i, w, m, kc,
+                                                                n))
+    for kind, got in (("fwd", TCM.ring_matmul(x[rank], ws[rank], ring)),
+                      ("dx", TCM.ring_matmul_dx(dy[rank], ws[rank], ring)),
+                      ("dw", TCM.ring_matmul_dw(x[rank], dy[rank], ring))):
+        res[f"{{name}}.{{kind}}"] = got.view(
+            torch.int16 if dt == torch.bfloat16 else torch.int32).numpy()
 np.savez(f"{{out}}/rank{{rank}}.npz", **res)
 backend.shutdown()
 '''
@@ -301,8 +331,10 @@ def dist_results(tmp_path_factory):
     import inspect
 
     out = str(tmp_path_factory.mktemp("ring_world4"))
-    code = _WORKER.format(root=ROOT, inputs=inspect.getsource(_dist_inputs),
-                          cases=_DIST_CASES, opts=_DIST_OPTS)
+    code = _WORKER.format(root=ROOT, inputs=inspect.getsource(_dist_inputs)
+                          + inspect.getsource(_cm_inputs),
+                          cases=_DIST_CASES, opts=_DIST_OPTS,
+                          cm_cases=_CM_DIST_CASES)
     spawn_ranks(code, 4, out)
     return [np.load(os.path.join(out, f"rank{r}.npz")) for r in range(4)]
 
@@ -334,3 +366,22 @@ def test_distributed_plain_equals_stacked(index, dist_results):
             got[name + ".param"].view(np.int32),
             params[r].numpy().view(np.int32))
         np.testing.assert_array_equal(got[name + ".gather"], _bits(full[r]))
+
+
+@pytest.mark.parametrize("index", range(len(_CM_DIST_CASES)),
+                         ids=[c[0] for c in _CM_DIST_CASES])
+def test_distributed_ring_matmul_equals_stacked(index, dist_results):
+    """K6, K7 and K8's distributed plain versions (hops over gloo) are
+    bitwise their stacked ones: the same fp32 products and adds."""
+    name, world, dtype, m, kc, n = _CM_DIST_CASES[index]
+    dt = _TDT[dtype]
+    x, ws, dy = (torch.from_numpy(a).to(dt)
+                 for a in _cm_inputs(index, world, m, kc, n))
+    want = {"fwd": TCM.ring_matmul_stacked(x, ws),
+            "dx": TCM.ring_matmul_dx_stacked(dy, ws),
+            "dw": TCM.ring_matmul_dw_stacked(x, dy)}
+    for r in range(world):
+        for kind, ref in want.items():
+            np.testing.assert_array_equal(
+                dist_results[r][f"{name}.{kind}"], _bits(ref[r]),
+                err_msg=f"{name} {kind} rank {r}")
