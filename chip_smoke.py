@@ -11,7 +11,7 @@ non-zero and no result line is printed):
   1. require CUDA; print the card's name and power limit; turn TF32 off;
   2. build every kernel of the serving and training paths from ``csrc/``
      with nvcc, one process per source, all started together (flash_fwd,
-     flash_bwd, fused_update, ring, ring_matmul);
+     flash_bwd, fused_update, ring, ring_matmul, overhead_probe);
   3. hold each kernel against its plain PyTorch version on the card:
      - K1, the flash-attention forward (decode and causal-prefill shapes,
        ragged lengths, an all-masked row; fp32 within 2e-5 — summation
@@ -39,6 +39,10 @@ non-zero and no result line is printed):
        for fp32, TF32 off): W = 2, 4, 8 on ragged and aligned shapes, fp32
        and bf16, and the main path's M = 8192, K = 768, N = 768 and 3072
        in bf16 at W = 2;
+     - K9, the overhead probe's ``2x + 1``: bitwise against its plain
+       version and against ``torch.add(one, x, alpha=2.0)`` at grids of 16
+       x (1024, 512), 2048 x (8, 512) and 33 x (8, 512), with infinities,
+       overflow, signed zeros and subnormals among the inputs;
      and again at the main paths' own shapes in phases 5 and 6: K1 at
      decode B = 4 and train [16, 1024, 12, 64] bf16 causal, K2 and K3 at
      the train shape, the shard update at every shard size of the training
@@ -71,6 +75,15 @@ non-zero and no result line is printed):
      gathered parameters bitwise equal, dear-fused's step-20 loss within
      `_FUSED_VS_DEAR_RTOL` of dear's and the ring-projection run's within
      `_RP_VS_FUSED_RTOL` of dear-fused's; a rank's failure fails the run;
+  5c. run the overhead probe as a user runs it on the card
+     (``dear_pytorch_tpu_torch.scripts.overhead_probe``, `probe.main`):
+     both sections in this process (K9 at its two granularities, 2 x 41
+     launches; K4 and the K5 ring at 65536 and 1024 elements on a two-rank
+     `LocalRing`, 22 launches each), then its kernel section again as two
+     processes sharing the card (this script with ``--probe-rank R --out
+     DIR``; the launcher variables, the IPC `Ring`, 12 launches each per
+     rank); prints each ring call's time on both transports and the
+     difference, the cost of pairing a call across two contexts;
   6. trace steady bf16 decode ticks and training steps with
      ``torch.profiler`` (device ops, busy time and idle share, the top
      device ops of a step); time each kernel, its plain version and
@@ -79,7 +92,8 @@ non-zero and no result line is printed):
      never calls; none for the K5 ring on one card) at the main
      path's shapes, beside the card's bound — K4 and the K5 ring per
      bucket and K6–K8 per call on a two-rank `LocalRing` (K6–K8 beside
-     one cuBLAS call computing the same function for both ranks); step
+     one cuBLAS call computing the same function for both ranks), K9 at
+     both granularities beside ``torch.add(one, x, alpha=2.0)``; step
      time p50/p99, tokens/s and MFU, and the two-rank steps' p50/p99 and
      tokens/s.
 
@@ -107,6 +121,7 @@ import torch.nn.functional as F
 import dear_pytorch_tpu_torch.ops.collective_matmul as CM
 import dear_pytorch_tpu_torch.ops.flash_attention as FA
 import dear_pytorch_tpu_torch.ops.fused_sgd as FS
+import dear_pytorch_tpu_torch.ops.overhead_probe as OP
 from dear_pytorch_tpu_torch.benchmarks import gpt as train_cli
 from dear_pytorch_tpu_torch.comm import backend
 from dear_pytorch_tpu_torch.comm.ring import LocalRing, Ring
@@ -120,6 +135,7 @@ from dear_pytorch_tpu_torch.ops import _build
 from dear_pytorch_tpu_torch.ops import fusion as FU
 from dear_pytorch_tpu_torch.ops.schedules import warmup_cosine
 from dear_pytorch_tpu_torch.parallel.dear import build_train_step
+from dear_pytorch_tpu_torch.scripts import overhead_probe as probe
 from dear_pytorch_tpu_torch.serving.engine import DecodeEngine
 
 # the card's peak rates (NVIDIA data sheets, dense)
@@ -132,18 +148,6 @@ _ROOT = Path(__file__).resolve().parent
 def _check(ok: bool, msg: str) -> None:
     if not ok:
         raise RuntimeError(f"chip_smoke: {msg}")
-
-
-def _hbm_bytes_per_s(name: str) -> float:
-    """Device-memory rate of the named card (data sheets)."""
-    n = name.upper()
-    if "H200" in n:
-        return 4.8e12
-    if "H100" in n and "PCIE" in n:
-        return 2.0e12
-    if "H100" in n and "NVL" in n:
-        return 3.9e12
-    return 3.35e12  # H100 SXM (80 GB HBM3)
 
 
 # ---------------------------------------------------------------------------
@@ -615,6 +619,37 @@ def check_ring_matmul_kernels() -> dict:
     return worst
 
 
+#: K9's grids: the probe's two granularities over 16384 rows, and a third
+_K9_GRIDS = probe.GRANULARITIES + ((33, 8),)
+
+
+def check_overhead_probe_kernel() -> float:
+    """K9 (the probe's ``2x + 1``) against its plain version and against
+    one PyTorch call computing the same function (``torch.add(one, x,
+    alpha=2.0)``), bitwise, at `_K9_GRIDS`: random fp32 rows with infinities,
+    values that overflow when doubled, signed zeros and subnormals. Returns
+    the largest absolute difference (0.0)."""
+    gen = torch.Generator(device=_DEV).manual_seed(15)
+    one = torch.ones((), device=_DEV)
+    for nblocks, rpb in _K9_GRIDS:
+        x = torch.randn(nblocks * rpb, OP.WIDTH, generator=gen, device=_DEV)
+        x[0, :6] = torch.tensor([float("inf"), float("-inf"), 3.0e38, -0.0,
+                                 1e-42, -1.5])
+        got = OP.affine_probe(x, rpb)
+        plain = OP.affine_probe_plain(x)
+        library = torch.add(one, x, alpha=2.0)
+        torch.cuda.synchronize()
+        for name, ref in (("its plain version", plain),
+                          ("torch.add(one, x, alpha=2.0)", library)):
+            _check(torch.equal(got.view(torch.int32), ref.view(torch.int32)),
+                   f"overhead probe kernel at grid {nblocks} x ({rpb}, 512) "
+                   f"is not bitwise equal to {name}")
+    print(f"overhead probe kernel check: grids {list(_K9_GRIDS)} of (rows, "
+          "512) fp32: bitwise equal to the plain version and to "
+          "torch.add(one, x, alpha=2.0)")
+    return 0.0
+
+
 # ---------------------------------------------------------------------------
 # phase 4: serve GPT-2 small through DecodeEngine
 # ---------------------------------------------------------------------------
@@ -1024,7 +1059,17 @@ def train_two_ranks(mode: str, timeout: float = 600.0) -> list:
     """Spawn the two ranks of ``mode`` (this script with ``--train-rank``),
     wait for both, and return their results; any rank's failure, or the
     deadline, fails the run with both ranks' logs."""
-    out = _ROOT / "build" / "chip_smoke" / f"{mode}-{os.getpid()}"
+    return spawn_two_ranks(
+        mode, lambda r, out: ["--train-rank", str(r), "--out", str(out),
+                              "--mode", mode], timeout)
+
+
+def spawn_two_ranks(name: str, worker_args, timeout: float) -> list:
+    """Spawn two ranks of this script (argv ``worker_args(rank, out)``),
+    each writing ``out/rank<r>.json``, wait for both, and return their
+    results; any rank's failure, or the deadline, fails the run with both
+    ranks' logs."""
+    out = _ROOT / "build" / "chip_smoke" / f"{name}-{os.getpid()}"
     shutil.rmtree(out, ignore_errors=True)
     out.mkdir(parents=True)
     torch.cuda.empty_cache()
@@ -1034,7 +1079,7 @@ def train_two_ranks(mode: str, timeout: float = 600.0) -> list:
         with open(log, "w") as f:
             procs.append(subprocess.Popen(
                 [sys.executable, str(Path(__file__).resolve()),
-                 "--train-rank", str(r), "--out", str(out), "--mode", mode],
+                 *worker_args(r, out)],
                 stdout=f, stderr=subprocess.STDOUT, cwd=_ROOT))
     deadline = time.monotonic() + timeout
     try:
@@ -1050,9 +1095,9 @@ def train_two_ranks(mode: str, timeout: float = 600.0) -> list:
             p.wait()
     if any(p.returncode != 0 for p in procs):
         for r, (p, log) in enumerate(zip(procs, logs)):
-            print(f"--- rank {r} of {mode} (exit {p.returncode}):\n"
+            print(f"--- rank {r} of {name} (exit {p.returncode}):\n"
                   + "\n".join(log.read_text().splitlines()[-40:]))
-        raise RuntimeError(f"chip_smoke: a rank of the two-rank {mode} run "
+        raise RuntimeError(f"chip_smoke: a rank of the two-rank {name} run "
                            f"failed or passed the {timeout:.0f} s deadline")
     return [json.loads((out / f"rank{r}.json").read_text())
             for r in range(2)]
@@ -1107,6 +1152,134 @@ def train_dear_fused() -> tuple:
     _check(rel_rp <= _RP_VS_FUSED_RTOL,
            "ring projections and dear-fused losses differ")
     return fused, rp, dear
+
+
+# ---------------------------------------------------------------------------
+# phase 5c: the overhead probe
+# ---------------------------------------------------------------------------
+
+#: K9 launches of one elementwise section: per granularity one warm-up,
+#: `probe.ITERS` host-timed and as many event-timed calls
+_PROBE_K9_LAUNCHES = len(probe.GRANULARITIES) * (1 + 2 * probe.ITERS)
+#: K4 and K5 ring launches of one kernel section, each: per shard size one
+#: warm-up and `probe.RING_ITERS` host-timed calls, and as many event-timed
+#: ones on a `LocalRing`
+_PROBE_RING_LAUNCHES = len(probe.SHARDS) * (1 + probe.RING_ITERS)
+_PROBE_LOCAL_RING_LAUNCHES = len(probe.SHARDS) * (1 + 2 * probe.RING_ITERS)
+
+
+def _probe_counts() -> dict:
+    return {"overhead_probe": OP.affine_probe_launches,
+            "ring_ag": CM.ring_ag_launches, "ring_rs": CM.ring_rs_launches}
+
+
+def _zero_probe_counts() -> None:
+    OP.affine_probe_launches = CM.ring_ag_launches = CM.ring_rs_launches = 0
+
+
+def run_probe() -> tuple:
+    """The probe's main path in this process, as a user runs it on the
+    card (`scripts.overhead_probe.main`, both sections, the kernel section
+    on a two-rank `LocalRing`): every count set to 0 just before, read just
+    after, and checked (K9 `_PROBE_K9_LAUNCHES` times, K4 and the K5 ring
+    `_PROBE_LOCAL_RING_LAUNCHES` each). Returns (its rows, the
+    launches)."""
+    _zero_probe_counts()
+    res = probe.main(["--section", "all", "--world", "2"])
+    launches = _probe_counts()
+    want = {"overhead_probe": _PROBE_K9_LAUNCHES,
+            "ring_ag": _PROBE_LOCAL_RING_LAUNCHES,
+            "ring_rs": _PROBE_LOCAL_RING_LAUNCHES}
+    _check(launches == want, f"overhead probe: launches {launches}, "
+           f"expected {want}")
+    _check(len(res["elementwise"]) == len(probe.GRANULARITIES)
+           and all(r["transport"] == "LocalRing" for r in res["kernels"])
+           and len(res["kernels"]) == 2 * len(probe.SHARDS),
+           f"overhead probe: rows {res}")
+    return res, launches
+
+
+def probe_rank_worker(rank: int, out: Path) -> None:
+    """One of the two ranks of the probe's kernel section (a process of
+    its own on card ``rank % device_count``): the entry point started
+    through the launcher variables, the IPC `Ring` over a gloo group that
+    meets at a FileStore in ``out``; its rows and launches (counted from
+    0) into ``out/rank<r>.json``."""
+    os.environ.update(
+        DEAR_NUM_PROCESSES="2", DEAR_PROCESS_ID=str(rank),
+        DEAR_COORDINATOR_ADDRESS=f"file://{out}/store",
+        DEAR_LOCAL_RANK=str(rank), DEAR_LOCAL_SIZE="2")
+    _zero_probe_counts()
+    res = probe.main(["--section", "kernels"])
+    (out / f"rank{rank}.json").write_text(json.dumps({
+        "rows": res["kernels"], "launches": _probe_counts()}))
+
+
+def probe_two_ranks(local_rows: list) -> tuple:
+    """The probe's kernel section again as two processes sharing the card
+    (`probe_rank_worker`): each rank's launches checked; prints each
+    kernel's time per call on the IPC ring beside the `LocalRing`'s
+    (``local_rows``) and their difference, the cost of pairing a ring call
+    across two contexts. Returns the launches over both ranks."""
+    ranks = spawn_two_ranks(
+        "probe", lambda r, out: ["--probe-rank", str(r), "--out", str(out)],
+        300.0)
+    want = {"overhead_probe": 0, "ring_ag": _PROBE_RING_LAUNCHES,
+            "ring_rs": _PROBE_RING_LAUNCHES}
+    local = {(r["kernel"], r["shard"]): r for r in local_rows}
+    for r, rank in enumerate(ranks):
+        _check(rank["launches"] == want, f"probe rank {r}: launches "
+               f"{rank['launches']}, expected {want}")
+        _check(sorted((x["kernel"], x["shard"]) for x in rank["rows"])
+               == sorted(local) and all(
+                   x["transport"] == "Ring" and x["world"] == 2
+                   and x["device"].startswith("cuda") for x in rank["rows"]),
+               f"probe rank {r}: rows {rank['rows']}")
+    for key, lr in local.items():
+        ipc = [next(x for x in rank["rows"]
+                    if (x["kernel"], x["shard"]) == key) for rank in ranks]
+        mean = sum(x["ms"] for x in ipc) / len(ipc)
+        print(f"probe {key[0]} shard={key[1]}: LocalRing {lr['ms']:.5f} "
+              f"ms/call ({lr['us_per_hop']:.2f} us/hop; device "
+              f"{lr['device_ms']:.5f} ms); IPC Ring, two "
+              f"processes sharing the card: {ipc[0]['ms']:.5f} (rank 0), "
+              f"{ipc[1]['ms']:.5f} (rank 1) ms/call; pairing across two "
+              f"contexts: {mean - lr['ms']:.5f} ms per call")
+    return {k: sum(rank["launches"][k] for rank in ranks) for k in want}
+
+
+def time_overhead_probe(hbm) -> dict:
+    """K9 at the probe's granularities, inputs cycled over two sets (128
+    MiB, past the 50 MB L2), beside its plain version, one PyTorch call
+    computing the same function (``torch.add(one, x, alpha=2.0)``, a
+    yardstick the port never calls) and the bytes bound: each call reads x
+    and writes o once, 8 bytes per element. Returns the rows by
+    (nblocks, rows_per_block)."""
+    gen = torch.Generator(device=_DEV).manual_seed(16)
+    one = torch.ones((), device=_DEV)
+    rows = {}
+    for nblocks, rpb in probe.GRANULARITIES:
+        sets = [(torch.randn(nblocks * rpb, OP.WIDTH, generator=gen,
+                             device=_DEV),
+                 torch.empty(nblocks * rpb, OP.WIDTH, device=_DEV))
+                for _ in range(2)]
+        nbytes = 2 * sets[0][0].numel() * 4
+        row = {"shape": f"grid {nblocks} x ({rpb}, 512) fp32",
+               "ms": device_ms(lambda x, o: OP.affine_probe(x, rpb, out=o),
+                               sets, 20),
+               "plain_ms": device_ms(lambda x, o: OP.affine_probe_plain(x),
+                                     sets, 20),
+               "library_ms": device_ms(
+                   lambda x, o: torch.add(one, x, alpha=2.0, out=o), sets,
+                   20),
+               "library_note": "torch.add(one, x, alpha=2.0): one PyTorch "
+                               "call",
+               "bound_ms": nbytes / hbm * 1e3, "bound_by": "bytes",
+               "bytes": nbytes}
+        print("kernel time " + json.dumps({"kernel": "overhead_probe"}
+                                          | row))
+        rows[nblocks, rpb] = row
+    return rows
 
 
 def train_flops_per_step(cfg, B, S) -> float:
@@ -1604,7 +1777,9 @@ def main(argv=None) -> int:
     kernels_only = argv == ["--kernels-only"]
     worker = len(argv) == 6 and argv[0::2] == ["--train-rank", "--out",
                                                "--mode"]
-    if argv and not (kernels_only or worker):
+    probe_worker = len(argv) == 4 and argv[0::2] == ["--probe-rank",
+                                                     "--out"]
+    if argv and not (kernels_only or worker or probe_worker):
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -1613,6 +1788,9 @@ def main(argv=None) -> int:
         return 1
     if worker:                   # one rank of phase 5b, spawned below
         rank_worker(int(argv[1]), Path(argv[3]), argv[5])
+        return 0
+    if probe_worker:             # one rank of phase 5c, spawned below
+        probe_rank_worker(int(argv[1]), Path(argv[3]))
         return 0
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1627,7 +1805,7 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     logs = _build.build(["flash_fwd", "flash_bwd", "fused_update", "ring",
-                         "ring_matmul"])
+                         "ring_matmul", "overhead_probe"])
     print(f"build: {time.perf_counter() - t0:.1f} s "
           f"({', '.join(logs) or 'cached'}) into {_build.BUILD_DIR}")
     for log in logs.values():
@@ -1641,6 +1819,7 @@ def main(argv=None) -> int:
     upd_err = check_update_kernel()
     ag_err, rs_err = check_ring_kernels()
     cm_err = check_ring_matmul_kernels()
+    k9_err = check_overhead_probe_kernel()
     print(f"kernel checks: {time.perf_counter() - t0:.1f} s")
     if kernels_only:
         return 0
@@ -1663,6 +1842,12 @@ def main(argv=None) -> int:
     print("IPC ring check, both ranks: K4 fp32 and bf16, K5 ring bf16 (two "
           "steps) at the plan's shard sizes: 0 ulp from the plain versions")
     print(f"two-rank phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    probe_res, probe_launches = run_probe()
+    probe_ipc_launches = probe_two_ranks(probe_res["kernels"])
+    print(f"overhead probe phase: {time.perf_counter() - t0:.1f} s; "
+          f"launches in this process {probe_launches}, over both IPC "
+          f"ranks {probe_ipc_launches}")
     trace_decode_ticks(runs[-1][3].model)
 
     B, S = 16, 1024
@@ -1700,7 +1885,7 @@ def main(argv=None) -> int:
                   + "; ".join(f"{ms:.3f} {name[:48]}"
                               for name, ms in tr["top"][:6]))
 
-    hbm = _hbm_bytes_per_s(name)
+    hbm = probe.memory_rate(name)
     print(f"bounds: {hbm / 1e12} TB/s memory ({name}), peak "
           f"{_PEAK_FLOPS[torch.bfloat16] / 1e12} TF/s bf16, "
           f"{_PEAK_FLOPS[torch.float32] / 1e12} TF/s fp32; power limit as "
@@ -1735,13 +1920,18 @@ def main(argv=None) -> int:
     ring_n = max(n for n in fused[0]["shard_sizes"]
                  if 2 * n * 4 <= 25 * 2**20)
     cm_rows = time_ring_matmul(hbm, {768: 3 * layers, 3072: layers})
+    k9_rows = time_overhead_probe(hbm)
     fused_launches = {k: sum(r["launches"][k] for r in fused + rp)
                       for k in fused[0]["launches"]}
+    # K4 and the K5 ring also run on the probe's path (both transports)
+    ring_launches = {k: fused_launches[k] + probe_launches[k]
+                     + probe_ipc_launches[k] for k in ("ring_ag", "ring_rs")}
     rp_launches = {k: sum(r["launches"][k] for r in rp)
                    for k in rp[0]["launches"]}
     print(f"main paths (two ranks, dear-fused, with and without ring "
           f"projections): launches over both ranks and runs "
-          f"{fused_launches}; with ring projections {rp_launches}")
+          f"{fused_launches}; with ring projections {rp_launches}; K4 and "
+          f"the K5 ring with the probe's {ring_launches}")
 
     print(json.dumps({"kernels": [
         _kernel_entry("flash_fwd", "flash_fwd.cu",
@@ -1763,11 +1953,11 @@ def main(argv=None) -> int:
                       train_launches["fused_update"], upd_err, upd),
         _kernel_entry("ring_all_gather", "ring.cu",
                       "dear_pytorch_tpu/ops/collective_matmul.py:218",
-                      fused_launches["ring_ag"], ag_err,
+                      ring_launches["ring_ag"], ag_err,
                       ring_rows["ring_all_gather"][ring_n]),
         _kernel_entry("ring_rs_update", "ring.cu",
                       "dear_pytorch_tpu/ops/collective_matmul.py:317",
-                      fused_launches["ring_rs"], rs_err,
+                      ring_launches["ring_rs"], rs_err,
                       ring_rows["ring_rs_update"][ring_n]),
     ] + [
         # the mlp_in shape (N = 3072); PERF.md has both shapes and per step
@@ -1776,7 +1966,12 @@ def main(argv=None) -> int:
                       rp_launches[kname], cm_err[kname],
                       cm_rows[kname][3072])
         for kname, line in (("cm_fwd", 510), ("cm_dx", 545),
-                            ("cm_dw", 572))]}))
+                            ("cm_dw", 572))] + [
+        # the finer granularity: per-step cost, not one SM's bandwidth
+        _kernel_entry("overhead_probe", "overhead_probe.cu",
+                      "scripts/pallas_overhead_probe.py:33",
+                      probe_launches["overhead_probe"], k9_err,
+                      k9_rows[2048, 8])]}))
     backend.shutdown()
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -15,7 +15,12 @@ Ported so far:
     (`parallel.dear`, ``mode="dear"``; `benchmarks.gpt` is its CLI) over a
     `comm.backend` process group, with the flash-attention backward
     (``csrc/flash_bwd.cu``) and the per-bucket shard update
-    (`ops.fused_sgd`, ``csrc/fused_update.cu``) as hand-written kernels.
+    (`ops.fused_sgd`, ``csrc/fused_update.cu``) as hand-written kernels;
+  - slices 3 and 4: ``mode="dear-fused"`` with the ring kernels
+    (``csrc/ring.cu`` over `comm.ring`) and ``--ring-projections`` with the
+    ring collective matmul (``csrc/ring_matmul.cu``);
+  - slice 5: the overhead probe (`scripts.overhead_probe`) with its
+    elementwise kernel (`ops.overhead_probe`, ``csrc/overhead_probe.cu``).
 """
 
 __version__ = "0.1.0"

@@ -38,8 +38,8 @@ from dear_pytorch_tpu_torch._device import resolve_device
 
 __all__ = [
     "barriar", "barrier", "card_shared", "device", "group", "init",
-    "is_initialized", "local_rank", "local_size", "rank", "shutdown",
-    "size",
+    "is_initialized", "launched_size", "local_rank", "local_size", "rank",
+    "shutdown", "size",
 ]
 
 _lock = threading.Lock()
@@ -58,6 +58,12 @@ def _env_int(*names: str) -> Optional[int]:
                     f"{k}={v!r} is not an integer (launcher contract: "
                     "see launch/README.md)") from None
     return None
+
+
+def launched_size() -> int:
+    """The world the launcher variables name (``DEAR_NUM_PROCESSES`` or
+    ``JAX_NUM_PROCESSES``); 1 when none is set."""
+    return _env_int("DEAR_NUM_PROCESSES", "JAX_NUM_PROCESSES") or 1
 
 
 def _coordinator() -> Optional[str]:
@@ -90,7 +96,7 @@ def init(device=None) -> dist.ProcessGroup:
                 raise ValueError(f"the process group runs on {_device}, "
                                  f"not {dev}")
             return dist.group.WORLD
-        world = _env_int("DEAR_NUM_PROCESSES", "JAX_NUM_PROCESSES") or 1
+        world = launched_size()
         rank_ = _env_int("DEAR_PROCESS_ID", "JAX_PROCESS_ID")
         if world > 1:
             addr = _coordinator()

@@ -280,12 +280,32 @@ backend.shutdown()
 '''
 
 
+#: how a rank runs its worker script: in a namespace of its own that it
+#: empties (and collects) before the interpreter exits, so the process
+#: group and everything holding it (work handles, rings) are destroyed
+#: while the interpreter is whole. A gloo group still alive when the
+#: interpreter finalizes is destroyed with its C++ statics, and that
+#: teardown can abort the rank after its work is done ("terminate called
+#: without an active exception", SIGABRT), now and then under load; it
+#: failed test_collectives_match_jax[4] in a loaded run, and
+#: tests/torch_spawn_stress.py --raw shows it.
+_RANK_MAIN = """import gc, sys
+path = sys.argv.pop(1)
+ns = {"__name__": "__main__", "__file__": path}
+exec(compile(open(path).read(), path, "exec"), ns)
+ns.clear()
+gc.collect()
+"""
+
+
 def spawn_ranks(code, world, out, timeout=400):
     """Run ``code`` as ``world`` fresh Python processes (argv: rank, world,
     out), one intra-op thread each; raise with every rank's output if any
     fails or the deadline passes. Each rank writes to its own log file, not
     a pipe, so no rank can block on a full pipe while a peer waits for it
-    in a collective; the first rank to fail ends the others."""
+    in a collective; the first rank to fail ends the others. Each rank
+    runs ``code`` through `_RANK_MAIN`, which releases all it holds before
+    the interpreter exits."""
     path = os.path.join(out, "worker.py")
     with open(path, "w") as f:
         f.write(code)
@@ -297,8 +317,8 @@ def spawn_ranks(code, world, out, timeout=400):
     for r, log in enumerate(logs):
         with open(log, "w") as f:
             procs.append(subprocess.Popen(
-                [sys.executable, path, str(r), str(world), out], stdout=f,
-                stderr=subprocess.STDOUT, env=env, cwd=out))
+                [sys.executable, "-c", _RANK_MAIN, path, str(r), str(world),
+                 out], stdout=f, stderr=subprocess.STDOUT, env=env, cwd=out))
     deadline = time.monotonic() + timeout
     try:
         while time.monotonic() < deadline:
