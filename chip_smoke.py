@@ -13,16 +13,21 @@ non-zero and no result line is printed):
      with nvcc, one process per source, all started together (flash_fwd,
      flash_bwd, fused_update, ring, ring_matmul, overhead_probe);
   3. hold each kernel against its plain PyTorch version on the card:
-     - K1, the flash-attention forward (decode and causal-prefill shapes,
-       ragged lengths, an all-masked row; fp32 within 2e-5 — summation
-       order — and bf16 within 2e-2 — output rounding; fp32 outputs and
-       lse of bf16 inputs within 2e-5 and 2e-4);
+     - K1, the flash-attention forward, by route (`fwd_route`: every
+       call checked to launch once through the route it should take —
+       tensor cores for bf16 in and out at D = 64, split-K for one query
+       row, CUDA cores otherwise): decode and causal-prefill shapes,
+       ragged lengths, Sq != Sk, an all-masked row, a decode whose whole
+       128-key splits are masked, D = 40 and 128, the train shape at B = 8;
+       fp32 within 2e-5 — summation order — and bf16 within 2e-2 — output
+       rounding; fp32 outputs and every route's lse within 2e-5 and 2e-4;
      - K2 and K3, the backward's dQ and dK/dV (the training shape
        [4, 1024, 12, 64] causal, a holey mask, ragged S = 13 and 136, an
        all-masked row; the largest error over the largest |plain value|,
        at most 1e-4 in fp32 — summation order over up to 1024 keys — and
-       2e-2 in bf16 — output rounding), and autograd through K1+K2+K3
-       against autograd through the plain forward;
+       2e-2 in bf16 — output rounding), bf16 inputs with fp32 outputs
+       (ring attention's ``out_dtype``; within 1e-4), and autograd through
+       K1+K2+K3 against autograd through the plain forward;
      - the shard update (the K5 epilogue): bitwise, SGD (momentum, its
        first and second step; nesterov with weight decay) and AdamW, on a
        ragged shard and a 25 MB one, bf16 and fp32 gradients, with and
@@ -38,36 +43,42 @@ non-zero and no result line is printed):
        `_CM_RTOL` of the largest plain value (8e-3 for bf16 outputs, 1e-5
        for fp32, TF32 off): W = 2, 4, 8 on ragged and aligned shapes, fp32
        and bf16, and the main path's M = 8192, K = 768, N = 768 and 3072
-       in bf16 at W = 2;
+       in bf16 at W = 2; K8 also at W = 4 and 8 at those M, K and N, and
+       twice on the same inputs at every main shape, bitwise equal;
      - K9, the overhead probe's ``2x + 1``: bitwise against its plain
        version and against ``torch.add(one, x, alpha=2.0)`` at grids of 16
        x (1024, 512), 2048 x (8, 512) and 33 x (8, 512), with infinities,
        overflow, signed zeros and subnormals among the inputs;
      and again at the main paths' own shapes in phases 5 and 6: K1 at
-     decode B = 4 and train [16, 1024, 12, 64] bf16 causal, K2 and K3 at
+     decode B = 4, train [16, 1024, 12, 64] and [8, ...] bf16 causal
+     (tensor cores) and at the fp32 step's [2, 1024, 12, 64] (CUDA
+     cores), K8 under several cuts of its reduction, K2 and K3 at
      the train shape, the shard update at every shard size of the training
      run's plan with its optimizer; the kernels line reports the largest
      error of all of these;
   4. serve GPT-2 small at full width (random weights from a seed) through
      `DecodeEngine` with ``decode_use_flash=True`` — fp32 at
      ``prefill_chunk`` 1 and 16, then bf16 — and check that every request
-     finishes, that the flash kernel ran 12 times per decode tick, and that
+     finishes, that the flash kernel ran 12 times per decode tick, all of
+     them through its split-K route (12 per bf16 tick), and that
      the fp32 tokens equal the port's own greedy `generate` (a divergence
      is accepted only at a near-tie: top-2 logit gap < 1e-3);
   5. train GPT-2 small at full width through the port's training CLI
      (``benchmarks/gpt.py --fp16 --flash-attention --dropout0``, batch 16,
      S = 1024, the DeAR schedule over a one-rank NCCL group) for 20 steps:
-     the losses are finite and fall, and every step launches K1, K2 and K3
-     12 times each and one shard update, reduce-scatter and all-gather per
-     bucket; then one fp32 step with the flash kernels against one with
-     the dense attention core (2 layers, batch 2), and 3 steps with the
-     CLI's default dropout;
+     the losses are finite and fall, and every step launches K1 (through
+     its tensor-core route), K2 and K3 12 times each and one shard update,
+     reduce-scatter and all-gather per bucket; then one fp32 step with the
+     flash kernels (K1 through its CUDA-core route, once per layer)
+     against one with the dense attention core (2 layers, batch 2), and 3
+     steps with the CLI's default dropout;
   5b. train it at world 2 as two processes sharing the card (this script
      with ``--train-rank R --out DIR --mode M``; the ``DEAR_*`` launcher
      variables, a ``file://`` store, card ``r % device_count``), 8
      sequences per rank, 20 steps, with ``--mode dear-fused`` (every
-     step on each rank: K1–K3 12 times each, K4 and the K5 ring once per
-     bucket, no separate update), again with ``--mode dear-fused
+     step on each rank: K1 (tensor cores), K2 and K3 12 times each, K4
+     and the K5 ring once per bucket, no separate update), again with
+     ``--mode dear-fused
      --ring-projections`` (each rank first holds K6–K8 against their plain
      versions on its own IPC ring at the main path's shapes; then every
      step also launches K6, K7 and K8 48 times each) and with ``--mode
@@ -99,7 +110,9 @@ non-zero and no result line is printed):
 
 ``python3 chip_smoke.py --kernels-only`` runs phases 1–3 and stops without
 a result line. In a full run the line before the last lists the kernels
-as JSON; the last line is ``{"ok": true, "device": {...}}``.
+as JSON (K1 once per route, each with its main path's launches; K2 and K3
+with their fp32-output case as ``fp32_out``); the last line is ``{"ok":
+true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -155,7 +168,11 @@ def _check(ok: bool, msg: str) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _case(gen, B, Sq, Sk, dtype, causal, lengths=None, holey=False, D=None):
+def _case(gen, B, Sq, Sk, dtype, causal, lengths=None, holey=False, D=None,
+          dead=None):
+    """q, k, v [B, S, H, D] and an int32 key mask [B, Sk]: the first
+    ``lengths[b]`` keys, a random 70%, or all; ``dead`` = (lo, hi) also
+    masks keys lo .. hi - 1 of every row."""
     dev = _DEV
     D = D or _D
     q = torch.randn(B, Sq, _H, D, generator=gen, device=dev).to(dtype)
@@ -168,13 +185,29 @@ def _case(gen, B, Sq, Sk, dtype, causal, lengths=None, holey=False, D=None):
         mask = torch.rand(B, Sk, generator=gen, device=dev) > 0.3
     else:
         mask = torch.ones(B, Sk, dtype=torch.bool, device=dev)
+    if dead is not None:
+        mask = mask & ~((ar >= dead[0]) & (ar < dead[1]))[None, :]
     return q, k, v, mask.to(torch.int32)
 
 
-def check_kernel() -> float:
-    """Every case through `flash_attention` ([B,S,H,D] strides, o) and
-    `flash_pair_fwd` (folded [BH,S,D], o and lse); returns the largest
-    |o - o_plain|."""
+def _routed(name, route, fn):
+    """Run ``fn`` (one K1 call) and check that it launched once, through
+    ``route``: no route gives way to another or to the plain version."""
+    before = dict(FA.flash_fwd_route_launches)
+    out = fn()
+    got = {r: FA.flash_fwd_route_launches[r] - before[r] for r in before}
+    _check(got == {r: int(r == route) for r in before},
+           f"{name}: K1 launches by route {got}, expected one {route}")
+    return out
+
+
+def check_kernel() -> dict:
+    """Every case through `flash_attention` ([B,S,H,D] strides, o, in the
+    inputs' dtype: the tensor-core route for bf16 at D = 64 with Sq > 1,
+    split-K at Sq = 1) and `flash_pair_fwd` (folded [BH,S,D], o and lse in
+    fp32: the CUDA-core route, or split-K at Sq = 1), each launch checked
+    to take its route (`fwd_route`); the lse of the first call too.
+    Returns the largest |o - o_plain| of each route."""
     gen = torch.Generator(device=_DEV).manual_seed(0)
     tol = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
     cases = []
@@ -184,48 +217,70 @@ def check_kernel() -> float:
                                    lengths=[1, 137, 600, 1024]), False),
             (f"all-masked row {dt}", _case(gen, _SLOTS, 1, _L, dt, False,
                                            lengths=[0, 5, 1024, 0]), False),
+            # whole 128-key splits of live rows masked: the tail of rows 0
+            # and 1, and keys 128 .. 511 of every row
+            (f"decode, dead splits {dt}",
+             _case(gen, _SLOTS, 1, _L, dt, False,
+                   lengths=[100, 700, 1024, 1024], dead=(128, 512)), False),
+            (f"decode D=40 {dt}", _case(gen, _SLOTS, 1, 300, dt, False,
+                                        holey=True, D=40), False),
             (f"causal prefill {dt}", _case(gen, 2, 1024, 1024, dt, True),
              True),
             (f"ragged causal S=13 {dt}",
              _case(gen, 2, 13, 13, dt, True, holey=True), True),
             (f"ragged S=136 {dt}",
              _case(gen, 2, 136, 136, dt, False, holey=True), False),
+            (f"D=128 causal S=200 {dt}",
+             _case(gen, 2, 200, 200, dt, True, holey=True, D=128), True),
+            (f"Sq=200 Sk=1000 {dt}",
+             _case(gen, 2, 200, 1000, dt, False, holey=True), False),
         ]
-    worst = 0.0
+    # the training step's shape at world 2's per-rank batch
+    cases.append(("train causal B=8 torch.bfloat16",
+                  _case(gen, 8, 1024, 1024, torch.bfloat16, True), True))
+    worst = dict.fromkeys(FA.FWD_ROUTES, 0.0)
     for name, (q, k, v, mask), causal in cases:
-        dt = q.dtype
+        dt, D = q.dtype, q.shape[-1]
+        route = FA.fwd_route(q.shape[1], D, dt, dt)
+        route_f32 = FA.fwd_route(q.shape[1], D, dt, torch.float32)
         ref32, ref_lse = FA.flash_attention_reference(
             q, k, v, causal=causal, kv_mask=mask, out_dtype=torch.float32)
         ref_o = ref32.to(dt)
-        o = FA.flash_attention(q, k, v, causal=causal, kv_mask=mask)
+        o = _routed(name, route, lambda: FA.flash_attention(
+            q, k, v, causal=causal, kv_mask=mask))
+        _, o_lse = _routed(name, route, lambda: FA._dispatch(
+            q, k, v, mask, D ** -0.5, causal, dt))
 
         def fold(x):
-            return x.transpose(1, 2).reshape(-1, x.shape[1], _D)
+            return x.transpose(1, 2).reshape(-1, x.shape[1], D)
 
-        po, lse = FA.flash_pair_fwd(
-            fold(q), fold(k), fold(v),
-            mask.repeat_interleave(_H, dim=0), None, causal,
-            out_dtype=torch.float32)
+        po, lse = _routed(name, route_f32, lambda: FA.flash_pair_fwd(
+            fold(q), fold(k), fold(v), mask.repeat_interleave(_H, dim=0),
+            None, causal, out_dtype=torch.float32))
         torch.cuda.synchronize()
         err_o = float((o.float() - ref_o.float()).abs().max())
+        err_o_lse = float((o_lse - ref_lse).abs().max())
         ref_po = ref32.transpose(1, 2).reshape(po.shape)
         err_po = float((po - ref_po).abs().max())
         err_lse = float((lse - ref_lse.reshape(lse.shape)).abs().max())
-        print(f"kernel check {name}: max|o-plain| {err_o:.3e} "
+        print(f"kernel check {name} ({route}): max|o-plain| {err_o:.3e} "
+              f"max|lse-plain| {err_o_lse:.3e}; fp32 out "
               f"max|o_f32-plain| {err_po:.3e} max|lse-plain| {err_lse:.3e}")
         _check(o.dtype == dt and po.dtype == torch.float32,
                f"{name}: output dtypes {o.dtype}, {po.dtype}")
         _check(err_o <= tol[dt] and err_po <= tol[torch.float32]
-               and err_lse <= tol[torch.float32] * 10,
+               and max(err_lse, err_o_lse) <= tol[torch.float32] * 10,
                f"{name}: kernel disagrees with its plain version")
         _check(bool(torch.isfinite(o.float()).all()), f"{name}: non-finite")
         if name.startswith("all-masked"):
             dead = mask.sum(dim=1) == 0
             _check(bool((o[dead] == 0).all()), "all-masked row: o != 0")
-            lse_rows = lse.view(_SLOTS, _H)[dead]
-            _check(bool((lse_rows == -1e30).all()),
-                   "all-masked row: lse != -1e30")
-        worst = max(worst, err_o)
+            for lse_all in (lse, o_lse):
+                lse_rows = lse_all.reshape(_SLOTS, _H)[dead]
+                _check(bool((lse_rows == -1e30).all()),
+                       "all-masked row: lse != -1e30")
+        worst[route] = max(worst[route], err_o)
+        worst[route_f32] = max(worst[route_f32], err_po)
     return worst
 
 
@@ -253,12 +308,14 @@ def _rel(got, ref) -> tuple:
     return err, err / max(1.0, float(ref.float().abs().max()))
 
 
-def check_bwd_kernels() -> tuple:
+def check_bwd_kernels() -> dict:
     """K2 (dQ) and K3 (dK, dV) against their plain versions through the
     folded `flash_pair_dq` / `flash_pair_dkv`, then autograd through
     `flash_attention` (K1 forward, K2 and K3 backward) against autograd
     through the plain forward at the [B, S, H, D] layout the model uses.
-    Returns the largest absolute error of dQ and of dK/dV."""
+    Then bf16 inputs with fp32 outputs (ring attention's ``out_dtype``),
+    within the fp32 tolerance. Returns the largest absolute error of dQ and
+    of dK/dV, with the fp32-output case's as ``dq_f32`` and ``dkv_f32``."""
     gen = torch.Generator(device=_DEV).manual_seed(2)
     tol = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
     cases = []
@@ -280,17 +337,29 @@ def check_bwd_kernels() -> tuple:
             (f"D=40 S=77 {dt}",
              _bwd_operands(gen, 2, 77, dt, False, holey=True, D=40), False),
         ]
-    worst = {"dq": 0.0, "dkv": 0.0}
-    for name, (q, k, v, do, mask, lse, delta), causal in cases:
-        dt = q.dtype
+    # bf16 in, fp32 out: the same kernels' fp32 stores
+    f32 = torch.float32
+    cases += [
+        (f"{name} -> fp32", ops, causal, f32) for name, ops, causal in (
+            ("train causal B=4 S=1024 bf16",
+             _bwd_operands(gen, 4, 1024, torch.bfloat16, True), True),
+            ("holey S=256 bf16",
+             _bwd_operands(gen, 2, 256, torch.bfloat16, False, holey=True),
+             False),
+            ("all-masked row S=136 bf16",
+             _bwd_operands(gen, 2, 136, torch.bfloat16, False,
+                           lengths=[0, 100]), False))]
+    worst = dict.fromkeys(("dq", "dkv", "dq_f32", "dkv_f32"), 0.0)
+    for name, (q, k, v, do, mask, lse, delta), causal, *out_dt in cases:
+        out_dt = out_dt[0] if out_dt else q.dtype
         scale = q.shape[-1] ** -0.5
         args = (_fold(q), _fold(k), _fold(v), mask.repeat_interleave(_H, 0),
                 _fold(do), lse.reshape(-1, lse.shape[-1]),
                 delta.reshape(-1, delta.shape[-1]), scale, causal)
-        dq = FA.flash_pair_dq(*args)
-        dk, dv = FA.flash_pair_dkv(*args)
-        ref_dq = FA.flash_pair_dq_reference(*args)
-        ref_dk, ref_dv = FA.flash_pair_dkv_reference(*args)
+        dq = FA.flash_pair_dq(*args, out_dtype=out_dt)
+        dk, dv = FA.flash_pair_dkv(*args, out_dtype=out_dt)
+        ref_dq = FA.flash_pair_dq_reference(*args, out_dtype=out_dt)
+        ref_dk, ref_dv = FA.flash_pair_dkv_reference(*args, out_dtype=out_dt)
         torch.cuda.synchronize()
         errs = {"dq": _rel(dq, ref_dq), "dk": _rel(dk, ref_dk),
                 "dv": _rel(dv, ref_dv)}
@@ -298,18 +367,20 @@ def check_bwd_kernels() -> tuple:
             f"max|{n}-plain| {a:.3e} (rel {r:.3e})"
             for n, (a, r) in errs.items()))
         for n, out in (("dq", dq), ("dk", dk), ("dv", dv)):
-            _check(out.dtype == dt, f"{name}: {n} dtype {out.dtype}")
+            _check(out.dtype == out_dt, f"{name}: {n} dtype {out.dtype}")
             _check(bool(torch.isfinite(out.float()).all()),
                    f"{name}: {n} not finite")
-            _check(errs[n][1] <= tol[dt],
+            _check(errs[n][1] <= tol[out_dt],
                    f"{name}: {n} disagrees with its plain version")
         if name.startswith("all-masked"):
             dead = (mask.sum(1) == 0).repeat_interleave(_H, 0)
             _check(bool((dq[dead] == 0).all() and (dk[dead] == 0).all()
                         and (dv[dead] == 0).all()),
                    "all-masked row: a gradient is not 0")
-        worst["dq"] = max(worst["dq"], errs["dq"][0])
-        worst["dkv"] = max(worst["dkv"], errs["dk"][0], errs["dv"][0])
+        sfx = "_f32" if out_dt != q.dtype else ""   # the fp32-out case
+        worst["dq" + sfx] = max(worst["dq" + sfx], errs["dq"][0])
+        worst["dkv" + sfx] = max(worst["dkv" + sfx], errs["dk"][0],
+                                 errs["dv"][0])
 
     # autograd through K1+K2+K3 against autograd through the plain forward
     for dt in (torch.float32, torch.bfloat16):
@@ -329,7 +400,7 @@ def check_bwd_kernels() -> tuple:
         _check(all(r <= tol[dt] for _, r in errs),
                f"autograd {dt}: flash gradients disagree with the plain "
                "forward's")
-    return worst["dq"], worst["dkv"]
+    return worst
 
 
 def _ulps(a, b) -> int:
@@ -606,17 +677,49 @@ def check_ring_matmul_kernels() -> dict:
     for m, kc, n in _CM_MAIN:
         for call in range(2):
             ops = _cm_operands(2, m, kc, n, torch.bfloat16, gen)
-            _cm_hold(f"main W=2 M={m} K={2 * kc} N={n} call {call}",
-                     _cm_pairs(*ops, ring), worst)
+            pairs = _cm_pairs(*ops, ring)
+            _cm_hold(f"main W=2 M={m} K={2 * kc} N={n} call {call}", pairs,
+                     worst)
+            _check(torch.equal(pairs[2][1],
+                               CM.ring_matmul_dw(ops[0], ops[2], ring)),
+                   f"cm_dw main W=2 N={n}: two calls on the same inputs "
+                   "differ")
             cases += 1
     ring.close()
+    k8 = check_dw_worlds(gen, worst)
     print(f"ring matmul check: K6, K7, K8 in {cases} cases each (W = 2, 4, "
           "8 on ragged and aligned shapes, fp32 and bf16; the main path's "
-          "M=8192 K=768 N=768 and 3072 bf16 at W = 2, twice each): largest "
-          "errors " + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+          "M=8192 K=768 N=768 and 3072 bf16 at W = 2, twice each), K8 "
+          f"also in {k8} more (W = 4 and 8 at the main path's M, K and N, "
+          "each twice on the same inputs, bitwise equal): largest errors "
+          + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
           + f" (limits {_CM_RTOL[torch.bfloat16]:g} bf16, "
           f"{_CM_RTOL[torch.float32]:g} fp32, of max |plain|)")
     return worst
+
+
+def check_dw_worlds(gen, worst) -> int:
+    """K8 at W = 4 and 8 on a `LocalRing` at the main path's M = 8192, K =
+    768 and N = 768 and 3072 (bf16; kc = 192 and 96), within `_CM_RTOL` of
+    its stacked plain version, and called twice on the same inputs: the
+    two dw bitwise equal (the split's partials are summed in segment order,
+    with no float atomics). Returns the number of cases."""
+    cases = 0
+    for world in (4, 8):
+        kc = 768 // world
+        ring = LocalRing(world, _DEV, 1, cm_elems=kc * 3072)
+        for m, _, n in _CM_MAIN:
+            x, _, dy = _cm_operands(world, m, kc, n, torch.bfloat16, gen)
+            got = CM.ring_matmul_dw(x, dy, ring)
+            again = CM.ring_matmul_dw(x, dy, ring)
+            tag = f"W={world} M={m} K=768 N={n}"
+            _cm_hold(tag, [("cm_dw", got,
+                            CM.ring_matmul_dw_stacked(x, dy))], worst)
+            _check(torch.equal(got, again),
+                   f"cm_dw {tag}: two calls on the same inputs differ")
+            cases += 1
+        ring.close()
+    return cases
 
 
 #: K9's grids: the probe's two granularities over 16384 rows, and a third
@@ -711,18 +814,27 @@ def check_serving():
     print(f"reference generate (fp32, batch 1): "
           f"{time.perf_counter() - t0:.1f} s")
 
-    FA.flash_fwd_launches = 0          # the main path starts here
+    FA.reset_launch_counts()           # the main path starts here
     runs = [("fp32", 1, *serve(model, reqs, 1)),
-            ("fp32", 16, *serve(model, reqs, 16)),
-            ("bf16", 16, *serve(model16, reqs, 16))]
+            ("fp32", 16, *serve(model, reqs, 16))]
+    fp32_split_k = FA.flash_fwd_route_launches["split_k"]
+    runs.append(("bf16", 16, *serve(model16, reqs, 16)))
     launches = FA.flash_fwd_launches   # ... and ends here
+    routes = dict(FA.flash_fwd_route_launches)
     decode_ticks = sum(eng.decode_steps for *_, eng, _ in runs)
-    print(f"main path: {decode_ticks} decode ticks, "
+    bf16_ticks = runs[-1][3].decode_steps
+    print(f"main path: {decode_ticks} decode ticks ({bf16_ticks} bf16), "
           f"{sum(eng.prefill_steps for *_, eng, _ in runs)} prefill ticks, "
-          f"flash_fwd launches {launches}")
-    _check(launches > 0 and launches == cfg.num_hidden_layers * decode_ticks,
+          f"flash_fwd launches {launches}, by route {routes} (bf16 split_k "
+          f"{routes['split_k'] - fp32_split_k})")
+    layers = cfg.num_hidden_layers
+    _check(launches > 0 and launches == layers * decode_ticks,
            f"flash_fwd launched {launches} times for {decode_ticks} decode "
            "ticks")
+    _check(routes["split_k"] == launches
+           and routes["split_k"] - fp32_split_k == layers * bf16_ticks,
+           f"decode ticks' K1 launches by route {routes}: expected "
+           f"{layers} split_k launches per tick")
 
     for dt, chunk, done, eng, wall in runs:
         new = sum(len(t) for t in done.values())
@@ -744,7 +856,7 @@ def check_serving():
                   f"reference top-2 gap {gap:.3e}")
             _check(gap < 1e-3, f"request {i}: engine tokens differ from "
                    "generate away from a near-tie")
-    return launches, runs
+    return routes, runs
 
 
 # ---------------------------------------------------------------------------
@@ -761,6 +873,7 @@ _TRAIN_WARMUP = 5
 
 def _train_counts(ts) -> dict:
     return {"flash_fwd": FA.flash_fwd_launches,
+            "flash_fwd_tc": FA.flash_fwd_route_launches["tensor_core"],
             "flash_bwd_dq": FA.flash_bwd_dq_launches,
             "flash_bwd_dkv": FA.flash_bwd_dkv_launches,
             "fused_update": FS.fused_update_launches,
@@ -774,8 +887,8 @@ def train_gpt2():
     one shard update, reduce-scatter and all-gather per bucket. Returns
     (result, launches, step times in ms of the timed steps)."""
     cfg = GPT2_SMALL
-    FA.flash_fwd_launches = FA.flash_bwd_dq_launches = 0  # the main
-    FA.flash_bwd_dkv_launches = FS.fused_update_launches = 0  # path starts
+    FA.reset_launch_counts()            # the main path
+    FS.fused_update_launches = 0        # starts here
     marks, prev = [], {}
 
     def on_step(ts, state, metrics):
@@ -784,6 +897,7 @@ def train_gpt2():
         nb = ts.plan.num_buckets
         before = prev or {k: 0 for k in now} | {"ag": nb}   # init's gathers
         want = {"flash_fwd": cfg.num_hidden_layers,
+                "flash_fwd_tc": cfg.num_hidden_layers,
                 "flash_bwd_dq": cfg.num_hidden_layers,
                 "flash_bwd_dkv": cfg.num_hidden_layers,
                 "fused_update": nb, "rs": nb, "ag": nb, "update": nb}
@@ -815,17 +929,20 @@ def _loss_fn(m, b):
                        vocab_size=GPT2_SMALL.vocab_size)
 
 
-def check_flash_step_vs_dense():
+def check_flash_step_vs_dense() -> dict:
     """One fp32 step at full width, 2 layers, batch 2: the flash kernels
     (K1, K2, K3) against the dense attention core. The updated parameters
     agree within 1e-5 and the gradients they imply, (p0 - p1) / lr, within
-    1e-3 of the largest gradient."""
+    1e-3 of the largest gradient. K1 runs its CUDA-core route here (fp32),
+    once per layer; returns its launches by route (this step is that
+    route's main path)."""
     cfg = dataclasses.replace(dropout_free(GPT2_SMALL), num_hidden_layers=2)
     batch = synthetic_gpt_batch(
         torch.Generator(device=_DEV).manual_seed(4), 2, 1024,
         cfg.vocab_size)
     lr = 0.01
     runs = []
+    before = dict(FA.flash_fwd_route_launches)    # the main path starts
     for impl in (flash_causal_attention_impl(), None):
         model = GptLmHeadModel(cfg, attention_impl=impl, device=_DEV, seed=0)
         p0 = {n: p.detach().clone() for n, p in model.named_parameters()}
@@ -833,6 +950,11 @@ def check_flash_step_vs_dense():
                               optimizer=FS.fused_sgd(lr=lr, momentum=0.9))
         state, metrics = ts.step(ts.init(), batch)
         runs.append((float(metrics["loss"]), ts.gather_params(state), p0))
+    routes = {r: FA.flash_fwd_route_launches[r] - before[r]   # ... and
+              for r in before}                                # ends here
+    _check(routes == {"tensor_core": 0, "split_k": 0,
+                      "cuda_core": cfg.num_hidden_layers},
+           f"fp32 step: K1 launches by route {routes}")
     (lf, pf, p0), (ld, pd, _) = runs
     p_err = max(float((pf[n] - pd[n]).abs().max()) for n in pf)
     g_max = max(float((p0[n] - pd[n]).abs().max()) / lr for n in pd)
@@ -843,6 +965,7 @@ def check_flash_step_vs_dense():
     _check(abs(lf - ld) <= 1e-5 * abs(ld), "flash vs dense: losses differ")
     _check(p_err <= 1e-5 and g_err <= 1e-3 * g_max,
            "flash vs dense: the updated parameters differ")
+    return routes
 
 
 def train_with_dropout():
@@ -891,6 +1014,7 @@ _RP_VS_FUSED_RTOL = 1e-3
 
 def _two_rank_counts(ts) -> dict:
     return {"flash_fwd": FA.flash_fwd_launches,
+            "flash_fwd_tc": FA.flash_fwd_route_launches["tensor_core"],
             "flash_bwd_dq": FA.flash_bwd_dq_launches,
             "flash_bwd_dkv": FA.flash_bwd_dkv_launches,
             "fused_update": FS.fused_update_launches,
@@ -1000,8 +1124,8 @@ def rank_worker(rank: int, out: Path, mode: str) -> None:
     rp = mode == "ring-projections"
     cm_errs = check_ring_matmul_two_ranks(rank) if rp else None
     layers = GPT2_SMALL.num_hidden_layers
-    FA.flash_fwd_launches = FA.flash_bwd_dq_launches = 0   # the main path
-    FA.flash_bwd_dkv_launches = FS.fused_update_launches = 0   # starts
+    FA.reset_launch_counts()                                   # the main
+    FS.fused_update_launches = 0                               # path starts
     CM.ring_ag_launches = CM.ring_rs_launches = 0
     CM.cm_fwd_launches = CM.cm_dx_launches = CM.cm_dw_launches = 0
     marks, prev = [], {}
@@ -1014,7 +1138,8 @@ def rank_worker(rank: int, out: Path, mode: str) -> None:
         nb = ts.plan.num_buckets
         before = prev or {k: 0 for k in now} | {
             "ag": nb, "ring_ag": nb if fused else 0}   # init's gathers
-        want = {"flash_fwd": layers, "flash_bwd_dq": layers,
+        want = {"flash_fwd": layers, "flash_fwd_tc": layers,
+                "flash_bwd_dq": layers,
                 "flash_bwd_dkv": layers, "rs": nb, "ag": nb, "update": nb,
                 "fused_update": 0 if fused else nb,
                 "ring_ag": nb if fused else 0, "ring_rs": nb if fused else 0,
@@ -1410,26 +1535,33 @@ def device_ms(fn, sets, reps):
     return start.elapsed_time(end) / reps
 
 
-def time_shape(name, B, Sq, Sk, dtype, causal, n_sets, hbm):
-    """K1 at one shape: first held against its plain version on the first
-    input set (the tolerance of `check_kernel`), then timed beside its
-    plain version, SDPA and the card's bound."""
+def time_shape(name, B, Sq, Sk, dtype, causal, n_sets, hbm, out_dtype=None):
+    """K1 at one shape (outputs in ``out_dtype``, default the inputs'):
+    first held against its plain version on the first input set (the
+    tolerance of `check_kernel`), then timed beside its plain version, SDPA
+    and the card's bound. The row names the route `fwd_route` takes."""
+    out_dtype = out_dtype or dtype
+    route = FA.fwd_route(Sq, _D, dtype, out_dtype)
     gen = torch.Generator(device=_DEV).manual_seed(1)
     sets = [_case(gen, B, Sq, Sk, dtype, causal) for _ in range(n_sets)]
     q, k, v, m = sets[0]
-    o = FA.flash_attention(q, k, v, causal=causal, kv_mask=m)
-    ref, _ = FA.flash_attention_reference(q, k, v, causal=causal, kv_mask=m,
-                                          out_dtype=torch.float32)
+    scale = _D ** -0.5
+    o, lse = _routed(name, route, lambda: FA._dispatch(
+        q, k, v, m, scale, causal, out_dtype))
+    ref, ref_lse = FA.flash_attention_reference(
+        q, k, v, causal=causal, kv_mask=m, out_dtype=torch.float32)
     torch.cuda.synchronize()
-    err = float((o.float() - ref.to(dtype).float()).abs().max())
+    err = float((o.float() - ref.to(out_dtype).float()).abs().max())
+    err_lse = float((lse - ref_lse).abs().max())
     _check(bool(torch.isfinite(o.float()).all())
-           and err <= {torch.float32: 2e-5, torch.bfloat16: 2e-2}[dtype],
-           f"{name} {dtype}: kernel disagrees with its plain version "
-           f"(max |o - plain| {err:.3e})")
-    del o, ref
+           and err <= {torch.float32: 2e-5, torch.bfloat16: 2e-2}[out_dtype]
+           and err_lse <= 2e-4,
+           f"{name} {dtype} ({route}): kernel disagrees with its plain "
+           f"version (max |o - plain| {err:.3e}, lse {err_lse:.3e})")
+    del o, lse, ref, ref_lse
 
     def kernel(q, k, v, m):
-        FA.flash_attention(q, k, v, causal=causal, kv_mask=m)
+        FA._dispatch(q, k, v, m, scale, causal, out_dtype)
 
     def plain(q, k, v, m):
         FA.flash_attention_reference(q, k, v, causal=causal, kv_mask=m)
@@ -1444,13 +1576,18 @@ def time_shape(name, B, Sq, Sk, dtype, causal, n_sets, hbm):
     plain_ms = device_ms(plain, sets, 20)
     library_ms = device_ms(library, sets, 50)
     esize = torch.finfo(dtype).bits // 8
-    nbytes = (2 * B * Sq * _H * _D + 2 * B * Sk * _H * _D) * esize \
-        + B * Sk * 4 + B * _H * Sq * 4          # q, o, k, v, mask, lse
+    out_esize = torch.finfo(out_dtype).bits // 8
+    nbytes = (B * Sq * _H * _D * (esize + out_esize)
+              + 2 * B * Sk * _H * _D * esize
+              + B * Sk * 4 + B * _H * Sq * 4)   # q, o, k, v, mask, lse
     pairs = B * _H * (Sq * (Sq + 1) // 2 if causal else Sq * Sk)
     flops = 4 * _D * pairs                       # QK^T and PV per pair
     bytes_ms = nbytes / hbm * 1e3
     ops_ms = flops / _PEAK_FLOPS[dtype] * 1e3
-    row = {"shape": name, "dtype": str(dtype).replace("torch.", ""),
+    dts = str(dtype).replace("torch.", "")
+    if out_dtype != dtype:
+        dts += " in, " + str(out_dtype).replace("torch.", "") + " out"
+    row = {"shape": name, "dtype": dts, "route": route,
            "max_abs_err": err,
            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
            "bound_ms": max(bytes_ms, ops_ms),
@@ -1467,40 +1604,37 @@ def time_bwd(B, S, hbm, launches_per_step):
     error over the largest |plain value|, at most 2e-2 as in
     `check_bwd_kernels`), then timed beside their plain versions and the
     backward of SDPA (is_causal; dq, dk and dv in one call), the yardstick
-    for K2 + K3 together. Returns (rows, the largest absolute error of dQ
-    and of dK/dV)."""
+    for K2 + K3 together; then again with fp32 outputs (ring attention's
+    ``out_dtype``; within 1e-4), rows ``flash_bwd_dq_f32`` and
+    ``flash_bwd_dkv_f32``. Returns (rows, the largest absolute error of dQ
+    and of dK/dV with bf16 outputs)."""
     gen = torch.Generator(device=_DEV).manual_seed(5)
     dt = torch.bfloat16
     scale = _D ** -0.5
     sets = [_bwd_operands(gen, B, S, dt, True) for _ in range(2)]
     q, k, v, do, mask, lse, delta = sets[0]
     args = (q, k, v, mask, do, lse, delta, scale, True)
-    got = {"dq": FA._dispatch_dq(*args)}
-    got["dk"], got["dv"] = FA._dispatch_dkv(*args)
-    ref = {"dq": FA._dq_reference(*args)}
-    ref["dk"], ref["dv"] = FA._dkv_reference(*args)
-    torch.cuda.synchronize()
-    errs = {n: _rel(got[n], ref[n]) for n in got}
-    print(f"backward kernel check main path causal B={B} S={S} bf16: "
-          + ", ".join(f"max|{n}-plain| {a:.3e} (rel {r:.3e})"
-                      for n, (a, r) in errs.items()))
-    for n, out in got.items():
-        _check(bool(torch.isfinite(out.float()).all()) and errs[n][1] <= 2e-2,
-               f"main path B={B}: {n} disagrees with its plain version")
-    main_err = (errs["dq"][0], max(errs["dk"][0], errs["dv"][0]))
-    del got, ref
-
-    def dq(q, k, v, do, mask, lse, delta):
-        FA._dispatch_dq(q, k, v, mask, do, lse, delta, scale, True)
-
-    def dkv(q, k, v, do, mask, lse, delta):
-        FA._dispatch_dkv(q, k, v, mask, do, lse, delta, scale, True)
-
-    def dq_plain(q, k, v, do, mask, lse, delta):
-        FA._dq_reference(q, k, v, mask, do, lse, delta, scale, True)
-
-    def dkv_plain(q, k, v, do, mask, lse, delta):
-        FA._dkv_reference(q, k, v, mask, do, lse, delta, scale, True)
+    main_err = None
+    for out_dt, tol in ((dt, 2e-2), (torch.float32, 1e-4)):
+        got = {"dq": FA._dispatch_dq(*args, out_dt)}
+        got["dk"], got["dv"] = FA._dispatch_dkv(*args, out_dt)
+        ref = {"dq": FA._dq_reference(*args, out_dt)}
+        ref["dk"], ref["dv"] = FA._dkv_reference(*args, out_dt)
+        torch.cuda.synchronize()
+        errs = {n: _rel(got[n], ref[n]) for n in got}
+        print(f"backward kernel check main path causal B={B} S={S} bf16, "
+              f"{out_dt} out: " + ", ".join(
+                  f"max|{n}-plain| {a:.3e} (rel {r:.3e})"
+                  for n, (a, r) in errs.items()))
+        for n, out in got.items():
+            _check(out.dtype == out_dt
+                   and bool(torch.isfinite(out.float()).all())
+                   and errs[n][1] <= tol,
+                   f"main path B={B}: {n} ({out_dt} out) disagrees with "
+                   "its plain version")
+        errs = (errs["dq"][0], max(errs["dk"][0], errs["dv"][0]))
+        main_err = main_err or errs
+        del got, ref
 
     sdpa = []
     for q, k, v, do, *_ in sets:
@@ -1512,31 +1646,52 @@ def time_bwd(B, S, hbm, launches_per_step):
         torch.autograd.grad(out, xs, do, retain_graph=True)
 
     rows = {}
-    esize = 2
     pairs = B * _H * S * (S + 1) // 2
     elems = B * S * _H * _D
-    for name, fn, plain, flops_per_pair, n_out in (
-            ("flash_bwd_dq", dq, dq_plain, 6 * _D, 1),
-            ("flash_bwd_dkv", dkv, dkv_plain, 8 * _D, 2)):
-        ms = device_ms(fn, sets, 20)
-        plain_ms = device_ms(plain, sets, 4)
-        # q, k, v, dO read, the outputs written; lse, delta and the mask
-        nbytes = (4 + n_out) * elems * esize + 2 * B * _H * S * 4 + B * S * 4
-        flops = flops_per_pair * pairs
-        bytes_ms, ops_ms = nbytes / hbm * 1e3, flops / _PEAK_FLOPS[dt] * 1e3
-        rows[name] = {"shape": f"train causal B={B} S={S} H={_H} D={_D}",
-                      "dtype": "bfloat16", "ms": ms, "plain_ms": plain_ms,
-                      "bound_ms": max(bytes_ms, ops_ms),
-                      "bound_by": ("bytes" if bytes_ms >= ops_ms
-                                   else "operations"),
-                      "bytes": nbytes, "flops": flops,
-                      "launches_per_step": launches_per_step}
+    for out_dt in (dt, torch.float32):
+        sfx = "_f32" if out_dt == torch.float32 else ""
+
+        def dq(q, k, v, do, mask, lse, delta):
+            FA._dispatch_dq(q, k, v, mask, do, lse, delta, scale, True,
+                            out_dt)
+
+        def dkv(q, k, v, do, mask, lse, delta):
+            FA._dispatch_dkv(q, k, v, mask, do, lse, delta, scale, True,
+                             out_dt)
+
+        def dq_plain(q, k, v, do, mask, lse, delta):
+            FA._dq_reference(q, k, v, mask, do, lse, delta, scale, True,
+                             out_dt)
+
+        def dkv_plain(q, k, v, do, mask, lse, delta):
+            FA._dkv_reference(q, k, v, mask, do, lse, delta, scale, True,
+                              out_dt)
+
+        for name, fn, plain, flops_per_pair, n_out in (
+                ("flash_bwd_dq", dq, dq_plain, 6 * _D, 1),
+                ("flash_bwd_dkv", dkv, dkv_plain, 8 * _D, 2)):
+            ms = device_ms(fn, sets, 20)
+            plain_ms = device_ms(plain, sets, 4)
+            # q, k, v, dO read, the outputs written; lse, delta, the mask
+            nbytes = (4 * 2 + n_out * (out_dt.itemsize)) * elems \
+                + 2 * B * _H * S * 4 + B * S * 4
+            flops = flops_per_pair * pairs
+            bytes_ms = nbytes / hbm * 1e3
+            ops_ms = flops / _PEAK_FLOPS[dt] * 1e3
+            rows[name + sfx] = {
+                "shape": f"train causal B={B} S={S} H={_H} D={_D}",
+                "dtype": "bfloat16" + (" in, float32 out" if sfx else ""),
+                "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                "bytes": nbytes, "flops": flops,
+                "launches_per_step": 0 if sfx else launches_per_step}
     # one SDPA backward computes dq, dk and dv: the yardstick of K2 + K3
-    # together, so both rows carry it with that scope
+    # together, so every row carries it with that scope
     sdpa_ms = device_ms(library, sdpa, 20)
-    for row in rows.values():
+    for name, row in rows.items():
         row.update(library_ms=sdpa_ms, library_scope="dq+dk+dv")
-        print("kernel time " + json.dumps(row))
+        print("kernel time " + json.dumps({"kernel": name} | row))
     both = rows["flash_bwd_dq"]["ms"] + rows["flash_bwd_dkv"]["ms"]
     print(f"backward yardstick: SDPA backward (is_causal, dq+dk+dv) "
           f"{sdpa_ms:.4f} ms vs K2 + K3 {both:.4f} ms "
@@ -1724,6 +1879,8 @@ def time_ring_matmul(hbm, calls_per_step):
         flops = world * 2 * m * k * n
         nbytes = world * (m * k + kc * n + m * n) * 2
         bound = max(nbytes / hbm, flops / _PEAK_FLOPS[torch.bfloat16]) * 1e3
+        core, ranges, contrib, slab = CM.dw_launch_plan(ring, m, kc, n,
+                                                        torch.bfloat16)
         for name, (kernel, plain, library) in fns.items():
             got = kernel(*sets[0]).reshape(-1)
             lib = library(*sets[0]).reshape(-1)
@@ -1744,8 +1901,12 @@ def time_ring_matmul(hbm, calls_per_step):
                    "flops": flops, "bytes": nbytes,
                    "tflops": flops / ms / 1e9,
                    "launches_per_step": calls_per_step[n]}
+            if name == "cm_dw":   # K8's plan: its tile core and the split
+                row["plan"] = (f"{core} core, {ranges} ranges of slabs of "
+                               f"{slab} rows, up to {contrib} per tile")
             print("kernel time " + json.dumps({"kernel": name} | row))
             rows[name][n] = row
+        time_dw_plans(ring, sets, m, kc, n, ranges)
     ring.close()
     for name, by_n in rows.items():
         per_step = {key: sum(by_n[n][key] * calls_per_step[n] for n in by_n)
@@ -1756,6 +1917,60 @@ def time_ring_matmul(hbm, calls_per_step):
               f"ms, bound {per_step['bound_ms']:.4f} ms, cuBLAS "
               f"{per_step['library_ms']:.4f} ms")
     return rows
+
+
+def ring_blocks(ring) -> int:
+    """K8's blocks per rank on ``ring`` (the grid ``rmm_blocks`` sizes)."""
+    from dear_pytorch_tpu_torch.comm.ring import matmul_lib
+
+    return matmul_lib().rmm_blocks(ring.world if ring.stacked else 1,
+                                   int(ring.cooperative))
+
+
+def time_dw_plans(ring, sets, m, kc, n, ranges) -> None:
+    """K8 under several cuts of its tiles x slabs (`CM.dw_plan`'s
+    ``ranges``; the default cut is ``ranges``): S equal segments of every
+    tile (ranges = tiles x S) and one run per block (stream-K), each held
+    to `_CM_RTOL` of the plain version and timed — the measurement behind
+    the default; then the default at a quarter, a half and all of M, whose
+    slope is the mainloop's cost per 64-row slab."""
+    plan = CM.dw_plan
+    _, bm, bn = CM.DW_CORES[CM.dw_core(torch.bfloat16, 2, kc, n)]
+    tiles = -(-kc // bm) * -(-n // bn)
+    x, _, dy = sets[0]
+    ref = CM.ring_matmul_dw_stacked(x, dy)
+    times = {}
+    try:
+        for label, R in [(f"{S} equal segments", tiles * S)
+                         for S in (1, 2, 3, 4, 8)] + [
+                             ("one run per block", ring_blocks(ring))]:
+            CM.dw_plan = lambda *args, R=R: plan(*args, ranges=R)
+            got = CM.ring_matmul_dw(x, dy, ring)
+            _cm_hold(f"cm_dw plan {label} N={n}", [("cm_dw", got, ref)], {})
+            times[label] = device_ms(
+                lambda x, ws, dy: CM.ring_matmul_dw(x, dy, ring), sets, 20)
+    finally:
+        CM.dw_plan = plan
+    print(f"cm_dw plans at W=2 M={m} K={2 * kc} N={n} ({tiles} tiles; "
+          f"the default plan: {ranges} ranges): "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items()))
+    # the default plan at fewer rows: the slope over M is the mainloop's
+    # cost per 64-row slab, the rest the call's fixed cost
+    by_m = {}
+    for rows in (m // 4, m // 2, m):
+        part = [tuple(t[:, :rows].contiguous() if i != 1 else t
+                      for i, t in enumerate(ops)) for ops in sets]
+        xs, _, dys = part[0]
+        _cm_hold(f"cm_dw M={rows} N={n}", [(
+            "cm_dw", CM.ring_matmul_dw(xs, dys, ring),
+            CM.ring_matmul_dw_stacked(xs, dys))], {})
+        by_m[rows] = device_ms(
+            lambda x, ws, dy: CM.ring_matmul_dw(x, dy, ring), part, 20)
+    slope = (by_m[m] - by_m[m // 4]) / ((m - m // 4) / CM.DW_SLAB)
+    print(f"cm_dw at N={n} by M (default plan): " + ", ".join(
+        f"M={k} {v:.4f} ms" for k, v in sorted(by_m.items()))
+        + f"; {slope * 1e3:.3f} us per 64-row slab of every tile (both "
+        f"ranks), {by_m[m] - slope * m / CM.DW_SLAB:.4f} ms fixed")
 
 
 def _kernel_entry(name, source, replaces, launches, err, row):
@@ -1810,12 +2025,14 @@ def main(argv=None) -> int:
           f"({', '.join(logs) or 'cached'}) into {_build.BUILD_DIR}")
     for log in logs.values():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "Compiling entry function" in line:
+                print("  ptxas entry " + line.split("'")[1][:100])
+            elif "registers" in line or "spill" in line:
                 print("  ptxas " + line.strip())
 
     t0 = time.perf_counter()
-    max_err = check_kernel()
-    dq_err, dkv_err = check_bwd_kernels()
+    fwd_err = check_kernel()
+    bwd_err = check_bwd_kernels()
     upd_err = check_update_kernel()
     ag_err, rs_err = check_ring_kernels()
     cm_err = check_ring_matmul_kernels()
@@ -1824,12 +2041,12 @@ def main(argv=None) -> int:
     if kernels_only:
         return 0
 
-    launches, runs = check_serving()
+    serve_routes, runs = check_serving()
     t0 = time.perf_counter()
     res, train_launches, step_ms = train_gpt2()
     print(f"train phase: {time.perf_counter() - t0:.1f} s")
     upd_err = max(upd_err, check_update_main_path(res.train_step))
-    check_flash_step_vs_dense()
+    fp32_routes = check_flash_step_vs_dense()
     train_with_dropout()
     t0 = time.perf_counter()
     fused, rp, _ = train_dear_fused()
@@ -1892,22 +2109,35 @@ def main(argv=None) -> int:
           f"above: {card}")
     # each K1 shape is held against the plain version before it is timed;
     # decode B=4 and train B=16 are the main paths' own shapes
-    fwd_rows = [
-        time_shape("decode B=4 Sq=1 Sk=1024 H=12 D=64", _SLOTS, 1, _L,
-                   torch.bfloat16, False, 8, hbm),
-        time_shape("decode B=4 Sq=1 Sk=1024 H=12 D=64", _SLOTS, 1, _L,
-                   torch.float32, False, 4, hbm),
-        time_shape("causal prefill B=2 S=1024 H=12 D=64", 2, _L, _L,
-                   torch.bfloat16, True, 2, hbm),
-        time_shape("causal prefill B=2 S=1024 H=12 D=64", 2, _L, _L,
-                   torch.float32, True, 2, hbm),
-        time_shape("causal train B=16 S=1024 H=12 D=64", B, S, S,
-                   torch.bfloat16, True, 2, hbm)]
-    decode = fwd_rows[0]
-    max_err = max([max_err] + [r["max_abs_err"] for r in fwd_rows])
+    # the routes' main-path shapes: split-K the bf16 decode tick (and the
+    # fp32 one), tensor cores the train step (B = 16; 8 per rank at world
+    # 2), CUDA cores the fp32 step (B = 2); then the CUDA-core route at the
+    # train shape (bf16 in, fp32 out) beside the tensor-core one
+    fwd_rows = {
+        "split_k": time_shape("decode B=4 Sq=1 Sk=1024 H=12 D=64", _SLOTS,
+                              1, _L, torch.bfloat16, False, 8, hbm),
+        "split_k fp32": time_shape("decode B=4 Sq=1 Sk=1024 H=12 D=64",
+                                   _SLOTS, 1, _L, torch.float32, False, 4,
+                                   hbm),
+        "tensor_core prefill": time_shape(
+            "causal prefill B=2 S=1024 H=12 D=64", 2, _L, _L,
+            torch.bfloat16, True, 2, hbm),
+        "cuda_core": time_shape("causal prefill B=2 S=1024 H=12 D=64", 2,
+                                _L, _L, torch.float32, True, 2, hbm),
+        "tensor_core": time_shape("causal train B=16 S=1024 H=12 D=64", B,
+                                  S, S, torch.bfloat16, True, 2, hbm),
+        "tensor_core B=8": time_shape("causal train B=8 S=1024 H=12 D=64",
+                                      8, S, S, torch.bfloat16, True, 2, hbm),
+        "cuda_core train": time_shape("causal train B=16 S=1024 H=12 D=64",
+                                      B, S, S, torch.bfloat16, True, 2, hbm,
+                                      out_dtype=torch.float32)}
+    for row in fwd_rows.values():
+        fwd_err[row["route"]] = max(fwd_err[row["route"]],
+                                    row["max_abs_err"])
     layers = GPT2_SMALL.num_hidden_layers
     bwd, (dq_main, dkv_main) = time_bwd(B, S, hbm, layers)
-    dq_err, dkv_err = max(dq_err, dq_main), max(dkv_err, dkv_main)
+    dq_err = max(bwd_err["dq"], dq_main)
+    dkv_err = max(bwd_err["dkv"], dkv_main)
     buckets = res.train_step.plan.buckets
     nb = len(buckets)
     # a bucket of the 25 MB threshold (the kernels line) and the largest
@@ -1933,21 +2163,34 @@ def main(argv=None) -> int:
           f"{fused_launches}; with ring projections {rp_launches}; K4 and "
           f"the K5 ring with the probe's {ring_launches}")
 
-    print(json.dumps({"kernels": [
-        _kernel_entry("flash_fwd", "flash_fwd.cu",
-                      "dear_pytorch_tpu/ops/flash_attention.py:97",
-                      launches + train_launches["flash_fwd"]
-                      + fused_launches["flash_fwd"], max_err, decode),
-        _kernel_entry("flash_bwd_dq", "flash_bwd.cu",
-                      "dear_pytorch_tpu/ops/flash_attention.py:152",
-                      train_launches["flash_bwd_dq"]
-                      + fused_launches["flash_bwd_dq"], dq_err,
-                      bwd["flash_bwd_dq"]),
-        _kernel_entry("flash_bwd_dkv", "flash_bwd.cu",
-                      "dear_pytorch_tpu/ops/flash_attention.py:195",
-                      train_launches["flash_bwd_dkv"]
-                      + fused_launches["flash_bwd_dkv"], dkv_err,
-                      bwd["flash_bwd_dkv"]),
+    # K1 by route, each with its own main path: split-K the decode ticks,
+    # tensor cores the bf16 train steps (one rank and both ranks of the two
+    # dear-fused runs), CUDA cores the fp32 step
+    k1_launches = {
+        "split_k": serve_routes["split_k"],
+        "tensor_core": train_launches["flash_fwd_tc"]
+        + fused_launches["flash_fwd_tc"],
+        "cuda_core": fp32_routes["cuda_core"]}
+    print(f"K1 launches on the main paths by route: {k1_launches}")
+    k1 = [_kernel_entry(f"flash_fwd ({route})", "flash_fwd.cu",
+                        "dear_pytorch_tpu/ops/flash_attention.py:97",
+                        k1_launches[route], fwd_err[route], fwd_rows[route])
+          for route in FA.FWD_ROUTES]
+    k23 = []
+    for kname, line, err in (("flash_bwd_dq", 152, dq_err),
+                             ("flash_bwd_dkv", 195, dkv_err)):
+        entry = _kernel_entry(kname, "flash_bwd.cu",
+                              f"dear_pytorch_tpu/ops/flash_attention.py:"
+                              f"{line}", train_launches[kname]
+                              + fused_launches[kname], err, bwd[kname])
+        # bf16 in, fp32 out (ring attention's call): no main path yet
+        f32 = bwd[kname + "_f32"]
+        entry["fp32_out"] = {
+            "max_abs_err": bwd_err[kname.replace("flash_bwd_", "") + "_f32"],
+            **{k: f32[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms")}}
+        k23.append(entry)
+    print(json.dumps({"kernels": k1 + k23 + [
         _kernel_entry("fused_update", "fused_update.cu",
                       "dear_pytorch_tpu/ops/collective_matmul.py:317",
                       train_launches["fused_update"], upd_err, upd),

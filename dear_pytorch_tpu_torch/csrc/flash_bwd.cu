@@ -17,7 +17,8 @@
 //   ds_ij = p_ij * (dO_i . v_j - delta_i)
 //   dQ_i  = scale * sum_j ds_ij k_j
 //   dV_j  = sum_i p_ij dO_i,   dK_j = sum_i ds_ij (scale * q_i)
-// All sums in fp32; outputs in the inputs' dtype.
+// All sums in fp32; outputs in the inputs' dtype or in fp32 (ring
+// attention's out_dtype: bf16 inputs, fp32 partial gradients).
 //
 // What bounds them on this card: at the training shape (B=16, S=1024, H=12,
 // D=64, causal) each kernel does O(S^2 D) flops on O(S D) bytes:
@@ -137,7 +138,7 @@ __host__ __device__ inline size_t smem_floats(int br, int d) {
 // dQ (the TPU _bwd_dq_kernel)
 // ---------------------------------------------------------------------------
 
-template <typename T, int BR, int ND>
+template <typename T, typename OutT, int BR, int ND>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const Params p) {
   extern __shared__ float smem[];
@@ -251,14 +252,14 @@ flash_bwd_dq_kernel(const Params p) {
     }
   }
   __syncthreads();
-  T* dqg = static_cast<T*>(p.dq) + b * p.dq_sb + h * p.dq_sh;
+  OutT* dqg = static_cast<OutT*>(p.dq) + b * p.dq_sb + h * p.dq_sh;
   for (int i = tid; i < nq * D; i += kThreads) {
     const int r = i / D;
     const int d = i - r * D;
     float sum = 0.f;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) sum += a_w[(w * BR + r) * D + d];
-    dqg[(long long)(q0 + r) * p.dq_ss + d] = from_f32<T>(sum * p.scale);
+    dqg[(long long)(q0 + r) * p.dq_ss + d] = from_f32<OutT>(sum * p.scale);
   }
 }
 
@@ -266,7 +267,7 @@ flash_bwd_dq_kernel(const Params p) {
 // dK and dV (the TPU _bwd_dkv_kernel)
 // ---------------------------------------------------------------------------
 
-template <typename T, int BR, int ND>
+template <typename T, typename OutT, int BR, int ND>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_kernel(const Params p) {
   extern __shared__ float smem[];
@@ -396,8 +397,8 @@ flash_bwd_dkv_kernel(const Params p) {
     }
   }
   __syncthreads();
-  T* dkg = static_cast<T*>(p.dk) + b * p.dk_sb + h * p.dk_sh;
-  T* dvg = static_cast<T*>(p.dv) + b * p.dv_sb + h * p.dv_sh;
+  OutT* dkg = static_cast<OutT*>(p.dk) + b * p.dk_sb + h * p.dk_sh;
+  OutT* dvg = static_cast<OutT*>(p.dv) + b * p.dv_sb + h * p.dv_sh;
   for (int i = tid; i < nk * D; i += kThreads) {
     const int r = i / D;
     const int d = i - r * D;
@@ -407,8 +408,8 @@ flash_bwd_dkv_kernel(const Params p) {
       sk += dk_w[(w * BR + r) * D + d];
       sv += dv_w[(w * BR + r) * D + d];
     }
-    dkg[(long long)(k0 + r) * p.dk_ss + d] = from_f32<T>(sk);
-    dvg[(long long)(k0 + r) * p.dv_ss + d] = from_f32<T>(sv);
+    dkg[(long long)(k0 + r) * p.dk_ss + d] = from_f32<OutT>(sk);
+    dvg[(long long)(k0 + r) * p.dv_ss + d] = from_f32<OutT>(sv);
   }
 }
 
@@ -426,17 +427,19 @@ cudaError_t launch(Kern kern, int br, int rows, const Params& p,
 
 // BR = 16 resident rows for D <= 64 (2 output dims per lane), 8 for
 // D <= 128 (4 per lane), which keeps the per-thread accumulators in
-// registers.
-template <typename T>
+// registers. OutT: the outputs' dtype (the inputs', or fp32).
+template <typename T, typename OutT>
 cudaError_t launch_dq(const Params& p, cudaStream_t s) {
-  if (p.D <= 64) return launch(flash_bwd_dq_kernel<T, 16, 2>, 16, p.Sq, p, s);
-  return launch(flash_bwd_dq_kernel<T, 8, 4>, 8, p.Sq, p, s);
+  if (p.D <= 64)
+    return launch(flash_bwd_dq_kernel<T, OutT, 16, 2>, 16, p.Sq, p, s);
+  return launch(flash_bwd_dq_kernel<T, OutT, 8, 4>, 8, p.Sq, p, s);
 }
 
-template <typename T>
+template <typename T, typename OutT>
 cudaError_t launch_dkv(const Params& p, cudaStream_t s) {
-  if (p.D <= 64) return launch(flash_bwd_dkv_kernel<T, 16, 2>, 16, p.Sk, p, s);
-  return launch(flash_bwd_dkv_kernel<T, 8, 4>, 8, p.Sk, p, s);
+  if (p.D <= 64)
+    return launch(flash_bwd_dkv_kernel<T, OutT, 16, 2>, 16, p.Sk, p, s);
+  return launch(flash_bwd_dkv_kernel<T, OutT, 8, 4>, 8, p.Sk, p, s);
 }
 
 Params make_params(const void* q, const void* k, const void* v,
@@ -458,22 +461,24 @@ Params make_params(const void* q, const void* k, const void* v,
 // array of 22 element strides — (batch, sequence, head) of q, k, v, dO, dQ,
 // dK, dV in that order (dQ's slots are unused by flash_bwd_dkv and dK's and
 // dV's by flash_bwd_dq), then the mask's batch stride. The caller (the
-// Python wrapper) has checked shapes, dtypes (q, k, v, dO and the outputs
-// all fp32, or all bf16), D % 8 == 0 with D <= 128, B * H <= 65535, that the
-// last dim of every view is contiguous, and that rows start on 16-byte
-// boundaries. Launches on `stream`, allocates nothing, and returns
-// cudaGetLastError() of the launch.
+// Python wrapper) has checked shapes, dtypes (q, k, v and dO all fp32, or
+// all bf16; the outputs in that dtype or, with `out_f32`, fp32), D % 8 == 0
+// with D <= 128, B * H <= 65535, that the last dim of every view is
+// contiguous, and that rows start on 16-byte boundaries. Launches on
+// `stream`, allocates nothing, and returns cudaGetLastError() of the launch.
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                             const void* dout, const int* mask,
                             const float* lse, const float* delta, void* dq,
                             int B, int H, int Sq, int Sk, int D,
                             const long long* strides, float scale, int causal,
-                            int bf16, void* stream) {
+                            int bf16, int out_f32, void* stream) {
   const Params p = make_params(q, k, v, dout, mask, lse, delta, dq, nullptr,
                                nullptr, B, H, Sq, Sk, D, strides, scale,
                                causal);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(bf16 ? launch_dq<__nv_bfloat16>(p, s) : launch_dq<float>(p, s));
+  if (!bf16) return (int)launch_dq<float, float>(p, s);
+  return (int)(out_f32 ? launch_dq<__nv_bfloat16, float>(p, s)
+                       : launch_dq<__nv_bfloat16, __nv_bfloat16>(p, s));
 }
 
 extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
@@ -481,12 +486,13 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
                              const float* lse, const float* delta, void* dk,
                              void* dv, int B, int H, int Sq, int Sk, int D,
                              const long long* strides, float scale,
-                             int causal, int bf16, void* stream) {
+                             int causal, int bf16, int out_f32, void* stream) {
   const Params p = make_params(q, k, v, dout, mask, lse, delta, nullptr, dk,
                                dv, B, H, Sq, Sk, D, strides, scale, causal);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(bf16 ? launch_dkv<__nv_bfloat16>(p, s)
-                    : launch_dkv<float>(p, s));
+  if (!bf16) return (int)launch_dkv<float, float>(p, s);
+  return (int)(out_f32 ? launch_dkv<__nv_bfloat16, float>(p, s)
+                       : launch_dkv<__nv_bfloat16, __nv_bfloat16>(p, s));
 }
 
 extern "C" const char* flash_bwd_error_string(int code) {

@@ -17,38 +17,81 @@
 //     dtype: dw_shard [kc, N]. Chunk c's sum thus starts at rank c+1 and
 //     adds the ranks in ring order. Replaces _cm_dw_kernel (:572).
 // Products accumulate in fp32 and are stored in the inputs' dtype (K8's
-// partials travel in fp32). bf16 inputs run on the tensor cores (mma.sync
-// m16n8k16, bf16 in, fp32 accumulate); fp32 inputs on the CUDA cores (fmaf;
-// never TF32, which would change the numbers).
+// partials travel in fp32). bf16 inputs run on the tensor cores; fp32
+// inputs on the CUDA cores (fmaf; never TF32, which would change the
+// numbers).
 //
 // What bounds them on this card: operations. At the GPT-2 small training
 // shapes (M = 8192 tokens per rank, K = 768, W = 2, N = 768 or 3072) each
 // call does 2·M·K·N = 9.66 or 38.65 GFLOP on 13–70 MB: over 500 operations
-// per byte, above the card's 295 for bf16. The design is a simple tiled
-// product: 256 threads, one output tile per step of a block-stride loop
-// (128 x 128 for K6 and K7, 64 x 64 for K8, whose output is only kc x N),
+// per byte, above the card's 295 for bf16.
+//
+// K6 and K7: a simple tiled product, kept from the first port. 256
+// threads, one 128 x 128 output tile per step of a block-stride loop,
 // k-slabs of 32 staged through registers into a double-buffered shared
 // tile stored as the operand lies in memory (16-byte loads through L2);
-// fragments come from shared memory with 32-bit loads where the reduction
-// dimension is contiguous and with ldmatrix.trans where it is not. No TMA
-// and no wgmma yet: that is the later, faster kernel.
+// mma.sync m16n8k16 fragments from shared memory with 32-bit loads where
+// the reduction dimension is contiguous and with ldmatrix.trans where it
+// is not.
 //
+// K8 (redesigned; it replaces dear_pytorch_tpu/ops/collective_matmul.py::
+// _cm_dw_kernel, :572). Its output is only kc x N (384 x 768 or 3072) but
+// each element reduces over all M = 8192 rows, so the first design's 72 or
+// 288 tiles of 64 x 64, each a serial walk over M on mma.sync, left most of
+// 66–100 blocks on one long tile or a ragged fourth wave (30–46 TF/s). Now:
+//   - the reduction over M is split across blocks: the output tiles x
+//     slabs of 64 rows of M are cut evenly into `ranges` contiguous runs
+//     (the wrapper's plan, ops/collective_matmul.py::dw_plan: with no more
+//     tiles than blocks, every tile into the same number of segments, one
+//     wave — 18 tiles x 3 at N = 768 on 66 blocks; with more, one run per
+//     block, stream-K — 66 runs over 72 tiles at N = 3072). A unit is the
+//     piece of one run inside one tile; units run round by round, each
+//     block its runs in order, and each writes its fp32 partial of the tile
+//     to a workspace the wrapper allocates (world x tiles x `contrib`
+//     tiles, contrib the most runs that touch one tile). Measured on the
+//     H100 (chip_smoke.py's time_dw_plans), more and smaller units lose:
+//     each costs a partial store, a fence and a refill of the TMA ring;
+//   - the last unit of a tile to finish — an atomicInc on the round's split
+//     counter in the leg header, which wraps back to 0 — sums the tile's
+//     partials in the order of M (no float atomics: every run and every
+//     rank gives the same bits), then does the old epilogue: adds the left
+//     neighbour's fp32 partial of that tile, and stores the tile into the
+//     right neighbour's slot (raising the arrival flag of THAT tile) or, in
+//     the last round, as dw in the inputs' dtype. A unit waits only on the
+//     left neighbour's arrival flags and the right one's credits, never on
+//     a unit of its own rank;
+//   - bf16 operands whose rows TMA can address (W·kc and N multiples of 8)
+//     take the wgmma core: 128 x 128 tiles, two consumer warpgroups of 64
+//     rows and a producer warp; slabs of 64 rows of M stream through a
+//     4-stage ring of shared memory by TMA (xᵀ's and dy's 128 columns each
+//     as two 64 x 64 boxes, 128-byte swizzle) counted on mbarriers; both
+//     operands are MN-major (M runs down the rows), so wgmma reads them
+//     from shared memory with the transpose bits set, one m64n128k16 per
+//     warpgroup and 16 rows (dy's two boxes one leading-byte-offset apart;
+//     two m64n64k16 read xᵀ twice and measured slower, and 128 x 256
+//     tiles slower still), one slab's products in flight behind the next;
+//   - fp32 operands, and bf16 ones TMA cannot address, take the mma core:
+//     64 x 64 tiles on K6/K7's Gemm, with the same split.
+
 // Transport (the "cm" leg of dear_pytorch_tpu_torch/comm/ring.py; the
 // protocol of csrc/ring.cu, with one slot per hop): each rank's leg buffer
-// is [arrive[kMaxHops][kMaxBlocks] | credit[kMaxHops][kMaxBlocks] | pad to
-// kHeader | slot 1 | ... | slot W-1], mapped into its neighbours through
+// is [arrive[kMaxHops][kMaxTiles] | credit[kMaxHops][kMaxBlocks] | K8's
+// split counters[kMaxGroups][kMaxTiles] | pad to kHeader | slot 1 | ... |
+// slot W-1] (zeroed when allocated), mapped into its neighbours through
 // CUDA IPC (or, for W ranks in one process, plain pointers). Hop h (1..W-1)
 // of a call lands in the receiver's slot h: K6 and K7 pass the weight
-// chunks on (block b copies its byte range of the chunk), K8 its fp32
-// partials (block b its own output tiles). A writer stores the hop into
+// chunks on (block b copies its byte range of the chunk, arrival flag b),
+// K8 its fp32 partials (the finishing unit of tile t, arrival flag t: after
+// the split the block that finishes a tile varies, so arrivals are per
+// tile, at most kMaxTiles). A writer stores the hop into
 // the right neighbour's slot, then __threadfence_system() and a
 // system-scope release store of its arrival flag (the call's epoch, the
 // leg's call counter: the same on every rank because every rank issues its
 // ring matmuls in the same order). A K6/K7 block needs the whole chunk, so
 // it waits for the arrival flags of all the sender's blocks (one thread per
 // flag, system-scope acquire loads; the slot is then read through L2 with
-// ld.global.cg); a K8 block only for the one sender block that computed the
-// same tiles. A slot is read again for every tile, so it is released only
+// ld.global.cg); a K8 finishing unit only for the arrival flag of its own
+// tile. A slot is read again for every tile, so it is released only
 // when the call ends: each block raises its credit flag in its left
 // neighbour's buffer for every slot, and a writer of hop h in call e first
 // waits for all the reader's blocks' credits of call e-1 (any of K6-K8 may
@@ -65,7 +108,9 @@
 // K4 / the K5 ring (kRingBlocks blocks) on its comm stream, at most one of
 // each in flight; nothing else in the process spins. The grid is G = SMs -
 // kRingBlocks blocks, each needing one SM's room at most (occupancy >= 1 is
-// checked), so whichever of the two launches first, the other still finds
+// checked, after K8's dynamic shared memory limit is set: its wgmma core
+// takes ~130 KB and 288 threads, one block per SM), so whichever of the
+// two launches first, the other still finds
 // enough SMs that hold none of the first's blocks: both are always fully
 // resident together and every flag they wait for is raised by a block that
 // runs. Contexts of two processes on one card time-slice and are
@@ -82,17 +127,26 @@
 #include <stdint.h>
 #include <type_traits>
 
+#include "hopper.cuh"
 #include "ring_sync.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;                 // K6, K7 and K8's mma core
 constexpr int kMaxGroups = 8;                 // ranks in one launch
 constexpr int kMaxHops = kMaxGroups - 1;
-constexpr int kMaxBlocks = 256;               // flags per slot
-constexpr long long kCreditOff = (long long)kMaxHops * kMaxBlocks * 4;
-constexpr long long kHeader = 16384;          // flags, padded
-static_assert(2 * kCreditOff <= kHeader, "flags overflow the header");
+constexpr int kMaxBlocks = 256;               // blocks per rank: credits
+constexpr int kMaxTiles = 1024;               // arrivals per slot (K8: tiles)
+// the header: arrival flags [hop][kMaxTiles] (K6/K7 index them by block, K8
+// by output tile), credit flags [hop][kMaxBlocks], then K8's split counters
+// [round][kMaxTiles] (zero between calls: each wraps back to 0)
+constexpr long long kCreditOff = (long long)kMaxHops * kMaxTiles * 4;
+constexpr long long kCounterOff =
+    kCreditOff + (long long)kMaxHops * kMaxBlocks * 4;
+constexpr long long kHeader = 69632;          // flags and counters, padded
+static_assert(kCounterOff + (long long)kMaxGroups * kMaxTiles * 4 <= kHeader,
+              "flags and counters overflow the header");
+static_assert(kMaxBlocks <= kMaxTiles, "K6/K7 index arrivals by block");
 constexpr int kBK = 32;                       // k-slab
 constexpr int kPad = 8;                       // shared-row padding, elements
 
@@ -108,24 +162,46 @@ struct CmGroup {
   char* own;       // this rank's leg buffer
   char* right;     // the right neighbour's
   char* left;      // the left neighbour's
+  float* ws;       // K8: the partials, [round][tile][contributor][BM x BN]
 };
 
-struct CmArgs {
-  CmGroup g[kMaxGroups];
+template <class Group>
+struct ArgsOf {
+  Group g[kMaxGroups];
   int world;
   int vec;                 // 16-byte operand loads and paired stores
   unsigned epoch;
   long long m, kc, n;      // K = world * kc
   long long slot_bytes;
+  // K8: the output tiles x slabs of `slab_rows` rows of M, cut evenly into
+  // `ranges` contiguous ranges; `contrib` workspace tiles per output tile
+  long long ranges, slab_rows;
+  int contrib;
 };
 
+// K8's rank record: its wgmma core's tensor maps of x [M, K] and dy [M, N]
+// beside the common one. K6 and K7 take the small record (the maps in
+// their parameters measured a little slower there); K8 keeps the maps in
+// its rank records (as a parameter of their own they measured slower).
+struct DwGroup {
+  CUtensorMap a_map, b_map;
+  CmGroup c;
+};
+
+using CmArgs = ArgsOf<CmGroup>;
+using DwArgs = ArgsOf<DwGroup>;
+
 __device__ __forceinline__ unsigned* arrive_flags(char* buf, int hop) {
-  return reinterpret_cast<unsigned*>(buf) + (hop - 1) * kMaxBlocks;
+  return reinterpret_cast<unsigned*>(buf) + (hop - 1) * kMaxTiles;
 }
 
 __device__ __forceinline__ unsigned* credit_flags(char* buf, int hop) {
   return reinterpret_cast<unsigned*>(buf + kCreditOff) +
          (hop - 1) * kMaxBlocks;
+}
+
+__device__ __forceinline__ unsigned* split_counters(char* buf, int round) {
+  return reinterpret_cast<unsigned*>(buf + kCounterOff) + round * kMaxTiles;
 }
 
 __device__ __forceinline__ char* slot(char* buf, int hop, long long bytes) {
@@ -591,21 +667,273 @@ __global__ void __launch_bounds__(kThreads, 1) cm_dx(const CmArgs a) {
   release_slots(g, W, a.epoch);
 }
 
+// ---------------------------------------------------------------------------
+// K8: the reduction over M split across blocks
+// ---------------------------------------------------------------------------
+//
+// A work unit is (round, output tile, a run's piece of M in that tile).
+// Units run round by round, each block its runs in order; each writes its
+// fp32 partial of the tile to the rank's workspace. The last unit of a tile
+// to finish (an atomicInc on the round's split counter in the leg header,
+// which wraps back to 0) sums the tile's partials in the order of M, adds the
+// left neighbour's fp32 partial when the round has one (after its arrival
+// flag for THAT tile), and stores the result into the right neighbour's
+// slot (raising its arrival flag for the tile) or, in the last round, as dw.
+
+// The wgmma core (bf16 operands TMA can read): 128 x 128 output tiles,
+// two consumer warpgroups of 64 rows and one producer warp. Slabs of 64
+// rows of M stream through kStages shared-memory stages by TMA: per stage
+// xᵀ's 128 columns and dy's 128 columns as two 64-wide boxes each, both
+// MN-major (the reduction dim M runs down the rows).
+struct WgmmaCore {
+  static constexpr int BM = 128, BN = 128, kSlab = 64, kStages = 4;
+  static constexpr int kThreads = 288;
+  static constexpr int kBox = kSlab * 64 * 2;      // one 64 x 64 box, bytes
+  static constexpr int kStage = 4 * kBox;          // A: 2 boxes, B: 2 boxes
+  static constexpr int kBarOff = kStages * kStage;
+  static constexpr int kSmem = kBarOff + 16 * kStages + 1024;
+  uint8_t* smem;
+  uint64_t* full;
+  uint64_t* empty;
+  unsigned count;  // slabs this block has streamed so far
+
+  __device__ void init(uint8_t* raw) {
+    smem = reinterpret_cast<uint8_t*>(
+        (reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023));
+    full = reinterpret_cast<uint64_t*>(smem + kBarOff);
+    empty = full + kStages;
+    count = 0;
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < kStages; ++s) {
+        hopper::mbar_init(full + s, 1);
+        hopper::mbar_init(empty + s, 8);  // the consumer warps
+      }
+      hopper::mbar_fence_init();
+    }
+    __syncthreads();
+  }
+
+  // out [BM][BN] = x[m0 : m0 + mlen, col0 : col0 + BM]ᵀ · dy[m0 :, n0 : n0
+  // + BN]; rows and columns past the operands' ends read as zeros.
+  template <class A>
+  __device__ void partial(const A& a, const CmGroup&,
+                          const CUtensorMap* x_map, const CUtensorMap* y_map,
+                          long long c, long long i0, long long n0,
+                          long long m0, long long mlen, float* out) {
+    using namespace hopper;
+    const long long col0 = c * a.kc + i0;
+    const int nslab = mlen > 0 ? (int)((mlen + kSlab - 1) / kSlab) : 0;
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    if (warp == 8) {
+      if (lane == 0) {
+        for (int s = 0; s < nslab; ++s) {
+          const unsigned j = count + s;
+          const int st = j % kStages;
+          if (j >= (unsigned)kStages)
+            mbar_wait(empty + st, ((j / kStages) - 1) & 1);
+          uint8_t* dst = smem + st * kStage;
+          const int row = (int)(m0 + (long long)s * kSlab);
+          mbar_expect_tx(full + st, kStage);
+          tma_load_2d(dst, x_map, full + st, (int)col0, row);
+          tma_load_2d(dst + kBox, x_map, full + st, (int)col0 + 64, row);
+          tma_load_2d(dst + 2 * kBox, y_map, full + st, (int)n0, row);
+          tma_load_2d(dst + 3 * kBox, y_map, full + st, (int)n0 + 64, row);
+        }
+      }
+    } else {
+      const int wg = warp / 4;
+      float acc[64];  // this warpgroup's 64 rows x the tile's 128 columns
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+      for (int s = 0; s < nslab; ++s) {
+        const unsigned j = count + s;
+        const int st = j % kStages;
+        mbar_wait(full + st, (j / kStages) & 1);
+        const uint32_t xs = smem_u32(smem + st * kStage + wg * kBox);
+        const uint32_t ys = smem_u32(smem + st * kStage + 2 * kBox);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kSlab / 16; ++kk)   // dy's two 64-wide boxes
+          wgmma_m64n128k16_ss<1, 1>(                //   are kBox apart: LBO
+              acc, desc_sw128(xs + 2048 * kk, 1024, 1024),
+              desc_sw128(ys + 2048 * kk, kBox, 1024), 1);
+        wgmma_commit();
+        wgmma_wait<1>();  // the previous slab's products are done
+        if (s > 0 && lane == 0) mbar_arrive(empty + (j - 1) % kStages);
+      }
+      wgmma_wait<0>();
+      reg_fence(acc);
+      if (nslab > 0 && lane == 0)
+        mbar_arrive(empty + (count + nslab - 1) % kStages);
+      const int g8 = lane / 4, t = lane % 4;
+      const int row = wg * 64 + (warp % 4) * 16 + g8;
+#pragma unroll
+      for (int jn = 0; jn < 16; ++jn) {
+        const int c = 8 * jn + 2 * t;
+        *reinterpret_cast<float2*>(out + row * BN + c) =
+            make_float2(acc[4 * jn], acc[4 * jn + 1]);
+        *reinterpret_cast<float2*>(out + (row + 8) * BN + c) =
+            make_float2(acc[4 * jn + 2], acc[4 * jn + 3]);
+      }
+    }
+    count += nslab;
+  }
+};
+
+// The CUDA-core / mma.sync core (fp32 operands: fmaf, never TF32; bf16
+// operands TMA cannot read: ragged rows): 64 x 64 tiles on the Gemm of K6
+// and K7, 256 threads.
+template <typename T>
+struct MmaCore {
+  using G = Gemm<T, 64, 64, false, false>;
+  static constexpr int BM = 64, BN = 64, kThreads = 256;
+  static constexpr int kSmem = 2 * G::STAGE * (int)sizeof(T);
+  T* smem;
+
+  __device__ void init(uint8_t* raw) { smem = reinterpret_cast<T*>(raw); }
+
+  template <class A>
+  __device__ void partial(const A& a, const CmGroup& g,
+                          const CUtensorMap*, const CUtensorMap*, long long c,
+                          long long i0, long long n0, long long m0,
+                          long long mlen, float* out) {
+    const long long K = a.world * a.kc, N = a.n, col0 = c * a.kc + i0;
+    const T* x = reinterpret_cast<const T*>(g.a);
+    const T* dy = reinterpret_cast<const T*>(g.b);
+    typename G::Tile acc;
+    acc.zero();
+    if (mlen > 0) {
+      Operand<T> A{x + m0 * K + col0, K, mlen, a.kc - i0, false};
+      Operand<T> B{dy + m0 * N + n0, N, mlen, N - n0, false};
+      gemm_tile<G>(acc, A, B, mlen, a.vec, smem);
+    }
+    acc.epilogue([&](int row, int col, float v0, float v1) {
+      *reinterpret_cast<float2*>(out + row * BN + col) = make_float2(v0, v1);
+    });
+  }
+};
+
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y),
+                     __fadd_rn(a.z, b.z), __fadd_rn(a.w, b.w));
+}
+
+// The finishing unit's epilogue of one BM x BN tile: the S partials at
+// `parts` summed in order, plus the left neighbour's partial `in` (if any),
+// stored into the right neighbour's slot `fwd` or as dw. Four columns per
+// step with 16-byte loads, the partials' loads issued in batches of kBatch
+// before their adds (the adds stay in order),
+// two steps per thread in flight: the partials were just written by other
+// SMs, so this pass is bound by how many loads are in flight, not by the
+// adds.
+template <typename T, int BM, int BN, class A>
+__device__ void combine_tile(const A& a, const float* parts, int S,
+                             long long i0, long long n0, const float* in,
+                             float* fwd, T* dw) {
+  constexpr int kTile = BM * BN, kBatch = 4, kSteps = 2;
+  const long long kc = a.kc, N = a.n;
+  const bool v4 = N % 4 == 0;   // 16-byte rows of the slot and of dw
+  const int stride = blockDim.x * kSteps;
+  for (int base = threadIdx.x; base < kTile / 4; base += stride) {
+    float4 v[kSteps];
+    int off[kSteps];
+    bool live[kSteps];
+#pragma unroll
+    for (int st = 0; st < kSteps; ++st) {
+      const int idx = base + st * blockDim.x;
+      const int row = 4 * idx / BN, col = 4 * idx % BN;
+      off[st] = row * BN + col;
+      live[st] = idx < kTile / 4 && i0 + row < kc && n0 + col < N;
+      v[st] = live[st] ? __ldcg(reinterpret_cast<const float4*>(parts +
+                                                                off[st]))
+                       : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    int sg = 1;
+    for (; sg + kBatch <= S; sg += kBatch) {
+      float4 p[kSteps][kBatch];
+#pragma unroll
+      for (int st = 0; st < kSteps; ++st)
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u)
+          p[st][u] = live[st] ? __ldcg(reinterpret_cast<const float4*>(
+                                    parts + (sg + u) * kTile + off[st]))
+                              : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int st = 0; st < kSteps; ++st)
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) v[st] = add4(v[st], p[st][u]);
+    }
+    for (; sg < S; ++sg)
+#pragma unroll
+      for (int st = 0; st < kSteps; ++st)
+        if (live[st])
+          v[st] = add4(v[st], __ldcg(reinterpret_cast<const float4*>(
+                                  parts + sg * kTile + off[st])));
+#pragma unroll
+    for (int st = 0; st < kSteps; ++st) {
+      if (!live[st]) continue;
+      const int row = off[st] / BN, col = off[st] % BN;
+      const long long i = i0 + row, n = n0 + col;
+      float e[4] = {v[st].x, v[st].y, v[st].z, v[st].w};
+      const int ne = (int)min(4LL, N - n);
+      if (in != nullptr) {
+        if (v4) {
+          const float4 l = __ldcg(reinterpret_cast<const float4*>(
+              in + i * N + n));
+          e[0] = __fadd_rn(e[0], l.x);
+          e[1] = __fadd_rn(e[1], l.y);
+          e[2] = __fadd_rn(e[2], l.z);
+          e[3] = __fadd_rn(e[3], l.w);
+        } else {
+          for (int q = 0; q < ne; ++q)
+            e[q] = __fadd_rn(e[q], __ldcg(in + i * N + n + q));
+        }
+      }
+      if (fwd != nullptr) {
+        if (v4)
+          __stcg(reinterpret_cast<float4*>(fwd + i * N + n),
+                 make_float4(e[0], e[1], e[2], e[3]));
+        else
+          for (int q = 0; q < ne; ++q) __stcg(fwd + i * N + n + q, e[q]);
+      } else {
+        store2<T>(dw + i * N + n, N - n0, col, e[0], e[1], a.vec);
+        store2<T>(dw + i * N + n + 2, N - n0, col + 2, e[2], e[3], a.vec);
+      }
+    }
+  }
+}
+
+// The range that holds iteration i of `total`, cut into R ranges
+// [floor(q total / R), floor((q + 1) total / R)).
+__host__ __device__ inline long long range_of(long long i, long long R,
+                                              long long total) {
+  return ((i + 1) * R - 1) / total;
+}
+
 // K8: round by round, this rank's xᵀ·dy block of that round's chunk plus
 // the partial from the left, passed right (or, in the last round, dw).
-template <typename T, int BM, int BN>
-__global__ void __launch_bounds__(kThreads, 1) cm_dw(const CmArgs a) {
-  using G = Gemm<T, BM, BN, false, false>;
-  __shared__ __align__(16) T smem[2 * G::STAGE];
-  const CmGroup& g = a.g[blockIdx.y];
+// Block b takes ranges b, b + G, ...; a range is a run of slabs that may
+// span tiles, each piece of one tile a unit; a tile's contributors are the
+// ranges that touch it, j = 0, 1, ... in order of M.
+template <typename T, class Core>
+__global__ void __launch_bounds__(Core::kThreads, 1)
+cm_dw(const __grid_constant__ DwArgs a) {
+  extern __shared__ __align__(128) uint8_t dyn_smem[];
+  __shared__ int finisher;
+  constexpr int BM = Core::BM, BN = Core::BN, kTile = BM * BN;
+  const DwGroup& dg = a.g[blockIdx.y];
+  const CmGroup& g = dg.c;
   const int W = a.world, my = g.rank;
   const unsigned e = a.epoch;
-  const long long M = a.m, kc = a.kc, N = a.n, K = W * kc;
-  const T* x = reinterpret_cast<const T*>(g.a);
-  const T* dy = reinterpret_cast<const T*>(g.b);
+  const long long kc = a.kc, N = a.n, M = a.m, R = a.ranges;
+  const long long slab = a.slab_rows;
   T* dw = reinterpret_cast<T*>(g.out);
   const long long tn = (N + BN - 1) / BN;
   const long long tiles = (kc + BM - 1) / BM * tn;
+  const long long P = M > 0 ? (M + slab - 1) / slab : 1;  // slabs per tile
+  const long long total = tiles * P;
+  Core core;
+  core.init(dyn_smem);
   for (int r = 0; r < W; ++r) {
     const long long c = ((my - 1 - r) % W + 2 * W) % W;
     const float* in =
@@ -614,39 +942,46 @@ __global__ void __launch_bounds__(kThreads, 1) cm_dw(const CmArgs a) {
     float* fwd = r < W - 1 ? reinterpret_cast<float*>(
                                  slot(g.right, r + 1, a.slot_bytes))
                            : nullptr;
-    bool waited = false;
-    if (fwd != nullptr && e > 1)
-      wait_all(credit_flags(g.own, r + 1), e - 1, "cm credit", my, r);
-    for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
-      const long long i0 = t / tn * BM, n0 = t % tn * BN;
-      typename G::Tile acc;
-      acc.zero();
-      Operand<T> A{x + c * kc + i0, K, M, kc - i0, false};
-      Operand<T> B{dy + n0, N, M, N - n0, false};
-      gemm_tile<G>(acc, A, B, M, a.vec, smem);
-      if (in != nullptr && !waited) {   // the sender block of these tiles
-        if (threadIdx.x == 0)
-          spin_until(arrive_flags(g.own, r) + blockIdx.x, e, "cm arrival",
-                     my, r);
+    float* ws = g.ws + (long long)r * tiles * a.contrib * kTile;
+    unsigned* counters = split_counters(g.own, r);
+    bool credited = false;
+    for (long long q = blockIdx.x; q < R; q += gridDim.x) {
+      const long long hi = (q + 1) * total / R;
+      for (long long it = q * total / R; it < hi;) {
+        const long long tile = it / P;
+        const long long end = min(hi, (tile + 1) * P);
+        const long long first = range_of(tile * P, R, total);
+        const int n_parts = (int)(range_of((tile + 1) * P - 1, R, total) -
+                                  first + 1);
+        const long long i0 = tile / tn * BM, n0 = tile % tn * BN;
+        const long long m0 = (it - tile * P) * slab;
+        const long long mlen = min(M, (end - tile * P) * slab) - m0;
+        core.partial(a, g, &dg.a_map, &dg.b_map, c, i0, n0, m0, mlen,
+                     ws + (tile * a.contrib + (q - first)) * kTile);
+        it = end;
+        __threadfence();  // the partial is visible before the arrival below
         __syncthreads();
-        waited = true;
+        if (threadIdx.x == 0)
+          finisher = atomicInc(counters + tile, (unsigned)n_parts - 1) ==
+                     (unsigned)n_parts - 1;
+        __syncthreads();
+        if (!finisher) continue;
+        __threadfence();
+        if (fwd != nullptr && e > 1 && !credited) {
+          wait_all(credit_flags(g.own, r + 1), e - 1, "cm credit", my, r);
+          credited = true;
+        }
+        if (in != nullptr) {   // the left neighbour's partial of this tile
+          if (threadIdx.x == 0)
+            spin_until(arrive_flags(g.own, r) + tile, e, "cm arrival", my,
+                       r);
+          __syncthreads();
+        }
+        combine_tile<T, BM, BN>(a, ws + tile * a.contrib * kTile, n_parts,
+                                i0, n0, in, fwd, dw);
+        if (fwd != nullptr) signal(arrive_flags(g.right, r + 1) + tile, e);
       }
-      acc.epilogue([&](int row, int col, float v0, float v1) {
-        const long long i = i0 + row, n = n0 + col;
-        if (i >= kc) return;
-        if (in != nullptr) {
-          if (n < N) v0 = __fadd_rn(v0, __ldcg(in + i * N + n));
-          if (n + 1 < N) v1 = __fadd_rn(v1, __ldcg(in + i * N + n + 1));
-        }
-        if (fwd != nullptr) {
-          if (n < N) __stcg(fwd + i * N + n, v0);
-          if (n + 1 < N) __stcg(fwd + i * N + n + 1, v1);
-        } else {
-          store2<T>(dw + i * N + n, N - n0, col, v0, v1, a.vec);
-        }
-      });
     }
-    if (fwd != nullptr) signal(arrive_flags(g.right, r + 1) + blockIdx.x, e);
   }
   release_slots(g, W, a.epoch);
 }
@@ -665,27 +1000,34 @@ int cm_blocks(int sms, int n_groups, int cooperative) {
 
 bool aligned16(long long p) { return p % 16 == 0; }
 
-cudaError_t launch(const void* kernel, const CmArgs& a, int n_groups,
-                   int cooperative, cudaStream_t stream) {
+// `params`: the kernel's one parameter (CmArgs or DwArgs); `threads` per
+// block and `smem` bytes of dynamic shared memory (its limit set first,
+// then the occupancy checked: at least one block per SM).
+cudaError_t launch(const void* kernel, void* params, int n_groups,
+                   int cooperative, cudaStream_t stream, int threads = kThreads,
+                   int smem = 0) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess && smem > 0)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        kThreads, 0);
+                                                        threads, smem);
   if (err != cudaSuccess) return err;
   const int blocks = cm_blocks(sms, n_groups, cooperative);
   if (per_sm < 1 || (!cooperative && sms <= kRingBlocks))
     return cudaErrorInvalidConfiguration;
-  const dim3 grid(blocks, n_groups), block(kThreads);
-  void* args[] = {const_cast<CmArgs*>(&a)};
+  const dim3 grid(blocks, n_groups), block(threads);
+  void* args[] = {params};
   if (cooperative) {
     if ((long long)per_sm * sms < (long long)blocks * n_groups)
       return cudaErrorCooperativeLaunchTooLarge;
-    err = cudaLaunchCooperativeKernel(kernel, grid, block, args, 0, stream);
+    err = cudaLaunchCooperativeKernel(kernel, grid, block, args, smem, stream);
   } else {
-    err = cudaLaunchKernel(kernel, grid, block, args, 0, stream);
+    err = cudaLaunchKernel(kernel, grid, block, args, smem, stream);
   }
   return err != cudaSuccess ? err : cudaGetLastError();
 }
@@ -694,17 +1036,82 @@ template <typename T>
 const void* kernel_for(int kind) {
   if constexpr (std::is_same<T, bf16>::value) {
     if (kind == kFwd) return (const void*)cm_fwd<T, 128, 128>;
-    if (kind == kDx) return (const void*)cm_dx<T, 128, 128>;
-    return (const void*)cm_dw<T, 64, 64>;
+    return (const void*)cm_dx<T, 128, 128>;
   }
   if (kind == kFwd) return (const void*)cm_fwd<T, 64, 64>;
-  if (kind == kDx) return (const void*)cm_dx<T, 64, 64>;
-  return (const void*)cm_dw<T, 64, 64>;
+  return (const void*)cm_dx<T, 64, 64>;
+}
+
+// K8's cores (the wrapper picks one: ring_matmul_dw's `dw_core`)
+enum Core { kMmaCore = 0, kWgmmaCore = 1 };
+
+// K8 through `core`: checks the plan (tiles within the flags, every
+// tile's contributors within the workspace) and, for the wgmma core,
+// builds each rank's tensor maps of x and dy.
+int launch_dw(const CmArgs& a, int n_groups, int bf16_in, int core,
+              int cooperative, cudaStream_t stream) {
+  DwArgs d = {};  // the launch copies it; the maps stay zero for the mma core
+  for (int i = 0; i < n_groups; ++i) d.g[i].c = a.g[i];
+  d.world = a.world;
+  d.vec = a.vec;
+  d.epoch = a.epoch;
+  d.m = a.m;
+  d.kc = a.kc;
+  d.n = a.n;
+  d.slot_bytes = a.slot_bytes;
+  d.ranges = a.ranges;
+  d.slab_rows = a.slab_rows;
+  d.contrib = a.contrib;
+  const long long bm = core == kWgmmaCore ? WgmmaCore::BM : 64;
+  const long long bn = core == kWgmmaCore ? WgmmaCore::BN : 64;
+  const long long tiles = (a.kc + bm - 1) / bm * ((a.n + bn - 1) / bn);
+  if (a.ranges < 1 || a.slab_rows < 1 || tiles > kMaxTiles)
+    return (int)cudaErrorInvalidValue;
+  const long long P = a.m > 0 ? (a.m + a.slab_rows - 1) / a.slab_rows : 1;
+  const long long total = tiles * P;
+  if (a.ranges > total) return (int)cudaErrorInvalidValue;  // none empty
+  for (long long t = 0; t < tiles; ++t)
+    if (range_of((t + 1) * P - 1, a.ranges, total) -
+            range_of(t * P, a.ranges, total) + 1 > a.contrib)
+      return (int)cudaErrorInvalidValue;
+  if (core == kMmaCore) {
+    if (bf16_in)
+      return (int)launch((const void*)cm_dw<bf16, MmaCore<bf16>>, &d,
+                         n_groups, cooperative, stream,
+                         MmaCore<bf16>::kThreads, MmaCore<bf16>::kSmem);
+    return (int)launch((const void*)cm_dw<float, MmaCore<float>>, &d,
+                       n_groups, cooperative, stream, MmaCore<float>::kThreads,
+                       MmaCore<float>::kSmem);
+  }
+  const long long K = a.world * a.kc;
+  if (core != kWgmmaCore || !bf16_in || K % 8 || a.n % 8 ||
+      a.slab_rows % WgmmaCore::kSlab)
+    return (int)cudaErrorInvalidValue;
+  for (int i = 0; i < n_groups; ++i) {
+    const CmGroup& g = a.g[i];
+    if (!aligned16((long long)g.a) || !aligned16((long long)g.b))
+      return (int)cudaErrorInvalidValue;
+    const uint64_t m = (uint64_t)(a.m > 0 ? a.m : 1);
+    const uint64_t x_dims[2] = {(uint64_t)K, m}, x_st[1] = {(uint64_t)K * 2};
+    const uint64_t y_dims[2] = {(uint64_t)a.n, m},
+                   y_st[1] = {(uint64_t)a.n * 2};
+    const uint32_t box[2] = {64, WgmmaCore::kSlab};
+    cudaError_t err =
+        hopper::make_map(&d.g[i].a_map, g.a, 2, x_dims, x_st, box);
+    if (err == cudaSuccess)
+      err = hopper::make_map(&d.g[i].b_map, g.b, 2, y_dims, y_st, box);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)launch((const void*)cm_dw<bf16, WgmmaCore>, &d, n_groups,
+                     cooperative, stream, WgmmaCore::kThreads,
+                     WgmmaCore::kSmem);
 }
 
 int run(int kind, const long long* groups, int n_groups, int world,
         long long m, long long kc, long long n, long long slot_bytes,
-        int bf16_in, unsigned epoch, int cooperative, void* stream) {
+        int bf16_in, unsigned epoch, int cooperative, void* stream,
+        long long ranges = 1, int contrib = 1, long long slab_rows = 1,
+        int core = kMmaCore) {
   if (n_groups < 1 || n_groups > kMaxGroups || world < 2 ||
       world > kMaxGroups || m < 0 || kc < 1 || n < 1 || epoch < 1)
     return (int)cudaErrorInvalidValue;
@@ -718,10 +1125,13 @@ int run(int kind, const long long* groups, int n_groups, int world,
   a.kc = kc;
   a.n = n;
   a.slot_bytes = slot_bytes;
+  a.ranges = ranges;
+  a.contrib = contrib;
+  a.slab_rows = slab_rows;
   const long long ve = 16 / esize;
   a.vec = kc % ve == 0 && n % ve == 0 && slot_bytes % 16 == 0;
   for (int i = 0; i < n_groups; ++i) {
-    const long long* v = groups + i * 7;
+    const long long* v = groups + i * 8;
     CmGroup& g = a.g[i];
     g.rank = (int)v[0];
     g.a = reinterpret_cast<const char*>(v[1]);
@@ -730,31 +1140,51 @@ int run(int kind, const long long* groups, int n_groups, int world,
     g.own = reinterpret_cast<char*>(v[4]);
     g.right = reinterpret_cast<char*>(v[5]);
     g.left = reinterpret_cast<char*>(v[6]);
+    g.ws = reinterpret_cast<float*>(v[7]);
     a.vec = a.vec && aligned16(v[1]) && aligned16(v[2]) && aligned16(v[3]);
-    if (!aligned16(v[4]) || !aligned16(v[5]) || !aligned16(v[6]))
+    if (!aligned16(v[4]) || !aligned16(v[5]) || !aligned16(v[6]) ||
+        (kind == kDw && (v[7] == 0 || !aligned16(v[7]))))
       return (int)cudaErrorInvalidValue;
   }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kind == kDw) return launch_dw(a, n_groups, bf16_in, core, cooperative, s);
   const void* kernel = bf16_in ? kernel_for<bf16>(kind)
                                : kernel_for<float>(kind);
-  return (int)launch(kernel, a, n_groups, cooperative,
-                     static_cast<cudaStream_t>(stream));
+  return (int)launch(kernel, &a, n_groups, cooperative, s);
 }
 
 }  // namespace
 
 // The C interface. `groups` is a host array of one record per rank driven
 // by this launch (n_groups of them; more than one only for ranks sharing a
-// process), each of 7 int64 values: rank, a, b, out, then the leg buffers
-// of the rank, its right and its left neighbour. Operands (all contiguous,
-// row-major, of one dtype: bf16 when `bf16_in`, else fp32):
+// process), each of 8 int64 values: rank, a, b, out, the leg buffers of the
+// rank, its right and its left neighbour, then K8's workspace (0 for K6 and
+// K7). Operands (all contiguous, row-major, of one dtype: bf16 when
+// `bf16_in`, else fp32):
 //   rmm_forward (K6): a = x [m, world*kc], b = w_shard [kc, n], out = y [m, n]
 //   rmm_dx      (K7): a = dy [m, n], b = w_shard [kc, n], out = dx [m, world*kc]
 //   rmm_dw      (K8): a = x [m, world*kc], b = dy [m, n], out = dw [kc, n]
 // `slot_bytes`: the leg's slot size (>= the hop: kc*n elements, fp32 for
-// K8); `epoch`: the leg's call counter (from 1). Each launches on `stream`,
-// allocates nothing, and returns cudaGetLastError() of the launch.
+// K8); `epoch`: the leg's call counter (from 1). K8 also takes its plan:
+// output tiles x slabs of `slab_rows` rows of M (a multiple of 64 for the
+// wgmma core) cut into `ranges`, `contrib` workspace tiles per output tile
+// (at least the most ranges that touch one tile), and `core` (0: the mma /
+// CUDA-core core, 64 x 64 tiles; 1: the wgmma core, 128 x 128 tiles, bf16
+// with W*kc and n multiples of 8); its workspace per rank holds world x
+// tiles x contrib tiles of fp32. Each launches on `stream`, allocates
+// nothing, and returns cudaGetLastError() of the launch.
 
 extern "C" long long rmm_header_bytes() { return kHeader; }
+
+// K8's blocks per rank on this device (the plan's G).
+extern "C" int rmm_blocks(int n_groups, int cooperative) {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    return 0;
+  return cm_blocks(sms, n_groups, cooperative);
+}
 
 extern "C" int rmm_forward(const long long* groups, int n_groups, int world,
                            long long m, long long kc, long long n,
@@ -775,9 +1205,10 @@ extern "C" int rmm_dx(const long long* groups, int n_groups, int world,
 extern "C" int rmm_dw(const long long* groups, int n_groups, int world,
                       long long m, long long kc, long long n,
                       long long slot_bytes, int bf16_in, unsigned epoch,
-                      int cooperative, void* stream) {
+                      int cooperative, long long ranges, int contrib,
+                      long long slab_rows, int core, void* stream) {
   return run(kDw, groups, n_groups, world, m, kc, n, slot_bytes, bf16_in,
-             epoch, cooperative, stream);
+             epoch, cooperative, stream, ranges, contrib, slab_rows, core);
 }
 
 extern "C" const char* rmm_error_string(int code) {

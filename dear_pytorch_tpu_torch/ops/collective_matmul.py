@@ -37,9 +37,13 @@ the kernel is bitwise equal to it on the card), and *distributed* (the same
 hops over `comm.collectives.ring_shift`: what a CPU rank of the train step
 runs). K6–K8's plain versions sum fp32 products in torch's order, the
 kernels in the tensor cores', so those agree at a tolerance, not bitwise;
-the ring order of K8's cross-rank sum is the same in both. Dispatch: a CPU
-tensor takes the plain version; a CUDA tensor launches the kernel or
-raises; any other device raises. ``ring_ag_launches``,
+the ring order of K8's cross-rank sum is the same in both. K8 also splits
+its reduction over M across blocks (`dw_core` picks the tile core, `dw_plan`
+cuts tiles x slabs of M into runs, `_launch_cm` allocates the fp32
+partials' workspace): the last unit of an output tile sums the tile's
+partials in the order of M, so two calls on the same inputs give the same
+bits. Dispatch: a CPU tensor takes the plain version; a CUDA tensor
+launches the kernel or raises; any other device raises. ``ring_ag_launches``,
 ``ring_rs_launches``, ``cm_fwd_launches``, ``cm_dx_launches`` and
 ``cm_dw_launches`` count kernel launches (one per call, however many ranks
 it drives).
@@ -505,9 +509,74 @@ def ring_matmul_dw(x: torch.Tensor, dy: torch.Tensor, ring) -> torch.Tensor:
     return dw
 
 
+#: K8's tile cores: (csrc/ring_matmul.cu's enum Core, output tile rows,
+#: output tile columns)
+DW_CORES = {"mma": (0, 64, 64), "wgmma": (1, 128, 128)}
+#: K8's reduction slab: a segment of M is a multiple of it
+DW_SLAB = 64
+
+
+def dw_core(dtype: torch.dtype, world: int, kc: int, n: int) -> str:
+    """K8's tile core for a call: ``"wgmma"`` (TMA and wgmma, 128 x 128
+    tiles) for bf16 operands whose rows TMA can address (``world * kc`` and
+    ``n`` multiples of 8 elements: 16-byte row strides); else ``"mma"``
+    (64 x 64 tiles: fp32 on CUDA cores, ragged bf16 on mma.sync)."""
+    if dtype == torch.bfloat16 and (world * kc) % 8 == 0 and n % 8 == 0:
+        return "wgmma"
+    return "mma"
+
+
+def _range_of(i: int, ranges: int, total: int) -> int:
+    """The range holding iteration ``i`` of ``total`` cut into ``ranges``
+    (csrc/ring_matmul.cu's ``range_of``)."""
+    return ((i + 1) * ranges - 1) // total
+
+
+def dw_plan(m: int, kc: int, n: int, blocks: int, core: str,
+            ranges: Optional[int] = None) -> tuple:
+    """``(ranges, contrib, slab_rows)``: K8's output tiles x slabs of M
+    (`DW_SLAB` rows each) cut evenly into ``ranges`` contiguous runs, and
+    ``contrib``, the most runs that touch one tile (the partials its
+    finishing unit sums; the workspace tiles it needs). By default, with no
+    more tiles than the ``blocks`` of a rank, every tile is cut into the
+    same S = blocks // tiles segments (ranges = tiles x S: one wave, each
+    unit one piece of one tile); with more tiles, one run per block
+    (stream-K: every block reduces the same number of slabs, a run may
+    span two tiles). Never more runs than tiles x slabs, so none is empty.
+    The main path's shapes (M = 8192, kc = 384) on 66 blocks: 18 tiles x 3
+    segments at N = 768, 66 runs over 72 tiles (up to 2 per tile) at N =
+    3072."""
+    _, bm, bn = DW_CORES[core]
+    tiles = -(-kc // bm) * -(-n // bn)
+    slabs = max(1, -(-m // DW_SLAB))
+    total = tiles * slabs
+    blocks = max(1, blocks)
+    if ranges is None:
+        ranges = tiles * (blocks // tiles) if tiles <= blocks else blocks
+    # no empty run: every run that touches a tile then arrives at its count
+    ranges = min(max(1, ranges), total)
+    contrib = max(_range_of((t + 1) * slabs - 1, ranges, total)
+                  - _range_of(t * slabs, ranges, total) + 1
+                  for t in range(tiles))
+    return ranges, contrib, DW_SLAB
+
+
+def dw_launch_plan(ring, m: int, kc: int, n: int, dtype) -> tuple:
+    """``(core, ranges, contrib, slab_rows)`` of a K8 launch on ``ring``
+    (its blocks per rank from the built kernel: ``rmm_blocks``)."""
+    from dear_pytorch_tpu_torch.comm.ring import matmul_lib
+
+    core = dw_core(dtype, ring.world, kc, n)
+    lead = ring.world if ring.stacked else 1
+    with torch.cuda.device(ring.device):
+        blocks = matmul_lib().rmm_blocks(lead, int(ring.cooperative))
+    return (core,) + dw_plan(m, kc, n, blocks, core)
+
+
 def _launch_cm(kind, a, b, out, ring, m, kc, n) -> None:
     """One launch of K6 (``fwd``), K7 (``dx``) or K8 (``dw``) over the
-    ranks ``ring`` drives."""
+    ranks ``ring`` drives; K8 with its plan (`dw_core`, `dw_plan`) and a
+    fresh workspace of fp32 partials."""
     from dear_pytorch_tpu_torch.comm.ring import matmul_lib
 
     global cm_fwd_launches, cm_dx_launches, cm_dw_launches
@@ -522,19 +591,30 @@ def _launch_cm(kind, a, b, out, ring, m, kc, n) -> None:
         raise ValueError("ring matmul kernel: operands not contiguous")
     lead = ring.world if ring.stacked else 1
     As, Bs, Os = (t.reshape((lead,) + t.shape[-2:]) for t in (a, b, out))
+    lib = matmul_lib()
+    plan = ()
+    ws = [0] * lead
+    if kind == "dw":
+        core, ranges, contrib, slab_rows = dw_launch_plan(ring, m, kc, n,
+                                                          a.dtype)
+        _, bm, bn = DW_CORES[core]
+        parts = -(-kc // bm) * -(-n // bn) * contrib
+        work = torch.empty((lead, ring.world * parts * bm * bn),
+                           dtype=torch.float32, device=a.device)
+        ws = [w.data_ptr() for w in work]
+        plan = (ranges, contrib, slab_rows, DW_CORES[core][0])
     rec = []
-    for (rank, (own, right, left)), ai, bi, oi in zip(ring.links("cm"), As,
-                                                       Bs, Os):
+    for (rank, (own, right, left)), ai, bi, oi, wi in zip(
+            ring.links("cm"), As, Bs, Os, ws):
         rec += [rank, ai.data_ptr(), bi.data_ptr(), oi.data_ptr(), own,
-                right, left]
+                right, left, wi]
     arr = (ctypes.c_longlong * len(rec))(*rec)
     epoch = ring.next_epoch("cm")
-    lib = matmul_lib()
     with torch.cuda.device(a.device):
         err = getattr(lib, _CM_KINDS[kind])(
             arr, lead, ring.world, m, kc, n, ring.cm_slot_bytes,
             int(a.dtype == torch.bfloat16), epoch, int(ring.cooperative),
-            torch.cuda.current_stream(a.device).cuda_stream)
+            *plan, torch.cuda.current_stream(a.device).cuda_stream)
     if err:
         raise RuntimeError(f"ring matmul kernel ({kind}) launch failed: "
                            + lib.rmm_error_string(err).decode())

@@ -21,10 +21,19 @@ divides: the kernel masks the ragged edge itself. The TPU tiling rules
 (``_pick_block``, ``check_mosaic_block``) are not carried over. Head dim:
 a multiple of 8 up to 128; q, k and v all fp32 or all bf16.
 
-What bounds it on the H100: a decode tick (``Sq = 1`` over the ``L``-slot
-cache) reads K and V once — bytes; a causal prefill at ``S = 1024`` is
-O(S² D) flops — operations. The kernel's source note says what its first,
-simple design does about each; a split-K decode is later work.
+Three routes, picked by `fwd_route` from the shape and dtypes alone:
+
+  - ``"tensor_core"`` (bf16 in and out, ``Sq > 1``, ``D = 64``: the
+    training step) — ``wgmma`` and TMA, bound by operations;
+  - ``"split_k"`` (``Sq = 1``, any dtype: the decode tick) — each row's
+    keys split over several blocks (`decode_splits`), their partials
+    combined in split order by the last block of the row; bound by bytes;
+  - ``"cuda_core"`` (everything else: fp32 inputs, bf16 inputs with an fp32
+    output, other head dims) — the first, simple design on CUDA cores.
+
+The kernel's source note says what each design does about its bound.
+``flash_fwd_route_launches`` counts the launches of each route beside
+``flash_fwd_launches``, which counts them all.
 
 Backward: the TPU kernels ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` are
 ``csrc/flash_bwd.cu`` (`flash_pair_dq`, `flash_pair_dkv`). A
@@ -34,7 +43,9 @@ PyTorch (the JAX package does it in XLA, ``_flash_bwd``) and launches the
 dQ and dK/dV kernels. They recompute ``p = exp(s - lse)`` where the key is
 valid and select 0 elsewhere (never ``exp(...) * 0``: an all-masked row has
 ``lse = -1e30``), so such a row gives ``dq = 0`` and never-attended keys
-``dk = dv = 0``, with no NaN.
+``dk = dv = 0``, with no NaN. Called directly (ring attention's
+`flash_pair_dq` / `flash_pair_dkv`), they write q's dtype or, with
+``out_dtype=torch.float32``, fp32 from the same fp32 sums.
 
 Dispatch: a CPU tensor takes the plain version (the CPU tests use it);
 a CUDA tensor launches the kernel or raises; any other device raises.
@@ -63,6 +74,17 @@ _DTYPES = (torch.float32, torch.bfloat16)
 flash_fwd_launches = 0
 flash_bwd_dq_launches = 0
 flash_bwd_dkv_launches = 0
+#: K1's launches by route (see `fwd_route`); they sum to flash_fwd_launches
+FWD_ROUTES = ("tensor_core", "split_k", "cuda_core")
+flash_fwd_route_launches = dict.fromkeys(FWD_ROUTES, 0)
+
+
+def reset_launch_counts() -> None:
+    """Set every launch count of this module to 0."""
+    global flash_fwd_launches, flash_bwd_dq_launches, flash_bwd_dkv_launches
+    flash_fwd_launches = flash_bwd_dq_launches = flash_bwd_dkv_launches = 0
+    for route in FWD_ROUTES:
+        flash_fwd_route_launches[route] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -107,17 +129,19 @@ def _bwd_terms(q, k, v, mask, do, lse, delta, scale, causal):
     return p, p * (dp - delta[..., None])
 
 
-def _dq_reference(q, k, v, mask, do, lse, delta, scale, causal):
+def _dq_reference(q, k, v, mask, do, lse, delta, scale, causal,
+                  out_dtype=None):
     _, ds = _bwd_terms(q, k, v, mask, do, lse, delta, scale, causal)
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float()) * scale
-    return dq.to(q.dtype)
+    return dq.to(out_dtype or q.dtype)
 
 
-def _dkv_reference(q, k, v, mask, do, lse, delta, scale, causal):
+def _dkv_reference(q, k, v, mask, do, lse, delta, scale, causal,
+                   out_dtype=None):
     p, ds = _bwd_terms(q, k, v, mask, do, lse, delta, scale, causal)
     dv = torch.einsum("bhqk,bqhd->bkhd", p, do.float())
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float() * scale)
-    return dk.to(k.dtype), dv.to(v.dtype)
+    return dk.to(out_dtype or k.dtype), dv.to(out_dtype or v.dtype)
 
 
 def flash_attention_reference(q, k, v, *, causal: bool = False,
@@ -140,30 +164,30 @@ def flash_pair_fwd_reference(q, k, v, kv_mask, scale, causal,
 
 
 def _folded(q, k, v, kv_mask, do, lse, delta, out_dtype):
-    """Folded [BH,S,D] operands as [BH,S,1,D] views, an int32 mask, and
-    lse/delta as [BH,1,Sq]; the output dtype must be q's (the kernels write
-    the inputs' dtype)."""
-    if out_dtype not in (None, q.dtype):
+    """Folded [BH,S,D] operands as [BH,S,1,D] views, an int32 mask,
+    lse/delta as [BH,1,Sq], and the output dtype: q's (the default) or
+    float32, as the forward's `_dispatch` takes."""
+    if out_dtype not in (None, q.dtype, torch.float32):
         raise ValueError(f"flash attention backward: out_dtype {out_dtype} "
-                         f"is not q's dtype {q.dtype}")
+                         f"is neither q's dtype {q.dtype} nor float32")
     return (q[:, :, None], k[:, :, None], v[:, :, None],
             kv_mask.to(torch.int32), do[:, :, None],
             lse.float()[:, None].contiguous(),
-            delta.float()[:, None].contiguous())
+            delta.float()[:, None].contiguous(), out_dtype or q.dtype)
 
 
 def flash_pair_dq_reference(q, k, v, kv_mask, do, lse, delta, scale, causal,
                             out_dtype=None):
     """The plain version of `flash_pair_dq` over folded ``[BH, S, D]``."""
-    args = _folded(q, k, v, kv_mask, do, lse, delta, out_dtype)
-    return _dq_reference(*args, scale, causal)[:, :, 0]
+    *args, out_dtype = _folded(q, k, v, kv_mask, do, lse, delta, out_dtype)
+    return _dq_reference(*args, scale, causal, out_dtype)[:, :, 0]
 
 
 def flash_pair_dkv_reference(q, k, v, kv_mask, do, lse, delta, scale,
                              causal, out_dtype=None):
     """The plain version of `flash_pair_dkv` over folded ``[BH, S, D]``."""
-    args = _folded(q, k, v, kv_mask, do, lse, delta, out_dtype)
-    dk, dv = _dkv_reference(*args, scale, causal)
+    *args, out_dtype = _folded(q, k, v, kv_mask, do, lse, delta, out_dtype)
+    dk, dv = _dkv_reference(*args, scale, causal, out_dtype)
     return dk[:, :, 0], dv[:, :, 0]
 
 
@@ -185,13 +209,15 @@ def _kernel_lib(name: str = "flash_fwd"):
         if name == "flash_fwd":
             lib.flash_fwd.argtypes = (
                 [ptr] * 6 + [i32] * 5 + [i64] * 13
-                + [ctypes.c_float, i32, i32, i32, ptr])
+                + [ctypes.c_float] + [i32] * 6 + [ptr] * 3)
             lib.flash_fwd.restype = i32
         else:
             lib.flash_bwd_dq.argtypes = (
-                [ptr] * 8 + [i32] * 5 + [ptr, ctypes.c_float, i32, i32, ptr])
+                [ptr] * 8 + [i32] * 5
+                + [ptr, ctypes.c_float, i32, i32, i32, ptr])
             lib.flash_bwd_dkv.argtypes = (
-                [ptr] * 9 + [i32] * 5 + [ptr, ctypes.c_float, i32, i32, ptr])
+                [ptr] * 9 + [i32] * 5
+                + [ptr, ctypes.c_float, i32, i32, i32, ptr])
             lib.flash_bwd_dq.restype = lib.flash_bwd_dkv.restype = i32
         err_string = getattr(lib, f"{name}_error_string")
         err_string.argtypes = [i32]
@@ -222,9 +248,62 @@ def _check_views(D, B, H, named):
         raise ValueError(f"flash attention kernel: B*H = {B * H} > 65535")
 
 
+def fwd_route(Sq: int, D: int, dtype: torch.dtype,
+              out_dtype: torch.dtype) -> str:
+    """K1's route for a call, from its shape and dtypes alone: one query row
+    (a decode tick) -> ``"split_k"``; bf16 in and out at head dim 64 (the
+    training step) -> ``"tensor_core"``; anything else (fp32 inputs, an
+    fp32 output — which bf16-rounded probabilities could not meet — or
+    another head dim) -> ``"cuda_core"``."""
+    if Sq == 1:
+        return "split_k"
+    if dtype == out_dtype == torch.bfloat16 and D == 64:
+        return "tensor_core"
+    return "cuda_core"
+
+
+#: the routes' numbers in csrc/flash_fwd.cu (its enum Route)
+_ROUTE_IDS = {"cuda_core": 0, "split_k": 1, "tensor_core": 2}
+#: the split-K route's limits: a split reads at least this many keys (one
+#: CUDA-core tile), a row takes at most this many splits
+SPLIT_MIN_KEYS = 128
+SPLIT_MAX = 16
+
+
+def decode_splits(rows: int, Sk: int, sms: int) -> tuple:
+    """``(splits, split_keys)`` of the split-K route for ``rows = B * H``
+    query rows over ``Sk`` keys on a card of ``sms`` SMs: enough blocks to
+    give every SM about three (``rows * splits >= 3 * sms``), each split at
+    least `SPLIT_MIN_KEYS` keys (a multiple of 64) and at most `SPLIT_MAX`
+    splits; ``splits * split_keys >= Sk`` and no split is empty. GPT-2
+    small's tick (48 rows, 1024 keys, 132 SMs) gets 8 x 128."""
+    want = -(-3 * sms // max(rows, 1))
+    splits = max(1, min(want, -(-Sk // SPLIT_MIN_KEYS), SPLIT_MAX))
+    split_keys = -(-(-(-Sk // splits)) // 64) * 64
+    return -(-Sk // split_keys), split_keys
+
+
+#: per (device, stream): the split-K route's arrival counters, zeroed once;
+#: every launch leaves them at zero again (the kernel's atomicInc wraps)
+_counters: dict = {}
+
+
+def _split_buffers(dev, rows, splits, D):
+    """The split-K route's workspace (fresh, uninitialised) and its
+    persistent zeroed counters for ``rows`` rows on the current stream."""
+    ws = torch.empty(rows * splits * (D + 2), dtype=torch.float32,
+                     device=dev)
+    key = (dev, torch.cuda.current_stream(dev).cuda_stream)
+    cnt = _counters.get(key)
+    if cnt is None or cnt.numel() < rows:
+        cnt = torch.zeros(max(rows, 1024), dtype=torch.int32, device=dev)
+        _counters[key] = cnt
+    return ws, cnt
+
+
 def _launch(q, k, v, mask, scale, causal, out_dtype):
     """Launch ``csrc/flash_fwd.cu`` on [B,S,H,D] views (any strides with a
-    contiguous last dim) and an int32 [B,Sk] mask."""
+    contiguous last dim) and an int32 [B,Sk] mask, by `fwd_route`."""
     global flash_fwd_launches
     B, Sq, H, D = q.shape
     Sk = k.shape[1]
@@ -232,10 +311,19 @@ def _launch(q, k, v, mask, scale, causal, out_dtype):
     if mask.stride(-1) != 1:
         raise ValueError("flash attention kernel: kv_mask needs a "
                          "contiguous last dim")
-    o = torch.empty((B, Sq, H, D), dtype=out_dtype, device=q.device)
-    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    route = fwd_route(Sq, D, q.dtype, out_dtype)
+    dev = q.device
+    o = torch.empty((B, Sq, H, D), dtype=out_dtype, device=dev)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
+    splits, split_keys, ws, cnt = 1, max(Sk, 1), None, None
+    if route == "split_k":
+        splits, split_keys = decode_splits(
+            B * H, Sk, torch.cuda.get_device_properties(
+                dev).multi_processor_count)
+        if splits > 1:
+            ws, cnt = _split_buffers(dev, B * H, splits, D)
     lib = _kernel_lib("flash_fwd")
-    with torch.cuda.device(q.device):
+    with torch.cuda.device(dev):
         err = lib.flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
             o.data_ptr(), lse.data_ptr(), B, H, Sq, Sk, D,
@@ -244,13 +332,17 @@ def _launch(q, k, v, mask, scale, causal, out_dtype):
             v.stride(0), v.stride(1), v.stride(2),
             o.stride(0), o.stride(1), o.stride(2), mask.stride(0),
             scale, int(causal), int(q.dtype == torch.bfloat16),
-            int(out_dtype == torch.float32),
+            int(out_dtype == torch.float32), _ROUTE_IDS[route], splits,
+            split_keys,
+            None if ws is None else ws.data_ptr(),
+            None if cnt is None else cnt.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(
-            "flash attention kernel launch failed: "
+            f"flash attention kernel ({route}) launch failed: "
             + lib.flash_fwd_error_string(err).decode())
     flash_fwd_launches += 1
+    flash_fwd_route_launches[route] += 1
     return o, lse
 
 
@@ -265,10 +357,11 @@ def _strides(*views):
     return (ctypes.c_longlong * len(vals))(*vals)
 
 
-def _launch_bwd(which, q, k, v, mask, do, lse, delta, scale, causal):
+def _launch_bwd(which, q, k, v, mask, do, lse, delta, scale, causal,
+                out_dtype=None):
     """Launch ``csrc/flash_bwd.cu``'s dQ (``which="dq"``) or dK/dV kernel
     on [B,S,H,D] views, an int32 [B,Sk] mask and contiguous fp32 lse and
-    delta [B,H,Sq]."""
+    delta [B,H,Sq]; the outputs in ``out_dtype`` (q's or float32)."""
     global flash_bwd_dq_launches, flash_bwd_dkv_launches
     B, Sq, H, D = q.shape
     Sk = k.shape[1]
@@ -279,26 +372,28 @@ def _launch_bwd(which, q, k, v, mask, do, lse, delta, scale, causal):
                          "contiguous last dim, lse and delta contiguity")
     lib = _kernel_lib("flash_bwd")
     bf16 = int(q.dtype == torch.bfloat16)
+    out_dtype = out_dtype or q.dtype
+    out_f32 = int(out_dtype == torch.float32)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         if which == "dq":
-            dq = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
+            dq = torch.empty((B, Sq, H, D), dtype=out_dtype, device=q.device)
             st = _strides(q, k, v, do, dq, None, None, mask)
             err = lib.flash_bwd_dq(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                 mask.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                 dq.data_ptr(), B, H, Sq, Sk, D, st, scale, int(causal), bf16,
-                stream)
+                out_f32, stream)
             out = dq
         else:
-            dk = torch.empty((B, Sk, H, D), dtype=k.dtype, device=q.device)
-            dv = torch.empty((B, Sk, H, D), dtype=v.dtype, device=q.device)
+            dk = torch.empty((B, Sk, H, D), dtype=out_dtype, device=q.device)
+            dv = torch.empty((B, Sk, H, D), dtype=out_dtype, device=q.device)
             st = _strides(q, k, v, do, None, dk, dv, mask)
             err = lib.flash_bwd_dkv(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                 mask.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                 dk.data_ptr(), dv.data_ptr(), B, H, Sq, Sk, D, st, scale,
-                int(causal), bf16, stream)
+                int(causal), bf16, out_f32, stream)
             out = (dk, dv)
     if err:
         raise RuntimeError(
@@ -367,18 +462,25 @@ def _bwd_device(q, k, v, mask, do, lse, delta):
     return kind
 
 
-def _dispatch_dq(q, k, v, mask, do, lse, delta, scale, causal):
-    """dQ [B,Sq,H,D] from [B,S,H,D] operands and fp32 lse/delta [B,H,Sq]."""
+def _dispatch_dq(q, k, v, mask, do, lse, delta, scale, causal,
+                 out_dtype=None):
+    """dQ [B,Sq,H,D] from [B,S,H,D] operands and fp32 lse/delta [B,H,Sq],
+    in ``out_dtype`` (default q's; or float32)."""
     if _bwd_device(q, k, v, mask, do, lse, delta) == "cpu":
-        return _dq_reference(q, k, v, mask, do, lse, delta, scale, causal)
-    return _launch_bwd("dq", q, k, v, mask, do, lse, delta, scale, causal)
+        return _dq_reference(q, k, v, mask, do, lse, delta, scale, causal,
+                             out_dtype)
+    return _launch_bwd("dq", q, k, v, mask, do, lse, delta, scale, causal,
+                       out_dtype)
 
 
-def _dispatch_dkv(q, k, v, mask, do, lse, delta, scale, causal):
+def _dispatch_dkv(q, k, v, mask, do, lse, delta, scale, causal,
+                  out_dtype=None):
     """(dK, dV) [B,Sk,H,D], as `_dispatch_dq`."""
     if _bwd_device(q, k, v, mask, do, lse, delta) == "cpu":
-        return _dkv_reference(q, k, v, mask, do, lse, delta, scale, causal)
-    return _launch_bwd("dkv", q, k, v, mask, do, lse, delta, scale, causal)
+        return _dkv_reference(q, k, v, mask, do, lse, delta, scale, causal,
+                              out_dtype)
+    return _launch_bwd("dkv", q, k, v, mask, do, lse, delta, scale, causal,
+                       out_dtype)
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -442,16 +544,15 @@ def flash_pair_dq(q, k, v, kv_mask, do, lse, delta, scale, causal,
                   out_dtype=None):
     """dQ over folded ``[BH, S, D]`` operands given the global ``lse`` and
     ``delta`` ``[BH, Sq]`` (fp32) — the flash backward's dq leg, exposed for
-    ring attention. ``out_dtype`` may only be q's dtype."""
-    q, k, v, mask, do, lse, delta = _folded(q, k, v, kv_mask, do, lse,
-                                            delta, out_dtype)
-    return _dispatch_dq(q, k, v, mask, do, lse, delta, scale, causal)[:, :, 0]
+    ring attention. ``out_dtype`` (default: q's dtype) may be float32, as
+    ring attention asks for bf16 inputs."""
+    *args, out_dtype = _folded(q, k, v, kv_mask, do, lse, delta, out_dtype)
+    return _dispatch_dq(*args, scale, causal, out_dtype)[:, :, 0]
 
 
 def flash_pair_dkv(q, k, v, kv_mask, do, lse, delta, scale, causal,
                    out_dtype=None):
     """(dK, dV) over folded ``[BH, S, D]`` operands (see `flash_pair_dq`)."""
-    q, k, v, mask, do, lse, delta = _folded(q, k, v, kv_mask, do, lse,
-                                            delta, out_dtype)
-    dk, dv = _dispatch_dkv(q, k, v, mask, do, lse, delta, scale, causal)
+    *args, out_dtype = _folded(q, k, v, kv_mask, do, lse, delta, out_dtype)
+    dk, dv = _dispatch_dkv(*args, scale, causal, out_dtype)
     return dk[:, :, 0], dv[:, :, 0]

@@ -261,3 +261,100 @@ def test_backward_rejects_other_devices_and_dtypes():
     with pytest.raises(ValueError, match="out_dtype"):
         FA.flash_pair_dq(x, x, x, ones, x, x[..., 0], x[..., 0], 0.5, False,
                          out_dtype=torch.bfloat16)
+
+
+# ---------------------------------------------------------------------------
+# fp32 outputs of the backward legs; K1's routes and the split-K plan
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("holey", [False, True])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_pair_dq_dkv_bf16_in_f32_out_match_jax(causal, holey):
+    """Ring attention's call: bf16 operands, fp32 dQ, dK and dV
+    (``out_dtype=float32``), against JAX's kernels asked the same. Both
+    upcast the same bf16 values and sum in fp32, in different orders: TOL.
+    lse and delta come from JAX's fp32-out forward on the same inputs."""
+    q, k, v, do, mask = _pair_case(50 + 2 * causal + holey, 4, 16, 16,
+                                   holey)
+    scale = 16 ** -0.5
+    jb = [jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)]
+    jo, jlse = jax_flash_pair_fwd(*jb, jnp.asarray(mask), scale, causal,
+                                  out_dtype=jnp.float32)
+    jdo = jnp.asarray(do, jnp.bfloat16)
+    lse = np.array(jlse)
+    delta = np.sum(np.asarray(jdo, np.float32) * np.asarray(jo), axis=-1)
+    j = jb + [jnp.asarray(mask), jdo, jnp.asarray(lse), jnp.asarray(delta)]
+    jdq = jax_flash_pair_dq(*j, scale, causal, out_dtype=jnp.float32)
+    jdk, jdv = jax_flash_pair_dkv(*j, scale, causal, out_dtype=jnp.float32)
+    bf = [torch.from_numpy(np.asarray(a, np.float32)).to(torch.bfloat16)
+          for a in (jb[0], jb[1], jb[2], jdo)]
+    t = bf[:3] + [torch.from_numpy(mask), bf[3], torch.from_numpy(lse),
+                  torch.from_numpy(delta)]
+    dq = FA.flash_pair_dq(*t, scale, causal, out_dtype=torch.float32)
+    dk, dv = FA.flash_pair_dkv(*t, scale, causal, out_dtype=torch.float32)
+    for got, want in ((dq, jdq), (dk, jdk), (dv, jdv)):
+        assert got.dtype == torch.float32 and want.dtype == jnp.float32
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=TOL, atol=TOL)
+    # the plain versions are what the CPU ran, and another dtype still raises
+    assert torch.equal(FA.flash_pair_dq_reference(
+        *t, scale, causal, out_dtype=torch.float32), dq)
+    with pytest.raises(ValueError, match="out_dtype"):
+        FA.flash_pair_dkv(*t, scale, causal, out_dtype=torch.float16)
+
+
+@pytest.mark.parametrize("sq, d, dtype, out_dtype, route", [
+    (1024, 64, torch.bfloat16, torch.bfloat16, "tensor_core"),  # train step
+    (13, 64, torch.bfloat16, torch.bfloat16, "tensor_core"),    # ragged
+    (1, 64, torch.bfloat16, torch.bfloat16, "split_k"),        # decode tick
+    (1, 64, torch.float32, torch.float32, "split_k"),
+    (1, 64, torch.bfloat16, torch.float32, "split_k"),
+    (1024, 64, torch.float32, torch.float32, "cuda_core"),     # fp32 step
+    (1024, 64, torch.bfloat16, torch.float32, "cuda_core"),    # fp32 out
+    (200, 128, torch.bfloat16, torch.bfloat16, "cuda_core"),   # other D
+])
+def test_fwd_route_picks_from_shape_and_dtypes(sq, d, dtype, out_dtype,
+                                               route):
+    assert FA.fwd_route(sq, d, dtype, out_dtype) == route
+
+
+@pytest.mark.parametrize("rows, sk, want", [
+    (48, 1024, (8, 128)),    # GPT-2 small's tick: 4 slots x 12 heads
+    (48, 1, (1, 64)),        # a 1-key cache: one split
+    (48, 300, (3, 128)),
+    (1, 100000, (16, 6272)),  # one row over a long cache: the cap
+    (2000, 1024, (1, 1024)),  # rows alone fill the card
+])
+def test_decode_splits_plan(rows, sk, want):
+    """The split-K plan at 132 SMs: enough blocks, no empty split, split
+    lengths a multiple of 64, at most SPLIT_MAX splits."""
+    splits, split_keys = FA.decode_splits(rows, sk, 132)
+    assert (splits, split_keys) == want
+    assert splits * split_keys >= sk > (splits - 1) * split_keys
+    assert split_keys % 64 == 0 and 1 <= splits <= FA.SPLIT_MAX
+    assert splits == 1 or split_keys >= FA.SPLIT_MIN_KEYS
+
+
+def test_cpu_calls_of_every_route_launch_nothing():
+    """CPU tensors take the plain versions whatever route a card would
+    take: no launch is counted, in total or by route."""
+    FA.reset_launch_counts()
+    for sq, dt, out in ((1, torch.bfloat16, None), (1, torch.float32, None),
+                        (16, torch.bfloat16, None),
+                        (16, torch.bfloat16, torch.float32),
+                        (16, torch.float32, None)):
+        x = torch.randn(2, sq, 2, 64).to(dt)
+        kv = torch.randn(2, 16, 2, 64).to(dt)
+        FA.flash_pair_fwd(x[:, :, 0], kv[:, :, 0], kv[:, :, 0], None, None,
+                          sq > 1, out_dtype=out)
+        FA.flash_attention(x, kv, kv, causal=sq > 1)
+    b = torch.randn(2, 16, 64).bfloat16()
+    lse, mask = torch.zeros(2, 16), torch.ones(2, 16, dtype=torch.int32)
+    FA.flash_pair_dq(b, b, b, mask, b, lse, lse, 0.125, True,
+                     out_dtype=torch.float32)
+    FA.flash_pair_dkv(b, b, b, mask, b, lse, lse, 0.125, True,
+                      out_dtype=torch.float32)
+    assert FA.flash_fwd_launches == 0
+    assert FA.flash_fwd_route_launches == dict.fromkeys(FA.FWD_ROUTES, 0)
+    assert FA.flash_bwd_dq_launches == FA.flash_bwd_dkv_launches == 0

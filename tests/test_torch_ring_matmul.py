@@ -217,3 +217,63 @@ def test_proj_dense_flattens_and_keeps_dense_parameters():
     torch.testing.assert_close(p(x), torch.nn.functional.linear(
         x, p.weight, p.bias))
     assert seen == [((6, 4), (4, 6), torch.float32)]
+
+
+# ---------------------------------------------------------------------------
+# K8's plan: its tile core and the split of the reduction over M
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype, world, kc, n, core", [
+    (torch.bfloat16, 2, 384, 3072, "wgmma"),   # the main path
+    (torch.bfloat16, 2, 24, 72, "wgmma"),
+    (torch.bfloat16, 2, 5, 19, "mma"),         # rows TMA cannot address
+    (torch.bfloat16, 3, 4, 8, "mma"),          # W*kc = 12
+    (torch.float32, 2, 384, 768, "mma"),       # fp32: CUDA cores
+])
+def test_dw_core(dtype, world, kc, n, core):
+    assert TCM.dw_core(dtype, world, kc, n) == core
+
+
+@pytest.mark.parametrize("m, kc, n, blocks, core, want", [
+    (8192, 384, 768, 66, "wgmma", (54, 3, 64)),    # main path, LocalRing:
+    (8192, 384, 3072, 66, "wgmma", (66, 2, 64)),   # 3 segments; stream-K
+    (8192, 384, 768, 100, "wgmma", (90, 5, 64)),   # IPC Ring: SMs - 32
+    (8192, 384, 3072, 100, "wgmma", (72, 1, 64)),
+    (1000, 384, 768, 66, "wgmma", (54, 3, 64)),    # ragged M: a 40-row slab
+    (37, 5, 19, 66, "mma", (1, 1, 64)),            # M below one slab
+    (200, 24, 72, 66, "wgmma", (4, 4, 64)),        # fewer slabs than blocks
+    (0, 4, 8, 66, "wgmma", (1, 1, 64)),            # no rows at all
+    (8192, 2048, 8192, 66, "wgmma", (66, 2, 64)),  # tiles alone fill it
+])
+def test_dw_plan(m, kc, n, blocks, core, want):
+    """K8's plan against a direct count: the runs [q T / R, (q + 1) T / R)
+    of the T = tiles x slabs iterations are none empty, no more than the
+    blocks, aligned to tiles when there are fewer tiles than blocks (equal
+    segments), and ``contrib`` is the most runs touching one tile."""
+    ranges, contrib, slab_rows = TCM.dw_plan(m, kc, n, blocks, core)
+    assert (ranges, contrib, slab_rows) == want
+    _, bm, bn = TCM.DW_CORES[core]
+    tiles = -(-kc // bm) * -(-n // bn)
+    slabs = max(1, -(-m // slab_rows))
+    total = tiles * slabs
+    bounds = [q * total // ranges for q in range(ranges + 1)]
+    assert 1 <= ranges <= blocks and all(
+        lo < hi for lo, hi in zip(bounds, bounds[1:]))
+    touching = [{q for q in range(ranges)
+                 if bounds[q] < (t + 1) * slabs and bounds[q + 1] > t * slabs}
+                for t in range(tiles)]
+    assert contrib == max(len(qs) for qs in touching)
+    if tiles <= blocks:
+        assert ranges % tiles == 0 and all(
+            b % slabs == 0 for b in bounds[::ranges // tiles])
+
+
+def test_cpu_ring_matmul_dw_launches_nothing():
+    """On CPU tensors K8 takes its stacked plain version: no launch."""
+    before = TCM.cm_dw_launches
+    ring = LocalRing(2, "cpu", 1, cm_elems=48)
+    x, dy = torch.randn(2, 10, 8).bfloat16(), torch.randn(2, 10, 12).bfloat16()
+    got = TCM.ring_matmul_dw(x, dy, ring)
+    torch.testing.assert_close(got, TCM.ring_matmul_dw_stacked(x, dy))
+    assert TCM.cm_dw_launches == before == 0
