@@ -21,13 +21,20 @@ non-zero and no result line is printed):
        128-key splits are masked, D = 40 and 128, the train shape at B = 8;
        fp32 within 2e-5 — summation order — and bf16 within 2e-2 — output
        rounding; fp32 outputs and every route's lse within 2e-5 and 2e-4;
-     - K2 and K3, the backward's dQ and dK/dV (the training shape
-       [4, 1024, 12, 64] causal, a holey mask, ragged S = 13 and 136, an
-       all-masked row; the largest error over the largest |plain value|,
-       at most 1e-4 in fp32 — summation order over up to 1024 keys — and
-       2e-2 in bf16 — output rounding), bf16 inputs with fp32 outputs
-       (ring attention's ``out_dtype``; within 1e-4), and autograd through
-       K1+K2+K3 against autograd through the plain forward;
+     - K2 and K3, the backward's dQ and dK/dV, by route (`bwd_route`:
+       every call checked to launch through the route it should take —
+       tensor cores for bf16 in and out at D = 64, CUDA cores otherwise):
+       the training shape [4, 1024, 12, 64] causal, a holey mask, ragged
+       S = 13 and 136, an all-masked row, D = 128 and 40, Sq = 192 with
+       Sk = 320, a causal S = 200, and a whole 128-key tile masked (its
+       keys' gradients exactly 0); the largest error over the largest
+       |plain value|, at most 1e-4 in fp32 — summation order over up to
+       1024 keys — and 2e-2 in bf16 — P and dS rounded to bf16 on the
+       tensor cores, and output rounding; bf16 inputs with fp32 outputs
+       (ring attention's ``out_dtype``, the CUDA-core route; within 1e-4);
+       the train case twice on the same inputs, bitwise equal, on both
+       routes; and autograd through K1+K2+K3 against autograd through the
+       plain forward;
      - the shard update (the K5 epilogue): bitwise, SGD (momentum, its
        first and second step; nesterov with weight decay) and AdamW, on a
        ragged shard and a 25 MB one, bf16 and fp32 gradients, with and
@@ -52,9 +59,9 @@ non-zero and no result line is printed):
      and again at the main paths' own shapes in phases 5 and 6: K1 at
      decode B = 4, train [16, 1024, 12, 64] and [8, ...] bf16 causal
      (tensor cores) and at the fp32 step's [2, 1024, 12, 64] (CUDA
-     cores), K8 under several cuts of its reduction, K2 and K3 at
-     the train shape, the shard update at every shard size of the training
-     run's plan with its optimizer; the kernels line reports the largest
+     cores), K8 under several cuts of its reduction, K2 and K3 by
+     route at the train shape, the shard update at every shard size of
+     the training run's plan with its optimizer; the kernels line reports the largest
      error of all of these;
   4. serve GPT-2 small at full width (random weights from a seed) through
      `DecodeEngine` with ``decode_use_flash=True`` — fp32 at
@@ -66,17 +73,18 @@ non-zero and no result line is printed):
   5. train GPT-2 small at full width through the port's training CLI
      (``benchmarks/gpt.py --fp16 --flash-attention --dropout0``, batch 16,
      S = 1024, the DeAR schedule over a one-rank NCCL group) for 20 steps:
-     the losses are finite and fall, and every step launches K1 (through
-     its tensor-core route), K2 and K3 12 times each and one shard update,
-     reduce-scatter and all-gather per bucket; then one fp32 step with the
-     flash kernels (K1 through its CUDA-core route, once per layer)
+     the losses are finite and fall, and every step launches K1, K2 and
+     K3 12 times each (all through their tensor-core routes) and one shard
+     update, reduce-scatter and all-gather per bucket; then one fp32 step
+     with the flash kernels (K1, K2 and K3 through their CUDA-core routes,
+     once per layer each)
      against one with the dense attention core (2 layers, batch 2), and 3
      steps with the CLI's default dropout;
   5b. train it at world 2 as two processes sharing the card (this script
      with ``--train-rank R --out DIR --mode M``; the ``DEAR_*`` launcher
      variables, a ``file://`` store, card ``r % device_count``), 8
      sequences per rank, 20 steps, with ``--mode dear-fused`` (every
-     step on each rank: K1 (tensor cores), K2 and K3 12 times each, K4
+     step on each rank: K1, K2 and K3 12 times each (tensor cores), K4
      and the K5 ring once per bucket, no separate update), again with
      ``--mode dear-fused
      --ring-projections`` (each rank first holds K6–K8 against their plain
@@ -110,8 +118,8 @@ non-zero and no result line is printed):
 
 ``python3 chip_smoke.py --kernels-only`` runs phases 1–3 and stops without
 a result line. In a full run the line before the last lists the kernels
-as JSON (K1 once per route, each with its main path's launches; K2 and K3
-with their fp32-output case as ``fp32_out``); the last line is ``{"ok":
+as JSON (K1, K2 and K3 once per route, each with its main path's
+launches); the last line is ``{"ok":
 true, "device": {...}}``.
 """
 
@@ -290,10 +298,12 @@ def _fold(x):
 
 
 def _bwd_operands(gen, B, S, dtype, causal, lengths=None, holey=False,
-                  D=None):
+                  D=None, Sk=None, dead=None):
     """q, k, v, dO, mask and the forward's fp32 lse and delta = rowsum(dO *
-    O), all [B, S, H, D] / [B, S] / [B, H, S]."""
-    q, k, v, mask = _case(gen, B, S, S, dtype, causal, lengths, holey, D)
+    O), all [B, S, H, D] / [B, Sk] / [B, H, S] (``Sk`` keys, default S;
+    ``dead`` as `_case`'s)."""
+    q, k, v, mask = _case(gen, B, S, Sk or S, dtype, causal, lengths, holey,
+                          D, dead)
     do = torch.randn(q.shape, generator=gen, device=_DEV).to(dtype)
     o, lse = FA.flash_attention_reference(q, k, v, causal=causal,
                                           kv_mask=mask,
@@ -308,14 +318,33 @@ def _rel(got, ref) -> tuple:
     return err, err / max(1.0, float(ref.float().abs().max()))
 
 
+def _bwd_routed(name, route, fn):
+    """Run ``fn`` (K2 and K3 calls, ``n`` of each) and check that every
+    launch of both took ``route`` (`bwd_route`): no route gives way to
+    another or to the plain version. Returns fn's result."""
+    before = {w: dict(c) for w, c in FA.flash_bwd_route_launches.items()}
+    out = fn()
+    got = {w: {r: c[r] - before[w][r] for r in c}
+           for w, c in FA.flash_bwd_route_launches.items()}
+    n = max(sum(c.values()) for c in got.values())
+    _check(n > 0 and got == {w: {r: n * (r == route) for r in c}
+                             for w, c in got.items()},
+           f"{name}: K2/K3 launches by route {got}, expected each through "
+           f"{route}")
+    return out
+
+
 def check_bwd_kernels() -> dict:
     """K2 (dQ) and K3 (dK, dV) against their plain versions through the
-    folded `flash_pair_dq` / `flash_pair_dkv`, then autograd through
-    `flash_attention` (K1 forward, K2 and K3 backward) against autograd
-    through the plain forward at the [B, S, H, D] layout the model uses.
-    Then bf16 inputs with fp32 outputs (ring attention's ``out_dtype``),
-    within the fp32 tolerance. Returns the largest absolute error of dQ and
-    of dK/dV, with the fp32-output case's as ``dq_f32`` and ``dkv_f32``."""
+    folded `flash_pair_dq` / `flash_pair_dkv`, every call checked to take
+    its route (`bwd_route`: tensor cores for bf16 in and out at D = 64),
+    then autograd through `flash_attention` (K1 forward, K2 and K3
+    backward) against autograd through the plain forward at the [B, S, H,
+    D] layout the model uses. Then bf16 inputs with fp32 outputs (ring
+    attention's ``out_dtype``; the CUDA-core route), within the fp32
+    tolerance. Both routes run twice on the train case: bitwise equal.
+    Returns the largest absolute error of dQ and of dK/dV by route,
+    ``{"dq": {route: err}, "dkv": {...}}``."""
     gen = torch.Generator(device=_DEV).manual_seed(2)
     tol = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
     cases = []
@@ -336,6 +365,19 @@ def check_bwd_kernels() -> dict:
              _bwd_operands(gen, 2, 200, dt, True, holey=True, D=128), True),
             (f"D=40 S=77 {dt}",
              _bwd_operands(gen, 2, 77, dt, False, holey=True, D=40), False),
+            # Sq != Sk (ring attention's pairs), a causal diagonal that no
+            # 64- or 128-row tile edge meets, and keys 128 .. 255 of every
+            # row masked (one whole 128-key tile: K2 skips it, K3's block
+            # of those keys writes zeros)
+            (f"Sq=192 Sk=320 {dt}",
+             _bwd_operands(gen, 2, 192, dt, False, holey=True, Sk=320),
+             False),
+            (f"ragged causal S=200 {dt}",
+             _bwd_operands(gen, 2, 200, dt, True, holey=True), True),
+            (f"dead key tile S=512 {dt}",
+             _bwd_operands(gen, 2, 512, dt, False, dead=(128, 256)), False),
+            (f"dead key tile causal S=512 {dt}",
+             _bwd_operands(gen, 2, 512, dt, True, dead=(128, 256)), True),
         ]
     # bf16 in, fp32 out: the same kernels' fp32 stores
     f32 = torch.float32
@@ -349,21 +391,26 @@ def check_bwd_kernels() -> dict:
             ("all-masked row S=136 bf16",
              _bwd_operands(gen, 2, 136, torch.bfloat16, False,
                            lengths=[0, 100]), False))]
-    worst = dict.fromkeys(("dq", "dkv", "dq_f32", "dkv_f32"), 0.0)
+    worst = {w: dict.fromkeys(FA.BWD_ROUTES, 0.0) for w in ("dq", "dkv")}
     for name, (q, k, v, do, mask, lse, delta), causal, *out_dt in cases:
         out_dt = out_dt[0] if out_dt else q.dtype
+        route = FA.bwd_route(q.shape[-1], q.dtype, out_dt)
         scale = q.shape[-1] ** -0.5
         args = (_fold(q), _fold(k), _fold(v), mask.repeat_interleave(_H, 0),
                 _fold(do), lse.reshape(-1, lse.shape[-1]),
                 delta.reshape(-1, delta.shape[-1]), scale, causal)
-        dq = FA.flash_pair_dq(*args, out_dtype=out_dt)
-        dk, dv = FA.flash_pair_dkv(*args, out_dtype=out_dt)
+
+        def both():
+            return (FA.flash_pair_dq(*args, out_dtype=out_dt),
+                    *FA.flash_pair_dkv(*args, out_dtype=out_dt))
+
+        dq, dk, dv = _bwd_routed(name, route, both)
         ref_dq = FA.flash_pair_dq_reference(*args, out_dtype=out_dt)
         ref_dk, ref_dv = FA.flash_pair_dkv_reference(*args, out_dtype=out_dt)
         torch.cuda.synchronize()
         errs = {"dq": _rel(dq, ref_dq), "dk": _rel(dk, ref_dk),
                 "dv": _rel(dv, ref_dv)}
-        print(f"backward kernel check {name}: " + ", ".join(
+        print(f"backward kernel check {name} ({route}): " + ", ".join(
             f"max|{n}-plain| {a:.3e} (rel {r:.3e})"
             for n, (a, r) in errs.items()))
         for n, out in (("dq", dq), ("dk", dk), ("dv", dv)):
@@ -377,21 +424,37 @@ def check_bwd_kernels() -> dict:
             _check(bool((dq[dead] == 0).all() and (dk[dead] == 0).all()
                         and (dv[dead] == 0).all()),
                    "all-masked row: a gradient is not 0")
-        sfx = "_f32" if out_dt != q.dtype else ""   # the fp32-out case
-        worst["dq" + sfx] = max(worst["dq" + sfx], errs["dq"][0])
-        worst["dkv" + sfx] = max(worst["dkv" + sfx], errs["dk"][0],
-                                 errs["dv"][0])
+        if name.startswith("dead key tile"):
+            _check(bool((dk[:, 128:256] == 0).all()
+                        and (dv[:, 128:256] == 0).all()),
+                   f"{name}: a masked key's gradient is not 0")
+        if name.startswith("train"):     # twice on the same inputs
+            again = _bwd_routed(name, route, both)
+            torch.cuda.synchronize()
+            _check(all(torch.equal(a, b) for a, b in
+                       zip((dq, dk, dv), again)),
+                   f"{name} ({route}): K2/K3 not bitwise repeatable")
+            print(f"backward kernel check {name} ({route}): twice on the "
+                  "same inputs, bitwise equal")
+        worst["dq"][route] = max(worst["dq"][route], errs["dq"][0])
+        worst["dkv"][route] = max(worst["dkv"][route], errs["dk"][0],
+                                  errs["dv"][0])
 
     # autograd through K1+K2+K3 against autograd through the plain forward
     for dt in (torch.float32, torch.bfloat16):
         q, k, v, mask = _case(gen, 4, 1024, 1024, dt, True)
         w = torch.randn(q.shape, generator=gen, device=_DEV).to(dt)
         grads = []
-        for fn in (FA.flash_attention, lambda *a, **kw:
-                   FA.flash_attention_reference(*a, **kw)[0]):
+        for flash in (True, False):
             xs = [t.detach().clone().requires_grad_() for t in (q, k, v)]
-            o = fn(*xs, causal=True)
-            grads.append(torch.autograd.grad(o, xs, w))
+            if flash:    # K1, then K2 and K3 in the backward, on its route
+                grads.append(_bwd_routed(
+                    f"autograd {dt}", FA.bwd_route(_D, dt, dt),
+                    lambda: torch.autograd.grad(
+                        FA.flash_attention(*xs, causal=True), xs, w)))
+            else:
+                o, _ = FA.flash_attention_reference(*xs, causal=True)
+                grads.append(torch.autograd.grad(o, xs, w))
         torch.cuda.synchronize()
         errs = [_rel(g, r) for g, r in zip(*grads)]
         print(f"autograd check causal B=4 S=1024 {dt}: " + ", ".join(
@@ -876,6 +939,10 @@ def _train_counts(ts) -> dict:
             "flash_fwd_tc": FA.flash_fwd_route_launches["tensor_core"],
             "flash_bwd_dq": FA.flash_bwd_dq_launches,
             "flash_bwd_dkv": FA.flash_bwd_dkv_launches,
+            "flash_bwd_dq_tc": FA.flash_bwd_route_launches["dq"][
+                "tensor_core"],
+            "flash_bwd_dkv_tc": FA.flash_bwd_route_launches["dkv"][
+                "tensor_core"],
             "fused_update": FS.fused_update_launches,
             "rs": ts.rs_launches, "ag": ts.ag_launches,
             "update": ts.update_launches}
@@ -883,8 +950,9 @@ def _train_counts(ts) -> dict:
 
 def train_gpt2():
     """20 steps of ``benchmarks/gpt.py`` (the main training path), every
-    step's launches checked: K1, K2 and K3 12 times each (one per layer),
-    one shard update, reduce-scatter and all-gather per bucket. Returns
+    step's launches checked: K1, K2 and K3 12 times each (one per layer,
+    all three through their tensor-core routes), one shard update,
+    reduce-scatter and all-gather per bucket. Returns
     (result, launches, step times in ms of the timed steps)."""
     cfg = GPT2_SMALL
     FA.reset_launch_counts()            # the main path
@@ -900,6 +968,8 @@ def train_gpt2():
                 "flash_fwd_tc": cfg.num_hidden_layers,
                 "flash_bwd_dq": cfg.num_hidden_layers,
                 "flash_bwd_dkv": cfg.num_hidden_layers,
+                "flash_bwd_dq_tc": cfg.num_hidden_layers,
+                "flash_bwd_dkv_tc": cfg.num_hidden_layers,
                 "fused_update": nb, "rs": nb, "ag": nb, "update": nb}
         got = {k: now[k] - before[k] for k in now}
         _check(got == want, f"train step {len(marks) + 1}: launches {got}, "
@@ -933,16 +1003,21 @@ def check_flash_step_vs_dense() -> dict:
     """One fp32 step at full width, 2 layers, batch 2: the flash kernels
     (K1, K2, K3) against the dense attention core. The updated parameters
     agree within 1e-5 and the gradients they imply, (p0 - p1) / lr, within
-    1e-3 of the largest gradient. K1 runs its CUDA-core route here (fp32),
-    once per layer; returns its launches by route (this step is that
-    route's main path)."""
+    1e-3 of the largest gradient. K1, K2 and K3 run their CUDA-core routes
+    here (fp32), once per layer each; returns their launches by route,
+    ``{"fwd": {...}, "dq": {...}, "dkv": {...}}`` (this step is those
+    routes' main path)."""
     cfg = dataclasses.replace(dropout_free(GPT2_SMALL), num_hidden_layers=2)
     batch = synthetic_gpt_batch(
         torch.Generator(device=_DEV).manual_seed(4), 2, 1024,
         cfg.vocab_size)
     lr = 0.01
     runs = []
-    before = dict(FA.flash_fwd_route_launches)    # the main path starts
+    def by_route():
+        return {"fwd": dict(FA.flash_fwd_route_launches),
+                **{w: dict(c) for w, c in FA.flash_bwd_route_launches.items()}}
+
+    before = by_route()                           # the main path starts
     for impl in (flash_causal_attention_impl(), None):
         model = GptLmHeadModel(cfg, attention_impl=impl, device=_DEV, seed=0)
         p0 = {n: p.detach().clone() for n, p in model.named_parameters()}
@@ -950,11 +1025,14 @@ def check_flash_step_vs_dense() -> dict:
                               optimizer=FS.fused_sgd(lr=lr, momentum=0.9))
         state, metrics = ts.step(ts.init(), batch)
         runs.append((float(metrics["loss"]), ts.gather_params(state), p0))
-    routes = {r: FA.flash_fwd_route_launches[r] - before[r]   # ... and
-              for r in before}                                # ends here
-    _check(routes == {"tensor_core": 0, "split_k": 0,
-                      "cuda_core": cfg.num_hidden_layers},
-           f"fp32 step: K1 launches by route {routes}")
+    routes = {k: {r: n - before[k][r] for r, n in c.items()}  # ... and
+              for k, c in by_route().items()}                 # ends here
+    layers = cfg.num_hidden_layers
+    _check(routes == {
+        "fwd": {"tensor_core": 0, "split_k": 0, "cuda_core": layers},
+        **{w: {"tensor_core": 0, "cuda_core": layers}
+           for w in ("dq", "dkv")}},
+        f"fp32 step: K1, K2, K3 launches by route {routes}")
     (lf, pf, p0), (ld, pd, _) = runs
     p_err = max(float((pf[n] - pd[n]).abs().max()) for n in pf)
     g_max = max(float((p0[n] - pd[n]).abs().max()) / lr for n in pd)
@@ -1017,6 +1095,10 @@ def _two_rank_counts(ts) -> dict:
             "flash_fwd_tc": FA.flash_fwd_route_launches["tensor_core"],
             "flash_bwd_dq": FA.flash_bwd_dq_launches,
             "flash_bwd_dkv": FA.flash_bwd_dkv_launches,
+            "flash_bwd_dq_tc": FA.flash_bwd_route_launches["dq"][
+                "tensor_core"],
+            "flash_bwd_dkv_tc": FA.flash_bwd_route_launches["dkv"][
+                "tensor_core"],
             "fused_update": FS.fused_update_launches,
             "ring_ag": CM.ring_ag_launches, "ring_rs": CM.ring_rs_launches,
             "cm_fwd": CM.cm_fwd_launches, "cm_dx": CM.cm_dx_launches,
@@ -1139,8 +1221,9 @@ def rank_worker(rank: int, out: Path, mode: str) -> None:
         before = prev or {k: 0 for k in now} | {
             "ag": nb, "ring_ag": nb if fused else 0}   # init's gathers
         want = {"flash_fwd": layers, "flash_fwd_tc": layers,
-                "flash_bwd_dq": layers,
-                "flash_bwd_dkv": layers, "rs": nb, "ag": nb, "update": nb,
+                "flash_bwd_dq": layers, "flash_bwd_dkv": layers,
+                "flash_bwd_dq_tc": layers, "flash_bwd_dkv_tc": layers,
+                "rs": nb, "ag": nb, "update": nb,
                 "fused_update": 0 if fused else nb,
                 "ring_ag": nb if fused else 0, "ring_rs": nb if fused else 0,
                 "cm_fwd": n_cm, "cm_dx": n_cm, "cm_dw": n_cm}
@@ -1599,41 +1682,45 @@ def time_shape(name, B, Sq, Sk, dtype, causal, n_sets, hbm, out_dtype=None):
 
 def time_bwd(B, S, hbm, launches_per_step):
     """K2 and K3 at the training shape ([B, S, 12, 64], causal, bf16,
-    through the [B, S, H, D] dispatch the autograd Function uses): first
-    held against their plain versions on the first input set (the largest
-    error over the largest |plain value|, at most 2e-2 as in
-    `check_bwd_kernels`), then timed beside their plain versions and the
-    backward of SDPA (is_causal; dq, dk and dv in one call), the yardstick
-    for K2 + K3 together; then again with fp32 outputs (ring attention's
-    ``out_dtype``; within 1e-4), rows ``flash_bwd_dq_f32`` and
-    ``flash_bwd_dkv_f32``. Returns (rows, the largest absolute error of dQ
-    and of dK/dV with bf16 outputs)."""
+    through the [B, S, H, D] dispatch the autograd Function uses), by route:
+    the tensor-core route (bf16 out, the training step's) and the CUDA-core
+    route (fp32 out, ring attention's ``out_dtype``). Each is first held
+    against its plain version on the first input set (the largest error
+    over the largest |plain value|, at most 2e-2 for bf16 out and 1e-4 for
+    fp32 out, as in `check_bwd_kernels`), every call checked for its route,
+    then timed beside its plain version and the backward of SDPA
+    (is_causal; dq, dk and dv in one call), the yardstick for K2 + K3
+    together. Rows ``flash_bwd_dq`` / ``flash_bwd_dkv`` (tensor cores) and
+    ``..._f32`` (CUDA cores), each with its TF/s. Returns (rows, the
+    largest absolute error of dQ and of dK/dV by route)."""
     gen = torch.Generator(device=_DEV).manual_seed(5)
     dt = torch.bfloat16
     scale = _D ** -0.5
     sets = [_bwd_operands(gen, B, S, dt, True) for _ in range(2)]
     q, k, v, do, mask, lse, delta = sets[0]
     args = (q, k, v, mask, do, lse, delta, scale, True)
-    main_err = None
+    errs_by_route = {}
     for out_dt, tol in ((dt, 2e-2), (torch.float32, 1e-4)):
-        got = {"dq": FA._dispatch_dq(*args, out_dt)}
-        got["dk"], got["dv"] = FA._dispatch_dkv(*args, out_dt)
+        route = FA.bwd_route(_D, dt, out_dt)
+        got = _bwd_routed(f"main path B={B} {out_dt} out", route, lambda: (
+            {"dq": FA._dispatch_dq(*args, out_dt)}
+            | dict(zip(("dk", "dv"), FA._dispatch_dkv(*args, out_dt)))))
         ref = {"dq": FA._dq_reference(*args, out_dt)}
         ref["dk"], ref["dv"] = FA._dkv_reference(*args, out_dt)
         torch.cuda.synchronize()
         errs = {n: _rel(got[n], ref[n]) for n in got}
         print(f"backward kernel check main path causal B={B} S={S} bf16, "
-              f"{out_dt} out: " + ", ".join(
+              f"{out_dt} out ({route}): " + ", ".join(
                   f"max|{n}-plain| {a:.3e} (rel {r:.3e})"
                   for n, (a, r) in errs.items()))
         for n, out in got.items():
             _check(out.dtype == out_dt
                    and bool(torch.isfinite(out.float()).all())
                    and errs[n][1] <= tol,
-                   f"main path B={B}: {n} ({out_dt} out) disagrees with "
-                   "its plain version")
-        errs = (errs["dq"][0], max(errs["dk"][0], errs["dv"][0]))
-        main_err = main_err or errs
+                   f"main path B={B}: {n} ({out_dt} out, {route}) disagrees "
+                   "with its plain version")
+        errs_by_route[route] = (errs["dq"][0],
+                                max(errs["dk"][0], errs["dv"][0]))
         del got, ref
 
     sdpa = []
@@ -1650,6 +1737,7 @@ def time_bwd(B, S, hbm, launches_per_step):
     elems = B * S * _H * _D
     for out_dt in (dt, torch.float32):
         sfx = "_f32" if out_dt == torch.float32 else ""
+        route = FA.bwd_route(_D, dt, out_dt)
 
         def dq(q, k, v, do, mask, lse, delta):
             FA._dispatch_dq(q, k, v, mask, do, lse, delta, scale, True,
@@ -1681,7 +1769,8 @@ def time_bwd(B, S, hbm, launches_per_step):
             rows[name + sfx] = {
                 "shape": f"train causal B={B} S={S} H={_H} D={_D}",
                 "dtype": "bfloat16" + (" in, float32 out" if sfx else ""),
-                "ms": ms, "plain_ms": plain_ms,
+                "route": route, "ms": ms, "tflops": flops / ms / 1e9,
+                "plain_ms": plain_ms,
                 "bound_ms": max(bytes_ms, ops_ms),
                 "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
                 "bytes": nbytes, "flops": flops,
@@ -1692,11 +1781,15 @@ def time_bwd(B, S, hbm, launches_per_step):
     for name, row in rows.items():
         row.update(library_ms=sdpa_ms, library_scope="dq+dk+dv")
         print("kernel time " + json.dumps({"kernel": name} | row))
-    both = rows["flash_bwd_dq"]["ms"] + rows["flash_bwd_dkv"]["ms"]
-    print(f"backward yardstick: SDPA backward (is_causal, dq+dk+dv) "
-          f"{sdpa_ms:.4f} ms vs K2 + K3 {both:.4f} ms "
-          f"({both / sdpa_ms:.1f}x) at B={B} S={S} bf16")
-    return rows, main_err
+    for sfx in ("", "_f32"):
+        dq, dkv = rows["flash_bwd_dq" + sfx], rows["flash_bwd_dkv" + sfx]
+        both = dq["ms"] + dkv["ms"]
+        tflops = (dq["flops"] + dkv["flops"]) / both / 1e9
+        print(f"backward yardstick: SDPA backward (is_causal, dq+dk+dv) "
+              f"{sdpa_ms:.4f} ms vs K2 + K3 ({dq['route']}) {both:.4f} ms "
+              f"({tflops:.1f} TF/s; {both / sdpa_ms:.2f}x) at B={B} S={S} "
+              "bf16")
+    return rows, errs_by_route
 
 
 def time_update(n, hbm, launches_per_step):
@@ -2135,9 +2228,10 @@ def main(argv=None) -> int:
         fwd_err[row["route"]] = max(fwd_err[row["route"]],
                                     row["max_abs_err"])
     layers = GPT2_SMALL.num_hidden_layers
-    bwd, (dq_main, dkv_main) = time_bwd(B, S, hbm, layers)
-    dq_err = max(bwd_err["dq"], dq_main)
-    dkv_err = max(bwd_err["dkv"], dkv_main)
+    bwd, bwd_main_err = time_bwd(B, S, hbm, layers)
+    for route, errs in bwd_main_err.items():
+        for which, err in zip(("dq", "dkv"), errs):
+            bwd_err[which][route] = max(bwd_err[which][route], err)
     buckets = res.train_step.plan.buckets
     nb = len(buckets)
     # a bucket of the 25 MB threshold (the kernels line) and the largest
@@ -2170,26 +2264,28 @@ def main(argv=None) -> int:
         "split_k": serve_routes["split_k"],
         "tensor_core": train_launches["flash_fwd_tc"]
         + fused_launches["flash_fwd_tc"],
-        "cuda_core": fp32_routes["cuda_core"]}
+        "cuda_core": fp32_routes["fwd"]["cuda_core"]}
     print(f"K1 launches on the main paths by route: {k1_launches}")
     k1 = [_kernel_entry(f"flash_fwd ({route})", "flash_fwd.cu",
                         "dear_pytorch_tpu/ops/flash_attention.py:97",
                         k1_launches[route], fwd_err[route], fwd_rows[route])
           for route in FA.FWD_ROUTES]
+    # K2 and K3 by route, each with its own main path: tensor cores the
+    # bf16 train steps (one rank and both ranks of the two dear-fused
+    # runs), CUDA cores the fp32 step; timed at the train shape (the
+    # CUDA-core route with fp32 outputs, ring attention's call)
     k23 = []
-    for kname, line, err in (("flash_bwd_dq", 152, dq_err),
-                             ("flash_bwd_dkv", 195, dkv_err)):
-        entry = _kernel_entry(kname, "flash_bwd.cu",
-                              f"dear_pytorch_tpu/ops/flash_attention.py:"
-                              f"{line}", train_launches[kname]
-                              + fused_launches[kname], err, bwd[kname])
-        # bf16 in, fp32 out (ring attention's call): no main path yet
-        f32 = bwd[kname + "_f32"]
-        entry["fp32_out"] = {
-            "max_abs_err": bwd_err[kname.replace("flash_bwd_", "") + "_f32"],
-            **{k: f32[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                   "library_ms")}}
-        k23.append(entry)
+    for kname, which, line in (("flash_bwd_dq", "dq", 152),
+                               ("flash_bwd_dkv", "dkv", 195)):
+        launches = {"tensor_core": train_launches[kname + "_tc"]
+                    + fused_launches[kname + "_tc"],
+                    "cuda_core": fp32_routes[which]["cuda_core"]}
+        print(f"{kname} launches on the main paths by route: {launches}")
+        for route, sfx in (("tensor_core", ""), ("cuda_core", "_f32")):
+            k23.append(_kernel_entry(
+                f"{kname} ({route})", "flash_bwd.cu",
+                f"dear_pytorch_tpu/ops/flash_attention.py:{line}",
+                launches[route], bwd_err[which][route], bwd[kname + sfx]))
     print(json.dumps({"kernels": k1 + k23 + [
         _kernel_entry("fused_update", "fused_update.cu",
                       "dear_pytorch_tpu/ops/collective_matmul.py:317",

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by csrc/flash_fwd.cu (K1's
-// tensor-core route) and csrc/ring_matmul.cu (K8): mbarriers, TMA tile
+// tensor-core route), csrc/flash_bwd.cu (K2's and K3's) and
+// csrc/ring_matmul.cu (K8): mbarriers, TMA tile
 // loads and their tensor maps, and warpgroup products (wgmma) on tiles of
 // 128-byte rows that TMA wrote with its 128-byte swizzle.
 //
@@ -20,6 +21,9 @@
 //     leading byte offset (LBO) is the step between them: K8's dy, 128
 //     wide, has its two boxes 8192 bytes apart. An operand exactly 64 wide
 //     (V of attention, K8's xᵀ per warpgroup) never uses LBO.
+// So one tile of 64-wide rows serves both ways: the attention backward
+// (K2, K3) reads K, Q and dO as a K-major B in one product and as an
+// MN-major B in the next, with the two descriptors above.
 
 #pragma once
 
@@ -180,6 +184,29 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64],
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// d (m64n64, fp32) += A (shared memory, descriptor a) x B (shared memory,
+// descriptor b): the m64n128 product at half the width.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t a,
+                                                   uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
       : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
 }
 

@@ -36,7 +36,14 @@ The kernel's source note says what each design does about its bound.
 ``flash_fwd_launches``, which counts them all.
 
 Backward: the TPU kernels ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` are
-``csrc/flash_bwd.cu`` (`flash_pair_dq`, `flash_pair_dkv`). A
+``csrc/flash_bwd.cu`` (`flash_pair_dq`, `flash_pair_dkv`), each with two
+routes picked by `bwd_route` from the head dim and the dtypes alone:
+``"tensor_core"`` (bf16 in and out, ``D = 64``: every backward call of the
+bf16 training step; TMA and ``wgmma``, P and dS rounded to bf16 before the
+second products) and ``"cuda_core"`` (fp32 inputs, bf16 inputs with an fp32
+output, other head dims: the first design on CUDA cores).
+``flash_bwd_route_launches["dq"]`` and ``["dkv"]`` count each kernel's
+launches by route. A
 ``torch.autograd.Function`` around the forward saves ``q, k, v, mask, o,
 lse``; its backward computes ``delta = rowsum(dO * O)`` in fp32 with plain
 PyTorch (the JAX package does it in XLA, ``_flash_bwd``) and launches the
@@ -77,6 +84,11 @@ flash_bwd_dkv_launches = 0
 #: K1's launches by route (see `fwd_route`); they sum to flash_fwd_launches
 FWD_ROUTES = ("tensor_core", "split_k", "cuda_core")
 flash_fwd_route_launches = dict.fromkeys(FWD_ROUTES, 0)
+#: K2's ("dq") and K3's ("dkv") launches by route (see `bwd_route`); they
+#: sum to flash_bwd_dq_launches and flash_bwd_dkv_launches
+BWD_ROUTES = ("tensor_core", "cuda_core")
+flash_bwd_route_launches = {
+    which: dict.fromkeys(BWD_ROUTES, 0) for which in ("dq", "dkv")}
 
 
 def reset_launch_counts() -> None:
@@ -85,6 +97,9 @@ def reset_launch_counts() -> None:
     flash_fwd_launches = flash_bwd_dq_launches = flash_bwd_dkv_launches = 0
     for route in FWD_ROUTES:
         flash_fwd_route_launches[route] = 0
+    for counts in flash_bwd_route_launches.values():
+        for route in BWD_ROUTES:
+            counts[route] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -214,10 +229,10 @@ def _kernel_lib(name: str = "flash_fwd"):
         else:
             lib.flash_bwd_dq.argtypes = (
                 [ptr] * 8 + [i32] * 5
-                + [ptr, ctypes.c_float, i32, i32, i32, ptr])
+                + [ptr, ctypes.c_float, i32, i32, i32, i32, ptr])
             lib.flash_bwd_dkv.argtypes = (
                 [ptr] * 9 + [i32] * 5
-                + [ptr, ctypes.c_float, i32, i32, i32, ptr])
+                + [ptr, ctypes.c_float, i32, i32, i32, i32, ptr])
             lib.flash_bwd_dq.restype = lib.flash_bwd_dkv.restype = i32
         err_string = getattr(lib, f"{name}_error_string")
         err_string.argtypes = [i32]
@@ -262,7 +277,19 @@ def fwd_route(Sq: int, D: int, dtype: torch.dtype,
     return "cuda_core"
 
 
-#: the routes' numbers in csrc/flash_fwd.cu (its enum Route)
+def bwd_route(D: int, dtype: torch.dtype, out_dtype: torch.dtype) -> str:
+    """K2's and K3's route for a call, from its head dim and dtypes alone:
+    bf16 in and out at head dim 64 (the training step) ->
+    ``"tensor_core"``; anything else (fp32 inputs, an fp32 output — which
+    bf16-rounded P and dS could not meet — or another head dim) ->
+    ``"cuda_core"``."""
+    if dtype == out_dtype == torch.bfloat16 and D == 64:
+        return "tensor_core"
+    return "cuda_core"
+
+
+#: the routes' numbers in csrc/flash_fwd.cu and csrc/flash_bwd.cu (their
+#: enum Route)
 _ROUTE_IDS = {"cuda_core": 0, "split_k": 1, "tensor_core": 2}
 #: the split-K route's limits: a split reads at least this many keys (one
 #: CUDA-core tile), a row takes at most this many splits
@@ -361,7 +388,8 @@ def _launch_bwd(which, q, k, v, mask, do, lse, delta, scale, causal,
                 out_dtype=None):
     """Launch ``csrc/flash_bwd.cu``'s dQ (``which="dq"``) or dK/dV kernel
     on [B,S,H,D] views, an int32 [B,Sk] mask and contiguous fp32 lse and
-    delta [B,H,Sq]; the outputs in ``out_dtype`` (q's or float32)."""
+    delta [B,H,Sq]; the outputs in ``out_dtype`` (q's or float32); the
+    route by `bwd_route`."""
     global flash_bwd_dq_launches, flash_bwd_dkv_launches
     B, Sq, H, D = q.shape
     Sk = k.shape[1]
@@ -374,6 +402,7 @@ def _launch_bwd(which, q, k, v, mask, do, lse, delta, scale, causal,
     bf16 = int(q.dtype == torch.bfloat16)
     out_dtype = out_dtype or q.dtype
     out_f32 = int(out_dtype == torch.float32)
+    route = bwd_route(D, q.dtype, out_dtype)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         if which == "dq":
@@ -383,7 +412,7 @@ def _launch_bwd(which, q, k, v, mask, do, lse, delta, scale, causal,
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                 mask.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                 dq.data_ptr(), B, H, Sq, Sk, D, st, scale, int(causal), bf16,
-                out_f32, stream)
+                out_f32, _ROUTE_IDS[route], stream)
             out = dq
         else:
             dk = torch.empty((B, Sk, H, D), dtype=out_dtype, device=q.device)
@@ -393,16 +422,17 @@ def _launch_bwd(which, q, k, v, mask, do, lse, delta, scale, causal,
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                 mask.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                 dk.data_ptr(), dv.data_ptr(), B, H, Sq, Sk, D, st, scale,
-                int(causal), bf16, out_f32, stream)
+                int(causal), bf16, out_f32, _ROUTE_IDS[route], stream)
             out = (dk, dv)
     if err:
         raise RuntimeError(
-            f"flash attention backward ({which}) kernel launch failed: "
-            + lib.flash_bwd_error_string(err).decode())
+            f"flash attention backward ({which}, {route}) kernel launch "
+            "failed: " + lib.flash_bwd_error_string(err).decode())
     if which == "dq":
         flash_bwd_dq_launches += 1
     else:
         flash_bwd_dkv_launches += 1
+    flash_bwd_route_launches[which][route] += 1
     return out
 
 

@@ -319,6 +319,21 @@ def test_fwd_route_picks_from_shape_and_dtypes(sq, d, dtype, out_dtype,
     assert FA.fwd_route(sq, d, dtype, out_dtype) == route
 
 
+@pytest.mark.parametrize("d, dtype, out_dtype, route", [
+    (64, torch.bfloat16, torch.bfloat16, "tensor_core"),   # train step
+    (64, torch.bfloat16, torch.bfloat16, "tensor_core"),   # ragged S
+    (64, torch.float32, torch.float32, "cuda_core"),       # fp32 step
+    (64, torch.bfloat16, torch.float32, "cuda_core"),      # fp32 out
+    (128, torch.bfloat16, torch.bfloat16, "cuda_core"),    # other D
+    (40, torch.bfloat16, torch.bfloat16, "cuda_core"),
+], ids=["train", "ragged", "fp32", "fp32-out", "d128", "d40"])
+def test_bwd_route_picks_from_shape_and_dtypes(d, dtype, out_dtype, route):
+    """K2's and K3's route depends on the head dim and the dtypes alone,
+    never on the sequence lengths (the ragged case is the train case's
+    route at any S)."""
+    assert FA.bwd_route(d, dtype, out_dtype) == route
+
+
 @pytest.mark.parametrize("rows, sk, want", [
     (48, 1024, (8, 128)),    # GPT-2 small's tick: 4 slots x 12 heads
     (48, 1, (1, 64)),        # a 1-key cache: one split
@@ -355,6 +370,20 @@ def test_cpu_calls_of_every_route_launch_nothing():
                      out_dtype=torch.float32)
     FA.flash_pair_dkv(b, b, b, mask, b, lse, lse, 0.125, True,
                       out_dtype=torch.float32)
+    # backward calls of both routes: bf16 at D = 64 (tensor cores on a
+    # card), bf16 -> fp32, fp32 and D = 40 (CUDA cores), and autograd
+    for dt, d, out in ((torch.bfloat16, 64, None),
+                       (torch.bfloat16, 64, torch.float32),
+                       (torch.float32, 64, None), (torch.bfloat16, 40, None)):
+        x = torch.randn(2, 13, d).to(dt)
+        FA.flash_pair_dq(x, x, x, mask[:, :13], x, lse[:, :13], lse[:, :13],
+                         0.125, True, out_dtype=out)
+        FA.flash_pair_dkv(x, x, x, mask[:, :13], x, lse[:, :13],
+                          lse[:, :13], 0.125, False, out_dtype=out)
+        xs = torch.randn(2, 13, 2, d).to(dt).requires_grad_()
+        FA.flash_attention(xs, xs, xs, causal=True).sum().backward()
     assert FA.flash_fwd_launches == 0
     assert FA.flash_fwd_route_launches == dict.fromkeys(FA.FWD_ROUTES, 0)
     assert FA.flash_bwd_dq_launches == FA.flash_bwd_dkv_launches == 0
+    assert FA.flash_bwd_route_launches == {
+        which: dict.fromkeys(FA.BWD_ROUTES, 0) for which in ("dq", "dkv")}
