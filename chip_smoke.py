@@ -334,6 +334,46 @@ def _bwd_routed(name, route, fn):
     return out
 
 
+def _bwd_instance(route, dtype, out_dtype, D) -> str:
+    """The key of one K2/K3 instantiation: the route's name for the one its
+    main path runs (tensor cores: bf16 in and out; CUDA cores: fp32 in and
+    out, the fp32 step; both at D = 64), else the route, dtypes and D."""
+    main = {"tensor_core": torch.bfloat16, "cuda_core": torch.float32}
+    if dtype == out_dtype == main[route] and D == _D:
+        return route
+    dts = "->".join(str(t).replace("torch.", "") for t in (dtype, out_dtype))
+    return f"{route} {dts} D={D}"
+
+
+def _worst(worst, key, dq_err, dkv_err) -> None:
+    """Fold one check's largest errors of dQ and of dK/dV into ``worst``."""
+    for which, err in (("dq", dq_err), ("dkv", dkv_err)):
+        worst[which][key] = max(worst[which].get(key, 0.0), err)
+
+
+def _hold_dispatch(label, args, out_dt, tol) -> dict:
+    """K2 and K3 through the unfolded [B, S, H, D] dispatch the autograd
+    Function calls, on ``args`` (q, k, v, mask, do, lse, delta, scale,
+    causal), route-checked and held against the plain versions: the
+    largest error over the largest |plain value| at most ``tol``. Returns
+    {"dq"|"dk"|"dv": (abs, rel)}."""
+    route = FA.bwd_route(args[0].shape[-1], args[0].dtype, out_dt)
+    got = _bwd_routed(label, route, lambda: (
+        {"dq": FA._dispatch_dq(*args, out_dt)}
+        | dict(zip(("dk", "dv"), FA._dispatch_dkv(*args, out_dt)))))
+    ref = {"dq": FA._dq_reference(*args, out_dt)}
+    ref["dk"], ref["dv"] = FA._dkv_reference(*args, out_dt)
+    torch.cuda.synchronize()
+    errs = {n: _rel(got[n], ref[n]) for n in got}
+    print(f"backward kernel check {label} ({route}): " + ", ".join(
+        f"max|{n}-plain| {a:.3e} (rel {r:.3e})" for n, (a, r) in errs.items()))
+    for n, out in got.items():
+        _check(out.dtype == out_dt and bool(torch.isfinite(out.float()).all())
+               and errs[n][1] <= tol,
+               f"{label}: {n} ({route}) disagrees with its plain version")
+    return errs
+
+
 def check_bwd_kernels() -> dict:
     """K2 (dQ) and K3 (dK, dV) against their plain versions through the
     folded `flash_pair_dq` / `flash_pair_dkv`, every call checked to take
@@ -342,9 +382,12 @@ def check_bwd_kernels() -> dict:
     backward) against autograd through the plain forward at the [B, S, H,
     D] layout the model uses. Then bf16 inputs with fp32 outputs (ring
     attention's ``out_dtype``; the CUDA-core route), within the fp32
-    tolerance. Both routes run twice on the train case: bitwise equal.
-    Returns the largest absolute error of dQ and of dK/dV by route,
-    ``{"dq": {route: err}, "dkv": {...}}``."""
+    tolerance. The main paths' shapes (bf16 causal B=8 S=1024, world 2's
+    per-rank batch; fp32 causal B=2 S=1024, the fp32 step) run both folded
+    and through the unfolded `_dispatch_dq` / `_dispatch_dkv`. Both routes
+    run twice on the train cases: bitwise equal. Returns the largest
+    absolute error of dQ and of dK/dV by instantiation (`_bwd_instance`),
+    ``{"dq": {key: err}, "dkv": {...}}``."""
     gen = torch.Generator(device=_DEV).manual_seed(2)
     tol = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
     cases = []
@@ -379,6 +422,13 @@ def check_bwd_kernels() -> dict:
             (f"dead key tile causal S=512 {dt}",
              _bwd_operands(gen, 2, 512, dt, True, dead=(128, 256)), True),
         ]
+    # the main paths' own shapes: world 2's per-rank bf16 train batch (the
+    # two-rank dear-fused steps) and the fp32 step's batch
+    cases += [
+        ("train causal B=8 S=1024 torch.bfloat16",
+         _bwd_operands(gen, 8, 1024, torch.bfloat16, True), True),
+        ("fp32 step causal B=2 S=1024 torch.float32",
+         _bwd_operands(gen, 2, 1024, torch.float32, True), True)]
     # bf16 in, fp32 out: the same kernels' fp32 stores
     f32 = torch.float32
     cases += [
@@ -391,10 +441,11 @@ def check_bwd_kernels() -> dict:
             ("all-masked row S=136 bf16",
              _bwd_operands(gen, 2, 136, torch.bfloat16, False,
                            lengths=[0, 100]), False))]
-    worst = {w: dict.fromkeys(FA.BWD_ROUTES, 0.0) for w in ("dq", "dkv")}
+    worst = {"dq": {}, "dkv": {}}
     for name, (q, k, v, do, mask, lse, delta), causal, *out_dt in cases:
         out_dt = out_dt[0] if out_dt else q.dtype
         route = FA.bwd_route(q.shape[-1], q.dtype, out_dt)
+        key = _bwd_instance(route, q.dtype, out_dt, q.shape[-1])
         scale = q.shape[-1] ** -0.5
         args = (_fold(q), _fold(k), _fold(v), mask.repeat_interleave(_H, 0),
                 _fold(do), lse.reshape(-1, lse.shape[-1]),
@@ -436,9 +487,16 @@ def check_bwd_kernels() -> dict:
                    f"{name} ({route}): K2/K3 not bitwise repeatable")
             print(f"backward kernel check {name} ({route}): twice on the "
                   "same inputs, bitwise equal")
-        worst["dq"][route] = max(worst["dq"][route], errs["dq"][0])
-        worst["dkv"][route] = max(worst["dkv"][route], errs["dk"][0],
-                                  errs["dv"][0])
+        _worst(worst, key, errs["dq"][0], max(errs["dk"][0], errs["dv"][0]))
+
+    # the same main-path shapes through the [B, S, H, D] dispatch that the
+    # autograd Function calls (no fold)
+    for B, dt in ((8, torch.bfloat16), (2, torch.float32)):
+        q, k, v, do, mask, lse, delta = _bwd_operands(gen, B, 1024, dt, True)
+        errs = _hold_dispatch(f"unfolded causal B={B} S=1024 {dt}", (
+            q, k, v, mask, do, lse, delta, _D ** -0.5, True), dt, tol[dt])
+        _worst(worst, _bwd_instance(FA.bwd_route(_D, dt, dt), dt, dt, _D),
+               errs["dq"][0], max(errs["dk"][0], errs["dv"][0]))
 
     # autograd through K1+K2+K3 against autograd through the plain forward
     for dt in (torch.float32, torch.bfloat16):
@@ -1680,64 +1738,55 @@ def time_shape(name, B, Sq, Sk, dtype, causal, n_sets, hbm, out_dtype=None):
     return row
 
 
-def time_bwd(B, S, hbm, launches_per_step):
-    """K2 and K3 at the training shape ([B, S, 12, 64], causal, bf16,
-    through the [B, S, H, D] dispatch the autograd Function uses), by route:
-    the tensor-core route (bf16 out, the training step's) and the CUDA-core
-    route (fp32 out, ring attention's ``out_dtype``). Each is first held
-    against its plain version on the first input set (the largest error
-    over the largest |plain value|, at most 2e-2 for bf16 out and 1e-4 for
-    fp32 out, as in `check_bwd_kernels`), every call checked for its route,
-    then timed beside its plain version and the backward of SDPA
-    (is_causal; dq, dk and dv in one call), the yardstick for K2 + K3
-    together. Rows ``flash_bwd_dq`` / ``flash_bwd_dkv`` (tensor cores) and
-    ``..._f32`` (CUDA cores), each with its TF/s. Returns (rows, the
-    largest absolute error of dQ and of dK/dV by route)."""
+def time_bwd(hbm, configs, S=1024):
+    """K2 and K3 at causal [B, S, 12, 64] shapes, through the [B, S, H, D]
+    dispatch the autograd Function uses. ``configs`` lists (suffix, B,
+    dtype, out_dtype, launches_per_step): the tensor-core route at the bf16
+    train step (bf16 out), the CUDA-core route at the fp32 step (fp32 in
+    and out) and at the train shape with bf16 in, fp32 out (ring
+    attention's ``out_dtype``). Each is first held against its plain version
+    on the first input set (the largest error over the largest |plain
+    value|, at most 2e-2 for bf16 out and 1e-4 for fp32 out, as in
+    `check_bwd_kernels`), every call checked for its route, then timed
+    beside its plain version and the backward of SDPA at the same shape and
+    dtype (is_causal; dq, dk and dv in one call), the yardstick for K2 + K3
+    together. Rows ``flash_bwd_dq`` + suffix / ``flash_bwd_dkv`` + suffix,
+    each with its TF/s. Returns (rows, the largest absolute error of dQ and
+    of dK/dV by instantiation, as `check_bwd_kernels`)."""
     gen = torch.Generator(device=_DEV).manual_seed(5)
-    dt = torch.bfloat16
     scale = _D ** -0.5
-    sets = [_bwd_operands(gen, B, S, dt, True) for _ in range(2)]
-    q, k, v, do, mask, lse, delta = sets[0]
-    args = (q, k, v, mask, do, lse, delta, scale, True)
-    errs_by_route = {}
-    for out_dt, tol in ((dt, 2e-2), (torch.float32, 1e-4)):
+    tol = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+    operands, sdpa_ms, rows = {}, {}, {}
+    worst = {"dq": {}, "dkv": {}}
+    for sfx, B, dt, out_dt, launches_per_step in configs:
+        if (B, dt) not in operands:
+            operands[B, dt] = [_bwd_operands(gen, B, S, dt, True)
+                               for _ in range(2)]
+        sets = operands[B, dt]
         route = FA.bwd_route(_D, dt, out_dt)
-        got = _bwd_routed(f"main path B={B} {out_dt} out", route, lambda: (
-            {"dq": FA._dispatch_dq(*args, out_dt)}
-            | dict(zip(("dk", "dv"), FA._dispatch_dkv(*args, out_dt)))))
-        ref = {"dq": FA._dq_reference(*args, out_dt)}
-        ref["dk"], ref["dv"] = FA._dkv_reference(*args, out_dt)
-        torch.cuda.synchronize()
-        errs = {n: _rel(got[n], ref[n]) for n in got}
-        print(f"backward kernel check main path causal B={B} S={S} bf16, "
-              f"{out_dt} out ({route}): " + ", ".join(
-                  f"max|{n}-plain| {a:.3e} (rel {r:.3e})"
-                  for n, (a, r) in errs.items()))
-        for n, out in got.items():
-            _check(out.dtype == out_dt
-                   and bool(torch.isfinite(out.float()).all())
-                   and errs[n][1] <= tol,
-                   f"main path B={B}: {n} ({out_dt} out, {route}) disagrees "
-                   "with its plain version")
-        errs_by_route[route] = (errs["dq"][0],
-                                max(errs["dk"][0], errs["dv"][0]))
-        del got, ref
+        q, k, v, do, mask, lse, delta = sets[0]
+        errs = _hold_dispatch(
+            f"main path causal B={B} S={S} {dt} in, {out_dt} out",
+            (q, k, v, mask, do, lse, delta, scale, True), out_dt,
+            tol[out_dt])
+        _worst(worst, _bwd_instance(route, dt, out_dt, _D), errs["dq"][0],
+               max(errs["dk"][0], errs["dv"][0]))
 
-    sdpa = []
-    for q, k, v, do, *_ in sets:
-        xs = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
-        out = F.scaled_dot_product_attention(*xs, is_causal=True)
-        sdpa.append((out, xs, do.transpose(1, 2)))
+        if (B, dt) not in sdpa_ms:
+            sdpa = []
+            for q, k, v, do, *_ in sets:
+                xs = [t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v)]
+                out = F.scaled_dot_product_attention(*xs, is_causal=True)
+                sdpa.append((out, xs, do.transpose(1, 2)))
 
-    def library(out, xs, do):
-        torch.autograd.grad(out, xs, do, retain_graph=True)
+            def library(out, xs, do):
+                torch.autograd.grad(out, xs, do, retain_graph=True)
 
-    rows = {}
-    pairs = B * _H * S * (S + 1) // 2
-    elems = B * S * _H * _D
-    for out_dt in (dt, torch.float32):
-        sfx = "_f32" if out_dt == torch.float32 else ""
-        route = FA.bwd_route(_D, dt, out_dt)
+            # one SDPA backward computes dq, dk and dv: the yardstick of
+            # K2 + K3 together, so both rows carry it with that scope
+            sdpa_ms[B, dt] = device_ms(library, sdpa, 20)
+            del sdpa
 
         def dq(q, k, v, do, mask, lse, delta):
             FA._dispatch_dq(q, k, v, mask, do, lse, delta, scale, True,
@@ -1755,41 +1804,42 @@ def time_bwd(B, S, hbm, launches_per_step):
             FA._dkv_reference(q, k, v, mask, do, lse, delta, scale, True,
                               out_dt)
 
+        pairs = B * _H * S * (S + 1) // 2
+        elems = B * S * _H * _D
+        dts = str(dt).replace("torch.", "")
+        if out_dt != dt:
+            dts += " in, " + str(out_dt).replace("torch.", "") + " out"
         for name, fn, plain, flops_per_pair, n_out in (
                 ("flash_bwd_dq", dq, dq_plain, 6 * _D, 1),
                 ("flash_bwd_dkv", dkv, dkv_plain, 8 * _D, 2)):
             ms = device_ms(fn, sets, 20)
             plain_ms = device_ms(plain, sets, 4)
             # q, k, v, dO read, the outputs written; lse, delta, the mask
-            nbytes = (4 * 2 + n_out * (out_dt.itemsize)) * elems \
+            nbytes = (4 * dt.itemsize + n_out * out_dt.itemsize) * elems \
                 + 2 * B * _H * S * 4 + B * S * 4
             flops = flops_per_pair * pairs
             bytes_ms = nbytes / hbm * 1e3
             ops_ms = flops / _PEAK_FLOPS[dt] * 1e3
-            rows[name + sfx] = {
+            row = {
                 "shape": f"train causal B={B} S={S} H={_H} D={_D}",
-                "dtype": "bfloat16" + (" in, float32 out" if sfx else ""),
-                "route": route, "ms": ms, "tflops": flops / ms / 1e9,
-                "plain_ms": plain_ms,
+                "dtype": dts, "route": route, "ms": ms,
+                "tflops": flops / ms / 1e9, "plain_ms": plain_ms,
                 "bound_ms": max(bytes_ms, ops_ms),
                 "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
                 "bytes": nbytes, "flops": flops,
-                "launches_per_step": 0 if sfx else launches_per_step}
-    # one SDPA backward computes dq, dk and dv: the yardstick of K2 + K3
-    # together, so every row carries it with that scope
-    sdpa_ms = device_ms(library, sdpa, 20)
-    for name, row in rows.items():
-        row.update(library_ms=sdpa_ms, library_scope="dq+dk+dv")
-        print("kernel time " + json.dumps({"kernel": name} | row))
-    for sfx in ("", "_f32"):
-        dq, dkv = rows["flash_bwd_dq" + sfx], rows["flash_bwd_dkv" + sfx]
-        both = dq["ms"] + dkv["ms"]
-        tflops = (dq["flops"] + dkv["flops"]) / both / 1e9
+                "launches_per_step": launches_per_step,
+                "library_ms": sdpa_ms[B, dt], "library_scope": "dq+dk+dv"}
+            rows[name + sfx] = row
+            print("kernel time " + json.dumps({"kernel": name + sfx} | row))
+        dq_row = rows["flash_bwd_dq" + sfx]
+        dkv_row = rows["flash_bwd_dkv" + sfx]
+        both = dq_row["ms"] + dkv_row["ms"]
+        tflops = (dq_row["flops"] + dkv_row["flops"]) / both / 1e9
         print(f"backward yardstick: SDPA backward (is_causal, dq+dk+dv) "
-              f"{sdpa_ms:.4f} ms vs K2 + K3 ({dq['route']}) {both:.4f} ms "
-              f"({tflops:.1f} TF/s; {both / sdpa_ms:.2f}x) at B={B} S={S} "
-              "bf16")
-    return rows, errs_by_route
+              f"{sdpa_ms[B, dt]:.4f} ms vs K2 + K3 ({route}) {both:.4f} ms "
+              f"({tflops:.1f} TF/s; {both / sdpa_ms[B, dt]:.2f}x) at B={B} "
+              f"S={S} {dts}")
+    return rows, worst
 
 
 def time_update(n, hbm, launches_per_step):
@@ -2228,10 +2278,19 @@ def main(argv=None) -> int:
         fwd_err[row["route"]] = max(fwd_err[row["route"]],
                                     row["max_abs_err"])
     layers = GPT2_SMALL.num_hidden_layers
-    bwd, bwd_main_err = time_bwd(B, S, hbm, layers)
-    for route, errs in bwd_main_err.items():
-        for which, err in zip(("dq", "dkv"), errs):
-            bwd_err[which][route] = max(bwd_err[which][route], err)
+    # K2 and K3 by route at their main paths' shapes (tensor cores the bf16
+    # train step, CUDA cores the fp32 step), then the CUDA-core route at the
+    # train shape with fp32 outputs (ring attention's call; no main path)
+    bwd, bwd_main_err = time_bwd(hbm, [
+        ("", B, torch.bfloat16, torch.bfloat16, layers),
+        ("_f32", 2, torch.float32, torch.float32,
+         fp32_routes["dq"]["cuda_core"]),
+        ("_bf16_f32out", B, torch.bfloat16, torch.float32, 0)], S)
+    for which, errs in bwd_main_err.items():
+        for key, err in errs.items():
+            bwd_err[which][key] = max(bwd_err[which].get(key, 0.0), err)
+    print("K2/K3 largest |err| by instantiation (the kernels line takes "
+          f"each route's main-path one): {bwd_err}")
     buckets = res.train_step.plan.buckets
     nb = len(buckets)
     # a bucket of the 25 MB threshold (the kernels line) and the largest
@@ -2270,10 +2329,9 @@ def main(argv=None) -> int:
                         "dear_pytorch_tpu/ops/flash_attention.py:97",
                         k1_launches[route], fwd_err[route], fwd_rows[route])
           for route in FA.FWD_ROUTES]
-    # K2 and K3 by route, each with its own main path: tensor cores the
-    # bf16 train steps (one rank and both ranks of the two dear-fused
-    # runs), CUDA cores the fp32 step; timed at the train shape (the
-    # CUDA-core route with fp32 outputs, ring attention's call)
+    # K2 and K3 by route, each with its own main path and timed at its
+    # shape: tensor cores the bf16 train steps (one rank and both ranks of
+    # the two dear-fused runs), CUDA cores the fp32 step
     k23 = []
     for kname, which, line in (("flash_bwd_dq", "dq", 152),
                                ("flash_bwd_dkv", "dkv", 195)):

@@ -64,7 +64,7 @@
 //   - registers: 288 threads leave each 168 (three of the nine warps share
 //     one SM sub-partition's 16K). K3 holds Sᵀ, dPᵀ, dK and dV (4 x 32
 //     fp32) at 64-query stages; K2 holds S, dP and dQ at 64-key stages
-//     (128-key stages spilled and ran 1.7x slower).
+//     (at 128 keys S and dP take 64 fp32 each and ptxas reports a spill).
 //   - masks (a select, never a product) are applied only to tiles that
 //     need them: a causal tile that crosses the diagonal, a tile with an
 //     invalid key, a ragged edge. TMA reads rows past Sq or Sk as zeros, and

@@ -321,16 +321,14 @@ def test_fwd_route_picks_from_shape_and_dtypes(sq, d, dtype, out_dtype,
 
 @pytest.mark.parametrize("d, dtype, out_dtype, route", [
     (64, torch.bfloat16, torch.bfloat16, "tensor_core"),   # train step
-    (64, torch.bfloat16, torch.bfloat16, "tensor_core"),   # ragged S
     (64, torch.float32, torch.float32, "cuda_core"),       # fp32 step
     (64, torch.bfloat16, torch.float32, "cuda_core"),      # fp32 out
     (128, torch.bfloat16, torch.bfloat16, "cuda_core"),    # other D
     (40, torch.bfloat16, torch.bfloat16, "cuda_core"),
-], ids=["train", "ragged", "fp32", "fp32-out", "d128", "d40"])
+], ids=["train", "fp32", "fp32-out", "d128", "d40"])
 def test_bwd_route_picks_from_shape_and_dtypes(d, dtype, out_dtype, route):
     """K2's and K3's route depends on the head dim and the dtypes alone,
-    never on the sequence lengths (the ragged case is the train case's
-    route at any S)."""
+    never on the sequence lengths."""
     assert FA.bwd_route(d, dtype, out_dtype) == route
 
 
