@@ -48,10 +48,13 @@ non-zero and no result line is printed):
      - K6, K7 and K8 (the ring collective matmul: forward, dx, dw) on a
        `LocalRing` against their stacked plain versions, within
        `_CM_RTOL` of the largest plain value (8e-3 for bf16 outputs, 1e-5
-       for fp32, TF32 off): W = 2, 4, 8 on ragged and aligned shapes, fp32
-       and bf16, and the main path's M = 8192, K = 768, N = 768 and 3072
-       in bf16 at W = 2; K8 also at W = 4 and 8 at those M, K and N, and
-       twice on the same inputs at every main shape, bitwise equal;
+       for fp32, TF32 off), every K6/K7 call checked to take the route
+       `cm_core` names (wgmma for bf16 with kc and N multiples of 8, mma
+       for fp32 and ragged shapes): W = 2, 4, 8 on ragged and aligned
+       shapes, fp32 and bf16, the main path's M = 8192, K = 768, N = 768
+       and 3072 in bf16 at W = 2 (twice) and at W = 4 and 8 (kc = 192 and
+       96), and M = 4 at W = 2; every wgmma-route case and every main
+       shape twice on the same inputs, bitwise equal;
      - K9, the overhead probe's ``2x + 1``: bitwise against its plain
        version and against ``torch.add(one, x, alpha=2.0)`` at grids of 16
        x (1024, 512), 2048 x (8, 512) and 33 x (8, 512), with infinities,
@@ -59,7 +62,8 @@ non-zero and no result line is printed):
      and again at the main paths' own shapes in phases 5 and 6: K1 at
      decode B = 4, train [16, 1024, 12, 64] and [8, ...] bf16 causal
      (tensor cores) and at the fp32 step's [2, 1024, 12, 64] (CUDA
-     cores), K8 under several cuts of its reduction, K2 and K3 by
+     cores), K6 and K7 at three tile widths, K8 under several cuts of its
+     reduction, K2 and K3 by
      route at the train shape, the shard update at every shard size of
      the training run's plan with its optimizer; the kernels line reports the largest
      error of all of these;
@@ -89,7 +93,8 @@ non-zero and no result line is printed):
      ``--mode dear-fused
      --ring-projections`` (each rank first holds K6–K8 against their plain
      versions on its own IPC ring at the main path's shapes; then every
-     step also launches K6, K7 and K8 48 times each) and with ``--mode
+     step also launches K6, K7 and K8 48 times each, K6 and K7 all on the
+     wgmma route) and with ``--mode
      dear``: losses finite, falling and equal on both ranks, both ranks'
      gathered parameters bitwise equal, dear-fused's step-20 loss within
      `_FUSED_VS_DEAR_RTOL` of dear's and the ring-projection run's within
@@ -119,7 +124,7 @@ non-zero and no result line is printed):
 ``python3 chip_smoke.py --kernels-only`` runs phases 1–3 and stops without
 a result line. In a full run the line before the last lists the kernels
 as JSON (K1, K2 and K3 once per route, each with its main path's
-launches); the last line is ``{"ok":
+launches; K6 and K7 with their launches by route); the last line is ``{"ok":
 true, "device": {...}}``.
 """
 
@@ -773,13 +778,47 @@ def _cm_hold(tag, pairs, worst) -> None:
         worst[name] = max(worst.get(name, 0.0), err)
 
 
+def _cm_routes():
+    return {k: dict(v) for k, v in CM.cm_route_launches.items()}
+
+
+def _cm_routed(tag, route, fn):
+    """``fn()``, checking that its K6 and K7 launches all took ``route``
+    (`CM.cm_core`) and that each launched at least once: no route gives
+    way to another or to the plain version."""
+    before = _cm_routes()
+    out = fn()
+    got = {k: {r: n - before[k][r] for r, n in c.items()}
+           for k, c in _cm_routes().items()}
+    _check(all(c[route] > 0 and sum(c.values()) == c[route]
+               for c in got.values()),
+           f"{tag}: K6/K7 launches by route {got}, expected all {route}")
+    return out
+
+
+def _cm_repeat(tag, ops, pairs, ring) -> None:
+    """K6, K7 and K8 called again on the same operands (the stacked ones
+    of a `LocalRing`): bitwise equal to the first calls in ``pairs``."""
+    x, ws, dy = ops
+    again = (CM.ring_matmul(x, ws, ring), CM.ring_matmul_dx(dy, ws, ring),
+             CM.ring_matmul_dw(x, dy, ring))
+    for (name, got, _), second in zip(pairs, again):
+        _check(torch.equal(got, second),
+               f"{name} {tag}: two calls on the same inputs differ")
+
+
 def check_ring_matmul_kernels() -> dict:
     """K6, K7 and K8 on a `LocalRing` against their stacked plain versions
-    (`_CM_RTOL`): at W = 2, 4 and 8 on ragged shapes (M, kc and N multiples
-    of no tile; fp32 and bf16) and on shapes the 16-byte path takes, and at
-    W = 2 at the main path's own shapes (`_CM_MAIN`, bf16), two calls in a
-    row (the second reuses the slots behind the first's credits). Returns
-    the largest absolute error of each."""
+    (`_CM_RTOL`), every K6/K7 call checked for the route `CM.cm_core`
+    names: at W = 2, 4 and 8 on ragged shapes (M, kc and N multiples of no
+    tile: the mma route, fp32 and bf16) and on shapes both routes take (kc
+    and N multiples of 8: fp32 on the mma route, bf16 on the wgmma route);
+    at W = 2 at the main path's own shapes (`_CM_MAIN`, bf16) twice (the
+    second call reuses the slots behind the first's credits) and at a
+    decode-sized M = 4; then the main path's M, K and N at W = 4 and 8
+    (`check_cm_worlds`). Every case on the wgmma route (the main shapes
+    among them) calls all three kernels twice on the same inputs: bitwise
+    equal. Returns the largest absolute error of each kernel."""
     gen = torch.Generator(device=_DEV).manual_seed(12)
     worst: dict = {}
     cases = 0
@@ -790,54 +829,58 @@ def check_ring_matmul_kernels() -> dict:
         for m, kc, n in shapes:
             for dt in (torch.float32, torch.bfloat16):
                 ops = _cm_operands(world, m, kc, n, dt, gen)
-                _cm_hold(f"W={world} M={m} kc={kc} N={n} {dt}",
-                         _cm_pairs(*ops, ring), worst)
+                route = CM.cm_core(dt, world, kc, n)
+                tag = f"W={world} M={m} kc={kc} N={n} {dt} ({route})"
+                pairs = _cm_routed(tag, route, lambda: _cm_pairs(*ops, ring))
+                _cm_hold(tag, pairs, worst)
+                if route == "wgmma":
+                    _cm_repeat(tag, ops, pairs, ring)
                 cases += 1
         ring.close()
     ring = LocalRing(2, _DEV, 1, cm_elems=max(kc * n for _, kc, n in _CM_MAIN))
-    for m, kc, n in _CM_MAIN:
-        for call in range(2):
+    for m, kc, n, calls in [s + (2,) for s in _CM_MAIN] + [(4, 384, 768, 1)]:
+        for call in range(calls):
             ops = _cm_operands(2, m, kc, n, torch.bfloat16, gen)
-            pairs = _cm_pairs(*ops, ring)
-            _cm_hold(f"main W=2 M={m} K={2 * kc} N={n} call {call}", pairs,
-                     worst)
-            _check(torch.equal(pairs[2][1],
-                               CM.ring_matmul_dw(ops[0], ops[2], ring)),
-                   f"cm_dw main W=2 N={n}: two calls on the same inputs "
-                   "differ")
+            tag = f"W=2 M={m} K={2 * kc} N={n} call {call}"
+            pairs = _cm_routed(tag, "wgmma", lambda: _cm_pairs(*ops, ring))
+            _cm_hold(tag, pairs, worst)
+            _cm_repeat(tag, ops, pairs, ring)
             cases += 1
     ring.close()
-    k8 = check_dw_worlds(gen, worst)
-    print(f"ring matmul check: K6, K7, K8 in {cases} cases each (W = 2, 4, "
-          "8 on ragged and aligned shapes, fp32 and bf16; the main path's "
-          "M=8192 K=768 N=768 and 3072 bf16 at W = 2, twice each), K8 "
-          f"also in {k8} more (W = 4 and 8 at the main path's M, K and N, "
-          "each twice on the same inputs, bitwise equal): largest errors "
+    more = check_cm_worlds(gen, worst)
+    print(f"ring matmul check: K6, K7, K8 in {cases} cases (W = 2, 4, 8 on "
+          "ragged and aligned shapes, fp32 and bf16; the main path's "
+          "M=8192 K=768 N=768 and 3072 bf16 at W = 2, twice each; M=4 at W = "
+          f"2) and {more} more (W = 4 and 8 at the main path's M, K and N), "
+          "K6/K7 every call on the route cm_core names (wgmma for bf16 with kc "
+          "and N multiples of 8), every wgmma-route case twice on the same "
+          "inputs, bitwise equal: largest errors "
           + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
           + f" (limits {_CM_RTOL[torch.bfloat16]:g} bf16, "
           f"{_CM_RTOL[torch.float32]:g} fp32, of max |plain|)")
     return worst
 
 
-def check_dw_worlds(gen, worst) -> int:
-    """K8 at W = 4 and 8 on a `LocalRing` at the main path's M = 8192, K =
-    768 and N = 768 and 3072 (bf16; kc = 192 and 96), within `_CM_RTOL` of
-    its stacked plain version, and called twice on the same inputs: the
-    two dw bitwise equal (the split's partials are summed in segment order,
-    with no float atomics). Returns the number of cases."""
+def check_cm_worlds(gen, worst) -> int:
+    """K6, K7 and K8 at W = 4 and 8 on a `LocalRing` at the main path's M
+    = 8192, K = 768 and N = 768 and 3072 (bf16; kc = 192 and 96: a TMA box
+    of 64 columns crosses a chunk's end, which the chunk-bounded tensor
+    maps must fill with zeros), within `_CM_RTOL` of the stacked plain
+    versions, K6 and K7 on the wgmma route, and each called twice on the
+    same inputs: bitwise equal (one block sums each element of K6 and K7
+    in one order; K8's split partials are summed in segment order, with no
+    float atomics). Returns the number of cases."""
     cases = 0
     for world in (4, 8):
         kc = 768 // world
         ring = LocalRing(world, _DEV, 1, cm_elems=kc * 3072)
         for m, _, n in _CM_MAIN:
-            x, _, dy = _cm_operands(world, m, kc, n, torch.bfloat16, gen)
-            got = CM.ring_matmul_dw(x, dy, ring)
-            again = CM.ring_matmul_dw(x, dy, ring)
+            ops = _cm_operands(world, m, kc, n, torch.bfloat16, gen)
             tag = f"W={world} M={m} K=768 N={n}"
-            _cm_hold(tag, [("cm_dw", got,
-                            CM.ring_matmul_dw_stacked(x, dy))], worst)
-            _check(torch.equal(got, again),
-                   f"cm_dw {tag}: two calls on the same inputs differ")
+            pairs = _cm_routed(tag, "wgmma", lambda: _cm_pairs(*ops, ring))
+            _cm_hold(tag, pairs, worst)
+            _cm_repeat(tag, ops, pairs, ring)
+            del ops, pairs
             cases += 1
         ring.close()
     return cases
@@ -1161,6 +1204,8 @@ def _two_rank_counts(ts) -> dict:
             "ring_ag": CM.ring_ag_launches, "ring_rs": CM.ring_rs_launches,
             "cm_fwd": CM.cm_fwd_launches, "cm_dx": CM.cm_dx_launches,
             "cm_dw": CM.cm_dw_launches,
+            "cm_fwd_wgmma": CM.cm_route_launches["fwd"]["wgmma"],
+            "cm_dx_wgmma": CM.cm_route_launches["dx"]["wgmma"],
             "rs": ts.rs_launches, "ag": ts.ag_launches,
             "update": ts.update_launches}
 
@@ -1181,8 +1226,9 @@ def check_ring_matmul_two_ranks(rank: int) -> dict:
     for m, kc, n in _CM_MAIN:
         for call in range(2):
             ops = _cm_operands(world, m, kc, n, torch.bfloat16, gen, dev)
-            _cm_hold(f"rank {rank} IPC ring M={m} K={world * kc} N={n} "
-                     f"call {call}", _cm_pairs(*ops, ring, rank=rank), worst)
+            tag = f"rank {rank} IPC ring M={m} K={world * kc} N={n} call {call}"
+            _cm_hold(tag, _cm_routed(tag, "wgmma", lambda: _cm_pairs(
+                *ops, ring, rank=rank)), worst)
     ring.close()
     print(f"rank {rank}: IPC ring matmul check at the main path's shapes: "
           + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
@@ -1268,6 +1314,8 @@ def rank_worker(rank: int, out: Path, mode: str) -> None:
     FS.fused_update_launches = 0                               # path starts
     CM.ring_ag_launches = CM.ring_rs_launches = 0
     CM.cm_fwd_launches = CM.cm_dx_launches = CM.cm_dw_launches = 0
+    for by_route in CM.cm_route_launches.values():
+        by_route.update(wgmma=0, mma=0)
     marks, prev = [], {}
     fused = mode != "dear"
     n_cm = 4 * layers if rp else 0     # query, key, value, mlp_in
@@ -1284,7 +1332,8 @@ def rank_worker(rank: int, out: Path, mode: str) -> None:
                 "rs": nb, "ag": nb, "update": nb,
                 "fused_update": 0 if fused else nb,
                 "ring_ag": nb if fused else 0, "ring_rs": nb if fused else 0,
-                "cm_fwd": n_cm, "cm_dx": n_cm, "cm_dw": n_cm}
+                "cm_fwd": n_cm, "cm_dx": n_cm, "cm_dw": n_cm,
+                "cm_fwd_wgmma": n_cm, "cm_dx_wgmma": n_cm}
         got = {k: now[k] - before[k] for k in now}
         _check(got == want, f"rank {rank} {mode} step {len(marks) + 1}: "
                f"launches {got}, expected {want}")
@@ -2024,6 +2073,7 @@ def time_ring_matmul(hbm, calls_per_step):
         bound = max(nbytes / hbm, flops / _PEAK_FLOPS[torch.bfloat16]) * 1e3
         core, ranges, contrib, slab = CM.dw_launch_plan(ring, m, kc, n,
                                                         torch.bfloat16)
+        route = CM.cm_core(torch.bfloat16, world, kc, n)
         for name, (kernel, plain, library) in fns.items():
             got = kernel(*sets[0]).reshape(-1)
             lib = library(*sets[0]).reshape(-1)
@@ -2047,8 +2097,13 @@ def time_ring_matmul(hbm, calls_per_step):
             if name == "cm_dw":   # K8's plan: its tile core and the split
                 row["plan"] = (f"{core} core, {ranges} ranges of slabs of "
                                f"{slab} rows, up to {contrib} per tile")
+            else:                 # K6's and K7's route and tile
+                row["route"] = route
+                row["plan"] = (f"128 x {CM.CM_TILE_N[name[3:]]} tiles"
+                               if route == "wgmma" else "mma tiles")
             print("kernel time " + json.dumps({"kernel": name} | row))
             rows[name][n] = row
+        time_cm_tiles(ring, sets, m, kc, n, fns)
         time_dw_plans(ring, sets, m, kc, n, ranges)
     ring.close()
     for name, by_n in rows.items():
@@ -2060,6 +2115,37 @@ def time_ring_matmul(hbm, calls_per_step):
               f"ms, bound {per_step['bound_ms']:.4f} ms, cuBLAS "
               f"{per_step['library_ms']:.4f} ms")
     return rows
+
+
+def time_cm_tiles(ring, sets, m, kc, n, fns) -> None:
+    """K6 and K7 on the wgmma route with output tiles of 128 x 128, 192
+    and 256 (`CM.CM_TILE_N`; the default is printed with the rows above),
+    each held to `_CM_RTOL` of the plain version and timed: the
+    measurement behind the default, against the waves each gives on the
+    ring's blocks."""
+    tiles = dict(CM.CM_TILE_N)
+    times = {}
+    try:
+        for name in ("cm_fwd", "cm_dx"):
+            kernel, plain, _ = fns[name]
+            ref = plain(*sets[0])
+            for bn in (128, 192, 256):
+                CM.CM_TILE_N[name[3:]] = bn
+                _cm_hold(f"{name} tiles 128 x {bn} N={n}",
+                         [(name, kernel(*sets[0]), ref)], {})
+                times[name, bn] = device_ms(kernel, sets, 20)
+    finally:
+        CM.CM_TILE_N.update(tiles)
+    blocks = ring_blocks(ring)
+    for name in ("cm_fwd", "cm_dx"):
+        cols = n if name == "cm_fwd" else kc
+        waves = {bn: -(-m // 128) * -(-cols // bn)
+                 * (1 if name == "cm_fwd" else 2) / blocks
+                 for bn in (128, 192, 256)}
+        print(f"{name} tiles at W=2 M={m} K={2 * kc} N={n} ({blocks} blocks "
+              "per rank): " + ", ".join(
+                  f"128 x {bn} {times[name, bn]:.4f} ms ({waves[bn]:.2f} "
+                  "waves)" for bn in (128, 192, 256)))
 
 
 def ring_blocks(ring) -> int:
@@ -2315,6 +2401,16 @@ def main(argv=None) -> int:
           f"projections): launches over both ranks and runs "
           f"{fused_launches}; with ring projections {rp_launches}; K4 and "
           f"the K5 ring with the probe's {ring_launches}")
+    # K6 and K7 by route on their main path: every launch on the wgmma
+    # route (each step checked so in both ranks); the mma route runs only
+    # in the checks (fp32 and ragged shapes)
+    cm_by_route = {k: {"launches_by_route": {
+        "wgmma": rp_launches[k + "_wgmma"],
+        "mma": rp_launches[k] - rp_launches[k + "_wgmma"]}}
+        for k in ("cm_fwd", "cm_dx")}
+    _check(all(r["launches_by_route"]["mma"] == 0
+               for r in cm_by_route.values()),
+           f"K6/K7 on the main path by route: {cm_by_route}")
 
     # K1 by route, each with its own main path: split-K the decode ticks,
     # tensor cores the bf16 train steps (one rank and both ranks of the two
@@ -2361,7 +2457,7 @@ def main(argv=None) -> int:
         _kernel_entry(kname, "ring_matmul.cu",
                       f"dear_pytorch_tpu/ops/collective_matmul.py:{line}",
                       rp_launches[kname], cm_err[kname],
-                      cm_rows[kname][3072])
+                      cm_rows[kname][3072]) | cm_by_route.get(kname, {})
         for kname, line in (("cm_fwd", 510), ("cm_dx", 545),
                             ("cm_dw", 572))] + [
         # the finer granularity: per-step cost, not one SM's bandwidth

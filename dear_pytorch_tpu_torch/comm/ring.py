@@ -95,7 +95,7 @@ def matmul_lib() -> ctypes.CDLL:
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         for fn in (lib.rmm_forward, lib.rmm_dx):
             fn.argtypes = [ptr, i32, i32, i64, i64, i64, i64, i32,
-                           ctypes.c_uint, i32, ptr]
+                           ctypes.c_uint, i32, i32, i32, ptr]
         lib.rmm_dw.argtypes = [ptr, i32, i32, i64, i64, i64, i64, i32,
                                ctypes.c_uint, i32, i64, i32, i64, i32, ptr]
         for fn in (lib.rmm_forward, lib.rmm_dx, lib.rmm_dw, lib.rmm_blocks):

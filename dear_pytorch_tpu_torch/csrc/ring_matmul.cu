@@ -26,14 +26,52 @@
 // call does 2·M·K·N = 9.66 or 38.65 GFLOP on 13–70 MB: over 500 operations
 // per byte, above the card's 295 for bf16.
 //
-// K6 and K7: a simple tiled product, kept from the first port. 256
-// threads, one 128 x 128 output tile per step of a block-stride loop,
-// k-slabs of 32 staged through registers into a double-buffered shared
-// tile stored as the operand lies in memory (16-byte loads through L2);
-// mma.sync m16n8k16 fragments from shared memory with 32-bit loads where
-// the reduction dimension is contiguous and with ldmatrix.trans where it
-// is not.
-//
+// K6 and K7 take one of two routes (the wrapper picks it:
+// ops/collective_matmul.py::cm_core).
+//   - The wgmma route (redesigned; bf16 with kc and N multiples of 8, which
+//     the main path's calls all are): persistent blocks, block b taking
+//     output tiles b, b + G, ... of 128 x BN (BN = 256 for K6 and 192 for
+//     K7 by default, the wrapper's CM_TILE_N: measured on the H100 against
+//     128 and the other, chip_smoke.py's time_cm_tiles); K7's tiles of all
+//     rounds form one sequence, so a round's ragged last wave does not idle
+//     the card before the next round. One producer warp streams 64-deep
+//     slabs of the reduction by TMA (128-byte swizzle) into as many
+//     shared-memory stages as fit (4 to 6), counted on full / empty
+//     mbarriers; two consumer warpgroups of 64 rows run wgmma on them (K7:
+//     dy and w both K-major, as Q·Kᵀ in flash_fwd.cu; K6: x K-major, the
+//     weight chunk MN-major, its BN columns as 64-wide boxes one LBO apart,
+//     as K8's dy), one slab's products in flight behind the next, and store
+//     each tile through a 64 x 64 staging tile per warpgroup as whole
+//     128-byte rows. Each output element is summed by one block in one
+//     order: two calls give the same bits.
+//     TMA fills zeros only past a tensor map's bounds, so the maps are
+//     bounded per chunk: x as {kc, W, M} (a 64-wide box at W = 8, kc = 96,
+//     would otherwise read chunk j + 1's columns into K6's sum), each slot
+//     as {N, kc} inside one {N, kc, W - 1} map slot_bytes apart (a box past
+//     kc rows would otherwise read the slot's stale tail), the local shard
+//     as {N, kc}. The three maps of each rank (A, local shard, slots; 128
+//     bytes each) live in the kernel's __grid_constant__ parameter beside
+//     the common record: 8 ranks fit its 4 KB.
+//     The slots are written by ordinary stores (the left neighbour's, or on
+//     a LocalRing this rank's own blocks') and read by TMA, the async
+//     proxy: the producer warp's lanes acquire the sender blocks' arrival
+//     flags (a share each), then __syncwarp and fence.proxy.async.global,
+//     before its first load from that slot; it passes that chunk on (W > 2)
+//     with the warp's 32 lanes. The consumers first send the local shard on
+//     as hop 1 (credit wait, copy, arrival flag, on a named barrier of their
+//     256 threads) while the producer already loads round 0; so every wait
+//     is either one warp's or the consumers', never a block-wide barrier
+//     inside a region only some warps reach. Slots are released at the end
+//     of the call, after every consumer has finished with every stage.
+//   - The mma route (kept from the first port; fp32, fmaf, never TF32; and
+//     bf16 chunks TMA cannot address): 256 threads, one 128 x 128 (bf16) or
+//     64 x 64 (fp32) output tile per step of a block-stride loop, k-slabs of
+//     32 staged through registers into a double-buffered shared tile stored
+//     as the operand lies in memory (16-byte loads through L2); mma.sync
+//     m16n8k16 fragments from shared memory with 32-bit loads where the
+//     reduction dimension is contiguous and with ldmatrix.trans where it is
+//     not.
+
 // K8 (redesigned; it replaces dear_pytorch_tpu/ops/collective_matmul.py::
 // _cm_dw_kernel, :572). Its output is only kc x N (384 x 768 or 3072) but
 // each element reduces over all M = 8192 rows, so the first design's 72 or
@@ -90,7 +128,8 @@
 // ring matmuls in the same order). A K6/K7 block needs the whole chunk, so
 // it waits for the arrival flags of all the sender's blocks (one thread per
 // flag, system-scope acquire loads; the slot is then read through L2 with
-// ld.global.cg); a K8 finishing unit only for the arrival flag of its own
+// ld.global.cg, or by TMA after a proxy fence on the wgmma route); a K8
+// finishing unit only for the arrival flag of its own
 // tile. A slot is read again for every tile, so it is released only
 // when the call ends: each block raises its credit flag in its left
 // neighbour's buffer for every slot, and a writer of hop h in call e first
@@ -108,10 +147,11 @@
 // K4 / the K5 ring (kRingBlocks blocks) on its comm stream, at most one of
 // each in flight; nothing else in the process spins. The grid is G = SMs -
 // kRingBlocks blocks, each needing one SM's room at most (occupancy >= 1 is
-// checked, after K8's dynamic shared memory limit is set: its wgmma core
-// takes ~130 KB and 288 threads, one block per SM), so whichever of the
-// two launches first, the other still finds
-// enough SMs that hold none of the first's blocks: both are always fully
+// checked, after the dynamic shared memory limit is set: K8's wgmma core
+// takes ~130 KB, K6's and K7's wgmma route 209–217 KB, with 288 threads:
+// one block per SM), so whichever of the two launches first, the other
+// still finds enough SMs that hold none of the first's blocks: both are
+// always fully
 // resident together and every flag they wait for is raised by a block that
 // runs. Contexts of two processes on one card time-slice and are
 // preempted whole, so a context's spinning blocks only delay the other.
@@ -208,11 +248,18 @@ __device__ __forceinline__ char* slot(char* buf, int hop, long long bytes) {
   return buf + kHeader + (long long)(hop - 1) * bytes;
 }
 
+// Threads [0, n) of the block wait until every sender block's flag >= want
+// (one thread per flag); the caller then brings them together.
+__device__ void wait_flags(const unsigned* flags, unsigned want, int tid,
+                           int n, const char* what, int rank, int round) {
+  for (int i = tid; i < (int)gridDim.x; i += n)
+    spin_until(flags + i, want, what, rank, round);
+}
+
 // Every thread i < gridDim.x waits for flags[i] >= want; then a barrier.
 __device__ void wait_all(const unsigned* flags, unsigned want,
                          const char* what, int rank, int round) {
-  for (int i = threadIdx.x; i < (int)gridDim.x; i += blockDim.x)
-    spin_until(flags + i, want, what, rank, round);
+  wait_flags(flags, want, threadIdx.x, blockDim.x, what, rank, round);
   __syncthreads();
 }
 
@@ -236,10 +283,12 @@ __device__ void release_slots(const CmGroup& g, int world, unsigned e) {
 }
 
 // Copy bytes [lo, hi) of src to dst (a neighbour's slot), src read
-// through L2 when it is a slot.
+// through L2 when it is a slot, by threads [0, n) of the block (this one
+// is `tid`); 16-byte vectors four at a time per thread, loads before
+// stores.
 __device__ void copy_range(char* dst, const char* src, long long lo,
-                           long long hi) {
-  const long long bd = blockDim.x;
+                           long long hi, int tid, int n) {
+  constexpr int kBatch = 4;
   const bool v16 = (((uintptr_t)src | (uintptr_t)dst) & 15) == 0 &&
                    lo % 16 == 0;
   long long i = lo;
@@ -247,11 +296,18 @@ __device__ void copy_range(char* dst, const char* src, long long lo,
     const long long q_hi = lo + (hi - lo) / 16 * 16;
     const uint4* s4 = reinterpret_cast<const uint4*>(src);
     uint4* d4 = reinterpret_cast<uint4*>(dst);
-    for (long long q = lo / 16 + threadIdx.x; q < q_hi / 16; q += bd)
-      __stcg(d4 + q, __ldcg(s4 + q));
+    for (long long q = lo / 16 + tid; q < q_hi / 16; q += kBatch * n) {
+      uint4 v[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u)
+        if (q + u * n < q_hi / 16) v[u] = __ldcg(s4 + q + u * n);
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u)
+        if (q + u * n < q_hi / 16) __stcg(d4 + q + u * n, v[u]);
+    }
     i = q_hi;
   }
-  for (long long j = i + threadIdx.x; j < hi; j += bd)
+  for (long long j = i + tid; j < hi; j += n)
     dst[j] = __ldcg(reinterpret_cast<const signed char*>(src) + j);
 }
 
@@ -571,23 +627,40 @@ __device__ __forceinline__ void store2(T* p, long long clim, int col,
 // the three kernels
 // ---------------------------------------------------------------------------
 
+// Pass this block's byte range of round r's weight chunk of `bytes` bytes
+// (r = 0: the local shard; r >= 1: slot r, arrived) on as hop r + 1, by
+// threads [0, n) of the block (`sync` brings them together): once the
+// reader's blocks have released the slot of call epoch - 1, copy, then
+// raise arrival flag blockIdx.x.
+template <class Args, class Sync>
+__device__ void send_chunk(const Args& a, const CmGroup& g, int r,
+                           long long bytes, int tid, int n, Sync sync) {
+  const unsigned e = a.epoch;
+  if (e > 1)
+    wait_flags(credit_flags(g.own, r + 1), e - 1, tid, n, "cm credit",
+               g.rank, r);
+  sync();
+  long long lo, hi;
+  byte_range(bytes, lo, hi);
+  const char* src = r == 0 ? g.b : slot(g.own, r, a.slot_bytes);
+  copy_range(slot(g.right, r + 1, a.slot_bytes), src, lo, hi, tid, n);
+  sync();
+  if (tid == 0) {
+    __threadfence_system();
+    st_release_sys(arrive_flags(g.right, r + 1) + blockIdx.x, e);
+  }
+}
+
 // Make round r's weight chunk readable in this rank (r = 0: the local
 // shard; r >= 1: slot r, once every sender block has delivered), and pass
 // this block's byte range of it on as hop r + 1.
 template <typename T>
 __device__ void chunk_round(const CmArgs& a, const CmGroup& g, int r) {
-  const int W = a.world;
-  const unsigned e = a.epoch;
-  if (r >= 1) wait_all(arrive_flags(g.own, r), e, "cm arrival", g.rank, r);
-  if (r < W - 1) {
-    if (e > 1)
-      wait_all(credit_flags(g.own, r + 1), e - 1, "cm credit", g.rank, r);
-    long long lo, hi;
-    byte_range(a.kc * a.n * (long long)sizeof(T), lo, hi);
-    const char* src = r == 0 ? g.b : slot(g.own, r, a.slot_bytes);
-    copy_range(slot(g.right, r + 1, a.slot_bytes), src, lo, hi);
-    signal(arrive_flags(g.right, r + 1) + blockIdx.x, e);
-  }
+  if (r >= 1)
+    wait_all(arrive_flags(g.own, r), a.epoch, "cm arrival", g.rank, r);
+  if (r < a.world - 1)
+    send_chunk(a, g, r, a.kc * a.n * (long long)sizeof(T), threadIdx.x,
+               blockDim.x, [] { __syncthreads(); });
 }
 
 template <typename T>
@@ -662,6 +735,235 @@ __global__ void __launch_bounds__(kThreads, 1) cm_dx(const CmArgs a) {
         if (m0 + row < M)
           store2<T>(o + (m0 + row) * K + col, kc - i0, col, v0, v1, a.vec);
       });
+    }
+  }
+  release_slots(g, W, a.epoch);
+}
+
+// ---------------------------------------------------------------------------
+// K6 and K7 on the tensor cores: TMA, mbarriers and wgmma
+// ---------------------------------------------------------------------------
+
+// A rank's record on the wgmma route: tensor maps of its A operand (K6: x
+// viewed as {kc, W, M}, so that a box never reaches past its chunk's kc
+// columns; K7: dy as {N, M}), of its local shard w [kc, N] as {N, kc} and of
+// its W - 1 slots as one {N, kc, W - 1} map, slot_bytes apart (a box never
+// reaches past kc rows into a slot's stale tail), beside the common record.
+// Kept in the kernel's parameter (__grid_constant__, 8 groups fit 4 KB).
+struct TcGroup {
+  CUtensorMap a_map, w_map, s_map;
+  CmGroup c;
+};
+
+using TcArgs = ArgsOf<TcGroup>;
+static_assert(sizeof(TcArgs) <= 4096, "kernel parameters over 4 KB");
+
+// Shared memory of the wgmma route: as many stages as fit (6, 5 and 4 at
+// BN = 128, 192 and 256), each A (BM rows x 64 of the reduction, K-major: x
+// or dy) then B (K7: BN rows of w x 64 of the reduction, K-major; K6: 64
+// reduction rows x BN columns of w, MN-major, as BN / 64 boxes of 64 x 64),
+// 128-byte swizzle; then each consumer warpgroup's 64 x 64 staging tile of
+// the epilogue; then the barriers.
+template <int BN>
+struct TcPlan {
+  static constexpr int BM = 128, kSlab = 64;
+  static constexpr int kA = BM * kSlab * 2;
+  static constexpr int kBox = 64 * kSlab * 2;
+  static constexpr int kStage = kA + BN * kSlab * 2;
+  static constexpr int kOut = 2 * 64 * 64 * 2;
+  static constexpr int kStages = (227 * 1024 - kOut - 2048) / kStage < 6
+                                     ? (227 * 1024 - kOut - 2048) / kStage
+                                     : 6;
+  static constexpr int kOutOff = kStages * kStage;
+  static constexpr int kBarOff = kOutOff + kOut;
+  static constexpr int kSmem = kBarOff + 16 * kStages + 1024;
+  static_assert(BN % 64 == 0 && kStage % 1024 == 0, "1024-byte atoms");
+  static_assert(kStages >= 4 && kSmem <= 227 * 1024, "shared memory");
+};
+
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+
+// The producer warp's receive of round r >= 1: every sender block's
+// arrival flag (lanes spin on a share each), then the proxy fence that
+// lets this warp's TMA read what the senders' ordinary stores wrote into
+// slot r; then, but in the last round, chunk r is passed on.
+__device__ void recv_chunk(const TcArgs& a, const CmGroup& g, int r,
+                           int lane) {
+  wait_flags(arrive_flags(g.own, r), a.epoch, lane, 32, "cm arrival", g.rank,
+             r);
+  __syncwarp();
+  hopper::fence_proxy_async_global();
+  if (r < a.world - 1)
+    send_chunk(a, g, r, a.kc * a.n * 2, lane, 32, [] { __syncwarp(); });
+}
+
+// One consumer warpgroup's 64 x BN accumulators (hopper.cuh's m64nN layout)
+// stored as bf16 to out[r * ld + c] for rows r < rows and columns c < clim
+// (a multiple of 8), through its 64 x 64 staging tile `stage` in shared
+// memory, 64 columns at a time: each thread writes its column pairs there
+// (16-byte chunk c of row r at chunk c ^ (r mod 8): no two lanes of a
+// warp on one bank), then the warpgroup reads it back as 16-byte row
+// chunks and stores whole 128-byte rows (direct stores of the column
+// pairs would cost 8 partial-sector writes for every 128 bytes).
+template <int BN>
+__device__ __forceinline__ void store_tile(const float (&acc)[BN / 2],
+                                           uint8_t* stage, int wg, bf16* out,
+                                           long long ld, long long rows,
+                                           long long clim) {
+  const int tid = threadIdx.x - 128 * wg, lane = threadIdx.x % 32;
+  const int r = (tid / 32) * 16 + lane / 4;  // and r + 8; r mod 8 = lane / 4
+#pragma unroll
+  for (int h = 0; h < BN / 64; ++h) {
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const int jn = 8 * h + c;
+      const int off = ((c ^ (lane / 4)) * 16) + 4 * (lane % 4);
+      *reinterpret_cast<__nv_bfloat162*>(stage + r * 128 + off) =
+          __floats2bfloat162_rn(acc[4 * jn], acc[4 * jn + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(stage + (r + 8) * 128 + off) =
+          __floats2bfloat162_rn(acc[4 * jn + 2], acc[4 * jn + 3]);
+    }
+    named_sync(2 + wg, 128);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int q = tid + 128 * u, row = q / 8, c = q % 8;
+      const uint4 v = *reinterpret_cast<const uint4*>(
+          stage + row * 128 + ((c ^ (row % 8)) * 16));
+      const int col = 64 * h + 8 * c;
+      if (row < rows && col < clim)
+        *reinterpret_cast<uint4*>(out + row * ld + col) = v;
+    }
+    named_sync(2 + wg, 128);
+  }
+}
+
+// K6 (Op kFwd) and K7 (kDx) on the tensor cores. Output tiles of BM x BN
+// (K6: of y, each over every round, round 0's local shard first; K7: of
+// each round's dx column block, the rounds' tiles in one sequence), block b
+// taking tiles b, b + G, ...: one producer warp streams 64-deep slabs of the
+// reduction by TMA into a kStages ring counted on mbarriers, two consumer
+// warpgroups of 64 rows each run wgmma on them, one slab's products in
+// flight behind the next, and store the tile through shared memory. The
+// consumers first send the local shard on (hop 1) while the producer loads;
+// the producer receives (and passes on) the later rounds' chunks just
+// before its first load from each.
+template <int Op, int BN>
+__global__ void __launch_bounds__(288, 1)
+cm_tc(const __grid_constant__ TcArgs a) {
+  using namespace hopper;
+  using P = TcPlan<BN>;
+  constexpr int BM = P::BM, kStages = P::kStages;
+  extern __shared__ __align__(128) uint8_t dyn_smem[];
+  const TcGroup& tg = a.g[blockIdx.y];
+  const CmGroup& g = tg.c;
+  const int W = a.world, my = g.rank;
+  const long long M = a.m, kc = a.kc, N = a.n;
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(dyn_smem) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + P::kBarOff);
+  uint64_t* empty = full + kStages;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 8);  // the consumer warps
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  const long long tn = ((Op == kFwd ? N : kc) + BN - 1) / BN;
+  const long long per_round = (M + BM - 1) / BM * tn;
+  const long long tiles = Op == kFwd ? per_round : W * per_round;
+  // 64-deep slabs of one round's reduction (K6: kc; K7: N) and of a tile
+  const int round_slabs = (int)(((Op == kFwd ? kc : N) + 63) / 64);
+  const int nslab = Op == kFwd ? W * round_slabs : round_slabs;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp == 8) {
+    int ready = 1;  // rounds this block may read (round 0: the local shard)
+    unsigned it = 0;
+    for (long long q = blockIdx.x; q < tiles; q += gridDim.x) {
+      const long long t = q % per_round;
+      const int m0 = (int)(t / tn * BM), c0 = (int)(t % tn * BN);
+      for (int s = 0; s < nslab; ++s, ++it) {
+        const int r = Op == kFwd ? s / round_slabs : (int)(q / per_round);
+        const int k0 = (Op == kFwd ? s % round_slabs : s) * 64;
+        for (; ready <= r; ++ready) recv_chunk(a, g, ready, lane);
+        if (lane == 0) {
+          const int st = it % kStages;
+          if (it >= (unsigned)kStages)
+            mbar_wait(empty + st, ((it / kStages) - 1) & 1);
+          uint8_t* dst = smem + st * P::kStage;
+          uint64_t* bar = full + st;
+          mbar_expect_tx(bar, P::kStage);
+          if (Op == kFwd) {  // x's columns of chunk j; w's rows k0..
+            tma_load_3d(dst, &tg.a_map, bar, k0, (my - r + W) % W, m0);
+            for (int h = 0; h < BN / 64; ++h) {
+              uint8_t* b = dst + P::kA + h * P::kBox;
+              if (r == 0)
+                tma_load_2d(b, &tg.w_map, bar, c0 + 64 * h, k0);
+              else
+                tma_load_3d(b, &tg.s_map, bar, c0 + 64 * h, k0, r - 1);
+            }
+          } else {             // dy's columns k0..; w's rows c0..
+            tma_load_2d(dst, &tg.a_map, bar, k0, m0);
+            if (r == 0)
+              tma_load_2d(dst + P::kA, &tg.w_map, bar, k0, c0);
+            else
+              tma_load_3d(dst + P::kA, &tg.s_map, bar, k0, c0, r - 1);
+          }
+        }
+        __syncwarp();
+      }
+    }
+    for (; ready < W; ++ready) recv_chunk(a, g, ready, lane);
+  } else {
+    send_chunk(a, g, 0, kc * N * 2, threadIdx.x, 256,
+               [] { named_sync(1, 256); });
+    const int wg = warp / 4;
+    unsigned it = 0;
+    for (long long q = blockIdx.x; q < tiles; q += gridDim.x) {
+      const long long t = q % per_round;
+      const long long m0 = t / tn * BM, c0 = t % tn * BN;
+      float acc[BN / 2];
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+      for (int s = 0; s < nslab; ++s, ++it) {
+        const int st = it % kStages;
+        mbar_wait(full + st, (it / kStages) & 1);
+        const uint32_t as = smem_u32(smem + st * P::kStage + wg * P::kA / 2);
+        const uint32_t bs = smem_u32(smem + st * P::kStage + P::kA);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < P::kSlab / 16; ++kk) {
+          if (Op == kFwd)  // w MN-major: 16 rows on, boxes LBO apart
+            wgmma_ss<BN, 0, 1>(acc, desc_sw128(as + 32 * kk, 16, 1024),
+                               desc_sw128(bs + 2048 * kk, P::kBox, 1024), 1);
+          else               // w K-major, as dy
+            wgmma_ss<BN, 0, 0>(acc, desc_sw128(as + 32 * kk, 16, 1024),
+                               desc_sw128(bs + 32 * kk, 16, 1024), 1);
+        }
+        wgmma_commit();
+        wgmma_wait<1>();  // the previous slab's products are done
+        if (s > 0 && lane == 0) mbar_arrive(empty + (it - 1) % kStages);
+      }
+      wgmma_wait<0>();
+      reg_fence(acc);
+      if (nslab > 0 && lane == 0) mbar_arrive(empty + (it - 1) % kStages);
+      bf16* out;
+      long long ld, clim;
+      if (Op == kFwd) {
+        out = reinterpret_cast<bf16*>(g.out) + c0;
+        ld = N;
+        clim = N - c0;
+      } else {
+        const long long j = (my - q / per_round + W) % W;
+        ld = W * kc;
+        out = reinterpret_cast<bf16*>(g.out) + j * kc + c0;
+        clim = kc - c0;
+      }
+      store_tile<BN>(acc, smem + P::kOutOff + wg * (P::kOut / 2), wg,
+                     out + (m0 + 64 * wg) * ld, ld, M - m0 - 64 * wg, clim);
     }
   }
   release_slots(g, W, a.epoch);
@@ -1042,8 +1344,71 @@ const void* kernel_for(int kind) {
   return (const void*)cm_dx<T, 64, 64>;
 }
 
-// K8's cores (the wrapper picks one: ring_matmul_dw's `dw_core`)
+// The cores of K6, K7 and K8 (the wrapper picks one: `cm_core`, `dw_core`)
 enum Core { kMmaCore = 0, kWgmmaCore = 1 };
+
+template <int Op>
+const void* tc_kernel(int bn) {
+  if (bn == 128) return (const void*)cm_tc<Op, 128>;
+  if (bn == 192) return (const void*)cm_tc<Op, 192>;
+  if (bn == 256) return (const void*)cm_tc<Op, 256>;
+  return nullptr;
+}
+
+int tc_smem(int bn) {
+  return bn == 128 ? TcPlan<128>::kSmem
+                   : bn == 192 ? TcPlan<192>::kSmem : TcPlan<256>::kSmem;
+}
+
+// K6 or K7 on the wgmma route, tiles 128 x `bn`: checks that TMA can
+// address every operand (bf16, kc and n multiples of 8: 16-byte row
+// strides in x, dy, w and the slots) and builds each rank's tensor maps.
+int launch_tc(int kind, const CmArgs& a, int n_groups, int bf16_in, int bn,
+              int cooperative, cudaStream_t stream) {
+  const void* kernel = kind == kFwd ? tc_kernel<kFwd>(bn) : tc_kernel<kDx>(bn);
+  if (kernel == nullptr || !bf16_in || a.kc % 8 || a.n % 8 ||
+      a.slot_bytes % 16)
+    return (int)cudaErrorInvalidValue;
+  TcArgs t = {};  // the launch copies it
+  t.world = a.world;
+  t.vec = a.vec;
+  t.epoch = a.epoch;
+  t.m = a.m;
+  t.kc = a.kc;
+  t.n = a.n;
+  t.slot_bytes = a.slot_bytes;
+  const uint64_t W = a.world, kc = a.kc, n = a.n;
+  const uint64_t m = (uint64_t)(a.m > 0 ? a.m : 1);
+  const uint32_t rows = kind == kFwd ? 64 : (uint32_t)bn;  // w's box rows
+  for (int i = 0; i < n_groups; ++i) {
+    const CmGroup& g = a.g[i];
+    t.g[i].c = g;
+    if (!aligned16((long long)g.a) || !aligned16((long long)g.b) ||
+        !aligned16((long long)g.out))
+      return (int)cudaErrorInvalidValue;
+    cudaError_t err;
+    if (kind == kFwd) {  // x [M, W*kc] as {kc, W, M}
+      const uint64_t dims[3] = {kc, W, m}, st[2] = {kc * 2, W * kc * 2};
+      const uint32_t box[3] = {64, 1, 128};
+      err = hopper::make_map(&t.g[i].a_map, g.a, 3, dims, st, box);
+    } else {             // dy [M, N]
+      const uint64_t dims[2] = {n, m}, st[1] = {n * 2};
+      const uint32_t box[2] = {64, 128};
+      err = hopper::make_map(&t.g[i].a_map, g.a, 2, dims, st, box);
+    }
+    const uint64_t w_dims[3] = {n, kc, W - 1};
+    const uint64_t w_st[2] = {n * 2, (uint64_t)a.slot_bytes};
+    const uint32_t w_box[3] = {64, rows, 1};
+    if (err == cudaSuccess)
+      err = hopper::make_map(&t.g[i].w_map, g.b, 2, w_dims, w_st, w_box);
+    if (err == cudaSuccess)
+      err = hopper::make_map(&t.g[i].s_map, g.own + kHeader, 3, w_dims,
+                             w_st, w_box);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)launch(kernel, &t, n_groups, cooperative, stream, 288,
+                     tc_smem(bn));
+}
 
 // K8 through `core`: checks the plan (tiles within the flags, every
 // tile's contributors within the workspace) and, for the wgmma core,
@@ -1110,8 +1475,8 @@ int launch_dw(const CmArgs& a, int n_groups, int bf16_in, int core,
 int run(int kind, const long long* groups, int n_groups, int world,
         long long m, long long kc, long long n, long long slot_bytes,
         int bf16_in, unsigned epoch, int cooperative, void* stream,
-        long long ranges = 1, int contrib = 1, long long slab_rows = 1,
-        int core = kMmaCore) {
+        int core, long long ranges = 1, int contrib = 1,
+        long long slab_rows = 1, int tile_n = 0) {
   if (n_groups < 1 || n_groups > kMaxGroups || world < 2 ||
       world > kMaxGroups || m < 0 || kc < 1 || n < 1 || epoch < 1)
     return (int)cudaErrorInvalidValue;
@@ -1148,6 +1513,9 @@ int run(int kind, const long long* groups, int n_groups, int world,
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (kind == kDw) return launch_dw(a, n_groups, bf16_in, core, cooperative, s);
+  if (core == kWgmmaCore)
+    return launch_tc(kind, a, n_groups, bf16_in, tile_n, cooperative, s);
+  if (core != kMmaCore) return (int)cudaErrorInvalidValue;
   const void* kernel = bf16_in ? kernel_for<bf16>(kind)
                                : kernel_for<float>(kind);
   return (int)launch(kernel, &a, n_groups, cooperative, s);
@@ -1189,17 +1557,18 @@ extern "C" int rmm_blocks(int n_groups, int cooperative) {
 extern "C" int rmm_forward(const long long* groups, int n_groups, int world,
                            long long m, long long kc, long long n,
                            long long slot_bytes, int bf16_in, unsigned epoch,
-                           int cooperative, void* stream) {
+                           int cooperative, int core, int tile_n,
+                           void* stream) {
   return run(kFwd, groups, n_groups, world, m, kc, n, slot_bytes, bf16_in,
-             epoch, cooperative, stream);
+             epoch, cooperative, stream, core, 1, 1, 1, tile_n);
 }
 
 extern "C" int rmm_dx(const long long* groups, int n_groups, int world,
                       long long m, long long kc, long long n,
                       long long slot_bytes, int bf16_in, unsigned epoch,
-                      int cooperative, void* stream) {
+                      int cooperative, int core, int tile_n, void* stream) {
   return run(kDx, groups, n_groups, world, m, kc, n, slot_bytes, bf16_in,
-             epoch, cooperative, stream);
+             epoch, cooperative, stream, core, 1, 1, 1, tile_n);
 }
 
 extern "C" int rmm_dw(const long long* groups, int n_groups, int world,
@@ -1208,7 +1577,7 @@ extern "C" int rmm_dw(const long long* groups, int n_groups, int world,
                       int cooperative, long long ranges, int contrib,
                       long long slab_rows, int core, void* stream) {
   return run(kDw, groups, n_groups, world, m, kc, n, slot_bytes, bf16_in,
-             epoch, cooperative, stream, ranges, contrib, slab_rows, core);
+             epoch, cooperative, stream, core, ranges, contrib, slab_rows);
 }
 
 extern "C" const char* rmm_error_string(int code) {

@@ -37,16 +37,19 @@ the kernel is bitwise equal to it on the card), and *distributed* (the same
 hops over `comm.collectives.ring_shift`: what a CPU rank of the train step
 runs). K6–K8's plain versions sum fp32 products in torch's order, the
 kernels in the tensor cores', so those agree at a tolerance, not bitwise;
-the ring order of K8's cross-rank sum is the same in both. K8 also splits
-its reduction over M across blocks (`dw_core` picks the tile core, `dw_plan`
-cuts tiles x slabs of M into runs, `_launch_cm` allocates the fp32
-partials' workspace): the last unit of an output tile sums the tile's
-partials in the order of M, so two calls on the same inputs give the same
-bits. Dispatch: a CPU tensor takes the plain version; a CUDA tensor
+the ring order of K8's cross-rank sum is the same in both. K6 and K7 take
+one of two routes (`cm_core`: TMA and wgmma for bf16 chunks TMA can
+address, else the tiled mma.sync / CUDA-core product); each output element
+is summed by one block in one order, so two calls on the same inputs give
+the same bits. K8 splits its reduction over M across blocks (`dw_core`
+picks the tile core, `dw_plan` cuts tiles x slabs of M into runs,
+`_launch_cm` allocates the fp32 partials' workspace): the last unit of an
+output tile sums the tile's partials in the order of M, so it too repeats
+its bits. Dispatch: a CPU tensor takes the plain version; a CUDA tensor
 launches the kernel or raises; any other device raises. ``ring_ag_launches``,
 ``ring_rs_launches``, ``cm_fwd_launches``, ``cm_dx_launches`` and
 ``cm_dw_launches`` count kernel launches (one per call, however many ranks
-it drives).
+it drives), ``cm_route_launches`` K6's and K7's by route.
 
 The ring's reduction order differs from NCCL's (and XLA's psum_scatter), so
 ``dear-fused`` matches ``dear`` at dtype tolerance, not bitwise; the gather
@@ -80,6 +83,9 @@ ring_rs_launches = 0
 cm_fwd_launches = 0
 cm_dx_launches = 0
 cm_dw_launches = 0
+#: K6's and K7's launches by route (`cm_core`), beside the totals
+cm_route_launches = {"fwd": {"wgmma": 0, "mma": 0},
+                     "dx": {"wgmma": 0, "mma": 0}}
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _LAMB = ("LayerwiseShardOptimizer (LAMB) needs cross-shard psums and cannot "
@@ -509,11 +515,26 @@ def ring_matmul_dw(x: torch.Tensor, dy: torch.Tensor, ring) -> torch.Tensor:
     return dw
 
 
-#: K8's tile cores: (csrc/ring_matmul.cu's enum Core, output tile rows,
-#: output tile columns)
+#: K8's tile cores: (csrc/ring_matmul.cu's enum Core, which also numbers
+#: K6's and K7's routes; output tile rows, output tile columns)
 DW_CORES = {"mma": (0, 64, 64), "wgmma": (1, 128, 128)}
 #: K8's reduction slab: a segment of M is a multiple of it
 DW_SLAB = 64
+#: the columns of the wgmma route's 128-row output tiles (128, 192 or 256)
+CM_TILE_N = {"fwd": 256, "dx": 192}
+
+
+def cm_core(dtype: torch.dtype, world: int, kc: int, n: int) -> str:
+    """K6's and K7's route for a call (`dw_core`'s arguments; the world
+    does not decide it): ``"wgmma"`` (TMA and wgmma, 128-row tiles) for
+    bf16 operands whose chunks TMA can address (``kc`` and ``n`` multiples
+    of 8 elements: 16-byte strides between x's chunks and the rows of dy,
+    of the weight chunk and of every slot; K8's ``world * kc`` would not
+    do); else ``"mma"`` (the tiled product: CUDA cores for fp32, mma.sync
+    for ragged bf16)."""
+    if dtype == torch.bfloat16 and kc % 8 == 0 and n % 8 == 0:
+        return "wgmma"
+    return "mma"
 
 
 def dw_core(dtype: torch.dtype, world: int, kc: int, n: int) -> str:
@@ -575,8 +596,9 @@ def dw_launch_plan(ring, m: int, kc: int, n: int, dtype) -> tuple:
 
 def _launch_cm(kind, a, b, out, ring, m, kc, n) -> None:
     """One launch of K6 (``fwd``), K7 (``dx``) or K8 (``dw``) over the
-    ranks ``ring`` drives; K8 with its plan (`dw_core`, `dw_plan`) and a
-    fresh workspace of fp32 partials."""
+    ranks ``ring`` drives: K6 and K7 on their route (`cm_core`; the wgmma
+    route's tiles `CM_TILE_N` wide), K8 with its plan (`dw_core`,
+    `dw_plan`) and a fresh workspace of fp32 partials."""
     from dear_pytorch_tpu_torch.comm.ring import matmul_lib
 
     global cm_fwd_launches, cm_dx_launches, cm_dw_launches
@@ -592,7 +614,6 @@ def _launch_cm(kind, a, b, out, ring, m, kc, n) -> None:
     lead = ring.world if ring.stacked else 1
     As, Bs, Os = (t.reshape((lead,) + t.shape[-2:]) for t in (a, b, out))
     lib = matmul_lib()
-    plan = ()
     ws = [0] * lead
     if kind == "dw":
         core, ranges, contrib, slab_rows = dw_launch_plan(ring, m, kc, n,
@@ -603,6 +624,9 @@ def _launch_cm(kind, a, b, out, ring, m, kc, n) -> None:
                            dtype=torch.float32, device=a.device)
         ws = [w.data_ptr() for w in work]
         plan = (ranges, contrib, slab_rows, DW_CORES[core][0])
+    else:
+        core = cm_core(a.dtype, ring.world, kc, n)
+        plan = (DW_CORES[core][0], CM_TILE_N[kind])
     rec = []
     for (rank, (own, right, left)), ai, bi, oi, wi in zip(
             ring.links("cm"), As, Bs, Os, ws):
@@ -624,6 +648,8 @@ def _launch_cm(kind, a, b, out, ring, m, kc, n) -> None:
         cm_dx_launches += 1
     else:
         cm_dw_launches += 1
+    if kind in cm_route_launches:
+        cm_route_launches[kind][core] += 1
 
 
 class _AllgatherMatmul(torch.autograd.Function):

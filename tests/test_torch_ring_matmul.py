@@ -235,6 +235,22 @@ def test_dw_core(dtype, world, kc, n, core):
     assert TCM.dw_core(dtype, world, kc, n) == core
 
 
+@pytest.mark.parametrize("dtype, world, kc, n, route", [
+    (torch.bfloat16, 2, 384, 768, "wgmma"),    # the main path: q, k, v
+    (torch.bfloat16, 2, 384, 3072, "wgmma"),   # ... and mlp_in
+    (torch.bfloat16, 8, 96, 3072, "wgmma"),    # W = 8: a box crosses kc
+    (torch.bfloat16, 2, 4, 8, "mma"),          # W*kc = 8, kc = 4: K8's test
+    (torch.bfloat16, 3, 8, 12, "mma"),         # kc ok, N ragged
+    (torch.bfloat16, 2, 5, 19, "mma"),         # ragged bf16
+    (torch.float32, 2, 384, 768, "mma"),       # fp32: CUDA cores
+])
+def test_cm_core(dtype, world, kc, n, route):
+    """K6's and K7's route: wgmma where TMA can address every chunk (bf16,
+    kc and N multiples of 8), where K8's `dw_core` looks at W*kc instead."""
+    assert TCM.cm_core(dtype, world, kc, n) == route
+    assert set(TCM.CM_TILE_N.values()) <= {128, 192, 256}
+
+
 @pytest.mark.parametrize("m, kc, n, blocks, core, want", [
     (8192, 384, 768, 66, "wgmma", (54, 3, 64)),    # main path, LocalRing:
     (8192, 384, 3072, 66, "wgmma", (66, 2, 64)),   # 3 segments; stream-K
@@ -277,3 +293,26 @@ def test_cpu_ring_matmul_dw_launches_nothing():
     got = TCM.ring_matmul_dw(x, dy, ring)
     torch.testing.assert_close(got, TCM.ring_matmul_dw_stacked(x, dy))
     assert TCM.cm_dw_launches == before == 0
+
+
+@pytest.mark.parametrize("kind", ["fwd", "dx"])
+def test_cpu_ring_matmul_launches_nothing(kind):
+    """On CPU tensors K6 and K7 take their stacked plain versions (bf16
+    shapes the wgmma route would take on the card): no launch, and no
+    route counter moves."""
+    before = (TCM.cm_fwd_launches, TCM.cm_dx_launches,
+              {k: dict(v) for k, v in TCM.cm_route_launches.items()})
+    ring = LocalRing(2, "cpu", 1, cm_elems=16 * 24)
+    assert TCM.cm_core(torch.bfloat16, 2, 16, 24) == "wgmma"
+    w = torch.randn(2, 16, 24).bfloat16()
+    if kind == "fwd":
+        x = torch.randn(2, 10, 32).bfloat16()
+        got, want = TCM.ring_matmul(x, w, ring), TCM.ring_matmul_stacked(x, w)
+    else:
+        dy = torch.randn(2, 10, 24).bfloat16()
+        got = TCM.ring_matmul_dx(dy, w, ring)
+        want = TCM.ring_matmul_dx_stacked(dy, w)
+    assert torch.equal(got, want)
+    assert (TCM.cm_fwd_launches, TCM.cm_dx_launches,
+            TCM.cm_route_launches) == before
+    assert before[:2] == (0, 0)
