@@ -41,10 +41,13 @@ non-zero and no result line is printed):
        without a clip scale;
      - K4 (ring all-gather) and the K5 ring (reduce-scatter + update) on a
        one-process `LocalRing`, bitwise against their stacked plain
-       versions: W = 2, 4, 8, a ragged shard and a 25 MB bucket's shard,
-       fp32 and bf16, SGD momentum (two steps), nesterov + weight decay,
-       AdamW with an lr schedule; and every shard size of the training
-       run's plan at W = 2;
+       versions, every call's route checked: W = 2, 4, 8, a ragged shard
+       (the scalar width), two short shards with empty trailing blocks
+       and a 25 MB bucket's shard (the vector width: bulk copies), fp32
+       and bf16, K4 on its slot route and twice on its direct route into
+       registered outputs, SGD, SGD momentum (two steps), nesterov +
+       weight decay, AdamW with an lr schedule; and every shard size of
+       the training run's plan at W = 2;
      - K6, K7 and K8 (the ring collective matmul: forward, dx, dw) on a
        `LocalRing` against their stacked plain versions, within
        `_CM_RTOL` of the largest plain value (8e-3 for bf16 outputs, 1e-5
@@ -89,7 +92,8 @@ non-zero and no result line is printed):
      variables, a ``file://`` store, card ``r % device_count``), 8
      sequences per rank, 20 steps, with ``--mode dear-fused`` (every
      step on each rank: K1, K2 and K3 12 times each (tensor cores), K4
-     and the K5 ring once per bucket, no separate update), again with
+     once per bucket on its direct route and the K5 ring once per bucket
+     on its vector width, no separate update), again with
      ``--mode dear-fused
      --ring-projections`` (each rank first holds K6–K8 against their plain
      versions on its own IPC ring at the main path's shapes; then every
@@ -114,8 +118,8 @@ non-zero and no result line is printed):
      PyTorch's own call where one computes the same function (SDPA, its
      backward and ``torch.optim.SGD(fused=True)``: yardsticks the port
      never calls; none for the K5 ring on one card) at the main
-     path's shapes, beside the card's bound — K4 and the K5 ring per
-     bucket and K6–K8 per call on a two-rank `LocalRing` (K6–K8 beside
+     path's shapes, beside the card's bound — K4 (both routes) and the K5
+     ring per bucket and K6–K8 per call on a two-rank `LocalRing` (K6–K8 beside
      one cuBLAS call computing the same function for both ranks), K9 at
      both granularities beside ``torch.add(one, x, alpha=2.0)``; step
      time p50/p99, tokens/s and MFU, and the two-rank steps' p50/p99 and
@@ -123,8 +127,9 @@ non-zero and no result line is printed):
 
 ``python3 chip_smoke.py --kernels-only`` runs phases 1–3 and stops without
 a result line. In a full run the line before the last lists the kernels
-as JSON (K1, K2 and K3 once per route, each with its main path's
-launches; K6 and K7 with their launches by route); the last line is ``{"ok":
+as JSON (K1, K2, K3 and K4 once per route, each with its main path's
+launches; K6 and K7 with their launches by route, the K5 ring by width);
+the last line is ``{"ok":
 true, "device": {...}}``.
 """
 
@@ -623,14 +628,46 @@ def _ring_ulps(pairs) -> tuple:
             max(float((a.float() - b.float()).abs().max()) for a, b in pairs))
 
 
-def _ring_ag_pair(name, ring, n, dt, gen) -> float:
-    """K4 on ``ring`` against `ring_all_gather_stacked`: bitwise, or
-    raise. Returns the largest absolute difference (0.0)."""
+def _ring_width(nbytes: int) -> str:
+    """The width K4 and the K5 ring take for chunks of ``nbytes`` when the
+    tensors are rows of fresh allocations (`CM.ag_route`, `CM.rs_route`)."""
+    return "vector" if nbytes % 16 == 0 else "scalar"
+
+
+def _ag_routed(name, want, fn):
+    """Run ``fn`` (one K4 call) and check that it launched once, on the
+    route ``want`` ((transport, width))."""
+    before = json.dumps(CM.ring_ag_route_launches)
+    got = fn()
+    now = CM.ring_ag_route_launches
+    was = json.loads(before)
+    moved = [(t, w) for t in now for w in now[t] if now[t][w] != was[t][w]]
+    _check(moved == [want] and now[want[0]][want[1]] == was[want[0]][
+        want[1]] + 1, f"ring all-gather {name}: launched on {moved}, "
+           f"expected {want}")
+    return got
+
+
+def _ring_ag_pair(name, ring, n, dt, gen, out=None) -> float:
+    """K4 on ``ring`` against `ring_all_gather_stacked`, bitwise, or raise:
+    on the slot route into a fresh output and, with ``out`` (an output
+    ``ring`` registered), on the direct route twice (two epochs of its
+    ready flags), ``out`` filled with NaN bits before each call so that
+    every element must be written. Every call's route is checked. Returns
+    the largest absolute difference (0.0)."""
     shards = torch.randn(ring.world, n, generator=gen, device=_DEV).to(dt)
-    got = CM.ring_all_gather(shards, ring)
     ref = CM.ring_all_gather_stacked(shards)
+    width = _ring_width(n * shards.element_size())
+    pairs = [(_ag_routed(f"{name} slot", ("slot", width),
+                         lambda: CM.ring_all_gather(shards, ring)), ref)]
+    for call in range(2 if out is not None else 0):
+        out.view(torch.uint8).fill_(0xFF)
+        pairs.append((_ag_routed(
+            f"{name} direct call {call}", ("direct", width),
+            lambda: CM.ring_all_gather(shards, ring, out=out, direct=True)
+            .clone()), ref))
     torch.cuda.synchronize()
-    ulps, diff = _ring_ulps([(got, ref)])
+    ulps, diff = _ring_ulps(pairs)
     _check(ulps == 0, f"ring all-gather {name}: {ulps} ulp from its plain "
            "version")
     return diff
@@ -639,18 +676,24 @@ def _ring_ag_pair(name, ring, n, dt, gen) -> float:
 def _ring_rs_pair(name, ring, n, gdt, opt, gen, steps=2) -> float:
     """K5 ring on ``ring`` against `fused_reduce_scatter_update_stacked`
     from one start, ``steps`` calls (the momentum's first and second):
-    every parameter and state tensor bitwise equal after each, or raise.
-    Returns the largest absolute difference (0.0)."""
+    every parameter and state tensor bitwise equal after each, every call
+    on the width `_ring_width` names, or raise. Returns the largest
+    absolute difference (0.0)."""
     world = ring.world
     p0 = torch.randn(world, n, generator=gen, device=_DEV)
     pk, pr = p0.clone(), p0.clone()
     sk = [opt.init(pk[i]) for i in range(world)]
     sr = [opt.init(pr[i]) for i in range(world)]
+    width = _ring_width(n * torch.empty((), dtype=gdt).element_size())
     worst = 0.0
     for step in range(steps):
         g = torch.randn(world, world * n, generator=gen, device=_DEV).to(gdt)
+        before = CM.ring_rs_route_launches[width]
         CM.fused_reduce_scatter_update(g, pk, sk, opt, ring,
                                        mean_world=world, step=step + 3)
+        _check(CM.ring_rs_route_launches[width] == before + 1,
+               f"ring reduce-scatter {name}: not launched on the {width} "
+               f"width: {CM.ring_rs_route_launches}")
         CM.fused_reduce_scatter_update_stacked(g, pr, sr, opt,
                                                mean_world=world,
                                                step=step + 3)
@@ -665,6 +708,7 @@ def _ring_rs_pair(name, ring, n, gdt, opt, gen, steps=2) -> float:
 
 
 _RING_OPTS = (
+    ("sgd", FS.fused_sgd(lr=0.01)),
     ("sgd momentum", FS.fused_sgd(lr=0.01, momentum=0.9)),
     ("nesterov wd", FS.fused_sgd(lr=0.01, momentum=0.9, nesterov=True,
                                  weight_decay=1e-4)),
@@ -684,22 +728,28 @@ def _plan_shard_sizes(world: int) -> list:
 
 def check_ring_kernels() -> tuple:
     """K4 and K5 ring on a `LocalRing` against their stacked plain versions,
-    bitwise: at W = 2, 4 and 8 on a ragged shard and a 25 MB bucket's
-    shard, fp32 and bf16, SGD momentum (first and second step), nesterov
-    with weight decay and AdamW with an lr schedule (the step scalar); and
-    at W = 2 at every shard size of the training run's plan (fp32 and bf16
-    gathers; bf16 gradients with the run's optimizer). Returns the largest
-    absolute difference of each (0.0)."""
+    bitwise, every call's route checked: at W = 2, 4 and 8 on a ragged
+    shard (the scalar width), two short shards whose trailing blocks get
+    no elements (n = 1028: the vector width in fp32, the scalar width's
+    4-element units in bf16; n = 1032: the vector width in both) and a
+    25 MB bucket's shard (the vector width), fp32 and bf16, K4 on the slot
+    route and on the direct route into registered outputs, the K5 ring
+    with plain SGD, SGD momentum (first and second step), nesterov with
+    weight decay and AdamW with an lr schedule (the step scalar); and at
+    W = 2 at every shard size of the training run's plan (both K4 routes
+    in fp32 and bf16; bf16 gradients with the run's optimizer). Returns
+    the largest absolute difference of each (0.0)."""
     gen = torch.Generator(device=_DEV).manual_seed(8)
     ag = rs = 0.0
     n_ag = n_rs = 0
     for world in (2, 4, 8):
-        sizes = (100_003, 25 * 2**20 // 4 // world)
+        sizes = (100_003, 1028, 1032, 25 * 2**20 // 4 // world)
         ring = LocalRing(world, _DEV, max(sizes))
         for n in sizes:
             for dt in (torch.float32, torch.bfloat16):
                 tag = f"W={world} n={n} {dt}"
-                ag = max(ag, _ring_ag_pair(tag, ring, n, dt, gen))
+                out = ring.register_outputs([world * n], dt)[0]
+                ag = max(ag, _ring_ag_pair(tag, ring, n, dt, gen, out))
                 n_ag += 1
                 for oname, opt in _RING_OPTS:
                     rs = max(rs, _ring_rs_pair(f"{tag} {oname}", ring, n, dt,
@@ -711,18 +761,25 @@ def check_ring_kernels() -> tuple:
     main_opt = FS.fused_sgd(lr=0.01, momentum=0.9)
     for n in plan:
         for dt in (torch.float32, torch.bfloat16):
+            out = ring.register_outputs([2 * n], dt)[0]
             ag = max(ag, _ring_ag_pair(f"plan W=2 n={n} {dt}", ring, n, dt,
-                                       gen))
+                                       gen, out))
             n_ag += 1
         rs = max(rs, _ring_rs_pair(f"plan W=2 n={n} bf16", ring, n,
                                    torch.bfloat16, main_opt, gen))
         n_rs += 1
     ring.close()
-    print(f"ring kernel check: K4 {n_ag} cases, K5 ring {n_rs} cases (two "
-          "steps each) at W = 2, 4, 8 (n = 100003 and a 25 MB bucket's "
-          f"shard; fp32 and bf16; SGD momentum, nesterov + wd, AdamW with "
-          f"a cosine lr) and the plan's {len(plan)} shard sizes at W = 2 "
-          f"({plan[0]} to {plan[-1]}): 0 ulp from the plain versions")
+    print(f"ring kernel check: K4 {n_ag} cases (the slot route once, the "
+          f"direct route twice each), K5 ring {n_rs} cases (two steps each) "
+          "at W = 2, 4, 8 (n = 100003: scalar width; 1028 and 1032, with "
+          "empty trailing blocks: vector, and the scalar width's 4-element "
+          "units for bf16 at 1028; a 25 MB bucket's shard: vector; fp32 "
+          "and bf16; SGD, SGD momentum, nesterov + wd, AdamW with a cosine "
+          "lr) "
+          f"and the plan's {len(plan)} shard sizes at W = 2 ({plan[0]} to "
+          f"{plan[-1]}): 0 ulp from the plain versions; launches by route "
+          f"so far: K4 {CM.ring_ag_route_launches}, K5 ring "
+          f"{CM.ring_rs_route_launches}")
     return ag, rs
 
 
@@ -1202,6 +1259,8 @@ def _two_rank_counts(ts) -> dict:
                 "tensor_core"],
             "fused_update": FS.fused_update_launches,
             "ring_ag": CM.ring_ag_launches, "ring_rs": CM.ring_rs_launches,
+            "ring_ag_direct": CM.ring_ag_route_launches["direct"]["vector"],
+            "ring_rs_vector": CM.ring_rs_route_launches["vector"],
             "cm_fwd": CM.cm_fwd_launches, "cm_dx": CM.cm_dx_launches,
             "cm_dw": CM.cm_dw_launches,
             "cm_fwd_wgmma": CM.cm_route_launches["fwd"]["wgmma"],
@@ -1239,8 +1298,10 @@ def check_ring_two_ranks(rank: int) -> tuple:
     """K4 and K5 ring on the main path's own transport — the two
     processes' IPC `Ring`, two contexts time-slicing the card, sys-scope
     flags — against the stacked plain versions, bitwise, at every shard
-    size of the training run's plan: one K4 call in fp32 and one in bf16,
-    and two K5 ring calls (bf16 gradients, the run's SGD momentum: its
+    size of the training run's plan: K4 in fp32 and in bf16 on the slot
+    route and on the direct route (into outputs the ring registered, NaN
+    bits before the call; each call's route checked), and two K5 ring
+    calls (bf16 gradients, the run's SGD momentum: its
     first and second step). Both ranks draw the stacked ``[2, ...]``
     inputs of both ranks from one seed on the card, so each holds its
     peer's input as the gathered one; each feeds its own row to the
@@ -1251,16 +1312,30 @@ def check_ring_two_ranks(rank: int) -> tuple:
     dev = backend.device()
     sizes = _plan_shard_sizes(world)
     ring = Ring(group, dev, max(sizes))
+    outs = {dt: ring.register_outputs([world * n for n in sizes], dt)
+            for dt in (torch.float32, torch.bfloat16)}
     gen = torch.Generator(device=dev).manual_seed(11)
     opt = FS.fused_sgd(lr=0.01, momentum=0.9)
     ag = rs = 0.0
-    for n in sizes:
+    for i, n in enumerate(sizes):
         for dt in (torch.float32, torch.bfloat16):
             shards = torch.randn(world, n, generator=gen, device=dev).to(dt)
-            got = CM.ring_all_gather(shards[rank].contiguous(), ring)
             ref = CM.ring_all_gather_stacked(shards)[rank]
+            mine = shards[rank].contiguous()
+            width = _ring_width(n * mine.element_size())
+            out = outs[dt][i]
+            out.view(torch.uint8).fill_(0xFF)
+            pairs = [(_ag_routed(f"rank {rank} IPC n={n} {dt} slot",
+                                 ("slot", width),
+                                 lambda: CM.ring_all_gather(mine, ring)),
+                      ref),
+                     (_ag_routed(f"rank {rank} IPC n={n} {dt} direct",
+                                 ("direct", width),
+                                 lambda: CM.ring_all_gather(
+                                     mine, ring, out=out, direct=True)),
+                      ref)]
             torch.cuda.synchronize(dev)
-            ulps, diff = _ring_ulps([(got, ref)])
+            ulps, diff = _ring_ulps(pairs)
             _check(ulps == 0, f"rank {rank} IPC ring all-gather n={n} {dt}: "
                    f"{ulps} ulp from its plain version")
             ag = max(ag, diff)
@@ -1284,15 +1359,17 @@ def check_ring_two_ranks(rank: int) -> tuple:
                    f"step {step}: {ulps} ulp from its plain version")
             rs = max(rs, diff)
     ring.close()
-    print(f"rank {rank}: IPC ring check: K4 fp32 and bf16, K5 ring bf16 "
-          f"(two steps) at the plan's {len(sizes)} shard sizes ({sizes[0]} "
-          f"to {sizes[-1]}): 0 ulp from the plain versions")
+    print(f"rank {rank}: IPC ring check: K4 fp32 and bf16 on the slot and "
+          f"the direct route (registered outputs), K5 ring bf16 (two steps) "
+          f"at the plan's {len(sizes)} shard sizes ({sizes[0]} to "
+          f"{sizes[-1]}): 0 ulp from the plain versions")
     return ag, rs
 
 
 def rank_worker(rank: int, out: Path, mode: str) -> None:
     """One of the two ranks (a process of its own, on card ``rank %
-    device_count``): in dear-fused, first `check_ring_two_ranks`, with ring
+    device_count``): in dear-fused, first `check_ring_two_ranks` (both K4
+    routes on the IPC ring), with ring
     projections `check_ring_matmul_two_ranks` (their launches are not the
     main path's); then 20 steps of the training CLI in ``mode`` (a key of
     `_TWO_RANK_MODES`) over a gloo group that meets at a FileStore in
@@ -1312,7 +1389,7 @@ def rank_worker(rank: int, out: Path, mode: str) -> None:
     layers = GPT2_SMALL.num_hidden_layers
     FA.reset_launch_counts()                                   # the main
     FS.fused_update_launches = 0                               # path starts
-    CM.ring_ag_launches = CM.ring_rs_launches = 0
+    _zero_ring_counts()
     CM.cm_fwd_launches = CM.cm_dx_launches = CM.cm_dw_launches = 0
     for by_route in CM.cm_route_launches.values():
         by_route.update(wgmma=0, mma=0)
@@ -1324,14 +1401,17 @@ def rank_worker(rank: int, out: Path, mode: str) -> None:
         del state, metrics
         now = _two_rank_counts(ts)
         nb = ts.plan.num_buckets
-        before = prev or {k: 0 for k in now} | {
-            "ag": nb, "ring_ag": nb if fused else 0}   # init's gathers
+        before = prev or {k: 0 for k in now} | {       # init's gathers
+            "ag": nb, "ring_ag": nb if fused else 0,
+            "ring_ag_direct": nb if fused else 0}
         want = {"flash_fwd": layers, "flash_fwd_tc": layers,
                 "flash_bwd_dq": layers, "flash_bwd_dkv": layers,
                 "flash_bwd_dq_tc": layers, "flash_bwd_dkv_tc": layers,
                 "rs": nb, "ag": nb, "update": nb,
                 "fused_update": 0 if fused else nb,
                 "ring_ag": nb if fused else 0, "ring_rs": nb if fused else 0,
+                "ring_ag_direct": nb if fused else 0,
+                "ring_rs_vector": nb if fused else 0,
                 "cm_fwd": n_cm, "cm_dx": n_cm, "cm_dw": n_cm,
                 "cm_fwd_wgmma": n_cm, "cm_dx_wgmma": n_cm}
         got = {k: now[k] - before[k] for k in now}
@@ -1483,13 +1563,23 @@ _PROBE_RING_LAUNCHES = len(probe.SHARDS) * (1 + probe.RING_ITERS)
 _PROBE_LOCAL_RING_LAUNCHES = len(probe.SHARDS) * (1 + 2 * probe.RING_ITERS)
 
 
+def _zero_ring_counts() -> None:
+    """K4's and the K5 ring's launch counts, totals and by route, to 0."""
+    CM.ring_ag_launches = CM.ring_rs_launches = 0
+    for by_width in CM.ring_ag_route_launches.values():
+        by_width.update(vector=0, scalar=0)
+    CM.ring_rs_route_launches.update(vector=0, scalar=0)
+
+
 def _probe_counts() -> dict:
     return {"overhead_probe": OP.affine_probe_launches,
-            "ring_ag": CM.ring_ag_launches, "ring_rs": CM.ring_rs_launches}
+            "ring_ag": CM.ring_ag_launches, "ring_rs": CM.ring_rs_launches,
+            "ring_ag_slot": sum(CM.ring_ag_route_launches["slot"].values())}
 
 
 def _zero_probe_counts() -> None:
-    OP.affine_probe_launches = CM.ring_ag_launches = CM.ring_rs_launches = 0
+    OP.affine_probe_launches = 0
+    _zero_ring_counts()
 
 
 def run_probe() -> tuple:
@@ -1497,14 +1587,16 @@ def run_probe() -> tuple:
     card (`scripts.overhead_probe.main`, both sections, the kernel section
     on a two-rank `LocalRing`): every count set to 0 just before, read just
     after, and checked (K9 `_PROBE_K9_LAUNCHES` times, K4 and the K5 ring
-    `_PROBE_LOCAL_RING_LAUNCHES` each). Returns (its rows, the
+    `_PROBE_LOCAL_RING_LAUNCHES` each, K4 all on its slot route: the
+    probe's outputs are not registered). Returns (its rows, the
     launches)."""
     _zero_probe_counts()
     res = probe.main(["--section", "all", "--world", "2"])
     launches = _probe_counts()
     want = {"overhead_probe": _PROBE_K9_LAUNCHES,
             "ring_ag": _PROBE_LOCAL_RING_LAUNCHES,
-            "ring_rs": _PROBE_LOCAL_RING_LAUNCHES}
+            "ring_rs": _PROBE_LOCAL_RING_LAUNCHES,
+            "ring_ag_slot": _PROBE_LOCAL_RING_LAUNCHES}
     _check(launches == want, f"overhead probe: launches {launches}, "
            f"expected {want}")
     _check(len(res["elementwise"]) == len(probe.GRANULARITIES)
@@ -1540,7 +1632,8 @@ def probe_two_ranks(local_rows: list) -> tuple:
         "probe", lambda r, out: ["--probe-rank", str(r), "--out", str(out)],
         300.0)
     want = {"overhead_probe": 0, "ring_ag": _PROBE_RING_LAUNCHES,
-            "ring_rs": _PROBE_RING_LAUNCHES}
+            "ring_rs": _PROBE_RING_LAUNCHES,
+            "ring_ag_slot": _PROBE_RING_LAUNCHES}
     local = {(r["kernel"], r["shard"]): r for r in local_rows}
     for r, rank in enumerate(ranks):
         _check(rank["launches"] == want, f"probe rank {r}: launches "
@@ -1939,29 +2032,42 @@ def time_ring(bucket_shards, hbm):
     """K4 and K5 ring on a `LocalRing` of two ranks (one launch drives
     both, as the two processes' launches share the card) at each shard
     size of the main path's plan: the gather in fp32 (dear-fused gathers
-    the master shards in fp32, as the JAX CLI), the reduce-scatter of a
-    bf16 gradient with SGD momentum 0.9 past its first step; beside their
-    stacked plain versions and the bytes bound. Bytes per rank: K4 reads
-    its shard and writes the W chunks of the output, (1 + W)·n·4; K5 ring
-    reads its W·n bf16 gradient and reads and writes the parameter and the
-    momentum, W·n·2 + 16·n; both ranks' bytes over the card's memory rate
-    (they share it). NCCL refuses two ranks on one device, so K4's library
-    time is the one-card replicate of the stacked shards (one copy into
-    the same output, checked equal to K4's); K5 ring has no one library
-    call on one card. Returns the rows of each kernel by shard size."""
+    the master shards in fp32, as the JAX CLI) on its direct route into
+    registered outputs (the main path) and on its slot route, the
+    reduce-scatter of a bf16 gradient with SGD momentum 0.9 past its first
+    step; beside their stacked plain versions and the bytes bound. Bytes
+    per rank: K4 reads its shard and writes the W chunks of the output,
+    (1 + W)·n·4; K5 ring reads its W·n bf16 gradient and reads and writes
+    the parameter and the momentum, W·n·2 + 16·n (its hop, which one card
+    may serve from L2, left out); both ranks' bytes over the card's memory
+    rate (they share it). NCCL refuses two ranks on one device, so K4's
+    library time is the one-card replicate of the stacked shards (one copy
+    into the same output, checked equal to K4's); K5 ring has no one
+    library call on one card. Then the scalar width, which no shard of the
+    plan takes, at the plan's most common shard size n0 plus 2 (K4 and the
+    K5 ring one element per access) and plus 4 (the K5 ring's bf16 in
+    4-element units), printed beside the vector width's rows. Returns the
+    rows of each kernel by shard size: "ring_all_gather" (direct),
+    "ring_all_gather_slot", "ring_rs_update"."""
     world = 2
     sizes = sorted(set(bucket_shards))
+    n0 = max(sizes, key=bucket_shards.count)
     gen = torch.Generator(device=_DEV).manual_seed(9)
-    ring = LocalRing(world, _DEV, max(sizes))
+    ring = LocalRing(world, _DEV, max(sizes + [n0 + 4]))
     opt = FS.fused_sgd(lr=0.01, momentum=0.9)
     note = ("none on one card: NCCL refuses two ranks on one device"
             if torch.cuda.device_count() < 2 else "not measured")
-    rows = {"ring_all_gather": {}, "ring_rs_update": {}}
-    for n in sizes:
-        ag_sets, rs_sets = [], []
+    rows = {"ring_all_gather": {}, "ring_all_gather_slot": {},
+            "ring_rs_update": {}}
+
+    def make_sets(n, direct=False):
+        ag_sets, direct_sets, rs_sets = [], [], []
         for _ in range(2):
             x = torch.randn(world, n, generator=gen, device=_DEV)
             ag_sets.append((x, torch.empty(world, world * n, device=_DEV)))
+            if direct:
+                direct_sets.append((x, ring.register_outputs(
+                    [world * n], torch.float32)[0]))
             p = torch.randn(world, n, generator=gen, device=_DEV)
             st = [opt.init(p[i]) for i in range(world)]
             for one in st:
@@ -1970,41 +2076,53 @@ def time_ring(bucket_shards, hbm):
             g = torch.randn(world, world * n, generator=gen,
                             device=_DEV).bfloat16()
             rs_sets.append((g, p, st))
+        return ag_sets, direct_sets, rs_sets
 
-        def ag(x, o):
-            CM.ring_all_gather(x, ring, out=o)
+    def ag(x, o):
+        CM.ring_all_gather(x, ring, out=o, direct=True)
 
-        def ag_plain(x, o):
-            CM.ring_all_gather_stacked(x)
+    def ag_slot(x, o):
+        CM.ring_all_gather(x, ring, out=o)
 
-        def ag_library(x, o):
-            o.copy_(x.reshape(1, -1).expand(world, -1))
+    def ag_plain(x, o):
+        CM.ring_all_gather_stacked(x)
 
-        x, o = ag_sets[0]
+    def ag_library(x, o):
+        o.copy_(x.reshape(1, -1).expand(world, -1))
+
+    def rs(g, p, st):
+        CM.fused_reduce_scatter_update(g, p, st, opt, ring,
+                                       mean_world=world)
+
+    def rs_plain(g, p, st):
+        CM.fused_reduce_scatter_update_stacked(g, p, st, opt,
+                                               mean_world=world)
+
+    for n in sizes:
+        ag_sets, direct_sets, rs_sets = make_sets(n, direct=True)
+        x, o = direct_sets[0]
+        before = CM.ring_ag_route_launches["direct"]["vector"]
         ag(x, o)
+        _check(CM.ring_ag_route_launches["direct"]["vector"] == before + 1,
+               f"K4 at n={n}: not on the direct route's vector width")
         want = o.clone()
+        _check(torch.equal(want, CM.ring_all_gather_stacked(x)),
+               f"K4's direct route at n={n} is not the all-gather")
         ag_library(x, o)
         _check(torch.equal(o, want), f"the one-card replicate at n={n} is "
                "not K4's all-gather")
-
-        def rs(g, p, st):
-            CM.fused_reduce_scatter_update(g, p, st, opt, ring,
-                                           mean_world=world)
-
-        def rs_plain(g, p, st):
-            CM.fused_reduce_scatter_update_stacked(g, p, st, opt,
-                                                   mean_world=world)
-
-        for name, fn, plain, library, sets, nbytes in (
-                ("ring_all_gather", ag, ag_plain, ag_library, ag_sets,
-                 world * (1 + world) * n * 4),
+        ag_bytes = world * (1 + world) * n * 4
+        for name, fn, plain, library, sets, nbytes, dtype in (
+                ("ring_all_gather", ag, ag_plain, ag_library, direct_sets,
+                 ag_bytes, "fp32, direct route"),
+                ("ring_all_gather_slot", ag_slot, ag_plain, ag_library,
+                 ag_sets, ag_bytes, "fp32, slot route"),
                 ("ring_rs_update", rs, rs_plain, None, rs_sets,
-                 world * (world * n * 2 + 16 * n))):
+                 world * (world * n * 2 + 16 * n),
+                 "bf16 grad, fp32 state")):
             ms = device_ms(fn, sets, 20)
             plain_ms = device_ms(plain, sets, 5)
-            row = {"shape": f"W=2 LocalRing shard n={n}",
-                   "dtype": ("fp32" if name == "ring_all_gather"
-                             else "bf16 grad, fp32 state"),
+            row = {"shape": f"W=2 LocalRing shard n={n}", "dtype": dtype,
                    "ms": ms, "plain_ms": plain_ms, "library_ms": None,
                    "library_note": note, "bound_ms": nbytes / hbm * 1e3,
                    "bound_by": "bytes", "bytes": nbytes,
@@ -2017,6 +2135,27 @@ def time_ring(bucket_shards, hbm):
                            "shards stands in")
             print("kernel time " + json.dumps({"kernel": name} | row))
             rows[name][n] = row
+    for n, kernels in ((n0 + 2, ("ag", "rs")), (n0 + 4, ("rs",))):
+        ag_sets, _, rs_sets = make_sets(n)
+        for kernel in kernels:
+            is_ag = kernel == "ag"
+            fn, data = (ag_slot, ag_sets) if is_ag else (rs, rs_sets)
+            counts = (CM.ring_ag_route_launches["slot"] if is_ag
+                      else CM.ring_rs_route_launches)
+            before = counts["scalar"]
+            fn(*data[0])
+            _check(counts["scalar"] == before + 1,
+                   f"{kernel} at n={n}: not on the scalar width")
+            nbytes = (world * (1 + world) * n * 4 if is_ag
+                      else world * (world * n * 2 + 16 * n))
+            row = {"shape": f"W=2 LocalRing shard n={n}", "width": "scalar",
+                   "dtype": "fp32, slot route" if is_ag
+                   else "bf16 grad, fp32 state",
+                   "ms": device_ms(fn, data, 20),
+                   "bound_ms": nbytes / hbm * 1e3, "bound_by": "bytes",
+                   "bytes": nbytes, "launches_per_step": 0}
+            name = "ring_all_gather_slot" if is_ag else "ring_rs_update"
+            print("kernel time " + json.dumps({"kernel": name} | row))
     ring.close()
     for name, by_n in rows.items():
         keys = ("ms", "plain_ms", "bound_ms", "library_ms")
@@ -2395,6 +2534,21 @@ def main(argv=None) -> int:
     # K4 and the K5 ring also run on the probe's path (both transports)
     ring_launches = {k: fused_launches[k] + probe_launches[k]
                      + probe_ipc_launches[k] for k in ("ring_ag", "ring_rs")}
+    # K4 by route, each with its own main path: direct the dear-fused
+    # steps (every one checked so in both ranks), slot the probe's (both
+    # transports); the K5 ring by width on the dear-fused steps
+    ag_by_route = {"direct": fused_launches["ring_ag_direct"],
+                   "slot": probe_launches["ring_ag_slot"]
+                   + probe_ipc_launches["ring_ag_slot"]}
+    _check(ag_by_route["direct"] == fused_launches["ring_ag"]
+           and sum(ag_by_route.values()) == ring_launches["ring_ag"],
+           f"K4 on the main paths by route: {ag_by_route}, all "
+           f"{ring_launches['ring_ag']}")
+    rs_by_width = {"vector": fused_launches["ring_rs_vector"],
+                   "scalar": fused_launches["ring_rs"]
+                   - fused_launches["ring_rs_vector"]}
+    print(f"K4 launches on the main paths by route: {ag_by_route}; the K5 "
+          f"ring's on the dear-fused steps by width: {rs_by_width}")
     rp_launches = {k: sum(r["launches"][k] for r in rp)
                    for k in rp[0]["launches"]}
     print(f"main paths (two ranks, dear-fused, with and without ring "
@@ -2444,14 +2598,17 @@ def main(argv=None) -> int:
         _kernel_entry("fused_update", "fused_update.cu",
                       "dear_pytorch_tpu/ops/collective_matmul.py:317",
                       train_launches["fused_update"], upd_err, upd),
-        _kernel_entry("ring_all_gather", "ring.cu",
+    ] + [
+        _kernel_entry(f"ring_all_gather ({route})", "ring.cu",
                       "dear_pytorch_tpu/ops/collective_matmul.py:218",
-                      ring_launches["ring_ag"], ag_err,
-                      ring_rows["ring_all_gather"][ring_n]),
+                      ag_by_route[route], ag_err, ring_rows[key][ring_n])
+        for route, key in (("direct", "ring_all_gather"),
+                           ("slot", "ring_all_gather_slot"))] + [
         _kernel_entry("ring_rs_update", "ring.cu",
                       "dear_pytorch_tpu/ops/collective_matmul.py:317",
                       ring_launches["ring_rs"], rs_err,
-                      ring_rows["ring_rs_update"][ring_n]),
+                      ring_rows["ring_rs_update"][ring_n])
+        | {"launches_by_width": rs_by_width},
     ] + [
         # the mlp_in shape (N = 3072); PERF.md has both shapes and per step
         _kernel_entry(kname, "ring_matmul.cu",

@@ -33,11 +33,24 @@ each rank, and each must pair up across ranks on its own.
     resident at once, since they wait on each other). For checking and
     timing the kernels at real shard sizes without several processes.
 
+Registered outputs (`Ring.register_outputs`, `LocalRing.register_outputs`):
+gather buffers the ring owns and maps into each rank's LEFT neighbour, as
+it does the slots, each followed by one "ready" flag per kernel block. The
+all-gather K4 writes every chunk straight into the right neighbour's
+registered output (its "direct" route, ``csrc/ring.cu``) and needs no slot.
+The train step registers its persistent per-bucket gather buffers once,
+when it is built; the model's parameters are views of them. On a `Ring`
+they are ``cudaMalloc``ed through ``csrc/ring.cu`` (an IPC handle maps
+the start of an allocation, so they cannot be carved from PyTorch's
+caching allocator) and wrapped as tensors through
+``__cuda_array_interface__``: they live until `Ring.close`.
+
 The flags are never reset: each ring counts its calls per leg, and the
 kernels compare against values derived from that count (``epoch``). Every
 rank must therefore issue its ring calls in the same order; the train step
 does (`parallel.dear`). On the CPU a `Ring` is just the group: the ring's
-plain version runs its hops over `comm.collectives.ring_shift`.
+plain version runs its hops over `comm.collectives.ring_shift`, and a
+registered output is a plain tensor registered nowhere.
 """
 
 from __future__ import annotations
@@ -66,10 +79,10 @@ def ring_lib() -> ctypes.CDLL:
         lib = _build.load("ring")
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         u32 = ctypes.c_uint
-        lib.ring_all_gather.argtypes = [ptr, i32, i32, i64, i32, u32, i32,
-                                        ptr]
+        lib.ring_all_gather.argtypes = [ptr, i32, i32, i64, i32, i32, i32,
+                                        u32, i32, ptr]
         lib.ring_rs_update.argtypes = [ptr, i32, i32, i64, i32, i32, ptr,
-                                       i32, i32, u32, i32, ptr]
+                                       i32, i32, i32, u32, i32, ptr]
         lib.ring_alloc.argtypes = [i64, ctypes.POINTER(ptr), ptr]
         lib.ring_open.argtypes = [ptr, ctypes.POINTER(ptr)]
         lib.ring_close.argtypes = [ptr]
@@ -125,6 +138,25 @@ def _layout(max_elems: int) -> tuple:
     return slot, arrive, credit, credit + 2 * blocks * 4
 
 
+def _ready_offset(nbytes: int) -> int:
+    """Where a registered output's "ready" flags start: after its data,
+    at a 256-byte boundary."""
+    return -(-max(1, nbytes) // 256) * 256
+
+
+def _device_memory(ptr: int, nbytes: int, dtype, device) -> torch.Tensor:
+    """``nbytes`` of device memory at ``ptr`` (owned elsewhere) as a flat
+    tensor of ``dtype``: uint8 through ``__cuda_array_interface__`` (which
+    has no bfloat16), then viewed."""
+
+    class _Memory:
+        __cuda_array_interface__ = {"shape": (nbytes,), "typestr": "|u1",
+                                    "data": (ptr, False), "version": 3,
+                                    "strides": None}
+
+    return torch.as_tensor(_Memory(), device=device).view(dtype)
+
+
 def _cm_layout(cm_elems: int, world: int) -> tuple:
     """(slot bytes, total bytes) of the cm leg's buffer: the flag header,
     then W - 1 slots of ``cm_elems`` fp32 elements."""
@@ -174,6 +206,9 @@ class Ring:
         self._own: dict = {}
         self._opened: dict = {}
         self._links: dict = {}
+        self._outputs: dict = {}   # data_ptr -> (bytes, direct link)
+        self._out_own: list = []
+        self._out_opened: list = []
         self.closed = False
         if self.device.type == "cuda" and self.world > 1:
             self._connect()
@@ -228,10 +263,70 @@ class Ring:
             raise RuntimeError("the ring is closed")
         return [(self.rank, self._links[leg])]
 
+    def register_outputs(self, sizes, dtype) -> list:
+        """Registered gather outputs: one zeroed ``(n,)`` tensor of
+        ``dtype`` for each ``n`` in ``sizes``, which the all-gather's
+        direct route fills, writing straight into the right neighbour's.
+        Every rank calls it at the same point with the same sizes (the
+        handles are exchanged over the group). They live until `close`. On
+        the CPU, or at world 1: plain zeroed tensors, registered nowhere."""
+        sizes = [int(n) for n in sizes]
+        if self.device.type != "cuda" or self.world == 1:
+            return [torch.zeros(n, dtype=dtype, device=self.device)
+                    for n in sizes]
+        if self.closed:
+            raise RuntimeError("the ring is closed")
+        lib = ring_lib()
+        esize = torch.empty((), dtype=dtype).element_size()
+        flags = lib.ring_blocks() * 4
+        outs, mine = [], []
+        with torch.cuda.device(self.device):
+            for n in sizes:
+                nbytes = n * esize
+                ptr = ctypes.c_void_p()
+                handle = ctypes.create_string_buffer(lib.ring_handle_size())
+                check(lib.ring_alloc(_ready_offset(nbytes) + flags,
+                                     ctypes.byref(ptr), handle),
+                      "registered output allocation")
+                self._out_own.append(ptr.value)
+                outs.append(_device_memory(ptr.value, nbytes, dtype,
+                                           self.device))
+                mine.append((nbytes, handle.raw))
+            every = [None] * self.world
+            dist.all_gather_object(every, mine, group=self.group)
+            theirs = every[self.right]
+            if [b for b, _ in theirs] != [b for b, _ in mine]:
+                raise ValueError(
+                    f"rank {self.right} registered outputs of "
+                    f"{[b for b, _ in theirs]} bytes, this rank of "
+                    f"{[b for b, _ in mine]}")
+            for out, (nbytes, handle) in zip(outs, theirs):
+                ptr = ctypes.c_void_p()
+                check(lib.ring_open(handle, ctypes.byref(ptr)),
+                      f"opening rank {self.right}'s registered output")
+                self._out_opened.append(ptr.value)
+                own, at = out.data_ptr(), _ready_offset(nbytes)
+                self._outputs[own] = (nbytes,
+                                      (ptr.value, own + at, ptr.value + at))
+        dist.barrier(group=self.group)
+        return outs
+
+    def direct_links(self, out: torch.Tensor):
+        """[(rank, (the right neighbour's output, this output's ready
+        flags, the right neighbour's))] when the ring registered ``out``
+        (`register_outputs`), else None."""
+        rec = self._outputs.get(out.data_ptr())
+        if rec is None or rec[0] != out.numel() * out.element_size():
+            return None
+        if self.closed:
+            raise RuntimeError("the ring is closed")
+        return [(self.rank, rec[1])]
+
     def close(self) -> None:
-        """Free the buffers once every rank is done with them: wait for this
-        rank's kernels, a barrier, close the neighbours' mappings, a second
-        barrier, free. Every rank calls it; a second call does nothing."""
+        """Free the buffers and the registered outputs once every rank is
+        done with them: wait for this rank's kernels, a barrier, close the
+        neighbours' mappings, a second barrier, free. Every rank calls it;
+        a second call does nothing."""
         if self.closed or not self._own:
             self.closed = True
             return
@@ -239,12 +334,13 @@ class Ring:
         torch.cuda.synchronize(self.device)
         dist.barrier(group=self.group)
         with torch.cuda.device(self.device):
-            for ptr in self._opened.values():
+            for ptr in [*self._opened.values(), *self._out_opened]:
                 check(lib.ring_close(ptr), "closing a peer's ring buffer")
             dist.barrier(group=self.group)
-            for ptr in self._own.values():
+            for ptr in [*self._own.values(), *self._out_own]:
                 check(lib.ring_free(ptr), "freeing the ring buffer")
         self._own, self._opened, self._links = {}, {}, {}
+        self._outputs, self._out_own, self._out_opened = {}, [], []
         self.closed = True
 
 
@@ -268,6 +364,7 @@ class LocalRing:
         self.legs = _legs(self.cm_elems)
         self.calls = dict.fromkeys(self.legs, 0)
         self._bufs: dict = {}
+        self._outputs: dict = {}   # data_ptr -> (output, ready flags)
         if self.device.type == "cuda" and self.world > 1:
             lib = ring_lib()
             if self.world > lib.ring_max_groups():
@@ -296,6 +393,31 @@ class LocalRing:
         return [(r, _link(bufs[r], bufs[(r + 1) % w], bufs[(r - 1) % w],
                           self.max_elems)) for r in range(w)]
 
+    def register_outputs(self, sizes, dtype) -> list:
+        """Registered gather outputs, one zeroed ``[world, n]`` tensor of
+        ``dtype`` for each ``n`` in ``sizes`` (row r is rank r's), with a
+        tensor of ready flags beside each on the card. On the CPU: plain
+        zeroed tensors, registered nowhere."""
+        outs = [torch.zeros(self.world, int(n), dtype=dtype,
+                            device=self.device) for n in sizes]
+        if self.device.type == "cuda" and self.world > 1:
+            blocks = ring_lib().ring_blocks()
+            for out in outs:
+                self._outputs[out.data_ptr()] = (out, torch.zeros(
+                    self.world, blocks, dtype=torch.int32,
+                    device=self.device))
+        return outs
+
+    def direct_links(self, out: torch.Tensor):
+        rec = self._outputs.get(out.data_ptr())
+        if rec is None or rec[0].shape != out.shape \
+                or rec[0].dtype != out.dtype:
+            return None
+        own, ready = rec
+        w = self.world
+        return [(r, (own[(r + 1) % w].data_ptr(), ready[r].data_ptr(),
+                     ready[(r + 1) % w].data_ptr())) for r in range(w)]
+
     def close(self) -> None:
-        self._bufs = {}
+        self._bufs, self._outputs = {}, {}
 

@@ -9,9 +9,10 @@ matmul of ``--ring-projections`` — the port of
     via ``fused_reduce_scatter_update`` :396): the ring reduce-scatter of
     a bucket's gradient with fp32 partial sums — rank i's partial starts
     as its local chunk (i-1) mod W and after round r holds chunk
-    (i-1-r) mod W, adding the local copy each round — and, at the last
-    hop, ``grad / mean_world`` and the shard update of `ops.fused_sgd` on
-    the owned shard, in place.
+    (i-1-r) mod W, adding the local copy each round; the first hop carries
+    the local chunk in the gradient's own dtype, widened on receipt — and,
+    at the last hop, ``grad / mean_world`` and the shard update of
+    `ops.fused_sgd` on the owned shard, in place.
 
   - `allgather_matmul` (K6 forward, ``_cm_fwd_kernel`` :510; K7 and K8
     backward, ``_cm_dx_kernel`` :545 and ``_cm_dw_kernel`` :572, via the
@@ -22,6 +23,12 @@ matmul of ``--ring-projections`` — the port of
     is the models' ``projection_impl`` over it, on the ring `bind_ring`
     binds.
 
+K4 takes one of two routes (`ag_route`): "direct" into an output the ring
+registered (`comm.ring.Ring.register_outputs`: the train step's gather
+buffers), each chunk written straight into the right neighbour's output,
+else "slot" through the ring's staging slots; K4 and the K5 ring each take
+one of two widths, "vector" (bulk asynchronous copies through shared
+memory, where every offset and pointer is 16-byte aligned) or "scalar".
 K4 and the K5 ring are CUDA kernels for ``sm_90a`` in ``csrc/ring.cu``,
 K6–K8 in ``csrc/ring_matmul.cu``, over the transport of `comm.ring`. The ``ring`` argument is a `comm.ring.Ring` (one
 rank per process: flat per-rank tensors) or a `comm.ring.LocalRing` (W
@@ -35,7 +42,8 @@ Beside each, the plain PyTorch version in two forms: *stacked*
 ranks' inputs in one process, the ring's exact fp32 association order, so
 the kernel is bitwise equal to it on the card), and *distributed* (the same
 hops over `comm.collectives.ring_shift`: what a CPU rank of the train step
-runs). K6–K8's plain versions sum fp32 products in torch's order, the
+runs).
+K6–K8's plain versions sum fp32 products in torch's order, the
 kernels in the tensor cores', so those agree at a tolerance, not bitwise;
 the ring order of K8's cross-rank sum is the same in both. K6 and K7 take
 one of two routes (`cm_core`: TMA and wgmma for bf16 chunks TMA can
@@ -49,7 +57,9 @@ its bits. Dispatch: a CPU tensor takes the plain version; a CUDA tensor
 launches the kernel or raises; any other device raises. ``ring_ag_launches``,
 ``ring_rs_launches``, ``cm_fwd_launches``, ``cm_dx_launches`` and
 ``cm_dw_launches`` count kernel launches (one per call, however many ranks
-it drives), ``cm_route_launches`` K6's and K7's by route.
+it drives), ``ring_ag_route_launches`` K4's by route and width,
+``ring_rs_route_launches`` the K5 ring's by width, ``cm_route_launches``
+K6's and K7's by route.
 
 The ring's reduction order differs from NCCL's (and XLA's psum_scatter), so
 ``dear-fused`` matches ``dear`` at dtype tolerance, not bitwise; the gather
@@ -70,11 +80,12 @@ from dear_pytorch_tpu_torch.comm.ring import check, ring_lib
 from dear_pytorch_tpu_torch.ops import fused_sgd as FS
 
 __all__ = [
-    "allgather_matmul", "bind_ring", "bound_ring",
+    "ag_route", "allgather_matmul", "bind_ring", "bound_ring",
     "fused_reduce_scatter_update", "fused_reduce_scatter_update_stacked",
     "make_ring_projection_impl", "ring_all_gather", "ring_all_gather_stacked",
     "ring_matmul", "ring_matmul_dw", "ring_matmul_dw_stacked",
     "ring_matmul_dx", "ring_matmul_dx_stacked", "ring_matmul_stacked",
+    "rs_route",
 ]
 
 #: kernel launches so far (incremented only where a kernel launches)
@@ -83,6 +94,11 @@ ring_rs_launches = 0
 cm_fwd_launches = 0
 cm_dx_launches = 0
 cm_dw_launches = 0
+#: K4's launches by route and width (`ag_route`), the K5 ring's by width
+#: (`rs_route`), beside the totals
+ring_ag_route_launches = {"direct": {"vector": 0, "scalar": 0},
+                          "slot": {"vector": 0, "scalar": 0}}
+ring_rs_route_launches = {"vector": 0, "scalar": 0}
 #: K6's and K7's launches by route (`cm_core`), beside the totals
 cm_route_launches = {"fwd": {"wgmma": 0, "mma": 0},
                      "dx": {"wgmma": 0, "mma": 0}}
@@ -131,11 +147,15 @@ def _ring_all_gather_dist(shard, ring, out):
 
 
 def ring_all_gather(shard: torch.Tensor, ring,
-                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    out: Optional[torch.Tensor] = None, *,
+                    direct: bool = False) -> torch.Tensor:
     """Every rank's ``shard`` concatenated in rank order, through the ring:
     ``(n,) -> (W*n,)`` on a `Ring`, ``[W, n] -> [W, W*n]`` on a
     `LocalRing`; into ``out`` when given. World 1 returns the shard (or
-    copies it into ``out``)."""
+    copies it into ``out``). On the card the route follows ``out``
+    (`ag_route`): "direct" when the ring registered it, else "slot";
+    ``direct=True`` demands the direct route (raises if ``out`` is not
+    registered)."""
     world = ring.world
     n = shard.shape[-1]
     want = (world, n) if ring.stacked else (n,)
@@ -155,11 +175,42 @@ def ring_all_gather(shard: torch.Tensor, ring,
         if ring.stacked:
             return out.copy_(ring_all_gather_stacked(shard))
         return _ring_all_gather_dist(shard, ring, out)
-    _launch_ag(shard, ring, out)
+    _launch_ag(shard, ring, out, direct)
     return out
 
 
-def _launch_ag(shard, ring, out) -> None:
+def _width(nbytes: int, ptrs) -> str:
+    """"vector" (bulk copies) when a chunk's bytes and every pointer are
+    16-byte aligned, else "scalar"."""
+    return ("vector" if nbytes % 16 == 0 and all(p % 16 == 0 for p in ptrs)
+            else "scalar")
+
+
+def ag_route(n: int, esize: int, ptrs, *, registered: bool, direct: bool,
+             max_elems: int) -> tuple:
+    """K4's route for a shard of ``n`` elements of ``esize`` bytes whose
+    kernel pointers are ``ptrs``: ``(transport, width)``. Transport
+    "direct" (every chunk written straight into the right neighbour's
+    output; no slot, so no size limit) when the output is ``registered``
+    with the ring, else "slot" (through the ring's slots of ``max_elems``
+    elements); width as `_width`. Refuses an element size the kernel has
+    no copy for, ``direct`` (demanded) with an output the ring did not
+    register, and a slot-route shard larger than the slots."""
+    if esize not in (2, 4):
+        raise ValueError(f"ring all-gather kernel: {esize}-byte elements "
+                         "are not float32 or bfloat16")
+    if direct and not registered:
+        raise ValueError("ring all-gather kernel: the direct route needs "
+                         "an output registered with the ring "
+                         "(Ring.register_outputs)")
+    transport = "direct" if registered else "slot"
+    if transport == "slot" and n > max_elems:
+        raise ValueError(f"ring all-gather kernel: a shard of {n} elements "
+                         f"does not fit the ring's {max_elems}")
+    return transport, _width(n * esize, ptrs)
+
+
+def _launch_ag(shard, ring, out, direct) -> None:
     global ring_ag_launches
     n = shard.shape[-1]
     if shard.dtype not in _DTYPES:
@@ -167,23 +218,32 @@ def _launch_ag(shard, ring, out) -> None:
                          "float32 or bfloat16")
     if not (shard.is_contiguous() and out.is_contiguous()):
         raise ValueError("ring all-gather kernel: tensors not contiguous")
-    if n > ring.max_elems:
-        raise ValueError(f"ring all-gather kernel: a shard of {n} elements "
-                         f"does not fit the ring's {ring.max_elems}")
     xs = shard.reshape(-1, n)
     outs = out.reshape(xs.shape[0], -1)
+    dlinks = ring.direct_links(out)
+    # the slots and a peer's registered output start allocations (256-byte
+    # aligned); the kernel checks every pointer again
+    transport, width = ag_route(
+        n, shard.element_size(), [t.data_ptr() for t in (*xs, *outs)],
+        registered=dlinks is not None, direct=direct,
+        max_elems=ring.max_elems)
     rec = []
-    for (rank, link), x, o in zip(ring.links("ag"), xs, outs):
-        rec += [rank, x.data_ptr(), o.data_ptr(), *link]
+    for i, ((rank, link), x, o) in enumerate(zip(ring.links("ag"), xs,
+                                                 outs)):
+        # the right neighbour's output and the ready flags: direct only
+        peer = dlinks[i][1] if transport == "direct" else (0, 0, 0)
+        rec += [rank, x.data_ptr(), o.data_ptr(), *peer, *link]
     arr = (ctypes.c_longlong * len(rec))(*rec)
     epoch = ring.next_epoch("ag")
     with torch.cuda.device(shard.device):
         err = ring_lib().ring_all_gather(
-            arr, xs.shape[0], ring.world, n, shard.element_size(), epoch,
+            arr, xs.shape[0], ring.world, n, shard.element_size(),
+            int(transport == "direct"), int(width == "vector"), epoch,
             int(ring.cooperative),
             torch.cuda.current_stream(shard.device).cuda_stream)
-    check(err, "ring all-gather kernel launch")
+    check(err, f"ring all-gather kernel launch ({transport}, {width})")
     ring_ag_launches += 1
+    ring_ag_route_launches[transport][width] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -241,13 +301,16 @@ def fused_reduce_scatter_update_stacked(gbufs, params, states, optimizer, *,
 
 def _fused_rs_update_dist(gbuf, param, state, optimizer, ring, mean_world,
                           step) -> None:
+    """The stacked version's sums for this rank over the group, with the
+    kernel's hops: the first in the gradient's dtype, widened on receipt
+    (exactly: the same adds, bitwise)."""
     world, my, ss = ring.world, ring.rank, param.shape[0]
     chunks = gbuf.reshape(world, ss)
-    part = chunks[(my - 1) % world].float()
+    hop = chunks[(my - 1) % world]
     for r in range(1, world):
-        part = C.ring_shift(part, ring.group) \
+        hop = C.ring_shift(hop, ring.group).float() \
             + chunks[(my - 1 - r) % world].float()
-    _update_plain(optimizer, part, state, param, mean_world, step)
+    _update_plain(optimizer, hop, state, param, mean_world, step)
 
 
 def fused_reduce_scatter_update(gbuf, param_shard, opt_state, optimizer,
@@ -304,10 +367,6 @@ def _launch_rs(gbuf, param, states, optimizer, ring, mean_world, step):
     if any(h != host[0] for h in host):
         raise ValueError("ring reduce-scatter kernel: the ranks' optimizer "
                          f"states are at different steps: {host}")
-    if ss > ring.max_elems:
-        raise ValueError(f"ring reduce-scatter kernel: a shard of {ss} "
-                         f"elements does not fit the ring's "
-                         f"{ring.max_elems}")
     gs, ps = gbuf.reshape(-1, gbuf.shape[-1]), param.reshape(-1, ss)
     tensors = [gs, ps] + [v for st in states for v in st.values()
                           if torch.is_tensor(v)]
@@ -315,6 +374,10 @@ def _launch_rs(gbuf, param, states, optimizer, ring, mean_world, step):
            for t in tensors):
         raise ValueError("ring reduce-scatter kernel: tensors must be "
                          "contiguous and on one device")
+    # the slots start allocations (256-byte aligned)
+    width = rs_route(ss, gbuf.element_size(),
+                     [t.data_ptr() for t in (*gs, *ps, *tensors[2:])],
+                     max_elems=ring.max_elems)
     rec = []
     for (rank, link), g, p, st in zip(ring.links("rs"), gs, ps, states):
         s1 = st.get("buf", st.get("exp_avg"))
@@ -332,10 +395,28 @@ def _launch_rs(gbuf, param, states, optimizer, ring, mean_world, step):
             int(gbuf.dtype == torch.bfloat16),
             FS._KINDS[FS._kind(optimizer)], scal.ctypes.data,
             int(bool(states[0].get("initialized", False))),
-            int(optimizer.nesterov), epoch, int(ring.cooperative),
+            int(optimizer.nesterov), int(width == "vector"), epoch,
+            int(ring.cooperative),
             torch.cuda.current_stream(gbuf.device).cuda_stream)
-    check(err, "ring reduce-scatter kernel launch")
+    check(err, f"ring reduce-scatter kernel launch ({width})")
     ring_rs_launches += 1
+    ring_rs_route_launches[width] += 1
+
+
+def rs_route(n: int, gsize: int, ptrs, *, max_elems: int) -> str:
+    """The K5 ring's width for a shard of ``n`` elements, a gradient of
+    ``gsize``-byte elements and the kernel's pointers ``ptrs``: "vector"
+    (bulk copies) when a chunk's bytes — and so its fp32 partials' — and
+    every pointer are 16-byte aligned, else "scalar". Refuses a gradient
+    dtype the kernel does not read and a shard larger than the ring's
+    slots (``max_elems``)."""
+    if gsize not in (2, 4):
+        raise ValueError(f"ring reduce-scatter kernel: {gsize}-byte "
+                         "gradients are not float32 or bfloat16")
+    if n > max_elems:
+        raise ValueError(f"ring reduce-scatter kernel: a shard of {n} "
+                         f"elements does not fit the ring's {max_elems}")
+    return _width(n * gsize, ptrs)
 
 
 # ---------------------------------------------------------------------------

@@ -41,7 +41,11 @@ the hand-written ring kernels of `ops.collective_matmul` over a
 when a bucket's last gradient is in, ONE kernel (K5 ring) reduce-scatters
 it around the ring with fp32 partial sums and applies the shard update at
 the last hop, on the comm stream; after backward each bucket's gather is
-the ring all-gather (K4). No collective library and no separate update
+the ring all-gather (K4), on its direct route: the full buffers are the
+ring's registered outputs (`comm.ring.Ring.register_outputs`), and each
+rank writes its chunk straight into its right neighbour's (csrc/ring.cu
+argues from this module's stream order why that is safe). No collective
+library and no separate update
 run on these legs. Every rank must issue its ring calls in the same order
 (they pair up across ranks), so the reduce-scatters are issued in one
 fixed order, descending bucket index (the order a backward over a
@@ -273,7 +277,17 @@ class TrainStep:
             return torch.zeros((n,), dtype=dt, device=dev)
 
         bks = plan.buckets
-        self._full = [zeros(b.padded_size, gdt) for b in bks]
+        self.fused = fused
+        # every rank builds its ring here, at the same point: the peer
+        # buffers' handles are exchanged over the group (none at world 1)
+        self.ring = (Ring(group, dev, max(b.shard_size for b in bks),
+                          cm_elems=_ring_matmul_elems(model, self.world))
+                     if fused else None)
+        # dear-fused: the gather buffers are the ring's registered outputs,
+        # which K4 fills directly, a neighbour's chunks included
+        self._full = (self.ring.register_outputs(
+            [b.padded_size for b in bks], gdt) if fused
+            else [zeros(b.padded_size, gdt) for b in bks])
         self._send = [zeros(b.shard_size, gdt) if gdt != torch.float32
                       else None for b in bks]
         self._gbuf = [zeros(b.padded_size, cdt) for b in bks]
@@ -291,12 +305,6 @@ class TrainStep:
         self._last_mb = True
         self._comm = (torch.cuda.Stream(dev) if dev.type == "cuda" else None)
         self._bound = False
-        self.fused = fused
-        # every rank builds its ring here, at the same point: the peer
-        # buffers' handles are exchanged over the group (none at world 1)
-        self.ring = (Ring(group, dev, max(b.shard_size for b in bks),
-                          cm_elems=_ring_matmul_elems(model, self.world))
-                     if fused else None)
         #: dear-fused: the one order every rank issues its reduce-scatters in
         self._rs_order = [b.index for b in reversed(bks)]
         self._rs_next = 0
@@ -349,8 +357,9 @@ class TrainStep:
         with self._on_comm():   # the cast too: K5 ring updates the shard there
             src = (shard if self._send[g] is None
                    else self._send[g].copy_(shard))
-            if self.fused:
-                CM.ring_all_gather(src, self.ring, out=self._full[g])
+            if self.fused:   # the direct route, or an error on the card
+                CM.ring_all_gather(src, self.ring, out=self._full[g],
+                                   direct=True)
                 self._ag_work[g] = C.StreamEvent.after_current(self.device)
             else:
                 _, self._ag_work[g] = C.all_gather(
@@ -595,9 +604,18 @@ class TrainStep:
 
     def close(self) -> None:
         """Free the ring's buffers (dear-fused) once every rank's last ring
-        call is done; every rank calls it. Nothing to do otherwise."""
-        if self.ring is not None:
-            self.ring.close()
+        call is done; every rank calls it. The gather buffers die with the
+        ring, so the model's parameters get memory of their own first.
+        Nothing to do otherwise."""
+        if self.ring is None:
+            return
+        if (self._bound and not self.ring.closed
+                and self.device.type == "cuda" and self.world > 1):
+            with torch.no_grad():
+                for p in self.model.parameters():
+                    p.data = p.data.clone()
+        self._full = []
+        self.ring.close()
 
     def multi_step(self, n: int):
         raise _unported("multi_step (as CUDA-graph capture)", "7")

@@ -309,6 +309,13 @@ for i, (name, w, dtype, opt, ss) in enumerate({cases!r}):
     full = TCM.ring_all_gather(param.to(dt), ring)
     res[name + ".gather"] = full.view(torch.int16 if dt == torch.bfloat16
                                       else torch.int32).numpy()
+    # a registered output on the CPU: a plain tensor, the plain gather
+    reg = ring.register_outputs([w * ss], dt)[0]
+    res[name + ".registered_zero"] = np.array(
+        [ring.direct_links(reg) is None and not reg.any()])
+    got = TCM.ring_all_gather(param.to(dt), ring, out=reg, direct=True)
+    res[name + ".gather_registered"] = got.view(
+        torch.int16 if dt == torch.bfloat16 else torch.int32).numpy()
 for i, (name, w, dtype, m, kc, n) in enumerate({cm_cases!r}):
     if rank >= w:
         continue
@@ -366,6 +373,19 @@ def test_distributed_plain_equals_stacked(index, dist_results):
             got[name + ".param"].view(np.int32),
             params[r].numpy().view(np.int32))
         np.testing.assert_array_equal(got[name + ".gather"], _bits(full[r]))
+
+
+@pytest.mark.parametrize("index", range(len(_DIST_CASES)),
+                         ids=[c[0] for c in _DIST_CASES])
+def test_distributed_registered_gather_is_plain(index, dist_results):
+    """On the CPU a `Ring` registers nothing: its registered outputs are
+    zeroed plain tensors and the gather into them, the direct route
+    demanded, is the plain one, bitwise."""
+    name = _DIST_CASES[index][0]
+    for res in dist_results[:_DIST_CASES[index][1]]:
+        assert res[name + ".registered_zero"].all()
+        np.testing.assert_array_equal(res[name + ".gather_registered"],
+                                      res[name + ".gather"])
 
 
 @pytest.mark.parametrize("index", range(len(_CM_DIST_CASES)),
