@@ -112,6 +112,17 @@ non-zero and no result line is printed):
      DIR``; the launcher variables, the IPC `Ring`, 12 launches each per
      rank); prints each ring call's time on both transports and the
      difference, the cost of pairing a call across two contexts;
+  5d. train ResNet-50 at full width through the port's ImageNet CLI
+     (``benchmarks/imagenet.py --model resnet50 --batch-size 64 --fp16
+     --mode dear --threshold 25``: bf16, 224², BatchNorm state, 5 buckets,
+     a one-rank NCCL group) for 20 steps: every step launches the K5
+     epilogue and runs a shard update and a reduce-scatter once per
+     bucket, the losses are finite and fall, every BN buffer is finite and
+     moved from its init; prints the bucket count and the peak memory
+     beside the card's name and power limit; holds the shard update
+     bitwise at the plan's shard sizes; then ResNet-50 in fp32 (TF32 off,
+     train mode, B = 2) from the run's weights on the card against the
+     CPU: logits and updated BN buffers within `_RESNET_CPU_RTOL`;
   6. trace steady bf16 decode ticks and training steps with
      ``torch.profiler`` (device ops, busy time and idle share, the top
      device ops of a step); time each kernel, its plain version and
@@ -121,9 +132,11 @@ non-zero and no result line is printed):
      path's shapes, beside the card's bound — K4 (both routes) and the K5
      ring per bucket and K6–K8 per call on a two-rank `LocalRing` (K6–K8 beside
      one cuBLAS call computing the same function for both ranks), K9 at
-     both granularities beside ``torch.add(one, x, alpha=2.0)``; step
-     time p50/p99, tokens/s and MFU, and the two-rank steps' p50/p99 and
-     tokens/s.
+     both granularities beside ``torch.add(one, x, alpha=2.0)``, the K5
+     epilogue also at ResNet-50's largest bucket shard; step time
+     p50/p99, tokens/s and MFU, the two-rank steps' p50/p99 and tokens/s;
+     ResNet-50's step p50/p99, img/s and MFU (3 x the forward's conv and
+     fc products against 989 TF/s bf16) and 2 traced steps.
 
 ``python3 chip_smoke.py --kernels-only`` runs phases 1–3 and stops without
 a result line. In a full run the line before the last lists the kernels
@@ -154,10 +167,13 @@ import dear_pytorch_tpu_torch.ops.flash_attention as FA
 import dear_pytorch_tpu_torch.ops.fused_sgd as FS
 import dear_pytorch_tpu_torch.ops.overhead_probe as OP
 from dear_pytorch_tpu_torch.benchmarks import gpt as train_cli
+from dear_pytorch_tpu_torch.benchmarks import imagenet as imagenet_cli
 from dear_pytorch_tpu_torch.comm import backend
 from dear_pytorch_tpu_torch.comm.ring import LocalRing, Ring
-from dear_pytorch_tpu_torch.models import dropout_free, gpt_config
-from dear_pytorch_tpu_torch.models.data import synthetic_gpt_batch
+from dear_pytorch_tpu_torch.models import dropout_free, get_model, gpt_config
+from dear_pytorch_tpu_torch.models.data import (
+    synthetic_gpt_batch, synthetic_image_batch,
+)
 from dear_pytorch_tpu_torch.models.gpt import (
     GPT2_SMALL, GptLmHeadModel, flash_causal_attention_impl, generate,
     gpt_lm_loss,
@@ -1690,6 +1706,134 @@ def time_overhead_probe(hbm) -> dict:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 5d: train ResNet-50 through the ImageNet CLI
+# ---------------------------------------------------------------------------
+
+#: the JAX bench's ResNet configuration (bench.py `bench_resnet`): bf16
+#: compute, fp32 masters, batch 64, 224², mode dear, 25 MB buckets, SGD lr
+#: 0.01 momentum 0.9 (the CLI's defaults), gradients in bf16, gathers in
+#: fp32 at world 1
+_RESNET_ARGS = ["--model", "resnet50", "--batch-size", "64", "--fp16",
+                "--mode", "dear", "--threshold", "25",
+                "--num-warmup-batches", "5", "--num-batches-per-iter", "5",
+                "--num-iters", "3"]
+_RESNET_B, _RESNET_WARMUP, _RESNET_STEPS = 64, 5, 20
+#: card against CPU, fp32 with TF32 off: the largest difference over the
+#: largest |value|, of the logits and of each BN buffer. The two sum in
+#: other orders, cuDNN with algorithms of its choice (cudnn.benchmark),
+#: through 53 normalising layers; the CPU's own fp32 forward of this
+#: network lies ~1.2e-5 of the largest logit from an fp64 one
+_RESNET_CPU_RTOL = 1e-3
+
+
+def train_resnet50(card: str):
+    """20 steps of ``benchmarks/imagenet.py`` at full width (the main CNN
+    path): every step launches the K5 epilogue and runs one shard update
+    and reduce-scatter per bucket; the losses are finite and fall; every
+    BN buffer is finite and moved from its init (``num_batches_tracked``
+    = 20). Returns (result, the epilogue's launches, step ms of the timed
+    steps)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    FS.fused_update_launches = 0        # the main path starts here
+    marks, prev = [], {}
+
+    def on_step(ts, state, metrics):
+        del state, metrics
+        now = {"fused_update": FS.fused_update_launches,
+               "update": ts.update_launches, "rs": ts.rs_launches}
+        got = {k: v - prev.get(k, 0) for k, v in now.items()}
+        nb = ts.plan.num_buckets
+        _check(got == dict.fromkeys(now, nb), f"resnet step "
+               f"{len(marks) + 1}: launches {got}, expected {nb} each")
+        prev.update(now)
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append(ev)
+
+    res = imagenet_cli.main(_RESNET_ARGS + ["--device", _DEV],
+                            on_step=on_step)
+    launches = FS.fused_update_launches           # ... and ends here
+    torch.cuda.synchronize()
+    peak_mib = (torch.cuda.max_memory_allocated() - base) / 2**20
+    ts, losses = res.train_step, res.losses
+    print(f"resnet50 losses: {[round(x, 4) for x in losses]}")
+    _check(len(losses) == _RESNET_STEPS and all(np.isfinite(losses)),
+           f"resnet50: losses {losses}")
+    _check(losses[-1] < losses[0], "resnet50: the loss did not fall")
+    moved = 0
+    for n, b in ts.model.named_buffers():
+        if n.endswith("num_batches_tracked"):
+            _check(int(b) == _RESNET_STEPS, f"resnet50 {n} = {int(b)}")
+            continue
+        init = 1.0 if n.endswith("running_var") else 0.0
+        _check(bool(torch.isfinite(b).all()), f"resnet50: {n} not finite")
+        _check(bool((b != init).any()), f"resnet50: {n} unmoved")
+        moved += 1
+    step_ms = [a.elapsed_time(b) for a, b in
+               zip(marks[_RESNET_WARMUP - 1:-1], marks[_RESNET_WARMUP:])]
+    print(f"main path (resnet50 train, {card}): {_RESNET_STEPS} steps, "
+          f"{ts.plan.num_buckets} buckets (shards "
+          f"{[b.shard_size for b in ts.plan.buckets]}), K5 epilogue "
+          f"launches {launches} ({ts.plan.num_buckets} per step), "
+          f"{moved} BN buffers finite and moved; peak memory "
+          f"{peak_mib:.1f} MiB over the {base / 2**20:.1f} MiB allocated "
+          "before (torch.cuda.max_memory_allocated)")
+    return res, launches, step_ms
+
+
+def check_resnet_card_vs_cpu(res) -> float:
+    """ResNet-50 in fp32 (TF32 off) in training mode, B = 2 at 224², from
+    the 20-step run's master parameters and BN buffers, on the card
+    (cuDNN, channels_last) and on the CPU: the logits and the updated BN
+    buffers within `_RESNET_CPU_RTOL` of the largest |value|. Returns the
+    worst such ratio."""
+    params = res.train_step.gather_params(res.state)
+    sd = {**params, **{n: b.detach().clone()
+                       for n, b in res.train_step.model.named_buffers()}}
+    image = synthetic_image_batch(9, 2, device=_DEV)["image"]
+    outs = {}
+    for dev in (_DEV, "cpu"):
+        model = get_model("resnet50", device=dev)
+        model.load_state_dict({k: v.to(dev) for k, v in sd.items()})
+        with torch.no_grad():
+            logits = model(image.to(dev))
+        outs[dev] = {"logits": logits.cpu()} | {
+            n: b.cpu() for n, b in model.named_buffers()
+            if b.is_floating_point()}
+    worst = {k: float((outs[_DEV][k] - want).abs().max())
+             / max(float(want.abs().max()), 1e-30)
+             for k, want in outs["cpu"].items()}
+    top = max((k for k in worst if k != "logits"), key=worst.get)
+    print(f"resnet50 fp32 card vs CPU (train mode, B=2, 224², TF32 off): "
+          f"logits {worst['logits']:.3e}, worst BN buffer {top} "
+          f"{worst[top]:.3e} of the largest |value| (tolerance "
+          f"{_RESNET_CPU_RTOL})")
+    _check(max(worst.values()) <= _RESNET_CPU_RTOL,
+           "resnet50: card and CPU disagree")
+    return max(worst.values())
+
+
+def resnet_flops_per_image(name="resnet50", size=224) -> float:
+    """The forward's 2·kh·kw·C_in·C_out·H_out·W_out over the convs (the
+    output sizes from one CPU forward) plus 2·in·out for fc."""
+    model = get_model(name, device="cpu").eval()
+    flops = []
+    hooks = [m.register_forward_hook(
+        lambda m, i, o: flops.append(2 * m.weight[0].numel()
+                                     * m.out_channels * o.shape[2]
+                                     * o.shape[3]))
+        for m in model.modules() if isinstance(m, torch.nn.Conv2d)]
+    with torch.no_grad():
+        model(torch.zeros(1, 3, size, size))
+    for h in hooks:
+        h.remove()
+    return float(sum(flops) + 2 * model.fc.in_features
+                 * model.fc.out_features)
+
+
 def train_flops_per_step(cfg, B, S) -> float:
     """6 x (matmul parameters) x tokens, plus causal attention: QK^T and
     PV over the S(S+1)/2 causal pairs, forward and backward (x3)."""
@@ -2433,6 +2577,11 @@ def main(argv=None) -> int:
     print(f"overhead probe phase: {time.perf_counter() - t0:.1f} s; "
           f"launches in this process {probe_launches}, over both IPC "
           f"ranks {probe_ipc_launches}")
+    t0 = time.perf_counter()
+    rn, rn_launches, rn_step_ms = train_resnet50(card)
+    upd_err = max(upd_err, check_update_main_path(rn.train_step))
+    check_resnet_card_vs_cpu(rn)
+    print(f"resnet phase: {time.perf_counter() - t0:.1f} s")
     trace_decode_ticks(runs[-1][3].model)
 
     B, S = 16, 1024
@@ -2447,6 +2596,20 @@ def main(argv=None) -> int:
           f"{tok_s / (B * S) * flops / _PEAK_FLOPS[torch.bfloat16]:.2%} of "
           f"{_PEAK_FLOPS[torch.bfloat16] / 1e12:.0f} TF/s bf16")
     trace_train_steps(res.train_step, res.state, res.batch, p50)
+    rn_buckets = rn.train_step.plan.buckets
+    rp50, rp99 = (float(np.percentile(rn_step_ms, q)) for q in (50, 99))
+    flops_img = resnet_flops_per_image()
+    print(f"resnet50 train step (bf16, B={_RESNET_B}, 224², mode dear, "
+          f"{len(rn_buckets)} buckets, {len(rn_step_ms)} timed steps) on "
+          f"{card}: p50 {rp50:.3f} ms p99 {rp99:.3f} ms; "
+          f"{rn.total_mean:.1f} img/s (the CLI's timed mean); "
+          f"{3 * flops_img * _RESNET_B / 1e12:.4f} TFLOP per step (3 x the "
+          f"forward's conv and fc products, {flops_img / 1e9:.4f} GFLOP "
+          f"per image) -> MFU "
+          f"{rn.total_mean * 3 * flops_img / _PEAK_FLOPS[torch.bfloat16]:.2%}"
+          f" of {_PEAK_FLOPS[torch.bfloat16] / 1e12:.0f} TF/s bf16")
+    trace_train_steps(rn.train_step, rn.state, rn.batch, rp50,
+                      label=f"resnet50 bf16, B={_RESNET_B}, 224²")
     for label, r, rank in ([("dear-fused", r, x) for r, x in enumerate(fused)]
                            + [("dear-fused --ring-projections", r, x)
                               for r, x in enumerate(rp)]):
@@ -2523,6 +2686,8 @@ def main(argv=None) -> int:
     upd = time_update(max(b.shard_size for b in buckets
                           if b.size * 4 <= 25 * 2**20), hbm, nb)
     time_update(max(b.shard_size for b in buckets), hbm, nb)
+    # ResNet-50's largest bucket shard (the 25 MB threshold's first bucket)
+    time_update(max(b.shard_size for b in rn_buckets), hbm, len(rn_buckets))
     ring_rows = time_ring(fused[0]["bucket_shards"], hbm)
     # the kernels line: the 25 MB bucket's shard, as for the update
     ring_n = max(n for n in fused[0]["shard_sizes"]
@@ -2595,9 +2760,11 @@ def main(argv=None) -> int:
                 f"dear_pytorch_tpu/ops/flash_attention.py:{line}",
                 launches[route], bwd_err[which][route], bwd[kname + sfx]))
     print(json.dumps({"kernels": k1 + k23 + [
+        # launches: GPT-2's train steps and ResNet-50's
         _kernel_entry("fused_update", "fused_update.cu",
                       "dear_pytorch_tpu/ops/collective_matmul.py:317",
-                      train_launches["fused_update"], upd_err, upd),
+                      train_launches["fused_update"] + rn_launches, upd_err,
+                      upd),
     ] + [
         _kernel_entry(f"ring_all_gather ({route})", "ring.cu",
                       "dear_pytorch_tpu/ops/collective_matmul.py:218",

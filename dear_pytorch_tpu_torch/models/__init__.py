@@ -1,6 +1,7 @@
 """Model zoo of the port — the port of ``dear_pytorch_tpu/models/__init__.py``
-for the GPT-2 family. The CNNs and BERT come with the models slice (ROADMAP
-Queue 1 item 5); their names raise ``KeyError`` saying so."""
+for the GPT-2 family and the ResNets. The other CNNs, BERT, ViT and MNIST
+come with the rest of the zoo (ROADMAP Queue 1 item 5b); their names raise
+``KeyError`` saying so."""
 
 from __future__ import annotations
 
@@ -17,6 +18,21 @@ from dear_pytorch_tpu_torch.models.gpt import (  # noqa: F401
     generate,
     gpt_lm_loss,
 )
+from dear_pytorch_tpu_torch.models.resnet import (  # noqa: F401
+    ResNet18,
+    ResNet34,
+    ResNet50,
+    ResNet101,
+    ResNet152,
+)
+
+_CNN_REGISTRY: dict = {
+    "resnet18": ResNet18,
+    "resnet34": ResNet34,
+    "resnet50": ResNet50,
+    "resnet101": ResNet101,
+    "resnet152": ResNet152,
+}
 
 _GPT_REGISTRY: dict = {
     "gpt2": GPT2_SMALL,
@@ -24,35 +40,51 @@ _GPT_REGISTRY: dict = {
     "gpt2_large": GPT2_LARGE,
 }
 
-#: the JAX package's CNN and BERT names, not ported yet
+#: the JAX package's model names not ported yet
 _UNPORTED = (
-    "resnet18", "resnet34", "resnet50", "resnet101", "resnet152",
     "densenet121", "densenet169", "densenet201", "inceptionv4", "vgg11",
     "vgg16", "vgg19", "mnistnet", "vit_s16", "vit_b16", "bert_base", "bert",
     "bert_large",
 )
 
 
+def cnn_names() -> list:
+    return sorted(_CNN_REGISTRY)
+
+
 def gpt_names() -> list:
     return sorted(_GPT_REGISTRY)
+
+
+def _check_ported(key: str, name: str) -> None:
+    if key in _UNPORTED:
+        raise KeyError(
+            f"model {name!r} is not ported yet: the rest of the zoo comes "
+            f"with the models slice (ROADMAP Queue 1 item 5b); CNNs: "
+            f"{cnn_names()}, GPT: {gpt_names()}")
 
 
 def gpt_config(name: str, *, dtype=torch.float32) -> GptConfig:
     """The registered config of ``name`` in compute ``dtype``. Raises
     KeyError with the valid names otherwise."""
     key = name.lower()
-    if key in _UNPORTED:
-        raise KeyError(
-            f"model {name!r} is not ported yet: the CNNs and BERT come with "
-            f"the models slice (ROADMAP Queue 1 item 5); GPT: {gpt_names()}")
+    _check_ported(key, name)
     if key not in _GPT_REGISTRY:
         raise KeyError(f"unknown model {name!r}; GPT: {gpt_names()}")
     return dataclasses.replace(_GPT_REGISTRY[key], dtype=dtype)
 
 
 def get_model(name: str, *, dtype=torch.float32, device=None, **kwargs):
-    """``GptLmHeadModel`` for a registered name, built on ``device`` (the
-    card by default)."""
+    """A registered model built on ``device`` (the card by default): a
+    `models.resnet.ResNet` for a CNN name (``kwargs`` such as ``stem=``,
+    ``num_classes=``, ``seed=`` go to it), else ``GptLmHeadModel``."""
+    key = name.lower()
+    _check_ported(key, name)
+    if key in _CNN_REGISTRY:
+        return _CNN_REGISTRY[key](dtype=dtype, device=device, **kwargs)
+    if key not in _GPT_REGISTRY:
+        raise KeyError(f"unknown model {name!r}; CNNs: {cnn_names()}, "
+                       f"GPT: {gpt_names()}")
     return GptLmHeadModel(gpt_config(name, dtype=dtype), device=device,
                           **kwargs)
 

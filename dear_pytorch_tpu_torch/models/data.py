@@ -1,14 +1,18 @@
-"""Synthetic benchmark data — the port of ``synthetic_gpt_batch`` from
-``dear_pytorch_tpu/models/data.py``: random token ids, drawn from an
-explicit ``torch.Generator`` (the JAX package draws them from a PRNG key,
-so the two give different ids for one seed; the tests feed both packages
-one numpy batch instead)."""
+"""Synthetic benchmark data — the port of ``synthetic_gpt_batch``,
+``synthetic_image_batch`` and ``softmax_xent`` from
+``dear_pytorch_tpu/models/data.py``. The port draws from an explicit
+``torch.Generator`` (the JAX package draws from a PRNG key, so the two give
+different values for one seed; the tests feed both packages one numpy batch
+instead). Images are NCHW here, NHWC there."""
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
-__all__ = ["synthetic_gpt_batch"]
+from dear_pytorch_tpu_torch._device import resolve_device
+
+__all__ = ["softmax_xent", "synthetic_gpt_batch", "synthetic_image_batch"]
 
 
 def synthetic_gpt_batch(generator: torch.Generator, batch_size: int,
@@ -18,3 +22,27 @@ def synthetic_gpt_batch(generator: torch.Generator, batch_size: int,
     ids = torch.randint(0, vocab_size, (batch_size, seq_len),
                         generator=generator, device=generator.device)
     return {"input_ids": ids}
+
+
+def synthetic_image_batch(generator, batch_size: int,
+                          image_size: int = 224, num_classes: int = 1000,
+                          dtype=torch.float32, *, device=None) -> dict:
+    """A fake ImageNet batch ``{"image": [B, 3, H, W] standard normal in
+    dtype, "label": [B] int64}``. ``generator``: a ``torch.Generator``
+    (the batch lies on its device), or an int seed for a new generator on
+    ``device`` (the card unless the caller says otherwise; no card
+    raises)."""
+    if not isinstance(generator, torch.Generator):
+        generator = torch.Generator(
+            device=resolve_device(device)).manual_seed(int(generator))
+    dev = generator.device
+    images = torch.randn((batch_size, 3, image_size, image_size),
+                         generator=generator, device=dev).to(dtype)
+    labels = torch.randint(0, num_classes, (batch_size,),
+                           generator=generator, device=dev)
+    return {"image": images, "label": labels}
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean softmax cross-entropy in fp32 (the CNN benchmarks' criterion)."""
+    return F.cross_entropy(logits.float(), labels)

@@ -70,10 +70,20 @@ rank; the step checks that every forward call got its two backward
 calls. Under ``mode="dear"`` no ring is bound and the impl is the dense
 product, the same function.
 
+Model state (the JAX module's ``model_state_template``, dear.py:241-247,
+:744-758) is the model's buffers — BatchNorm's running statistics and
+counters — which the forward updates in place, microbatch after
+microbatch under accumulation (as JAX's ``lax.scan`` threads them). Once
+per step, after the last microbatch's backward, the step packs them into
+one flat buffer and all-gathers it over the group on the comm stream (one
+collective, no host sync); there each floating buffer becomes the mean over
+the ranks and each integer or bool buffer the max. The next forward (a
+pre-hook on the model) and `TrainStep.gather_params` wait for it. At world
+1, and for a model without buffers (the GPT models), nothing runs.
+
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): the other modes, compression, ``exclude_parts``, model state (BN
-statistics), ``remat``, the multi-slice ``dcn`` schedule and
-``multi_step``.
+item): the other modes, compression, ``exclude_parts``, ``remat``, the
+multi-slice ``dcn`` schedule and ``multi_step``.
 """
 
 from __future__ import annotations
@@ -121,7 +131,6 @@ _UNPORTED = {
     "exclude_parts": "7 (modes and ablations)",
     "compressor": "7 (compression)", "gtopk": "7 (compression)",
     "momentum_correction": "7 (compression)",
-    "model_state_template": "5 (model state: BatchNorm statistics)",
     "remat": "7 (remat)", "dcn": "9 (the multi-slice schedule)",
 }
 
@@ -173,6 +182,7 @@ def build_train_step(loss_fn: Callable, model: nn.Module, *,
                      has_aux: bool = False, rng_seed: Optional[int] = None,
                      accum_steps: int = 1,
                      clip_norm: Optional[float] = None, device=None,
+                     model_state_template=None,
                      **unported) -> "TrainStep":
     """Build the eager DeAR train step over ``model``.
 
@@ -191,11 +201,14 @@ def build_train_step(loss_fn: Callable, model: nn.Module, *,
     dim 0); gradients accumulate in fp32 and are divided by
     ``accum_steps`` before the cast, and one reduce-scatter per bucket runs
     after the last microbatch. ``clip_norm``: clip the reduced gradient to
-    this global L2 norm (``metrics["grad_norm"]``). The JAX package's other
-    options (``exclude_parts``, ``compressor``, ``gtopk``,
-    ``momentum_correction``, ``model_state_template``, ``remat``, ``dcn``)
-    are accepted at their defaults and raise ``NotImplementedError``
-    otherwise."""
+    this global L2 norm (``metrics["grad_norm"]``).
+    ``model_state_template``: the names of the model's buffers that are its
+    state (any iterable of names, e.g. a ``state_dict``-like mapping; the
+    default, None, is every buffer), synced over the group once per step
+    (module docstring). The JAX package's other options
+    (``exclude_parts``, ``compressor``, ``gtopk``, ``momentum_correction``,
+    ``remat``, ``dcn``) are accepted at their defaults and raise
+    ``NotImplementedError`` otherwise."""
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
     if mode == "dear-fused":
@@ -228,7 +241,19 @@ def build_train_step(loss_fn: Callable, model: nn.Module, *,
                      plan, comm_dtype=comm_dtype, gather_dtype=gather_dtype,
                      has_aux=has_aux, rng_seed=rng_seed,
                      accum_steps=int(accum_steps), clip_norm=clip_norm,
-                     fused=mode == "dear-fused")
+                     fused=mode == "dear-fused",
+                     model_state=_model_state(model, model_state_template))
+
+
+def _model_state(model, template) -> list:
+    """The buffers that ``template`` names (None: every buffer)."""
+    bufs = dict(model.named_buffers())
+    names = list(bufs) if template is None else list(template)
+    unknown = [n for n in names if n not in bufs]
+    if unknown:
+        raise ValueError(f"model_state_template names {unknown}, which are "
+                         "not buffers of the model")
+    return [bufs[n] for n in names]
 
 
 def _ring_matmul_elems(model, world: int) -> int:
@@ -244,15 +269,17 @@ class TrainStep:
     """What `build_train_step` returns: ``init``, ``step``,
     ``gather_params``, ``plan`` and ``group``, and the per-run counters
     ``rs_launches``, ``ag_launches`` and ``update_launches`` (one of each
-    per bucket per step) that show the schedule ran per bucket, and
-    ``cm_calls`` (ring-matmul calls, three per ring projection per step).
+    per bucket per step) that show the schedule ran per bucket,
+    ``cm_calls`` (ring-matmul calls, three per ring projection per step)
+    and ``state_syncs`` (model-state collectives: one per step at world >
+    1 when the model has state, else none).
     In ``dear-fused`` mode ``ring`` is the step's `comm.ring.Ring` (holding
     no buffers at world 1; with a "cm" leg when the model has ring
     projections); `close` frees it once every rank is done."""
 
     def __init__(self, loss_fn, model, optimizer, group, plan, *,
                  comm_dtype, gather_dtype, has_aux, rng_seed, accum_steps,
-                 clip_norm, fused=False):
+                 clip_norm, fused=False, model_state=()):
         self.loss_fn, self.model, self.optimizer = loss_fn, model, optimizer
         self.group, self.plan = group, plan
         self.has_aux, self.rng_seed = has_aux, rng_seed
@@ -261,7 +288,9 @@ class TrainStep:
         self.rank = dist.get_rank(group)
         self.device = dev = model.device
         self.rs_launches = self.ag_launches = self.update_launches = 0
-        self.cm_calls = 0
+        self.cm_calls = self.state_syncs = 0
+        self._mstate = list(model_state)
+        self._mstate_done = None
 
         params = dict(model.named_parameters())
         for s in plan.leaves:
@@ -415,6 +444,9 @@ class TrainStep:
                 buckets = sorted(set(owned))
                 mod.register_forward_pre_hook(
                     lambda m, args, gs=buckets: self._wait_gathers(gs))
+        if self._mstate:
+            self.model.register_forward_pre_hook(
+                lambda m, args: self._wait_model_state())
         self._bound = True
 
     # -- the step ------------------------------------------------------------
@@ -516,6 +548,7 @@ class TrainStep:
             if aux is not None:
                 auxs.append(torch.as_tensor(aux).detach().float())
         self._finish_buckets()
+        self._sync_model_state()
         metrics: dict = {}
         if self.fused:
             self._fused_gathers(state)
@@ -580,6 +613,43 @@ class TrainStep:
                 self.update_launches += 1
                 self._gather(g, shard)
 
+    def _sync_model_state(self) -> None:
+        """After the last microbatch's backward: the mean over the ranks of
+        every floating buffer of the model state and the max of every
+        integer or bool one, through ONE all-gather of the buffers packed
+        as 32-bit words, on the comm stream (the reduction and the copies
+        back too); the next forward waits for it."""
+        if self.world == 1 or not self._mstate:
+            return
+        fl = [t for t in self._mstate if t.is_floating_point()]
+        ints = [t for t in self._mstate if not t.is_floating_point()]
+        nf = sum(t.numel() for t in fl)
+        with torch.no_grad(), self._on_comm():   # after the forwards
+            parts = ([torch.cat([t.reshape(-1).float() for t in fl])
+                      .view(torch.int32)] if fl else []) + \
+                ([torch.cat([t.reshape(-1).long() for t in ints])
+                  .view(torch.int32)] if ints else [])
+            rows = C.all_gather(torch.cat(parts), self.group).view(
+                self.world, -1)
+            new = []
+            if fl:
+                mean = rows[:, :nf].contiguous().view(torch.float32).sum(0) \
+                    / self.world
+                new += mean.split([t.numel() for t in fl])
+            if ints:
+                top = rows[:, nf:].contiguous().view(torch.int64).amax(0)
+                new += top.split([t.numel() for t in ints])
+            bufs = fl + ints
+            torch._foreach_copy_(bufs, [n.view(t.shape)
+                                        for n, t in zip(new, bufs)])
+            self._mstate_done = C.StreamEvent.after_current(self.device)
+        self.state_syncs += 1
+
+    def _wait_model_state(self) -> None:
+        if self._mstate_done is not None:
+            self._mstate_done.wait()   # the current stream waits
+            self._mstate_done = None
+
     def _mean_over_ranks(self, x: torch.Tensor) -> torch.Tensor:
         if self.world == 1:
             return x
@@ -588,7 +658,9 @@ class TrainStep:
     def gather_params(self, state: DearState) -> dict:
         """``{name: fp32 tensor}``: the full master parameters, gathered
         from every rank's shards (for eval and checkpoints; in dear-fused
-        mode through the ring all-gather, K4)."""
+        mode through the ring all-gather, K4). The model state's last sync
+        is done too."""
+        self._wait_model_state()
         if not self.fused:
             bufs = [C.all_gather(s, self.group) for s in state.shards]
             return F.unpack_all(bufs, self.plan)

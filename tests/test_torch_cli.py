@@ -6,7 +6,7 @@ with ``--fp16`` gradients travel in bf16 and gathers only when world > 1);
 unported flags and fields raise; ``--ring-projections`` needs
 ``--mode dear-fused`` (JAX's SystemExit); and short CPU runs of GPT-2's
 full width at one layer, which must lower their loss and run the schedule
-once per bucket per step."""
+once per bucket per step; the ImageNet CLI (ResNet-18 at 224²) likewise."""
 
 import dataclasses
 
@@ -15,6 +15,7 @@ import torch
 
 from dear_pytorch_tpu.config import DearConfig as JaxDearConfig
 from dear_pytorch_tpu_torch.benchmarks import gpt as cli
+from dear_pytorch_tpu_torch.benchmarks import imagenet
 from dear_pytorch_tpu_torch.benchmarks import runner
 from dear_pytorch_tpu_torch.config import DearConfig
 
@@ -151,3 +152,43 @@ def test_cli_dear_fused_trains_on_the_cpu():
     assert runner.config_from_args(
         _args("--fp16", "--mode", "dear-fused"), world=2).gather_dtype is None
     ts.close()
+
+
+def test_imagenet_cli_trains_resnet_on_the_cpu(capsys):
+    """The ImageNet CLI at 224² (ResNet-18, batch 2, bf16, the s2d stem):
+    the loss falls, each step runs one reduce-scatter, update and
+    all-gather per bucket, the BN statistics are the step's model state
+    (at world 1 nothing to sync) and moved."""
+    res = imagenet.main(["--device", "cpu", "--model", "resnet18",
+                         "--stem", "s2d", "--batch-size", "2", "--fp16",
+                         "--num-warmup-batches", "0",
+                         "--num-batches-per-iter", "3", "--num-iters", "1"])
+    out = capsys.readouterr().out
+    assert "Img/sec per CPU" in out and "fusion: " in out
+    ts = res.train_step
+    assert len(res.losses) == 3 and res.losses[-1] < res.losses[0]
+    n = ts.plan.num_buckets
+    assert ts.rs_launches == ts.update_launches == 3 * n
+    assert ts.ag_launches == 4 * n and ts.state_syncs == 0
+    assert len(ts._mstate) == 3 * 20          # 20 BNs in ResNet-18
+    assert int(ts.model.bn1.num_batches_tracked) == 3
+    assert float(ts.model.bn1.running_var.sub(1).abs().max()) > 0
+    assert res.batch["image"].shape == (2, 3, 224, 224)
+    assert res.batch["image"].dtype == torch.bfloat16
+    assert ts.model.conv1.weight.shape == (64, 12, 4, 4)
+
+
+@pytest.mark.parametrize("argv,match", [
+    (["--model", "densenet121"], "item 5b"),
+    (["--model", "gpt2"], "CNNs are"),
+])
+def test_imagenet_cli_refuses_what_it_does_not_run(argv, match):
+    with pytest.raises(SystemExit, match=match):
+        imagenet.main(argv + ["--device", "cpu"])
+
+
+@pytest.mark.parametrize("flag", ["--pipeline", "--scan-steps", "--mgwfbp",
+                                  "--mfu"])
+def test_imagenet_cli_unported_flags_are_errors(flag):
+    with pytest.raises(SystemExit):
+        imagenet.build_parser().parse_args([flag])

@@ -394,7 +394,8 @@ def test_world2_fused_matches_port_dear(world2_results):
 
 def test_rejected_options_raise(group):
     """What is not ported raises NotImplementedError naming its ROADMAP
-    item; ``mode="dear-fused"`` builds, and refuses what the JAX package's
+    item (``model_state_template`` is ported: it builds);
+    ``mode="dear-fused"`` builds, and refuses what the JAX package's
     dear-fused refuses with its ValueError."""
     model = tgpt.GptLmHeadModel(_torch_config(), device="cpu")
 
@@ -404,12 +405,15 @@ def test_rejected_options_raise(group):
     lamb = topt.LayerwiseShardOptimizer(init=None, update=None)
     bad = [dict(mode="allreduce"), dict(exclude_parts=("allgather",)),
            dict(compressor="eftopk"), dict(gtopk=True),
-           dict(momentum_correction=0.9), dict(model_state_template={}),
-           dict(remat="full"), dict(dcn=object()), dict(optimizer=lamb)]
+           dict(momentum_correction=0.9), dict(remat="full"),
+           dict(dcn=object()), dict(optimizer=lamb)]
     for kw in bad:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tdear.build_train_step(loss_fn, model, group=group,
                                    device="cpu", **kw)
+    # model state is ported: a template naming no buffer is accepted
+    assert tdear.build_train_step(loss_fn, model, group=group, device="cpu",
+                                  model_state_template={})._mstate == []
     fused = tdear.build_train_step(loss_fn, model, group=group,
                                    device="cpu", mode="dear-fused")
     assert fused.fused and fused.ring.world == 1

@@ -243,7 +243,7 @@ def test_presets_and_registry_match_jax():
         assert tmodels._GPT_REGISTRY[name] == tcfg
     assert tgpt.GPT2_SMALL.padded_vocab_size == 50264
     with pytest.raises(KeyError, match="gpt2"):
-        tmodels.get_model("resnet50", device="cpu")
+        tmodels.get_model("densenet121", device="cpu")
 
 
 def test_converted_state_dict_covers_every_parameter():
@@ -390,7 +390,7 @@ def test_dropout_free_and_model_registry():
     assert tmodels.gpt_names() == jmodels.gpt_names()
     cfg = tmodels.gpt_config("GPT2", dtype=torch.bfloat16)
     assert cfg == dataclasses.replace(tgpt.GPT2_SMALL, dtype=torch.bfloat16)
-    for name in ("resnet50", "bert", "vit_b16"):
+    for name in ("densenet121", "bert", "vit_b16"):
         with pytest.raises(KeyError, match="models slice"):
             tmodels.get_model(name, device="cpu")
     with pytest.raises(KeyError, match="unknown model"):

@@ -65,7 +65,9 @@ def test_importing_the_port_and_chip_smoke_loads_no_jax():
     assert "dear_pytorch_tpu_torch.ops.flash_attention" in loaded
     for ring in ("dear_pytorch_tpu_torch.comm.ring",
                  "dear_pytorch_tpu_torch.ops.collective_matmul",
-                 "dear_pytorch_tpu_torch.models.bert"):
+                 "dear_pytorch_tpu_torch.models.bert",
+                 "dear_pytorch_tpu_torch.models.resnet",
+                 "dear_pytorch_tpu_torch.benchmarks.imagenet"):
         assert ring in modules and ring in loaded
 
 
@@ -135,3 +137,31 @@ def test_entry_points_refuse_a_device_the_model_is_not_on():
         tgpt.generate(model, [[1, 2]], 2, device="meta")
     assert dataclasses.replace(model.config, dtype=torch.bfloat16).dtype \
         == torch.bfloat16
+
+
+def test_resnet_entry_points_need_the_card_unless_told_otherwise(
+        monkeypatch):
+    """The ResNet slice's entry points — the model, the image batch and the
+    ImageNet CLI — run on the card by default and raise without one; with
+    ``device="cpu"`` they run the plain PyTorch path."""
+    from dear_pytorch_tpu_torch import models
+    from dear_pytorch_tpu_torch.benchmarks import imagenet
+    from dear_pytorch_tpu_torch.models.data import synthetic_image_batch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        models.get_model("resnet50")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        synthetic_image_batch(0, 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        imagenet.main(["--model", "resnet18", "--batch-size", "2"])
+    assert models.get_model("resnet50", device="cpu").device == \
+        torch.device("cpu")
+    batch = synthetic_image_batch(0, 2, image_size=32, device="cpu")
+    assert batch["image"].device == torch.device("cpu")
+    res = imagenet.main(["--device", "cpu", "--model", "resnet18",
+                         "--batch-size", "2", "--num-warmup-batches", "0",
+                         "--num-batches-per-iter", "1", "--num-iters", "1"])
+    assert res.device == "CPU" and res.unit == "img"
+    assert len(res.losses) == 1 and res.train_step.update_launches == \
+        res.train_step.plan.num_buckets
