@@ -123,6 +123,30 @@ non-zero and no result line is printed):
      bitwise at the plan's shard sizes; then ResNet-50 in fp32 (TF32 off,
      train mode, B = 2) from the run's weights on the card against the
      CPU: logits and updated BN buffers within `_RESNET_CPU_RTOL`;
+  5e. train BERT-Base through the port's BERT CLI (``benchmarks/bert.py
+     --model bert_base --fp16``, batch 32): with ``--flash-attention
+     --dropout0 --mfu`` at S = 128 for 20 steps, every step launching K1,
+     K2 and K3 12 times each on their tensor-core routes and the K5
+     epilogue, a reduce-scatter and an all-gather once per bucket, the
+     losses finite and falling, the counted FLOPs the dense model's plus
+     K2 and K3's recomputation; step 1's loss against a dense-attention
+     step on the same weights and batch within `_BERT_FLASH_VS_DENSE_RTOL`;
+     then the bench's configuration (S = 64, dropout 0.1) and the flash
+     impl under dropout, neither launching an attention kernel (phase 3
+     holds K1, K2 and K3 at BERT's shapes too: B = 32, S = 64 and 128,
+     non-causal, per-row key lengths and a full mask);
+  5f. train ViT-B/16 through the ImageNet CLI (``--model vit_b16
+     --batch-size 64 --fp16 --mfu``, 224²) for 20 steps: the K5 epilogue
+     once per bucket per step, the losses finite and falling, the counted
+     FLOPs equal to `bench.vit_step_flops`; then ViT-B/16 in fp32 (TF32
+     off, B = 2) from the run's weights on the card against the CPU:
+     logits within `_VIT_CPU_RTOL`;
+  5g. run the port's bench entry as a user runs it (``python -m
+     dear_pytorch_tpu_torch.bench``, a process of its own): exit 0, one
+     parsable last line with bench.py's five metrics, names and units,
+     each with a numeric value, MFU and peak memory and no error entry,
+     each counted step within `_BENCH_FLOPS_RTOL` of its analytic count;
+     re-prints the line and a line per model;
   6. trace steady bf16 decode ticks and training steps with
      ``torch.profiler`` (device ops, busy time and idle share, the top
      device ops of a step); time each kernel, its plain version and
@@ -136,7 +160,8 @@ non-zero and no result line is printed):
      epilogue also at ResNet-50's largest bucket shard; step time
      p50/p99, tokens/s and MFU, the two-rank steps' p50/p99 and tokens/s;
      ResNet-50's step p50/p99, img/s and MFU (3 x the forward's conv and
-     fc products against 989 TF/s bf16) and 2 traced steps.
+     fc products against 989 TF/s bf16) and 2 traced steps; K1, K2 and K3
+     also at BERT-Base's flash shape (B = 32, S = 128, non-causal).
 
 ``python3 chip_smoke.py --kernels-only`` runs phases 1–3 and stops without
 a result line. In a full run the line before the last lists the kernels
@@ -149,6 +174,7 @@ true, "device": {...}}``.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import hashlib
 import json
 import os
@@ -166,13 +192,16 @@ import dear_pytorch_tpu_torch.ops.collective_matmul as CM
 import dear_pytorch_tpu_torch.ops.flash_attention as FA
 import dear_pytorch_tpu_torch.ops.fused_sgd as FS
 import dear_pytorch_tpu_torch.ops.overhead_probe as OP
+from dear_pytorch_tpu_torch import bench as port_bench
+from dear_pytorch_tpu_torch.benchmarks import bert as bert_cli
 from dear_pytorch_tpu_torch.benchmarks import gpt as train_cli
 from dear_pytorch_tpu_torch.benchmarks import imagenet as imagenet_cli
 from dear_pytorch_tpu_torch.comm import backend
 from dear_pytorch_tpu_torch.comm.ring import LocalRing, Ring
 from dear_pytorch_tpu_torch.models import dropout_free, get_model, gpt_config
+from dear_pytorch_tpu_torch.models import bert as BERT
 from dear_pytorch_tpu_torch.models.data import (
-    synthetic_gpt_batch, synthetic_image_batch,
+    synthetic_bert_batch, synthetic_gpt_batch, synthetic_image_batch,
 )
 from dear_pytorch_tpu_torch.models.gpt import (
     GPT2_SMALL, GptLmHeadModel, flash_causal_attention_impl, generate,
@@ -224,6 +253,17 @@ def _case(gen, B, Sq, Sk, dtype, causal, lengths=None, holey=False, D=None,
     return q, k, v, mask.to(torch.int32)
 
 
+#: BERT-Base's flash shapes (phase 5e): batch 32, S = 64 (the bench's)
+#: and 128 (the flash run's), H = 12, D = 64, no causal mask
+_BERT_B, _BERT_SEQS = 32, (64, 128)
+
+
+def _bert_lengths(S):
+    """Per-row key lengths of a padded batch of ``_BERT_B`` sentences: from
+    S (row 0) down to 1, every row a different tail masked."""
+    return [max(1, S - (13 * b) % S) for b in range(_BERT_B)]
+
+
 def _routed(name, route, fn):
     """Run ``fn`` (one K1 call) and check that it launched once, through
     ``route``: no route gives way to another or to the plain version."""
@@ -272,6 +312,15 @@ def check_kernel() -> dict:
     # the training step's shape at world 2's per-rank batch
     cases.append(("train causal B=8 torch.bfloat16",
                   _case(gen, 8, 1024, 1024, torch.bfloat16, True), True))
+    # BERT's: non-causal over a key-padding mask (per-row lengths) and a
+    # full one (the flash run's synthetic batch)
+    for S in _BERT_SEQS:
+        cases += [
+            (f"bert padded B={_BERT_B} S={S} torch.bfloat16",
+             _case(gen, _BERT_B, S, S, torch.bfloat16, False,
+                   lengths=_bert_lengths(S)), False),
+            (f"bert full B={_BERT_B} S={S} torch.bfloat16",
+             _case(gen, _BERT_B, S, S, torch.bfloat16, False), False)]
     worst = dict.fromkeys(FA.FWD_ROUTES, 0.0)
     for name, (q, k, v, mask), causal in cases:
         dt, D = q.dtype, q.shape[-1]
@@ -455,6 +504,14 @@ def check_bwd_kernels() -> dict:
          _bwd_operands(gen, 8, 1024, torch.bfloat16, True), True),
         ("fp32 step causal B=2 S=1024 torch.float32",
          _bwd_operands(gen, 2, 1024, torch.float32, True), True)]
+    # BERT's flash shapes: non-causal, a key-padding mask and a full one
+    for S in _BERT_SEQS:
+        cases += [
+            (f"bert padded B={_BERT_B} S={S} torch.bfloat16",
+             _bwd_operands(gen, _BERT_B, S, torch.bfloat16, False,
+                           lengths=_bert_lengths(S)), False),
+            (f"bert full B={_BERT_B} S={S} torch.bfloat16",
+             _bwd_operands(gen, _BERT_B, S, torch.bfloat16, False), False)]
     # bf16 in, fp32 out: the same kernels' fp32 stores
     f32 = torch.float32
     cases += [
@@ -516,11 +573,17 @@ def check_bwd_kernels() -> dict:
         _worst(worst, key, errs["dq"][0], max(errs["dk"][0], errs["dv"][0]))
 
     # the same main-path shapes through the [B, S, H, D] dispatch that the
-    # autograd Function calls (no fold)
-    for B, dt in ((8, torch.bfloat16), (2, torch.float32)):
-        q, k, v, do, mask, lse, delta = _bwd_operands(gen, B, 1024, dt, True)
-        errs = _hold_dispatch(f"unfolded causal B={B} S=1024 {dt}", (
-            q, k, v, mask, do, lse, delta, _D ** -0.5, True), dt, tol[dt])
+    # autograd Function calls (no fold), BERT's padded ones too
+    bf16 = torch.bfloat16
+    for label, B, S, dt, causal, lengths in (
+            [("causal", 8, 1024, bf16, True, None),
+             ("causal", 2, 1024, torch.float32, True, None)]
+            + [("bert padded", _BERT_B, S, bf16, False, _bert_lengths(S))
+               for S in _BERT_SEQS]):
+        q, k, v, do, mask, lse, delta = _bwd_operands(gen, B, S, dt, causal,
+                                                      lengths=lengths)
+        errs = _hold_dispatch(f"unfolded {label} B={B} S={S} {dt}", (
+            q, k, v, mask, do, lse, delta, _D ** -0.5, causal), dt, tol[dt])
         _worst(worst, _bwd_instance(FA.bwd_route(_D, dt, dt), dt, dt, _D),
                errs["dq"][0], max(errs["dk"][0], errs["dv"][0]))
 
@@ -1816,22 +1879,258 @@ def check_resnet_card_vs_cpu(res) -> float:
     return max(worst.values())
 
 
+# ---------------------------------------------------------------------------
+# phase 5e: BERT-Base through the BERT CLI
+# ---------------------------------------------------------------------------
+
+#: BERT-Base, bf16, batch 32, 25 MB buckets, 20 steps (5 warmup, 3 x 5
+#: timed); the flash run at S = 128 without dropout, SGD lr 0.01 momentum
+#: 0.9 (the bench's lr 2e-5 moves the loss too little to see it fall); the
+#: bench's configuration at S = 64 with dropout and the CLI's optimizer
+_BERT_ARGS = ["--model", "bert_base", "--fp16", "--batch-size",
+              str(_BERT_B), "--threshold", "25"]
+_BERT_FLASH_ARGS = _BERT_ARGS + ["--sentence-len", "128", "--dropout0",
+                                 "--base-lr", "0.01", "--momentum", "0.9"]
+_BERT_STEPS = ["--num-warmup-batches", "5", "--num-batches-per-iter", "5",
+               "--num-iters", "3"]
+#: step 1's loss, flash against dense on one seed's weights and batch: the
+#: largest difference over |loss|. Both round every product to bf16, K1 its
+#: probabilities on the tensor cores, the dense core its scores and
+#: probabilities; a CPU rehearsal of 4 layers at B = 8 gave 5e-7
+_BERT_FLASH_VS_DENSE_RTOL = 1e-3
+
+
+def _flash_counts() -> dict:
+    """K1's, K2's and K3's launches so far."""
+    return {"fwd": FA.flash_fwd_launches, "dq": FA.flash_bwd_dq_launches,
+            "dkv": FA.flash_bwd_dkv_launches}
+
+
+def train_bert():
+    """BERT-Base through ``benchmarks/bert.py`` on the card. The flash run
+    (``--flash-attention --dropout0 --mfu``, S = 128, 20 steps): every
+    step launches K1, K2 and K3 12 times each, all on their tensor-core
+    routes, and the K5 epilogue, a reduce-scatter and an all-gather once
+    per bucket; the losses are finite and fall; its counted FLOPs are the
+    dense model's plus what K2 and K3's plain versions recompute
+    (`ops.flash_attention.plain_flops`). Then one dense step on the same
+    weights and batch: step 1's loss within `_BERT_FLASH_VS_DENSE_RTOL`
+    and no attention kernel. Then the bench's configuration (S = 64,
+    dropout 0.1, 3 steps) and the flash impl in a dropout model: no
+    attention kernel launched. Returns (flash result, its launches, its
+    step times in ms, the dropout run's result)."""
+    FA.reset_launch_counts()            # the main path
+    FS.fused_update_launches = 0        # starts here
+    marks, prev = [], {}
+
+    def on_step(ts, state, metrics):
+        del state, metrics
+        now = _train_counts(ts)
+        nb, layers = ts.plan.num_buckets, ts.model.config.num_hidden_layers
+        before = prev or {k: 0 for k in now} | {"ag": nb}   # init's gathers
+        want = {k: layers for k in now if k.startswith("flash")} | {
+            "fused_update": nb, "rs": nb, "ag": nb, "update": nb}
+        got = {k: now[k] - before[k] for k in now}
+        _check(got == want, f"bert step {len(marks) + 1}: launches {got}, "
+               f"expected {want}")
+        prev.update(now)
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append(ev)
+
+    res = bert_cli.main(_BERT_FLASH_ARGS + _BERT_STEPS
+                        + ["--flash-attention", "--mfu", "--device", _DEV],
+                        on_step=on_step)
+    launches = _train_counts(res.train_step)      # ... and ends here
+    losses = res.losses
+    S = res.batch["input_ids"].shape[1]
+    print(f"bert-base flash losses (S={S}, B={_BERT_B}): "
+          f"{[round(x, 4) for x in losses]}")
+    _check(len(losses) == 20 and all(np.isfinite(losses)),
+           f"bert flash: losses {losses}")
+    _check(losses[-1] < losses[0], "bert flash: the loss did not fall")
+    cfg = res.train_step.model.config
+    want_flops = (port_bench.bert_step_flops(cfg, _BERT_B, S)
+                  + 6 * cfg.hidden_size * cfg.num_hidden_layers * _BERT_B
+                  * S * S)
+    print(f"bert-base flash step: {res.flops_per_step / 1e12:.6f} TFLOP "
+          f"counted, {want_flops / 1e12:.6f} reckoned (the dense model's "
+          f"{port_bench.bert_step_flops(cfg, _BERT_B, S) / 1e12:.6f} plus "
+          "K2 and K3's recomputed S and dP)")
+    _check(abs(res.flops_per_step - want_flops) <= 1e-6 * want_flops,
+           "bert flash: the counted FLOPs are not the reckoned ones")
+    step_ms = [a.elapsed_time(b) for a, b in zip(marks[4:-1], marks[5:])]
+    print(f"main path (bert-base flash): 20 steps, "
+          f"{res.train_step.plan.num_buckets} buckets, launches {launches}")
+    res.train_step.close()
+
+    before = _flash_counts()
+    dense = bert_cli.main(_BERT_FLASH_ARGS + [
+        "--num-warmup-batches", "0", "--num-batches-per-iter", "1",
+        "--num-iters", "1", "--device", _DEV])
+    _check(_flash_counts() == before, "bert dense: an attention kernel ran")
+    rel = abs(losses[0] - dense.losses[0]) / abs(dense.losses[0])
+    print(f"bert-base step 1 loss: flash {losses[0]:.6f}, dense "
+          f"{dense.losses[0]:.6f} (rel {rel:.3e}, tolerance "
+          f"{_BERT_FLASH_VS_DENSE_RTOL})")
+    _check(rel <= _BERT_FLASH_VS_DENSE_RTOL, "bert: flash and dense differ")
+    dense.train_step.close()
+
+    FS.fused_update_launches = 0
+    drop = bert_cli.main(_BERT_ARGS + [
+        "--sentence-len", "64", "--num-warmup-batches", "0",
+        "--num-batches-per-iter", "3", "--num-iters", "1", "--device", _DEV])
+    nb = drop.train_step.plan.num_buckets
+    print(f"bert-base with dropout (the bench's configuration, S=64): "
+          f"losses {[round(x, 4) for x in drop.losses]}")
+    _check(_flash_counts() == before and FS.fused_update_launches == 3 * nb
+           and all(np.isfinite(drop.losses)),
+           f"bert with dropout: attention kernels {_flash_counts()} (want "
+           f"{before}), K5 epilogue {FS.fused_update_launches} (want "
+           f"{3 * nb}), losses {drop.losses}")
+    drop_launches = FS.fused_update_launches
+    cfg2 = dataclasses.replace(BERT.BERT_BASE, num_hidden_layers=2,
+                               dtype=torch.bfloat16)
+    model = BERT.BertForPreTraining(
+        cfg2, attention_impl=FA.make_flash_attention_impl(), device=_DEV)
+    b = synthetic_bert_batch(3, 4, seq_len=64, device=_DEV)
+    logits, _ = model(b["input_ids"], b["token_type_ids"],
+                      b["attention_mask"], train=True,
+                      generator=torch.Generator(device=_DEV).manual_seed(0))
+    _check(_flash_counts() == before and bool(torch.isfinite(logits).all()),
+           "the flash impl under dropout launched an attention kernel")
+    print("the flash impl under attention dropout: the dense core, no "
+          "attention kernel (2 layers, train mode)")
+    return res, launches | {"fused_update": launches["fused_update"]
+                            + drop_launches}, step_ms, drop
+
+
+# ---------------------------------------------------------------------------
+# phase 5f: ViT-B/16 through the ImageNet CLI
+# ---------------------------------------------------------------------------
+
+_VIT_MODEL, _VIT_B = "vit_b16", 64
+_VIT_ARGS = ["--model", _VIT_MODEL, "--batch-size", str(_VIT_B), "--fp16",
+             "--mode", "dear", "--threshold", "25", "--mfu"] + _BERT_STEPS
+#: card against CPU in fp32 (TF32 off): the largest logit difference over
+#: the largest |logit| (as `_RESNET_CPU_RTOL`)
+_VIT_CPU_RTOL = 1e-3
+
+
+def train_vit():
+    """20 steps of ``benchmarks/imagenet.py --model vit_b16`` (bf16, B = 64,
+    224²): every step launches the K5 epilogue and runs a shard update and
+    reduce-scatter once per bucket; the losses are finite and fall; the
+    counted FLOPs equal `bench.vit_step_flops`. Then ViT-B/16 in fp32 from
+    the run's weights on the card against the CPU (B = 2): logits within
+    `_VIT_CPU_RTOL`. Returns (result, the epilogue's launches, step ms)."""
+    FS.fused_update_launches = 0        # the main path starts here
+    marks, prev = [], {}
+
+    def on_step(ts, state, metrics):
+        del state, metrics
+        now = {"fused_update": FS.fused_update_launches,
+               "update": ts.update_launches, "rs": ts.rs_launches}
+        got = {k: v - prev.get(k, 0) for k, v in now.items()}
+        nb = ts.plan.num_buckets
+        _check(got == dict.fromkeys(now, nb), f"vit step {len(marks) + 1}: "
+               f"launches {got}, expected {nb} each")
+        prev.update(now)
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append(ev)
+
+    before = _flash_counts()
+    res = imagenet_cli.main(_VIT_ARGS + ["--device", _DEV], on_step=on_step)
+    launches = FS.fused_update_launches           # ... and ends here
+    losses = res.losses
+    print(f"{_VIT_MODEL} losses: {[round(x, 4) for x in losses]}")
+    _check(len(losses) == 20 and all(np.isfinite(losses)),
+           f"vit_b16: losses {losses}")
+    _check(losses[-1] < losses[0], "vit_b16: the loss did not fall")
+    _check(_flash_counts() == before, "vit_b16: an attention kernel ran")
+    want = port_bench.vit_step_flops(
+        _VIT_B, **{"vit_b16": port_bench.VIT_B16,
+                   "vit_s16": port_bench.VIT_S16}[_VIT_MODEL])
+    _check(abs(res.flops_per_step - want) <= 1e-6 * want,
+           f"vit_b16: counted {res.flops_per_step} FLOPs, reckoned {want}")
+    ts = res.train_step
+    print(f"main path ({_VIT_MODEL} train): 20 steps, {ts.plan.num_buckets} "
+          f"buckets (shards {[b.shard_size for b in ts.plan.buckets]}), K5 "
+          f"epilogue launches {launches}; {res.flops_per_step / 1e12:.6f} "
+          "TFLOP per step counted = reckoned")
+    step_ms = [a.elapsed_time(b) for a, b in zip(marks[4:-1], marks[5:])]
+
+    params = ts.gather_params(res.state)
+    image = synthetic_image_batch(9, 2, device=_DEV)["image"]
+    outs = {}
+    for dev in (_DEV, "cpu"):
+        model = get_model(_VIT_MODEL, device=dev)
+        model.load_state_dict({k: v.to(dev) for k, v in params.items()})
+        with torch.no_grad():
+            outs[dev] = model(image.to(dev)).cpu()
+    err = float((outs[_DEV] - outs["cpu"]).abs().max()
+                / outs["cpu"].abs().max())
+    print(f"{_VIT_MODEL} fp32 card vs CPU (B=2, 224², TF32 off): logits "
+          f"{err:.3e} of the largest |value| (tolerance {_VIT_CPU_RTOL})")
+    _check(err <= _VIT_CPU_RTOL, "vit_b16: card and CPU disagree")
+    return res, launches, step_ms
+
+
+# ---------------------------------------------------------------------------
+# phase 5g: the bench entry
+# ---------------------------------------------------------------------------
+
+#: the bench's counted FLOPs against the analytic count
+_BENCH_FLOPS_RTOL = 0.02
+
+
+def run_bench(card: str, timeout: float = 600.0) -> dict:
+    """``python -m dear_pytorch_tpu_torch.bench`` as a user runs it (a
+    process of its own, the card, no ``DEAR_BENCH_*`` switch): it exits 0,
+    its last line parses, all five metrics are there with bench.py's names
+    and units and a numeric value, MFU and peak memory, no error entry,
+    and each counted step within `_BENCH_FLOPS_RTOL` of its analytic
+    count. Re-prints the line, then a line per model. Returns the line."""
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("DEAR_BENCH_")}
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "dear_pytorch_tpu_torch.bench"],
+                         cwd=_ROOT, env=env, capture_output=True, text=True,
+                         timeout=timeout)
+    wall = time.perf_counter() - t0
+    for line in out.stderr.strip().splitlines()[-12:]:
+        print(f"  bench stderr: {line[:200]}")
+    _check(out.returncode == 0, f"bench exited {out.returncode}")
+    line = json.loads(out.stdout.strip().splitlines()[-1])
+    print(f"bench line ({wall:.1f} s, {card}): {json.dumps(line)}")
+    entries = [line] + line.get("extra_metrics", [])
+    got = [(m.get("metric"), m.get("unit")) for m in entries]
+    _check(got == list(port_bench.METRICS),
+           f"bench: metrics {got}, expected {port_bench.METRICS}")
+    want = port_bench.analytic_step_flops()
+    for m in entries:
+        _check("error" not in m and all(
+            isinstance(m.get(k), (int, float)) and m[k] > 0
+            for k in ("value", "mfu", "peak_hbm_gb")),
+            f"bench: {m.get('metric')} has no numeric value, MFU and peak "
+            f"memory: {m}")
+        ratio = m["flops_per_step"] / want[m["metric"]]
+        print(f"bench {m['metric']}: {m['value']} {m['unit']}, step "
+              f"{m['step_ms']:.3f} ms, MFU {m['mfu']:.2%}, peak "
+              f"{m['peak_hbm_gb']} GiB; {m['flops_per_step'] / 1e12:.6f} "
+              f"TFLOP per step counted, {want[m['metric']] / 1e12:.6f} "
+              f"analytic (ratio {ratio:.6f})")
+        _check(abs(ratio - 1) <= _BENCH_FLOPS_RTOL,
+               f"bench: {m['metric']} counted FLOPs off the analytic count")
+    return line
+
+
 def resnet_flops_per_image(name="resnet50", size=224) -> float:
     """The forward's 2·kh·kw·C_in·C_out·H_out·W_out over the convs (the
-    output sizes from one CPU forward) plus 2·in·out for fc."""
-    model = get_model(name, device="cpu").eval()
-    flops = []
-    hooks = [m.register_forward_hook(
-        lambda m, i, o: flops.append(2 * m.weight[0].numel()
-                                     * m.out_channels * o.shape[2]
-                                     * o.shape[3]))
-        for m in model.modules() if isinstance(m, torch.nn.Conv2d)]
-    with torch.no_grad():
-        model(torch.zeros(1, 3, size, size))
-    for h in hooks:
-        h.remove()
-    return float(sum(flops) + 2 * model.fc.in_features
-                 * model.fc.out_features)
+    output sizes from one CPU forward) plus 2·in·out for fc
+    (`bench.conv_fc_flops`)."""
+    return port_bench.conv_fc_flops(get_model(name, device="cpu"), size)[0]
 
 
 def train_flops_per_step(cfg, B, S) -> float:
@@ -2024,9 +2323,10 @@ def time_shape(name, B, Sq, Sk, dtype, causal, n_sets, hbm, out_dtype=None):
     return row
 
 
-def time_bwd(hbm, configs, S=1024):
-    """K2 and K3 at causal [B, S, 12, 64] shapes, through the [B, S, H, D]
-    dispatch the autograd Function uses. ``configs`` lists (suffix, B,
+def time_bwd(hbm, configs, S=1024, causal=True):
+    """K2 and K3 at [B, S, 12, 64] shapes (``causal``, or over a full key
+    mask: BERT's), through the [B, S, H, D] dispatch the autograd Function
+    uses. ``configs`` lists (suffix, B,
     dtype, out_dtype, launches_per_step): the tensor-core route at the bf16
     train step (bf16 out), the CUDA-core route at the fp32 step (fp32 in
     and out) and at the train shape with bf16 in, fp32 out (ring
@@ -2035,7 +2335,8 @@ def time_bwd(hbm, configs, S=1024):
     value|, at most 2e-2 for bf16 out and 1e-4 for fp32 out, as in
     `check_bwd_kernels`), every call checked for its route, then timed
     beside its plain version and the backward of SDPA at the same shape and
-    dtype (is_causal; dq, dk and dv in one call), the yardstick for K2 + K3
+    dtype (is_causal as the kernels; dq, dk and dv in one call), the
+    yardstick for K2 + K3
     together. Rows ``flash_bwd_dq`` + suffix / ``flash_bwd_dkv`` + suffix,
     each with its TF/s. Returns (rows, the largest absolute error of dQ and
     of dK/dV by instantiation, as `check_bwd_kernels`)."""
@@ -2046,14 +2347,15 @@ def time_bwd(hbm, configs, S=1024):
     worst = {"dq": {}, "dkv": {}}
     for sfx, B, dt, out_dt, launches_per_step in configs:
         if (B, dt) not in operands:
-            operands[B, dt] = [_bwd_operands(gen, B, S, dt, True)
+            operands[B, dt] = [_bwd_operands(gen, B, S, dt, causal)
                                for _ in range(2)]
         sets = operands[B, dt]
         route = FA.bwd_route(_D, dt, out_dt)
         q, k, v, do, mask, lse, delta = sets[0]
+        kind = "causal" if causal else "non-causal"
         errs = _hold_dispatch(
-            f"main path causal B={B} S={S} {dt} in, {out_dt} out",
-            (q, k, v, mask, do, lse, delta, scale, True), out_dt,
+            f"main path {kind} B={B} S={S} {dt} in, {out_dt} out",
+            (q, k, v, mask, do, lse, delta, scale, causal), out_dt,
             tol[out_dt])
         _worst(worst, _bwd_instance(route, dt, out_dt, _D), errs["dq"][0],
                max(errs["dk"][0], errs["dv"][0]))
@@ -2063,7 +2365,8 @@ def time_bwd(hbm, configs, S=1024):
             for q, k, v, do, *_ in sets:
                 xs = [t.transpose(1, 2).detach().requires_grad_()
                       for t in (q, k, v)]
-                out = F.scaled_dot_product_attention(*xs, is_causal=True)
+                out = F.scaled_dot_product_attention(*xs,
+                                                     is_causal=causal)
                 sdpa.append((out, xs, do.transpose(1, 2)))
 
             def library(out, xs, do):
@@ -2075,22 +2378,22 @@ def time_bwd(hbm, configs, S=1024):
             del sdpa
 
         def dq(q, k, v, do, mask, lse, delta):
-            FA._dispatch_dq(q, k, v, mask, do, lse, delta, scale, True,
+            FA._dispatch_dq(q, k, v, mask, do, lse, delta, scale, causal,
                             out_dt)
 
         def dkv(q, k, v, do, mask, lse, delta):
-            FA._dispatch_dkv(q, k, v, mask, do, lse, delta, scale, True,
+            FA._dispatch_dkv(q, k, v, mask, do, lse, delta, scale, causal,
                              out_dt)
 
         def dq_plain(q, k, v, do, mask, lse, delta):
-            FA._dq_reference(q, k, v, mask, do, lse, delta, scale, True,
+            FA._dq_reference(q, k, v, mask, do, lse, delta, scale, causal,
                              out_dt)
 
         def dkv_plain(q, k, v, do, mask, lse, delta):
-            FA._dkv_reference(q, k, v, mask, do, lse, delta, scale, True,
+            FA._dkv_reference(q, k, v, mask, do, lse, delta, scale, causal,
                               out_dt)
 
-        pairs = B * _H * S * (S + 1) // 2
+        pairs = B * _H * (S * (S + 1) // 2 if causal else S * S)
         elems = B * S * _H * _D
         dts = str(dt).replace("torch.", "")
         if out_dt != dt:
@@ -2107,7 +2410,7 @@ def time_bwd(hbm, configs, S=1024):
             bytes_ms = nbytes / hbm * 1e3
             ops_ms = flops / _PEAK_FLOPS[dt] * 1e3
             row = {
-                "shape": f"train causal B={B} S={S} H={_H} D={_D}",
+                "shape": f"train {kind} B={B} S={S} H={_H} D={_D}",
                 "dtype": dts, "route": route, "ms": ms,
                 "tflops": flops / ms / 1e9, "plain_ms": plain_ms,
                 "bound_ms": max(bytes_ms, ops_ms),
@@ -2121,7 +2424,7 @@ def time_bwd(hbm, configs, S=1024):
         dkv_row = rows["flash_bwd_dkv" + sfx]
         both = dq_row["ms"] + dkv_row["ms"]
         tflops = (dq_row["flops"] + dkv_row["flops"]) / both / 1e9
-        print(f"backward yardstick: SDPA backward (is_causal, dq+dk+dv) "
+        print(f"backward yardstick: SDPA backward ({kind}, dq+dk+dv) "
               f"{sdpa_ms[B, dt]:.4f} ms vs K2 + K3 ({route}) {both:.4f} ms "
               f"({tflops:.1f} TF/s; {both / sdpa_ms[B, dt]:.2f}x) at B={B} "
               f"S={S} {dts}")
@@ -2582,6 +2885,30 @@ def main(argv=None) -> int:
     upd_err = max(upd_err, check_update_main_path(rn.train_step))
     check_resnet_card_vs_cpu(rn)
     print(f"resnet phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    bert, bert_launches, bert_step_ms, bert_drop = train_bert()
+    upd_err = max(upd_err, check_update_main_path(bert.train_step))
+    print(f"bert phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    vit, vit_launches, vit_step_ms = train_vit()
+    upd_err = max(upd_err, check_update_main_path(vit.train_step))
+    print(f"vit phase: {time.perf_counter() - t0:.1f} s")
+    for label, r, ms, items in (
+            (f"bert-base flash (bf16, B={_BERT_B}, S=128)", bert,
+             bert_step_ms, "sentences"),
+            ("vit_b16 (bf16, B=64, 224²)", vit, vit_step_ms, "images")):
+        p50, p99 = (float(np.percentile(ms, q)) for q in (50, 99))
+        flops = r.flops_per_step
+        print(f"{label} train step on {card}: p50 {p50:.3f} ms p99 "
+              f"{p99:.3f} ms; {r.total_mean:.1f} {items}/s (the CLI's "
+              f"timed mean); {flops / 1e12:.6f} TFLOP per step counted -> "
+              f"MFU {flops / r.iter_time_mean / _PEAK_FLOPS[torch.bfloat16]:.2%}"
+              f" of {_PEAK_FLOPS[torch.bfloat16] / 1e12:.0f} TF/s bf16")
+    gc.collect()
+    torch.cuda.empty_cache()      # the bench's process needs the memory
+    t0 = time.perf_counter()
+    bench_line = run_bench(card)
+    print(f"bench phase: {time.perf_counter() - t0:.1f} s")
     trace_decode_ticks(runs[-1][3].model)
 
     B, S = 16, 1024
@@ -2610,6 +2937,20 @@ def main(argv=None) -> int:
           f" of {_PEAK_FLOPS[torch.bfloat16] / 1e12:.0f} TF/s bf16")
     trace_train_steps(rn.train_step, rn.state, rn.batch, rp50,
                       label=f"resnet50 bf16, B={_RESNET_B}, 224²")
+    for label, r, ms in (
+            (f"bert-base flash bf16, B={_BERT_B}, S=128", bert,
+             bert_step_ms),
+            (f"{_VIT_MODEL} bf16, B={_VIT_B}, 224²", vit, vit_step_ms)):
+        trace_train_steps(r.train_step, r.state, r.batch,
+                          float(np.percentile(ms, 50)), label=label)
+    # the bench's BERT-Base configuration (dropout 0.1, S = 64); its idle
+    # share against the bench line's step time
+    bert_bench_ms = next(m["step_ms"] for m in bench_line["extra_metrics"]
+                         if m["metric"] == "bert_base_sen_sec_per_chip")
+    trace_train_steps(bert_drop.train_step, bert_drop.state,
+                      bert_drop.batch, bert_bench_ms,
+                      label=f"bert-base dropout bf16, B={_BERT_B}, S=64 (the "
+                            "bench's configuration; p50 = the bench's step)")
     for label, r, rank in ([("dear-fused", r, x) for r, x in enumerate(fused)]
                            + [("dear-fused --ring-projections", r, x)
                               for r, x in enumerate(rp)]):
@@ -2677,6 +3018,18 @@ def main(argv=None) -> int:
     for which, errs in bwd_main_err.items():
         for key, err in errs.items():
             bwd_err[which][key] = max(bwd_err[which].get(key, 0.0), err)
+    # K1, K2 and K3 at BERT-Base's flash shape (phase 5e: full mask,
+    # non-causal), the same tensor-core routes
+    bert_fwd = time_shape(f"bert B={_BERT_B} S=128 H={_H} D={_D}", _BERT_B,
+                          128, 128, torch.bfloat16, False, 4, hbm)
+    fwd_err["tensor_core"] = max(fwd_err["tensor_core"],
+                                 bert_fwd["max_abs_err"])
+    _, bert_bwd_err = time_bwd(hbm, [
+        ("_bert", _BERT_B, torch.bfloat16, torch.bfloat16,
+         BERT.BERT_BASE.num_hidden_layers)], 128, causal=False)
+    for which, errs in bert_bwd_err.items():
+        for key, err in errs.items():
+            bwd_err[which][key] = max(bwd_err[which].get(key, 0.0), err)
     print("K2/K3 largest |err| by instantiation (the kernels line takes "
           f"each route's main-path one): {bwd_err}")
     buckets = res.train_step.plan.buckets
@@ -2737,7 +3090,7 @@ def main(argv=None) -> int:
     k1_launches = {
         "split_k": serve_routes["split_k"],
         "tensor_core": train_launches["flash_fwd_tc"]
-        + fused_launches["flash_fwd_tc"],
+        + fused_launches["flash_fwd_tc"] + bert_launches["flash_fwd_tc"],
         "cuda_core": fp32_routes["fwd"]["cuda_core"]}
     print(f"K1 launches on the main paths by route: {k1_launches}")
     k1 = [_kernel_entry(f"flash_fwd ({route})", "flash_fwd.cu",
@@ -2751,7 +3104,8 @@ def main(argv=None) -> int:
     for kname, which, line in (("flash_bwd_dq", "dq", 152),
                                ("flash_bwd_dkv", "dkv", 195)):
         launches = {"tensor_core": train_launches[kname + "_tc"]
-                    + fused_launches[kname + "_tc"],
+                    + fused_launches[kname + "_tc"]
+                    + bert_launches[kname + "_tc"],
                     "cuda_core": fp32_routes[which]["cuda_core"]}
         print(f"{kname} launches on the main paths by route: {launches}")
         for route, sfx in (("tensor_core", ""), ("cuda_core", "_f32")):
@@ -2760,11 +3114,13 @@ def main(argv=None) -> int:
                 f"dear_pytorch_tpu/ops/flash_attention.py:{line}",
                 launches[route], bwd_err[which][route], bwd[kname + sfx]))
     print(json.dumps({"kernels": k1 + k23 + [
-        # launches: GPT-2's train steps and ResNet-50's
+        # launches: GPT-2's train steps, ResNet-50's, BERT-Base's (flash
+        # and with dropout) and ViT-B/16's
         _kernel_entry("fused_update", "fused_update.cu",
                       "dear_pytorch_tpu/ops/collective_matmul.py:317",
-                      train_launches["fused_update"] + rn_launches, upd_err,
-                      upd),
+                      train_launches["fused_update"] + rn_launches
+                      + bert_launches["fused_update"] + vit_launches,
+                      upd_err, upd),
     ] + [
         _kernel_entry(f"ring_all_gather ({route})", "ring.cu",
                       "dear_pytorch_tpu/ops/collective_matmul.py:218",

@@ -15,8 +15,10 @@ every rank draws the same global batch and trains on its own slice.
 ``--mode dear-fused`` runs both legs as the ring kernels (K4, K5 ring), also
 for ranks that share one card; ``--ring-projections`` (which requires it)
 also runs every block's query, key, value and MLP-up projections as the
-ring collective matmul (K6 forward, K7 and K8 backward). ``--sp-degree >
-1``, ``--remat`` and ``--num-experts`` are not ported yet and raise.
+ring collective matmul (K6 forward, K7 and K8 backward). ``--mfu``
+counts one step's FLOPs (`runner.step_flops`) and logs the MFU.
+``--sp-degree > 1``, ``--remat`` and ``--num-experts`` are not ported yet
+and raise.
 """
 
 from __future__ import annotations
@@ -29,7 +31,6 @@ import torch
 
 from dear_pytorch_tpu_torch import models
 from dear_pytorch_tpu_torch._device import resolve_device
-from dear_pytorch_tpu_torch.api import broadcast_parameters
 from dear_pytorch_tpu_torch.benchmarks import runner
 from dear_pytorch_tpu_torch.comm import backend
 from dear_pytorch_tpu_torch.models import data
@@ -40,7 +41,6 @@ from dear_pytorch_tpu_torch.models.gpt import (
 from dear_pytorch_tpu_torch.ops.collective_matmul import (
     make_ring_projection_impl,
 )
-from dear_pytorch_tpu_torch.parallel.dear import build_train_step
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -93,8 +93,7 @@ def main(argv=None, on_step: Optional[Callable] = None
             "7 and 10)")
     resolve_device(args.device)          # raises without a card
     group = backend.init(args.device)    # "cuda" or None: this rank's card
-    dev = backend.device()
-    world, rank = backend.size(), backend.rank()
+    dev, world = backend.device(), backend.size()
 
     dtype = torch.bfloat16 if args.fp16 else torch.float32
     cfg = models.gpt_config(args.model, dtype=dtype)
@@ -118,53 +117,25 @@ def main(argv=None, on_step: Optional[Callable] = None
         projection_impl=(make_ring_projection_impl()
                          if args.ring_projections else None),
         device=dev, seed=0)
-    broadcast_parameters(model, group=group)
-
     global_bs = args.batch_size * world
     batch = data.synthetic_gpt_batch(
         torch.Generator(device=dev).manual_seed(0), global_bs,
         seq_len=args.sequence_len, vocab_size=cfg.vocab_size)
-    batch = {k: v[rank * args.batch_size:(rank + 1) * args.batch_size]
-             for k, v in batch.items()}
 
     def loss_fn(m, b, generator):
         logits = m(b["input_ids"], train=True, generator=generator)
         return gpt_lm_loss(logits, b["input_ids"],
                            vocab_size=cfg.vocab_size)
 
-    dear_cfg = runner.config_from_args(args, world=world)
-    ts = build_train_step(loss_fn, model, group=group,
-                          threshold_mb=dear_cfg.threshold_mb,
-                          nearby_layers=dear_cfg.nearby_layers,
-                          flags=dear_cfg.flags, device=dev,
-                          **dear_cfg.build_kwargs())
-    holder = {"state": ts.init(), "losses": []}
-
-    runner.log(f"{args.model} causal-LM pretraining, "
-               f"sequence len: {args.sequence_len}")
-    runner.log(f"Batch size: {args.batch_size} (per rank), {global_bs} "
-               f"global ({global_bs * args.sequence_len} tokens/step)")
-    runner.log(f"Number of {runner.device_name(dev)}s: {world}")
-    runner.log(f"Schedule: {args.mode}; fusion: {ts.plan.num_buckets} "
-               "bucket(s)")
-
-    def step_fn():
-        holder["state"], metrics = ts.step(holder["state"], batch)
-        holder["losses"].append(metrics["loss"])
-        if on_step is not None:
-            on_step(ts, holder["state"], metrics)
-
-    sync = torch.cuda.synchronize if dev.type == "cuda" else None
-    result = runner.run_timed(
-        step_fn, batch_size=args.batch_size,
-        num_warmup_batches=args.num_warmup_batches,
-        num_batches_per_iter=args.num_batches_per_iter,
-        num_iters=args.num_iters, unit="sen", sync=sync, world=world,
-        device=runner.device_name(dev))
+    result = runner.train_timed(
+        args, model, batch, loss_fn, group=group, unit="sen",
+        on_step=on_step, header=[
+            f"{args.model} causal-LM pretraining, sequence len: "
+            f"{args.sequence_len}",
+            f"Batch size: {args.batch_size} (per rank), {global_bs} global "
+            f"({global_bs * args.sequence_len} tokens/step)"])
     runner.log(f"Tokens/sec on {result.world} {result.device}(s): "
                f"{result.total_mean * args.sequence_len:.0f}")
-    result.losses = [float(x) for x in holder["losses"]]
-    result.train_step, result.state, result.batch = ts, holder["state"], batch
     return result
 
 

@@ -1,7 +1,8 @@
 """Synthetic CNN training benchmark — the port of
-``dear_pytorch_tpu/benchmarks/imagenet.py`` for the ResNets: a ResNet
-trained with the DeAR schedule (`parallel.dear`) on one fixed seeded batch
-of fake ImageNet data, printing images/s.
+``dear_pytorch_tpu/benchmarks/imagenet.py`` for the ResNets and the vision
+transformers (``vit_s16``, ``vit_b16``): the model trained with the DeAR
+schedule (`parallel.dear`) on one fixed seeded batch of fake ImageNet data,
+printing images/s.
 
 Example (on the card; ``--device cpu`` runs the plain PyTorch path):
   python -m dear_pytorch_tpu_torch.benchmarks.imagenet \\
@@ -11,10 +12,12 @@ Each process drives one device; several processes form one data-parallel
 group through the launcher variables of `comm.backend`, every rank draws
 the same global batch and trains on its own slice. The BatchNorm running
 statistics are the step's model state, averaged over the ranks once per
-step. On the card the CLI sets ``torch.backends.cudnn.benchmark`` (cuDNN
-picks each conv's algorithm by timing it at the first call of each shape,
-during the warmup). The JAX CLI's ``--pipeline``, ``--scan-steps``,
-``--mgwfbp`` and ``--mfu`` are not ported (argparse errors).
+step (a ViT has none). On the card the CLI sets
+``torch.backends.cudnn.benchmark`` (cuDNN picks each conv's algorithm by
+timing it at the first call of each shape, during the warmup). ``--mfu``
+counts one step's FLOPs (`runner.step_flops`) and logs the MFU. The JAX
+CLI's ``--pipeline``, ``--scan-steps`` and ``--mgwfbp`` are not ported
+(argparse errors).
 """
 
 from __future__ import annotations
@@ -26,11 +29,9 @@ import torch
 
 from dear_pytorch_tpu_torch import models
 from dear_pytorch_tpu_torch._device import resolve_device
-from dear_pytorch_tpu_torch.api import broadcast_parameters
 from dear_pytorch_tpu_torch.benchmarks import runner
 from dear_pytorch_tpu_torch.comm import backend
 from dear_pytorch_tpu_torch.models import data
-from dear_pytorch_tpu_torch.parallel.dear import build_train_step
 
 IMAGE_SIZE = 224
 
@@ -65,58 +66,31 @@ def main(argv=None, on_step: Optional[Callable] = None
                          "ROADMAP Queue 1 item 5b)")
     resolve_device(args.device)          # raises without a card
     group = backend.init(args.device)    # "cuda" or None: this rank's card
-    dev = backend.device()
-    world, rank = backend.size(), backend.rank()
+    dev, world = backend.device(), backend.size()
     if dev.type == "cuda":
         torch.backends.cudnn.benchmark = True
 
     dtype = torch.bfloat16 if args.fp16 else torch.float32
-    model = models.get_model(args.model, dtype=dtype, device=dev,
-                             stem=args.stem, seed=0)
-    broadcast_parameters(model, group=group)   # parameters and buffers
-
+    vit = args.model.lower().startswith("vit")
+    model = models.get_model(args.model, dtype=dtype, device=dev, seed=0,
+                             **({} if vit else {"stem": args.stem}))
     global_bs = args.batch_size * world
     batch = data.synthetic_image_batch(0, global_bs, image_size=IMAGE_SIZE,
                                        dtype=dtype, device=dev)
-    batch = {k: v[rank * args.batch_size:(rank + 1) * args.batch_size]
-             for k, v in batch.items()}
 
-    def loss_fn(m, b, generator):   # no dropout in a ResNet
-        del generator
-        return data.softmax_xent(m(b["image"]), b["label"])
+    def loss_fn(m, b, generator):
+        # a ResNet has no dropout; a ViT's dropout is off (rate 0) unless
+        # its config says otherwise, as the JAX CLI's train=True runs it
+        logits = (m(b["image"], train=True, generator=generator) if vit
+                  else m(b["image"]))
+        return data.softmax_xent(logits, b["label"])
 
-    dear_cfg = runner.config_from_args(args, world=world)
-    ts = build_train_step(loss_fn, model, group=group,
-                          threshold_mb=dear_cfg.threshold_mb,
-                          nearby_layers=dear_cfg.nearby_layers,
-                          flags=dear_cfg.flags, device=dev,
-                          **dear_cfg.build_kwargs())
-    holder = {"state": ts.init(), "losses": []}
-
-    runner.log(f"Model: {args.model} (stem {args.stem})")
-    runner.log(f"BF16: {args.fp16}")
-    runner.log(f"Batch size: {args.batch_size} (per rank), {global_bs} "
-               "global")
-    runner.log(f"Number of {runner.device_name(dev)}s: {world}")
-    runner.log(f"Schedule: {args.mode}; fusion: {ts.plan.num_buckets} "
-               "bucket(s)")
-
-    def step_fn():
-        holder["state"], metrics = ts.step(holder["state"], batch)
-        holder["losses"].append(metrics["loss"])
-        if on_step is not None:
-            on_step(ts, holder["state"], metrics)
-
-    sync = torch.cuda.synchronize if dev.type == "cuda" else None
-    result = runner.run_timed(
-        step_fn, batch_size=args.batch_size,
-        num_warmup_batches=args.num_warmup_batches,
-        num_batches_per_iter=args.num_batches_per_iter,
-        num_iters=args.num_iters, unit="img", sync=sync, world=world,
-        device=runner.device_name(dev))
-    result.losses = [float(x) for x in holder["losses"]]
-    result.train_step, result.state, result.batch = ts, holder["state"], batch
-    return result
+    return runner.train_timed(
+        args, model, batch, loss_fn, group=group, unit="img",
+        on_step=on_step, header=[
+            f"Model: {args.model}" + ("" if vit else f" (stem {args.stem})"),
+            f"BF16: {args.fp16}",
+            f"Batch size: {args.batch_size} (per rank), {global_bs} global"])
 
 
 if __name__ == "__main__":

@@ -2,8 +2,20 @@
 ``dear_pytorch_tpu/benchmarks/runner.py`` gives the GPT CLI: the
 reference's measurement protocol (``num_warmup_batches`` untimed steps,
 then ``num_iters`` timed runs of ``num_batches_per_iter`` steps, a
-throughput per run and the mean ± 1.96σ), the common flags, and the flags
--> `DearConfig` mapping.
+throughput per run and the mean ± 1.96σ), the common flags, the flags
+-> `DearConfig` mapping, and ``--mfu``'s accounting: `step_flops` counts
+one training step's FLOPs and `log_mfu` logs the model FLOP utilisation.
+
+XLA's cost analysis (the JAX runner's ``step_flops``) has no torch analog:
+`step_flops` runs one real step under ``torch.utils.flop_counter.
+FlopCounterMode`` (its matmuls, convolutions and attention, forward and
+backward; elementwise work is not counted) and adds
+`ops.flash_attention.flash_flops`, what the hand-written attention
+kernels launched in that step count for their plain versions (a ``ctypes``
+launch is invisible to the mode; on the CPU the plain versions run and are
+counted by the mode itself). The MFU is against the card's dense bf16 peak
+(`PEAK_FLOPS`); on the CPU, or a card without a known peak, it is None, as
+the JAX package's ``perf_model.mfu`` is for an unknown device.
 
 Only the flags the port carries are registered: an unported flag of the
 JAX CLI (``--compressor``, ``--pipeline``, ``--scan-steps``, ...) is an
@@ -23,8 +35,13 @@ import torch
 
 from dear_pytorch_tpu_torch.comm import backend
 
-__all__ = ["BenchResult", "add_common_args", "config_from_args",
-           "device_name", "log", "run_timed"]
+__all__ = ["BenchResult", "PEAK_FLOPS", "add_common_args",
+           "config_from_args", "device_name", "log", "log_mfu", "mfu",
+           "peak_flops", "run_timed", "step_flops", "train_timed"]
+
+#: dense bf16 peak FLOP/s of a card, by a part of its name (NVIDIA's data
+#: sheet: the H100 SXM); the PCIe card's is lower and not listed
+PEAK_FLOPS = {"H100 80GB HBM3": 989e12}
 
 
 @dataclasses.dataclass
@@ -39,6 +56,8 @@ class BenchResult:
     per_iter: list = dataclasses.field(default_factory=list)
     #: seconds per step of each timed run
     iter_times: list = dataclasses.field(default_factory=list)
+    #: FLOPs of one step (`step_flops`; with ``count_flops`` only)
+    flops_per_step: Optional[float] = None
 
     @property
     def total_mean(self) -> float:
@@ -61,20 +80,76 @@ def device_name(device: Optional[torch.device] = None) -> str:
     return {"cuda": "GPU", "cpu": "CPU"}.get(dev.type, dev.type.upper())
 
 
+def peak_flops(device: torch.device) -> Optional[float]:
+    """The dense bf16 peak FLOP/s of ``device`` (`PEAK_FLOPS`), or None."""
+    if device.type != "cuda":
+        return None
+    name = torch.cuda.get_device_name(device)
+    return next((peak for key, peak in PEAK_FLOPS.items() if key in name),
+                None)
+
+
+def mfu(flops: Optional[float], secs_per_step: float,
+        device: torch.device) -> Optional[float]:
+    """Achieved FLOP/s over the device's peak; None without a peak, a FLOP
+    count or a time."""
+    peak = peak_flops(device)
+    if not peak or not flops or secs_per_step <= 0:
+        return None
+    return flops / secs_per_step / peak
+
+
+def step_flops(step_fn: Callable[[], Any]) -> float:
+    """FLOPs of one call of ``step_fn`` (one training step, which it runs):
+    ``FlopCounterMode``'s count of the ops it dispatches plus what the
+    flash-attention kernels it launches add to
+    `ops.flash_attention.flash_flops`."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from dear_pytorch_tpu_torch.ops import flash_attention as FA
+
+    before = FA.flash_flops
+    with FlopCounterMode(display=False) as counter:
+        step_fn()
+    return float(counter.get_total_flops() + FA.flash_flops - before)
+
+
+def log_mfu(result: BenchResult,
+            device: Optional[torch.device] = None) -> Optional[float]:
+    """Log the achieved FLOP/s and the MFU of ``result`` (a `run_timed`
+    result with ``count_flops``; its step time is the timed mean)."""
+    dev = device or backend.device()
+    flops, secs = result.flops_per_step, result.iter_time_mean
+    value = mfu(flops, secs, dev)
+    achieved = flops / secs if flops and secs else 0.0
+    if value:
+        log(f"MFU: {100 * value:.1f}% ({flops / 1e9:.2f} GFLOP/step, "
+            f"{achieved / 1e12:.1f} TFLOP/s)")
+    else:
+        log(f"FLOP/step: {(flops or 0.0) / 1e9:.2f} GFLOP "
+            f"({achieved / 1e12:.2f} TFLOP/s; peak unknown for "
+            f"{device_name(dev)})")
+    return value
+
+
 def run_timed(step_fn: Callable[[], Any], *, batch_size: int,
               num_warmup_batches: int = 10, num_batches_per_iter: int = 10,
               num_iters: int = 5, unit: str = "sen",
               sync: Optional[Callable[[], None]] = None,
-              world: Optional[int] = None, device: Optional[str] = None
-              ) -> BenchResult:
+              world: Optional[int] = None, device: Optional[str] = None,
+              count_flops: bool = False) -> BenchResult:
     """The warmup + timed-iteration protocol around ``step_fn`` (one
     training step, enqueued asynchronously on the card); ``sync`` blocks
     until the enqueued work is done (pass one: on the card,
-    ``torch.cuda.synchronize``)."""
+    ``torch.cuda.synchronize``). ``count_flops``: the first warmup step
+    runs under `step_flops` (with no warmup, one extra untimed step does),
+    and the result carries ``flops_per_step``."""
     dev = device or device_name()
     world = backend.size() if world is None else world
     log("Running warmup...")
-    for _ in range(num_warmup_batches):
+    flops = step_flops(step_fn) if count_flops else None
+    for _ in range(num_warmup_batches - int(count_flops
+                                            and num_warmup_batches > 0)):
         step_fn()
     if sync is not None:
         sync()
@@ -97,13 +172,65 @@ def run_timed(step_fn: Callable[[], Any], *, batch_size: int,
         per_device_conf=float(1.96 * np.std(per_iter)),
         iter_time_mean=float(np.mean(iter_times)),
         iter_time_conf=float(1.96 * np.std(iter_times)),
-        per_iter=per_iter, iter_times=iter_times)
+        per_iter=per_iter, iter_times=iter_times, flops_per_step=flops)
     log(f"Iteration time: {res.iter_time_mean:.3f} +-{res.iter_time_conf:.3f}")
     log(f"{unit.capitalize()}/sec per {dev}: "
         f"{res.per_device_mean:.1f} +-{res.per_device_conf:.1f}")
     log(f"Total {unit}/sec on {res.world} {dev}(s): "
         f"{res.total_mean:.1f} +-{res.total_conf:.1f}")
     return res
+
+
+def train_timed(args, model, batch: dict, loss_fn: Callable, *, group,
+                unit: str, header: list,
+                on_step: Optional[Callable] = None) -> BenchResult:
+    """What the CLIs share once they have a model, the global ``batch`` and
+    ``loss_fn(model, batch, generator)``: rank 0's parameters broadcast,
+    this rank's slice of the batch, the DeAR train step from the flags
+    (`config_from_args`), the ``header`` lines and the group's size and
+    schedule logged, then `run_timed` (``--mfu``: the counted step and
+    `log_mfu`). Returns the `BenchResult` with the per-step losses (floats,
+    read once after the run) as ``.losses``, the train step as
+    ``.train_step``, its last state as ``.state`` and this rank's batch as
+    ``.batch``. ``on_step(train_step, state, metrics)`` is called after
+    every step (warmup included)."""
+    from dear_pytorch_tpu_torch.api import broadcast_parameters
+    from dear_pytorch_tpu_torch.parallel.dear import build_train_step
+
+    dev, world, rank = backend.device(), backend.size(), backend.rank()
+    broadcast_parameters(model, group=group)   # parameters and buffers
+    B = args.batch_size
+    batch = {k: v[rank * B:(rank + 1) * B] for k, v in batch.items()}
+    dear_cfg = config_from_args(args, world=world)
+    ts = build_train_step(loss_fn, model, group=group,
+                          threshold_mb=dear_cfg.threshold_mb,
+                          nearby_layers=dear_cfg.nearby_layers,
+                          flags=dear_cfg.flags, device=dev,
+                          **dear_cfg.build_kwargs())
+    holder = {"state": ts.init(), "losses": []}
+    for line in header + [
+            f"Number of {device_name(dev)}s: {world}",
+            f"Schedule: {args.mode}; fusion: {ts.plan.num_buckets} "
+            "bucket(s)"]:
+        log(line)
+
+    def step_fn():
+        holder["state"], metrics = ts.step(holder["state"], batch)
+        holder["losses"].append(metrics["loss"])
+        if on_step is not None:
+            on_step(ts, holder["state"], metrics)
+
+    result = run_timed(
+        step_fn, batch_size=B, num_warmup_batches=args.num_warmup_batches,
+        num_batches_per_iter=args.num_batches_per_iter,
+        num_iters=args.num_iters, unit=unit,
+        sync=torch.cuda.synchronize if dev.type == "cuda" else None,
+        world=world, device=device_name(dev), count_flops=args.mfu)
+    if args.mfu:
+        log_mfu(result, dev)
+    result.losses = [float(x) for x in holder["losses"]]
+    result.train_step, result.state, result.batch = ts, holder["state"], batch
+    return result
 
 
 def add_common_args(parser) -> None:
@@ -138,6 +265,11 @@ def add_common_args(parser) -> None:
                         choices=["linear", "cosine", "multistep"])
     parser.add_argument("--warmup-steps", type=int, default=0)
     parser.add_argument("--total-steps", type=int, default=None)
+    parser.add_argument("--mfu", action="store_true", default=False,
+                        help="count one step's FLOPs (FlopCounterMode and "
+                             "the attention kernels' counts; the first "
+                             "warmup step) and log the MFU against the "
+                             "card's bf16 peak")
     parser.add_argument("--device", type=str, default=None,
                         help="the card by default; 'cpu' runs the plain "
                              "PyTorch path over a gloo group")

@@ -10,7 +10,27 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["gpt_params_from_jax", "resnet_params_from_jax"]
+__all__ = ["bert_params_from_jax", "gpt_params_from_jax",
+           "resnet_params_from_jax", "vit_params_from_jax"]
+
+
+def _t(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, dtype=np.float32))
+
+
+def _ln(sd, name, leaf) -> None:
+    """A flax norm's ``scale`` and ``bias`` as torch's ``weight``, ``bias``."""
+    sd[name + ".weight"] = _t(leaf["scale"])
+    sd[name + ".bias"] = _t(leaf["bias"])
+
+
+def _dense(sd, name, leaf, in_features=None) -> None:
+    """A flax (``DenseGeneral``) kernel, its input axes first, as torch's
+    ``[out, in]`` weight; its bias flattened."""
+    k = _t(leaf["kernel"])
+    in_features = in_features or k.shape[0]
+    sd[name + ".weight"] = k.reshape(in_features, -1).T
+    sd[name + ".bias"] = _t(leaf["bias"]).reshape(-1)
 
 
 def gpt_params_from_jax(params, cfg) -> dict:
@@ -24,29 +44,16 @@ def gpt_params_from_jax(params, cfg) -> dict:
     ``[in, out]``). The port keeps flax's module names; flax's ``[in, out]``
     kernels become torch's ``[out, in]`` weights."""
     H = cfg.hidden_size
-
-    def t(x):
-        return torch.from_numpy(np.array(x, dtype=np.float32))
-
-    sd = {
-        "wte.weight": t(params["wte"]["embedding"]),
-        "wpe.weight": t(params["wpe"]["embedding"]),
-        "ln_f.weight": t(params["ln_f"]["scale"]),
-        "ln_f.bias": t(params["ln_f"]["bias"]),
-    }
+    sd = {"wte.weight": _t(params["wte"]["embedding"]),
+          "wpe.weight": _t(params["wpe"]["embedding"])}
+    _ln(sd, "ln_f", params["ln_f"])
     for i in range(cfg.num_hidden_layers):
         blk, pre = params[f"h_{i}"], f"h_{i}."
         for ln in ("ln_1", "ln_2"):
-            sd[pre + ln + ".weight"] = t(blk[ln]["scale"])
-            sd[pre + ln + ".bias"] = t(blk[ln]["bias"])
-        for name in ("query", "key", "value"):
-            sd[pre + name + ".weight"] = t(blk[name]["kernel"]).reshape(H, H).T
-            sd[pre + name + ".bias"] = t(blk[name]["bias"]).reshape(H)
-        sd[pre + "output.weight"] = t(blk["output"]["kernel"]).reshape(H, H).T
-        sd[pre + "output.bias"] = t(blk["output"]["bias"])
-        for name in ("mlp_in", "mlp_out"):
-            sd[pre + name + ".weight"] = t(blk[name]["kernel"]).T
-            sd[pre + name + ".bias"] = t(blk[name]["bias"])
+            _ln(sd, pre + ln, blk[ln])
+        for name in ("query", "key", "value", "mlp_in", "mlp_out"):
+            _dense(sd, pre + name, blk[name])
+        _dense(sd, pre + "output", blk["output"], H)
     return {k: v.contiguous() for k, v in sd.items()}
 
 
@@ -73,19 +80,15 @@ def resnet_params_from_jax(params, batch_stats, *, stage_sizes,
         raise ValueError(f"a {k[0]}x{k[1]} stem kernel is not the "
                          f"{stem!r} stem's")
 
-    def t(x):
-        return torch.from_numpy(np.array(x, dtype=np.float32))
-
     sd: dict = {}
 
     def conv(name, leaf):
-        sd[name + ".weight"] = t(leaf["kernel"]).permute(3, 2, 0, 1)
+        sd[name + ".weight"] = _t(leaf["kernel"]).permute(3, 2, 0, 1)
 
     def bn(name, leaf, stats):
-        sd[name + ".weight"] = t(leaf["scale"])
-        sd[name + ".bias"] = t(leaf["bias"])
-        sd[name + ".running_mean"] = t(stats["mean"])
-        sd[name + ".running_var"] = t(stats["var"])
+        _ln(sd, name, leaf)
+        sd[name + ".running_mean"] = _t(stats["mean"])
+        sd[name + ".running_var"] = _t(stats["var"])
         sd[name + ".num_batches_tracked"] = torch.tensor(0)
 
     conv("conv1", params["stem_conv"])
@@ -102,6 +105,68 @@ def resnet_params_from_jax(params, batch_stats, *, stage_sizes,
                 conv(pre + "downsample.0", blk_p["downsample_conv"])
                 bn(pre + "downsample.1", blk_p["downsample_bn"],
                    blk_s["downsample_bn"])
-    sd["fc.weight"] = t(params["fc"]["kernel"]).T
-    sd["fc.bias"] = t(params["fc"]["bias"])
+    _dense(sd, "fc", params["fc"])
+    return {k: v.contiguous() for k, v in sd.items()}
+
+
+def bert_params_from_jax(params, cfg) -> dict:
+    """Flax ``BertForPreTraining`` params (a nested mapping of numpy arrays)
+    -> a ``state_dict`` for the port's `models.bert.BertForPreTraining(cfg)`.
+
+    The flax tree is the three embeddings (``embedding [n, h]``),
+    ``embeddings_ln``, per layer ``layer_i``: ``attention.{query,key,value}``
+    (kernel ``[h, nh, d]``, bias ``[nh, d]``), ``attention.output`` (kernel
+    ``[nh, d, h]``), ``attention_ln``, ``intermediate``, ``output``,
+    ``output_ln``; then ``mlm_transform``, ``mlm_ln``, ``mlm_bias``,
+    ``pooler`` and ``nsp_classifier``. The port keeps flax's names; flax's
+    ``[in, out]`` kernels become torch's ``[out, in]`` weights."""
+    h = cfg.hidden_size
+    sd = {f"{n}.weight": _t(params[n]["embedding"])
+          for n in ("word_embeddings", "position_embeddings",
+                    "token_type_embeddings")}
+    _ln(sd, "embeddings_ln", params["embeddings_ln"])
+    for i in range(cfg.num_hidden_layers):
+        blk, pre = params[f"layer_{i}"], f"layer_{i}."
+        att = blk["attention"]
+        for name in ("query", "key", "value"):
+            _dense(sd, pre + "attention." + name, att[name])
+        _dense(sd, pre + "attention.output", att["output"], h)
+        for name in ("intermediate", "output"):
+            _dense(sd, pre + name, blk[name])
+        for name in ("attention_ln", "output_ln"):
+            _ln(sd, pre + name, blk[name])
+    for name in ("mlm_transform", "pooler", "nsp_classifier"):
+        _dense(sd, name, params[name])
+    _ln(sd, "mlm_ln", params["mlm_ln"])
+    sd["mlm_bias"] = _t(params["mlm_bias"])
+    return {k: v.contiguous() for k, v in sd.items()}
+
+
+def vit_params_from_jax(params) -> dict:
+    """Flax ``VisionTransformer`` params (a nested mapping of numpy arrays)
+    -> a ``state_dict`` for the port's `models.vit.VisionTransformer` of
+    the same widths, depth and image size.
+
+    The ``patch_embed`` kernel ``[p, p, 3, E]`` (NHWC) becomes torch's
+    ``[E, 3, p, p]`` weight; ``cls_token`` and ``pos_embed`` are copied;
+    per block ``block{i}``: ``ln1``, ``attn.{query,key,value,out}``,
+    ``ln2``, ``mlp_in``, ``mlp_out`` (kernels ``[in, out]`` transposed);
+    then ``ln_final`` and ``head``."""
+    sd = {"patch_embed.weight":
+          _t(params["patch_embed"]["kernel"]).permute(3, 2, 0, 1),
+          "patch_embed.bias": _t(params["patch_embed"]["bias"]),
+          "cls_token": _t(params["cls_token"]),
+          "pos_embed": _t(params["pos_embed"])}
+    blocks = sorted((k for k in params if k.startswith("block")),
+                    key=lambda k: int(k[len("block"):]))
+    for name in blocks:
+        blk = params[name]
+        for ln in ("ln1", "ln2"):
+            _ln(sd, f"{name}.{ln}", blk[ln])
+        for proj in ("query", "key", "value", "out"):
+            _dense(sd, f"{name}.attn.{proj}", blk["attn"][proj])
+        for proj in ("mlp_in", "mlp_out"):
+            _dense(sd, f"{name}.{proj}", blk[proj])
+    _ln(sd, "ln_final", params["ln_final"])
+    _dense(sd, "head", params["head"])
     return {k: v.contiguous() for k, v in sd.items()}

@@ -43,7 +43,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from dear_pytorch_tpu_torch._device import check_model_device, resolve_device
-from dear_pytorch_tpu_torch.models.bert import ProjDense
+from dear_pytorch_tpu_torch.models.bert import (  # noqa: F401
+    Dense, LayerNorm, ProjDense, dropout,
+)
 from dear_pytorch_tpu_torch.ops.flash_attention import flash_attention
 from dear_pytorch_tpu_torch.serving import kvcache as KV
 
@@ -94,19 +96,6 @@ GPT2_LARGE = GptConfig(hidden_size=1280, num_hidden_layers=36,
                        num_attention_heads=20, intermediate_size=5120)
 
 
-def dropout(x, rate: float, generator):
-    """flax ``nn.Dropout``: keep each element with probability ``1 - rate``
-    (a mask drawn from ``generator``) and scale the kept ones by
-    ``1 / (1 - rate)``."""
-    if rate <= 0.0:
-        return x
-    keep_prob = 1.0 - rate
-    keep = torch.rand(x.shape, generator=generator,
-                      device=x.device) < keep_prob
-    return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype,
-                                                        device=x.device))
-
-
 def causal_dot_product_attention(q, k, v, mask, *, dropout_rate=0.0,
                                  generator=None, dtype=torch.float32):
     """Dense causal attention core (the `models.bert.dot_product_attention`
@@ -142,34 +131,6 @@ def flash_causal_attention_impl() -> Callable:
         return flash_attention(q, k, v, causal=True)
 
     return impl
-
-
-class Dense(nn.Linear):
-    """``nn.Linear`` with flax's dtype rule: fp32 parameters, inputs and
-    parameters cast to ``compute_dtype`` for the product."""
-
-    def __init__(self, in_features, out_features, *, compute_dtype, device):
-        super().__init__(in_features, out_features, device=device)
-        self.compute_dtype = compute_dtype
-
-    def forward(self, x):
-        dt = self.compute_dtype
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
-
-
-class LayerNorm(nn.LayerNorm):
-    """LayerNorm with fp32 statistics and output in ``compute_dtype``."""
-
-    def __init__(self, size, *, eps, compute_dtype, device):
-        super().__init__(size, eps=eps, device=device)
-        self.compute_dtype = compute_dtype
-
-    def forward(self, x):
-        # the weight and bias are cast too: a train step may keep them as
-        # bf16 views (gather_dtype); the statistics stay fp32 either way
-        return F.layer_norm(x.float(), self.normalized_shape,
-                            self.weight.float(), self.bias.float(),
-                            self.eps).to(self.compute_dtype)
 
 
 class GptBlock(nn.Module):

@@ -57,13 +57,19 @@ valid and select 0 elsewhere (never ``exp(...) * 0``: an all-masked row has
 Dispatch: a CPU tensor takes the plain version (the CPU tests use it);
 a CUDA tensor launches the kernel or raises; any other device raises.
 There is no fallback. ``flash_fwd_launches``, ``flash_bwd_dq_launches`` and
-``flash_bwd_dkv_launches`` count kernel launches.
+``flash_bwd_dkv_launches`` count kernel launches; ``flash_flops`` adds, at
+each launch, what ``torch.utils.flop_counter.FlopCounterMode`` counts for
+that kernel's plain version on the same shapes (`plain_flops`), which the
+mode cannot see in a ``ctypes`` launch (`benchmarks.runner.step_flops`).
+
+`make_flash_attention_impl` is the model zoo's ``attention_impl`` over
+these kernels (BERT's ``--flash-attention``).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -71,6 +77,7 @@ __all__ = [
     "flash_attention", "flash_attention_reference", "flash_pair_dkv",
     "flash_pair_dkv_reference", "flash_pair_dq", "flash_pair_dq_reference",
     "flash_pair_fwd", "flash_pair_fwd_reference",
+    "make_flash_attention_impl", "plain_flops",
 ]
 
 _NEG_BIG = -1e30
@@ -89,12 +96,26 @@ flash_fwd_route_launches = dict.fromkeys(FWD_ROUTES, 0)
 BWD_ROUTES = ("tensor_core", "cuda_core")
 flash_bwd_route_launches = {
     which: dict.fromkeys(BWD_ROUTES, 0) for which in ("dq", "dkv")}
+#: the plain versions' FLOPs of every launch so far (`plain_flops`)
+flash_flops = 0
+
+
+def plain_flops(which: str, B: int, H: int, Sq: int, Sk: int,
+                D: int) -> int:
+    """What FlopCounterMode counts for the plain version of one launch of
+    K1 (``which="fwd"``), K2 (``"dq"``) or K3 (``"dkv"``): its full ``Sq x
+    Sk`` einsums (causal or not), ``2·B·H·Sq·Sk·D`` each — QKᵀ and PV in
+    the forward; S, dP and dS·K in dQ's; S, dP, Pᵀ·dO and dSᵀ·Q in
+    dK/dV's."""
+    return {"fwd": 2, "dq": 3, "dkv": 4}[which] * 2 * B * H * Sq * Sk * D
 
 
 def reset_launch_counts() -> None:
-    """Set every launch count of this module to 0."""
+    """Set every launch count of this module, and `flash_flops`, to 0."""
     global flash_fwd_launches, flash_bwd_dq_launches, flash_bwd_dkv_launches
+    global flash_flops
     flash_fwd_launches = flash_bwd_dq_launches = flash_bwd_dkv_launches = 0
+    flash_flops = 0
     for route in FWD_ROUTES:
         flash_fwd_route_launches[route] = 0
     for counts in flash_bwd_route_launches.values():
@@ -331,7 +352,7 @@ def _split_buffers(dev, rows, splits, D):
 def _launch(q, k, v, mask, scale, causal, out_dtype):
     """Launch ``csrc/flash_fwd.cu`` on [B,S,H,D] views (any strides with a
     contiguous last dim) and an int32 [B,Sk] mask, by `fwd_route`."""
-    global flash_fwd_launches
+    global flash_fwd_launches, flash_flops
     B, Sq, H, D = q.shape
     Sk = k.shape[1]
     _check_views(D, B, H, (("q", q), ("k", k), ("v", v)))
@@ -370,6 +391,7 @@ def _launch(q, k, v, mask, scale, causal, out_dtype):
             + lib.flash_fwd_error_string(err).decode())
     flash_fwd_launches += 1
     flash_fwd_route_launches[route] += 1
+    flash_flops += plain_flops("fwd", B, H, Sq, Sk, D)
     return o, lse
 
 
@@ -390,7 +412,7 @@ def _launch_bwd(which, q, k, v, mask, do, lse, delta, scale, causal,
     on [B,S,H,D] views, an int32 [B,Sk] mask and contiguous fp32 lse and
     delta [B,H,Sq]; the outputs in ``out_dtype`` (q's or float32); the
     route by `bwd_route`."""
-    global flash_bwd_dq_launches, flash_bwd_dkv_launches
+    global flash_bwd_dq_launches, flash_bwd_dkv_launches, flash_flops
     B, Sq, H, D = q.shape
     Sk = k.shape[1]
     _check_views(D, B, H, (("q", q), ("k", k), ("v", v), ("do", do)))
@@ -433,6 +455,7 @@ def _launch_bwd(which, q, k, v, mask, do, lse, delta, scale, causal,
     else:
         flash_bwd_dkv_launches += 1
     flash_bwd_route_launches[which][route] += 1
+    flash_flops += plain_flops(which, B, H, Sq, Sk, D)
     return out
 
 
@@ -586,3 +609,28 @@ def flash_pair_dkv(q, k, v, kv_mask, do, lse, delta, scale, causal,
     *args, out_dtype = _folded(q, k, v, kv_mask, do, lse, delta, out_dtype)
     dk, dv = _dispatch_dkv(*args, scale, causal, out_dtype)
     return dk[:, :, 0], dv[:, :, 0]
+
+
+def make_flash_attention_impl() -> Callable:
+    """The model zoo's ``attention_impl`` (the `models.bert.
+    dot_product_attention` contract) over K1, K2 and K3 — the port of the
+    JAX package's ``make_flash_attention_impl`` (ops/flash_attention.py:546).
+    The model's additive ``[B, 1, 1, S]`` mask becomes the kernels' key
+    validity (``mask > -1``). The kernels have no attention-dropout path:
+    with an active dropout rate the impl takes the dense core with dropout,
+    the JAX impl's semantics (the CLIs zero that rate under
+    ``--flash-attention`` before it can happen)."""
+    from dear_pytorch_tpu_torch.models.bert import dot_product_attention
+
+    def impl(q, k, v, mask, *, dropout_rate=0.0, generator=None,
+             dtype=torch.float32):
+        if generator is not None and dropout_rate > 0.0:
+            return dot_product_attention(q, k, v, mask,
+                                         dropout_rate=dropout_rate,
+                                         generator=generator, dtype=dtype)
+        kv_mask = None
+        if mask is not None:
+            kv_mask = mask.reshape(mask.shape[0], mask.shape[-1]) > -1.0
+        return flash_attention(q, k, v, kv_mask=kv_mask)
+
+    return impl

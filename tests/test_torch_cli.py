@@ -6,10 +6,13 @@ with ``--fp16`` gradients travel in bf16 and gathers only when world > 1);
 unported flags and fields raise; ``--ring-projections`` needs
 ``--mode dear-fused`` (JAX's SystemExit); and short CPU runs of GPT-2's
 full width at one layer, which must lower their loss and run the schedule
-once per bucket per step; the ImageNet CLI (ResNet-18 at 224²) likewise."""
+once per bucket per step; the ImageNet CLI (ResNet-18 and ViT-S/16 at
+224²) likewise; the BERT CLI (BERT-Base's widths at one layer, dense and
+flash) and its refusals."""
 
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
@@ -188,7 +191,90 @@ def test_imagenet_cli_refuses_what_it_does_not_run(argv, match):
 
 
 @pytest.mark.parametrize("flag", ["--pipeline", "--scan-steps", "--mgwfbp",
-                                  "--mfu"])
+                                  "--profile-dir"])
 def test_imagenet_cli_unported_flags_are_errors(flag):
     with pytest.raises(SystemExit):
         imagenet.build_parser().parse_args([flag])
+
+
+def _bert(*extra):
+    from dear_pytorch_tpu_torch.benchmarks import bert
+
+    return bert.main(["--device", "cpu", "--model", "bert_base",
+                      "--num-hidden-layers", "1", "--sentence-len", "16",
+                      "--batch-size", "2", "--num-warmup-batches", "0",
+                      "--num-batches-per-iter", "3", "--num-iters", "1"]
+                     + list(extra))
+
+
+def test_bert_cli_trains_on_the_cpu(capsys):
+    """The BERT CLI (BERT-Base's widths at one layer, S=16): JAX's header
+    lines, each step one reduce-scatter, update and all-gather per bucket,
+    the loss falls (``--dropout0``, lr 0.01), and ``--mfu`` logs the
+    counted FLOPs (no peak on the CPU)."""
+    res = _bert("--dropout0", "--base-lr", "0.01", "--mfu")
+    out = capsys.readouterr().out
+    assert "BERT Base Pretraining, Sentence len: 16" in out
+    assert "Number of CPUs: 1" in out and "fusion: " in out
+    assert "FLOP/step: " in out and "peak unknown for CPU" in out
+    assert res.flops_per_step > 0
+    ts = res.train_step
+    # --mfu counts an extra untimed step when there is no warmup
+    assert len(res.losses) == 4 and res.losses[-1] < res.losses[0]
+    n = ts.plan.num_buckets
+    assert ts.rs_launches == ts.update_launches == 4 * n
+    assert res.batch["input_ids"].shape == (2, 16)
+    assert res.batch["input_ids"].dtype == torch.int32
+
+
+def test_bert_cli_flash_attention_matches_dense_on_the_cpu(capsys):
+    """``--flash-attention`` zeroes the attention-probs dropout with JAX's
+    log line and runs the flash impl; with ``--dropout0`` its first loss
+    equals the dense core's on the same weights and batch (fp32)."""
+    from dear_pytorch_tpu_torch.models.bert import dot_product_attention
+
+    flash = _bert("--flash-attention", "--base-lr", "0.01")
+    out = capsys.readouterr().out
+    assert "attention_probs_dropout_prob 0.1 -> 0.0" in out
+    cfg = flash.train_step.model.config
+    assert cfg.attention_probs_dropout_prob == 0.0
+    assert cfg.hidden_dropout_prob == 0.1
+    assert flash.train_step.model.attention_impl is not dot_product_attention
+    assert all(np.isfinite(flash.losses))
+    a = _bert("--flash-attention", "--dropout0")
+    b = _bert("--dropout0")
+    assert b.train_step.model.attention_impl is dot_product_attention
+    np.testing.assert_allclose(a.losses[0], b.losses[0], rtol=1e-5)
+
+
+@pytest.mark.parametrize("flags,match", [
+    (["--sp-degree", "2"], "item 10"),
+    (["--sp-attention", "ring"], "item 10"),
+    (["--ring-projections", "--mode", "dear-fused"], "item 5b"),
+])
+def test_bert_cli_unported_flags_raise(flags, match):
+    with pytest.raises(NotImplementedError, match=match):
+        _bert(*flags)
+
+
+def test_bert_cli_refuses_other_models():
+    with pytest.raises(SystemExit, match="bert_base"):
+        _bert("--model", "gpt2")
+
+
+def test_imagenet_cli_trains_vit_on_the_cpu(capsys):
+    """The ImageNet CLI with ``vit_s16`` at 224² (batch 1, bf16, as the
+    JAX CLI runs it): no model state, one reduce-scatter, update and
+    all-gather per bucket."""
+    res = imagenet.main(["--device", "cpu", "--model", "vit_s16",
+                         "--batch-size", "1", "--fp16",
+                         "--num-warmup-batches", "0",
+                         "--num-batches-per-iter", "2", "--num-iters", "1"])
+    out = capsys.readouterr().out
+    assert "Model: vit_s16" in out and "stem" not in out
+    ts = res.train_step
+    assert len(res.losses) == 2 and all(np.isfinite(res.losses))
+    assert ts._mstate == [] and ts.state_syncs == 0
+    n = ts.plan.num_buckets
+    assert ts.rs_launches == ts.update_launches == 2 * n
+    assert ts.model.pos_embed.shape == (1, 197, 384)

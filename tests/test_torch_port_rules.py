@@ -67,7 +67,10 @@ def test_importing_the_port_and_chip_smoke_loads_no_jax():
                  "dear_pytorch_tpu_torch.ops.collective_matmul",
                  "dear_pytorch_tpu_torch.models.bert",
                  "dear_pytorch_tpu_torch.models.resnet",
-                 "dear_pytorch_tpu_torch.benchmarks.imagenet"):
+                 "dear_pytorch_tpu_torch.benchmarks.imagenet",
+                 "dear_pytorch_tpu_torch.models.vit",
+                 "dear_pytorch_tpu_torch.benchmarks.bert",
+                 "dear_pytorch_tpu_torch.bench"):
         assert ring in modules and ring in loaded
 
 
@@ -165,3 +168,37 @@ def test_resnet_entry_points_need_the_card_unless_told_otherwise(
     assert res.device == "CPU" and res.unit == "img"
     assert len(res.losses) == 1 and res.train_step.update_launches == \
         res.train_step.plan.num_buckets
+
+
+def test_bert_vit_and_bench_entry_points_need_the_card_unless_told_otherwise(
+        monkeypatch, capsys):
+    """BERT, ViT, the BERT batch, the BERT CLI and the bench entry run on
+    the card by default and raise without one (the bench prints its error
+    line and exits 2, as bench.py does for a down backend); with
+    ``device="cpu"`` the models run the plain PyTorch path."""
+    from dear_pytorch_tpu_torch import bench
+    from dear_pytorch_tpu_torch.benchmarks import bert as bert_cli
+    from dear_pytorch_tpu_torch.models import bert as tbert
+    from dear_pytorch_tpu_torch.models import vit as tvit
+    from dear_pytorch_tpu_torch.models.data import synthetic_bert_batch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = dataclasses.replace(tbert.BERT_BASE, num_hidden_layers=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tbert.BertForPreTraining(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tvit.ViTS16(num_layers=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        synthetic_bert_batch(0, 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bert_cli.main(["--num-hidden-layers", "1", "--sentence-len", "8"])
+    assert bench.main([]) == 2
+    line = json.loads(capsys.readouterr().out.strip())
+    assert line["metric"] == bench.PRIMARY_METRIC
+    assert "no CUDA device" in line["error"]
+    assert tbert.BertForPreTraining(cfg, device="cpu").device == \
+        torch.device("cpu")
+    assert tvit.ViTS16(num_layers=1, device="cpu").device == \
+        torch.device("cpu")
+    assert synthetic_bert_batch(0, 2, device="cpu")["input_ids"].device == \
+        torch.device("cpu")
