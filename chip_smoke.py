@@ -147,6 +147,38 @@ non-zero and no result line is printed):
      each with a numeric value, MFU and peak memory and no error entry,
      each counted step within `_BENCH_FLOPS_RTOL` of its analytic count;
      re-prints the line and a line per model;
+  5h. train the rest of the zoo through the ImageNet CLI (bf16, ``mode
+     dear``, 25 MB buckets, SGD 0.01 momentum 0.9, ``--mfu``, 20 steps):
+     DenseNet-201 at B = 32 and Inception-v4 at B = 64 on 299² (the
+     reference sweep's batches) and VGG-16 at B = 64 with its dropout:
+     every step launches the K5 epilogue once per bucket (VGG-16's fc1 a
+     bucket of its own, 102,764,544 elements, held bitwise with the rest
+     of each plan's shard sizes), the losses are finite, every parameter
+     moved, the loss without dropout on the run's batch falls to
+     `_ZOO_LOSS_FALL` of its init value and ends below it, the BN
+     buffers finite and moved, the counted FLOPs within
+     `_BENCH_FLOPS_RTOL` of the analytic count; prints step p50/p99,
+     img/s, MFU and a 2-step trace's idle share; then each model in fp32
+     on the card against the CPU (B = 2; train and eval mode with BN, eval
+     for VGG): logits and BN buffers within `_ZOO_CPU_RTOL`;
+  5i. the MNIST example (``examples/mnist.py --data synthetic``, 2
+     epochs): one K5 epilogue per step, held-out accuracy above 0.9;
+  5j. serve BERT-Base at full width through `DecodeEngine` with
+     ``decode_use_flash=True`` (ring 512, 4 slots), fp32 and bf16, at
+     ``prefill_chunk`` 1 and 8: K1 12 times per decode tick, all on its
+     split-K route; one causal full forward over each request's prompt
+     and tokens scores every generated token: the forward's argmax at
+     its position, or within a near-tie of it (`_bert_tie`);
+  5k. train BERT-Large (``benchmarks/bert.py --model bert --mode
+     dear-fused``, 8 x 64 per rank, 6 steps) as two ranks sharing the
+     card (this script with ``--bert-rank R --out DIR --mode M``), without
+     and with ``--ring-projections``: K4 and the K5 ring once per bucket
+     per step; with ring projections each rank first holds K6–K8 on its
+     IPC ring at BERT-Large's shapes (K = 1024, N = 1024 and 4096), then
+     every step launches K6, K7 and K8 96 times each, K6 and K7 on the
+     wgmma route; the ranks' losses and parameters equal, the last loss
+     with ring projections within `_BERT_RP_VS_FUSED_RTOL` of the one
+     without;
   6. trace steady bf16 decode ticks and training steps with
      ``torch.profiler`` (device ops, busy time and idle share, the top
      device ops of a step); time each kernel, its plain version and
@@ -161,7 +193,10 @@ non-zero and no result line is printed):
      p50/p99, tokens/s and MFU, the two-rank steps' p50/p99 and tokens/s;
      ResNet-50's step p50/p99, img/s and MFU (3 x the forward's conv and
      fc products against 989 TF/s bf16) and 2 traced steps; K1, K2 and K3
-     also at BERT-Base's flash shape (B = 32, S = 128, non-causal).
+     also at BERT-Base's flash shape (B = 32, S = 128, non-causal); K1 at
+     BERT-Base's decode tick (B = 4 over 512 slots, bf16 and fp32), K6–K8
+     at BERT-Large's shapes beside cuBLAS, the K5 epilogue at the zoo's
+     largest shards (VGG-16's fc1).
 
 ``python3 chip_smoke.py --kernels-only`` runs phases 1–3 and stops without
 a result line. In a full run the line before the last lists the kernels
@@ -201,7 +236,8 @@ from dear_pytorch_tpu_torch.comm.ring import LocalRing, Ring
 from dear_pytorch_tpu_torch.models import dropout_free, get_model, gpt_config
 from dear_pytorch_tpu_torch.models import bert as BERT
 from dear_pytorch_tpu_torch.models.data import (
-    synthetic_bert_batch, synthetic_gpt_batch, synthetic_image_batch,
+    softmax_xent, synthetic_bert_batch, synthetic_gpt_batch,
+    synthetic_image_batch,
 )
 from dear_pytorch_tpu_torch.models.gpt import (
     GPT2_SMALL, GptLmHeadModel, flash_causal_attention_impl, generate,
@@ -870,6 +906,10 @@ _CM_RTOL = {torch.bfloat16: 8e-3, torch.float32: 1e-5}
 #: the main path's ring-matmul shapes at W = 2: M = 8 x 1024 tokens per
 #: rank, K = 768 (kc = 384), N = 768 (query, key, value) or 3072 (mlp_in)
 _CM_MAIN = ((8 * 1024, 384, 768), (8 * 1024, 384, 3072))
+#: BERT-Large's with --ring-projections at W = 2 (phase 5k): M = 8 x 64
+#: tokens per rank, K = 1024 (kc = 512), N = 1024 (query, key, value) or
+#: 4096 (intermediate)
+_CM_BERT_LARGE = ((8 * 64, 512, 1024), (8 * 64, 512, 4096))
 
 
 def _cm_operands(world, m, kc, n, dt, gen, device=None):
@@ -973,8 +1013,10 @@ def check_ring_matmul_kernels() -> dict:
                     _cm_repeat(tag, ops, pairs, ring)
                 cases += 1
         ring.close()
-    ring = LocalRing(2, _DEV, 1, cm_elems=max(kc * n for _, kc, n in _CM_MAIN))
-    for m, kc, n, calls in [s + (2,) for s in _CM_MAIN] + [(4, 384, 768, 1)]:
+    ring = LocalRing(2, _DEV, 1, cm_elems=max(
+        kc * n for _, kc, n in _CM_MAIN + _CM_BERT_LARGE))
+    for m, kc, n, calls in ([s + (2,) for s in _CM_MAIN + _CM_BERT_LARGE]
+                            + [(4, 384, 768, 1)]):
         for call in range(calls):
             ops = _cm_operands(2, m, kc, n, torch.bfloat16, gen)
             tag = f"W=2 M={m} K={2 * kc} N={n} call {call}"
@@ -986,7 +1028,8 @@ def check_ring_matmul_kernels() -> dict:
     more = check_cm_worlds(gen, worst)
     print(f"ring matmul check: K6, K7, K8 in {cases} cases (W = 2, 4, 8 on "
           "ragged and aligned shapes, fp32 and bf16; the main path's "
-          "M=8192 K=768 N=768 and 3072 bf16 at W = 2, twice each; M=4 at W = "
+          "M=8192 K=768 N=768 and 3072 bf16 and BERT-Large's M=512 K=1024 "
+          "N=1024 and 4096 at W = 2, twice each; M=4 at W = "
           f"2) and {more} more (W = 4 and 8 at the main path's M, K and N), "
           "K6/K7 every call on the route cm_core names (wgmma for bf16 with kc "
           "and N multiples of 8), every wgmma-route case twice on the same "
@@ -1339,6 +1382,8 @@ def _two_rank_counts(ts) -> dict:
             "fused_update": FS.fused_update_launches,
             "ring_ag": CM.ring_ag_launches, "ring_rs": CM.ring_rs_launches,
             "ring_ag_direct": CM.ring_ag_route_launches["direct"]["vector"],
+            "ring_ag_direct_all": sum(
+                CM.ring_ag_route_launches["direct"].values()),
             "ring_rs_vector": CM.ring_rs_route_launches["vector"],
             "cm_fwd": CM.cm_fwd_launches, "cm_dx": CM.cm_dx_launches,
             "cm_dw": CM.cm_dw_launches,
@@ -1348,20 +1393,47 @@ def _two_rank_counts(ts) -> dict:
             "update": ts.update_launches}
 
 
-def check_ring_matmul_two_ranks(rank: int) -> dict:
+def _join_two_ranks(rank: int, out: Path) -> None:
+    """The launcher variables of rank ``rank`` of two sharing card 0, their
+    group meeting at a FileStore in ``out``."""
+    os.environ.update(
+        DEAR_NUM_PROCESSES="2", DEAR_PROCESS_ID=str(rank),
+        DEAR_COORDINATOR_ADDRESS=f"file://{out}/store",
+        DEAR_LOCAL_RANK=str(rank), DEAR_LOCAL_SIZE="2")
+
+
+def _zero_two_rank_counts() -> None:
+    """Every launch count that `_two_rank_counts` reads, to 0."""
+    FA.reset_launch_counts()
+    FS.fused_update_launches = 0
+    _zero_ring_counts()
+    CM.cm_fwd_launches = CM.cm_dx_launches = CM.cm_dw_launches = 0
+    for by_route in CM.cm_route_launches.values():
+        by_route.update(wgmma=0, mma=0)
+
+
+def _digest(params: dict) -> str:
+    """sha256 over the parameters' bytes in name order."""
+    digest = hashlib.sha256()
+    for name in sorted(params):
+        digest.update(params[name].detach().cpu().numpy().tobytes())
+    return digest.hexdigest()
+
+
+def check_ring_matmul_two_ranks(rank: int, shapes=_CM_MAIN) -> dict:
     """K6, K7 and K8 on the main path's own transport — the two processes'
-    IPC `Ring` — against the stacked plain versions at the main path's
-    shapes (`_CM_MAIN`, bf16), two calls each: both ranks draw both ranks'
-    operands from one seed, each feeds its own row to the kernels and
-    holds its outputs to `_CM_RTOL` of the plain versions' row. Returns
-    the largest absolute error of each."""
+    IPC `Ring` — against the stacked plain versions at a main path's
+    shapes (``shapes``: `_CM_MAIN`, GPT-2's, by default; bf16), two calls
+    each: both ranks draw both ranks' operands from one seed, each feeds
+    its own row to the kernels and holds its outputs to `_CM_RTOL` of the
+    plain versions' row. Returns the largest absolute error of each."""
     world = 2
     group = backend.init(_DEV)
     dev = backend.device()
-    ring = Ring(group, dev, 1, cm_elems=max(kc * n for _, kc, n in _CM_MAIN))
+    ring = Ring(group, dev, 1, cm_elems=max(kc * n for _, kc, n in shapes))
     gen = torch.Generator(device=dev).manual_seed(14)
     worst: dict = {}
-    for m, kc, n in _CM_MAIN:
+    for m, kc, n in shapes:
         for call in range(2):
             ops = _cm_operands(world, m, kc, n, torch.bfloat16, gen, dev)
             tag = f"rank {rank} IPC ring M={m} K={world * kc} N={n} call {call}"
@@ -1456,22 +1528,14 @@ def rank_worker(rank: int, out: Path, mode: str) -> None:
     ``torch.profiler`` trace of 3 more steps (both ranks; their ring calls
     pair up); then the gathered parameters' digest, the losses, the
     launches, the step times and the trace into ``out/rank<r>.json``."""
-    os.environ.update(
-        DEAR_NUM_PROCESSES="2", DEAR_PROCESS_ID=str(rank),
-        DEAR_COORDINATOR_ADDRESS=f"file://{out}/store",
-        DEAR_LOCAL_RANK=str(rank), DEAR_LOCAL_SIZE="2")
+    _join_two_ranks(rank, out)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     ring_errs = check_ring_two_ranks(rank) if mode == "dear-fused" else None
     rp = mode == "ring-projections"
     cm_errs = check_ring_matmul_two_ranks(rank) if rp else None
     layers = GPT2_SMALL.num_hidden_layers
-    FA.reset_launch_counts()                                   # the main
-    FS.fused_update_launches = 0                               # path starts
-    _zero_ring_counts()
-    CM.cm_fwd_launches = CM.cm_dx_launches = CM.cm_dw_launches = 0
-    for by_route in CM.cm_route_launches.values():
-        by_route.update(wgmma=0, mma=0)
+    _zero_two_rank_counts()                       # the main path starts here
     marks, prev = [], {}
     fused = mode != "dear"
     n_cm = 4 * layers if rp else 0     # query, key, value, mlp_in
@@ -1482,7 +1546,8 @@ def rank_worker(rank: int, out: Path, mode: str) -> None:
         nb = ts.plan.num_buckets
         before = prev or {k: 0 for k in now} | {       # init's gathers
             "ag": nb, "ring_ag": nb if fused else 0,
-            "ring_ag_direct": nb if fused else 0}
+            "ring_ag_direct": nb if fused else 0,
+            "ring_ag_direct_all": nb if fused else 0}
         want = {"flash_fwd": layers, "flash_fwd_tc": layers,
                 "flash_bwd_dq": layers, "flash_bwd_dkv": layers,
                 "flash_bwd_dq_tc": layers, "flash_bwd_dkv_tc": layers,
@@ -1490,6 +1555,7 @@ def rank_worker(rank: int, out: Path, mode: str) -> None:
                 "fused_update": 0 if fused else nb,
                 "ring_ag": nb if fused else 0, "ring_rs": nb if fused else 0,
                 "ring_ag_direct": nb if fused else 0,
+                "ring_ag_direct_all": nb if fused else 0,
                 "ring_rs_vector": nb if fused else 0,
                 "cm_fwd": n_cm, "cm_dx": n_cm, "cm_dw": n_cm,
                 "cm_fwd_wgmma": n_cm, "cm_dx_wgmma": n_cm}
@@ -1513,12 +1579,9 @@ def rank_worker(rank: int, out: Path, mode: str) -> None:
                                label=f"rank {rank} {mode}, 8 x 1024")
              if fused else None)
     params = ts.gather_params(res.state)          # dear-fused: through K4
-    digest = hashlib.sha256()
-    for name in sorted(params):
-        digest.update(params[name].detach().cpu().numpy().tobytes())
     (out / f"rank{rank}.json").write_text(json.dumps({
         "losses": res.losses, "launches": launches, "step_ms": step_ms,
-        "tokens_per_s": res.total_mean * 1024, "params": digest.hexdigest(),
+        "tokens_per_s": res.total_mean * 1024, "params": _digest(params),
         "trace": trace, "ring_errs": ring_errs, "cm_errs": cm_errs,
         "shard_sizes": sorted({b.shard_size for b in ts.plan.buckets}),
         "bucket_shards": [b.shard_size for b in ts.plan.buckets],
@@ -1691,10 +1754,7 @@ def probe_rank_worker(rank: int, out: Path) -> None:
     through the launcher variables, the IPC `Ring` over a gloo group that
     meets at a FileStore in ``out``; its rows and launches (counted from
     0) into ``out/rank<r>.json``."""
-    os.environ.update(
-        DEAR_NUM_PROCESSES="2", DEAR_PROCESS_ID=str(rank),
-        DEAR_COORDINATOR_ADDRESS=f"file://{out}/store",
-        DEAR_LOCAL_RANK=str(rank), DEAR_LOCAL_SIZE="2")
+    _join_two_ranks(rank, out)
     _zero_probe_counts()
     res = probe.main(["--section", "kernels"])
     (out / f"rank{rank}.json").write_text(json.dumps({
@@ -2128,7 +2188,7 @@ def run_bench(card: str, timeout: float = 600.0) -> dict:
 
 def resnet_flops_per_image(name="resnet50", size=224) -> float:
     """The forward's 2·kh·kw·C_in·C_out·H_out·W_out over the convs (the
-    output sizes from one CPU forward) plus 2·in·out for fc
+    output sizes from one CPU forward) plus 2·in·out per dense layer
     (`bench.conv_fc_flops`)."""
     return port_bench.conv_fc_flops(get_model(name, device="cpu"), size)[0]
 
@@ -2189,6 +2249,489 @@ def trace_train_steps(ts, state, batch, step_p50_ms, n=2,
     return {"ops_per_step": len(kernels) / n, "busy_ms": busy,
             "wall_ms": wall / n * 1e3, "ring_ms": ring, "cm_ms": cm,
             "top": [(name, ms / n) for name, (ms, _) in top]}
+
+
+# ---------------------------------------------------------------------------
+# phase 5h: the rest of the zoo through the ImageNet CLI
+# ---------------------------------------------------------------------------
+
+#: (model, batch, image side): the reference sweep's DenseNet-201 at 32 and
+#: Inception-v4 at 64 on 299² (dear_pytorch_tpu/benchmarks/driver.py
+#: DEFAULT_TASKS), VGG-16 at the ResNet bench's 64 with its dropout; bf16,
+#: mode dear, 25 MB buckets, SGD lr 0.01 momentum 0.9 (the CLI's
+#: defaults), 20 steps (5 warmup, 3 x 5 timed)
+_ZOO = (("densenet201", 32, 224), ("inceptionv4", 64, 299),
+        ("vgg16", 64, 224))
+#: card against CPU in fp32 (TF32 off), as `_RESNET_CPU_RTOL`
+_ZOO_CPU_RTOL = 1e-3
+#: the loss falls: the dropout-free loss on the run's batch, from the
+#: weights of every `_ZOO_EVERY`-th step, reaches at most this fraction of
+#: the one at init (deterministic: unmoved weights give the init's loss).
+#: Not the last step's alone: VGG-16 (no BN, lr 0.01) falls ~20% by step
+#: 15, spikes at step 16 and ends ~0.7% under its init loss, as plain
+#: `torch.optim.SGD` does on the same batch and dropout masks
+#: (dear_pytorch_tpu_torch/scripts/plain_sgd_reference.py)
+_ZOO_LOSS_FALL, _ZOO_EVERY = 0.9, 5
+
+
+def _clean_loss(model, batch) -> float:
+    """``model``'s loss on ``batch`` with no dropout (VGG's ``train=False``)
+    and BN on the batch's statistics, as in the training steps."""
+    with torch.no_grad():
+        return float(softmax_xent(model.train()(batch["image"]),
+                                  batch["label"]))
+
+
+def train_zoo(name: str, B: int, size: int, card: str) -> dict:
+    """20 steps of ``benchmarks/imagenet.py --model name`` at full width
+    (bf16, ``--mfu``): every step launches the K5 epilogue and runs a
+    shard update and reduce-scatter once per bucket; the losses are
+    finite; every parameter moved and the loss without dropout on the
+    run's batch fell to `_ZOO_LOSS_FALL` of its init value (the weights
+    of every `_ZOO_EVERY`-th step, its master shards copied on the card
+    outside the timed spans) and ends below it; the BN buffers (DenseNet, Inception) are
+    finite and moved; the counted FLOPs within `_BENCH_FLOPS_RTOL` of 3 x
+    the forward's conv and dense products less the stem's input gradient
+    (`bench.conv_fc_flops`, the bench's ResNet count). Prints step
+    p50/p99, img/s, MFU and peak memory beside ``card``, traces 2 steps
+    (the idle share), then holds the model in fp32 on the card against the
+    CPU from the run's weights (B = 2; train and eval mode with BatchNorm,
+    eval for VGG, whose train mode is its generator-drawn dropout). Returns
+    the run's K5 epilogue launches and numbers."""
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    FS.fused_update_launches = 0        # the main path starts here
+    marks, starts, prev, snaps, peak = [], [], {}, [], []
+
+    def on_step(ts, state, metrics):
+        del metrics
+        now = {"fused_update": FS.fused_update_launches,
+               "update": ts.update_launches, "rs": ts.rs_launches}
+        got = {k: v - prev.get(k, 0) for k, v in now.items()}
+        nb = ts.plan.num_buckets
+        _check(got == dict.fromkeys(now, nb), f"{name} step "
+               f"{len(marks) + 1}: launches {got}, expected {nb} each")
+        prev.update(now)
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append(ev)
+        if len(marks) % _ZOO_EVERY == 0:   # the master shards, copied on
+            if not snaps:                  # the card outside the timed
+                peak.append(torch.cuda.max_memory_allocated())   # spans
+            snaps.append(state._replace(
+                shards=tuple(t.clone() for t in state.shards)))
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+        starts.append(ev)
+
+    res = imagenet_cli.main(
+        ["--model", name, "--batch-size", str(B), "--fp16", "--mode",
+         "dear", "--threshold", "25", "--mfu"] + _BERT_STEPS
+        + ["--device", _DEV], on_step=on_step)
+    launches = FS.fused_update_launches           # ... and ends here
+    torch.cuda.synchronize()
+    # every step allocates alike: the peak of the steps before the first
+    # snapshot
+    peak_gib = (peak[0] - base) / 2**30
+    ts, losses = res.train_step, res.losses
+    snaps = [{k: v.cpu() for k, v in ts.gather_params(snap).items()}
+             for snap in snaps]
+    warm = int(_BERT_STEPS[1])
+    steps = warm + int(_BERT_STEPS[3]) * int(_BERT_STEPS[5])
+    print(f"{name} losses (B={B}, {size}²): "
+          f"{[round(x, 4) for x in losses]}")
+    _check(len(losses) == steps and all(np.isfinite(losses)),
+           f"{name}: losses {losses}")
+    _check(tuple(res.batch["image"].shape) == (B, 3, size, size),
+           f"{name}: batch {tuple(res.batch['image'].shape)}")
+    moved = 0
+    for n, b in ts.model.named_buffers():
+        if n.endswith("num_batches_tracked"):
+            _check(int(b) == steps, f"{name} {n} = {int(b)}")
+            continue
+        init = 1.0 if n.endswith("running_var") else 0.0
+        _check(bool(torch.isfinite(b).all()), f"{name}: {n} not finite")
+        _check(bool((b != init).any()), f"{name}: {n} unmoved")
+        moved += 1
+    fwd, stem = port_bench.conv_fc_flops(get_model(name, device="cpu"),
+                                         size)
+    want = B * (3 * fwd - stem)
+    ratio = res.flops_per_step / want
+    step_ms = [a.elapsed_time(b)
+               for a, b in zip(starts[warm - 1:-1], marks[warm:])]
+    p50, p99 = (float(np.percentile(step_ms, q)) for q in (50, 99))
+    peak = _PEAK_FLOPS[torch.bfloat16]
+    mfu = res.flops_per_step / res.iter_time_mean / peak
+    nb = ts.plan.num_buckets
+    print(f"main path ({name} train, {card}): {steps} steps, {nb} buckets "
+          f"(shards {[b.shard_size for b in ts.plan.buckets]}), K5 epilogue "
+          f"launches {launches} ({nb} per step), {moved} BN buffers finite "
+          f"and moved; peak memory {peak_gib:.2f} GiB over the "
+          f"{base / 2**30:.2f} GiB allocated before")
+    print(f"{name} train step (bf16, B={B}, {size}², mode dear, {nb} "
+          f"buckets, {len(step_ms)} timed steps) on {card}: p50 {p50:.3f} "
+          f"ms p99 {p99:.3f} ms; {res.total_mean:.1f} img/s (the CLI's "
+          f"timed mean); {res.flops_per_step / 1e12:.6f} TFLOP per step "
+          f"counted, {want / 1e12:.6f} analytic (ratio {ratio:.6f}; 3 x the "
+          f"forward's {fwd / 1e9:.4f} GFLOP per image of conv and dense "
+          f"products, less the stem's input gradient) -> MFU {mfu:.2%} of "
+          f"{peak / 1e12:.0f} TF/s bf16")
+    _check(abs(ratio - 1) <= _BENCH_FLOPS_RTOL,
+           f"{name}: counted FLOPs off the analytic count")
+    trace = trace_train_steps(ts, res.state, res.batch, p50,
+                              label=f"{name} bf16, B={B}, {size}²")
+
+    shards = [b.shard_size for b in ts.plan.buckets]
+    upd_err = check_update_main_path(ts)     # VGG-16: fc1's 102.76M shard
+    params = ts.gather_params(res.state)
+    sd = {**params, **{n: b.detach().clone()
+                       for n, b in ts.model.named_buffers()}}
+    batch = res.batch
+    ts.close()
+    del res, ts
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the loss falls, judged without VGG's dropout noise: the CLI's model
+    # at init (seed 0), then with the weights of every `_ZOO_EVERY`-th
+    # step, on the run's batch; and every parameter moved
+    model = get_model(name, dtype=torch.bfloat16, device=_DEV, seed=0)
+    init = {n: p.detach().cpu() for n, p in model.named_parameters()}
+    _check(len(snaps) == steps // _ZOO_EVERY
+           and all(set(snap) == set(init) for snap in snaps),
+           f"{name}: {len(snaps)} snapshots, or not of every parameter")
+    still = [n for n, p in snaps[-1].items() if torch.equal(p, init[n])]
+    _check(not still, f"{name}: parameters unmoved by the run: {still}")
+    clean = [_clean_loss(model, batch)]
+    for snap in snaps:
+        model.load_state_dict(snap, strict=False)    # BN: batch statistics
+        clean.append(_clean_loss(model, batch))
+    print(f"{name} loss without dropout on the run's batch at steps "
+          f"{list(range(0, steps + 1, _ZOO_EVERY))}: "
+          f"{[round(x, 4) for x in clean]} (limit {_ZOO_LOSS_FALL} x the "
+          f"first, the last below it); every one of {len(init)} "
+          "parameters moved")
+    _check(min(clean[1:]) <= _ZOO_LOSS_FALL * clean[0]
+           and clean[-1] < clean[0], f"{name}: the loss did not fall "
+           f"({clean})")
+    del model, init, snaps
+    image = synthetic_image_batch(9, 2, image_size=size, device=_DEV)["image"]
+    bn = any(n.endswith("running_var") for n in sd)
+    worst = {}
+    for train in ((True, False) if bn else (False,)):
+        outs = {}
+        for dev in (_DEV, "cpu"):
+            model = get_model(name, device=dev).train(train)
+            model.load_state_dict({k: v.to(dev) for k, v in sd.items()})
+            with torch.no_grad():
+                logits = model(image.to(dev))
+            outs[dev] = {"logits": logits.cpu()} | {
+                n: b.cpu() for n, b in model.named_buffers()
+                if b.is_floating_point() and train}
+        mode = "train" if train else "eval"
+        for k, want_t in outs["cpu"].items():
+            worst[f"{mode} {k}"] = (float((outs[_DEV][k] - want_t).abs().max())
+                                    / max(float(want_t.abs().max()), 1e-30))
+    top = max(worst, key=worst.get)
+    print(f"{name} fp32 card vs CPU (B=2, {size}², TF32 off, "
+          f"{'train and eval' if bn else 'eval'} mode): logits "
+          + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()
+                      if k.endswith("logits"))
+          + f"; worst {top} {worst[top]:.3e} of the largest |value| "
+          f"(tolerance {_ZOO_CPU_RTOL})")
+    _check(max(worst.values()) <= _ZOO_CPU_RTOL,
+           f"{name}: card and CPU disagree")
+    return {"launches": launches, "buckets": nb, "shards": shards,
+            "p50": p50, "p99": p99, "mfu": mfu, "trace": trace,
+            "upd_err": upd_err}
+
+
+# ---------------------------------------------------------------------------
+# phase 5i: the MNIST example
+# ---------------------------------------------------------------------------
+
+
+def train_mnist() -> int:
+    """The port's MNIST example as a user runs it (``examples/mnist.py``)
+    on the card, ``--data synthetic`` (the card has no scikit-learn), 2
+    epochs of the JAX test's settings: every step launches the K5 epilogue
+    once per bucket; the held-out accuracy above 0.9, the JAX test's bar.
+    Returns the epilogue's launches."""
+    from dear_pytorch_tpu_torch.examples import mnist as mnist_example
+
+    FS.fused_update_launches = 0        # the main path starts here
+    t0 = time.perf_counter()
+    acc = mnist_example.main(["--data", "synthetic", "--epochs", "2",
+                              "--batch-size", "64", "--train-size", "2048",
+                              "--test-size", "512", "--lr", "0.05",
+                              "--device", _DEV])
+    launches = FS.fused_update_launches           # ... and ends here
+    steps = 2 * (2048 // 64)
+    print(f"mnist example (synthetic, 2 epochs, {steps} steps of 64): test "
+          f"accuracy {acc:.4f}; K5 epilogue launches {launches}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    _check(launches == steps, f"mnist: {launches} K5 epilogue launches for "
+           f"{steps} steps of one bucket")
+    _check(acc > 0.9, f"mnist: test accuracy {acc}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 5j: serve BERT-Base through DecodeEngine
+# ---------------------------------------------------------------------------
+
+#: a top-2 logit gap under which the engine may pick another token than
+#: the causal full forward: fp32 as GPT-2's check (1e-3); bf16 4 ulps of
+#: the top logit in bf16 (2^(e - 7) each for a logit in [2^e, 2^(e+1))):
+#: both paths round every op to bf16, at other points (the cache, the
+#: split-K softmax against the dense core), and land a few ulps apart
+_BERT_TIE_FP32, _BERT_TIE_BF16_ULPS = 1e-3, 4
+
+
+def _bert_tie(dt, top: float) -> float:
+    if dt == torch.float32:
+        return _BERT_TIE_FP32
+    return _BERT_TIE_BF16_ULPS * 2.0 ** (np.floor(np.log2(abs(top))) - 7)
+
+
+def _bert_requests():
+    rs = np.random.RandomState(1)
+    lens = (5, 17, 33, 64, 97, 128, 11, 50)
+    return [(list(rs.randint(0, BERT.BERT_BASE.vocab_size, n)),
+             int(rs.randint(8, 17))) for n in lens]
+
+
+def _causal_gaps(model, prompt, got):
+    """One causal full forward (no cache) over ``prompt + got``: at each
+    generated position, the forward's top logit and how far the engine's
+    token lies below it (0 where the engine took an argmax)."""
+    V = model.config.vocab_size
+    seq = list(prompt) + list(got)
+    with torch.no_grad():
+        logits, _ = model(torch.tensor([seq], device=_DEV), causal=True)
+    lg = logits[0, len(prompt) - 1:len(seq) - 1, :V].float()
+    top = lg.max(-1).values
+    mine = lg.gather(-1, torch.tensor(got, device=_DEV)[:, None])[:, 0]
+    return top.tolist(), (top - mine).tolist()
+
+
+def serve_bert():
+    """BERT-Base at full width (random weights from a seed) through
+    `DecodeEngine` with ``decode_use_flash=True``, in fp32 and bf16, at
+    ``prefill_chunk`` 1 and 8: every request finishes; K1 runs 12 times per
+    decode tick, all on its split-K route; then one causal full forward
+    over each request's prompt and the engine's tokens: every generated
+    token is that forward's argmax at its position, or within `_bert_tie`
+    of it (a request whose every token is the argmax is token for token
+    the causal forward's greedy continuation). Returns (K1's launches by
+    route, the runs)."""
+    reqs = _bert_requests()
+    models = {}
+    for dt in (torch.float32, torch.bfloat16):
+        cfg = dataclasses.replace(BERT.BERT_BASE, decode_use_flash=True,
+                                  dtype=dt)
+        models[dt] = BERT.BertForPreTraining(cfg, device=_DEV, seed=0).eval()
+    cfg = models[torch.float32].config
+    print(f"BERT-Base serving: {cfg.num_hidden_layers} layers, ring "
+          f"{cfg.cache_len}, slots {_SLOTS}, {len(reqs)} requests")
+    FA.reset_launch_counts()            # the main path starts here
+    runs = []
+    for dt in (torch.float32, torch.bfloat16):
+        for chunk in (1, 8):
+            eng = DecodeEngine(models[dt], slots=_SLOTS, prefill_chunk=chunk,
+                               device=_DEV)
+            pending, done = list(range(len(reqs))), {}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            while pending or eng.active:
+                while pending and eng.free:
+                    i = pending.pop(0)
+                    eng.submit(reqs[i][0], reqs[i][1], request_id=i)
+                for fin in eng.tick():
+                    done[fin.request_id] = fin.tokens
+            wall = time.perf_counter() - t0
+            runs.append((dt, chunk, done, eng, wall))
+    launches = FA.flash_fwd_launches   # ... and ends here
+    routes = dict(FA.flash_fwd_route_launches)
+    ticks = sum(r[3].decode_steps for r in runs)
+    layers = cfg.num_hidden_layers
+    print(f"main path (bert-base serving): {ticks} decode ticks, "
+          f"{sum(r[3].prefill_steps for r in runs)} prefill ticks, K1 "
+          f"launches {launches}, by route {routes}")
+    _check(launches > 0 and launches == layers * ticks
+           and routes["split_k"] == launches,
+           f"bert serving: K1 launched {routes} for {ticks} decode ticks; "
+           f"expected {layers} split_k launches per tick")
+    for dt, chunk, done, eng, wall in runs:
+        _check(sorted(done) == list(range(len(reqs))),
+               f"bert {dt} chunk {chunk}: not every request finished")
+        new = sum(len(t) for t in done.values())
+        g = eng.phase_gauges()
+        print(f"serve bert-base {dt} chunk {chunk}: {len(done)} requests, "
+              f"{new} new tokens in {wall:.3f} s ({new / wall:.1f} tok/s), "
+              f"decode tick p50 {g['serve.decode_tick_ms_p50']} ms p99 "
+              f"{g['serve.decode_tick_ms_p99']} ms, decode ticks "
+              f"{eng.decode_steps}, prefill ticks {eng.prefill_steps}")
+        greedy = ties = 0
+        worst = (0.0, 0.0, 0.0)               # (gap / limit, gap, top)
+        for i, (prompt, n) in enumerate(reqs):
+            got = done[i]
+            _check(len(got) == n, f"bert {dt}: request {i} gave {got}")
+            tops, gaps = _causal_gaps(models[dt], prompt, got)
+            greedy += all(g == 0 for g in gaps)
+            for j, (top, gap) in enumerate(zip(tops, gaps)):
+                if gap == 0:
+                    continue
+                ties += 1
+                lim = _bert_tie(dt, top)
+                worst = max(worst, (gap / lim, gap, top))
+                _check(gap < lim, f"bert {dt} chunk {chunk}: request {i} "
+                       f"token {j} is {gap:.3e} below the causal forward's "
+                       f"top logit {top:.4f}, over the near-tie limit "
+                       f"{lim:.3e}")
+        print(f"  every one of the {new} tokens is the causal full "
+              f"forward's argmax over the engine's own sequence or within "
+              f"the near-tie limit: {new - ties} argmax, {ties} near-ties "
+              f"(the widest {worst[1]:.3e} below a top logit of "
+              f"{worst[2]:.4f}, {worst[0]:.2f} of its limit); {greedy} of "
+              f"{len(reqs)} requests token for token the causal greedy "
+              "continuation")
+    return routes, runs
+
+
+# ---------------------------------------------------------------------------
+# phase 5k: BERT-Large --ring-projections, two ranks on one card
+# ---------------------------------------------------------------------------
+
+#: the bench's BERT-Large batch over two ranks (8 per rank, S = 64), bf16,
+#: its dropout and optimizer (the CLI's), 25 MB buckets, 6 steps (2
+#: warmup, 2 x 2 timed: a paired ring-matmul call costs milliseconds on
+#: one shared card, 288 of them per step)
+_BERT_LARGE_ARGS = ["--model", "bert", "--fp16", "--batch-size", "8",
+                    "--sentence-len", "64", "--threshold", "25",
+                    "--mode", "dear-fused", "--num-warmup-batches", "2",
+                    "--num-batches-per-iter", "2", "--num-iters", "2"]
+_BERT_LARGE_STEPS = 6
+_BERT_LARGE_MODES = {"bert-large-fused": [],
+                     "bert-large-rp": ["--ring-projections"]}
+
+
+def bert_rank_worker(rank: int, out: Path, mode: str) -> None:
+    """One of the two ranks of phase 5k (``--bert-rank R --out DIR --mode
+    M``): with ring projections, first K6–K8 on the IPC ring at
+    BERT-Large's shapes (`check_ring_matmul_two_ranks`); then the BERT CLI
+    in ``mode`` (a key of `_BERT_LARGE_MODES`), every step's launches
+    checked (K4 and the K5 ring once per bucket; with ring projections K6,
+    K7 and K8 96 times each, K6 and K7 on the wgmma route); the losses,
+    launches, step times and the gathered parameters' digest into
+    ``out/rank<r>.json``."""
+    _join_two_ranks(rank, out)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rp = mode == "bert-large-rp"
+    cm_errs = check_ring_matmul_two_ranks(rank, _CM_BERT_LARGE) if rp \
+        else None
+    _zero_two_rank_counts()                       # the main path starts here
+    marks, prev, widths = [], {}, {}
+
+    def on_step(ts, state, metrics):
+        del state, metrics
+        now = _two_rank_counts(ts)
+        nb = ts.plan.num_buckets
+        # query, key, value and intermediate of every layer
+        n_cm = 4 * ts.model.config.num_hidden_layers if rp else 0
+        if not prev:       # init's gathers: nb direct, at the steps' widths
+            widths.update(ag=now["ring_ag_direct"] // 2)
+            prev.update({k: 0 for k in now} | {
+                "ag": nb, "ring_ag": nb, "ring_ag_direct_all": nb,
+                "ring_ag_direct": widths["ag"]})
+        # K4 and the K5 ring on their vector width where the shard's size
+        # and offset allow bulk copies (`ag_route`, `rs_route`): BERT-Large's
+        # plan has shards that do not (the scalar width); the widths must
+        # not change from step to step
+        got = {k: now[k] - prev[k] for k in now}
+        widths.setdefault("rs", got["ring_rs_vector"])
+        want = {k: 0 for k in now if k.startswith("flash")} | {
+            "rs": nb, "ag": nb, "update": nb, "fused_update": 0,
+            "ring_ag": nb, "ring_rs": nb, "ring_ag_direct_all": nb,
+            "ring_ag_direct": widths["ag"], "ring_rs_vector": widths["rs"],
+            "cm_fwd": n_cm, "cm_dx": n_cm, "cm_dw": n_cm,
+            "cm_fwd_wgmma": n_cm, "cm_dx_wgmma": n_cm}
+        _check(got == want, f"rank {rank} {mode} step {len(marks) + 1}: "
+               f"launches {got}, expected {want}")
+        prev.update(now)
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append(ev)
+
+    res = bert_cli.main(_BERT_LARGE_ARGS + _BERT_LARGE_MODES[mode]
+                        + ["--device", _DEV], on_step=on_step)
+    ts = res.train_step
+    launches = _two_rank_counts(ts)               # ... and ends here
+    step_ms = [a.elapsed_time(b) for a, b in zip(marks[1:-1], marks[2:])]
+    params = ts.gather_params(res.state)
+    (out / f"rank{rank}.json").write_text(json.dumps({
+        "losses": res.losses, "launches": launches, "step_ms": step_ms,
+        "sen_per_s": res.total_mean, "params": _digest(params),
+        "cm_errs": cm_errs, "buckets": ts.plan.num_buckets,
+        "bucket_shards": [b.shard_size for b in ts.plan.buckets]}))
+    ts.close()
+    backend.shutdown()
+
+
+#: the last loss with ring projections against dear-fused without
+#: (relative), as GPT-2's `_RP_VS_FUSED_RTOL`
+_BERT_RP_VS_FUSED_RTOL = 1e-3
+
+
+def train_bert_large_rp() -> tuple:
+    """BERT-Large trained 6 steps by two ranks sharing the card, with
+    ``--mode dear-fused`` and with ``--ring-projections`` too: finite
+    losses, equal on both ranks; both ranks' gathered parameters bitwise
+    equal; every step's launches checked in each rank; the last loss with
+    ring projections within `_BERT_RP_VS_FUSED_RTOL` of the one without.
+    Returns the two ranks' results of each run."""
+    results = {}
+    for mode in _BERT_LARGE_MODES:
+        t0 = time.perf_counter()
+        results[mode] = spawn_two_ranks(
+            mode, lambda r, out, m=mode: ["--bert-rank", str(r), "--out",
+                                          str(out), "--mode", m], 900.0)
+        ranks = results[mode]
+        losses = ranks[0]["losses"]
+        print(f"two ranks {mode}: losses {[round(x, 4) for x in losses]}; "
+              f"{ranks[0]['buckets']} buckets (shards "
+              f"{ranks[0]['bucket_shards']}); wall "
+              f"{time.perf_counter() - t0:.1f} s")
+        for r, rank in enumerate(ranks):
+            p50, p99 = (float(np.percentile(rank["step_ms"], q))
+                        for q in (50, 99))
+            print(f"two-rank {mode} step, rank {r} (BERT-Large, bf16, 8 x 64 "
+                  f"per rank, {len(rank['step_ms'])} steps after the first): "
+                  f"p50 {p50:.3f} ms p99 {p99:.3f} ms; "
+                  f"{rank['sen_per_s']:.1f} sentences/s over both ranks "
+                  "(the CLI's timed mean); K4 on the direct route by width "
+                  f"{rank['launches']['ring_ag_direct']} vector of "
+                  f"{rank['launches']['ring_ag_direct_all']}, the K5 ring "
+                  f"{rank['launches']['ring_rs_vector']} vector of "
+                  f"{rank['launches']['ring_rs']}")
+        _check(len(losses) == _BERT_LARGE_STEPS
+               and all(np.isfinite(losses)), f"{mode}: losses {losses}")
+        _check(ranks[1]["losses"] == losses,
+               f"{mode}: the ranks' losses differ")
+        _check(ranks[1]["params"] == ranks[0]["params"],
+               f"{mode}: the ranks' gathered parameters differ")
+    fused, rp = (results[m] for m in _BERT_LARGE_MODES)
+    lf, lr = fused[0]["losses"][-1], rp[0]["losses"][-1]
+    rel = abs(lr - lf) / abs(lf)
+    print(f"bert-large step-{_BERT_LARGE_STEPS} loss: dear-fused {lf:.6f}, "
+          f"with ring projections {lr:.6f}, relative difference {rel:.3e} "
+          f"(limit {_BERT_RP_VS_FUSED_RTOL:g})")
+    _check(rel <= _BERT_RP_VS_FUSED_RTOL,
+           "bert-large: ring projections and dear-fused losses differ")
+    return fused, rp
 
 
 # ---------------------------------------------------------------------------
@@ -2617,7 +3160,7 @@ def time_ring(bucket_shards, hbm):
     return rows
 
 
-def time_ring_matmul(hbm, calls_per_step):
+def time_ring_matmul(hbm, calls_per_step, shapes=_CM_MAIN, sweeps=True):
     """K6, K7 and K8 on a two-rank `LocalRing` (one cooperative launch
     drives both ranks, as the two processes' launches share the card) at
     the main path's shapes (`_CM_MAIN`, bf16), each held to its plain
@@ -2628,13 +3171,15 @@ def time_ring_matmul(hbm, calls_per_step):
     concatenated: every rank's dw shard at once). Per call, both ranks:
     operations 2 x 2·M·K·N, bytes 2 x (M·K + kc·N + M·N) x 2 (each input
     read once, each output written once). Per step: ``calls_per_step[N]``
-    calls at each N. Returns the rows of each kernel by N."""
+    calls at each N. ``shapes``: (M, kc, N) at W = 2 (GPT-2's
+    `_CM_MAIN` by default); ``sweeps``: also time the other tiles and K8
+    plans. Returns the rows of each kernel by N."""
     world = 2
     gen = torch.Generator(device=_DEV).manual_seed(13)
     ring = LocalRing(world, _DEV, 1,
-                     cm_elems=max(kc * n for _, kc, n in _CM_MAIN))
+                     cm_elems=max(kc * n for _, kc, n in shapes))
     rows = {"cm_fwd": {}, "cm_dx": {}, "cm_dw": {}}
-    for m, kc, n in _CM_MAIN:
+    for m, kc, n in shapes:
         k = world * kc
         sets = [_cm_operands(world, m, kc, n, torch.bfloat16, gen)
                 for _ in range(2)]
@@ -2689,8 +3234,9 @@ def time_ring_matmul(hbm, calls_per_step):
                                if route == "wgmma" else "mma tiles")
             print("kernel time " + json.dumps({"kernel": name} | row))
             rows[name][n] = row
-        time_cm_tiles(ring, sets, m, kc, n, fns)
-        time_dw_plans(ring, sets, m, kc, n, ranges)
+        if sweeps:
+            time_cm_tiles(ring, sets, m, kc, n, fns)
+            time_dw_plans(ring, sets, m, kc, n, ranges)
     ring.close()
     for name, by_n in rows.items():
         per_step = {key: sum(by_n[n][key] * calls_per_step[n] for n in by_n)
@@ -2807,9 +3353,11 @@ def main(argv=None) -> int:
     kernels_only = argv == ["--kernels-only"]
     worker = len(argv) == 6 and argv[0::2] == ["--train-rank", "--out",
                                                "--mode"]
+    bert_worker = len(argv) == 6 and argv[0::2] == ["--bert-rank", "--out",
+                                                    "--mode"]
     probe_worker = len(argv) == 4 and argv[0::2] == ["--probe-rank",
                                                      "--out"]
-    if argv and not (kernels_only or worker or probe_worker):
+    if argv and not (kernels_only or worker or bert_worker or probe_worker):
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -2818,6 +3366,9 @@ def main(argv=None) -> int:
         return 1
     if worker:                   # one rank of phase 5b, spawned below
         rank_worker(int(argv[1]), Path(argv[3]), argv[5])
+        return 0
+    if bert_worker:              # one rank of phase 5k, spawned below
+        bert_rank_worker(int(argv[1]), Path(argv[3]), argv[5])
         return 0
     if probe_worker:             # one rank of phase 5c, spawned below
         probe_rank_worker(int(argv[1]), Path(argv[3]))
@@ -2904,6 +3455,22 @@ def main(argv=None) -> int:
               f"timed mean); {flops / 1e12:.6f} TFLOP per step counted -> "
               f"MFU {flops / r.iter_time_mean / _PEAK_FLOPS[torch.bfloat16]:.2%}"
               f" of {_PEAK_FLOPS[torch.bfloat16] / 1e12:.0f} TF/s bf16")
+    t0 = time.perf_counter()
+    zoo = {name: train_zoo(name, B_, size, card) for name, B_, size in _ZOO}
+    upd_err = max([upd_err] + [z["upd_err"] for z in zoo.values()])
+    print(f"zoo phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    mnist_launches = train_mnist()
+    print(f"mnist phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    bert_serve_routes, bert_runs = serve_bert()
+    print(f"bert serving phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    bl_fused, bl_rp = train_bert_large_rp()
+    for rank in bl_rp:
+        for k, v in rank["cm_errs"].items():
+            cm_err[k] = max(cm_err[k], v)
+    print(f"bert-large ring-projection phase: {time.perf_counter() - t0:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()      # the bench's process needs the memory
     t0 = time.perf_counter()
@@ -3003,6 +3570,14 @@ def main(argv=None) -> int:
         "cuda_core train": time_shape("causal train B=16 S=1024 H=12 D=64",
                                       B, S, S, torch.bfloat16, True, 2, hbm,
                                       out_dtype=torch.float32)}
+    # K1 at BERT-Base's decode tick (phase 5j): 4 slots over the 512-slot
+    # ring, bf16 and fp32, split-K
+    fwd_rows["split_k bert"] = time_shape(
+        "bert decode B=4 Sq=1 Sk=512 H=12 D=64", _SLOTS, 1, 512,
+        torch.bfloat16, False, 8, hbm)
+    fwd_rows["split_k bert fp32"] = time_shape(
+        "bert decode B=4 Sq=1 Sk=512 H=12 D=64", _SLOTS, 1, 512,
+        torch.float32, False, 4, hbm)
     for row in fwd_rows.values():
         fwd_err[row["route"]] = max(fwd_err[row["route"]],
                                     row["max_abs_err"])
@@ -3041,13 +3616,22 @@ def main(argv=None) -> int:
     time_update(max(b.shard_size for b in buckets), hbm, nb)
     # ResNet-50's largest bucket shard (the 25 MB threshold's first bucket)
     time_update(max(b.shard_size for b in rn_buckets), hbm, len(rn_buckets))
+    # the zoo's largest shards: VGG-16's fc1 bucket (102,764,544 elements,
+    # its own bucket) and DenseNet-201's and Inception-v4's largest
+    for z in zoo.values():
+        time_update(max(z["shards"]), hbm, z["buckets"])
     ring_rows = time_ring(fused[0]["bucket_shards"], hbm)
     # the kernels line: the 25 MB bucket's shard, as for the update
     ring_n = max(n for n in fused[0]["shard_sizes"]
                  if 2 * n * 4 <= 25 * 2**20)
     cm_rows = time_ring_matmul(hbm, {768: 3 * layers, 3072: layers})
+    # BERT-Large's (phase 5k): 72 calls at N = 1024, 24 at N = 4096
+    bl_layers = BERT.BERT_LARGE.num_hidden_layers
+    time_ring_matmul(hbm, {1024: 3 * bl_layers, 4096: bl_layers},
+                     shapes=_CM_BERT_LARGE, sweeps=False)
     k9_rows = time_overhead_probe(hbm)
-    fused_launches = {k: sum(r["launches"][k] for r in fused + rp)
+    fused_launches = {k: sum(r["launches"][k]
+                             for r in fused + rp + bl_fused + bl_rp)
                       for k in fused[0]["launches"]}
     # K4 and the K5 ring also run on the probe's path (both transports)
     ring_launches = {k: fused_launches[k] + probe_launches[k]
@@ -3055,7 +3639,7 @@ def main(argv=None) -> int:
     # K4 by route, each with its own main path: direct the dear-fused
     # steps (every one checked so in both ranks), slot the probe's (both
     # transports); the K5 ring by width on the dear-fused steps
-    ag_by_route = {"direct": fused_launches["ring_ag_direct"],
+    ag_by_route = {"direct": fused_launches["ring_ag_direct_all"],
                    "slot": probe_launches["ring_ag_slot"]
                    + probe_ipc_launches["ring_ag_slot"]}
     _check(ag_by_route["direct"] == fused_launches["ring_ag"]
@@ -3067,10 +3651,11 @@ def main(argv=None) -> int:
                    - fused_launches["ring_rs_vector"]}
     print(f"K4 launches on the main paths by route: {ag_by_route}; the K5 "
           f"ring's on the dear-fused steps by width: {rs_by_width}")
-    rp_launches = {k: sum(r["launches"][k] for r in rp)
+    rp_launches = {k: sum(r["launches"][k] for r in rp + bl_rp)
                    for k in rp[0]["launches"]}
     print(f"main paths (two ranks, dear-fused, with and without ring "
-          f"projections): launches over both ranks and runs "
+          f"projections; GPT-2 small and BERT-Large): launches over both "
+          f"ranks and runs "
           f"{fused_launches}; with ring projections {rp_launches}; K4 and "
           f"the K5 ring with the probe's {ring_launches}")
     # K6 and K7 by route on their main path: every launch on the wgmma
@@ -3088,7 +3673,7 @@ def main(argv=None) -> int:
     # tensor cores the bf16 train steps (one rank and both ranks of the two
     # dear-fused runs), CUDA cores the fp32 step
     k1_launches = {
-        "split_k": serve_routes["split_k"],
+        "split_k": serve_routes["split_k"] + bert_serve_routes["split_k"],
         "tensor_core": train_launches["flash_fwd_tc"]
         + fused_launches["flash_fwd_tc"] + bert_launches["flash_fwd_tc"],
         "cuda_core": fp32_routes["fwd"]["cuda_core"]}
@@ -3115,12 +3700,13 @@ def main(argv=None) -> int:
                 launches[route], bwd_err[which][route], bwd[kname + sfx]))
     print(json.dumps({"kernels": k1 + k23 + [
         # launches: GPT-2's train steps, ResNet-50's, BERT-Base's (flash
-        # and with dropout) and ViT-B/16's
+        # and with dropout), ViT-B/16's, the zoo's and the MNIST example's
         _kernel_entry("fused_update", "fused_update.cu",
                       "dear_pytorch_tpu/ops/collective_matmul.py:317",
                       train_launches["fused_update"] + rn_launches
-                      + bert_launches["fused_update"] + vit_launches,
-                      upd_err, upd),
+                      + bert_launches["fused_update"] + vit_launches
+                      + sum(z["launches"] for z in zoo.values())
+                      + mnist_launches, upd_err, upd),
     ] + [
         _kernel_entry(f"ring_all_gather ({route})", "ring.cu",
                       "dear_pytorch_tpu/ops/collective_matmul.py:218",

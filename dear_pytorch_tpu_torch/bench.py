@@ -304,10 +304,12 @@ def bench_gpt(group, dev, proto: Protocol) -> dict:
 
 
 def conv_fc_flops(model, size: int) -> tuple:
-    """(every conv's and the fc's forward products per image, the first
-    conv's alone): ``2·kh·kw·C_in·C_out·H_out·W_out`` per conv (the output
-    sizes from one forward of ``model`` on a ``size``² image) plus
-    ``2·in·out`` for the fc."""
+    """(every conv's and dense layer's forward products per image, the
+    first conv's alone): ``2·kh·kw·C_in·C_out·H_out·W_out`` per conv (the
+    output sizes from one forward of ``model`` on a ``size``² image) plus
+    ``2·in·out`` per dense layer, each applied once per image (some
+    models call an fp32 ``F.linear`` on its weight, which no module hook
+    sees)."""
     flops = []
     hooks = [m.register_forward_hook(
         lambda m, i, o: flops.append(2 * m.weight[0].numel()
@@ -318,8 +320,9 @@ def conv_fc_flops(model, size: int) -> tuple:
         model.eval()(torch.zeros(1, 3, size, size, device=model.device))
     for h in hooks:
         h.remove()
-    return (float(sum(flops) + 2 * model.fc.in_features
-                  * model.fc.out_features), float(flops[0]))
+    dense = sum(2 * m.in_features * m.out_features for m in model.modules()
+                if isinstance(m, torch.nn.Linear))
+    return float(sum(flops) + dense), float(flops[0])
 
 
 def resnet_step_flops(name: str, B: int, size: int) -> float:

@@ -18,10 +18,13 @@ backward; `ops.flash_attention.make_flash_attention_impl`, with the
 padding mask as the kernels' key validity) and zeroes the
 attention-probability dropout first, with the JAX CLI's log line: the
 kernels have no dropout path, and measuring the impl's dense fallback
-would be worse than changing the config. ``--mfu`` counts one step's FLOPs
-(`runner.step_flops`) and logs the MFU. ``--sp-degree > 1`` and
-``--sp-attention`` (sequence parallelism, ROADMAP Queue 1 item 10) and
-``--ring-projections`` (item 5b) are not ported yet and raise.
+would be worse than changing the config. ``--ring-projections`` (with
+``--mode dear-fused`` only, as in JAX) routes every layer's query, key,
+value and intermediate products through the ring collective matmul
+(`ops.collective_matmul.make_ring_projection_impl`: K6 forward, K7 and K8
+backward). ``--mfu`` counts one step's FLOPs (`runner.step_flops`) and
+logs the MFU. ``--sp-degree > 1`` and ``--sp-attention`` (sequence
+parallelism, ROADMAP Queue 1 item 10) are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -37,6 +40,9 @@ from dear_pytorch_tpu_torch._device import resolve_device
 from dear_pytorch_tpu_torch.benchmarks import runner
 from dear_pytorch_tpu_torch.comm import backend
 from dear_pytorch_tpu_torch.models import data
+from dear_pytorch_tpu_torch.ops.collective_matmul import (
+    make_ring_projection_impl,
+)
 from dear_pytorch_tpu_torch.ops.flash_attention import (
     make_flash_attention_impl,
 )
@@ -64,8 +70,9 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["ring", "ring_flash", "ulysses"],
                    help="sequence-parallel attention (not ported yet)")
     p.add_argument("--ring-projections", action="store_true", default=False,
-                   help="ring collective-matmul projections (not ported "
-                        "yet for BERT)")
+                   help="route the QKV/intermediate projections through the "
+                        "ring collective matmul (requires --mode "
+                        "dear-fused on a pure dp group)")
     p.add_argument("--dropout0", action="store_true", default=False,
                    help="zero every dropout prob")
     runner.add_common_args(p)
@@ -82,16 +89,17 @@ def main(argv=None, on_step: Optional[Callable] = None
     ``on_step(train_step, state, metrics)`` is called after every step
     (warmup included)."""
     args = build_parser().parse_args(argv)
-    unported = [(flag, item) for flag, item, on in (
-        ("--sp-degree > 1", "10 (sequence parallelism)", args.sp_degree > 1),
-        ("--sp-attention", "10 (sequence parallelism)",
-         args.sp_attention is not None),
-        ("--ring-projections", "5b (BERT's --ring-projections)",
-         args.ring_projections)) if on]
+    if args.ring_projections and (args.mode != "dear-fused"
+                                  or args.sp_degree > 1):
+        raise SystemExit("--ring-projections requires --mode dear-fused "
+                         "on a pure dp mesh (no --sp-degree)")
+    unported = [flag for flag, on in (
+        ("--sp-degree > 1", args.sp_degree > 1),
+        ("--sp-attention", args.sp_attention is not None)) if on]
     if unported:
-        raise NotImplementedError("; ".join(
-            f"{flag}: not ported yet (ROADMAP Queue 1 item {item})"
-            for flag, item in unported))
+        raise NotImplementedError(
+            f"{', '.join(unported)}: not ported yet (ROADMAP Queue 1 item "
+            "10 (sequence parallelism))")
     if not models.is_bert(args.model):
         raise SystemExit(f"--model {args.model}: one of "
                          f"{models.bert_names()}")
@@ -118,6 +126,8 @@ def main(argv=None, on_step: Optional[Callable] = None
     model = models.BertForPreTraining(
         cfg, attention_impl=(make_flash_attention_impl()
                              if args.flash_attention else None),
+        projection_impl=(make_ring_projection_impl()
+                         if args.ring_projections else None),
         device=dev, seed=0)
     global_bs = args.batch_size * world
     batch = data.synthetic_bert_batch(

@@ -1,8 +1,11 @@
 """Synthetic CNN training benchmark — the port of
-``dear_pytorch_tpu/benchmarks/imagenet.py`` for the ResNets and the vision
-transformers (``vit_s16``, ``vit_b16``): the model trained with the DeAR
-schedule (`parallel.dear`) on one fixed seeded batch of fake ImageNet data,
-printing images/s.
+``dear_pytorch_tpu/benchmarks/imagenet.py`` for every image model of the
+zoo (the ResNets, DenseNets, Inception-v4, the VGGs, the vision
+transformers and the MNIST convnet): the model trained with the DeAR
+schedule (`parallel.dear`) on one fixed seeded batch of fake data, printing
+images/s. The image is 224² (299² for ``inceptionv4``; ``mnistnet`` trains
+on `models.data.synthetic_mnist_batch`, 28² grayscale), as in the JAX
+CLI.
 
 Example (on the card; ``--device cpu`` runs the plain PyTorch path):
   python -m dear_pytorch_tpu_torch.benchmarks.imagenet \\
@@ -12,7 +15,10 @@ Each process drives one device; several processes form one data-parallel
 group through the launcher variables of `comm.backend`, every rank draws
 the same global batch and trains on its own slice. The BatchNorm running
 statistics are the step's model state, averaged over the ranks once per
-step (a ViT has none). On the card the CLI sets
+step (a ViT, a VGG and the MNIST net have none). The models with dropout
+(VGG, MnistNet, a ViT with a rate) draw its masks from the step's
+generator, as the JAX CLI's ``rngs={"dropout": rng}``. ``--stem`` applies
+to the ResNets only. On the card the CLI sets
 ``torch.backends.cudnn.benchmark`` (cuDNN picks each conv's algorithm by
 timing it at the first call of each shape, during the warmup). ``--mfu``
 counts one step's FLOPs (`runner.step_flops`) and logs the MFU. The JAX
@@ -33,7 +39,10 @@ from dear_pytorch_tpu_torch.benchmarks import runner
 from dear_pytorch_tpu_torch.comm import backend
 from dear_pytorch_tpu_torch.models import data
 
-IMAGE_SIZE = 224
+#: the image side by model (the JAX CLI's rule); 224 for the rest
+IMAGE_SIZES = {"inceptionv4": 299, "mnistnet": 28}
+#: the models whose forward takes ``train=`` and ``generator=`` (dropout)
+_DROPOUT_PREFIXES = ("vit", "vgg", "mnistnet")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -46,7 +55,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--stem", type=str, default="conv7",
                    choices=["conv7", "s2d"],
                    help="ResNet stem: 's2d' = the space-to-depth stem, the "
-                        "exact repack of the 7x7/s2 conv (models/resnet.py)")
+                        "exact repack of the 7x7/s2 conv (models/resnet.py); "
+                        "ResNets only")
     runner.add_common_args(p)
     return p
 
@@ -60,10 +70,13 @@ def main(argv=None, on_step: Optional[Callable] = None
     ``on_step(train_step, state, metrics)`` is called after every step
     (warmup included)."""
     args = build_parser().parse_args(argv)
-    if args.model.lower() not in models.cnn_names():
+    name = args.model.lower()
+    if name not in models.cnn_names():
         raise SystemExit(f"--model {args.model}: the port's CNNs are "
-                         f"{models.cnn_names()} (the rest of the zoo: "
-                         "ROADMAP Queue 1 item 5b)")
+                         f"{models.cnn_names()}")
+    resnet = name.startswith("resnet")
+    if args.stem != "conv7" and not resnet:
+        raise SystemExit("--stem s2d applies to ResNet models only")
     resolve_device(args.device)          # raises without a card
     group = backend.init(args.device)    # "cuda" or None: this rank's card
     dev, world = backend.device(), backend.size()
@@ -71,24 +84,30 @@ def main(argv=None, on_step: Optional[Callable] = None
         torch.backends.cudnn.benchmark = True
 
     dtype = torch.bfloat16 if args.fp16 else torch.float32
-    vit = args.model.lower().startswith("vit")
     model = models.get_model(args.model, dtype=dtype, device=dev, seed=0,
-                             **({} if vit else {"stem": args.stem}))
+                             **({"stem": args.stem} if resnet else {}))
     global_bs = args.batch_size * world
-    batch = data.synthetic_image_batch(0, global_bs, image_size=IMAGE_SIZE,
-                                       dtype=dtype, device=dev)
+    if name == "mnistnet":
+        batch = data.synthetic_mnist_batch(0, global_bs, device=dev)
+    else:
+        batch = data.synthetic_image_batch(
+            0, global_bs, image_size=IMAGE_SIZES.get(name, 224),
+            dtype=dtype, device=dev)
+    dropout = name.startswith(_DROPOUT_PREFIXES)
 
     def loss_fn(m, b, generator):
-        # a ResNet has no dropout; a ViT's dropout is off (rate 0) unless
-        # its config says otherwise, as the JAX CLI's train=True runs it
-        logits = (m(b["image"], train=True, generator=generator) if vit
+        # dropout from the step's generator (a ViT's rate is 0 unless its
+        # config says otherwise); the BN models have none
+        logits = (m(b["image"], train=True, generator=generator) if dropout
                   else m(b["image"]))
+        # MnistNet's log-probabilities too: log_softmax is idempotent
         return data.softmax_xent(logits, b["label"])
 
     return runner.train_timed(
         args, model, batch, loss_fn, group=group, unit="img",
         on_step=on_step, header=[
-            f"Model: {args.model}" + ("" if vit else f" (stem {args.stem})"),
+            f"Model: {args.model}" + (f" (stem {args.stem})" if resnet
+                                      else ""),
             f"BF16: {args.fp16}",
             f"Batch size: {args.batch_size} (per rank), {global_bs} global"])
 

@@ -1,7 +1,7 @@
-"""Model zoo of the port — the port of ``dear_pytorch_tpu/models/__init__.py``
-for the GPT-2 family, the ResNets, ViT and BERT. DenseNet, VGG, Inception
-and MNIST come with the rest of the zoo (ROADMAP Queue 1 item 5b); their
-names raise ``KeyError`` saying so."""
+"""Model zoo of the port — the port of ``dear_pytorch_tpu/models/__init__.py``:
+the GPT-2 family, BERT, and the image models (the ResNets, DenseNets,
+Inception-v4, the VGGs, the vision transformers and the MNIST convnet),
+every name the JAX package registers."""
 
 from __future__ import annotations
 
@@ -25,6 +25,13 @@ from dear_pytorch_tpu_torch.models.gpt import (  # noqa: F401
     generate,
     gpt_lm_loss,
 )
+from dear_pytorch_tpu_torch.models.densenet import (  # noqa: F401
+    DenseNet121,
+    DenseNet169,
+    DenseNet201,
+)
+from dear_pytorch_tpu_torch.models.inception import InceptionV4  # noqa: F401
+from dear_pytorch_tpu_torch.models.mnist import MnistNet  # noqa: F401
 from dear_pytorch_tpu_torch.models.resnet import (  # noqa: F401
     ResNet18,
     ResNet34,
@@ -32,6 +39,7 @@ from dear_pytorch_tpu_torch.models.resnet import (  # noqa: F401
     ResNet101,
     ResNet152,
 )
+from dear_pytorch_tpu_torch.models.vgg import VGG11, VGG16, VGG19  # noqa: F401
 from dear_pytorch_tpu_torch.models.vit import ViTB16, ViTS16  # noqa: F401
 
 _CNN_REGISTRY: dict = {
@@ -40,6 +48,14 @@ _CNN_REGISTRY: dict = {
     "resnet50": ResNet50,
     "resnet101": ResNet101,
     "resnet152": ResNet152,
+    "densenet121": DenseNet121,
+    "densenet169": DenseNet169,
+    "densenet201": DenseNet201,
+    "inceptionv4": InceptionV4,
+    "vgg11": VGG11,
+    "vgg16": VGG16,
+    "vgg19": VGG19,
+    "mnistnet": MnistNet,
     # the vision transformers run through the image CLI like any CNN
     "vit_s16": ViTS16,
     "vit_b16": ViTB16,
@@ -56,12 +72,6 @@ _GPT_REGISTRY: dict = {
     "gpt2_medium": GPT2_MEDIUM,
     "gpt2_large": GPT2_LARGE,
 }
-
-#: the JAX package's model names not ported yet
-_UNPORTED = (
-    "densenet121", "densenet169", "densenet201", "inceptionv4", "vgg11",
-    "vgg16", "vgg19", "mnistnet",
-)
 
 
 def cnn_names() -> list:
@@ -85,16 +95,8 @@ def _names() -> str:
             f"GPT: {gpt_names()}")
 
 
-def _check_ported(key: str, name: str) -> None:
-    if key in _UNPORTED:
-        raise KeyError(
-            f"model {name!r} is not ported yet: the rest of the zoo comes "
-            f"with the models slice (ROADMAP Queue 1 item 5b); {_names()}")
-
-
 def _config(registry: dict, name: str, dtype):
     key = name.lower()
-    _check_ported(key, name)
     if key not in registry:
         raise KeyError(f"unknown model {name!r}; {_names()}")
     return dataclasses.replace(registry[key], dtype=dtype)
@@ -112,12 +114,14 @@ def bert_config(name: str, *, dtype=torch.float32):
 
 
 def get_model(name: str, *, dtype=torch.float32, device=None, **kwargs):
-    """A registered model built on ``device`` (the card by default): a
-    `models.resnet.ResNet` or `models.vit.VisionTransformer` for a CNN name
-    (``kwargs`` such as ``stem=``, ``num_classes=``, ``seed=`` go to it),
+    """A registered model built on ``device`` (the card by default): an
+    image model for a CNN name (`models.resnet.ResNet`,
+    `models.densenet.DenseNet`, `models.inception.InceptionV4`,
+    `models.vgg.VGG`, `models.mnist.MnistNet` or
+    `models.vit.VisionTransformer`; ``kwargs`` such as ``stem=``,
+    ``num_classes=``, ``image_size=``, ``seed=`` go to it),
     `BertForPreTraining` for a BERT name, else ``GptLmHeadModel``."""
     key = name.lower()
-    _check_ported(key, name)
     if key in _CNN_REGISTRY:
         return _CNN_REGISTRY[key](dtype=dtype, device=device, **kwargs)
     if key in _BERT_REGISTRY:

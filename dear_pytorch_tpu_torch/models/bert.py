@@ -24,10 +24,23 @@ dropouts and the attention-probability dropout draw their keep masks from
 the explicit ``torch.Generator`` ``g``. The bits cannot match JAX's PRNG,
 so dropout is held to its statistics, not to JAX's masks.
 
-Not in this slice (each raises ``NotImplementedError`` naming ROADMAP
-Queue 1 item 5b): the decode path (``decode=True``), the causal serving
-forward (``causal=True``) and ``projection_impl`` (BERT's
-``--ring-projections``).
+``causal=True`` adds the causal triangle (-1e9 above the diagonal, in
+``config.dtype``) to the padding mask: the left-to-right serving forward.
+Decode mode is a forward with ``cache=`` (from
+`BertForPreTraining.init_cache`), as `models.gpt.GptLmHeadModel`'s: the
+per-layer ``[B, L, heads, head_dim]`` ring caches of `serving.kvcache`,
+updated in place; ``[B, 1]`` input is a decode tick, ``[B, C]`` with
+``prefill_lengths`` a chunked-prefill tick; position ids past the table
+are clamped. Its logits reproduce the causal forward's.
+``config.decode_use_flash`` sends every decode tick's attention through
+the Hopper flash-attention kernel (K1's split-K route).
+
+``projection_impl`` routes each layer's query, key, value (features ``(nh,
+d)`` flattened) and ``intermediate`` through `ProjDense` (the attention's
+``output`` and the layer's ``output`` stay dense), as the JAX model does;
+parameter names and shapes do not change.
+`ops.collective_matmul.make_ring_projection_impl` is the ring collective
+matmul of the CLI's ``--ring-projections``.
 """
 
 from __future__ import annotations
@@ -63,22 +76,27 @@ class BertConfig:
     layer_norm_eps: float = 1e-12
     initializer_range: float = 0.02
     dtype: torch.dtype = torch.float32
+    #: decode-mode KV ring length (None = ``max_position_embeddings``)
+    kv_cache_len: Optional[int] = None
+    #: decode-tick attention through the flash-attention kernel (chunked
+    #: prefill always uses the dense core)
+    decode_use_flash: bool = False
+    #: storage dtype of the decode KV cache (None = ``dtype``)
+    kv_cache_dtype: Optional[torch.dtype] = None
 
     @property
     def padded_vocab_size(self) -> int:
         """The vocab padded to a multiple of 8 (30522 -> 30528)."""
         return ((self.vocab_size + 7) // 8) * 8
 
+    @property
+    def cache_len(self) -> int:
+        return self.kv_cache_len or self.max_position_embeddings
+
 
 BERT_BASE = BertConfig()
 BERT_LARGE = BertConfig(hidden_size=1024, num_hidden_layers=24,
                         num_attention_heads=16, intermediate_size=4096)
-
-
-def _unported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: ROADMAP Queue 1 item 5b (BERT decode "
-        "and BERT's --ring-projections)")
 
 
 # ---------------------------------------------------------------------------
@@ -179,52 +197,100 @@ class BertSelfAttention(nn.Module):
     """Query, key and value projections, the attention core
     (``attention_impl``, the `dot_product_attention` contract) and the
     output projection. flax's ``DenseGeneral`` kernels (``[h, nh, d]``,
-    output ``[nh, d, h]``) are torch ``[h, h]`` weights here."""
+    output ``[nh, d, h]``) are torch ``[h, h]`` weights here; with
+    ``projection_impl`` the query, key and value are `ProjDense`."""
 
     def __init__(self, config: BertConfig, attention_impl: Callable,
-                 device):
+                 device, projection_impl: Optional[Callable] = None):
         super().__init__()
         self.config = config
         self.attention_impl = attention_impl
         h, dt = config.hidden_size, config.dtype
-        for name in ("query", "key", "value", "output"):
-            setattr(self, name, Dense(h, h, compute_dtype=dt, device=device))
+        for name in ("query", "key", "value"):
+            setattr(self, name, Dense(h, h, compute_dtype=dt, device=device)
+                    if projection_impl is None else
+                    ProjDense(h, h, impl=projection_impl, compute_dtype=dt,
+                              device=device))
+        self.output = Dense(h, h, compute_dtype=dt, device=device)
 
-    def forward(self, x, mask, generator=None):
+    def forward(self, x, mask, generator=None, cache=None, positions=None,
+                valid=None, prefill_lengths=None):
         cfg = self.config
         B, S, h = x.shape
         nh = cfg.num_attention_heads
         q, k, v = (m(x).view(B, S, nh, h // nh)
                    for m in (self.query, self.key, self.value))
-        rate = cfg.attention_probs_dropout_prob if generator is not None \
-            else 0.0
-        ctx = self.attention_impl(q, k, v, mask, dropout_rate=rate,
-                                  generator=generator, dtype=cfg.dtype)
+        if cache is not None:
+            ctx = self._decode_attend(q, k, v, cache, positions, valid,
+                                      prefill_lengths)
+        else:
+            rate = cfg.attention_probs_dropout_prob if generator is not None \
+                else 0.0
+            ctx = self.attention_impl(q, k, v, mask, dropout_rate=rate,
+                                      generator=generator, dtype=cfg.dtype)
         return self.output(ctx.reshape(B, S, h))
+
+    def _decode_attend(self, q, k, v, cache, positions, valid,
+                       prefill_lengths):
+        """Attention against this layer's ring KV cache (``cache`` =
+        ``(ck, cv)``, written in place), the ring semantics of
+        `models.gpt.GptBlock._decode_attend`: ``S == 1`` is the decode
+        tick under the per-row slot ``valid``ity; ``S > 1`` a chunked
+        prefill over the pre-chunk cache plus the chunk's own K/V."""
+        from dear_pytorch_tpu_torch.serving import kvcache as KV
+
+        cfg = self.config
+        S = q.shape[1]
+        ck, cv = cache
+        L = ck.shape[1]
+        if S > 1 and prefill_lengths is None:
+            raise ValueError(
+                f"decode with S={S} > 1 is a chunked prefill and needs "
+                "per-row prefill_lengths")
+        if S > L:
+            raise ValueError(
+                f"prefill chunk ({S}) exceeds the KV ring length ({L}); "
+                "a chunk must not overwrite its own window")
+        if S > 1:
+            ctx = KV.chunk_attend(q, ck, cv, k, v, positions,
+                                  prefill_lengths, dtype=cfg.dtype)
+            KV.ring_write_chunk(ck, cv, positions, k, v, prefill_lengths)
+            return ctx
+        KV.ring_write(ck, cv, positions, k, v)
+        return KV.cache_attend(q, ck, cv, valid, dtype=cfg.dtype,
+                               use_flash=cfg.decode_use_flash)
 
 
 class BertLayer(nn.Module):
     """Post-LN encoder layer: LN(x + attention(x)), then LN(x + MLP(x))
-    with a gelu(tanh) MLP; the hidden dropouts in training mode."""
+    with a gelu(tanh) MLP; the hidden dropouts in training mode. With
+    ``projection_impl`` the MLP's ``intermediate`` is a `ProjDense`."""
 
-    def __init__(self, config: BertConfig, attention_impl: Callable, device):
+    def __init__(self, config: BertConfig, attention_impl: Callable, device,
+                 projection_impl: Optional[Callable] = None):
         super().__init__()
         cfg = config
         h, dt = cfg.hidden_size, cfg.dtype
         self.config = cfg
-        self.attention = BertSelfAttention(cfg, attention_impl, device)
+        self.attention = BertSelfAttention(cfg, attention_impl, device,
+                                           projection_impl)
         self.attention_ln = LayerNorm(h, eps=cfg.layer_norm_eps,
                                       compute_dtype=dt, device=device)
-        self.intermediate = Dense(h, cfg.intermediate_size,
-                                  compute_dtype=dt, device=device)
+        self.intermediate = (
+            Dense(h, cfg.intermediate_size, compute_dtype=dt, device=device)
+            if projection_impl is None else
+            ProjDense(h, cfg.intermediate_size, impl=projection_impl,
+                      compute_dtype=dt, device=device))
         self.output = Dense(cfg.intermediate_size, h, compute_dtype=dt,
                             device=device)
         self.output_ln = LayerNorm(h, eps=cfg.layer_norm_eps,
                                    compute_dtype=dt, device=device)
 
-    def forward(self, x, mask, generator=None):
+    def forward(self, x, mask, generator=None, cache=None, positions=None,
+                valid=None, prefill_lengths=None):
         rate = self.config.hidden_dropout_prob
-        attn = self.attention(x, mask, generator)
+        attn = self.attention(x, mask, generator, cache, positions, valid,
+                              prefill_lengths)
         if generator is not None:
             attn = dropout(attn, rate, generator)
         x = self.attention_ln(x + attn)
@@ -246,7 +312,8 @@ class BertForPreTraining(nn.Module):
     padded_vocab], seq_relationship_logits [B, 2])``, both fp32.
     ``attention_impl`` replaces the dense core (the
     `dot_product_attention` contract; `ops.flash_attention.
-    make_flash_attention_impl` is the flash kernels').
+    make_flash_attention_impl` is the flash kernels'); ``projection_impl``
+    the query, key, value and intermediate products (`ProjDense`).
     """
 
     def __init__(self, config: BertConfig, *,
@@ -254,11 +321,10 @@ class BertForPreTraining(nn.Module):
                  projection_impl: Optional[Callable] = None,
                  device=None, seed: int = 0):
         super().__init__()
-        if projection_impl is not None:
-            raise _unported("projection_impl")
         dev = resolve_device(device)
         cfg = self.config = config
         h, dt = cfg.hidden_size, cfg.dtype
+        self.custom_attention = attention_impl is not None
         self.attention_impl = attention_impl or dot_product_attention
         self.word_embeddings = nn.Embedding(cfg.padded_vocab_size, h,
                                             device=dev)
@@ -270,7 +336,8 @@ class BertForPreTraining(nn.Module):
                                        compute_dtype=dt, device=dev)
         for i in range(cfg.num_hidden_layers):
             self.add_module(f"layer_{i}",
-                            BertLayer(cfg, self.attention_impl, dev))
+                            BertLayer(cfg, self.attention_impl, dev,
+                                      projection_impl))
         self.mlm_transform = Dense(h, h, compute_dtype=dt, device=dev)
         self.mlm_ln = LayerNorm(h, eps=cfg.layer_norm_eps, compute_dtype=dt,
                                 device=dev)
@@ -303,30 +370,74 @@ class BertForPreTraining(nn.Module):
             else:
                 p.normal_(0.0, self.config.initializer_range, generator=g)
 
+    def init_cache(self, batch: int) -> list:
+        """Zeroed per-layer ring caches ``[(k, v), …]``, each ``[batch, L,
+        heads, head_dim]`` in the cache dtype (the decode mode's
+        ``cache=``)."""
+        cfg = self.config
+        nh = cfg.num_attention_heads
+        shape = (batch, cfg.cache_len, nh, cfg.hidden_size // nh)
+        dt = cfg.kv_cache_dtype or cfg.dtype
+        return [tuple(torch.zeros(shape, dtype=dt, device=self.device)
+                      for _ in range(2))
+                for _ in range(cfg.num_hidden_layers)]
+
     def forward(self, input_ids, token_type_ids=None, attention_mask=None, *,
                 train: bool = False, generator=None, causal: bool = False,
-                decode: bool = False):
+                decode: bool = False, position_offset=0, cache=None,
+                prefill_lengths=None):
         """``train=True`` turns the dropouts on, with masks from
         ``generator`` (a ``torch.Generator`` on the model's device; required
         when any dropout rate is > 0). ``token_type_ids`` default to 0 and
-        ``attention_mask`` (1 = a real token) to all ones."""
-        if decode:
-            raise _unported("BERT's decode path (decode=True)")
-        if causal:
-            raise _unported("BERT's causal serving forward (causal=True)")
+        ``attention_mask`` (1 = a real token) to all ones; position ids
+        start at ``position_offset``.
+
+        ``causal=True``: the causal triangle joins the padding mask (the
+        default core only; a custom ``attention_impl`` raises, as in JAX).
+        ``cache=`` (decode mode; ``decode=True`` demands it): as
+        `models.gpt.GptLmHeadModel.forward` — ``position_offset`` is each
+        row's global position (a scalar or ``[B]``), ``[B, 1]`` input a
+        decode tick, ``[B, C]`` with ``prefill_lengths`` ``[B]`` a chunked
+        prefill tick; position ids are clamped to the table."""
         cfg = self.config
+        decode = decode or cache is not None
+        if decode and cache is None:
+            raise ValueError("decode mode needs cache= (init_cache(batch))")
+        if train and decode:
+            raise ValueError("decode mode (cache=) is inference only")
         drops = cfg.hidden_dropout_prob or cfg.attention_probs_dropout_prob
         if train and drops and generator is None:
             raise ValueError("dropout in training mode needs a "
                              "torch.Generator (generator=)")
         gen = generator if train and drops else None
         B, S = input_ids.shape
+        dev = input_ids.device
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
         if attention_mask is None:
             attention_mask = torch.ones_like(input_ids)
         dt = cfg.dtype
-        pos = torch.arange(S, device=input_ids.device)[None, :]
+        ar = torch.arange(S, device=dev)
+        offset = torch.as_tensor(position_offset, dtype=torch.long,
+                                 device=dev)
+        if offset.ndim > 1:
+            raise ValueError(
+                "position_offset must be a scalar or per-row [B], got "
+                f"shape {tuple(offset.shape)}")
+        pos = (offset[:, None] if offset.ndim else offset) + ar[None, :]
+        positions = valid = None
+        if decode:
+            # a partial final prefill chunk's padding rows must not index
+            # past the position table
+            pos = pos.clamp(max=cfg.max_position_embeddings - 1)
+            positions = offset.expand(B) if offset.ndim == 0 else offset
+            if S == 1:  # one validity mask serves every layer's attend
+                from dear_pytorch_tpu_torch.serving import kvcache as KV
+
+                valid = KV.ring_validity(positions, cfg.cache_len)
+            elif prefill_lengths is not None:
+                prefill_lengths = torch.as_tensor(prefill_lengths,
+                                                  device=dev)
         x = (self.word_embeddings(input_ids).to(dt)
              + self.position_embeddings(pos).to(dt)
              + self.token_type_embeddings(token_type_ids).to(dt))
@@ -336,8 +447,17 @@ class BertForPreTraining(nn.Module):
         # the additive key mask [B, 1, 1, S] in the compute dtype
         mask = (1.0 - attention_mask[:, None, None, :].to(dt)) * torch.tensor(
             -1e9, dtype=dt, device=x.device)
-        for layer in self.layers:
-            x = layer(x, mask, gen)
+        if causal:
+            if self.custom_attention:
+                raise ValueError(
+                    "causal=True builds a [B, 1, S, S] mask the default "
+                    "attention core broadcasts; custom attention_impl "
+                    "hooks expect [B, 1, 1, S] key-padding masks")
+            tri = torch.ones((S, S), dtype=torch.bool, device=dev).tril()
+            mask = mask + torch.where(tri, 0.0, -1e9).to(dt)[None, None]
+        for i, layer in enumerate(self.layers):
+            x = layer(x, mask, gen, *((cache[i], positions, valid,
+                                       prefill_lengths) if decode else ()))
         y = F.gelu(self.mlm_transform(x), approximate="tanh")
         y = self.mlm_ln(y)
         logits = F.linear(y, self.word_embeddings.weight.to(dt)).float() \

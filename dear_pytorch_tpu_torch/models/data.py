@@ -1,9 +1,12 @@
 """Synthetic benchmark data — the port of ``synthetic_gpt_batch``,
-``synthetic_image_batch``, ``synthetic_bert_batch`` and ``softmax_xent`` from
-``dear_pytorch_tpu/models/data.py``. The port draws from an explicit
-``torch.Generator`` (the JAX package draws from a PRNG key, so the two give
-different values for one seed; the tests feed both packages one numpy batch
-instead). Images are NCHW here, NHWC there."""
+``synthetic_image_batch``, ``synthetic_bert_batch``,
+``synthetic_mnist_batch`` and ``softmax_xent`` from
+``dear_pytorch_tpu/models/data.py``, and its host-side loaders
+``load_real_digits`` and ``ShardedSampler`` (numpy, kept byte-for-byte:
+the same seed gives the same arrays). The synthetic batches draw from an
+explicit ``torch.Generator`` (the JAX package draws from a PRNG key, so the
+two give different values for one seed; the tests feed both packages one
+numpy batch instead). Images are NCHW here, NHWC there."""
 
 from __future__ import annotations
 
@@ -12,8 +15,9 @@ import torch.nn.functional as F
 
 from dear_pytorch_tpu_torch._device import resolve_device
 
-__all__ = ["softmax_xent", "synthetic_bert_batch", "synthetic_gpt_batch",
-           "synthetic_image_batch"]
+__all__ = ["ShardedSampler", "load_real_digits", "softmax_xent",
+           "synthetic_bert_batch", "synthetic_gpt_batch",
+           "synthetic_image_batch", "synthetic_mnist_batch"]
 
 
 def synthetic_gpt_batch(generator: torch.Generator, batch_size: int,
@@ -83,6 +87,91 @@ def synthetic_image_batch(generator, batch_size: int,
     labels = torch.randint(0, num_classes, (batch_size,),
                            generator=generator, device=dev)
     return {"image": images, "label": labels}
+
+
+def synthetic_mnist_batch(generator, batch_size: int, *,
+                          device=None) -> dict:
+    """A fake MNIST batch ``{"image": [B, 1, 28, 28] standard normal fp32,
+    "label": [B] int64 in [0, 10)}``; ``generator`` as
+    `synthetic_image_batch`'s."""
+    generator = _generator(generator, device)
+    dev = generator.device
+    images = torch.randn((batch_size, 1, 28, 28), generator=generator,
+                         device=dev)
+    labels = torch.randint(0, 10, (batch_size,), generator=generator,
+                           device=dev)
+    return {"image": images, "label": labels}
+
+
+def load_real_digits(image_size: int = 28, train_fraction: float = 0.85,
+                     seed: int = 0):
+    """Real handwritten digits with no download: scikit-learn's bundled
+    ``load_digits`` corpus (1797 8x8 grayscale digits of the UCI optical
+    recognition set), as the JAX package loads it. Returns ``(train_x,
+    train_y, test_x, test_y)`` as numpy arrays: images resized bilinearly
+    (half-pixel centres, pure numpy) to ``[N, image_size, image_size, 1]``
+    float32 — NHWC, the JAX package's bytes; the caller transposes —
+    centred on the TRAIN split's mean, labels int32, split by a seeded
+    permutation. Raises ``ImportError`` without scikit-learn."""
+    import numpy as np
+
+    try:
+        from sklearn.datasets import load_digits
+    except ImportError as exc:
+        raise ImportError(
+            "load_real_digits needs scikit-learn; or run the caller with "
+            "synthetic data (dear_pytorch_tpu_torch.examples.mnist --data "
+            "synthetic)") from exc
+
+    X, y = load_digits(return_X_y=True)
+    X = (X / 16.0).astype(np.float32).reshape(-1, 8, 8, 1)
+    if image_size != 8:
+        h = X.shape[1]
+        centers = (np.arange(image_size) + 0.5) * h / image_size - 0.5
+        i0 = np.clip(np.floor(centers).astype(np.int64), 0, h - 1)
+        i1 = np.minimum(i0 + 1, h - 1)
+        frac = np.clip(centers - i0, 0.0, 1.0).astype(np.float32)
+        # rows then columns (separable)
+        rows = (X[:, i0] * (1 - frac)[None, :, None, None]
+                + X[:, i1] * frac[None, :, None, None])
+        X = (rows[:, :, i0] * (1 - frac)[None, None, :, None]
+             + rows[:, :, i1] * frac[None, None, :, None])
+    perm = np.random.default_rng(seed).permutation(len(X))
+    X, y = X[perm], y[perm].astype(np.int32)
+    n_train = int(len(X) * train_fraction)
+    # centred with the train split's mean only: no held-out leakage
+    X = X - X[:n_train].mean()
+    return (X[:n_train], y[:n_train], X[n_train:], y[n_train:])
+
+
+class ShardedSampler:
+    """torch ``DistributedSampler`` semantics, as the JAX package's: each
+    process sees a disjoint 1/world shard of a seeded per-epoch
+    permutation, padded by wrap-around so every shard has the same length
+    (a short rank would stall the collectives). ``epoch_indices(epoch)``
+    is this process's index array for that epoch, from the same
+    permutation on every process for one (seed, epoch)."""
+
+    def __init__(self, n: int, world: int, rank: int, *, seed: int = 0,
+                 shuffle: bool = True):
+        if not 0 <= rank < world:
+            raise ValueError(f"rank {rank} not in [0, {world})")
+        self.n, self.world, self.rank = int(n), int(world), int(rank)
+        self.seed, self.shuffle = int(seed), bool(shuffle)
+        self.shard_len = -(-self.n // self.world)  # ceil
+
+    def epoch_indices(self, epoch: int):
+        import numpy as np
+
+        if self.shuffle:
+            order = np.random.default_rng(
+                (self.seed, int(epoch))).permutation(self.n)
+        else:
+            order = np.arange(self.n)
+        total = self.shard_len * self.world
+        if total > self.n:  # wrap-around padding, as torch's sampler
+            order = np.concatenate([order, order[: total - self.n]])
+        return order[self.rank::self.world]
 
 
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

@@ -54,7 +54,7 @@ from dear_pytorch_tpu_torch._device import resolve_device
 __all__ = [
     "BasicBlock", "BatchNorm2d", "BottleneckBlock", "Conv2d", "ResNet",
     "ResNet18", "ResNet34", "ResNet50", "ResNet101", "ResNet152",
-    "repack_stem_conv7_to_s2d", "space_to_depth",
+    "flax_init_", "repack_stem_conv7_to_s2d", "space_to_depth",
 ]
 
 #: flax's ``BatchNorm(momentum=0.9, epsilon=1e-5)`` in torch's convention
@@ -89,29 +89,57 @@ def repack_stem_conv7_to_s2d(k7):
     return k4.reshape(4, 4, 4 * c, f)
 
 
+@torch.no_grad()
+def flax_init_(model: nn.Module, seed: int = 0, zero_scale=()) -> None:
+    """flax's initialisers on every conv, dense layer and BatchNorm of
+    ``model``, drawn from a ``torch.Generator`` seeded with ``seed`` on the
+    model's device in module order: lecun-normal kernels (a normal
+    truncated at two standard deviations, scaled to variance 1/fan_in),
+    biases 0; BN scale 1 (0 for the BNs in ``zero_scale``, by ``id``) and
+    bias 0, running mean 0 and variance 1."""
+    dev = next(model.parameters()).device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    zero = set(zero_scale)
+    for m in model.modules():
+        if isinstance(m, (nn.Conv2d, nn.Linear)):
+            fan_in = math.prod(m.weight.shape[1:])
+            # flax's variance_scaling: the std of the truncated normal
+            std = math.sqrt(1.0 / fan_in) / .87962566103423978
+            nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std,
+                                  generator=g)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, BatchNorm2d):
+            m.reset_running_stats()
+            m.weight.fill_(0.0 if id(m) in zero else 1.0)
+            m.bias.zero_()
+
+
 class Conv2d(nn.Conv2d):
     """A bias-free conv with flax's dtype rule: the fp32 weight is cast to
     ``compute_dtype`` (and to channels_last) at each call."""
 
     def __init__(self, cin, cout, kernel, *, stride=1, padding=0,
-                 compute_dtype, device):
+                 compute_dtype, device, bias: bool = False):
         super().__init__(cin, cout, kernel, stride=stride, padding=padding,
-                         bias=False, device=device)
+                         bias=bias, device=device)
         self.compute_dtype = compute_dtype
 
     def forward(self, x):
-        w = self.weight.to(dtype=self.compute_dtype,
-                           memory_format=torch.channels_last)
-        return F.conv2d(x, w, None, self.stride, self.padding)
+        dt = self.compute_dtype
+        w = self.weight.to(dtype=dt, memory_format=torch.channels_last)
+        b = None if self.bias is None else self.bias.to(dt)
+        return F.conv2d(x, w, b, self.stride, self.padding)
 
 
 class BatchNorm2d(nn.BatchNorm2d):
-    """flax's ``BatchNorm(momentum=0.9, epsilon=1e-5)``: fp32 statistics
-    and normalisation, output in the input's (compute) dtype, running
-    variance updated with the biased batch variance (module docstring)."""
+    """flax's ``BatchNorm(momentum=0.9, epsilon=eps)`` (1e-5 unless told
+    otherwise): fp32 statistics and normalisation, output in the input's
+    (compute) dtype, running variance updated with the biased batch
+    variance (module docstring)."""
 
-    def __init__(self, features, *, device):
-        super().__init__(features, eps=_BN_EPS, momentum=_BN_MOMENTUM,
+    def __init__(self, features, *, device, eps: float = _BN_EPS):
+        super().__init__(features, eps=eps, momentum=_BN_MOMENTUM,
                          device=device)
 
     def forward(self, x):
@@ -236,28 +264,12 @@ class ResNet(nn.Module):
     def device(self) -> torch.device:
         return self.fc.weight.device
 
-    @torch.no_grad()
     def reset_parameters(self, seed: int = 0) -> None:
-        """flax's initialisers: lecun-normal conv and fc kernels (a normal
-        truncated at two standard deviations, scaled to variance 1/fan_in),
-        fc bias 0, BN scale 1 (0 for each block's last BN) and bias 0, BN
-        running mean 0 and variance 1."""
-        g = torch.Generator(device=self.device).manual_seed(seed)
-        last = {id(m.last_bn) for m in self.modules()
-                if isinstance(m, (BottleneckBlock, BasicBlock))}
-        for m in self.modules():
-            if isinstance(m, (nn.Conv2d, nn.Linear)):
-                fan_in = math.prod(m.weight.shape[1:])
-                # flax's variance_scaling: the std of the truncated normal
-                std = math.sqrt(1.0 / fan_in) / .87962566103423978
-                nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std,
-                                      generator=g)
-                if m.bias is not None:
-                    m.bias.zero_()
-            elif isinstance(m, BatchNorm2d):
-                m.reset_running_stats()
-                m.weight.fill_(0.0 if id(m) in last else 1.0)
-                m.bias.zero_()
+        """flax's initialisers (`flax_init_`), each block's last BN scale
+        0."""
+        flax_init_(self, seed, zero_scale=[
+            id(m.last_bn) for m in self.modules()
+            if isinstance(m, (BottleneckBlock, BasicBlock))])
 
     def forward(self, x):
         if self.stem == "s2d":

@@ -2,8 +2,9 @@
 prefill+decode batches, with a chunked-prefill fast path — the port of
 ``dear_pytorch_tpu/serving/engine.py``.
 
-Two step shapes drive the model (`models.gpt.GptLmHeadModel` in decode
-mode, over the ring KV cache of `serving.kvcache`):
+Two step shapes drive the model (`models.gpt.GptLmHeadModel` or
+`models.bert.BertForPreTraining` in decode mode, over the ring KV cache of
+`serving.kvcache`):
 
   - the **decode tick** ``[slots, 1]``: every active slot advances one
     token — a prompt token while it prefills, its own last sample while it
@@ -105,8 +106,13 @@ class _Slot:
 class DecodeEngine:
     """Fixed-slot continuous-batching decoder over a causal LM.
 
-    ``model`` is a `models.gpt.GptLmHeadModel`; the engine owns the ring
-    caches (``model.init_cache(slots)``) and the per-slot positions.
+    ``model`` has the decode contract of `models.gpt.GptLmHeadModel` and
+    `models.bert.BertForPreTraining`: ``model.init_cache(slots)`` and
+    ``model(tokens [B, S], position_offset=[B], cache=,
+    prefill_lengths=[B] or None)`` returning next-token logits, or a tuple
+    whose first element is the logits (BERT's ``(prediction_logits,
+    nsp_logits)``). The engine owns the ring caches and the per-slot
+    positions.
     `submit` assigns a request to a free slot, `tick` advances the batch
     one step. Runs on the card unless ``device`` (which must be the
     model's) says otherwise.
@@ -245,6 +251,8 @@ class DecodeEngine:
                 cache=self._cache,
                 prefill_lengths=(None if nvalid is None
                                  else torch.from_numpy(nvalid).to(dev)))
+            if isinstance(logits, tuple):      # BERT: (mlm, nsp)
+                logits = logits[0]
             nxt = logits[..., :self.vocab_size].argmax(dim=-1)   # [B, S]
             if nvalid is None:
                 sampled = nxt[:, 0]

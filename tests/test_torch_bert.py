@@ -196,9 +196,9 @@ def test_configs_and_registry_match_jax():
         j, t = getattr(jbert, name), getattr(tbert, name)
         jf = {f.name: getattr(j, f.name) for f in dataclasses.fields(j)}
         tf = {f.name: getattr(t, f.name) for f in dataclasses.fields(t)}
-        # the decode path's fields wait with it (ROADMAP item 5b)
-        assert set(jf) - set(tf) == {"kv_cache_len", "decode_use_flash",
-                                     "kv_cache_dtype"}
+        # the decode path's fields too (kv_cache_len, decode_use_flash,
+        # kv_cache_dtype)
+        assert set(jf) == set(tf)
         for k in tf:
             if k != "dtype":
                 assert tf[k] == jf[k], (name, k)
@@ -215,9 +215,7 @@ def test_configs_and_registry_match_jax():
     assert small.config.dtype == torch.bfloat16
     assert small.word_embeddings.weight.shape == (30528, 768)
     assert small.word_embeddings.weight.dtype == torch.float32
-    for name in ("densenet121", "mnistnet"):
-        with pytest.raises(KeyError, match="item 5b"):
-            tmodels.get_model(name, device="cpu")
+    assert tmodels.cnn_names() == jmodels.cnn_names()   # the whole zoo
 
 
 def test_synthetic_bert_batch():
@@ -319,12 +317,28 @@ def test_flash_impl_mask_and_dropout_rules():
 
 
 def test_unported_paths_raise_naming_their_item():
+    """The paths this test once found unported (ROADMAP item 5b) run now:
+    ``projection_impl`` takes each layer's query, key, value and
+    intermediate products (4 per layer; the dense result unchanged, the
+    parameter names too), ``causal=True`` runs, and ``decode=True`` asks
+    for its cache (tests/test_torch_bert_serving.py holds both against
+    JAX)."""
     cfg = torch_config(jax_config())
-    with pytest.raises(NotImplementedError, match="item 5b"):
-        tbert.BertForPreTraining(cfg, projection_impl=lambda *a: None,
-                                 device="cpu")
+    seen = []
+
+    def impl(x2, kernel2, bias1, dtype):
+        seen.append(tuple(kernel2.shape))
+        return x2.to(dtype) @ kernel2.to(dtype) + bias1.to(dtype)
+
     model = tbert.BertForPreTraining(cfg, device="cpu")
-    ids = torch.zeros((1, 4), dtype=torch.int32)
-    for kw in ({"decode": True}, {"causal": True}):
-        with pytest.raises(NotImplementedError, match="item 5b"):
-            model(ids, **kw)
+    proj = tbert.BertForPreTraining(cfg, projection_impl=impl, device="cpu")
+    assert list(proj.state_dict()) == list(model.state_dict())
+    proj.load_state_dict(model.state_dict())
+    ids = torch.from_numpy(batch()["input_ids"])
+    with torch.no_grad():
+        torch.testing.assert_close(proj(ids)[0], model(ids)[0])
+        assert seen == [(32, 32)] * 3 + [(32, 64)] + [(32, 32)] * 3 + [
+            (32, 64)]
+        assert model(ids, causal=True)[0].shape == (B, S, 64)
+    with pytest.raises(ValueError, match="cache="):
+        model(ids, decode=True)

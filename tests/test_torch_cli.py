@@ -7,8 +7,12 @@ unported flags and fields raise; ``--ring-projections`` needs
 ``--mode dear-fused`` (JAX's SystemExit); and short CPU runs of GPT-2's
 full width at one layer, which must lower their loss and run the schedule
 once per bucket per step; the ImageNet CLI (ResNet-18 and ViT-S/16 at
-224²) likewise; the BERT CLI (BERT-Base's widths at one layer, dense and
-flash) and its refusals."""
+224²) likewise, and the rest of the zoo through it (DenseNet-121,
+Inception-v4 at 299², VGG-11 with dropout, MnistNet on 28² MNIST
+batches); the BERT CLI (BERT-Base's widths at one layer, dense and flash)
+and its refusals, and ``--mode dear-fused --ring-projections`` at world 2
+(two spawned jax-free ranks) against the same run without ring
+projections; the port's MNIST example (synthetic and real digits)."""
 
 import dataclasses
 
@@ -182,7 +186,7 @@ def test_imagenet_cli_trains_resnet_on_the_cpu(capsys):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--model", "densenet121"], "item 5b"),
+    (["--model", "densenet121", "--stem", "s2d"], "ResNet models only"),
     (["--model", "gpt2"], "CNNs are"),
 ])
 def test_imagenet_cli_refuses_what_it_does_not_run(argv, match):
@@ -250,7 +254,6 @@ def test_bert_cli_flash_attention_matches_dense_on_the_cpu(capsys):
 @pytest.mark.parametrize("flags,match", [
     (["--sp-degree", "2"], "item 10"),
     (["--sp-attention", "ring"], "item 10"),
-    (["--ring-projections", "--mode", "dear-fused"], "item 5b"),
 ])
 def test_bert_cli_unported_flags_raise(flags, match):
     with pytest.raises(NotImplementedError, match=match):
@@ -278,3 +281,161 @@ def test_imagenet_cli_trains_vit_on_the_cpu(capsys):
     n = ts.plan.num_buckets
     assert ts.rs_launches == ts.update_launches == 2 * n
     assert ts.model.pos_embed.shape == (1, 197, 384)
+
+
+@pytest.mark.parametrize("model,size,buffers", [
+    ("densenet121", 224, 3 * 121), ("inceptionv4", 299, 3 * 149),
+    ("vgg11", 224, 0), ("mnistnet", 28, 0)])
+def test_imagenet_cli_trains_the_zoo_on_the_cpu(model, size, buffers):
+    """The rest of the zoo through the ImageNet CLI at full size, batch 1,
+    bf16, one step: the JAX CLI's image size (299² Inception, 28²
+    grayscale MNIST), a finite loss, one reduce-scatter and update per
+    bucket, the BN statistics as the step's model state (none for VGG and
+    MnistNet, whose dropout draws from the step's generator)."""
+    res = imagenet.main(["--device", "cpu", "--model", model,
+                         "--batch-size", "1", "--fp16",
+                         "--num-warmup-batches", "0",
+                         "--num-batches-per-iter", "1", "--num-iters", "1"])
+    ts = res.train_step
+    assert len(res.losses) == 1 and all(np.isfinite(res.losses))
+    n = ts.plan.num_buckets
+    assert ts.rs_launches == ts.update_launches == n
+    assert len(ts._mstate) == buffers and ts.state_syncs == 0
+    assert res.batch["image"].shape == (1, 1 if model == "mnistnet" else 3,
+                                        size, size)
+    assert ts.rng_seed is not None
+
+
+def test_plain_sgd_reference_is_the_cli_dear_run():
+    """scripts/plain_sgd_reference.py (plain ``torch.optim.SGD``, the CLI's
+    model, batch and dropout masks) gives the ImageNet CLI's ``--mode
+    dear`` losses at one rank: MnistNet in fp32, 5 steps, with dropout."""
+    from dear_pytorch_tpu_torch.scripts import plain_sgd_reference as ref
+
+    res = imagenet.main(["--device", "cpu", "--model", "mnistnet",
+                         "--batch-size", "16", "--num-warmup-batches", "1",
+                         "--num-batches-per-iter", "2", "--num-iters", "2"])
+    losses, clean = ref.main(["--device", "cpu", "--model", "mnistnet",
+                              "--batch-size", "16", "--steps", "5"])
+    np.testing.assert_allclose(losses, res.losses, rtol=1e-5, atol=1e-5)
+    assert len(clean) == 2 and clean[1] < clean[0]
+
+
+def test_imagenet_cli_gives_vgg16_fc1_a_bucket_of_its_own():
+    """VGG-16's fc1 weight (102,760,448 parameters, 411 MB in fp32) is one
+    leaf over sixteen times the 25 MB threshold: the plan gives its layer
+    (weight and bias) a bucket of its own, whose shard at world 2 is half
+    of it; 6 buckets in all."""
+    from dear_pytorch_tpu_torch import models
+    from dear_pytorch_tpu_torch.ops import fusion
+    from tests.test_torch_zoo import shapes_only
+
+    with shapes_only():
+        model = models.get_model("vgg16", device="meta")
+    for world, shard in ((1, 102_764_544), (2, 51_382_272)):
+        plan = fusion.make_plan(model, world, threshold_mb=25.0)
+        fc1 = next(b for b in plan.buckets if any(
+            plan.leaves[i].name == "fc1.weight" for i in b.leaf_ids))
+        assert [plan.leaves[i].name for i in fc1.leaf_ids] == [
+            "fc1.weight", "fc1.bias"]
+        assert fc1.size == 25088 * 4096 + 4096 == 102_764_544
+        assert fc1.shard_size == shard and plan.num_buckets == 6
+
+
+def test_bert_cli_ring_projections_requires_dear_fused():
+    with pytest.raises(SystemExit, match="requires --mode dear-fused"):
+        _bert("--ring-projections")
+
+
+_BERT_RP_WORKER = """
+import json, os, sys
+sys.path.insert(0, {root!r})
+from dear_pytorch_tpu_torch.benchmarks import bert
+from dear_pytorch_tpu_torch.comm import backend
+rank, world, out = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+os.environ.update(DEAR_NUM_PROCESSES=str(world), DEAR_PROCESS_ID=str(rank),
+                  DEAR_COORDINATOR_ADDRESS="file://" + out + "/store")
+argv = ["--device", "cpu", "--model", "bert_base", "--num-hidden-layers",
+        "1", "--sentence-len", "16", "--batch-size", "2", "--dropout0",
+        "--base-lr", "0.01", "--mode", "dear-fused",
+        "--num-warmup-batches", "0", "--num-batches-per-iter", "3",
+        "--num-iters", "1"]
+results = {{}}
+for name, extra in (("plain", []), ("ring", ["--ring-projections"])):
+    res = bert.main(argv + extra)      # both runs in one group
+    ts = res.train_step
+    results[name] = {{"losses": res.losses, "cm_calls": ts.cm_calls,
+                      "proj": sum(type(m).__name__ == "ProjDense"
+                                  for m in ts.model.modules())}}
+    ts.close()
+backend.shutdown()
+json.dump(results, open(f"{{out}}/rank{{rank}}.json", "w"))
+"""
+
+
+def test_bert_cli_ring_projections_train_at_world2(tmp_path):
+    """``--mode dear-fused --ring-projections`` at world 2 (two jax-free
+    ranks over gloo, the ring matmul's plain versions over the group):
+    the query, key, value and intermediate products of the layer go
+    through the ring (3 ring-matmul calls each per step: forward, dx,
+    dw), and every step's loss equals the run without ring projections
+    within 1e-5 (fp32) on both ranks."""
+    import json
+    import os
+
+    from tests.test_torch_dear import ROOT, spawn_ranks
+
+    spawn_ranks(_BERT_RP_WORKER.format(root=ROOT), 2, str(tmp_path))
+    ranks = [json.load(open(os.path.join(tmp_path, f"rank{r}.json")))
+             for r in range(2)]
+    for r in ranks:
+        assert r["plain"]["proj"] == 0 and r["ring"]["proj"] == 4
+        assert r["plain"]["cm_calls"] == 0
+        assert r["ring"]["cm_calls"] == 3 * 4 * 3
+        np.testing.assert_allclose(r["ring"]["losses"],
+                                   r["plain"]["losses"], rtol=1e-5,
+                                   atol=1e-5)
+        assert r["ring"]["losses"][-1] < r["ring"]["losses"][0]
+    assert ranks[0]["ring"]["losses"] == ranks[1]["ring"]["losses"]
+
+
+def test_mnist_example_on_synthetic_data():
+    """The port's examples/mnist.py on the class-template stand-in, the
+    JAX test's arguments and bar (> 0.9 held-out accuracy)."""
+    from dear_pytorch_tpu_torch.examples import mnist
+
+    acc = mnist.main(["--device", "cpu", "--data", "synthetic",
+                      "--epochs", "3", "--batch-size", "64",
+                      "--train-size", "2048", "--test-size", "512",
+                      "--lr", "0.05"])
+    assert acc > 0.9, acc
+
+
+def test_mnist_example_learns_real_digits():
+    """Real handwritten digits (scikit-learn's bundled corpus) through the
+    whole DeAR schedule and the sharded sampler: the JAX test's arguments
+    and its bar, >= 0.9 held-out accuracy."""
+    pytest.importorskip("sklearn")
+    from dear_pytorch_tpu_torch.examples import mnist
+
+    acc = mnist.main(["--device", "cpu", "--data", "real", "--epochs",
+                      "10", "--batch-size", "64", "--lr", "0.05",
+                      "--momentum", "0.9"])
+    assert acc >= 0.9, acc
+
+
+def test_mnist_example_refusals(monkeypatch):
+    """No checkpoints yet (ROADMAP Queue 1 item 9); without scikit-learn
+    the real digits raise ImportError, never a silent switch to synthetic
+    data."""
+    import sys
+
+    from dear_pytorch_tpu_torch.examples import mnist
+
+    for flags in (["--checkpoint-dir", "/nonexistent"], ["--resume"]):
+        with pytest.raises(NotImplementedError, match="item 9"):
+            mnist.main(["--device", "cpu"] + flags)
+    monkeypatch.setitem(sys.modules, "sklearn", None)
+    monkeypatch.setitem(sys.modules, "sklearn.datasets", None)
+    with pytest.raises(ImportError, match="scikit-learn"):
+        mnist.main(["--device", "cpu", "--epochs", "1"])

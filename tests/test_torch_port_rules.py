@@ -70,7 +70,13 @@ def test_importing_the_port_and_chip_smoke_loads_no_jax():
                  "dear_pytorch_tpu_torch.benchmarks.imagenet",
                  "dear_pytorch_tpu_torch.models.vit",
                  "dear_pytorch_tpu_torch.benchmarks.bert",
-                 "dear_pytorch_tpu_torch.bench"):
+                 "dear_pytorch_tpu_torch.bench",
+                 "dear_pytorch_tpu_torch.models.densenet",
+                 "dear_pytorch_tpu_torch.models.inception",
+                 "dear_pytorch_tpu_torch.models.vgg",
+                 "dear_pytorch_tpu_torch.models.mnist",
+                 "dear_pytorch_tpu_torch.models.convert",
+                 "dear_pytorch_tpu_torch.examples.mnist"):
         assert ring in modules and ring in loaded
 
 
@@ -201,4 +207,39 @@ def test_bert_vit_and_bench_entry_points_need_the_card_unless_told_otherwise(
     assert tvit.ViTS16(num_layers=1, device="cpu").device == \
         torch.device("cpu")
     assert synthetic_bert_batch(0, 2, device="cpu")["input_ids"].device == \
+        torch.device("cpu")
+
+
+def test_zoo_serving_and_example_entry_points_need_the_card(monkeypatch):
+    """The rest of the zoo (DenseNet, Inception-v4, VGG, MnistNet), the
+    MNIST batch, the MNIST example and BERT serving through DecodeEngine
+    run on the card by default and raise without one; with
+    ``device="cpu"`` they run the plain PyTorch path. The HF converters
+    and the real digits' loader are host code (no device)."""
+    from dear_pytorch_tpu_torch import models
+    from dear_pytorch_tpu_torch.examples import mnist as example
+    from dear_pytorch_tpu_torch.models import bert as tbert
+    from dear_pytorch_tpu_torch.models.data import synthetic_mnist_batch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for name in ("densenet121", "inceptionv4", "vgg11", "mnistnet"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            models.get_model(name)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        synthetic_mnist_batch(0, 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        example.main(["--data", "synthetic", "--epochs", "1"])
+    cfg = tbert.BertConfig(vocab_size=61, hidden_size=32,
+                           num_hidden_layers=1, num_attention_heads=2,
+                           intermediate_size=64, max_position_embeddings=32,
+                           kv_cache_len=16)
+    bert = tbert.BertForPreTraining(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DecodeEngine(bert)
+    engine = DecodeEngine(bert, device="cpu")
+    assert engine.device == torch.device("cpu")
+    assert bert.init_cache(2)[0][0].device == torch.device("cpu")
+    assert models.get_model("mnistnet", device="cpu").device == \
+        torch.device("cpu")
+    assert synthetic_mnist_batch(0, 2, device="cpu")["image"].device == \
         torch.device("cpu")

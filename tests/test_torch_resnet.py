@@ -254,18 +254,22 @@ def test_seeded_init_has_flax_scale():
 
 
 def test_registry_lists_only_ported_cnns():
-    assert tmodels.cnn_names() == ["resnet101", "resnet152", "resnet18",
-                                   "resnet34", "resnet50", "vit_b16",
-                                   "vit_s16"]
-    assert set(tmodels.cnn_names()) <= set(jmodels.cnn_names())
+    """Every CNN name of the JAX package is ported (the rest of the zoo
+    since the DenseNet/Inception/VGG/MNIST slice) and builds its model."""
+    assert tmodels.cnn_names() == jmodels.cnn_names()
     m = tmodels.get_model("ResNet18", device="cpu", stem="s2d",
                           dtype=torch.bfloat16)
     assert m.stem == "s2d" and m.conv1.weight.shape == (64, 12, 4, 4)
     assert m.dtype == torch.bfloat16 and m.conv1.weight.dtype == \
         torch.float32
-    for name in ("densenet121", "vgg16", "inceptionv4", "mnistnet"):
-        with pytest.raises(KeyError, match="item 5b"):
-            tmodels.get_model(name, device="cpu")
+    from dear_pytorch_tpu_torch.models import densenet, mnist
+
+    assert isinstance(tmodels.get_model("densenet121", device="cpu"),
+                      densenet.DenseNet)
+    assert isinstance(tmodels.get_model("MnistNet", device="cpu"),
+                      mnist.MnistNet)
+    with pytest.raises(KeyError, match="unknown model"):
+        tmodels.get_model("densenet264", device="cpu")
     with pytest.raises(ValueError, match="stem"):
         tmodels.get_model("resnet18", device="cpu", stem="s4d")
 
