@@ -102,7 +102,9 @@ non-zero and no result line is printed):
      dear``: losses finite, falling and equal on both ranks, both ranks'
      gathered parameters bitwise equal, dear-fused's step-20 loss within
      `_FUSED_VS_DEAR_RTOL` of dear's and the ring-projection run's within
-     `_RP_VS_FUSED_RTOL` of dear-fused's; a rank's failure fails the run;
+     `_RP_VS_FUSED_RTOL` of dear-fused's; each rank records its peak
+     memory (``max_memory_allocated``, reset before the run); a rank's
+     failure fails the run;
   5c. run the overhead probe as a user runs it on the card
      (``dear_pytorch_tpu_torch.scripts.overhead_probe``, `probe.main`):
      both sections in this process (K9 at its two granularities, 2 x 41
@@ -179,6 +181,27 @@ non-zero and no result line is printed):
      wgmma route; the ranks' losses and parameters equal, the last loss
      with ring projections within `_BERT_RP_VS_FUSED_RTOL` of the one
      without;
+  5l. the baseline schedules: two ranks sharing the card (this script with
+     ``--modes-rank R --out DIR``, one pair of processes and one gloo
+     group for every run) train GPT-2 as in 5b, 10 steps per run, with
+     ``--mode fsdp``, ``allreduce``, ``rsag``, ``rb``, ``bytescheduler
+     --partition 4`` and ``dear --exclude-parts reducescatter`` /
+     ``allgather``: every step on each rank K1, K2 and K3 12 times each
+     (tensor cores), the K5 epilogue once per bucket (whole buckets in the
+     replicated modes) and the schedule's collectives as the port's
+     dear.py docstring tabulates; for the modes finite, falling losses
+     equal on both ranks, gathered parameters bitwise equal on both ranks
+     and the step-10 loss within `_FUSED_VS_DEAR_RTOL` of 5b's dear run
+     at step 10; fsdp's peak memory below that dear run's by at least
+     half of (the bf16 full buckets' bytes - the largest bucket's); then
+     the `Communicator` over the two ranks' gloo group, every method's
+     result equal to its definition. Then one rank on NCCL: dear and each
+     new mode 5 steps through the CLI (B = 4, bf16; fsdp's buckets in fp32,
+     cast again in the backward), every step checked, each mode's losses
+     within `_FUSED_VS_DEAR_RTOL` of dear's; the `Communicator` (2
+     streams) through every method, handles round-robin, results the
+     world-1 identities (the same check as the two ranks'); the K5 epilogue bitwise
+     at the two-rank plan's whole-bucket sizes;
   6. trace steady bf16 decode ticks and training steps with
      ``torch.profiler`` (device ops, busy time and idle share, the top
      device ops of a step); time each kernel, its plain version and
@@ -196,7 +219,8 @@ non-zero and no result line is printed):
      also at BERT-Base's flash shape (B = 32, S = 128, non-causal); K1 at
      BERT-Base's decode tick (B = 4 over 512 slots, bf16 and fp32), K6–K8
      at BERT-Large's shapes beside cuBLAS, the K5 epilogue at the zoo's
-     largest shards (VGG-16's fc1).
+     largest shards (VGG-16's fc1) and at the replicated modes' whole
+     buckets; phase 5l's step p50/p99, tokens/s and peak memory per run.
 
 ``python3 chip_smoke.py --kernels-only`` runs phases 1–3 and stops without
 a result line. In a full run the line before the last lists the kernels
@@ -227,6 +251,7 @@ import dear_pytorch_tpu_torch.ops.collective_matmul as CM
 import dear_pytorch_tpu_torch.ops.flash_attention as FA
 import dear_pytorch_tpu_torch.ops.fused_sgd as FS
 import dear_pytorch_tpu_torch.ops.overhead_probe as OP
+from dear_pytorch_tpu_torch import Communicator
 from dear_pytorch_tpu_torch import bench as port_bench
 from dear_pytorch_tpu_torch.benchmarks import bert as bert_cli
 from dear_pytorch_tpu_torch.benchmarks import gpt as train_cli
@@ -722,16 +747,17 @@ def _update_pair(name, opt, n, gdt, mean_world, clip, gen) -> float:
     return worst
 
 
-def check_update_main_path(ts) -> float:
-    """The shard update at every shard size of the training run's plan,
-    with the run's own optimizer, bf16 gradients and one rank: bitwise
-    equal to the plain version after the first and the second step.
-    Returns the largest absolute difference (0.0)."""
+def check_update_main_path(ts, sizes=None, what="shard") -> float:
+    """The shard update at every shard size of the training run's plan
+    (or at ``sizes``: ``what`` names them), with the run's own optimizer,
+    bf16 gradients and one rank: bitwise equal to the plain version after
+    the first and the second step. Returns the largest absolute
+    difference (0.0)."""
     gen = torch.Generator(device=_DEV).manual_seed(7)
-    sizes = sorted({b.shard_size for b in ts.plan.buckets})
+    sizes = sorted(set(sizes or (b.shard_size for b in ts.plan.buckets)))
     worst = max(_update_pair(f"main path n={n}", ts.optimizer, n,
                              torch.bfloat16, 1, None, gen) for n in sizes)
-    print(f"update kernel check main path: {len(sizes)} shard sizes of the "
+    print(f"update kernel check main path: {len(sizes)} {what} sizes of the "
           f"plan ({sizes[0]} to {sizes[-1]}), {ts.optimizer}, bf16 "
           "grads, first and second step: bitwise equal to the plain version")
     return worst
@@ -1567,10 +1593,12 @@ def rank_worker(rank: int, out: Path, mode: str) -> None:
         ev.record()
         marks.append(ev)
 
+    torch.cuda.reset_peak_memory_stats()
     res = train_cli.main(_TWO_RANK_ARGS + _TWO_RANK_MODES[mode]
                          + ["--device", _DEV], on_step=on_step)
     ts = res.train_step
     launches = _two_rank_counts(ts)               # ... and ends here
+    peak = torch.cuda.max_memory_allocated()
     step_ms = [a.elapsed_time(b) for a, b in
                zip(marks[_TRAIN_WARMUP - 1:-1], marks[_TRAIN_WARMUP:])]
     # both ranks trace the same 3 further steps (their ring calls pair up)
@@ -1582,6 +1610,7 @@ def rank_worker(rank: int, out: Path, mode: str) -> None:
     (out / f"rank{rank}.json").write_text(json.dumps({
         "losses": res.losses, "launches": launches, "step_ms": step_ms,
         "tokens_per_s": res.total_mean * 1024, "params": _digest(params),
+        "peak_bytes": peak,
         "trace": trace, "ring_errs": ring_errs, "cm_errs": cm_errs,
         "shard_sizes": sorted({b.shard_size for b in ts.plan.buckets}),
         "bucket_shards": [b.shard_size for b in ts.plan.buckets],
@@ -2666,15 +2695,18 @@ def bert_rank_worker(rank: int, out: Path, mode: str) -> None:
         ev.record()
         marks.append(ev)
 
+    torch.cuda.reset_peak_memory_stats()
     res = bert_cli.main(_BERT_LARGE_ARGS + _BERT_LARGE_MODES[mode]
                         + ["--device", _DEV], on_step=on_step)
     ts = res.train_step
     launches = _two_rank_counts(ts)               # ... and ends here
+    peak = torch.cuda.max_memory_allocated()
     step_ms = [a.elapsed_time(b) for a, b in zip(marks[1:-1], marks[2:])]
     params = ts.gather_params(res.state)
     (out / f"rank{rank}.json").write_text(json.dumps({
         "losses": res.losses, "launches": launches, "step_ms": step_ms,
         "sen_per_s": res.total_mean, "params": _digest(params),
+        "peak_bytes": peak,
         "cm_errs": cm_errs, "buckets": ts.plan.num_buckets,
         "bucket_shards": [b.shard_size for b in ts.plan.buckets]}))
     ts.close()
@@ -2716,7 +2748,8 @@ def train_bert_large_rp() -> tuple:
                   f"{rank['launches']['ring_ag_direct']} vector of "
                   f"{rank['launches']['ring_ag_direct_all']}, the K5 ring "
                   f"{rank['launches']['ring_rs_vector']} vector of "
-                  f"{rank['launches']['ring_rs']}")
+                  f"{rank['launches']['ring_rs']}; peak memory "
+                  f"{rank['peak_bytes'] / 2**20:.1f} MiB")
         _check(len(losses) == _BERT_LARGE_STEPS
                and all(np.isfinite(losses)), f"{mode}: losses {losses}")
         _check(ranks[1]["losses"] == losses,
@@ -2732,6 +2765,297 @@ def train_bert_large_rp() -> tuple:
     _check(rel <= _BERT_RP_VS_FUSED_RTOL,
            "bert-large: ring projections and dear-fused losses differ")
     return fused, rp
+
+
+# ---------------------------------------------------------------------------
+# phase 5l: the baseline schedules, fsdp and the ablations
+# ---------------------------------------------------------------------------
+
+#: the two-rank runs of phase 5l, one after another in one pair of rank
+#: processes: name -> the training CLI's mode flags. fsdp first, so that
+#: its peak memory is a fresh process's, as phase 5b's dear run's is
+_MODES_RUNS = {
+    "fsdp": ["--mode", "fsdp"],
+    "allreduce": ["--mode", "allreduce"],
+    "rsag": ["--mode", "rsag"],
+    "rb": ["--mode", "rb"],
+    "bytescheduler": ["--mode", "bytescheduler", "--partition", "4"],
+    "dear-no-reducescatter": ["--mode", "dear", "--exclude-parts",
+                              "reducescatter"],
+    "dear-no-allgather": ["--mode", "dear", "--exclude-parts", "allgather"],
+}
+#: 10 steps each (5 warmup, 5 timed): phase 5b's arguments otherwise
+_MODES_STEPS = ["--num-warmup-batches", "5", "--num-batches-per-iter", "5",
+                "--num-iters", "1"]
+_MODES_STEP = 10
+#: one rank on NCCL: ``dear`` and each new mode 5 steps through the CLI
+#: at B = 4 in bf16; at world 1 ``--fp16`` keeps fsdp's buckets in fp32
+#: under bf16 compute, so its backward casts every bucket it gathers again
+_ONE_RANK_MODES = {
+    "dear": ["--mode", "dear"],
+    "allreduce": ["--mode", "allreduce"],
+    "rsag": ["--mode", "rsag"],
+    "rb": ["--mode", "rb"],
+    "bytescheduler": ["--mode", "bytescheduler", "--partition", "4"],
+    "fsdp": ["--mode", "fsdp"],
+}
+_ONE_RANK_ARGS = ["--model", "gpt2", "--flash-attention", "--dropout0",
+                  "--fp16", "--batch-size", "4", "--sequence-len", "1024",
+                  "--base-lr", "0.01", "--momentum", "0.9", "--threshold",
+                  "25", "--num-warmup-batches", "0",
+                  "--num-batches-per-iter", "5", "--num-iters", "1"]
+_COLLECTIVES = ("rs", "ag", "ar", "reduce", "bcast")
+
+
+def _modes_counts(ts) -> dict:
+    return {"flash_fwd": FA.flash_fwd_launches,
+            "flash_fwd_tc": FA.flash_fwd_route_launches["tensor_core"],
+            "flash_bwd_dq": FA.flash_bwd_dq_launches,
+            "flash_bwd_dkv": FA.flash_bwd_dkv_launches,
+            "flash_bwd_dq_tc": FA.flash_bwd_route_launches["dq"][
+                "tensor_core"],
+            "flash_bwd_dkv_tc": FA.flash_bwd_route_launches["dkv"][
+                "tensor_core"],
+            "fused_update": FS.fused_update_launches,
+            "update": ts.update_launches,
+            **{k: getattr(ts, f"{k}_launches") for k in _COLLECTIVES}}
+
+
+def _mode_collectives(ts) -> tuple:
+    """(per step, before the first step) collectives of ``ts``'s schedule
+    by kind: the table of the port's dear.py docstring, init's gathers
+    before the first step."""
+    nb = ts.plan.num_buckets
+    per = dict.fromkeys(_COLLECTIVES, 0)
+    before = dict.fromkeys(_COLLECTIVES, 0)
+    if ts.mode == "fsdp":
+        per.update(rs=nb, ag=2 * nb)
+        before["ag"] = nb
+    elif ts.mode == "dear":
+        per["rs"] = 0 if "reducescatter" in ts._exclude else nb
+        per["ag"] = before["ag"] = 0 if "allgather" in ts._exclude else nb
+    elif ts.mode == "allreduce":
+        per["ar"] = nb
+    elif ts.mode == "rsag":
+        per.update(rs=nb, ag=nb)
+    elif ts.mode == "rb":
+        per.update(reduce=nb, bcast=nb)
+    else:                                       # bytescheduler
+        chunks = sum(len(FU.chunk_bounds(b.padded_size,
+                                         ts._gbuf[0].element_size(),
+                                         ts.partition_mb))
+                     for b in ts.plan.buckets)
+        per.update(rs=chunks, ag=chunks)
+    return per, before
+
+
+def _run_mode(argv, label: str, bf16: bool = True) -> dict:
+    """One run of the training CLI (``argv``), every step's launches
+    checked: K1, K2 and K3 once per layer (on their tensor-core routes in
+    bf16, else CUDA cores), the K5 epilogue and the update once per bucket
+    and the schedule's collectives (`_mode_collectives`). Returns the
+    run's losses, step times, launches, tokens/s, peak memory (reset
+    before the run), the gathered parameters' digest and the plan's
+    bucket sizes."""
+    layers = GPT2_SMALL.num_hidden_layers
+    FA.reset_launch_counts()                      # the main path starts
+    FS.fused_update_launches = 0                  # here
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    marks, prev = [], {}
+
+    def on_step(ts, state, metrics):
+        del state, metrics
+        now = _modes_counts(ts)
+        nb = ts.plan.num_buckets
+        per, before = _mode_collectives(ts)
+        tc = layers if bf16 else 0
+        want = {"flash_fwd": layers, "flash_fwd_tc": tc,
+                "flash_bwd_dq": layers, "flash_bwd_dkv": layers,
+                "flash_bwd_dq_tc": tc, "flash_bwd_dkv_tc": tc,
+                "fused_update": nb, "update": nb, **per}
+        base = prev or dict.fromkeys(now, 0) | before
+        got = {k: now[k] - base[k] for k in now}
+        _check(got == want, f"{label} step {len(marks) + 1}: launches "
+               f"{got}, expected {want}")
+        prev.update(now)
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append(ev)
+
+    res = train_cli.main(argv + ["--device", _DEV], on_step=on_step)
+    ts = res.train_step
+    launches = _modes_counts(ts)                  # ... and ends here
+    routes = {"fwd": dict(FA.flash_fwd_route_launches),
+              **{w: dict(c) for w, c in FA.flash_bwd_route_launches.items()}}
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = [a.elapsed_time(b) for a, b in zip(marks[:-1], marks[1:])]
+    params = ts.gather_params(res.state)
+    out = {"losses": res.losses, "step_ms": step_ms, "launches": launches,
+           "routes": routes, "tokens_per_s": res.total_mean * 1024,
+           "peak_bytes": peak, "base_bytes": base,
+           "params": _digest(params),
+           "bucket_padded": [b.padded_size for b in ts.plan.buckets],
+           "buckets": ts.plan.num_buckets, "mode": ts.mode,
+           "gather_bytes": ts._full[0].element_size()}
+    ts.close()
+    return out
+
+
+def check_communicator(rank: int, world: int) -> None:
+    """The `Communicator` (2 streams) on this process's group: every method
+    once on one stacked ``(world, n)`` input that every rank draws from one
+    seed, handles round-robin, `syncStream` and `synchronize` as fences,
+    each result equal to the stacked input's sum, slice or row that the
+    collective defines (sums of at most two fp32 values, so exact; at world
+    1 the identities); ``multiBcast`` broadcasts ``fn`` of rank 0's large
+    input and computes that of this rank's small one here."""
+    comm = Communicator(nstreams=2)
+    gen = torch.Generator(device=_DEV).manual_seed(22)
+    xs = torch.randn(world, 4099, generator=gen, device=_DEV)
+    big = torch.randn(world, 512 * 512, generator=gen, device=_DEV)
+    x, total, root = xs[rank].contiguous(), xs.sum(0), world - 1
+    n = 4098 // world
+    even = xs[:, :n * world].contiguous()
+    want = {"reduce": total if rank == root else x, "bcast": xs[root],
+            "allReduce": total, "allReduceRB": total, "allReduceRSAG": total,
+            "reduceScatter": even.sum(0)[rank * n:(rank + 1) * n],
+            "allGather": xs.reshape(-1),
+            "sendrecv": xs[(rank - 1) % world]}
+    outs = {"reduce": comm.reduce(x, root), "bcast": comm.bcast(x, root),
+            "allReduce": comm.allReduce(x),
+            "allReduceRB": comm.allReduceRB(x),
+            "allReduceRSAG": comm.allReduceRSAG(x),
+            "reduceScatter": comm.reduceScatter(even[rank]),
+            "allGather": comm.allGather(x),
+            "sendrecv": comm.sendrecv(
+                x, [(r + 1) % world for r in range(world)])}
+    multi, h = comm.multiBcast([big[rank].contiguous(), x],
+                               lambda t: t * 2.0 + 1.0)
+    handles = [o[1] for o in outs.values()] + [h]
+    _check(handles == [i % 2 for i in range(len(outs) + 1)],
+           f"rank {rank} communicator handles {handles}")
+    comm.syncStream(0)
+    comm.synchronize()
+    _check(comm.getNumOfFreeStreams() == 2,
+           f"rank {rank} communicator: streams busy")
+    for name, (o, _) in outs.items():
+        _check(torch.equal(o, want[name]),
+               f"rank {rank} communicator {name} (world {world})")
+    _check(torch.equal(multi[0], big[0] * 2.0 + 1.0)
+           and torch.equal(multi[1], x * 2.0 + 1.0),
+           f"rank {rank} communicator multiBcast (world {world})")
+    backend_name = torch.distributed.get_backend()
+    comm.destroy()
+    print(f"rank {rank}: communicator ({backend_name}, world {world}, 2 "
+          f"streams): every method once, handles {handles}, each result "
+          "equal to its definition")
+
+
+def modes_rank_worker(rank: int, out: Path) -> None:
+    """One of the two ranks of phase 5l (``--modes-rank R --out DIR``):
+    every run of `_MODES_RUNS` in turn over one gloo group (phase 5b's
+    arguments, 10 steps each; `_run_mode` checks every step), then the
+    `Communicator` over that group (`check_communicator`); the
+    results into ``out/rank<r>.json``."""
+    _join_two_ranks(rank, out)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    results = {}
+    for name, flags in _MODES_RUNS.items():
+        t0 = time.perf_counter()
+        results[name] = _run_mode(_TWO_RANK_ARGS + _MODES_STEPS + flags,
+                                  f"rank {rank} {name}")
+        results[name]["wall_s"] = time.perf_counter() - t0
+    check_communicator(rank, 2)
+    results["device"] = str(backend.device())
+    results["card_shared"] = backend.card_shared()
+    results["backend"] = torch.distributed.get_backend()
+    (out / f"rank{rank}.json").write_text(json.dumps(results))
+    backend.shutdown()
+
+
+def train_modes(dear_ranks) -> tuple:
+    """Phase 5l on two ranks sharing the card: the runs of `_MODES_RUNS`
+    (`modes_rank_worker`). For the modes: finite losses that fall, equal
+    on both ranks; both ranks' gathered parameters bitwise equal; the
+    step-10 loss within `_FUSED_VS_DEAR_RTOL` of phase 5b's ``dear`` run
+    (``dear_ranks``) at step 10. For the ablations: only that they ran,
+    with their counts. fsdp's peak memory per rank below dear's by at
+    least half of (the full buckets' bytes - the largest bucket's). Returns
+    the two ranks' results."""
+    t0 = time.perf_counter()
+    ranks = spawn_two_ranks(
+        "modes", lambda r, out: ["--modes-rank", str(r), "--out", str(out)],
+        900.0)
+    print(f"two ranks, phase 5l: backend {ranks[0]['backend']}, devices "
+          f"{[r['device'] for r in ranks]}, card shared "
+          f"{ranks[0]['card_shared']}; wall {time.perf_counter() - t0:.1f} s")
+    dear_loss = dear_ranks[0]["losses"][_MODES_STEP - 1]
+    for name in _MODES_RUNS:
+        r0, r1 = ranks[0][name], ranks[1][name]
+        losses = r0["losses"]
+        p50s = [float(np.percentile(r[name]["step_ms"], 50)) for r in ranks]
+        print(f"two ranks {name}: losses {[round(x, 4) for x in losses]}; "
+              f"{r0['buckets']} buckets; step p50 by rank "
+              f"{[round(x, 3) for x in p50s]} ms; wall {r0['wall_s']:.1f} s")
+        _check(len(losses) == _MODES_STEP and len(r1["losses"])
+               == _MODES_STEP, f"two ranks {name}: losses {losses}")
+        if r0["mode"] == "dear":       # an ablation: garbage by design
+            continue
+        _check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+               f"two ranks {name}: losses {losses}")
+        _check(r1["losses"] == losses,
+               f"two ranks {name}: the ranks' losses differ")
+        _check(r1["params"] == r0["params"],
+               f"two ranks {name}: the ranks' gathered parameters differ")
+        rel = abs(losses[-1] - dear_loss) / abs(dear_loss)
+        print(f"  step-{_MODES_STEP} loss {losses[-1]:.6f} against phase "
+              f"5b's dear {dear_loss:.6f}: relative {rel:.3e} (limit "
+              f"{_FUSED_VS_DEAR_RTOL:g})")
+        _check(rel <= _FUSED_VS_DEAR_RTOL,
+               f"two ranks {name}: the step-{_MODES_STEP} loss is not dear's")
+    fsdp = ranks[0]["fsdp"]
+    item = fsdp["gather_bytes"]
+    full = sum(fsdp["bucket_padded"]) * item
+    largest = max(fsdp["bucket_padded"]) * item
+    need = (full - largest) / 2
+    for r, (mine, dear) in enumerate(zip(ranks, dear_ranks)):
+        peak, dear_peak = mine["fsdp"]["peak_bytes"], dear["peak_bytes"]
+        print(f"rank {r} peak memory (max_memory_allocated): fsdp "
+              f"{peak / 2**20:.1f} MiB, dear (phase 5b) "
+              f"{dear_peak / 2**20:.1f} MiB: {(dear_peak - peak) / 2**20:.1f}"
+              f" MiB less; the full buckets {full / 2**20:.1f} MiB, the "
+              f"largest {largest / 2**20:.1f} MiB: at least "
+              f"{need / 2**20:.1f} MiB less required")
+        _check(peak <= dear_peak - need,
+               f"rank {r}: fsdp's peak memory is not below dear's")
+    return ranks
+
+
+def train_modes_one_rank() -> dict:
+    """Phase 5l on one rank over NCCL (the only place the new collectives
+    run on the NCCL path): each run of `_ONE_RANK_MODES` through the CLI,
+    every step checked (`_run_mode`), each new mode's 5 losses within
+    `_FUSED_VS_DEAR_RTOL` of the ``dear`` run's. Returns the runs'
+    results."""
+    runs = {}
+    for name, flags in _ONE_RANK_MODES.items():
+        runs[name] = r = _run_mode(_ONE_RANK_ARGS + flags,
+                                   f"one rank {name}")
+        losses, dear = r["losses"], runs["dear"]["losses"]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, dear))
+        print(f"one rank {name} (NCCL, B=4): losses "
+              f"{[round(x, 4) for x in losses]}, largest relative "
+              f"difference from dear's {rel:.3e} (limit "
+              f"{_FUSED_VS_DEAR_RTOL:g}); launches {r['launches']}")
+        _check(len(losses) == len(dear) == 5 and all(np.isfinite(losses)),
+               f"one rank {name}: losses {losses}")
+        _check(rel <= _FUSED_VS_DEAR_RTOL,
+               f"one rank {name}: the losses are not dear's")
+    return runs
 
 
 # ---------------------------------------------------------------------------
@@ -3357,7 +3681,10 @@ def main(argv=None) -> int:
                                                     "--mode"]
     probe_worker = len(argv) == 4 and argv[0::2] == ["--probe-rank",
                                                      "--out"]
-    if argv and not (kernels_only or worker or bert_worker or probe_worker):
+    modes_worker = len(argv) == 4 and argv[0::2] == ["--modes-rank",
+                                                     "--out"]
+    if argv and not (kernels_only or worker or bert_worker or probe_worker
+                     or modes_worker):
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -3372,6 +3699,9 @@ def main(argv=None) -> int:
         return 0
     if probe_worker:             # one rank of phase 5c, spawned below
         probe_rank_worker(int(argv[1]), Path(argv[3]))
+        return 0
+    if modes_worker:             # one rank of phase 5l, spawned below
+        modes_rank_worker(int(argv[1]), Path(argv[3]))
         return 0
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3415,7 +3745,7 @@ def main(argv=None) -> int:
     fp32_routes = check_flash_step_vs_dense()
     train_with_dropout()
     t0 = time.perf_counter()
-    fused, rp, _ = train_dear_fused()
+    fused, rp, dear2 = train_dear_fused()
     for rank in fused:      # the IPC ring's own checks, in each rank
         ag_err = max(ag_err, rank["ring_errs"][0])
         rs_err = max(rs_err, rank["ring_errs"][1])
@@ -3471,6 +3801,16 @@ def main(argv=None) -> int:
         for k, v in rank["cm_errs"].items():
             cm_err[k] = max(cm_err[k], v)
     print(f"bert-large ring-projection phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    modes = train_modes(dear2)
+    modes1 = train_modes_one_rank()
+    check_communicator(0, 1)
+    # the K5 epilogue at the replicated modes' sizes: whole buckets of the
+    # two-rank plan (the one-rank plan's are its shards already)
+    upd_err = max(upd_err, check_update_main_path(
+        res.train_step, modes[0]["allreduce"]["bucket_padded"],
+        "whole-bucket (two-rank allreduce)"))
+    print(f"modes phase (5l): {time.perf_counter() - t0:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()      # the bench's process needs the memory
     t0 = time.perf_counter()
@@ -3520,7 +3860,8 @@ def main(argv=None) -> int:
                             "bench's configuration; p50 = the bench's step)")
     for label, r, rank in ([("dear-fused", r, x) for r, x in enumerate(fused)]
                            + [("dear-fused --ring-projections", r, x)
-                              for r, x in enumerate(rp)]):
+                              for r, x in enumerate(rp)]
+                           + [("dear", r, x) for r, x in enumerate(dear2)]):
         fp50, fp99 = (float(np.percentile(rank["step_ms"], q))
                       for q in (50, 99))
         print(f"two-rank {label} step, rank {r} (GPT-2 small, bf16, 8 "
@@ -3528,8 +3869,10 @@ def main(argv=None) -> int:
               f"steps): p50 {fp50:.3f} ms p99 {fp99:.3f} ms; "
               f"{rank['tokens_per_s']:.1f} tokens/s over both ranks (the "
               "CLI's timed mean); both ranks share one card, so this is "
-              "the card's time for 16 sequences plus the ring's waits, not "
-              "a per-card rate")
+              "the card's time for 16 sequences plus the waits of the "
+              "collectives (the ring's, or gloo's through the host), not "
+              f"a per-card rate; peak memory "
+              f"{rank['peak_bytes'] / 2**20:.1f} MiB")
         tr = rank["trace"]
         if tr is not None:
             print(f"  traced (2 steps, this rank's context): "
@@ -3540,6 +3883,22 @@ def main(argv=None) -> int:
                   "ms/step under the profiler; top: "
                   + "; ".join(f"{ms:.3f} {name[:48]}"
                               for name, ms in tr["top"][:6]))
+
+    for label, runs in ([(f"two-rank, rank {r}", x)
+                         for r, x in enumerate(modes)]
+                        + [("one rank (NCCL, B=4)", modes1)]):
+        for mode, run in runs.items():
+            if not isinstance(run, dict):
+                continue
+            mp50, mp99 = (float(np.percentile(run["step_ms"], q))
+                          for q in (50, 99))
+            print(f"phase 5l {label} {mode} step (GPT-2 small, "
+                  f"{len(run['step_ms'])} steps after the first) on {card}: "
+                  f"p50 {mp50:.3f} ms p99 {mp99:.3f} ms; "
+                  f"{run['tokens_per_s']:.1f} tokens/s (the CLI's timed "
+                  f"mean); peak memory {run['peak_bytes'] / 2**20:.1f} MiB "
+                  f"(over {run['base_bytes'] / 2**20:.1f} MiB allocated "
+                  "before the run)")
 
     hbm = probe.memory_rate(name)
     print(f"bounds: {hbm / 1e12} TB/s memory ({name}), peak "
@@ -3614,6 +3973,12 @@ def main(argv=None) -> int:
     upd = time_update(max(b.shard_size for b in buckets
                           if b.size * 4 <= 25 * 2**20), hbm, nb)
     time_update(max(b.shard_size for b in buckets), hbm, nb)
+    # the replicated modes' whole buckets at world 2 (phase 5l): the 25 MB
+    # bucket and wte's
+    padded2 = modes[0]["allreduce"]["bucket_padded"]
+    time_update(max(n for n in padded2 if n * 4 <= 25 * 2**20), hbm,
+                len(padded2))
+    time_update(max(padded2), hbm, len(padded2))
     # ResNet-50's largest bucket shard (the 25 MB threshold's first bucket)
     time_update(max(b.shard_size for b in rn_buckets), hbm, len(rn_buckets))
     # the zoo's largest shards: VGG-16's fc1 bucket (102,764,544 elements,
@@ -3672,11 +4037,25 @@ def main(argv=None) -> int:
     # K1 by route, each with its own main path: split-K the decode ticks,
     # tensor cores the bf16 train steps (one rank and both ranks of the two
     # dear-fused runs), CUDA cores the fp32 step
+    # phase 5l's runs: both ranks of every two-rank run and the one-rank
+    # runs (bf16, on the tensor-core routes)
+    modes_runs = [run for ranks in modes for run in ranks.values()
+                  if isinstance(run, dict)] + list(modes1.values())
+    modes_routes = {w: {route: sum(run["routes"][w][route]
+                                   for run in modes_runs)
+                        for route in modes_runs[0]["routes"][w]}
+                    for w in ("fwd", "dq", "dkv")}
+    modes_update = sum(run["launches"]["fused_update"]
+                       for run in modes_runs)
+    print(f"phase 5l launches over both ranks and every run: K1-K3 by "
+          f"route {modes_routes}, the K5 epilogue {modes_update}")
     k1_launches = {
         "split_k": serve_routes["split_k"] + bert_serve_routes["split_k"],
         "tensor_core": train_launches["flash_fwd_tc"]
-        + fused_launches["flash_fwd_tc"] + bert_launches["flash_fwd_tc"],
-        "cuda_core": fp32_routes["fwd"]["cuda_core"]}
+        + fused_launches["flash_fwd_tc"] + bert_launches["flash_fwd_tc"]
+        + modes_routes["fwd"]["tensor_core"],
+        "cuda_core": fp32_routes["fwd"]["cuda_core"]
+        + modes_routes["fwd"]["cuda_core"]}
     print(f"K1 launches on the main paths by route: {k1_launches}")
     k1 = [_kernel_entry(f"flash_fwd ({route})", "flash_fwd.cu",
                         "dear_pytorch_tpu/ops/flash_attention.py:97",
@@ -3690,8 +4069,10 @@ def main(argv=None) -> int:
                                ("flash_bwd_dkv", "dkv", 195)):
         launches = {"tensor_core": train_launches[kname + "_tc"]
                     + fused_launches[kname + "_tc"]
-                    + bert_launches[kname + "_tc"],
-                    "cuda_core": fp32_routes[which]["cuda_core"]}
+                    + bert_launches[kname + "_tc"]
+                    + modes_routes[which]["tensor_core"],
+                    "cuda_core": fp32_routes[which]["cuda_core"]
+                    + modes_routes[which]["cuda_core"]}
         print(f"{kname} launches on the main paths by route: {launches}")
         for route, sfx in (("tensor_core", ""), ("cuda_core", "_f32")):
             k23.append(_kernel_entry(
@@ -3700,13 +4081,14 @@ def main(argv=None) -> int:
                 launches[route], bwd_err[which][route], bwd[kname + sfx]))
     print(json.dumps({"kernels": k1 + k23 + [
         # launches: GPT-2's train steps, ResNet-50's, BERT-Base's (flash
-        # and with dropout), ViT-B/16's, the zoo's and the MNIST example's
+        # and with dropout), ViT-B/16's, the zoo's, the MNIST example's
+        # and phase 5l's (whole buckets in the replicated modes)
         _kernel_entry("fused_update", "fused_update.cu",
                       "dear_pytorch_tpu/ops/collective_matmul.py:317",
                       train_launches["fused_update"] + rn_launches
                       + bert_launches["fused_update"] + vit_launches
                       + sum(z["launches"] for z in zoo.values())
-                      + mnist_launches, upd_err, upd),
+                      + mnist_launches + modes_update, upd_err, upd),
     ] + [
         _kernel_entry(f"ring_all_gather ({route})", "ring.cu",
                       "dear_pytorch_tpu/ops/collective_matmul.py:218",

@@ -20,7 +20,16 @@ Ported so far:
     (``csrc/ring.cu`` over `comm.ring`) and ``--ring-projections`` with the
     ring collective matmul (``csrc/ring_matmul.cu``);
   - slice 5: the overhead probe (`scripts.overhead_probe`) with its
-    elementwise kernel (`ops.overhead_probe`, ``csrc/overhead_probe.cu``).
+    elementwise kernel (`ops.overhead_probe`, ``csrc/overhead_probe.cu``);
+  - slices 10–12: ResNet with BatchNorm state, BERT, ViT, the rest of the
+    model zoo, BERT serving and the bench entry (`bench`);
+  - slice 13: the baseline schedules (``mode="allreduce"``, ``"rsag"``,
+    ``"rb"``, ``"bytescheduler"``, ``"fsdp"``), the ``exclude_parts``
+    ablations of ``"dear"``, and the round-robin `Communicator`
+    (`comm.communicator`, exported here as the JAX package exports its
+    own).
 """
+
+from dear_pytorch_tpu_torch.comm.communicator import Communicator  # noqa: F401
 
 __version__ = "0.1.0"

@@ -90,7 +90,7 @@ def main(argv=None, on_step: Optional[Callable] = None
     if unported:
         raise NotImplementedError(
             f"{', '.join(unported)}: not ported yet (ROADMAP Queue 1 items "
-            "7 and 10)")
+            "7c and 10)")
     resolve_device(args.device)          # raises without a card
     group = backend.init(args.device)    # "cuda" or None: this rank's card
     dev, world = backend.device(), backend.size()

@@ -19,9 +19,10 @@ the JAX package's ``perf_model.mfu`` is for an unknown device.
 
 Only the flags the port carries are registered: an unported flag of the
 JAX CLI (``--compressor``, ``--pipeline``, ``--scan-steps``, ...) is an
-argparse error, not silently ignored; ``--mode`` other than ``dear`` and
-``dear-fused``, and ``--optimizer lamb``, raise ``NotImplementedError``
-when the step is built.
+argparse error, not silently ignored. Every ``--mode`` of the JAX CLI
+builds (the baselines and ``fsdp`` since slice 13, with ``--partition``
+and ``--exclude-parts``); ``--optimizer lamb`` raises
+``NotImplementedError`` when the step is built.
 """
 
 from __future__ import annotations
@@ -37,7 +38,8 @@ from dear_pytorch_tpu_torch.comm import backend
 
 __all__ = ["BenchResult", "PEAK_FLOPS", "add_common_args",
            "config_from_args", "device_name", "log", "log_mfu", "mfu",
-           "peak_flops", "run_timed", "step_flops", "train_timed"]
+           "parse_exclude_parts", "peak_flops", "run_timed", "step_flops",
+           "threshold_mb", "train_timed"]
 
 #: dense bf16 peak FLOP/s of a card, by a part of its name (NVIDIA's data
 #: sheet: the H100 SXM); the PCIe card's is lower and not listed
@@ -245,11 +247,22 @@ def add_common_args(parser) -> None:
     parser.add_argument("--mode", type=str, default="dear",
                         choices=["dear", "dear-fused", "allreduce", "rsag",
                                  "rb", "bytescheduler", "fsdp"],
-                        help="communication schedule ('dear' and "
-                             "'dear-fused' are ported; the others raise)")
+                        help="communication schedule ('dear'; "
+                             "'dear-fused' = dear with the ring kernels; "
+                             "the baselines 'allreduce', 'rsag', 'rb', "
+                             "'bytescheduler'; 'fsdp' = ZeRO-3, "
+                             "re-gather in backward)")
+    parser.add_argument("--partition", type=float, default=4.0,
+                        help="bytescheduler partition size in MB "
+                             "(reference bytescheduler --partition, "
+                             "imagenet_benchmark.py:37-38)")
     parser.add_argument("--threshold", type=float, default=25.0,
                         help="tensor-fusion threshold in MB; <= 0: one "
                              "bucket")
+    parser.add_argument("--exclude-parts", type=str, default="",
+                        help="comma list of {reducescatter,allgather} "
+                             "(time-breakdown ablations of --mode dear, "
+                             "dear/batch.sh)")
     parser.add_argument("--nearby-layers", type=int, default=None,
                         help="fuse every k layers instead of by threshold")
     parser.add_argument("--accum-steps", type=int, default=1,
@@ -275,17 +288,35 @@ def add_common_args(parser) -> None:
                              "PyTorch path over a gloo group")
 
 
+def parse_exclude_parts(s: str) -> tuple:
+    """``--exclude-parts`` -> the parts (the JAX runner's rule and
+    message)."""
+    parts = tuple(p.strip() for p in s.split(",") if p.strip())
+    for p in parts:
+        if p not in ("reducescatter", "allgather"):
+            raise SystemExit(f"--exclude-parts: unknown part {p!r}")
+    return parts
+
+
+def threshold_mb(args) -> Optional[float]:
+    return (None if args.threshold is None or args.threshold <= 0
+            else float(args.threshold))
+
+
 def config_from_args(args, *, world: Optional[int] = None):
-    """CLI args -> `DearConfig` (``DEAR_*`` variables fill the rest). With
-    ``--fp16`` gradients travel in bf16, and the gathers travel in bf16
+    """CLI args -> `DearConfig` (``DEAR_*`` variables fill the rest): the
+    JAX runner's rule (runner.py:537-615). With ``--fp16`` gradients
+    travel in bf16, except in ``fsdp``, whose reduce-scatter travels in
+    the gather dtype; the gathers travel in bf16 for ``dear`` and ``fsdp``
     only when world > 1 (at world 1 there is no gather traffic to halve,
-    and the pre-gather cast is pure overhead: the JAX package's rule)."""
+    and the pre-gather cast is pure overhead)."""
     from dear_pytorch_tpu_torch.config import DearConfig
 
     return DearConfig.from_env(
         mode=args.mode,
-        threshold_mb=args.threshold if args.threshold > 0 else None,
+        threshold_mb=threshold_mb(args),
         nearby_layers=args.nearby_layers,
+        exclude_parts=parse_exclude_parts(args.exclude_parts),
         optimizer_name=args.optimizer,
         lr=args.base_lr,
         momentum=args.momentum,
@@ -295,9 +326,11 @@ def config_from_args(args, *, world: Optional[int] = None):
             "warmup_steps": args.warmup_steps,
             "total_steps": args.total_steps,
         }.items() if v},
-        comm_dtype=torch.bfloat16 if args.fp16 else None,
+        comm_dtype=(torch.bfloat16 if args.fp16 and args.mode != "fsdp"
+                    else None),
         gather_dtype=(torch.bfloat16 if args.fp16 and world != 1
-                      and args.mode == "dear" else None),
+                      and args.mode in ("dear", "fsdp") else None),
         rng_seed=42,
+        partition_mb=args.partition,
         accum_steps=args.accum_steps,
     )

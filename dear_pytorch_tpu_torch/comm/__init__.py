@@ -1,2 +1,4 @@
 """The process group and the collectives over it (torch.distributed:
-NCCL on the card, gloo on the CPU)."""
+NCCL on the card, gloo on the CPU), and the round-robin `Communicator`."""
+
+from dear_pytorch_tpu_torch.comm.communicator import Communicator  # noqa: F401

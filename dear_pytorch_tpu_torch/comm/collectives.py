@@ -4,8 +4,11 @@
 The JAX package's collectives run inside ``shard_map`` on per-device
 shards; here each process holds its own tensor, and every function takes
 an optional ``group`` (the default: `comm.backend.group()`). With
-``async_op=True``, `reduce_scatter` and `all_gather` return ``(output,
-work)``: the caller waits on ``work`` before reading the output.
+``async_op=True``, `all_reduce`, `reduce`, `broadcast`, `reduce_scatter`,
+`all_gather`, `all_reduce_rsag`, `all_reduce_rb` and `send_recv` return
+``(output, work)``: the caller waits on ``work`` (None when the work is
+already done) before reading the output; ``out=`` names the output tensor
+(``out=x`` reduces in place).
 
 The gloo group of ranks that share one card (`comm.backend.card_shared`)
 runs each collective on host copies of its CUDA tensors: the copy to the
@@ -16,7 +19,7 @@ stream wait for it. A CUDA tensor on any other gloo group raises.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -26,8 +29,9 @@ from dear_pytorch_tpu_torch.ops.fusion import padded_length
 
 __all__ = [
     "StreamEvent", "all_gather", "all_reduce", "all_reduce_mean",
-    "all_reduce_rsag", "broadcast", "pad_to_multiple", "padded_length",
-    "reduce_scatter", "ring_shift", "send_recv",
+    "all_reduce_rb", "all_reduce_rsag", "broadcast", "multi_bcast",
+    "pad_to_multiple", "padded_length", "reduce", "reduce_scatter",
+    "ring_shift", "send_recv",
 ]
 
 # torch 2.13 renamed the single-tensor collectives; older builds have only
@@ -75,6 +79,36 @@ class StreamEvent:
         torch.cuda.current_stream().wait_event(self.event)
         return True
 
+    def is_completed(self) -> bool:
+        return self.event.query()
+
+
+class _Then:
+    """A work handle that runs ``then()`` once ``work`` is done (``work``
+    None: already done): the copy out of a scratch buffer that an async
+    collective wrote."""
+
+    def __init__(self, work, then: Callable[[], object]):
+        self.work, self.then = work, then
+
+    def wait(self) -> bool:
+        if self.work is not None:
+            self.work.wait()
+        self.then()
+        return True
+
+    def is_completed(self) -> bool:
+        return self.work is None or self.work.is_completed()
+
+
+def _finish(out, work, async_op: bool):
+    """``(out, work)``, or ``out`` once ``work`` is waited on."""
+    if async_op:
+        return out, work
+    if work is not None:
+        work.wait()
+    return out
+
 
 def _staged(fn, out: torch.Tensor, *xs: torch.Tensor, async_op: bool):
     """``fn(host_out, *host_xs)`` on host copies, the result copied into
@@ -94,24 +128,69 @@ def pad_to_multiple(x: torch.Tensor, world: int) -> torch.Tensor:
     return torch.cat([x, x.new_zeros((target - n,))])
 
 
-def all_reduce(x: torch.Tensor, group=None) -> torch.Tensor:
-    """The sum over the group, as a new tensor."""
+def all_reduce(x: torch.Tensor, group=None, *, async_op: bool = False,
+               out: Optional[torch.Tensor] = None):
+    """The sum over the group, into ``out`` (default: a new tensor)."""
     g = _group(group)
-    if _on_host(x, g):
-        return all_reduce(x.cpu(), g).to(x.device)
-    out = x.clone()
-    dist.all_reduce(out, group=g)
-    return out
+    if out is None:
+        out = x.clone()
+    elif out is not x:
+        out.copy_(x)
+    if _on_host(out, g):
+        return _staged(lambda o, h: (o.copy_(h), dist.all_reduce(o, group=g)),
+                       out, out, async_op=async_op)
+    work = dist.all_reduce(out, group=g, async_op=async_op)
+    return (out, work) if async_op else out
 
 
-def broadcast(x: torch.Tensor, root: int = 0, group=None) -> torch.Tensor:
-    """Overwrite ``x`` in place with group rank ``root``'s value; returns
-    ``x``."""
+def broadcast(x: torch.Tensor, root: int = 0, group=None, *,
+              async_op: bool = False, out: Optional[torch.Tensor] = None):
+    """Group rank ``root``'s ``x`` on every rank, into ``out`` (default:
+    ``x`` itself, overwritten in place); returns ``out``."""
     g = _group(group)
-    if _on_host(x, g):
-        return x.copy_(broadcast(x.cpu(), root, g))
-    dist.broadcast(x, dist.get_global_rank(g, root), group=g)
-    return x
+    if out is None:
+        out = x
+    elif out is not x:
+        out.copy_(x)
+    src = dist.get_global_rank(g, root)
+    if _on_host(out, g):
+        return _staged(lambda o, h: (o.copy_(h),
+                                     dist.broadcast(o, src, group=g)),
+                       out, out, async_op=async_op)
+    work = dist.broadcast(out, src, group=g, async_op=async_op)
+    return (out, work) if async_op else out
+
+
+def reduce(x: torch.Tensor, root: int = 0, group=None, *,
+           async_op: bool = False, out: Optional[torch.Tensor] = None):
+    """The sum over the group on group rank ``root``, into ``out``
+    (default: a copy of ``x``); on every other rank ``out`` keeps the
+    input (the JAX package's `reduce`, collectives.py:97, after NCCL's
+    in-place reduce, which leaves non-root buffers alone). gloo's reduce
+    may use a non-root buffer as scratch, so on gloo the reduction runs in
+    a copy that only the root copies out."""
+    g = _group(group)
+    if out is None:
+        out = x.clone()
+    elif out is not x:
+        out.copy_(x)
+    dst = dist.get_global_rank(g, root)
+    is_root = dist.get_rank(g) == root
+
+    def into_copy(o, h):
+        tmp = h.clone()
+        dist.reduce(tmp, dst, group=g)
+        o.copy_(tmp if is_root else h)
+
+    if _on_host(out, g):
+        return _staged(into_copy, out, out, async_op=async_op)
+    if dist.get_backend(g) != "gloo":
+        work = dist.reduce(out, dst, group=g, async_op=async_op)
+        return (out, work) if async_op else out
+    tmp = out.clone()
+    work = dist.reduce(tmp, dst, group=g, async_op=True)
+    return _finish(out, _Then(work, lambda: is_root and out.copy_(tmp)),
+                   async_op)
 
 
 def all_reduce_mean(x: torch.Tensor, group=None) -> torch.Tensor:
@@ -152,39 +231,98 @@ def all_gather(x: torch.Tensor, group=None, *, async_op: bool = False,
     return (out, work) if async_op else out
 
 
-def all_reduce_rsag(x: torch.Tensor, group=None) -> torch.Tensor:
+def all_reduce_rsag(x: torch.Tensor, group=None, *, async_op: bool = False,
+                    out: Optional[torch.Tensor] = None):
     """All-reduce as reduce-scatter then all-gather, padding any length to
     the world and stripping the pad after (the decomposition whose halves
-    DeAR schedules apart)."""
+    DeAR schedules apart), into ``out`` (default: a new tensor; contiguous,
+    of ``x``'s shape). The reduce-scatter is done when the call returns
+    (on the card: the current stream waits for it); the all-gather is the
+    work."""
     g = _group(group)
     world = dist.get_world_size(g)
     flat = x.reshape(-1)
-    full = all_gather(reduce_scatter(pad_to_multiple(flat, world), g), g)
-    return full[:flat.shape[0]].reshape(x.shape)
+    n = flat.shape[0]
+    if out is None:
+        out = torch.empty_like(x, memory_format=torch.contiguous_format)
+    shard = reduce_scatter(pad_to_multiple(flat, world), g)
+    if padded_length(n, world) == n:
+        _, work = all_gather(shard, g, async_op=True, out=out.view(-1))
+        return _finish(out, work, async_op)
+    full, work = all_gather(shard, g, async_op=True)
+    return _finish(out, _Then(work, lambda: out.view(-1).copy_(full[:n])),
+                   async_op)
 
 
-def send_recv(x: torch.Tensor, peer_of: Sequence[int],
-              group=None) -> torch.Tensor:
+def all_reduce_rb(x: torch.Tensor, root: int = 0, group=None, *,
+                  async_op: bool = False,
+                  out: Optional[torch.Tensor] = None):
+    """All-reduce as a reduce to group rank ``root`` then its broadcast
+    (the JAX package's `all_reduce_rb`, collectives.py:134), into ``out``
+    (default: a new tensor). The reduce is done when the call returns; the
+    broadcast is the work."""
+    g = _group(group)
+    out = reduce(x, root, g, out=out)
+    return broadcast(out, root, g, async_op=async_op)
+
+
+def multi_bcast(tensors: Sequence[torch.Tensor],
+                fn: Callable[[torch.Tensor], torch.Tensor],
+                min_elems: int = 512 * 512, group=None, *,
+                async_op: bool = False):
+    """``fn`` of every tensor, each computed once and broadcast (the JAX
+    package's `multi_bcast`, collectives.py:164): a tensor of fewer than
+    ``min_elems`` elements is computed by every rank itself; the others
+    get owners round-robin over the group's ranks in the order they come,
+    and each owner computes ``fn`` of its own tensor and broadcasts the
+    result. ``fn`` returns a tensor of its input's shape and dtype (what a
+    non-owner receives into). Returns the list of results (with
+    ``async_op``: and the list of the broadcasts' works)."""
+    g = _group(group)
+    world, rank = dist.get_world_size(g), dist.get_rank(g)
+    outs, works = [], []
+    owner = 0
+    for t in tensors:
+        if t.numel() < min_elems:
+            outs.append(fn(t))
+            continue
+        root = owner % world
+        owner += 1
+        res = fn(t) if rank == root else torch.empty_like(t)
+        res, work = broadcast(res, root, g, async_op=True)
+        outs.append(res)
+        works.append(work)
+    if async_op:
+        return outs, works
+    for work in works:
+        if work is not None:
+            work.wait()
+    return outs
+
+
+def send_recv(x: torch.Tensor, peer_of: Sequence[int], group=None, *,
+              async_op: bool = False):
     """Pairwise exchange (the JAX package's `send_recv`, collectives.py:156):
     rank i sends ``x`` to ``peer_of[i]`` and receives, as a new tensor, from
     the rank that names it as its peer. ``peer_of`` is a permutation of the
-    ranks. Over gloo ``x`` lies on the CPU (the ring's plain version)."""
+    ranks."""
     g = _group(group)
     world, rank = dist.get_world_size(g), dist.get_rank(g)
     if len(peer_of) != world or len(set(peer_of)) != world:
         raise ValueError(f"send_recv: peer_of must name each of the {world} "
                          f"ranks once, got {list(peer_of)}")
+    if _on_host(x, g):
+        return _staged(lambda o, h: o.copy_(send_recv(h, peer_of, g)),
+                       torch.empty_like(x), x, async_op=async_op)
     dst = peer_of[rank]
     src = list(peer_of).index(rank)
     if dst == rank:
-        return x.clone()
+        return _finish(x.clone(), None, async_op)
     out = torch.empty_like(x)
     reqs = [dist.isend(x.contiguous(), dist.get_global_rank(g, dst),
                        group=g),
             dist.irecv(out, dist.get_global_rank(g, src), group=g)]
-    for req in reqs:
-        req.wait()
-    return out
+    return _finish(out, _Then(reqs[1], reqs[0].wait), async_op)
 
 
 def ring_shift(x: torch.Tensor, group=None) -> torch.Tensor:

@@ -27,12 +27,11 @@ _COMM_DTYPES = {
 
 #: field -> (its default, the ROADMAP item that ports it)
 _UNPORTED = {
-    "exclude_parts": ((), "Queue 1 item 7 (modes and ablations)"),
     "autotune": (None, "Queue 1 item 8 (tuning)"),
-    "compressor": (None, "Queue 1 item 7 (compression)"),
-    "gtopk": (False, "Queue 1 item 7 (compression)"),
-    "momentum_correction": (0.0, "Queue 1 item 7 (compression)"),
-    "remat": (None, "Queue 1 item 7 (remat)"),
+    "compressor": (None, "Queue 1 item 7b (compression)"),
+    "gtopk": (False, "Queue 1 item 7b (compression)"),
+    "momentum_correction": (0.0, "Queue 1 item 7b (compression)"),
+    "remat": (None, "Queue 1 item 7c (remat)"),
 }
 
 
@@ -189,10 +188,12 @@ class DearConfig:
                     f"ROADMAP {item}")
         return dict(
             mode=self.mode,
+            exclude_parts=self.exclude_parts,
             optimizer=self.optimizer(),
             comm_dtype=self.comm_dtype,
             gather_dtype=self.gather_dtype,
             rng_seed=self.rng_seed,
+            partition_mb=self.partition_mb,
             accum_steps=self.accum_steps,
             clip_norm=self.clip_norm,
         )

@@ -28,7 +28,7 @@ without reading the device.
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
 kernel or raises; any other device raises. ``fused_update_launches``
 counts kernel launches. ``fused_lamb`` and ``from_optax`` are not ported
-(ROADMAP Queue 1 item 3): LAMB needs per-parameter reductions that
+(ROADMAP Queue 1 item 7c): LAMB needs per-parameter reductions that
 ``_rs_update_kernel`` cannot fuse either (collective_matmul.py:298-305).
 """
 
@@ -302,10 +302,10 @@ def fused_adamw(lr, betas: tuple = (0.9, 0.999), eps: float = 1e-8,
 def fused_lamb(*args, **kwargs):
     raise NotImplementedError(
         "fused_lamb (layerwise trust ratios over shards) is not ported yet: "
-        "ROADMAP Queue 1 item 3")
+        "ROADMAP Queue 1 item 7c")
 
 
 def from_optax(*args, **kwargs):
     raise NotImplementedError(
         "from_optax adapts optax transforms, which the port does not use: "
-        "ROADMAP Queue 1 item 3")
+        "ROADMAP Queue 1 item 7c")

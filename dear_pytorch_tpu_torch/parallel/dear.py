@@ -1,5 +1,5 @@
-"""The DeAR schedule in eager PyTorch — the port of
-``dear_pytorch_tpu/parallel/dear.py`` for ``mode="dear"``.
+"""The DeAR schedule and its baselines in eager PyTorch — the port of
+``dear_pytorch_tpu/parallel/dear.py``.
 
 This is the reference system's own shape (the JAX module's docstring,
 dear.py:3-9), kept to the JAX package's semantics (dear.py:11-32):
@@ -81,9 +81,63 @@ the ranks and each integer or bool buffer the max. The next forward (a
 pre-hook on the model) and `TrainStep.gather_params` wait for it. At world
 1, and for a model without buffers (the GPT models), nothing runs.
 
+The baseline schedules (the JAX module's docstring, dear.py:34-90) share
+one path. ``allreduce``, ``rsag``, ``rb`` and ``bytescheduler`` replicate:
+each bucket's fp32 master is the whole padded bucket on every rank
+(``DearState.shards`` holds the full buckets, the JAX package's
+``state.buffers``), the model's parameters are views into it, the
+optimizer state is full size, and nothing is gathered. When a bucket's
+last gradient is in, its reduction starts asynchronously on the comm
+stream, in place in the bucket's gradient buffer, as DDP/WFBP do; the four
+modes differ only in that collective (`_REDUCTIONS`): an all-reduce; a
+reduce-scatter then an all-gather (``all_reduce_rsag``); a reduce to rank
+0 then a broadcast (``all_reduce_rb``); or, for ``bytescheduler``, one
+independent reduce-scatter + all-gather pair per ``partition_mb`` chunk of
+the bucket (`ops.fusion.chunk_bounds` in the comm dtype), in layer order.
+After backward each full bucket gets the K5 epilogue; with ``clip_norm``
+the local sum of squares already is the global one (no all-reduce of it,
+JAX dear.py:900-904).
+
+``fsdp`` is ZeRO-3 (JAX dear.py:581, :641-700): the ``dear`` schedule,
+except that no full bucket lives from the forward to the backward. The
+forward runs under ``saved_tensors_hooks`` whose pack replaces every
+saved tensor that is a view of a full bucket (a parameter, its
+transpose) by a reference to it; after the forward every bucket's
+storage is freed (``untyped_storage().resize_(0)``; the parameters stay
+views of the emptied storage); in the backward the unpack of the first
+such reference re-gathers the bucket (the analogue of JAX's
+``checkpoint_name`` policy), and the bucket is freed again once its last
+gradient is in, where its reduce-scatter — the transpose of the gather —
+starts. Both legs travel in ``gather_dtype`` (``comm_dtype`` must be
+None), so the numerics are ``dear``'s with ``comm_dtype = gather_dtype``.
+A saved cast of a parameter (``gather_dtype`` unlike the compute dtype:
+``weight.to(dt)``), or a view of one, is not the bucket's storage; the
+pack saves it as a reference to the parameter and its dtype, and the
+unpack casts the re-gathered bucket again, as JAX's policy denies saving
+``convert_element_type`` (dear.py:680-689). A cast of a view of a
+parameter (a reshape before the cast) is saved as it is, and stays
+alive. With ``accum_steps`` every microbatch gathers again.
+Freeing after the whole forward, not after each module, keeps a
+parameter that a later module reads again (GPT-2's tied ``wte`` in the
+head) alive; a training step's peak lies in the backward, after the
+loss, where no bucket is gathered yet.
+
+``exclude_parts`` (``mode="dear"`` only; JAX dear.py:584-594, :852-856)
+are the reference's time-breakdown ablations, garbage numerics by design:
+without ``allgather`` the full buffer is zeros with this rank's shard at
+its slot and no gather runs; without ``reducescatter`` the update reads
+this rank's slice of its own gradient and no reduce-scatter runs.
+
+Every schedule counts its collectives on the `TrainStep` (with B buckets,
+per step): ``dear`` B reduce-scatters, B all-gathers, B updates; ``fsdp``
+B, 2B, B (with ``accum_steps`` k: B, 2kB, B); ``allreduce`` B all-reduces;
+``rsag`` B reduce-scatters and B all-gathers; ``rb`` B reduces and B
+broadcasts; ``bytescheduler`` one reduce-scatter and one all-gather per
+chunk; each of them B updates; an excluded leg counts 0.
+
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): the other modes, compression, ``exclude_parts``, ``remat``, the
-multi-slice ``dcn`` schedule and ``multi_step``.
+item): compression, ``remat`` (outside ``fsdp``, which refuses it as
+JAX's does), LAMB, the multi-slice ``dcn`` schedule and ``multi_step``.
 """
 
 from __future__ import annotations
@@ -109,16 +163,22 @@ from dear_pytorch_tpu_torch.ops.fused_sgd import (
     fused_sgd,
 )
 
-__all__ = ["DearState", "MODES", "TrainStep", "build_train_step"]
+__all__ = ["DearState", "EXCLUDABLE", "MODES", "TrainStep",
+           "build_train_step"]
 
 MODES = ("dear", "dear-fused", "allreduce", "rsag", "rb", "bytescheduler",
          "fsdp")
+#: the ablation switches of ``mode="dear"`` (JAX dear.py:120-123)
+EXCLUDABLE = ("reducescatter", "allgather")
+#: the schedules whose fp32 masters are shards (ZeRO); the others replicate
+_SHARDED = ("dear", "dear-fused", "fsdp")
 
 
 class DearState(NamedTuple):
     """Carried training state: per bucket the fp32 master shard this rank
-    owns and its optimizer state; the global step count. The tensors are
-    updated in place by `TrainStep.step`."""
+    owns (in the replicated modes the whole padded bucket) and its
+    optimizer state; the global step count. The tensors are updated in
+    place by `TrainStep.step`."""
 
     shards: tuple
     opt_state: tuple
@@ -128,11 +188,57 @@ class DearState(NamedTuple):
 #: options of the JAX package's ``build_train_step`` that are not ported
 #: yet -> the ROADMAP Queue 1 item that brings them
 _UNPORTED = {
-    "exclude_parts": "7 (modes and ablations)",
-    "compressor": "7 (compression)", "gtopk": "7 (compression)",
-    "momentum_correction": "7 (compression)",
-    "remat": "7 (remat)", "dcn": "9 (the multi-slice schedule)",
+    "compressor": "7b (compression)", "gtopk": "7b (compression)",
+    "momentum_correction": "7b (compression)",
+    "dcn": "9 (the multi-slice schedule)",
 }
+
+
+class _SavedView(NamedTuple):
+    """What ``fsdp``'s pack hook saves for a view of full bucket
+    ``bucket`` (shape, stride, offset), or for a cast of such a view:
+    enough to rebuild it once the bucket is gathered again. ``cast``: None,
+    or the cast's dtype and the saved tensor's shape, stride and offset in
+    the cast's copy."""
+
+    bucket: int
+    shape: tuple
+    stride: tuple
+    offset: int
+    cast: Optional[tuple] = None
+
+
+def _allreduce(step, buf):
+    step.ar_launches += 1
+    return [C.all_reduce(buf, step.group, async_op=True, out=buf)[1]]
+
+
+def _rsag(step, buf):
+    step.rs_launches += 1
+    step.ag_launches += 1
+    return [C.all_reduce_rsag(buf, step.group, async_op=True, out=buf)[1]]
+
+
+def _rb(step, buf):
+    step.reduce_launches += 1
+    step.bcast_launches += 1
+    return [C.all_reduce_rb(buf, 0, step.group, async_op=True, out=buf)[1]]
+
+
+def _bytescheduler(step, buf):
+    bounds = F.chunk_bounds(buf.shape[0], buf.element_size(),
+                            step.partition_mb)
+    step.rs_launches += len(bounds)
+    step.ag_launches += len(bounds)
+    return [C.all_reduce_rsag(buf[lo:hi], step.group, async_op=True,
+                              out=buf[lo:hi])[1] for lo, hi in bounds]
+
+
+#: the replicated modes: ``(step, buf) -> works``, the collective each
+#: applies to a bucket's whole gradient buffer, in place and async; each
+#: counts its launches on the step
+_REDUCTIONS = {"allreduce": _allreduce, "rsag": _rsag, "rb": _rb,
+               "bytescheduler": _bytescheduler}
 
 
 def _unported(what: str, item: str):
@@ -183,8 +289,11 @@ def build_train_step(loss_fn: Callable, model: nn.Module, *,
                      accum_steps: int = 1,
                      clip_norm: Optional[float] = None, device=None,
                      model_state_template=None,
+                     exclude_parts: Sequence[str] = (),
+                     partition_mb: Optional[float] = 4.0,
+                     remat: Optional[str] = None,
                      **unported) -> "TrainStep":
-    """Build the eager DeAR train step over ``model``.
+    """Build the eager DeAR (or baseline) train step over ``model``.
 
     ``loss_fn(model, batch) -> loss`` (``(loss, aux)`` with ``has_aux``);
     with ``rng_seed`` it is called as ``loss_fn(model, batch, generator)``
@@ -205,18 +314,43 @@ def build_train_step(loss_fn: Callable, model: nn.Module, *,
     ``model_state_template``: the names of the model's buffers that are its
     state (any iterable of names, e.g. a ``state_dict``-like mapping; the
     default, None, is every buffer), synced over the group once per step
-    (module docstring). The JAX package's other options
-    (``exclude_parts``, ``compressor``, ``gtopk``, ``momentum_correction``,
-    ``remat``, ``dcn``) are accepted at their defaults and raise
-    ``NotImplementedError`` otherwise."""
+    (module docstring). ``mode``: one of `MODES` (module docstring).
+    ``exclude_parts``: a subset of `EXCLUDABLE`, the time-breakdown
+    ablations of ``mode="dear"``. ``partition_mb``: ``bytescheduler``'s
+    chunk size in MB of the comm dtype (other modes ignore it). ``remat``:
+    None or ``"none"`` (``"full"`` is not ported yet; ``fsdp`` refuses it).
+    The JAX package's other options (``compressor``, ``gtopk``,
+    ``momentum_correction``, ``dcn``) are accepted at their defaults and
+    raise ``NotImplementedError`` otherwise. The guards are the JAX
+    package's, with its messages (dear.py:361-366, :401-482)."""
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+    for e in exclude_parts:
+        if e not in EXCLUDABLE:
+            raise ValueError(f"exclude_parts entries must be in {EXCLUDABLE}")
+    if exclude_parts and mode != "dear":
+        raise ValueError("exclude_parts is a 'dear'-mode ablation")
     if mode == "dear-fused":
         _fused_guards(optimizer, clip_norm, unported)
-    elif mode != "dear":
-        raise _unported(f"mode={mode!r}", "7 (modes and ablations)")
+    if gather_dtype is not None and mode not in _SHARDED:
+        raise ValueError("gather_dtype applies to the sharded ('dear'/'fsdp') "
+                         "schedules only")
+    if mode == "fsdp" and comm_dtype is not None:
+        raise ValueError(
+            "'fsdp' communicates both legs in gather_dtype (the "
+            "reduce-scatter is the all-gather's AD transpose); comm_dtype "
+            "must be None")
+    if remat not in (None, "none", "full"):
+        raise ValueError(
+            f"remat must be None, 'none' or 'full', got {remat!r}")
+    if remat == "full":
+        if mode == "fsdp":
+            raise ValueError(
+                "'fsdp' owns its rematerialization policy (the re-gather-in-"
+                "backward checkpoint); remat applies to the other schedules")
+        raise _unported("remat='full'", "7c (remat)")
     if isinstance(optimizer, LayerwiseShardOptimizer):
-        raise _unported("LayerwiseShardOptimizer (LAMB)", "3")
+        raise _unported("LayerwiseShardOptimizer (LAMB)", "7c")
     for name, value in unported.items():
         if name not in _UNPORTED:
             raise TypeError(f"build_train_step() got an unexpected keyword "
@@ -241,7 +375,8 @@ def build_train_step(loss_fn: Callable, model: nn.Module, *,
                      plan, comm_dtype=comm_dtype, gather_dtype=gather_dtype,
                      has_aux=has_aux, rng_seed=rng_seed,
                      accum_steps=int(accum_steps), clip_norm=clip_norm,
-                     fused=mode == "dear-fused",
+                     mode=mode, exclude_parts=exclude_parts,
+                     partition_mb=partition_mb,
                      model_state=_model_state(model, model_state_template))
 
 
@@ -268,18 +403,22 @@ def _ring_matmul_elems(model, world: int) -> int:
 class TrainStep:
     """What `build_train_step` returns: ``init``, ``step``,
     ``gather_params``, ``plan`` and ``group``, and the per-run counters
-    ``rs_launches``, ``ag_launches`` and ``update_launches`` (one of each
-    per bucket per step) that show the schedule ran per bucket,
-    ``cm_calls`` (ring-matmul calls, three per ring projection per step)
-    and ``state_syncs`` (model-state collectives: one per step at world >
-    1 when the model has state, else none).
+    that show the schedule ran per bucket: ``rs_launches``,
+    ``ag_launches``, ``ar_launches``, ``reduce_launches`` and
+    ``bcast_launches`` (each collective launched, by kind; the module
+    docstring has their counts per step for each mode),
+    ``update_launches`` (one per bucket per step), ``cm_calls``
+    (ring-matmul calls, three per ring projection per step) and
+    ``state_syncs`` (model-state collectives: one per step at world > 1
+    when the model has state, else none).
     In ``dear-fused`` mode ``ring`` is the step's `comm.ring.Ring` (holding
     no buffers at world 1; with a "cm" leg when the model has ring
     projections); `close` frees it once every rank is done."""
 
     def __init__(self, loss_fn, model, optimizer, group, plan, *,
                  comm_dtype, gather_dtype, has_aux, rng_seed, accum_steps,
-                 clip_norm, fused=False, model_state=()):
+                 clip_norm, mode="dear", exclude_parts=(), partition_mb=4.0,
+                 model_state=()):
         self.loss_fn, self.model, self.optimizer = loss_fn, model, optimizer
         self.group, self.plan = group, plan
         self.has_aux, self.rng_seed = has_aux, rng_seed
@@ -287,7 +426,14 @@ class TrainStep:
         self.world = dist.get_world_size(group)
         self.rank = dist.get_rank(group)
         self.device = dev = model.device
+        self.mode = mode
+        self.sharded = mode in _SHARDED
+        self.fsdp = mode == "fsdp"
+        self._exclude = frozenset(exclude_parts)
+        self._reduction = _REDUCTIONS.get(mode)
+        self.partition_mb = partition_mb
         self.rs_launches = self.ag_launches = self.update_launches = 0
+        self.ar_launches = self.reduce_launches = self.bcast_launches = 0
         self.cm_calls = self.state_syncs = 0
         self._mstate = list(model_state)
         self._mstate_done = None
@@ -306,34 +452,45 @@ class TrainStep:
             return torch.zeros((n,), dtype=dt, device=dev)
 
         bks = plan.buckets
-        self.fused = fused
+        self.fused = fused = mode == "dear-fused"
         # every rank builds its ring here, at the same point: the peer
         # buffers' handles are exchanged over the group (none at world 1)
         self.ring = (Ring(group, dev, max(b.shard_size for b in bks),
                           cm_elems=_ring_matmul_elems(model, self.world))
                      if fused else None)
         # dear-fused: the gather buffers are the ring's registered outputs,
-        # which K4 fills directly, a neighbour's chunks included
+        # which K4 fills directly, a neighbour's chunks included; the
+        # replicated modes: the fp32 masters themselves (gdt is fp32)
         self._full = (self.ring.register_outputs(
             [b.padded_size for b in bks], gdt) if fused
             else [zeros(b.padded_size, gdt) for b in bks])
-        self._send = [zeros(b.shard_size, gdt) if gdt != torch.float32
-                      else None for b in bks]
+        #: fsdp: each full bucket's bytes, and bucket by storage address
+        self._full_bytes = [f.untyped_storage().nbytes() for f in self._full]
+        self._bucket_of_storage: dict = {}
+        if self.fsdp:
+            self._index_storages()
+        self._send = [zeros(b.shard_size, gdt)
+                      if self.sharded and gdt != torch.float32 else None
+                      for b in bks]
         self._gbuf = [zeros(b.padded_size, cdt) for b in bks]
-        self._rs_out = [zeros(b.shard_size, cdt) for b in bks]
+        # the reduced gradient each update reads: the reduce-scatter's
+        # output, or (replicated) the gradient buffer reduced in place
+        self._reduced = ([zeros(b.shard_size, cdt) for b in bks]
+                         if self.sharded else self._gbuf)
         self._acc = ([zeros(b.padded_size, torch.float32) for b in bks]
                      if accum_steps > 1 else None)
         self._slot = {}
         for b in bks:
             for leaf_id, off in zip(b.leaf_ids, b.offsets):
                 self._slot[leaf_id] = (b.index, off, plan.leaves[leaf_id].size)
-        self._rs_work = [None] * len(bks)
+        self._rs_work: list = [[] for _ in bks]
         self._ag_work = [None] * len(bks)
         self._pending = [0] * len(bks)
         self._fired: set = set()
         self._last_mb = True
         self._comm = (torch.cuda.Stream(dev) if dev.type == "cuda" else None)
         self._bound = False
+        self._hooks: list = []
         #: dear-fused: the one order every rank issues its reduce-scatters in
         self._rs_order = [b.index for b in reversed(bks)]
         self._rs_next = 0
@@ -354,16 +511,29 @@ class TrainStep:
         with torch.cuda.stream(self._comm):
             yield
 
-    def _reduce_scatter(self, g: int) -> None:
+    def _reduce(self, g: int) -> None:
+        """Start bucket g's reduction, on the comm stream: its
+        reduce-scatter (or, in a replicated mode, the mode's collective in
+        place; without ``reducescatter``, the copy of this rank's slice)."""
         if self.fused:
             self._rs_ready.add(g)
             self._fused_reduce_scatters()
             return
         with self._on_comm():
-            _, self._rs_work[g] = C.reduce_scatter(
-                self._gbuf[g], self.group, async_op=True,
-                out=self._rs_out[g])
-        self.rs_launches += 1
+            if self._reduction is not None:
+                works = self._reduction(self, self._gbuf[g])
+            elif "reducescatter" in self._exclude:
+                n = self.plan.buckets[g].shard_size
+                self._reduced[g].copy_(
+                    self._gbuf[g][self.rank * n:(self.rank + 1) * n])
+                works = [C.StreamEvent.after_current(self.device)]
+            else:
+                _, work = C.reduce_scatter(
+                    self._gbuf[g], self.group, async_op=True,
+                    out=self._reduced[g])
+                works = [work]
+                self.rs_launches += 1
+        self._rs_work[g] = works
 
     def _fused_reduce_scatters(self) -> None:
         """Issue K5 ring for every bucket whose turn in the fixed order has
@@ -383,9 +553,16 @@ class TrainStep:
             self.update_launches += 1
 
     def _gather(self, g: int, shard: torch.Tensor) -> None:
+        if self.fsdp:
+            self._alloc(g)
         with self._on_comm():   # the cast too: K5 ring updates the shard there
             src = (shard if self._send[g] is None
                    else self._send[g].copy_(shard))
+            if "allgather" in self._exclude:   # zeros, this rank's slot
+                full, n = self._full[g], shard.shape[0]
+                full.zero_()[self.rank * n:(self.rank + 1) * n].copy_(src)
+                self._ag_work[g] = C.StreamEvent.after_current(self.device)
+                return
             if self.fused:   # the direct route, or an error on the card
                 CM.ring_all_gather(src, self.ring, out=self._full[g],
                                    direct=True)
@@ -394,6 +571,81 @@ class TrainStep:
                 _, self._ag_work[g] = C.all_gather(
                     src, self.group, async_op=True, out=self._full[g])
         self.ag_launches += 1
+
+    # -- fsdp: full buckets freed from the forward to the backward -----------
+
+    def _storage(self, g: int):
+        return self._full[g].untyped_storage()
+
+    def _index_storages(self) -> None:
+        self._bucket_of_storage = {
+            self._storage(g).data_ptr(): g for g in range(len(self._full))
+            if self._storage(g).nbytes()}
+
+    def _alloc(self, g: int) -> None:
+        if not self._storage(g).nbytes():
+            self._storage(g).resize_(self._full_bytes[g])
+            self._index_storages()
+
+    def _free(self, g: int) -> None:
+        if self._storage(g).nbytes():
+            self._wait_gathers([g])
+            self._storage(g).resize_(0)
+            self._index_storages()
+
+    def _free_all(self) -> None:
+        if self.fsdp:
+            for g in range(len(self._full)):
+                self._free(g)
+
+    def _bucket_of(self, t: torch.Tensor) -> Optional[int]:
+        """The full bucket whose storage ``t`` views, if any."""
+        if t.layout != torch.strided or t.device != self.device:
+            return None
+        return self._bucket_of_storage.get(t.untyped_storage().data_ptr())
+
+    def _pack(self, t: torch.Tensor):
+        """Save a view of a full bucket, or a (view of a) cast of a
+        parameter, as a `_SavedView`; anything else as itself."""
+        g = self._bucket_of(t)
+        if g is not None:
+            return _SavedView(g, tuple(t.shape), tuple(t.stride()),
+                              t.storage_offset())
+        copy = t if t._base is None else t._base
+        fn = copy.grad_fn
+        if type(fn).__name__ != "ToCopyBackward0":
+            return t
+        p = getattr(fn.next_functions[0][0], "variable", None)
+        g = None if p is None else self._bucket_of(p)
+        if g is None or copy.stride() != p.stride() or copy.storage_offset():
+            return t
+        return _SavedView(g, tuple(p.shape), tuple(p.stride()),
+                          p.storage_offset(),
+                          (copy.dtype, tuple(t.shape), tuple(t.stride()),
+                           t.storage_offset()))
+
+    def _unpack(self, saved):
+        """A `_SavedView`'s view (cast again, for a cast), its bucket
+        gathered again if it was freed."""
+        if not isinstance(saved, _SavedView):
+            return saved
+        g = saved.bucket
+        if not self._storage(g).nbytes():
+            self._gather(g, self._state.shards[g])
+        self._wait_gathers([g])
+        view = self._full[g].as_strided(saved.shape, saved.stride,
+                                        saved.offset)
+        if saved.cast is None:
+            return view
+        dtype, shape, stride, offset = saved.cast
+        return view.to(dtype).as_strided(shape, stride, offset)
+
+    def _saving(self):
+        """The forward's saved-tensor hooks (fsdp; else nothing)."""
+        if not self.fsdp:
+            return contextlib.nullcontext()
+        return torch.autograd.graph.saved_tensors_hooks(self._pack,
+                                                        self._unpack)
 
     def _wait_gathers(self, buckets) -> None:
         for g in buckets:
@@ -410,17 +662,20 @@ class TrainStep:
 
         def hook(p):
             grad, p.grad = p.grad.reshape(-1), None
-            if self._acc is not None:
-                self._acc[g][sl].add_(grad)
-                if not self._last_mb:
-                    return
-                self._gbuf[g][sl].copy_(self._acc[g][sl] / self.accum_steps)
-            else:
+            if self._acc is None:
                 self._gbuf[g][sl].copy_(grad)
+            else:
+                self._acc[g][sl].add_(grad)
+                if self._last_mb:
+                    self._gbuf[g][sl].copy_(
+                        self._acc[g][sl] / self.accum_steps)
             self._fired.add(leaf_id)
             self._pending[g] -= 1
-            if self._pending[g] == 0:
-                self._reduce_scatter(g)
+            if self._pending[g] == 0:   # the bucket's gradients are in
+                if self.fsdp:
+                    self._free(g)
+                if self._last_mb:
+                    self._reduce(g)
 
         return hook
 
@@ -437,16 +692,17 @@ class TrainStep:
             for pname, _ in list(mod.named_parameters(recurse=False)):
                 leaf_id = ids[f"{mname}.{pname}" if mname else pname]
                 p = nn.Parameter(views[leaf_id])
-                p.register_post_accumulate_grad_hook(self._grad_hook(leaf_id))
+                self._hooks.append(p.register_post_accumulate_grad_hook(
+                    self._grad_hook(leaf_id)))
                 setattr(mod, pname, p)
                 owned.append(self._slot[leaf_id][0])
             if owned:
                 buckets = sorted(set(owned))
-                mod.register_forward_pre_hook(
-                    lambda m, args, gs=buckets: self._wait_gathers(gs))
+                self._hooks.append(mod.register_forward_pre_hook(
+                    lambda m, args, gs=buckets: self._wait_gathers(gs)))
         if self._mstate:
-            self.model.register_forward_pre_hook(
-                lambda m, args: self._wait_model_state())
+            self._hooks.append(self.model.register_forward_pre_hook(
+                lambda m, args: self._wait_model_state()))
         self._bound = True
 
     # -- the step ------------------------------------------------------------
@@ -464,6 +720,10 @@ class TrainStep:
         shards = []
         with torch.no_grad():
             for b in self.plan.buckets:
+                if not self.sharded:   # the full master: the model's buffer
+                    shards.append(F.pack_bucket(leaves, self.plan, b.index,
+                                                out=self._full[b.index]))
+                    continue
                 flat = F.pack_bucket(leaves, self.plan, b.index,
                                      dtype=torch.float32)
                 lo = self.rank * b.shard_size
@@ -471,8 +731,9 @@ class TrainStep:
         opt = tuple(self.optimizer.init(s) for s in shards)
         if not self._bound:
             self._bind()
-        for g, shard in enumerate(shards):
-            self._gather(g, shard)
+        if self.sharded:
+            for g, shard in enumerate(shards):
+                self._gather(g, shard)
         return DearState(tuple(shards), opt, 0)
 
     def _generator(self, step: int, microbatch: int) -> torch.Generator:
@@ -515,7 +776,7 @@ class TrainStep:
                             self._acc[b.index][sl] / self.accum_steps)
                     else:
                         self._gbuf[b.index][sl].zero_()
-            self._reduce_scatter(b.index)
+            self._reduce(b.index)
 
     def step(self, state: DearState, batch) -> tuple:
         """One training step: forward and backward per microbatch, the
@@ -535,14 +796,20 @@ class TrainStep:
             self._last_mb = i == len(mbs) - 1
             self._pending = [len(b.leaf_ids) for b in self.plan.buckets]
             self._fired = set()
+            if self.fsdp and i:   # the last backward freed every bucket
+                for g, shard in enumerate(state.shards):
+                    self._gather(g, shard)
             args = (self.model, mb)
             if self.rng_seed is not None:
                 args += (self._generator(state.step, i),)
             calls = dict(CM.ring_matmul_calls)
             with CM.bind_ring(self.ring):
-                out = self.loss_fn(*args)
+                with self._saving():
+                    out = self.loss_fn(*args)
                 loss, aux = out if self.has_aux else (out, None)
+                self._free_all()
                 loss.backward()
+            self._free_all()   # buckets no saved tensor brought back
             self._count_ring_matmuls(calls)
             losses.append(loss.detach().float())
             if aux is not None:
@@ -589,16 +856,18 @@ class TrainStep:
             torch.cuda.current_stream(self.device).wait_event(done)
 
     def _update_and_gather(self, state: DearState, metrics: dict) -> None:
-        """dear: wait for each bucket's reduce-scatter, clip, update each
-        shard, and start its gather."""
-        for g, work in enumerate(self._rs_work):
-            work.wait()
-            self._rs_work[g] = None
+        """Wait for each bucket's reduction, clip, update each shard (or
+        full bucket), and start each shard's gather."""
+        for g, works in enumerate(self._rs_work):
+            for work in works:
+                if work is not None:
+                    work.wait()
+            self._rs_work[g] = []
         clip_scale = None
         if self.clip_norm is not None:
             mw = torch.tensor(float(self.world), device=self.device)
-            sumsq = sum((r.float() / mw).square().sum() for r in self._rs_out)
-            if self.world > 1:
+            sumsq = sum((r.float() / mw).square().sum() for r in self._reduced)
+            if self.sharded and self.world > 1:   # replicated: already global
                 sumsq = C.all_reduce(sumsq, self.group)
             gnorm = sumsq.sqrt()
             clip_scale = torch.clamp(
@@ -607,11 +876,12 @@ class TrainStep:
         with torch.no_grad():
             for g, shard in enumerate(state.shards):
                 self.optimizer.update(
-                    self._rs_out[g], state.opt_state[g], shard,
+                    self._reduced[g], state.opt_state[g], shard,
                     mean_world=self.world, clip_scale=clip_scale,
                     step=state.step)
                 self.update_launches += 1
-                self._gather(g, shard)
+                if self.sharded:
+                    self._gather(g, shard)
 
     def _sync_model_state(self) -> None:
         """After the last microbatch's backward: the mean over the ranks of
@@ -661,6 +931,8 @@ class TrainStep:
         mode through the ring all-gather, K4). The model state's last sync
         is done too."""
         self._wait_model_state()
+        if not self.sharded:
+            return F.unpack_all([s.clone() for s in state.shards], self.plan)
         if not self.fused:
             bufs = [C.all_gather(s, self.group) for s in state.shards]
             return F.unpack_all(bufs, self.plan)
@@ -675,10 +947,16 @@ class TrainStep:
         return F.unpack_all(bufs, self.plan)
 
     def close(self) -> None:
-        """Free the ring's buffers (dear-fused) once every rank's last ring
-        call is done; every rank calls it. The gather buffers die with the
-        ring, so the model's parameters get memory of their own first.
-        Nothing to do otherwise."""
+        """Release the model once every rank is done with the step (every
+        rank calls it): remove the step's hooks from the model (a
+        parameter's gradient hook is held from C++, so the cycle it closes
+        between the model and the step is never collected; the model and
+        the step's buffers are freed once the caller drops them), and in
+        dear-fused free the ring's buffers. The gather buffers die with the
+        ring, so the model's parameters get memory of their own first."""
+        for hook in self._hooks:
+            hook.remove()
+        self._hooks = []
         if self.ring is None:
             return
         if (self._bound and not self.ring.closed
@@ -690,4 +968,4 @@ class TrainStep:
         self.ring.close()
 
     def multi_step(self, n: int):
-        raise _unported("multi_step (as CUDA-graph capture)", "7")
+        raise _unported("multi_step (as CUDA-graph capture)", "7c")

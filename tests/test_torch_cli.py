@@ -49,10 +49,13 @@ def test_config_from_env_and_unported_fields(monkeypatch):
         DearConfig.from_env()
     for field, value in (("compressor", "eftopk"), ("autotune", "bo"),
                          ("remat", "full"), ("gtopk", True),
-                         ("exclude_parts", ("allgather",)),
                          ("momentum_correction", 0.9)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             DearConfig(**{field: value}).build_kwargs()
+    # ported: the ablations and bytescheduler's partition pass through
+    kw = DearConfig(exclude_parts=("allgather",),
+                    partition_mb=2.0).build_kwargs()
+    assert kw["exclude_parts"] == ("allgather",) and kw["partition_mb"] == 2.0
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         DearConfig(optimizer_name="lamb").build_kwargs()
     assert DearConfig(optimizer_name="adamw").optimizer().kind == "adamw"

@@ -170,3 +170,177 @@ def test_local_size_reads_the_jax_names(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     assert tB._shares_card(2) == (name is not None)
     assert not tB._shares_card(1)
+
+
+#: the collectives of the baseline schedules and the `Communicator`, on
+#: per-rank inputs of N elements (padded inside `all_reduce_rsag`) and of
+#: 2 * world (divisible); `multi_bcast` over two tensors above its size
+#: filter (owners rank 0, then rank 1) and one below it
+_MODES_WORKER = '''
+import os, sys
+import numpy as np
+import torch
+sys.path.insert(0, {root!r})
+from dear_pytorch_tpu_torch import Communicator
+from dear_pytorch_tpu_torch.comm import backend
+from dear_pytorch_tpu_torch.comm import collectives as C
+
+rank, world, out = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+os.environ.update(DEAR_NUM_PROCESSES=str(world), DEAR_PROCESS_ID=str(rank),
+                  DEAR_COORDINATOR_ADDRESS="file://" + out + "/store")
+g = backend.init("cpu")
+inp = np.load(out + "/inputs.npz")
+x = torch.from_numpy(inp["x"][rank])
+ints = torch.from_numpy(inp["ints"][rank])
+big = [torch.from_numpy(inp[k][rank]) for k in ("b0", "small", "b1")]
+keep = x.clone()
+res = {{}}
+for root in (0, world - 1):
+    res[f"reduce{{root}}"] = C.reduce(x, root, g).numpy()
+    buf = x.clone()
+    o, w = C.reduce(x, root, g, async_op=True, out=buf)
+    w.wait()
+    assert o is buf
+    res[f"reduce_async{{root}}"] = buf.numpy()
+    res[f"rb{{root}}"] = C.all_reduce_rb(x, root, g).numpy()
+    o, w = C.all_reduce_rb(x, root, g, async_op=True)
+    w.wait()
+    res[f"rb_async{{root}}"] = o.numpy()
+assert torch.equal(x, keep)         # out= copies: the input is untouched
+buf = x.clone()
+o, w = C.all_reduce(buf, g, async_op=True, out=buf)
+w.wait()
+res["ar_inplace"] = buf.numpy()
+o, w = C.broadcast(x, world - 1, g, async_op=True, out=torch.empty_like(x))
+w.wait()
+res["bcast_async"] = o.numpy()
+for name, t in (("rsag_pad", x), ("rsag_even", ints)):
+    o, w = C.all_reduce_rsag(t, g, async_op=True, out=torch.empty_like(t))
+    w.wait()
+    res[name] = o.numpy()
+    res[name + "_sync"] = C.all_reduce_rsag(t, g).numpy()
+res["multi"] = np.concatenate([t.numpy() for t in C.multi_bcast(
+    big, lambda t: t * 2.0 + 1.0, min_elems=8, group=g)])
+peers = [(i + 1) % world for i in range(world)]
+o, w = C.send_recv(x, peers, g, async_op=True)
+w.wait()
+res["sendrecv"] = o.numpy()
+if world == 2:   # the Communicator: JAX's TestCommunicator cases
+    comm = Communicator(nstreams=2)
+    o, h = comm.allReduce(x)
+    assert 0 <= h < 2
+    comm.synchronize()
+    res["comm_ar"] = o.numpy()
+    comm3 = Communicator(nstreams=3)
+    handles = [comm3.allReduce(x)[1] for _ in range(5)]
+    assert handles == [0, 1, 2, 0, 1], handles
+    comm3.syncStream(0)
+    comm3.synchronize()
+    assert comm3.getNumOfFreeStreams() == 3
+    one = Communicator(nstreams=1)
+    _, h0 = one.allReduce(x)
+    _, h1 = one.allReduce(x)
+    assert h0 == h1 == 0 and len(one._pending[0]) == 2
+    one.synchronize()
+    assert not one._pending
+    one.destroy()
+    try:
+        one.allReduce(x)
+        res["destroyed_raised"] = np.array(0)
+    except RuntimeError:
+        res["destroyed_raised"] = np.array(1)
+    one.reload()
+    o, _ = one.allReduce(x)
+    one.synchronize()
+    res["comm_ar_reloaded"] = o.numpy()
+    shards, _ = comm.reduceScatter(ints)
+    comm.synchronize()
+    gathered, _ = comm.allGather(shards)
+    outs = {{"reduce": comm.reduce(x, 1), "bcast": comm.bcast(x, 1),
+            "rb": comm.allReduceRB(x), "rsag": comm.allReduceRSAG(x),
+            "sendrecv": comm.sendrecv(x, peers)}}
+    multi, h = comm.multiBcast(big, lambda t: t * 2.0 + 1.0, min_elems=8)
+    comm.synchronize()
+    assert comm.getNumOfFreeStreams() == 2
+    res["comm_rs"] = shards.numpy()
+    res["comm_ag"] = gathered.numpy()
+    for k, (o, _) in outs.items():
+        res["comm_" + k] = o.numpy()
+    res["comm_multi"] = np.concatenate([t.numpy() for t in multi])
+    assert torch.equal(x, keep)
+    for c in (comm, comm3, one):
+        c.destroy()
+np.savez(f"{{out}}/rank{{rank}}.npz", **res)
+backend.barrier()
+backend.shutdown()
+'''
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_mode_collectives_match_jax(world, tmp_path):
+    """`reduce` (every non-root rank keeps its input, also on gloo, where
+    the reduction runs in a copy), `all_reduce_rb`, `multi_bcast`, and
+    ``async_op=True`` with ``out=`` on `all_reduce`, `reduce`,
+    `broadcast`, `all_reduce_rsag` and `send_recv`, against the JAX
+    package's collectives on the same per-rank inputs; at world 2 also the
+    `Communicator` (nstreams 1, 2 and 3) against JAX's `TestCommunicator`
+    cases (tests/test_collectives.py:125-187; the jit-cache case has no
+    analog): round-robin handles, the fences, destroy and reload, and
+    every method's result equal to JAX's."""
+    rs = np.random.RandomState(10 + world)
+    x = rs.randn(world, N).astype(np.float32)
+    ints = rs.randint(-8, 8, (world, 2 * world)).astype(np.float32)
+    big = {"b0": rs.randn(world, 20).astype(np.float32),
+           "small": rs.randn(world, 4).astype(np.float32),
+           "b1": rs.randn(world, 20).astype(np.float32)}
+    np.savez(tmp_path / "inputs.npz", x=x, ints=ints, **big)
+    spawn_ranks(_MODES_WORKER.format(root=ROOT), world, str(tmp_path))
+    ranks = [np.load(tmp_path / f"rank{r}.npz") for r in range(world)]
+
+    def multi(*ts):
+        return jnp.concatenate(jC.multi_bcast(
+            list(ts), lambda t: t * 2.0 + 1.0, min_elems=8))
+
+    peers = [(i + 1) % world for i in range(world)]
+    want = {"ar_inplace": _jax(jC.all_reduce, world, x),
+            "bcast_async": _jax(lambda t: jC.broadcast(t, world - 1),
+                                world, x),
+            "rsag_pad": _jax(jC.all_reduce_rsag, world, x),
+            "rsag_even": _jax(jC.all_reduce_rsag, world, ints),
+            "multi": _jax(multi, world, big["b0"], big["small"], big["b1"]),
+            "sendrecv": _jax(lambda t: jC.send_recv(t, peers), world, x)}
+    for root in (0, world - 1):
+        red = _jax(lambda t, r=root: jC.reduce(t, r), world, x)
+        rb = _jax(lambda t, r=root: jC.all_reduce_rb(t, r), world, x)
+        want.update({f"reduce{root}": red, f"reduce_async{root}": red,
+                     f"rb{root}": rb, f"rb_async{root}": rb})
+        for r in range(world):   # the JAX package's own semantics
+            if r != root:
+                np.testing.assert_array_equal(red[r], x[r])
+    want["rsag_pad_sync"], want["rsag_even_sync"] = (want["rsag_pad"],
+                                                     want["rsag_even"])
+    if world == 2:
+        want.update({
+            "comm_ar": want["ar_inplace"],
+            "comm_ar_reloaded": want["ar_inplace"],
+            "comm_rs": _jax(jC.reduce_scatter, world, ints),
+            "comm_ag": _jax(lambda t: jC.all_gather(jC.reduce_scatter(t)),
+                            world, ints),
+            "comm_reduce": _jax(lambda t: jC.reduce(t, 1), world, x),
+            "comm_bcast": _jax(lambda t: jC.broadcast(t, 1), world, x),
+            "comm_rb": _jax(lambda t: jC.all_reduce_rb(t, 0), world, x),
+            "comm_rsag": want["rsag_pad"], "comm_sendrecv": want["sendrecv"],
+            "comm_multi": want["multi"]})
+    for r, got in enumerate(ranks):
+        assert sorted(k for k in got.files if k != "destroyed_raised") \
+            == sorted(want)
+        for key, w in want.items():
+            np.testing.assert_allclose(got[key], w[r], rtol=TOL, atol=TOL,
+                                       err_msg=f"rank {r} {key}")
+        for root in (0, world - 1):
+            if r != root:    # bitwise: the input itself, not a sum
+                np.testing.assert_array_equal(got[f"reduce{root}"], x[r])
+                np.testing.assert_array_equal(got[f"reduce_async{root}"],
+                                              x[r])
+        if world == 2:
+            assert int(got["destroyed_raised"]) == 1

@@ -394,7 +394,9 @@ def test_world2_fused_matches_port_dear(world2_results):
 
 def test_rejected_options_raise(group):
     """What is not ported raises NotImplementedError naming its ROADMAP
-    item (``model_state_template`` is ported: it builds);
+    item: compression, ``remat`` (outside ``fsdp``), ``dcn``, LAMB and
+    ``multi_step``. What is ported builds: ``model_state_template``, the
+    baseline modes and ``fsdp``, and the ``exclude_parts`` ablations;
     ``mode="dear-fused"`` builds, and refuses what the JAX package's
     dear-fused refuses with its ValueError."""
     model = tgpt.GptLmHeadModel(_torch_config(), device="cpu")
@@ -403,10 +405,10 @@ def test_rejected_options_raise(group):
         return m(b).sum()
 
     lamb = topt.LayerwiseShardOptimizer(init=None, update=None)
-    bad = [dict(mode="allreduce"), dict(exclude_parts=("allgather",)),
-           dict(compressor="eftopk"), dict(gtopk=True),
+    bad = [dict(compressor="eftopk"), dict(gtopk=True),
            dict(momentum_correction=0.9), dict(remat="full"),
-           dict(dcn=object()), dict(optimizer=lamb)]
+           dict(mode="allreduce", remat="full"), dict(dcn=object()),
+           dict(optimizer=lamb), dict(mode="fsdp", optimizer=lamb)]
     for kw in bad:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tdear.build_train_step(loss_fn, model, group=group,
@@ -414,6 +416,14 @@ def test_rejected_options_raise(group):
     # model state is ported: a template naming no buffer is accepted
     assert tdear.build_train_step(loss_fn, model, group=group, device="cpu",
                                   model_state_template={})._mstate == []
+    # the modes and the ablations are ported: they build
+    for kw in (dict(mode="allreduce"), dict(mode="rsag"), dict(mode="rb"),
+               dict(mode="bytescheduler"), dict(mode="fsdp"),
+               dict(exclude_parts=("allgather",)),
+               dict(exclude_parts=("reducescatter", "allgather"))):
+        ts = tdear.build_train_step(loss_fn, model, group=group,
+                                    device="cpu", **kw)
+        assert ts.mode == kw.get("mode", "dear")
     fused = tdear.build_train_step(loss_fn, model, group=group,
                                    device="cpu", mode="dear-fused")
     assert fused.fused and fused.ring.world == 1
