@@ -202,6 +202,34 @@ non-zero and no result line is printed):
      streams) through every method, handles round-robin, results the
      world-1 identities (the same check as the two ranks'); the K5 epilogue bitwise
      at the two-rank plan's whole-bucket sizes;
+  5m. compression, LAMB and remat: the six compressors on the card against
+     the same compressor on a CPU copy (ResNet-50's largest bucket, 6.3M
+     fp32 with a zero tail, density 0.01): indices, values, residuals,
+     sign words and qint8's words and scale bitwise; gaussian by its
+     invariants and its indices clear of the threshold (its mean and std
+     sum in another order); each ``compress`` timed. Then two ranks
+     sharing the card (this script with ``--comp-rank R --out DIR``, one
+     pair of processes): ResNet-50 the sweep's ``eftopk`` method (bf16,
+     B = 64, ``--mode allreduce --compressor eftopk --density 0.01``, 10
+     steps, without and with ``--momentum-correction 0.9``), GPT-2 with
+     each compressor on ``--mode dear``, ``eftopk --gtopk`` on
+     ``allreduce``, and topk at density 1 against dense ``allreduce``
+     (fp32 gradients: the losses within `_TOPK_D1_RTOL`), 5 steps each;
+     BERT-Large LAMB (``benchmarks/bert.py --model bert_large --fp16
+     --optimizer lamb``, S = 128, B = 16, 5 steps) and the trust ratios of
+     one more update on the shards against the gathered bucket's (within
+     `_LAMB_TRUST_RTOL`): every step's launches (K1-K3, the K5 epilogue
+     once per bucket but for LAMB, the payload collectives once per
+     bucket, the dense legs), both ranks' losses and parameters equal,
+     every stateful compressor's residual nonzero. Then one rank on NCCL:
+     ResNet-50 eftopk (5 steps, traced), BERT-Large LAMB (10 steps), GPT-2
+     (B = 16, bf16, flash) without remat, with ``--remat`` and with
+     ``--remat-policy full`` (5 steps each: K1 24 times a step under
+     remat, K2 and K3 12, the losses within `_REMAT_RTOL` of the run's
+     without, ``--remat``'s peak memory below it), ResNet-50 with
+     ``--remat-policy full`` (3 steps, cuDNN off: the losses, the BN buffers after steps 1 and 3
+     and the parameters after step 3 within `_REMAT_BN_RTOL` of the run's
+     without, the buffers updated 3 times);
   6. trace steady bf16 decode ticks and training steps with
      ``torch.profiler`` (device ops, busy time and idle share, the top
      device ops of a step); time each kernel, its plain version and
@@ -220,7 +248,8 @@ non-zero and no result line is printed):
      BERT-Base's decode tick (B = 4 over 512 slots, bf16 and fp32), K6–K8
      at BERT-Large's shapes beside cuBLAS, the K5 epilogue at the zoo's
      largest shards (VGG-16's fc1) and at the replicated modes' whole
-     buckets; phase 5l's step p50/p99, tokens/s and peak memory per run.
+     buckets; phase 5l's step p50/p99, tokens/s and peak memory per run;
+     the kernels line's K1-K3 and K5-epilogue launches include 5m's.
 
 ``python3 chip_smoke.py --kernels-only`` runs phases 1–3 and stops without
 a result line. In a full run the line before the last lists the kernels
@@ -257,6 +286,7 @@ from dear_pytorch_tpu_torch.benchmarks import bert as bert_cli
 from dear_pytorch_tpu_torch.benchmarks import gpt as train_cli
 from dear_pytorch_tpu_torch.benchmarks import imagenet as imagenet_cli
 from dear_pytorch_tpu_torch.comm import backend
+from dear_pytorch_tpu_torch.comm import collectives as C
 from dear_pytorch_tpu_torch.comm.ring import LocalRing, Ring
 from dear_pytorch_tpu_torch.models import dropout_free, get_model, gpt_config
 from dear_pytorch_tpu_torch.models import bert as BERT
@@ -269,6 +299,7 @@ from dear_pytorch_tpu_torch.models.gpt import (
     gpt_lm_loss,
 )
 from dear_pytorch_tpu_torch.ops import _build
+from dear_pytorch_tpu_torch.ops import compression as Z
 from dear_pytorch_tpu_torch.ops import fusion as FU
 from dear_pytorch_tpu_torch.ops.schedules import warmup_cosine
 from dear_pytorch_tpu_torch.parallel.dear import build_train_step
@@ -3059,6 +3090,492 @@ def train_modes_one_rank() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 5m: compression, LAMB and remat
+# ---------------------------------------------------------------------------
+
+_COMP_NAMES = ("topk", "eftopk", "gaussian", "signum", "efsignum", "qint8")
+#: the reference sweep's density (its ResNet-50 eftopk methods)
+_COMP_DENSITY = 0.01
+#: ResNet-50 as the sweep's eftopk method runs it: bf16, B = 64, 224²,
+#: allreduce, 25 MB buckets, eftopk at 1% (the CLI's SGD 0.01, momentum
+#: 0.9; with momentum correction the velocity carries it)
+_RESNET_COMP_ARGS = ["--model", "resnet50", "--batch-size", "64", "--fp16",
+                     "--mode", "allreduce", "--threshold", "25",
+                     "--compressor", "eftopk", "--density", "0.01"]
+
+
+def _steps(n: int) -> list:
+    return ["--num-warmup-batches", "0", "--num-batches-per-iter", str(n),
+            "--num-iters", "1"]
+
+
+_GPT_FP32_ARGS = [a for a in _TWO_RANK_ARGS if a != "--fp16"]
+#: the two-rank runs of phase 5m, one after another in one pair of rank
+#: processes (``--comp-rank R --out DIR``): name -> (model, argv). The sign
+#: compressors move every element by lr each step: lr 1e-3 (JAX's tests
+#: train them at a smaller lr too)
+_COMP_RUNS = {
+    "resnet50 eftopk": ("resnet", _RESNET_COMP_ARGS + _steps(10)),
+    "resnet50 eftopk mc": ("resnet", _RESNET_COMP_ARGS + _steps(10)
+                           + ["--momentum-correction", "0.9"]),
+    **{f"gpt2 dear {c}": ("gpt", _TWO_RANK_ARGS + _steps(5) + [
+        "--mode", "dear", "--compressor", c, "--density",
+        str(_COMP_DENSITY)] + (["--base-lr", "0.001"] if "sign" in c
+                               else [])) for c in _COMP_NAMES},
+    "gpt2 allreduce eftopk gtopk": ("gpt", _TWO_RANK_ARGS + _steps(5) + [
+        "--mode", "allreduce", "--compressor", "eftopk", "--density",
+        str(_COMP_DENSITY), "--gtopk"]),
+    # fp32 gradients: topk at density 1 sends every coordinate, so its
+    # losses are the dense allreduce's (JAX's
+    # test_sparse_allreduce_equals_dense_at_density_1, on the card)
+    "gpt2 allreduce topk d1 fp32": ("gpt", _GPT_FP32_ARGS + _steps(5) + [
+        "--mode", "allreduce", "--compressor", "topk", "--density", "1.0"]),
+    "gpt2 allreduce fp32": ("gpt", _GPT_FP32_ARGS + _steps(5) + [
+        "--mode", "allreduce"]),
+}
+_TOPK_D1_RTOL = 1e-5
+#: LAMB on BERT-Large pretraining (JAX runner.py:354-361): bf16, S = 128,
+#: B = 16, dropout 0.1, betas (0.9, 0.999), eps 1e-8, no weight decay
+#: (DearConfig's)
+_LAMB_ARGS = ["--model", "bert_large", "--fp16", "--optimizer", "lamb",
+              "--batch-size", "16", "--sentence-len", "128"]
+_LAMB_TRUST_RTOL = 1e-5
+_REMAT_ARGS = ["--model", "gpt2", "--fp16", "--flash-attention",
+               "--dropout0", "--batch-size", "16", "--sequence-len", "1024",
+               "--base-lr", "0.01", "--momentum", "0.9", "--threshold",
+               "25"] + _steps(5)
+_REMAT_RTOL = 1e-5
+_REMAT_BN_RTOL = 1e-6
+
+
+def _payload_parts(payload) -> dict:
+    return (dict(payload) if isinstance(payload, dict)
+            else {"words": payload})
+
+
+def _check_gaussian(tag, x, payload, res, density) -> tuple:
+    """gaussian's invariants on one device: k indices; the residual is x
+    off them and 0 on them; each sent value is x where |x| is over the
+    threshold, else 0. Returns (threshold, the indices clear of it)."""
+    k = Z._k_of(x.shape[0], density)
+    thres = float(Z._gaussian_threshold(x, density))
+    idx = payload["indices"].long()
+    mag = x.abs()
+    _check(idx.shape[0] == k and idx.unique().shape[0] == k,
+           f"{tag}: {idx.shape[0]} indices, k = {k}")
+    want_vals = torch.where(mag[idx] > thres, x[idx], torch.zeros_like(x[idx]))
+    _check(torch.equal(payload["values"], want_vals),
+           f"{tag}: a sent value is not x over the threshold (else 0)")
+    sent = torch.zeros_like(x, dtype=torch.bool)
+    sent[idx] = True
+    _check(torch.equal(res[~sent], x[~sent]) and not res[sent].any(),
+           f"{tag}: the residual is not x off the sent indices, 0 on them")
+    clear = idx[(mag[idx] - thres).abs() > 1e-5 * thres]
+    return thres, set(clear.cpu().tolist())
+
+
+def check_compressors(n: int, card: str) -> dict:
+    """Phase 5m's compressors on the card at ResNet-50's largest bucket
+    (``n`` fp32 elements, a zero tail of 4096 as padding ties) and density
+    0.01, against the same compressor on a CPU copy of the input: the
+    indices equal, the values, residuals, sign words and qint8's words and
+    scale bitwise; gaussian, whose mean and std sum in another order on
+    the card: its invariants on each device, the thresholds within 1e-5,
+    and the indices equal away from the threshold. Prints and returns each
+    ``compress`` time on the card (ms, median of 5 after one warm call)."""
+    gen = torch.Generator(device=_DEV).manual_seed(31)
+    x = torch.randn(n, generator=gen, device=_DEV)
+    x[-4096:] = 0.0
+    res0 = 0.1 * torch.randn(n, generator=gen, device=_DEV)
+    times = {}
+    for name in _COMP_NAMES:
+        comp = Z.get_compressor(name)
+        stateful = torch.is_tensor(comp.init(1))
+        rc, rh = (res0, res0.cpu()) if stateful else ((), ())
+        pc, sc = comp.compress(x, rc, _COMP_DENSITY)
+        ph, sh = comp.compress(x.cpu(), rh, _COMP_DENSITY)
+        torch.cuda.synchronize()
+        pc, ph = _payload_parts(pc), _payload_parts(ph)
+        tag = f"compressor {name} card vs CPU (n={n})"
+        if name == "gaussian":
+            xin = x + res0
+            tc, clear_c = _check_gaussian(tag + " card", xin, pc, sc,
+                                          _COMP_DENSITY)
+            th, clear_h = _check_gaussian(tag + " CPU", xin.cpu(), ph, sh,
+                                          _COMP_DENSITY)
+            _check(abs(tc - th) <= 1e-5 * th, f"{tag}: thresholds {tc}, {th}")
+            _check(clear_c == clear_h, f"{tag}: indices clear of the "
+                   "threshold differ")
+        else:
+            for key in pc:
+                _check(torch.equal(pc[key].cpu(), ph[key]),
+                       f"{tag}: {key} differ")
+            _check(not stateful or torch.equal(sc.cpu(), sh),
+                   f"{tag}: residuals differ")
+        ms = []
+        for rep in range(6):
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            comp.compress(x, rc, _COMP_DENSITY)
+            b.record()
+            torch.cuda.synchronize()
+            if rep:
+                ms.append(a.elapsed_time(b))
+        times[name] = float(np.median(ms))
+    print(f"phase 5m compressors on the card = on the CPU (n = {n}, "
+          f"density {_COMP_DENSITY}; gaussian by its invariants); compress "
+          f"ms on {card}: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in times.items()))
+    return times
+
+
+def _comp_counts(ts) -> dict:
+    return {"flash_fwd": FA.flash_fwd_launches,
+            "flash_fwd_tc": FA.flash_fwd_route_launches["tensor_core"],
+            "flash_bwd_dq": FA.flash_bwd_dq_launches,
+            "flash_bwd_dkv": FA.flash_bwd_dkv_launches,
+            "fused_update": FS.fused_update_launches,
+            "update": ts.update_launches, "comp": ts.comp_launches,
+            **{k: getattr(ts, f"{k}_launches") for k in _COLLECTIVES}}
+
+
+def _comp_want(ts, layers: int, bf16: bool, fwd_per_layer: int = 1) -> tuple:
+    """(per step, before the first step) launches of ``ts``'s schedule:
+    K1 ``fwd_per_layer`` times per layer (2 under remat), K2 and K3 once
+    (tensor cores in bf16); the K5 epilogue once per bucket (not for
+    LAMB); the payload collectives once per bucket (gTop-k: log2 W); the
+    schedule's dense collectives; LAMB's segment sums in one all-reduce per
+    bucket in the sharded modes at world > 1."""
+    nb = ts.plan.num_buckets
+    per = dict.fromkeys(_COLLECTIVES, 0)
+    before = dict.fromkeys(_COLLECTIVES, 0)
+    compressed = ts.compressor is not None
+    if ts.sharded:
+        per["rs"] = 0 if compressed else nb
+        per["ag"] = before["ag"] = nb
+    elif not compressed:
+        per["ar"] = nb
+    if ts.layerwise and ts.sharded and ts.world > 1:
+        per["ar"] += nb
+    rounds = ts.world.bit_length() - 1 if ts.gtopk else 1
+    want = {"flash_fwd": fwd_per_layer * layers,
+            "flash_fwd_tc": fwd_per_layer * layers if bf16 else 0,
+            "flash_bwd_dq": layers, "flash_bwd_dkv": layers,
+            "fused_update": 0 if ts.layerwise else nb, "update": nb,
+            "comp": nb * rounds if compressed else 0, **per}
+    return want, {"comp": 0} | before
+
+
+def _run_comp(main, argv, label, layers=0, bf16=True, fwd_per_layer=1,
+              trace=False, on_first=None) -> dict:
+    """One run of a training CLI (``main``, ``argv``), every step's
+    launches checked against `_comp_want`; ``on_first(ts)`` after the first
+    step. Returns the run's losses, step times (after the first),
+    launches, K1-K3 launches by route, peak memory (reset before the run),
+    the gathered parameters' digest, the largest |residual| and, with
+    ``trace``, a 2-step trace."""
+    FA.reset_launch_counts()                      # the main path starts
+    FS.fused_update_launches = 0                  # here
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    marks, prev = [], {}
+
+    def on_step(ts, state, metrics):
+        del state, metrics
+        now = _comp_counts(ts)
+        want, before = _comp_want(ts, layers, bf16, fwd_per_layer)
+        base = prev or dict.fromkeys(now, 0) | before
+        got = {k: now[k] - base[k] for k in now}
+        _check(got == want, f"{label} step {len(marks) + 1}: launches "
+               f"{got}, expected {want}")
+        prev.update(now)
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append(ev)
+        if on_first is not None and len(marks) == 1:
+            on_first(ts)
+
+    res = main(argv + ["--device", _DEV], on_step=on_step)
+    ts = res.train_step
+    launches = _comp_counts(ts)                   # ... and ends here
+    routes = {"fwd": dict(FA.flash_fwd_route_launches),
+              **{w: dict(c) for w, c in FA.flash_bwd_route_launches.items()}}
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = [a.elapsed_time(b) for a, b in zip(marks[:-1], marks[1:])]
+    _check(all(np.isfinite(res.losses)), f"{label}: losses {res.losses}")
+    residual = 0.0
+    for entry in res.state.comp_state:
+        r = entry["res"] if isinstance(entry, dict) else entry
+        if torch.is_tensor(r):
+            residual = max(residual, float(r.abs().max()))
+    out = {"losses": res.losses, "step_ms": step_ms, "launches": launches,
+           "routes": routes, "peak_bytes": peak,
+           "params": _digest(ts.gather_params(res.state)),
+           "residual": residual, "buckets": ts.plan.num_buckets,
+           "stateful": any(torch.is_tensor(e["res"] if isinstance(e, dict)
+                                           else e)
+                           for e in res.state.comp_state)}
+    if trace:
+        out["trace"] = trace_train_steps(
+            ts, res.state, res.batch, float(np.percentile(step_ms, 50)),
+            label=label)
+    out["result"] = res
+    return out
+
+
+def check_lamb_trust(ts, state, rank: int) -> float:
+    """LAMB's trust ratios computed on this rank's shard (segment sums
+    all-reduced) against the same update of the gathered full bucket (its
+    own sums): one more update, on copies, of the bucket with the most
+    parameters of those where one spans the shard boundary, from the
+    run's last state and a gradient
+    that both ranks draw from one seed. Returns the largest difference
+    over the largest ratio."""
+    plan, world = ts.plan, ts.world
+    g = max((b for b in plan.buckets
+             if any(off < r * b.shard_size < off + plan.leaves[i].size
+                    for i, off in zip(b.leaf_ids, b.offsets)
+                    for r in range(1, world))),
+            key=lambda b: len(b.leaf_ids)).index
+    b = plan.buckets[g]
+    opt, st = ts.optimizer, state.opt_state[g]
+    gen = torch.Generator(device=_DEV).manual_seed(44)
+    grad = 1e-3 * torch.randn(b.padded_size, generator=gen, device=_DEV)
+    grad[b.size:] = 0.0
+    lo = rank * b.shard_size
+    mine = {"m": st["m"].clone(), "v": st["v"].clone(), "t": st["t"]}
+    seg, nseg, psum = ts._segments(g)
+    opt.update(grad[lo:lo + b.shard_size].clone(), mine,
+               state.shards[g].clone(), seg, nseg, psum)
+    full = {k: C.all_gather(st[k], ts.group) for k in ("m", "v")}
+    full["t"] = st["t"]
+    opt.update(grad, full, C.all_gather(state.shards[g], ts.group),
+               ts._segment_ids(g, 0, b.padded_size), nseg, lambda x: x)
+    err = float((mine["trust"] - full["trust"]).abs().max()
+                / full["trust"].abs().max())
+    print(f"rank {rank}: LAMB trust ratios of bucket {g} ({len(b.leaf_ids)} "
+          f"parameters, one across the shard boundary) on the shards vs the "
+          f"gathered bucket: {err:.3e} of the largest (limit "
+          f"{_LAMB_TRUST_RTOL})")
+    _check(err <= _LAMB_TRUST_RTOL, f"rank {rank}: LAMB trust ratios differ")
+    return err
+
+
+def comp_rank_worker(rank: int, out: Path) -> None:
+    """One of the two ranks of phase 5m (``--comp-rank R --out DIR``):
+    every run of `_COMP_RUNS` in turn over one gloo group (`_run_comp`
+    checks every step), then LAMB on BERT-Large (5 steps, every step
+    checked) and `check_lamb_trust`; the results into
+    ``out/rank<r>.json``."""
+    _join_two_ranks(rank, out)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    layers = GPT2_SMALL.num_hidden_layers
+    results = {}
+    for name, (model, argv) in _COMP_RUNS.items():
+        t0 = time.perf_counter()
+        gpt = model == "gpt"
+        run = _run_comp(train_cli.main if gpt else imagenet_cli.main, argv,
+                        f"rank {rank} {name}", layers if gpt else 0,
+                        bf16="--fp16" in argv, trace=not gpt)
+        run.pop("result").train_step.close()
+        run["wall_s"] = time.perf_counter() - t0
+        results[name] = run
+    t0 = time.perf_counter()
+    run = _run_comp(bert_cli.main, _LAMB_ARGS + _steps(5),
+                    f"rank {rank} bert_large lamb")
+    res = run.pop("result")
+    run["trust_err"] = check_lamb_trust(res.train_step, res.state, rank)
+    res.train_step.close()
+    run["wall_s"] = time.perf_counter() - t0
+    results["bert_large lamb"] = run
+    results["device"] = str(backend.device())
+    results["card_shared"] = backend.card_shared()
+    results["backend"] = torch.distributed.get_backend()
+    (out / f"rank{rank}.json").write_text(json.dumps(results))
+    backend.shutdown()
+
+
+def train_compressed_two_ranks() -> list:
+    """Phase 5m's two-rank runs (`comp_rank_worker`): per run both ranks'
+    gathered parameters bitwise equal and their losses equal; every
+    stateful compressor's residual nonzero; the topk run at density 1
+    within `_TOPK_D1_RTOL` of the dense allreduce's losses at every step.
+    Prints each run's step p50 per rank (and for ResNet-50 the traced idle
+    share). Returns the two ranks' results."""
+    t0 = time.perf_counter()
+    ranks = spawn_two_ranks(
+        "comp", lambda r, out: ["--comp-rank", str(r), "--out", str(out)],
+        900.0)
+    print(f"two ranks, phase 5m: backend {ranks[0]['backend']}, devices "
+          f"{[r['device'] for r in ranks]}, card shared "
+          f"{ranks[0]['card_shared']}; wall {time.perf_counter() - t0:.1f} s")
+    for name in [*_COMP_RUNS, "bert_large lamb"]:
+        r0, r1 = ranks[0][name], ranks[1][name]
+        p50s = [float(np.percentile(r[name]["step_ms"], 50)) for r in ranks]
+        tr = r0.get("trace")
+        print(f"two ranks {name}: losses "
+              f"{[round(x, 4) for x in r0['losses']]}; {r0['buckets']} "
+              f"buckets; step p50 by rank {[round(x, 3) for x in p50s]} ms"
+              + (f"; idle {1 - tr['busy_ms'] / p50s[0]:.1%} of rank 0's "
+                 f"p50 (traced busy {tr['busy_ms']:.3f} ms/step)"
+                 if tr else "")
+              + f"; max |residual| {r0['residual']:.3e}"
+              + (f"; LAMB trust ratios on the shards vs the gathered bucket "
+                 f"{max(r[name]['trust_err'] for r in ranks):.3e} of the "
+                 f"largest" if "trust_err" in r0 else "")
+              + f"; wall {r0['wall_s']:.1f} s")
+        _check(r1["losses"] == r0["losses"],
+               f"two ranks {name}: the ranks' losses differ")
+        _check(r1["params"] == r0["params"],
+               f"two ranks {name}: the ranks' gathered parameters differ")
+        _check(not r0["stateful"] or r0["residual"] > 0,
+               f"two ranks {name}: the residual is zero")
+    d1 = ranks[0]["gpt2 allreduce topk d1 fp32"]["losses"]
+    dense = ranks[0]["gpt2 allreduce fp32"]["losses"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(d1, dense))
+    print(f"topk at density 1 vs dense allreduce (fp32 gradients): losses "
+          f"{d1} and {dense}, largest relative difference {rel:.3e} (limit "
+          f"{_TOPK_D1_RTOL}; bitwise: {d1 == dense})")
+    _check(rel <= _TOPK_D1_RTOL, "topk at density 1 is not the dense mean")
+    return ranks
+
+
+def train_compressed_one_rank(card: str) -> dict:
+    """Phase 5m at one rank (NCCL): ResNet-50 eftopk (5 steps, traced);
+    LAMB on BERT-Large (10 steps); GPT-2 without remat, with ``--remat``
+    and with ``--remat-policy full`` (5 steps each: K1 24 times per step
+    under remat, the losses within `_REMAT_RTOL` of the run's without,
+    ``--remat``'s peak memory below it); ResNet-50 with ``--remat-policy
+    full`` against the run without (`check_resnet_remat`). Returns the
+    runs."""
+    layers = GPT2_SMALL.num_hidden_layers
+    runs = {}
+    r = _run_comp(imagenet_cli.main, _RESNET_COMP_ARGS + _steps(5),
+                  "one rank resnet50 eftopk", trace=True)
+    r.pop("result").train_step.close()
+    _check(r["residual"] > 0, "one rank resnet50 eftopk: zero residual")
+    runs["resnet50 eftopk"] = r
+    r = _run_comp(bert_cli.main, _LAMB_ARGS + _steps(10),
+                  "one rank bert_large lamb")
+    r.pop("result").train_step.close()
+    runs["bert_large lamb"] = r
+    for name, flags, fwd in (("gpt2", [], 1), ("gpt2 --remat", ["--remat"],
+                                               2),
+                             ("gpt2 --remat-policy full",
+                              ["--remat-policy", "full"], 2)):
+        r = _run_comp(train_cli.main, _REMAT_ARGS + flags, f"one rank {name}",
+                      layers, fwd_per_layer=fwd)
+        r.pop("result").train_step.close()
+        runs[name] = r
+    base = runs["gpt2"]
+    for name in ("gpt2 --remat", "gpt2 --remat-policy full"):
+        rel = max(abs(a - b) / abs(b) for a, b in
+                  zip(runs[name]["losses"], base["losses"]))
+        print(f"{name} (GPT-2 small, bf16, B=16, S=1024): losses "
+              f"{runs[name]['losses']} against {base['losses']}: largest "
+              f"relative difference {rel:.3e} (limit {_REMAT_RTOL}; bitwise:"
+              f" {runs[name]['losses'] == base['losses']})")
+        _check(rel <= _REMAT_RTOL, f"{name}: the losses are not the run's "
+               "without remat")
+    _check(runs["gpt2 --remat"]["peak_bytes"] < base["peak_bytes"],
+           "--remat: the peak memory is not below the run's without")
+    for name in ("gpt2", "gpt2 --remat", "gpt2 --remat-policy full",
+                 "resnet50 eftopk", "bert_large lamb"):
+        r = runs[name]
+        p50 = float(np.percentile(r["step_ms"], 50))
+        tr = r.get("trace")
+        print(f"phase 5m one rank {name} on {card}: step p50 {p50:.3f} ms; "
+              f"peak memory {r['peak_bytes'] / 2**20:.1f} MiB"
+              + (f"; idle {1 - tr['busy_ms'] / p50:.1%} of the p50 (traced "
+                 f"busy {tr['busy_ms']:.3f} ms/step)" if tr else "")
+              + f"; losses {[round(x, 4) for x in r['losses']]}")
+    runs.update(check_resnet_remat())
+    return runs
+
+
+def check_resnet_remat() -> dict:
+    """ResNet-50 with ``--remat-policy full`` against the run without (3
+    steps each, and a second run without as the control), with cuDNN off:
+    the losses, the BN buffers after the first and the third step and the
+    gathered parameters after the third within `_REMAT_BN_RTOL` of the
+    largest |value| (the buffers updated 3 times). cuDNN caches its pick
+    of a conv's algorithm per thread and the recompute runs on autograd's
+    thread, so with cuDNN on the recompute's convs may round apart from
+    the forward's (`ops.remat`); PyTorch's own convs pick nothing, so with
+    cuDNN off any difference is the port's. Returns the runs."""
+    runs, bufs, params = {}, {}, {}
+    cudnn = torch.backends.cudnn
+    was = cudnn.enabled
+    cudnn.enabled = False
+    try:
+        for key, policy in (("none", "none"), ("full", "full"),
+                            ("none again", "none")):
+            def first(ts, key=key):
+                bufs[key, 1] = {n: b.detach().clone() for n, b in
+                                ts.model.named_buffers()}
+
+            r = _run_comp(imagenet_cli.main, _RESNET_ARGS[:-6] + _steps(3)
+                          + ["--remat-policy", policy],
+                          f"one rank resnet50 --remat-policy {policy}",
+                          on_first=first)
+            res = r.pop("result")
+            bufs[key, 3] = {n: b.detach().clone() for n, b in
+                            res.train_step.model.named_buffers()}
+            params[key] = res.train_step.gather_params(res.state)
+            res.train_step.close()
+            runs[f"resnet50 --remat-policy {key}"] = r
+    finally:
+        cudnn.enabled = was
+
+    def apart(a, b):
+        return max(float((a[n].float() - x.float()).abs().max())
+                   / max(float(x.float().abs().max()), 1e-30)
+                   for n, x in b.items())
+
+    losses = {k: runs[f"resnet50 --remat-policy {k}"]["losses"]
+              for k in ("none", "full", "none again")}
+    gaps = {"losses": max(abs(a - b) / abs(b) for a, b in
+                          zip(losses["full"], losses["none"])),
+            "BN buffers after step 1": apart(bufs["full", 1],
+                                             bufs["none", 1]),
+            "BN buffers after step 3": apart(bufs["full", 3],
+                                             bufs["none", 3]),
+            "parameters after step 3": apart(params["full"],
+                                             params["none"])}
+    control = max(apart(bufs["none again", 3], bufs["none", 3]),
+                  apart(params["none again"], params["none"]))
+    tracked = {int(b) for n, b in bufs["full", 3].items()
+               if n.endswith("num_batches_tracked")}
+    print(f"resnet50 --remat-policy full against the run without (bf16, "
+          f"B=64, 3 steps, cuDNN off; "
+          f"{len(bufs['full', 1])} buffers, {len(params['full'])} "
+          f"parameters), largest difference over the largest |value| "
+          f"(limit {_REMAT_BN_RTOL}): "
+          + "; ".join(f"{k} {v:.3e} (bitwise: {v == 0.0})"
+                      for k, v in gaps.items())
+          + f"; losses {losses['full']} and {losses['none']}; a second run "
+          f"without remat {control:.3e}; num_batches_tracked "
+          f"{sorted(tracked)}")
+    _check(max(gaps.values()) <= _REMAT_BN_RTOL and tracked == {3},
+           "resnet50 remat: the losses, BN buffers or parameters are not "
+           "the run's without remat")
+    return runs
+
+
+def comp_launch_totals(two_ranks, one_rank) -> tuple:
+    """Phase 5m's K1-K3 launches by route and K5 epilogue launches, over
+    both ranks of every two-rank run and every one-rank run."""
+    runs = [run for ranks in two_ranks for run in ranks.values()
+            if isinstance(run, dict)] + list(one_rank.values())
+    routes = {w: {route: sum(run["routes"][w][route] for run in runs)
+                  for route in runs[0]["routes"][w]}
+              for w in ("fwd", "dq", "dkv")}
+    return routes, sum(run["launches"]["fused_update"] for run in runs)
+
+
+# ---------------------------------------------------------------------------
 # phase 6: timings
 # ---------------------------------------------------------------------------
 
@@ -3683,8 +4200,9 @@ def main(argv=None) -> int:
                                                      "--out"]
     modes_worker = len(argv) == 4 and argv[0::2] == ["--modes-rank",
                                                      "--out"]
+    comp_worker = len(argv) == 4 and argv[0::2] == ["--comp-rank", "--out"]
     if argv and not (kernels_only or worker or bert_worker or probe_worker
-                     or modes_worker):
+                     or modes_worker or comp_worker):
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -3702,6 +4220,9 @@ def main(argv=None) -> int:
         return 0
     if modes_worker:             # one rank of phase 5l, spawned below
         modes_rank_worker(int(argv[1]), Path(argv[3]))
+        return 0
+    if comp_worker:              # one rank of phase 5m, spawned below
+        comp_rank_worker(int(argv[1]), Path(argv[3]))
         return 0
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3811,6 +4332,17 @@ def main(argv=None) -> int:
         res.train_step, modes[0]["allreduce"]["bucket_padded"],
         "whole-bucket (two-rank allreduce)"))
     print(f"modes phase (5l): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    comp_ms = check_compressors(
+        max(b.padded_size for b in rn.train_step.plan.buckets), card)
+    comp2 = train_compressed_two_ranks()
+    comp1 = train_compressed_one_rank(card)
+    comp_routes, comp_update = comp_launch_totals(comp2, comp1)
+    print(f"phase 5m launches over both ranks and every run: K1-K3 by route "
+          f"{comp_routes}, the K5 epilogue {comp_update}; compress ms "
+          f"{comp_ms}")
+    print(f"compression, LAMB and remat phase (5m): "
+          f"{time.perf_counter() - t0:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()      # the bench's process needs the memory
     t0 = time.perf_counter()
@@ -4053,9 +4585,11 @@ def main(argv=None) -> int:
         "split_k": serve_routes["split_k"] + bert_serve_routes["split_k"],
         "tensor_core": train_launches["flash_fwd_tc"]
         + fused_launches["flash_fwd_tc"] + bert_launches["flash_fwd_tc"]
-        + modes_routes["fwd"]["tensor_core"],
+        + modes_routes["fwd"]["tensor_core"]
+        + comp_routes["fwd"]["tensor_core"],
         "cuda_core": fp32_routes["fwd"]["cuda_core"]
-        + modes_routes["fwd"]["cuda_core"]}
+        + modes_routes["fwd"]["cuda_core"]
+        + comp_routes["fwd"]["cuda_core"]}
     print(f"K1 launches on the main paths by route: {k1_launches}")
     k1 = [_kernel_entry(f"flash_fwd ({route})", "flash_fwd.cu",
                         "dear_pytorch_tpu/ops/flash_attention.py:97",
@@ -4070,9 +4604,11 @@ def main(argv=None) -> int:
         launches = {"tensor_core": train_launches[kname + "_tc"]
                     + fused_launches[kname + "_tc"]
                     + bert_launches[kname + "_tc"]
-                    + modes_routes[which]["tensor_core"],
+                    + modes_routes[which]["tensor_core"]
+                    + comp_routes[which]["tensor_core"],
                     "cuda_core": fp32_routes[which]["cuda_core"]
-                    + modes_routes[which]["cuda_core"]}
+                    + modes_routes[which]["cuda_core"]
+                    + comp_routes[which]["cuda_core"]}
         print(f"{kname} launches on the main paths by route: {launches}")
         for route, sfx in (("tensor_core", ""), ("cuda_core", "_f32")):
             k23.append(_kernel_entry(
@@ -4081,14 +4617,16 @@ def main(argv=None) -> int:
                 launches[route], bwd_err[which][route], bwd[kname + sfx]))
     print(json.dumps({"kernels": k1 + k23 + [
         # launches: GPT-2's train steps, ResNet-50's, BERT-Base's (flash
-        # and with dropout), ViT-B/16's, the zoo's, the MNIST example's
-        # and phase 5l's (whole buckets in the replicated modes)
+        # and with dropout), ViT-B/16's, the zoo's, the MNIST example's,
+        # phase 5l's (whole buckets in the replicated modes) and phase
+        # 5m's (the compressed buckets' dense means, the remat runs)
         _kernel_entry("fused_update", "fused_update.cu",
                       "dear_pytorch_tpu/ops/collective_matmul.py:317",
                       train_launches["fused_update"] + rn_launches
                       + bert_launches["fused_update"] + vit_launches
                       + sum(z["launches"] for z in zoo.values())
-                      + mnist_launches + modes_update, upd_err, upd),
+                      + mnist_launches + modes_update + comp_update,
+                      upd_err, upd),
     ] + [
         _kernel_entry(f"ring_all_gather ({route})", "ring.cu",
                       "dear_pytorch_tpu/ops/collective_matmul.py:218",

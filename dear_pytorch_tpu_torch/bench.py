@@ -36,7 +36,7 @@ Timing (bench.py's ``_timed``): the warmup steps (10; the first of them
 counted by `runner.step_flops`), one host fetch, then 10 x 10 timed steps
 dispatched back to back and ONE host fetch at the end; value = items per
 step / seconds per step. Steps are eager: bench.py's ``multi_step`` (one
-compiled program per 10 steps) is not ported (ROADMAP Queue 1 item 7c).
+compiled program per 10 steps) is not ported (ROADMAP Queue 1 item 7d).
 ``peak_hbm_gb`` is ``torch.cuda.max_memory_allocated`` over the timed
 window (reset before it), null on the CPU, as is ``mfu`` (no known peak).
 

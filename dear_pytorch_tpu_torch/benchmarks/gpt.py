@@ -17,8 +17,10 @@ for ranks that share one card; ``--ring-projections`` (which requires it)
 also runs every block's query, key, value and MLP-up projections as the
 ring collective matmul (K6 forward, K7 and K8 backward). ``--mfu``
 counts one step's FLOPs (`runner.step_flops`) and logs the MFU.
-``--sp-degree > 1``, ``--remat`` and ``--num-experts`` are not ported yet
-and raise.
+``--remat`` recomputes every block in the backward (``GptConfig.remat``;
+``--remat-policy full`` recomputes the whole forward at the step's level
+instead). ``--sp-degree > 1`` and ``--num-experts`` are not ported yet and
+raise.
 """
 
 from __future__ import annotations
@@ -60,7 +62,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dropout0", action="store_true", default=False,
                    help="zero every dropout prob")
     p.add_argument("--remat", action="store_true", default=False,
-                   help="rematerialise blocks (not ported yet: raises)")
+                   help="rematerialise blocks in the backward (cfg.remat): "
+                        "the enabler for 350M+ dense-attention configs")
     p.add_argument("--flash-attention", action="store_true", default=False,
                    help="causal flash-attention kernels (forward and "
                         "backward) instead of the dense core")
@@ -85,12 +88,11 @@ def main(argv=None, on_step: Optional[Callable] = None
                          "on a pure dp mesh (no --sp-degree)")
     unported = [flag for flag, on in (
         ("--sp-degree > 1", args.sp_degree > 1),
-        ("--remat", args.remat), ("--num-experts", args.num_experts > 0))
-        if on]
+        ("--num-experts", args.num_experts > 0)) if on]
     if unported:
         raise NotImplementedError(
-            f"{', '.join(unported)}: not ported yet (ROADMAP Queue 1 items "
-            "7c and 10)")
+            f"{', '.join(unported)}: not ported yet (ROADMAP Queue 1 item "
+            "10)")
     resolve_device(args.device)          # raises without a card
     group = backend.init(args.device)    # "cuda" or None: this rank's card
     dev, world = backend.device(), backend.size()
@@ -102,6 +104,8 @@ def main(argv=None, on_step: Optional[Callable] = None
                                   num_hidden_layers=args.num_hidden_layers)
     if args.dropout0:
         cfg = models.dropout_free(cfg)
+    if args.remat:
+        cfg = dataclasses.replace(cfg, remat=True)
     if args.sequence_len > cfg.max_position_embeddings:
         raise SystemExit(f"--sequence-len {args.sequence_len} exceeds "
                          f"max_position_embeddings "

@@ -18,11 +18,13 @@ counted by the mode itself). The MFU is against the card's dense bf16 peak
 the JAX package's ``perf_model.mfu`` is for an unknown device.
 
 Only the flags the port carries are registered: an unported flag of the
-JAX CLI (``--compressor``, ``--pipeline``, ``--scan-steps``, ...) is an
+JAX CLI (``--pipeline``, ``--scan-steps``, ``--autotune``, ...) is an
 argparse error, not silently ignored. Every ``--mode`` of the JAX CLI
 builds (the baselines and ``fsdp`` since slice 13, with ``--partition``
-and ``--exclude-parts``); ``--optimizer lamb`` raises
-``NotImplementedError`` when the step is built.
+and ``--exclude-parts``), and so do ``--optimizer lamb``, the compression
+flags (``--compressor``, ``--density``, ``--momentum-correction``,
+``--gtopk``: on ``allreduce`` and ``dear``, the JAX runner's rule and
+warnings) and ``--remat-policy`` (slice 14).
 """
 
 from __future__ import annotations
@@ -265,13 +267,36 @@ def add_common_args(parser) -> None:
                              "dear/batch.sh)")
     parser.add_argument("--nearby-layers", type=int, default=None,
                         help="fuse every k layers instead of by threshold")
+    parser.add_argument("--compressor", type=str, default="none",
+                        help="gradient compressor (reference "
+                             "dear/compression.py registry, and qint8)")
+    parser.add_argument("--density", type=float, default=1.0,
+                        help="sparsification density for topk-family "
+                             "compressors")
+    parser.add_argument("--momentum-correction", type=float, default=0.0,
+                        help="DGC-style momentum correction coefficient "
+                             "for sparse compressed training (disables "
+                             "the optimizer's momentum while active)")
+    parser.add_argument("--gtopk", action="store_true", default=False,
+                        help="gTop-k recursive-halving sparse allreduce "
+                             "(with a top-k-family --compressor)")
+    parser.add_argument("--remat-policy", type=str, default=None,
+                        choices=["none", "full"],
+                        help="recompute the whole forward in the backward "
+                             "at the train-step level (a checkpoint around "
+                             "the loss); the GPT CLI's --remat checkpoints "
+                             "per block instead")
     parser.add_argument("--accum-steps", type=int, default=1,
                         help="gradient accumulation microbatches per step")
     parser.add_argument("--base-lr", type=float, default=0.01)
     parser.add_argument("--momentum", type=float, default=0.9)
     parser.add_argument("--optimizer", type=str, default="sgd",
                         choices=["sgd", "adamw", "lamb"],
-                        help="shard optimizer (lamb is not ported yet)")
+                        help="shard optimizer (adamw: torch semantics; "
+                             "lamb: exact per-parameter trust ratios on "
+                             "the shards); betas, eps and weight decay "
+                             "via DEAR_ADAM_BETAS, DEAR_ADAM_EPS, "
+                             "DEAR_WEIGHT_DECAY")
     parser.add_argument("--clip-norm", type=float, default=None,
                         help="clip gradients to this global L2 norm")
     parser.add_argument("--lr-schedule", type=str, default=None,
@@ -309,14 +334,33 @@ def config_from_args(args, *, world: Optional[int] = None):
     travel in bf16, except in ``fsdp``, whose reduce-scatter travels in
     the gather dtype; the gathers travel in bf16 for ``dear`` and ``fsdp``
     only when world > 1 (at world 1 there is no gather traffic to halve,
-    and the pre-gather cast is pure overhead)."""
+    and the pre-gather cast is pure overhead). The compression flags reach
+    the config on ``allreduce``, ``dear`` and ``dear-fused`` (which the
+    build then refuses, loudly); the other schedules ignore them with the
+    JAX runner's warning, and ``--density`` without a compressor warns."""
+    import warnings
+
     from dear_pytorch_tpu_torch.config import DearConfig
 
+    use_compression = (args.compressor != "none"
+                       and args.mode in ("allreduce", "dear", "dear-fused"))
+    if args.compressor != "none" and not use_compression:
+        warnings.warn(
+            f"--compressor is ignored by the {args.mode!r} schedule; "
+            "use --mode allreduce or --mode dear.")
+    if args.density < 1.0 and args.compressor == "none":
+        warnings.warn(
+            "--density without --compressor has no effect (dense gradients)")
     return DearConfig.from_env(
         mode=args.mode,
         threshold_mb=threshold_mb(args),
         nearby_layers=args.nearby_layers,
         exclude_parts=parse_exclude_parts(args.exclude_parts),
+        compressor=args.compressor if use_compression else None,
+        density=args.density,
+        gtopk=args.gtopk and use_compression,
+        momentum_correction=(args.momentum_correction if use_compression
+                             else 0.0),
         optimizer_name=args.optimizer,
         lr=args.base_lr,
         momentum=args.momentum,
@@ -325,6 +369,7 @@ def config_from_args(args, *, world: Optional[int] = None):
             "lr_schedule": args.lr_schedule,
             "warmup_steps": args.warmup_steps,
             "total_steps": args.total_steps,
+            "remat": args.remat_policy,
         }.items() if v},
         comm_dtype=(torch.bfloat16 if args.fp16 and args.mode != "fsdp"
                     else None),

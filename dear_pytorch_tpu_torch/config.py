@@ -26,13 +26,7 @@ _COMM_DTYPES = {
 }
 
 #: field -> (its default, the ROADMAP item that ports it)
-_UNPORTED = {
-    "autotune": (None, "Queue 1 item 8 (tuning)"),
-    "compressor": (None, "Queue 1 item 7b (compression)"),
-    "gtopk": (False, "Queue 1 item 7b (compression)"),
-    "momentum_correction": (0.0, "Queue 1 item 7b (compression)"),
-    "remat": (None, "Queue 1 item 7c (remat)"),
-}
+_UNPORTED = {"autotune": (None, "Queue 1 item 8 (tuning)")}
 
 
 @dataclasses.dataclass
@@ -58,7 +52,7 @@ class DearConfig:
     gtopk: bool = False
     momentum_correction: float = 0.0
 
-    optimizer_name: str = "sgd"     # sgd | adamw (lamb: not ported)
+    optimizer_name: str = "sgd"     # sgd | adamw | lamb
     lr: float = 0.01
     momentum: float = 0.9
     weight_decay: float = 0.0
@@ -168,12 +162,17 @@ class DearConfig:
                                eps=self.adam_eps,
                                weight_decay=self.weight_decay)
         if self.optimizer_name == "lamb":
-            return fused_lamb(lr=lr)
+            return fused_lamb(lr=lr, betas=self.adam_betas,
+                              eps=self.adam_eps,
+                              weight_decay=self.weight_decay)
         if self.optimizer_name != "sgd":
             raise ValueError(
                 f"optimizer_name must be 'sgd', 'adamw' or 'lamb', "
                 f"got {self.optimizer_name!r}")
-        return fused_sgd(lr=lr, momentum=self.momentum,
+        # with momentum correction the local pre-sparsification velocity
+        # carries the momentum (JAX config.py:190-193)
+        momentum = 0.0 if self.momentum_correction > 0 else self.momentum
+        return fused_sgd(lr=lr, momentum=momentum,
                          weight_decay=self.weight_decay,
                          nesterov=self.nesterov)
 
@@ -182,7 +181,7 @@ class DearConfig:
         the port does not carry yet."""
         for name, (default, item) in _UNPORTED.items():
             value = getattr(self, name)
-            if value != default and not (name == "remat" and value == "none"):
+            if value != default:
                 raise NotImplementedError(
                     f"DearConfig.{name}={value!r} is not ported yet: "
                     f"ROADMAP {item}")
@@ -192,8 +191,13 @@ class DearConfig:
             optimizer=self.optimizer(),
             comm_dtype=self.comm_dtype,
             gather_dtype=self.gather_dtype,
+            compressor=self.compressor,
+            density=self.density,
+            gtopk=self.gtopk,
+            momentum_correction=self.momentum_correction,
             rng_seed=self.rng_seed,
             partition_mb=self.partition_mb,
             accum_steps=self.accum_steps,
             clip_norm=self.clip_norm,
+            remat=None if self.remat in (None, "none") else self.remat,
         )

@@ -29,8 +29,14 @@ through `models.bert.ProjDense` (``output`` and ``mlp_out`` stay dense), as
 the JAX model does; `ops.collective_matmul.make_ring_projection_impl` is
 the ring collective matmul of ``--ring-projections``.
 
-Not ported yet (each raises ``NotImplementedError``): mixture of experts
-(``num_experts > 0``) and ``remat``.
+``config.remat`` recomputes each block in the backward (the JAX model's
+``nn.remat(GptBlock)``) whenever the forward records a graph and is not a
+decode; the recompute replays the block's dropout masks from
+``generator`` (`ops.remat.checkpoint`). `checkpointed_causal_attention_impl`
+recomputes only the dense core's probabilities, and has no dropout path.
+
+Not ported yet (raises ``NotImplementedError``): mixture of experts
+(``num_experts > 0``).
 """
 
 from __future__ import annotations
@@ -46,6 +52,7 @@ from dear_pytorch_tpu_torch._device import check_model_device, resolve_device
 from dear_pytorch_tpu_torch.models.bert import (  # noqa: F401
     Dense, LayerNorm, ProjDense, dropout,
 )
+from dear_pytorch_tpu_torch.ops import remat as R
 from dear_pytorch_tpu_torch.ops.flash_attention import flash_attention
 from dear_pytorch_tpu_torch.serving import kvcache as KV
 
@@ -66,7 +73,7 @@ class GptConfig:
     dtype: torch.dtype = torch.float32
     #: mixture of experts: the training / expert-parallel slice
     num_experts: int = 0
-    #: activation recomputation: the training slice
+    #: recompute each block in the backward (training; never in decode)
     remat: bool = False
     #: pad the vocab (and the tied LM head's N) to a multiple of this
     vocab_pad_multiple: int = 8
@@ -114,6 +121,26 @@ def causal_dot_product_attention(q, k, v, mask, *, dropout_rate=0.0,
                           device=probs.device) < 1.0 - dropout_rate
         probs = probs * keep / (1.0 - dropout_rate)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def checkpointed_causal_attention_impl() -> Callable:
+    """Dense causal attention whose probabilities are RECOMPUTED in the
+    backward (a non-reentrant checkpoint over the core; the JAX model's
+    gpt.py:118-144): the flash kernel's memory idea in plain ops. No
+    dropout path (the mask would have to be replayed): an active rate
+    raises."""
+
+    def impl(q, k, v, mask, *, dropout_rate=0.0, generator=None,
+             dtype=torch.float32):
+        if generator is not None and dropout_rate > 0.0:
+            raise ValueError(
+                "checkpointed attention has no dropout path; set "
+                "attention_probs_dropout_prob=0")
+        return R.checkpoint(
+            lambda q_, k_, v_: causal_dot_product_attention(
+                q_, k_, v_, mask, dtype=dtype), q, k, v)
+
+    return impl
 
 
 def flash_causal_attention_impl() -> Callable:
@@ -239,8 +266,6 @@ class GptLmHeadModel(nn.Module):
         if config.num_experts > 0:
             raise NotImplementedError(
                 "num_experts > 0 (mixture of experts) is not ported yet")
-        if config.remat:
-            raise NotImplementedError("remat is the training slice's work")
         dev = resolve_device(device)
         cfg = config
         self.config = cfg
@@ -345,9 +370,12 @@ class GptLmHeadModel(nn.Module):
         x = self.wte(input_ids).to(dt) + self.wpe(pos).to(dt)
         if gen is not None:
             x = dropout(x, cfg.embd_dropout_prob, gen)
+        remat = cfg.remat and not decode and torch.is_grad_enabled()
         for i, block in enumerate(self.blocks):
             if decode:
                 x = block(x, cache[i], positions, valid, prefill_lengths)
+            elif remat:
+                x = R.checkpoint(block, x, generators=[gen], generator=gen)
             else:
                 x = block(x, generator=gen)
         x = self.ln_f(x)

@@ -78,6 +78,7 @@ import torch
 from dear_pytorch_tpu_torch.comm import collectives as C
 from dear_pytorch_tpu_torch.comm.ring import check, ring_lib
 from dear_pytorch_tpu_torch.ops import fused_sgd as FS
+from dear_pytorch_tpu_torch.ops import remat as R
 
 __all__ = [
     "ag_route", "allgather_matmul", "bind_ring", "bound_ring",
@@ -426,6 +427,8 @@ def rs_route(n: int, gsize: int, ptrs, *, max_elems: int) -> str:
 #: ring-matmul calls made so far, by kernel, on any device (a `TrainStep`
 #: checks that every forward call got its two backward calls)
 ring_matmul_calls = {"fwd": 0, "dx": 0, "dw": 0}
+#: of the forward calls, those a checkpoint's recompute made (`ops.remat`)
+ring_matmul_recomputes = 0
 
 _CM_KINDS = {"fwd": "rmm_forward", "dx": "rmm_dx", "dw": "rmm_dw"}
 
@@ -542,7 +545,9 @@ def ring_matmul(x: torch.Tensor, w_shard: torch.Tensor, ring
     m = x.shape[-2]
     kind = _cm_check("ring_matmul", ring, x, w_shard,
                      (m, ring.world * kc), (kc, n))
+    global ring_matmul_recomputes
     ring_matmul_calls["fwd"] += 1
+    ring_matmul_recomputes += R.recomputing()
     if ring.world == 1:
         return (x.float() @ w_shard.float()).to(x.dtype)
     if kind == "cpu":

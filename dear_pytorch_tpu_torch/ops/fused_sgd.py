@@ -27,9 +27,16 @@ without reading the device.
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
 kernel or raises; any other device raises. ``fused_update_launches``
-counts kernel launches. ``fused_lamb`` and ``from_optax`` are not ported
-(ROADMAP Queue 1 item 7c): LAMB needs per-parameter reductions that
-``_rs_update_kernel`` cannot fuse either (collective_matmul.py:298-305).
+counts kernel launches.
+
+`fused_lamb` (the JAX package's, fused_sgd.py:171) is a
+`LayerwiseShardOptimizer`: its trust ratios are per-parameter reductions
+over a shard that the train step completes across the ranks, which
+``_rs_update_kernel`` cannot fuse (collective_matmul.py:298-305), so its
+update is plain PyTorch ops on the card too (XLA's ops in the JAX
+package). `from_torch_optim` adapts an elementwise ``torch.optim``
+optimizer to shards, as the JAX package's `from_optax` adapts an optax
+transform; `from_optax` itself raises (the port takes no optax).
 """
 
 from __future__ import annotations
@@ -42,8 +49,9 @@ import numpy as np
 import torch
 
 __all__ = [
-    "LayerwiseShardOptimizer", "ShardOptimizer", "from_optax", "fused_adamw",
-    "fused_lamb", "fused_sgd", "fused_update_reference",
+    "LayerwiseShardOptimizer", "ShardOptimizer", "TorchOptimShard",
+    "from_optax", "from_torch_optim", "fused_adamw", "fused_lamb",
+    "fused_sgd", "fused_update_reference",
 ]
 
 #: kernel launches so far (incremented only where the kernel launches)
@@ -145,11 +153,17 @@ class ShardOptimizer:
 
 
 class LayerwiseShardOptimizer(NamedTuple):
-    """The type of an optimizer that needs per-PARAMETER reductions over
-    the flat shards (LAMB's trust ratios), as the JAX package's
-    (dear_pytorch_tpu/ops/fused_sgd.py:54). The port builds none yet
-    (`fused_lamb` raises); the train step refuses one by this type with the
-    JAX package's messages."""
+    """An optimizer that needs per-PARAMETER reductions over the flat
+    shards (LAMB's trust ratios), as the JAX package's
+    (dear_pytorch_tpu/ops/fused_sgd.py:54). ``update(rs_out, state, param,
+    seg_ids, num_segments, psum, *, mean_world=1, clip_scale=None,
+    step=0) -> (param, state)``, in place: ``seg_ids`` maps each element
+    of this rank's shard to its bucket-local parameter index
+    (`ops.fusion.FusionPlan.segment_ids`), padding in the trailing dummy
+    segment ``num_segments - 1``; ``psum`` completes shard-local segment
+    sums over the ranks (the identity when the buffer is replicated). The
+    train step supplies both; ``dear-fused`` refuses this type with the
+    JAX package's message."""
 
     init: Callable[[torch.Tensor], Any]
     update: Callable[..., tuple]
@@ -299,13 +313,143 @@ def fused_adamw(lr, betas: tuple = (0.9, 0.999), eps: float = 1e-8,
                           betas=tuple(betas), eps=eps)
 
 
-def fused_lamb(*args, **kwargs):
-    raise NotImplementedError(
-        "fused_lamb (layerwise trust ratios over shards) is not ported yet: "
-        "ROADMAP Queue 1 item 7c")
+def _lr_at(lr, step: int) -> float:
+    return float(lr(step)) if callable(lr) else lr
+
+
+def _grad_of(rs_out, mean_world, clip_scale, device) -> torch.Tensor:
+    """The update's fp32 gradient: the reduced sum over ``mean_world``,
+    times the clip scale (`fused_update_reference`'s order)."""
+    g = rs_out.float() / torch.tensor(float(mean_world), device=device)
+    return g if clip_scale is None else g * clip_scale
+
+
+def _segment_sums(x: torch.Tensor, seg_ids: torch.Tensor,
+                  num_segments: int) -> torch.Tensor:
+    """``jax.ops.segment_sum`` for NONDECREASING ``seg_ids`` (a fusion
+    plan's: each parameter a contiguous run, the padding last): the fp64
+    running sum read at each segment's end, minus the one before. No
+    atomics (an ``index_add_`` into a few segments serialises on their
+    addresses: one 31M-element embedding took ~1 s on the card) and no
+    host sync; fp64, so the differences lose nothing an fp32 sum keeps."""
+    run = torch.cumsum(x.double(), 0)
+    ids = torch.arange(num_segments, dtype=seg_ids.dtype,
+                       device=seg_ids.device)
+    ends = torch.searchsorted(seg_ids, ids, right=True)
+    upto = torch.cat([run.new_zeros((1,)), run])[ends]
+    return torch.diff(upto, prepend=upto.new_zeros((1,))).to(x.dtype)
+
+
+def fused_lamb(lr, betas: tuple = (0.9, 0.999), eps: float = 1e-6,
+               weight_decay: float = 0.01) -> LayerwiseShardOptimizer:
+    """LAMB (You et al. 2020, the BERT large-batch optimizer) on flat shard
+    buffers with EXACT per-parameter trust ratios (the JAX package's
+    fused_sgd.py:171-232):
+
+        m    = b1 m + (1-b1) g;   v = b2 v + (1-b2) g^2
+        u    = m/(1-b1^t) / (sqrt(v/(1-b2^t)) + eps) + wd * w
+        r    = ||w||_seg / ||u||_seg          (1 where either norm is 0)
+        w   -= lr * r[seg] * u
+
+    ``seg_ids`` is nondecreasing, as a fusion plan's are (`_segment_sums`).
+    The two segment sums of squares go to ``psum`` as one ``[2,
+    num_segments]`` tensor (one collective). Padding lives in the dummy
+    trailing segment and never moves (w = 0, g = 0 -> u = 0). The state
+    is ``{"m", "v"}`` shard tensors, the host step count ``t`` and, after
+    an update, that update's ``trust`` ratios (one per segment, the same
+    on every rank)."""
+    b1, b2 = betas
+    if not (0.0 <= b1 < 1.0 and 0.0 <= b2 < 1.0):
+        raise ValueError(f"betas must be in [0, 1), got {betas}")
+
+    def init(param):
+        return {"m": torch.zeros_like(param), "v": torch.zeros_like(param),
+                "t": 0}
+
+    def update(rs_out, state, param, seg_ids, num_segments, psum, *,
+               mean_world: int = 1, clip_scale=None, step: int = 0):
+        f32 = np.float32
+        g = _grad_of(rs_out, mean_world, clip_scale, param.device)
+        m, v = state["m"], state["v"]
+        t = f32(state["t"] + 1)
+        m.mul_(b1).add_(g * (1.0 - b1))
+        v.mul_(b2).add_(g * g * (1.0 - b2))
+        bc1 = float(f32(1.0) - f32(b1) ** t)
+        bc2 = float(f32(1.0) - f32(b2) ** t)
+        u = (m / bc1) / ((v / bc2).sqrt() + eps)
+        if weight_decay:
+            u = u + weight_decay * param
+        sums = torch.stack([_segment_sums(param * param, seg_ids,
+                                          num_segments),
+                            _segment_sums(u * u, seg_ids, num_segments)])
+        w_norm, u_norm = psum(sums).sqrt()
+        trust = torch.where((w_norm > 0.0) & (u_norm > 0.0),
+                            w_norm / torch.clamp(u_norm, min=1e-12),
+                            torch.ones_like(w_norm))
+        param.sub_(_lr_at(lr, step) * trust.index_select(0, seg_ids) * u)
+        state["t"] += 1
+        state["trust"] = trust
+        return param, state
+
+    return LayerwiseShardOptimizer(init, update, callable(lr))
+
+
+class TorchOptimShard:
+    """`from_torch_optim`'s optimizer: ``init(param)`` binds one
+    ``torch.optim`` optimizer to the shard tensor (its state is that
+    optimizer's); ``update(rs_out, state, param, *, mean_world=1,
+    clip_scale=None, step=0)`` sets the shard's ``.grad`` to the mean
+    gradient and steps it, in place. An ``lr`` schedule (callable) sets
+    the learning rate of each step."""
+
+    def __init__(self, optimizer_cls, hyper: dict):
+        self.optimizer_cls, self.hyper = optimizer_cls, dict(hyper)
+
+    @property
+    def needs_step(self) -> bool:
+        return callable(self.hyper.get("lr"))
+
+    def init(self, param: torch.Tensor) -> dict:
+        hyper = dict(self.hyper)
+        if self.needs_step:
+            hyper["lr"] = _lr_at(hyper["lr"], 0)
+        return {"optim": self.optimizer_cls([param], **hyper),
+                "param": param}
+
+    def update(self, rs_out, state, param, *, mean_world: int = 1,
+               clip_scale=None, step: int = 0):
+        if state["param"] is not param:
+            raise ValueError("from_torch_optim: update() got another shard "
+                             "than init() bound")
+        opt = state["optim"]
+        if self.needs_step:
+            for group in opt.param_groups:
+                group["lr"] = _lr_at(self.hyper["lr"], step)
+        param.grad = _grad_of(rs_out, mean_world, clip_scale, param.device)
+        opt.step()
+        param.grad = None
+        return param, state
+
+
+def from_torch_optim(optimizer_cls, **hyper) -> TorchOptimShard:
+    """Adapt an elementwise ``torch.optim`` optimizer (SGD, Adam, AdamW,
+    RMSprop, ...) to flat shard buffers — the port's counterpart of the
+    JAX package's `from_optax` (fused_sgd.py:248): ``hyper`` are the
+    optimizer's arguments (``lr`` a float or a schedule).
+
+    Valid only for elementwise optimizers: state and update must depend on
+    each element independently, so running on a shard equals running on
+    the full tensor. A cross-element transform (a norm over a parameter
+    or over all of them, e.g. LAMB's trust ratio or global-norm clipping)
+    would silently compute SHARD-LOCAL values: for those use
+    `fused_lamb` or ``build_train_step(clip_norm=...)``, which complete
+    their sums over the ranks. ``mode="dear-fused"`` fuses only a
+    `ShardOptimizer` into its kernel and refuses this one."""
+    return TorchOptimShard(optimizer_cls, hyper)
 
 
 def from_optax(*args, **kwargs):
     raise NotImplementedError(
         "from_optax adapts optax transforms, which the port does not use: "
-        "ROADMAP Queue 1 item 7c")
+        "adapt an elementwise torch.optim optimizer with "
+        "from_torch_optim(optimizer_cls, **hyper)")

@@ -128,16 +128,66 @@ without ``allgather`` the full buffer is zeros with this rank's shard at
 its slot and no gather runs; without ``reducescatter`` the update reads
 this rank's slice of its own gradient and no reduce-scatter runs.
 
+Gradient compression (``compressor``, ``density``, ``gtopk``,
+``momentum_correction``; ``mode="allreduce"`` and ``"dear"`` only, JAX
+dear.py:776-851) replaces a bucket's dense reduction: when its last
+gradient is in, on the comm stream, the bucket's gradient (in fp32, the
+master dtype: a bf16 gradient is compressed as its fp32 value) plus this
+rank's error-feedback residual is compressed (`ops.compression`), the
+payload goes through ONE collective (gTop-k: one pair exchange per round,
+partner ``rank ^ 2^r``) and every rank rebuilds the same dense mean over
+the ranks. ``allreduce`` updates the whole bucket from it; ``dear`` keeps
+its slice ``[rank * shard, (rank + 1) * shard)`` and the all-gather leg
+stays dense. The mean is already over the ranks (the sign vote: ±1), so
+the update divides by nothing. ``DearState.comp_state`` holds per bucket
+this rank's residual over the padded bucket (``()`` for the stateless
+topk and signum) and, with momentum correction, the local velocity
+(``{"res", "vel"}``): the JAX package's ``(world, padded)`` rows, one per
+rank. Under gTop-k a coordinate this rank sent but the global top-k
+rejected goes back into its residual; under momentum correction the
+velocity is cleared at the coordinates this rank sent. Every rank issues
+the payload collectives in the order its gradient hooks complete the
+buckets, which is the backward's order, the same on every rank.
+
+A `LayerwiseShardOptimizer` (LAMB, `ops.fused_sgd.fused_lamb`; JAX
+dear.py:912-958) gets, per bucket, the segment ids of this rank's slice
+(searchsorted over the bucket's offsets; padding in a dummy last segment)
+and a ``psum``: in the sharded modes at world > 1 an all-reduce of its two
+segment sums in one collective (counted in ``ar_launches``), else the
+identity.
+
+``remat="full"`` (JAX dear.py:694-698) recomputes the whole forward in the
+backward: the loss runs under a non-reentrant ``torch.utils.checkpoint``
+whose recompute replays the dropout generator from its state at the
+forward's start (checkpoint itself replays only the default generators)
+and leaves the model's buffers as the forward left them (BatchNorm's
+running statistics are updated once per microbatch, as JAX's functional
+state is). The gather waits run again in the recompute (they find nothing
+to wait for); each parameter's gradient hook still fires once. Under
+``dear-fused`` with ring projections the recompute issues K6 again, in
+the same order on every rank: a microbatch's K6 calls, less those its
+recomputes made (`ops.remat.recomputing`), pair with its K7 and K8
+calls. ``fsdp`` refuses remat, as JAX's does.
+
 Every schedule counts its collectives on the `TrainStep` (with B buckets,
-per step): ``dear`` B reduce-scatters, B all-gathers, B updates; ``fsdp``
-B, 2B, B (with ``accum_steps`` k: B, 2kB, B); ``allreduce`` B all-reduces;
-``rsag`` B reduce-scatters and B all-gathers; ``rb`` B reduces and B
-broadcasts; ``bytescheduler`` one reduce-scatter and one all-gather per
-chunk; each of them B updates; an excluded leg counts 0.
+per step):
+
+  mode                  rs   ag   ar   reduce/bcast   comp          update
+  dear                  B    B    -    -              -             B
+  dear, compressed      -    B    -    -              B (gTop-k:    B
+  allreduce, compressed -    -    -    -               B log2 W)    B
+  fsdp                  B    2B   -    -              -             B
+  allreduce             -    -    B    -              -             B
+  rsag                  B    B    -    -              -             B
+  rb                    -    -    -    B / B          -             B
+  bytescheduler         one rs and one ag per chunk                 B
+
+(``fsdp`` with ``accum_steps`` k: 2kB all-gathers.) ``comp_launches``
+counts the payload collectives; a LAMB step adds B to ``ar`` in the
+sharded modes at world > 1; an excluded leg counts 0.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): compression, ``remat`` (outside ``fsdp``, which refuses it as
-JAX's does), LAMB, the multi-slice ``dcn`` schedule and ``multi_step``.
+item): the multi-slice ``dcn`` schedule and ``multi_step``.
 """
 
 from __future__ import annotations
@@ -156,10 +206,11 @@ from dear_pytorch_tpu_torch.comm import collectives as C
 from dear_pytorch_tpu_torch.comm.ring import Ring
 from dear_pytorch_tpu_torch.models.bert import ProjDense
 from dear_pytorch_tpu_torch.ops import collective_matmul as CM
+from dear_pytorch_tpu_torch.ops import compression as Z
 from dear_pytorch_tpu_torch.ops import fusion as F
+from dear_pytorch_tpu_torch.ops import remat as R
 from dear_pytorch_tpu_torch.ops.fused_sgd import (
     LayerwiseShardOptimizer,
-    ShardOptimizer,
     fused_sgd,
 )
 
@@ -177,21 +228,19 @@ _SHARDED = ("dear", "dear-fused", "fsdp")
 class DearState(NamedTuple):
     """Carried training state: per bucket the fp32 master shard this rank
     owns (in the replicated modes the whole padded bucket) and its
-    optimizer state; the global step count. The tensors are updated in
-    place by `TrainStep.step`."""
+    optimizer state; the global step count; with compression, per bucket
+    this rank's compressor state (module docstring; else ``()``). The
+    tensors are updated in place by `TrainStep.step`."""
 
     shards: tuple
     opt_state: tuple
     step: int
+    comp_state: tuple = ()
 
 
 #: options of the JAX package's ``build_train_step`` that are not ported
 #: yet -> the ROADMAP Queue 1 item that brings them
-_UNPORTED = {
-    "compressor": "7b (compression)", "gtopk": "7b (compression)",
-    "momentum_correction": "7b (compression)",
-    "dcn": "9 (the multi-slice schedule)",
-}
+_UNPORTED = {"dcn": "9 (the multi-slice schedule)"}
 
 
 class _SavedView(NamedTuple):
@@ -247,8 +296,9 @@ def _unported(what: str, item: str):
 
 
 def _fused_guards(optimizer, clip_norm, unported) -> None:
-    """The JAX package's build-time guards of ``mode="dear-fused"``, in its
-    order and with its messages (dear.py:401-457)."""
+    """The JAX package's build-time guards of ``mode="dear-fused"`` that
+    come before the others, in its order and with its messages
+    (dear.py:401-457)."""
     if unported.get("dcn") is not None:
         raise ValueError(
             "multislice (dcn=) cannot ride mode='dear-fused': the "
@@ -268,23 +318,40 @@ def _fused_guards(optimizer, clip_norm, unported) -> None:
             "dear-fused cannot fuse LayerwiseShardOptimizer (LAMB) "
             "into the epilogue kernel: trust ratios need cross-shard "
             "psums — use mode='dear'")
-    if unported.get("compressor") not in (None, "none"):
+
+
+def _compression_guards(comp, mode, exclude_parts) -> None:
+    """The JAX package's guards of a compressor against the schedule, in
+    its order and with its messages (dear.py:464-486)."""
+    if comp.name == "none":
+        return
+    if mode == "dear-fused":
         raise ValueError(
             "gradient compression cannot ride mode='dear-fused': the "
             "Pallas ring kernels execute the reduce-scatter leg (fused "
             "with the optimizer epilogue) on dense fp tiles and cannot "
             "exchange sparse/sign/int8-packed payloads — use mode='dear' "
             "(compressed decoupled schedule) or mode='allreduce'")
+    if mode not in ("allreduce", "dear"):
+        raise ValueError(
+            "gradient compression is supported on the 'allreduce' "
+            "(WFBP-family, reference parity) and 'dear' (decoupled "
+            f"RS+AG) schedules; got mode={mode!r}")
+    if exclude_parts:
+        raise ValueError(
+            "exclude_parts ablations assume dense collectives; the "
+            "compressed gradient leg has no reduce-scatter to exclude")
 
 
 def build_train_step(loss_fn: Callable, model: nn.Module, *,
-                     optimizer: Optional[ShardOptimizer] = None,
-                     group=None, mode: str = "dear",
+                     optimizer=None, group=None, mode: str = "dear",
                      threshold_mb: Optional[float] = 25.0,
                      nearby_layers: Optional[int] = None,
                      flags: Optional[Sequence[int]] = None,
                      plan: Optional[F.FusionPlan] = None,
                      comm_dtype=None, gather_dtype=None,
+                     compressor: Optional[str] = None, density: float = 1.0,
+                     gtopk: bool = False, momentum_correction: float = 0.0,
                      has_aux: bool = False, rng_seed: Optional[int] = None,
                      accum_steps: int = 1,
                      clip_norm: Optional[float] = None, device=None,
@@ -299,13 +366,17 @@ def build_train_step(loss_fn: Callable, model: nn.Module, *,
     with ``rng_seed`` it is called as ``loss_fn(model, batch, generator)``
     with a ``torch.Generator`` on the model's device seeded from
     ``(rng_seed, step, rank)`` and, under accumulation, the microbatch — for
-    dropout. ``optimizer``: a `ShardOptimizer` (default: SGD, lr 0.01).
-    ``group``: the process group (default: `comm.backend.init` on
+    dropout. ``optimizer``: a `ShardOptimizer`, a `LayerwiseShardOptimizer`
+    (`fused_lamb`) or a `from_torch_optim` adapter (default: SGD, lr
+    0.01). ``group``: the process group (default: `comm.backend.init` on
     ``device``, which must be the model's; the card unless told
     otherwise). ``threshold_mb`` / ``nearby_layers`` / ``flags`` / ``plan``:
     the bucketing (`ops.fusion.make_plan` over ``named_parameters()``).
     ``comm_dtype``: the dtype gradients travel in; ``gather_dtype``: the
     dtype the shards are gathered in, which the parameters then have.
+    ``compressor`` (a name of `ops.compression.compressors`), ``density``,
+    ``gtopk`` and ``momentum_correction``: gradient compression on
+    ``allreduce`` and ``dear`` (module docstring).
     ``accum_steps``: microbatches per step (every batch tensor splits along
     dim 0); gradients accumulate in fp32 and are divided by
     ``accum_steps`` before the cast, and one reduce-scatter per bucket runs
@@ -318,11 +389,10 @@ def build_train_step(loss_fn: Callable, model: nn.Module, *,
     ``exclude_parts``: a subset of `EXCLUDABLE`, the time-breakdown
     ablations of ``mode="dear"``. ``partition_mb``: ``bytescheduler``'s
     chunk size in MB of the comm dtype (other modes ignore it). ``remat``:
-    None or ``"none"`` (``"full"`` is not ported yet; ``fsdp`` refuses it).
-    The JAX package's other options (``compressor``, ``gtopk``,
-    ``momentum_correction``, ``dcn``) are accepted at their defaults and
-    raise ``NotImplementedError`` otherwise. The guards are the JAX
-    package's, with its messages (dear.py:361-366, :401-482)."""
+    None, ``"none"`` or ``"full"`` (recompute the forward in the backward;
+    ``fsdp`` refuses it). The JAX package's ``dcn`` is accepted at its
+    default and raises ``NotImplementedError`` otherwise. The guards are
+    the JAX package's, in its order and with its messages (dear.py:361-510)."""
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
     for e in exclude_parts:
@@ -340,31 +410,44 @@ def build_train_step(loss_fn: Callable, model: nn.Module, *,
             "'fsdp' communicates both legs in gather_dtype (the "
             "reduce-scatter is the all-gather's AD transpose); comm_dtype "
             "must be None")
+    comp = Z.get_compressor(compressor)
+    _compression_guards(comp, mode, exclude_parts)
     if remat not in (None, "none", "full"):
         raise ValueError(
             f"remat must be None, 'none' or 'full', got {remat!r}")
-    if remat == "full":
-        if mode == "fsdp":
+    remat = None if remat in (None, "none") else remat
+    if remat is not None and mode == "fsdp":
+        raise ValueError(
+            "'fsdp' owns its rematerialization policy (the re-gather-in-"
+            "backward checkpoint); remat applies to the other schedules")
+    if gtopk and comp.name not in Z.SPARSE:
+        raise ValueError("gtopk requires a top-k-family compressor")
+    if int(accum_steps) != accum_steps or accum_steps < 1:
+        raise ValueError(
+            f"accum_steps must be a positive int, got {accum_steps}")
+    if clip_norm is not None:
+        if comp.name != "none":
             raise ValueError(
-                "'fsdp' owns its rematerialization policy (the re-gather-in-"
-                "backward checkpoint); remat applies to the other schedules")
-        raise _unported("remat='full'", "7c (remat)")
-    if isinstance(optimizer, LayerwiseShardOptimizer):
-        raise _unported("LayerwiseShardOptimizer (LAMB)", "7c")
+                "clip_norm with compression is unsupported: the sparse "
+                "payloads are already a lossy gradient transform")
+        if clip_norm <= 0:
+            raise ValueError(f"clip_norm must be positive, got {clip_norm}")
+    if momentum_correction and comp.name not in Z.SPARSE:
+        raise ValueError(
+            "momentum_correction requires a sparse (top-k-family) "
+            "compressor (reference wfbp/dopt.py:769: mc applies on the "
+            "sparse path only)")
     for name, value in unported.items():
         if name not in _UNPORTED:
             raise TypeError(f"build_train_step() got an unexpected keyword "
                             f"argument {name!r}")
         if value not in (None, "none", False, ()):
             raise _unported(f"{name}={value!r}", _UNPORTED[name])
-    if int(accum_steps) != accum_steps or accum_steps < 1:
-        raise ValueError(
-            f"accum_steps must be a positive int, got {accum_steps}")
-    if clip_norm is not None and clip_norm <= 0:
-        raise ValueError(f"clip_norm must be positive, got {clip_norm}")
     dev = check_model_device(model.device, device)
     group = backend.init(dev) if group is None else group
     world = dist.get_world_size(group)
+    if gtopk and world & (world - 1):
+        raise ValueError(f"gtopk needs a power-of-two world, got {world}")
     if plan is None:
         plan = F.make_plan(model, world, threshold_mb=threshold_mb,
                            nearby_layers=nearby_layers, flags=flags)
@@ -377,7 +460,9 @@ def build_train_step(loss_fn: Callable, model: nn.Module, *,
                      accum_steps=int(accum_steps), clip_norm=clip_norm,
                      mode=mode, exclude_parts=exclude_parts,
                      partition_mb=partition_mb,
-                     model_state=_model_state(model, model_state_template))
+                     model_state=_model_state(model, model_state_template),
+                     compressor=comp, density=density, gtopk=bool(gtopk),
+                     momentum_correction=momentum_correction, remat=remat)
 
 
 def _model_state(model, template) -> list:
@@ -404,11 +489,12 @@ class TrainStep:
     """What `build_train_step` returns: ``init``, ``step``,
     ``gather_params``, ``plan`` and ``group``, and the per-run counters
     that show the schedule ran per bucket: ``rs_launches``,
-    ``ag_launches``, ``ar_launches``, ``reduce_launches`` and
-    ``bcast_launches`` (each collective launched, by kind; the module
-    docstring has their counts per step for each mode),
-    ``update_launches`` (one per bucket per step), ``cm_calls``
-    (ring-matmul calls, three per ring projection per step) and
+    ``ag_launches``, ``ar_launches``, ``reduce_launches``,
+    ``bcast_launches`` and ``comp_launches`` (each collective launched, by
+    kind, ``comp`` the compressed payloads'; the module docstring has
+    their counts per step for each mode), ``update_launches`` (one per
+    bucket per step), ``cm_calls`` (ring-matmul calls, three per ring
+    projection per step, and one more K6 call per recompute) and
     ``state_syncs`` (model-state collectives: one per step at world > 1
     when the model has state, else none).
     In ``dear-fused`` mode ``ring`` is the step's `comm.ring.Ring` (holding
@@ -418,7 +504,8 @@ class TrainStep:
     def __init__(self, loss_fn, model, optimizer, group, plan, *,
                  comm_dtype, gather_dtype, has_aux, rng_seed, accum_steps,
                  clip_norm, mode="dear", exclude_parts=(), partition_mb=4.0,
-                 model_state=()):
+                 model_state=(), compressor=None, density=1.0, gtopk=False,
+                 momentum_correction=0.0, remat=None):
         self.loss_fn, self.model, self.optimizer = loss_fn, model, optimizer
         self.group, self.plan = group, plan
         self.has_aux, self.rng_seed = has_aux, rng_seed
@@ -432,9 +519,16 @@ class TrainStep:
         self._exclude = frozenset(exclude_parts)
         self._reduction = _REDUCTIONS.get(mode)
         self.partition_mb = partition_mb
+        comp = compressor or Z.get_compressor(None)
+        #: the compressor (None: dense), its density and options
+        self.compressor = comp if comp.name != "none" else None
+        self.density, self.gtopk = density, gtopk
+        self.momentum_correction = momentum_correction
+        self.remat = remat
+        self.layerwise = isinstance(optimizer, LayerwiseShardOptimizer)
         self.rs_launches = self.ag_launches = self.update_launches = 0
         self.ar_launches = self.reduce_launches = self.bcast_launches = 0
-        self.cm_calls = self.state_syncs = 0
+        self.comp_launches = self.cm_calls = self.state_syncs = 0
         self._mstate = list(model_state)
         self._mstate_done = None
 
@@ -474,9 +568,23 @@ class TrainStep:
                       for b in bks]
         self._gbuf = [zeros(b.padded_size, cdt) for b in bks]
         # the reduced gradient each update reads: the reduce-scatter's
-        # output, or (replicated) the gradient buffer reduced in place
-        self._reduced = ([zeros(b.shard_size, cdt) for b in bks]
-                         if self.sharded else self._gbuf)
+        # output, or (replicated) the gradient buffer reduced in place;
+        # compressed, the dense mean (fp32; dear: this rank's slice)
+        self._dense = ([zeros(b.padded_size, torch.float32) for b in bks]
+                       if self.compressor is not None else None)
+        if self._dense is not None:
+            self._reduced = [
+                d[self.rank * b.shard_size:(self.rank + 1) * b.shard_size]
+                if self.sharded else d for d, b in zip(self._dense, bks)]
+        else:
+            self._reduced = ([zeros(b.shard_size, cdt) for b in bks]
+                             if self.sharded else self._gbuf)
+        # the divisor of the update: the compressed means are means already
+        self._mean_world = 1 if self.compressor is not None else self.world
+        #: LAMB: per bucket its parameters' offsets (the segment starts)
+        self._starts = ([torch.tensor(b.offsets, dtype=torch.int32,
+                                      device=dev) for b in bks]
+                        if self.layerwise else None)
         self._acc = ([zeros(b.padded_size, torch.float32) for b in bks]
                      if accum_steps > 1 else None)
         self._slot = {}
@@ -520,7 +628,9 @@ class TrainStep:
             self._fused_reduce_scatters()
             return
         with self._on_comm():
-            if self._reduction is not None:
+            if self.compressor is not None:
+                works = [self._compressed_reduce(g)]
+            elif self._reduction is not None:
                 works = self._reduction(self, self._gbuf[g])
             elif "reducescatter" in self._exclude:
                 n = self.plan.buckets[g].shard_size
@@ -534,6 +644,57 @@ class TrainStep:
                 works = [work]
                 self.rs_launches += 1
         self._rs_work[g] = works
+
+    def _compressed_reduce(self, g: int):
+        """Bucket g's compressed reduction (JAX dear.py:776-851), on the
+        current stream: the velocity (momentum correction), the compression
+        of the fp32 gradient plus this rank's residual, the payload's
+        collective, the dense mean into ``_dense[g]``, the residual's
+        re-add of gTop-k's rejected coordinates, and the velocity cleared
+        where this rank sent. Returns the work handle of all of it."""
+        b = self.plan.buckets[g]
+        comp, n = self.compressor, b.padded_size
+        entry = self._state.comp_state[g]
+        mc = self.momentum_correction
+        res, vel = (entry["res"], entry["vel"]) if mc else (entry, None)
+        with torch.no_grad():
+            gin = self._gbuf[g].float()
+            if mc:
+                vel.mul_(mc).add_(gin)
+                gin = vel
+            payload, new_res = comp.compress(gin, res, self.density)
+            if comp.name in Z.SIGN:
+                dense = Z.sign_majority_vote_allreduce(
+                    payload, n, torch.float32, self.group)
+                self.comp_launches += 1
+            elif self.gtopk:
+                dense, kept = Z.gtopk_sparse_allreduce(
+                    payload, n, torch.float32, Z._k_of(n, self.density),
+                    self.group)
+                self.comp_launches += self.world.bit_length() - 1
+                if torch.is_tensor(new_res):   # the rejected back in
+                    sent = payload["indices"].long()
+                    kept_mask = torch.zeros((n,), dtype=torch.bool,
+                                            device=self.device)
+                    kept_mask[kept.long()] = True
+                    rejected = torch.where(
+                        kept_mask[sent], torch.zeros_like(payload["values"]),
+                        payload["values"])
+                    new_res.index_add_(0, sent, rejected.to(new_res.dtype))
+            elif comp.name in Z.QUANT:
+                dense = Z.int8_allreduce(payload, n, torch.float32,
+                                         self.group)
+                self.comp_launches += 1
+            else:
+                dense = Z.sparse_allreduce(payload, n, torch.float32,
+                                           self.group)
+                self.comp_launches += 1
+            self._dense[g].copy_(dense)
+            if torch.is_tensor(new_res):
+                res.copy_(new_res)
+            if mc:
+                vel[payload["indices"].long()] = 0.0
+        return C.StreamEvent.after_current(self.device)
 
     def _fused_reduce_scatters(self) -> None:
         """Issue K5 ring for every bucket whose turn in the fixed order has
@@ -734,7 +895,24 @@ class TrainStep:
         if self.sharded:
             for g, shard in enumerate(shards):
                 self._gather(g, shard)
-        return DearState(tuple(shards), opt, 0)
+        return DearState(tuple(shards), opt, 0, self._init_comp_state())
+
+    def _init_comp_state(self) -> tuple:
+        """Per bucket this rank's compressor state: the residual over the
+        padded bucket (``()`` when stateless) and, with momentum
+        correction, the velocity: ``{"res", "vel"}``."""
+        if self.compressor is None:
+            return ()
+        out = []
+        for b in self.plan.buckets:
+            res = self.compressor.init(b.padded_size, torch.float32,
+                                       self.device)
+            if self.momentum_correction:
+                res = {"res": res, "vel": torch.zeros(
+                    (b.padded_size,), dtype=torch.float32,
+                    device=self.device)}
+            out.append(res)
+        return tuple(out)
 
     def _generator(self, step: int, microbatch: int) -> torch.Generator:
         seed = np.random.SeedSequence(
@@ -802,10 +980,11 @@ class TrainStep:
             args = (self.model, mb)
             if self.rng_seed is not None:
                 args += (self._generator(state.step, i),)
-            calls = dict(CM.ring_matmul_calls)
+            calls = dict(CM.ring_matmul_calls,
+                         again=CM.ring_matmul_recomputes)
             with CM.bind_ring(self.ring):
                 with self._saving():
-                    out = self.loss_fn(*args)
+                    out = self._loss(args)
                 loss, aux = out if self.has_aux else (out, None)
                 self._free_all()
                 loss.backward()
@@ -825,17 +1004,30 @@ class TrainStep:
         metrics["loss"] = self._mean_over_ranks(loss)
         if auxs:
             metrics["aux"] = self._mean_over_ranks(torch.stack(auxs).mean(0))
-        return DearState(state.shards, state.opt_state, state.step + 1), \
-            metrics
+        return DearState(state.shards, state.opt_state, state.step + 1,
+                         state.comp_state), metrics
+
+    def _loss(self, args):
+        """``loss_fn(*args)``; under ``remat="full"`` in a checkpoint whose
+        recompute replays the dropout generator and keeps the model's
+        buffers (module docstring)."""
+        if self.remat != "full":
+            return self.loss_fn(*args)
+        gens = [a for a in args[2:] if isinstance(a, torch.Generator)]
+        return R.checkpoint(self.loss_fn, *args, generators=gens,
+                            buffers=list(self.model.buffers()))
 
     def _count_ring_matmuls(self, before: dict) -> None:
-        """Every ring projection's forward call (K6) must have had its two
-        backward calls (K7, K8): the ranks' ring calls pair up."""
-        got = {k: CM.ring_matmul_calls[k] - v for k, v in before.items()}
-        if not got["fwd"] == got["dx"] == got["dw"]:
+        """Every ring projection's forward call (K6) that no recompute made
+        must have had its two backward calls (K7, K8): the ranks' ring
+        calls pair up."""
+        now = dict(CM.ring_matmul_calls, again=CM.ring_matmul_recomputes)
+        got = {k: now[k] - v for k, v in before.items()}
+        if not got["fwd"] - got["again"] == got["dx"] == got["dw"]:
             raise RuntimeError(f"ring-matmul calls of one microbatch do not "
-                               f"pair up (forward, dx, dw): {got}")
-        self.cm_calls += 3 * got["fwd"]
+                               f"pair up (again: the recomputed forward "
+                               f"calls): {got}")
+        self.cm_calls += got["fwd"] + got["dx"] + got["dw"]
 
     def _fused_gathers(self, state: DearState) -> None:
         """dear-fused, after backward: every K5 ring was issued (in the one
@@ -875,13 +1067,44 @@ class TrainStep:
             metrics["grad_norm"] = gnorm
         with torch.no_grad():
             for g, shard in enumerate(state.shards):
+                layer = self._segments(g) if self.layerwise else ()
                 self.optimizer.update(
-                    self._reduced[g], state.opt_state[g], shard,
-                    mean_world=self.world, clip_scale=clip_scale,
+                    self._reduced[g], state.opt_state[g], shard, *layer,
+                    mean_world=self._mean_world, clip_scale=clip_scale,
                     step=state.step)
                 self.update_launches += 1
                 if self.sharded:
                     self._gather(g, shard)
+
+    def _segment_ids(self, g: int, lo: int, hi: int) -> torch.Tensor:
+        """int32 ids of bucket g's elements ``[lo, hi)``: each element's
+        bucket-local parameter (searchsorted over the parameters' starts),
+        padding the dummy last segment — `FusionPlan.segment_ids`'s slice.
+        Made on every step rather than kept: kept, they would hold 4 bytes
+        per element of the shard on the card."""
+        b = self.plan.buckets[g]
+        pos = torch.arange(lo, hi, dtype=torch.int32, device=self.device)
+        seg = torch.searchsorted(self._starts[g], pos, right=True,
+                                 out_int32=True) - 1
+        return torch.where(pos < b.size, seg, len(b.leaf_ids))
+
+    def _segments(self, g: int) -> tuple:
+        """A `LayerwiseShardOptimizer`'s ``(seg_ids, num_segments, psum)``
+        for bucket g (JAX dear.py:912-958): the segment ids of this rank's
+        buffer (`_segment_ids`); ``psum`` an all-reduce over the group in
+        the sharded modes at world > 1, else the identity."""
+        b = self.plan.buckets[g]
+        lo, hi = ((self.rank * b.shard_size, (self.rank + 1) * b.shard_size)
+                  if self.sharded else (0, b.padded_size))
+        seg = self._segment_ids(g, lo, hi)
+        if not (self.sharded and self.world > 1):
+            return seg, len(b.leaf_ids) + 1, lambda x: x
+
+        def psum(x):
+            self.ar_launches += 1
+            return C.all_reduce(x, self.group)
+
+        return seg, len(b.leaf_ids) + 1, psum
 
     def _sync_model_state(self) -> None:
         """After the last microbatch's backward: the mean over the ranks of
@@ -953,7 +1176,10 @@ class TrainStep:
         between the model and the step is never collected; the model and
         the step's buffers are freed once the caller drops them), and in
         dear-fused free the ring's buffers. The gather buffers die with the
-        ring, so the model's parameters get memory of their own first."""
+        ring, so the model's parameters get memory of their own first.
+        The last step's gathers are waited for first: they write the
+        updated parameters into the model."""
+        self._wait_gathers(range(len(self._ag_work)))
         for hook in self._hooks:
             hook.remove()
         self._hooks = []
@@ -968,4 +1194,4 @@ class TrainStep:
         self.ring.close()
 
     def multi_step(self, n: int):
-        raise _unported("multi_step (as CUDA-graph capture)", "7c")
+        raise _unported("multi_step (as CUDA-graph capture)", "7d")

@@ -394,9 +394,10 @@ def test_world2_fused_matches_port_dear(world2_results):
 
 def test_rejected_options_raise(group):
     """What is not ported raises NotImplementedError naming its ROADMAP
-    item: compression, ``remat`` (outside ``fsdp``), ``dcn``, LAMB and
-    ``multi_step``. What is ported builds: ``model_state_template``, the
-    baseline modes and ``fsdp``, and the ``exclude_parts`` ablations;
+    item: the multi-slice ``dcn`` schedule (item 9) and ``multi_step``
+    (item 7d). What is ported builds: ``model_state_template``, the
+    baseline modes and ``fsdp``, the ``exclude_parts`` ablations, and since
+    slice 14 compression, ``remat="full"`` (outside ``fsdp``) and LAMB;
     ``mode="dear-fused"`` builds, and refuses what the JAX package's
     dear-fused refuses with its ValueError."""
     model = tgpt.GptLmHeadModel(_torch_config(), device="cpu")
@@ -404,26 +405,32 @@ def test_rejected_options_raise(group):
     def loss_fn(m, b):
         return m(b).sum()
 
-    lamb = topt.LayerwiseShardOptimizer(init=None, update=None)
-    bad = [dict(compressor="eftopk"), dict(gtopk=True),
-           dict(momentum_correction=0.9), dict(remat="full"),
-           dict(mode="allreduce", remat="full"), dict(dcn=object()),
-           dict(optimizer=lamb), dict(mode="fsdp", optimizer=lamb)]
-    for kw in bad:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    lamb = topt.fused_lamb(lr=0.1)
+    for kw in (dict(dcn=object()), dict(mode="allreduce", dcn=object())):
+        with pytest.raises(NotImplementedError, match="item 9"):
             tdear.build_train_step(loss_fn, model, group=group,
                                    device="cpu", **kw)
     # model state is ported: a template naming no buffer is accepted
     assert tdear.build_train_step(loss_fn, model, group=group, device="cpu",
                                   model_state_template={})._mstate == []
-    # the modes and the ablations are ported: they build
+    # the modes, the ablations, compression, remat and LAMB are ported:
+    # they build
     for kw in (dict(mode="allreduce"), dict(mode="rsag"), dict(mode="rb"),
                dict(mode="bytescheduler"), dict(mode="fsdp"),
                dict(exclude_parts=("allgather",)),
-               dict(exclude_parts=("reducescatter", "allgather"))):
+               dict(exclude_parts=("reducescatter", "allgather")),
+               dict(compressor="eftopk"), dict(gtopk=True, compressor="topk"),
+               dict(momentum_correction=0.9, compressor="eftopk"),
+               dict(mode="allreduce", compressor="qint8"),
+               dict(remat="full"), dict(mode="allreduce", remat="full"),
+               dict(optimizer=lamb), dict(mode="fsdp", optimizer=lamb)):
         ts = tdear.build_train_step(loss_fn, model, group=group,
                                     device="cpu", **kw)
         assert ts.mode == kw.get("mode", "dear")
+        assert ts.remat == kw.get("remat")
+        assert (ts.compressor is not None) == ("compressor" in kw)
+        assert ts.layerwise == ("optimizer" in kw)
+        ts.close()
     fused = tdear.build_train_step(loss_fn, model, group=group,
                                    device="cpu", mode="dear-fused")
     assert fused.fused and fused.ring.world == 1
@@ -435,14 +442,13 @@ def test_rejected_options_raise(group):
             tdear.build_train_step(loss_fn, model, group=group,
                                    device="cpu", mode="dear-fused", **kw)
     ts = tdear.build_train_step(loss_fn, model, group=group, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="item 7d"):
         ts.multi_step(2)
     with pytest.raises(ValueError, match="mode must be one of"):
         tdear.build_train_step(loss_fn, model, group=group, device="cpu",
                                mode="zero3")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        topt.fused_lamb(lr=0.1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    assert isinstance(lamb, topt.LayerwiseShardOptimizer)
+    with pytest.raises(NotImplementedError, match="from_torch_optim"):
         topt.from_optax(None)
     with pytest.raises(RuntimeError, match="init"):
         ts.step(None, torch.zeros((1, 4), dtype=torch.long))

@@ -266,20 +266,24 @@ def test_seeded_init_is_reproducible_and_flax_shaped():
 
 
 def test_unported_options_raise():
-    """MoE and remat still raise; ``projection_impl``, ported now, builds a
-    model whose parameter names and shapes are the dense model's (with the
-    same seeded values), its QKV and MLP-up going through the impl; dropout
-    in training mode needs an explicit generator and then runs."""
+    """MoE still raises (remat builds since slice 14: the same parameters,
+    the same forward); ``projection_impl``, ported now, builds a model
+    whose parameter names and shapes are the dense model's (with the same
+    seeded values), its QKV and MLP-up going through the impl; dropout in
+    training mode needs an explicit generator and then runs."""
     from dear_pytorch_tpu_torch.ops.collective_matmul import (
         make_ring_projection_impl,
     )
 
     cfg = _torch_config(_pair()[0].config)
-    for bad in (dict(num_experts=2), dict(remat=True)):
-        with pytest.raises(NotImplementedError):
-            tgpt.GptLmHeadModel(dataclasses.replace(cfg, **bad),
-                                device="cpu")
+    with pytest.raises(NotImplementedError):
+        tgpt.GptLmHeadModel(dataclasses.replace(cfg, num_experts=2),
+                            device="cpu")
     dense = tgpt.GptLmHeadModel(cfg, device="cpu", seed=1)
+    remat = tgpt.GptLmHeadModel(dataclasses.replace(cfg, remat=True),
+                                device="cpu", seed=1)
+    ids1 = torch.arange(5)[None] % cfg.vocab_size
+    torch.testing.assert_close(remat(ids1), dense(ids1), rtol=0, atol=0)
     proj = tgpt.GptLmHeadModel(cfg, projection_impl=make_ring_projection_impl(),
                                device="cpu", seed=1)
     want = [(n, p.shape) for n, p in dense.named_parameters()]
