@@ -144,7 +144,8 @@ non-zero and no result line is printed):
      off, B = 2) from the run's weights on the card against the CPU:
      logits within `_VIT_CPU_RTOL`;
   5g. run the port's bench entry as a user runs it (``python -m
-     dear_pytorch_tpu_torch.bench``, a process of its own): exit 0, one
+     dear_pytorch_tpu_torch.bench``, a process of its own; its timed
+     window runs through ``TrainStep.multi_step(10)``): exit 0, one
      parsable last line with bench.py's five metrics, names and units,
      each with a numeric value, MFU and peak memory and no error entry,
      each counted step within `_BENCH_FLOPS_RTOL` of its analytic count;
@@ -230,6 +231,25 @@ non-zero and no result line is printed):
      ``--remat-policy full`` (3 steps, cuDNN off: the losses, the BN buffers after steps 1 and 3
      and the parameters after step 3 within `_REMAT_BN_RTOL` of the run's
      without, the buffers updated 3 times);
+  5n. runtime tuning, the tracer and ``multi_step``, one rank on NCCL:
+     GPT-2 through the CLI (B = 16, S = 1024, bf16, flash) with
+     ``--autotune bo`` (3 trials, windows of 4 steps) under the tracer
+     with a Chrome trace, with ``--autotune wait_time``, with ``--mgwfbp``
+     (prints the measured α and β, and `observability.overlap.
+     fit_interconnect`'s) and with ``--autotune plan`` over the arms that
+     run at one rank without a compressor (dear / dear-fused x comm dtype
+     x gather dtype; both modes measured); ResNet-50 with ``--autotune
+     bo``: every step
+     launches the K5 epilogue once per bucket of the plan it ran on, every
+     rebuild leaves the fp32 masters (by name) and the model's buffers
+     (BatchNorm's) bitwise as they were, ``memory_allocated`` after the
+     last BO rebuild within `_TUNE_MEM_SLACK` of the first plan's, the
+     trace's ``dear.step`` and ``autotune.rebuild`` spans and the tracer's
+     counters equal to the run's own counts, and the K5 epilogue bitwise
+     at the largest shard any trial plan had; then ``multi_step(10)``
+     against 10 ``step()`` calls on GPT-2 (B = 16, dropout) and ResNet-50
+     (B = 64, cuDNN deterministic): last loss, masters and buffers
+     bitwise, and the step ms of both;
   6. trace steady bf16 decode ticks and training steps with
      ``torch.profiler`` (device ops, busy time and idle share, the top
      device ops of a step); time each kernel, its plain version and
@@ -261,6 +281,7 @@ true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import hashlib
@@ -298,6 +319,8 @@ from dear_pytorch_tpu_torch.models.gpt import (
     GPT2_SMALL, GptLmHeadModel, flash_causal_attention_impl, generate,
     gpt_lm_loss,
 )
+from dear_pytorch_tpu_torch.observability import overlap
+from dear_pytorch_tpu_torch.observability import tracer as T
 from dear_pytorch_tpu_torch.ops import _build
 from dear_pytorch_tpu_torch.ops import compression as Z
 from dear_pytorch_tpu_torch.ops import fusion as FU
@@ -305,6 +328,7 @@ from dear_pytorch_tpu_torch.ops.schedules import warmup_cosine
 from dear_pytorch_tpu_torch.parallel.dear import build_train_step
 from dear_pytorch_tpu_torch.scripts import overhead_probe as probe
 from dear_pytorch_tpu_torch.serving.engine import DecodeEngine
+from dear_pytorch_tpu_torch.tuning import autotune as TA
 
 # the card's peak rates (NVIDIA data sheets, dense)
 _PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -3576,6 +3600,368 @@ def comp_launch_totals(two_ranks, one_rank) -> tuple:
 
 
 # ---------------------------------------------------------------------------
+# phase 5n: runtime tuning, the tracer, multi_step (slice 15)
+# ---------------------------------------------------------------------------
+
+_TUNE_GPT_ARGS = ["--model", "gpt2", "--fp16", "--flash-attention",
+                  "--dropout0", "--batch-size", "16", "--sequence-len",
+                  "1024", "--base-lr", "0.01", "--momentum", "0.9",
+                  "--threshold", "25"]
+#: BO: 3 trials of windows of 4 steps (the tuner's least interval: it
+#: drops a window's first 3 durations); the budget, (2 x 3 + 2) x 4 = 32
+#: steps, fits in the 36 steps of the warmup and the timed iterations
+_BO_ENV = {"DEAR_BO_TRIALS": "3", "DEAR_BO_INTERVAL": "4"}
+_BO_STEPS = ["--num-warmup-batches", "4", "--num-batches-per-iter", "8",
+             "--num-iters", "4"]
+#: the plan strategy over the arms that run at one rank without a
+#: compressor: mode x comm dtype x gather dtype, 4 trials (no α-β fit: at
+#: one rank every arm's predicted comm is 0, so the sweep goes by axis
+#: coverage and tries both modes); it pre-tunes for its budget,
+#: (2 x 4 + 2) x 4 = 40 steps, before the timed steps
+_PLAN_ENV = {"DEAR_TUNE_MODES": "dear,dear-fused",
+             "DEAR_TUNE_COMPRESSORS": "none", "DEAR_TUNE_DTYPES": "none,bf16",
+             "DEAR_TUNE_REMAT": "none", "DEAR_BO_TRIALS": "4",
+             "DEAR_BO_INTERVAL": "4"}
+#: wait-time: split every ~3 blocks of GPT-2 (the layer-time estimate is
+#: ~0.1 ms a block); the switch comes after the tuner's 5 warmup steps
+_WT_ENV = {"DEAR_CYCLE_TIME_S": "3e-4"}
+_SHORT_STEPS = ["--num-warmup-batches", "2", "--num-batches-per-iter", "4",
+                "--num-iters", "2"]
+#: memory_allocated after the last rebuild against the first plan's
+_TUNE_MEM_SLACK = 64 * 2**20
+
+
+@contextlib.contextmanager
+def _environ(values: dict):
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+class _TuneWatch:
+    """Wraps `tuning.autotune.AutoTuner.step` and `repack_state` for one
+    tuned run: every step launches the K5 epilogue once per bucket of the
+    plan it ran on; every rebuild leaves the fp32 masters (by name) and
+    the model's buffers bitwise as they were; ``memory_allocated`` at each
+    step's start, beside the rebuild count. A failed check raises AND is
+    kept in ``failures``, which `_tuned_run` asserts empty after the run:
+    the code under test cannot swallow it."""
+
+    def __init__(self, label: str):
+        self.label = label
+        self.rebuild_checks = self.steps = self.launches = 0
+        self.failures: list = []
+        self.mem: list = []
+        self.shards: set = set()
+        self._step, self._repack = TA.AutoTuner.step, TA.repack_state
+
+    def _check(self, ok: bool, msg: str) -> None:
+        if not ok:
+            self.failures.append(msg)
+        _check(ok, msg)
+
+    def __enter__(self):
+        watch = self
+
+        def step(at, state, batch):
+            # at a step's start the caller holds only the live state
+            watch.mem.append((at.rebuilds, torch.cuda.memory_allocated()))
+            nb, before = at.ts.plan.num_buckets, FS.fused_update_launches
+            out = watch._step(at, state, batch)
+            got = FS.fused_update_launches - before
+            watch._check(got == nb, f"{watch.label} step "
+                         f"{watch.steps + 1}: {got} K5 epilogue launches, "
+                         f"the plan has {nb} buckets")
+            watch.steps += 1
+            watch.launches += got
+            return out
+
+        def repack(state, old_ts, new_ts, **kw):
+            before = TA._by_name(old_ts, [TA._full(old_ts, s)
+                                          for s in state.shards])
+            bufs = {n: b.clone() for n, b in old_ts.model.named_buffers()}
+            out = watch._repack(state, old_ts, new_ts, **kw)
+            after = TA._by_name(new_ts, [TA._full(new_ts, s)
+                                         for s in out.shards])
+            watch._check(sorted(before) == sorted(after) and all(
+                torch.equal(before[n], after[n]) for n in before),
+                f"{watch.label}: a rebuild changed the masters")
+            watch._check(all(torch.equal(bufs[n], b)
+                             for n, b in new_ts.model.named_buffers()),
+                         f"{watch.label}: a rebuild changed the model's "
+                         "buffers")
+            watch.rebuild_checks += 1
+            watch.shards |= {b.shard_size for b in new_ts.plan.buckets}
+            return out
+
+        TA.AutoTuner.step, TA.repack_state = step, repack
+        return self
+
+    def __exit__(self, *exc):
+        TA.AutoTuner.step, TA.repack_state = self._step, self._repack
+
+    def check_memory(self, at) -> tuple:
+        """(the first plan's memory_allocated, the last plan's): at the
+        start of the last step before the first rebuild and of the first
+        step after the last."""
+        first = [m for r, m in self.mem if r == 0][-1]
+        last = [m for r, m in self.mem if r == at.rebuilds][0]
+        _check(abs(last - first) <= _TUNE_MEM_SLACK,
+               f"{self.label}: memory_allocated {last / 2**20:.1f} MiB after "
+               f"the last rebuild, {first / 2**20:.1f} MiB on the first plan")
+        return first, last
+
+
+def _tuned_run(label, main, argv, env, card) -> tuple:
+    """One tuned CLI run under a `_TuneWatch`; returns (result, watch)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    with _environ(env), _TuneWatch(label) as watch:
+        res = main(argv + ["--device", _DEV])
+    at = res.stepper
+    _check(not watch.failures, f"{label}: checks failed {watch.failures}")
+    _check(all(np.isfinite(res.losses)), f"{label}: losses {res.losses}")
+    _check(watch.rebuild_checks == at.rebuilds,
+           f"{label}: {watch.rebuild_checks} checked rebuilds of "
+           f"{at.rebuilds}")
+    print(f"phase 5n {label} on {card}: {watch.steps} steps, "
+          f"{at.rebuilds} rebuilds (masters and buffers bitwise across each), "
+          f"K5 epilogue launches {watch.launches} (one per bucket of the "
+          f"live plan every step), {res.train_step.plan.num_buckets} "
+          "buckets at the end")
+    return res, watch
+
+
+def _bo_trials(at) -> str:
+    opt = at.tuner._opt
+    return ", ".join(f"{x:.3f} MB: {y * 1e3:.3f} ms"
+                     for x, y in zip(opt.xs, opt.ys))
+
+
+def tune_bo_gpt2(card: str, trace_path: Path) -> dict:
+    """GPT-2 through the CLI with ``--autotune bo`` under the tracer (a
+    Chrome trace): the watch's checks, the memory bound, the tracer's
+    counts against the run's own, K5 at the largest shard any trial
+    plan had against its plain version."""
+    T.configure(chrome=str(trace_path))
+    try:
+        res, watch = _tuned_run("gpt2 --autotune bo", train_cli.main,
+                                _TUNE_GPT_ARGS + _BO_STEPS
+                                + ["--autotune", "bo"], _BO_ENV, card)
+        counters = T.get_tracer().counters()
+    finally:
+        T.disable()
+    at = res.stepper
+    _check(at.tuner.finished and at.rebuilds >= 2,
+           f"gpt2 bo: finished {at.tuner.finished}, {at.rebuilds} rebuilds")
+    first, last = watch.check_memory(at)
+    events = json.loads(trace_path.read_text())["traceEvents"]
+    spans = {}
+    for e in events:
+        if e["ph"] == "X":
+            spans[e["name"]] = spans.get(e["name"], 0) + 1
+    want = {"dear.steps": watch.steps, "autotune.rebuilds": at.rebuilds,
+            "dear.plan_builds": 1 + at.rebuilds}
+    got = {k: counters.get(k) for k in want}
+    _check(got == want, f"gpt2 bo tracer counters {got}, the run's {want}")
+    _check(spans.get("dear.step") == watch.steps
+           and spans.get("autotune.rebuild") == at.rebuilds,
+           f"gpt2 bo chrome trace spans {spans}")
+    upd_err = check_update_main_path(res.train_step, [max(watch.shards)],
+                                     "largest trial shard")
+    rebuild_ms = ", ".join(f"{e['dur'] / 1e3:.1f}" for e in events
+                           if e["ph"] == "X"
+                           and e["name"] == "autotune.rebuild")
+    print(f"phase 5n gpt2 bo: rebuilds {rebuild_ms} ms (host, the trace's "
+          "autotune.rebuild spans)")
+    print(f"phase 5n gpt2 bo: trials {_bo_trials(at)}; adopted "
+          f"{at._live_threshold:.3f} MB ({res.train_step.plan.num_buckets} "
+          f"buckets); memory_allocated {first / 2**20:.1f} MiB on the first "
+          f"plan, {last / 2**20:.1f} MiB after the last rebuild; timed "
+          f"{res.iter_time_mean * 1e3:.3f} ms/step; Chrome trace "
+          f"{len(events)} events, counters {got}, spans "
+          f"{ {k: spans[k] for k in ('dear.step', 'autotune.rebuild')} }")
+    at.close()
+    return {"launches": watch.launches, "upd_err": upd_err}
+
+
+def tune_gpt2_others(card: str) -> int:
+    """GPT-2 with ``--autotune wait_time``, with ``--mgwfbp`` (prints the
+    measured α and β) and with ``--autotune plan`` over the one-rank arms.
+    Returns the K5 epilogue launches of their steps."""
+    launches = 0
+    res, watch = _tuned_run("gpt2 --autotune wait_time", train_cli.main,
+                            _TUNE_GPT_ARGS + _SHORT_STEPS
+                            + ["--autotune", "wait_time"], _WT_ENV, card)
+    _check(res.stepper.rebuilds == 1, "gpt2 wait_time: no split")
+    launches += watch.launches
+    res.stepper.close()
+    del res
+    gc.collect()
+    before = FS.fused_update_launches
+    res = train_cli.main(_TUNE_GPT_ARGS + _SHORT_STEPS
+                         + ["--mgwfbp", "--device", _DEV])
+    ts = res.train_step
+    got = FS.fused_update_launches - before
+    _check(ts.update_launches == got == ts.plan.num_buckets * 10,
+           f"gpt2 mgwfbp: K5 launches {got}, {ts.plan.num_buckets} buckets")
+    launches += got
+    alpha, beta = ts.alpha_beta
+    ag = overlap.fit_interconnect(backend.group(), device=_DEV)
+    print(f"phase 5n gpt2 --mgwfbp on {card}: measured alpha {alpha:.6e} s "
+          f"beta {beta:.6e} s/B (the one-rank NCCL all-reduce, 1 KiB to 4 "
+          f"MiB); {ts.plan.num_buckets} buckets; "
+          f"{res.iter_time_mean * 1e3:.3f} ms/step; the all-gather fit "
+          f"(overlap.fit_interconnect, 16 KiB to 1 MiB): alpha {ag[0]:.6e} "
+          f"s beta {ag[1]:.6e} s/B")
+    ts.close()
+    del res, ts
+    res, watch = _tuned_run("gpt2 --autotune plan", train_cli.main,
+                            _TUNE_GPT_ARGS + _SHORT_STEPS
+                            + ["--autotune", "plan"], _PLAN_ENV, card)
+    at = res.stepper
+    _check(at.planner.finished and at._trial_backup is None,
+           "gpt2 plan: the search did not finish")
+    _check({k[0] for k in at.planner._obs} == {"dear", "dear-fused"},
+           f"gpt2 plan: measured arms {list(at.planner._obs)}")
+    obs = "; ".join(f"{'/'.join(str(p) for p in k)} @ {x:.3f} MB: "
+                    f"{y * 1e3:.3f} ms" for k, v in at.planner._obs.items()
+                    for x, y in v)
+    print(f"phase 5n gpt2 plan: trials {obs}; "
+          f"adopted {at._live_config.describe()}; timed "
+          f"{res.iter_time_mean * 1e3:.3f} ms/step")
+    launches += watch.launches
+    at.close()
+    return launches
+
+
+def tune_bo_resnet50(card: str) -> int:
+    res, watch = _tuned_run("resnet50 --autotune bo", imagenet_cli.main,
+                            _RESNET_ARGS[:-6] + _BO_STEPS
+                            + ["--autotune", "bo"], _BO_ENV, card)
+    at = res.stepper
+    _check(at.rebuilds >= 1, "resnet50 bo: no rebuild")
+    first, last = watch.check_memory(at)
+    print(f"phase 5n resnet50 bo: trials {_bo_trials(at)}; adopted "
+          f"{at._live_threshold:.3f} MB ({res.train_step.plan.num_buckets} "
+          f"buckets); memory_allocated {first / 2**20:.1f} / "
+          f"{last / 2**20:.1f} MiB; BN buffers bitwise across every "
+          "rebuild")
+    at.close()
+    return watch.launches
+
+
+def _multi_vs_steps(label, make, loss_fn, batch, n=10) -> tuple:
+    """One warm step, then ``n`` eager steps, on one model; one warm step,
+    then ``multi_step(n)``, on another from the same seed: the last losses,
+    the masters and the model's buffers bitwise equal. Returns (eager ms
+    per step, multi_step ms per step, K5 launches of both runs)."""
+    out = []
+    before = FS.fused_update_launches
+    for scanned in (False, True):
+        gc.collect()
+        torch.cuda.empty_cache()
+        model = make()
+        ts = build_train_step(
+            loss_fn, model, device=_DEV, threshold_mb=25.0, rng_seed=42,
+            optimizer=FS.fused_sgd(lr=0.01, momentum=0.9),
+            comm_dtype=torch.bfloat16)
+        state, _ = ts.step(ts.init(), batch)
+        run = ts.multi_step(n)
+        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0.record()
+        if scanned:
+            state, m = run(state, batch)
+        else:
+            for _ in range(n):
+                state, m = ts.step(state, batch)
+        t1.record()
+        t1.synchronize()
+        out.append((float(m["loss"]), state.step, ts.gather_params(state),
+                    {k: b.clone() for k, b in model.named_buffers()},
+                    t0.elapsed_time(t1) / n))
+        ts.close()
+        del model, ts, state
+    (la, sa, pa, ba, ms_a), (lb, sb, pb, bb, ms_b) = out
+    _check(la == lb and sa == sb == n + 1, f"{label} multi_step({n}): last "
+           f"loss {lb} step {sb}, {n} steps: {la} step {sa}")
+    _check(all(torch.equal(pa[k], pb[k]) for k in pa)
+           and all(torch.equal(ba[k], bb[k]) for k in ba),
+           f"{label} multi_step({n}): masters or buffers differ")
+    launches = FS.fused_update_launches - before
+    print(f"phase 5n {label}: multi_step({n}) bitwise equal to {n} step() "
+          f"calls (last loss {la:.6f}, every master and buffer); "
+          f"{ms_a:.3f} ms/step eager, {ms_b:.3f} ms/step through multi_step "
+          "(CUDA events around the n steps)")
+    return ms_a, ms_b, launches
+
+
+def check_multi_step(card: str) -> int:
+    """``multi_step(10)`` against 10 ``step()`` calls on GPT-2 (B = 16,
+    S = 1024, bf16, flash, dropout 0.1) and ResNet-50 (B = 64, bf16,
+    224², cuDNN deterministic, no autotuning: bitwise needs one algorithm
+    per conv). Returns the K5 epilogue launches of both."""
+    cfg = gpt_config("gpt2", dtype=torch.bfloat16)
+    gpt_batch = synthetic_gpt_batch(
+        torch.Generator(device=_DEV).manual_seed(0), 16, seq_len=1024,
+        vocab_size=cfg.vocab_size)
+
+    def gpt_loss(m, b, generator):
+        return gpt_lm_loss(m(b["input_ids"], train=True,
+                             generator=generator), b["input_ids"],
+                           vocab_size=cfg.vocab_size)
+
+    cfg_flash = dataclasses.replace(cfg, attention_probs_dropout_prob=0.0)
+    _, _, l1 = _multi_vs_steps(
+        f"gpt2 (B=16, S=1024, bf16, flash) on {card}",
+        lambda: GptLmHeadModel(cfg_flash,
+                               attention_impl=flash_causal_attention_impl(),
+                               device=_DEV, seed=0),
+        gpt_loss, gpt_batch)
+    img = synthetic_image_batch(0, 64, image_size=224, dtype=torch.bfloat16,
+                                device=_DEV)
+    bench, det = torch.backends.cudnn.benchmark, \
+        torch.backends.cudnn.deterministic
+    torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = \
+        False, True
+    try:
+        _, _, l2 = _multi_vs_steps(
+            f"resnet50 (B=64, bf16, 224²) on {card}",
+            lambda: get_model("resnet50", dtype=torch.bfloat16, device=_DEV,
+                              seed=0),
+            lambda m, b, generator: softmax_xent(m(b["image"]), b["label"]),
+            img)
+    finally:
+        torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = \
+            bench, det
+    return l1 + l2
+
+
+def tune_and_multi_step(card: str) -> dict:
+    """Phase 5n, in one rank on NCCL."""
+    out_dir = _ROOT / "build" / "chip_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    bo = tune_bo_gpt2(card, out_dir / "tune_bo_gpt2.trace.json")
+    gc.collect()
+    launches = bo["launches"] + tune_gpt2_others(card)
+    gc.collect()
+    launches += tune_bo_resnet50(card)
+    gc.collect()
+    launches += check_multi_step(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 5n K5 epilogue launches on the main paths: {launches}")
+    return {"launches": launches, "upd_err": bo["upd_err"]}
+
+
+# ---------------------------------------------------------------------------
 # phase 6: timings
 # ---------------------------------------------------------------------------
 
@@ -4343,6 +4729,11 @@ def main(argv=None) -> int:
           f"{comp_ms}")
     print(f"compression, LAMB and remat phase (5m): "
           f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    tune = tune_and_multi_step(card)
+    upd_err = max(upd_err, tune["upd_err"])
+    print(f"tuning and multi_step phase (5n): "
+          f"{time.perf_counter() - t0:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()      # the bench's process needs the memory
     t0 = time.perf_counter()
@@ -4618,15 +5009,16 @@ def main(argv=None) -> int:
     print(json.dumps({"kernels": k1 + k23 + [
         # launches: GPT-2's train steps, ResNet-50's, BERT-Base's (flash
         # and with dropout), ViT-B/16's, the zoo's, the MNIST example's,
-        # phase 5l's (whole buckets in the replicated modes) and phase
-        # 5m's (the compressed buckets' dense means, the remat runs)
+        # phase 5l's (whole buckets in the replicated modes), phase 5m's
+        # (the compressed buckets' dense means, the remat runs) and phase
+        # 5n's (every plan a tuner tried, and the multi_step runs)
         _kernel_entry("fused_update", "fused_update.cu",
                       "dear_pytorch_tpu/ops/collective_matmul.py:317",
                       train_launches["fused_update"] + rn_launches
                       + bert_launches["fused_update"] + vit_launches
                       + sum(z["launches"] for z in zoo.values())
-                      + mnist_launches + modes_update + comp_update,
-                      upd_err, upd),
+                      + mnist_launches + modes_update + comp_update
+                      + tune["launches"], upd_err, upd),
     ] + [
         _kernel_entry(f"ring_all_gather ({route})", "ring.cu",
                       "dear_pytorch_tpu/ops/collective_matmul.py:218",

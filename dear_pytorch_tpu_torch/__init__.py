@@ -27,7 +27,13 @@ Ported so far:
     ``"rb"``, ``"bytescheduler"``, ``"fsdp"``), the ``exclude_parts``
     ablations of ``"dear"``, and the round-robin `Communicator`
     (`comm.communicator`, exported here as the JAX package exports its
-    own).
+    own);
+  - slice 14: gradient compression (`ops.compression`), LAMB, remat;
+  - slice 15: runtime tuning (`tuning`: BO, wait-time and plan-space
+    tuners over live rebuilds with exact state repacking, MG-WFBP, ASC,
+    MGS-SGD), the tracer, counters and cost model they read
+    (`observability`, `utils.profiling`), and `TrainStep.multi_step` with
+    the CLIs' ``--scan-steps``.
 """
 
 from dear_pytorch_tpu_torch.comm.communicator import Communicator  # noqa: F401

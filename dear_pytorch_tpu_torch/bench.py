@@ -32,11 +32,13 @@ so this line launches no attention kernel; the K5 epilogue runs once per
 bucket per step in every model. On the card cuDNN picks each conv's
 algorithm (``cudnn.benchmark``), as the ImageNet CLI does.
 
-Timing (bench.py's ``_timed``): the warmup steps (10; the first of them
-counted by `runner.step_flops`), one host fetch, then 10 x 10 timed steps
-dispatched back to back and ONE host fetch at the end; value = items per
-step / seconds per step. Steps are eager: bench.py's ``multi_step`` (one
-compiled program per 10 steps) is not ported (ROADMAP Queue 1 item 7d).
+Timing (bench.py's ``_compile_once``/``_timed``): one step counted by
+`runner.step_flops` (an eager step before the window), then the warmup in
+whole iterations of ``ts.multi_step(10)`` (one), one host fetch, then 10
+timed iterations of ``ts.multi_step(10)`` dispatched back to back and ONE
+host fetch at the end; value = items per step / seconds per step.
+``multi_step`` runs its 10 steps eagerly (`parallel.dear`; JAX compiles
+them as one program).
 ``peak_hbm_gb`` is ``torch.cuda.max_memory_allocated`` over the timed
 window (reset before it), null on the CPU, as is ``mfu`` (no known peak).
 
@@ -46,8 +48,10 @@ window (reset before it), null on the CPU, as is ``mfu`` (no known peak).
 Left out, on purpose: bench.py's ``vs_baseline``, ``baseline_protocol``
 and ``baseline_config`` — its pins (``BASELINE_IMG_SEC`` 2304.13,
 ``BASELINE_GPT_TOK_SEC``) were measured on a TPU and may not stand as the
-port's baseline; the ``telemetry`` block (observability, ROADMAP Queue 1
-item 8) and the phase watchdog (resilience, item 9).
+port's baseline; the ``telemetry`` block (`observability.tracer` is
+ported, but the line does not carry its snapshot: a tracer on by default
+would add its per-step host work to the timed window) and the phase
+watchdog (resilience, ROADMAP Queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -124,8 +128,9 @@ def _log(msg: str) -> None:
 
 def _timed(ts, batch, items_per_step: int, proto: Protocol,
            dev: torch.device) -> dict:
-    """bench.py's ``_timed`` around ``ts.step`` from ``ts.init()``:
-    {"value", "step_ms", "flops_per_step", "peak_bytes"}."""
+    """bench.py's ``_timed`` around ``ts.multi_step(batches_per_iter)``
+    from ``ts.init()``: {"value", "step_ms", "flops_per_step",
+    "peak_bytes"}."""
     from dear_pytorch_tpu_torch.benchmarks import runner
 
     holder = {"state": ts.init(), "metrics": None}
@@ -133,19 +138,20 @@ def _timed(ts, batch, items_per_step: int, proto: Protocol,
     def step():
         holder["state"], holder["metrics"] = ts.step(holder["state"], batch)
 
-    flops = runner.step_flops(step)          # the first warmup step
-    for _ in range(proto.warmup_steps - 1):
-        step()
+    flops = runner.step_flops(step)          # one eager step, counted
+    run = ts.multi_step(proto.batches_per_iter)
+    for _ in range(proto.warmup_steps // proto.batches_per_iter):
+        holder["state"], holder["metrics"] = run(holder["state"], batch)
     float(holder["metrics"]["loss"])         # drain once before timing
     cuda = dev.type == "cuda"
     if cuda:
         torch.cuda.reset_peak_memory_stats(dev)
-    steps = proto.num_iters * proto.batches_per_iter
     t0 = time.perf_counter()
-    for _ in range(steps):
-        step()
+    for _ in range(proto.num_iters):
+        holder["state"], holder["metrics"] = run(holder["state"], batch)
     float(holder["metrics"]["loss"])         # ONE host fetch for the window
-    secs = (time.perf_counter() - t0) / steps
+    secs = (time.perf_counter() - t0) / (proto.num_iters
+                                         * proto.batches_per_iter)
     return {"value": items_per_step / secs, "step_ms": secs * 1e3,
             "flops_per_step": flops,
             "peak_bytes": torch.cuda.max_memory_allocated(dev) if cuda

@@ -89,6 +89,7 @@ def main(argv=None, on_step: Optional[Callable] = None
     ``on_step(train_step, state, metrics)`` is called after every step
     (warmup included)."""
     args = build_parser().parse_args(argv)
+    runner.validate_scan_steps(args)     # refuse before building
     if args.ring_projections and (args.mode != "dear-fused"
                                   or args.sp_degree > 1):
         raise SystemExit("--ring-projections requires --mode dear-fused "

@@ -21,9 +21,11 @@ generator, as the JAX CLI's ``rngs={"dropout": rng}``. ``--stem`` applies
 to the ResNets only. On the card the CLI sets
 ``torch.backends.cudnn.benchmark`` (cuDNN picks each conv's algorithm by
 timing it at the first call of each shape, during the warmup). ``--mfu``
-counts one step's FLOPs (`runner.step_flops`) and logs the MFU. The JAX
-CLI's ``--pipeline``, ``--scan-steps`` and ``--mgwfbp`` are not ported
-(argparse errors).
+counts one step's FLOPs (`runner.step_flops`) and logs the MFU.
+``--autotune {bo,wait_time,plan}``, ``--tune-steps``, ``--mgwfbp`` and
+``--scan-steps`` are the JAX CLI's (`runner.build_stepper`,
+`runner.make_step_source`); its ``--pipeline`` and ``--profile-dir`` are
+not ported (argparse errors).
 """
 
 from __future__ import annotations
@@ -70,6 +72,7 @@ def main(argv=None, on_step: Optional[Callable] = None
     ``on_step(train_step, state, metrics)`` is called after every step
     (warmup included)."""
     args = build_parser().parse_args(argv)
+    runner.validate_scan_steps(args)     # refuse before building
     name = args.model.lower()
     if name not in models.cnn_names():
         raise SystemExit(f"--model {args.model}: the port's CNNs are "

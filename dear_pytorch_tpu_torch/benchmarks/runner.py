@@ -18,18 +18,31 @@ counted by the mode itself). The MFU is against the card's dense bf16 peak
 the JAX package's ``perf_model.mfu`` is for an unknown device.
 
 Only the flags the port carries are registered: an unported flag of the
-JAX CLI (``--pipeline``, ``--scan-steps``, ``--autotune``, ...) is an
-argparse error, not silently ignored. Every ``--mode`` of the JAX CLI
-builds (the baselines and ``fsdp`` since slice 13, with ``--partition``
-and ``--exclude-parts``), and so do ``--optimizer lamb``, the compression
-flags (``--compressor``, ``--density``, ``--momentum-correction``,
-``--gtopk``: on ``allreduce`` and ``dear``, the JAX runner's rule and
-warnings) and ``--remat-policy`` (slice 14).
+JAX CLI (``--pipeline``, ``--profile-dir``, ...) is an argparse error, not
+silently ignored. Every ``--mode`` of the JAX CLI builds (the baselines
+and ``fsdp`` since slice 13, with ``--partition`` and ``--exclude-parts``),
+and so do ``--optimizer lamb``, the compression flags (``--compressor``,
+``--density``, ``--momentum-correction``, ``--gtopk``: on ``allreduce``
+and ``dear``, the JAX runner's rule and warnings) and ``--remat-policy``
+(slice 14).
+
+Since slice 15 the train step comes from `build_stepper` (JAX
+runner.py:717), the one construction path: ``--autotune {bo,wait_time,
+plan}`` drives a `tuning.autotune.AutoTuner` (``--tune-steps`` steps of
+it before the timed protocol: `run_pretune`), ``--mgwfbp`` builds the
+MG-WFBP plan from a measured α-β fit of the group's all-reduce. The timed
+loop comes from `make_step_source`: ``--scan-steps k`` runs k steps per
+call through `parallel.dear.TrainStep.multi_step` on the one batch
+(warmup and iteration counts become calls by ceiling division, and
+`run_timed`'s ``steps_per_call`` keeps every reported time per step). The
+combinations JAX refuses are refused with its messages
+(`validate_scan_steps`, `build_stepper`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import time
 from typing import Any, Callable, Optional
 
@@ -38,10 +51,11 @@ import torch
 
 from dear_pytorch_tpu_torch.comm import backend
 
-__all__ = ["BenchResult", "PEAK_FLOPS", "add_common_args",
-           "config_from_args", "device_name", "log", "log_mfu", "mfu",
-           "parse_exclude_parts", "peak_flops", "run_timed", "step_flops",
-           "threshold_mb", "train_timed"]
+__all__ = ["BenchResult", "PEAK_FLOPS", "add_common_args", "build_stepper",
+           "config_from_args", "device_name", "log", "log_mfu",
+           "make_step_source", "mfu", "parse_exclude_parts", "peak_flops",
+           "run_pretune", "run_timed", "step_flops", "threshold_mb",
+           "train_timed", "validate_scan_steps"]
 
 #: dense bf16 peak FLOP/s of a card, by a part of its name (NVIDIA's data
 #: sheet: the H100 SXM); the PCIe card's is lower and not listed
@@ -141,17 +155,23 @@ def run_timed(step_fn: Callable[[], Any], *, batch_size: int,
               num_iters: int = 5, unit: str = "sen",
               sync: Optional[Callable[[], None]] = None,
               world: Optional[int] = None, device: Optional[str] = None,
-              count_flops: bool = False) -> BenchResult:
+              count_flops: bool = False,
+              steps_per_call: int = 1) -> BenchResult:
     """The warmup + timed-iteration protocol around ``step_fn`` (one
-    training step, enqueued asynchronously on the card); ``sync`` blocks
-    until the enqueued work is done (pass one: on the card,
-    ``torch.cuda.synchronize``). ``count_flops``: the first warmup step
-    runs under `step_flops` (with no warmup, one extra untimed step does),
-    and the result carries ``flops_per_step``."""
+    call, enqueued asynchronously on the card); ``sync`` blocks until the
+    enqueued work is done (pass one: on the card,
+    ``torch.cuda.synchronize``). ``steps_per_call``: the training steps
+    one call runs (the scanned protocol; ``batch_size`` is then the items
+    per call), so the reported step times stay per step. ``count_flops``:
+    the first warmup call runs under `step_flops` (with no warmup, one
+    extra untimed call does), and the result carries ``flops_per_step``
+    (the call's count over ``steps_per_call``)."""
     dev = device or device_name()
     world = backend.size() if world is None else world
+    steps_per_call = max(int(steps_per_call), 1)
     log("Running warmup...")
-    flops = step_flops(step_fn) if count_flops else None
+    flops = (step_flops(step_fn) / steps_per_call if count_flops
+             else None)
     for _ in range(num_warmup_batches - int(count_flops
                                             and num_warmup_batches > 0)):
         step_fn()
@@ -169,7 +189,8 @@ def run_timed(step_fn: Callable[[], Any], *, batch_size: int,
         thr = batch_size * num_batches_per_iter / dt
         log(f"Iter #{x}: {thr:.1f} {unit}/sec per {dev}")
         per_iter.append(thr)
-        iter_times.append(dt / num_batches_per_iter)
+        # per training step, whatever the calls' shape
+        iter_times.append(dt / (num_batches_per_iter * steps_per_call))
     res = BenchResult(
         unit=unit, device=dev, world=world,
         per_device_mean=float(np.mean(per_iter)),
@@ -190,51 +211,218 @@ def train_timed(args, model, batch: dict, loss_fn: Callable, *, group,
                 on_step: Optional[Callable] = None) -> BenchResult:
     """What the CLIs share once they have a model, the global ``batch`` and
     ``loss_fn(model, batch, generator)``: rank 0's parameters broadcast,
-    this rank's slice of the batch, the DeAR train step from the flags
-    (`config_from_args`), the ``header`` lines and the group's size and
-    schedule logged, then `run_timed` (``--mfu``: the counted step and
-    `log_mfu`). Returns the `BenchResult` with the per-step losses (floats,
-    read once after the run) as ``.losses``, the train step as
-    ``.train_step``, its last state as ``.state`` and this rank's batch as
-    ``.batch``. ``on_step(train_step, state, metrics)`` is called after
-    every step (warmup included)."""
+    this rank's slice of the batch, the train step from the flags
+    (`config_from_args`, `build_stepper`: the `tuning.autotune.AutoTuner`
+    with ``--autotune``, the MG-WFBP plan with ``--mgwfbp``), the
+    ``header`` lines and the group's size and schedule logged, the
+    autotuner's pre-tuning (`run_pretune`), then `run_timed` over
+    `make_step_source`'s calls (``--scan-steps``: `TrainStep.multi_step`;
+    ``--mfu``: the counted call and `log_mfu`). Returns the `BenchResult`
+    with the per-call losses (the last step's of each call; floats, read
+    once after the run) as ``.losses``, the live train step as
+    ``.train_step``, what the loop drove (the train step or the
+    autotuner) as ``.stepper``, its last state as ``.state`` and this
+    rank's batch as ``.batch``. ``on_step(train_step, state, metrics)`` is
+    called after every timed-protocol call (warmup included) with the
+    live train step."""
     from dear_pytorch_tpu_torch.api import broadcast_parameters
-    from dear_pytorch_tpu_torch.parallel.dear import build_train_step
 
+    scan_steps = validate_scan_steps(args)
     dev, world, rank = backend.device(), backend.size(), backend.rank()
     broadcast_parameters(model, group=group)   # parameters and buffers
     B = args.batch_size
     batch = {k: v[rank * B:(rank + 1) * B] for k, v in batch.items()}
     dear_cfg = config_from_args(args, world=world)
-    ts = build_train_step(loss_fn, model, group=group,
-                          threshold_mb=dear_cfg.threshold_mb,
-                          nearby_layers=dear_cfg.nearby_layers,
-                          flags=dear_cfg.flags, device=dev,
-                          **dear_cfg.build_kwargs())
-    holder = {"state": ts.init(), "losses": []}
+    ts, stepper = build_stepper(dear_cfg, loss_fn, model, group=group,
+                                device=dev, mgwfbp=args.mgwfbp)
+    holder = {"state": stepper.init(), "metrics": None, "batch": batch}
     for line in header + [
             f"Number of {device_name(dev)}s: {world}",
             f"Schedule: {args.mode}; fusion: {ts.plan.num_buckets} "
             "bucket(s)"]:
         log(line)
 
+    def next_batch():
+        return batch
+
+    del ts   # the autotuner may replace it: keep only the live one
+    run_pretune(args, stepper, holder, next_batch)
+    call, protocol = make_step_source(args, scan_steps,
+                                      getattr(stepper, "ts", stepper),
+                                      stepper, holder, next_batch)
+    losses = []
+
     def step_fn():
-        holder["state"], metrics = ts.step(holder["state"], batch)
-        holder["losses"].append(metrics["loss"])
+        call()
+        losses.append(holder["metrics"]["loss"])
         if on_step is not None:
-            on_step(ts, holder["state"], metrics)
+            on_step(getattr(stepper, "ts", stepper), holder["state"],
+                    holder["metrics"])
 
     result = run_timed(
-        step_fn, batch_size=B, num_warmup_batches=args.num_warmup_batches,
-        num_batches_per_iter=args.num_batches_per_iter,
-        num_iters=args.num_iters, unit=unit,
+        step_fn, unit=unit,
         sync=torch.cuda.synchronize if dev.type == "cuda" else None,
-        world=world, device=device_name(dev), count_flops=args.mfu)
+        world=world, device=device_name(dev), count_flops=args.mfu,
+        **protocol)
     if args.mfu:
         log_mfu(result, dev)
-    result.losses = [float(x) for x in holder["losses"]]
-    result.train_step, result.state, result.batch = ts, holder["state"], batch
+    result.losses = [float(x) for x in losses]
+    result.train_step = getattr(stepper, "ts", stepper)
+    result.stepper, result.state, result.batch = (stepper, holder["state"],
+                                                  batch)
     return result
+
+
+def validate_scan_steps(args) -> int:
+    """Resolve ``--scan-steps`` (JAX runner.py:617); call it right after
+    ``parse_args`` so a refused combination fails before anything is
+    built."""
+    k = int(getattr(args, "scan_steps", 1) or 1)
+    if k <= 1:
+        return 1
+    if getattr(args, "pipeline", "none") != "none":
+        raise SystemExit("--scan-steps re-feeds one constant batch inside "
+                         "the scanned program; incompatible with --pipeline")
+    if args.autotune:
+        raise SystemExit("--scan-steps and --autotune are incompatible "
+                         "(the tuner re-buckets between steps)")
+    return k
+
+
+def _ceil_div_keep_zero(n: int, k: int) -> int:
+    return -(-n // k) if n > 0 else 0
+
+
+def make_step_source(args, scan_steps: int, ts, stepper, holder,
+                     next_batch):
+    """(step_fn, run_timed protocol kwargs) honoring ``--scan-steps``
+    (JAX runner.py:636). Scanned mode runs ``scan_steps`` steps per call
+    (`TrainStep.multi_step`) on the constant batch in ``holder['batch']``;
+    warmup/iteration counts convert to calls by ceiling division (a zero
+    warmup stays zero)."""
+    if scan_steps > 1:
+        log(f"Scanned protocol: {scan_steps} steps per dispatch")
+        runner_fn = ts.multi_step(scan_steps)
+
+        def step_fn():
+            holder["state"], holder["metrics"] = runner_fn(
+                holder["state"], holder["batch"])
+    else:
+        def step_fn():
+            holder["state"], holder["metrics"] = stepper.step(
+                holder["state"], next_batch())
+
+    kwargs = dict(
+        batch_size=args.batch_size * scan_steps,
+        num_warmup_batches=_ceil_div_keep_zero(
+            args.num_warmup_batches, scan_steps),
+        num_batches_per_iter=max(
+            _ceil_div_keep_zero(args.num_batches_per_iter, scan_steps), 1),
+        num_iters=args.num_iters,
+        steps_per_call=scan_steps,
+    )
+    return step_fn, kwargs
+
+
+def run_pretune(args, stepper, holder, next_batch) -> int:
+    """Tune-then-measure (JAX runner.py:673): drive the autotuner to
+    convergence BEFORE the warmup/timed protocol, so the timed region
+    measures the CONVERGED configuration. Returns the steps spent.
+    ``--tune-steps`` sets the budget; by default only the 'plan' strategy
+    pre-tunes (its tuner's ``budget_steps``), bo and wait_time tune while
+    measuring unless ``--tune-steps`` is given."""
+    if not getattr(args, "autotune", None):
+        return 0
+    tuner = getattr(stepper, "tuner", None)
+    n = getattr(args, "tune_steps", None)
+    if n is None:
+        if args.autotune != "plan":
+            return 0
+        n = getattr(tuner, "budget_steps", 0) if tuner is not None else 0
+    n = int(n)
+    if n <= 0:
+        return 0
+    log(f"Pre-tuning: up to {n} steps "
+        "(tune-then-measure; the timed region runs the converged config)")
+    for _ in range(n):
+        holder["state"], holder["metrics"] = stepper.step(
+            holder["state"], next_batch())
+        if tuner is not None and getattr(tuner, "finished", False):
+            break
+    planner = getattr(stepper, "planner", None)
+    if planner is not None:
+        if planner.finished:
+            log(f"Converged plan config: {planner.current.describe()}")
+        else:
+            log(f"Plan tuner NOT converged after {n} pre-tune steps; "
+                f"current trial config: {planner.current.describe()} "
+                "(timed region may include further trials)")
+        log("TUNE_SUMMARY " + json.dumps(planner.summary()))
+    return n
+
+
+def build_stepper(cfg, loss_fn, model, *, group, device, model_state=None,
+                  mgwfbp: bool = False, **extra):
+    """(train_step, stepper) from a `DearConfig` — the one construction
+    path the CLIs share (JAX runner.py:717). ``stepper.step(state,
+    batch)`` is what the timed loop calls: a `tuning.autotune.AutoTuner`
+    when ``cfg.autotune`` is set (its live step is ``stepper.ts``), else
+    the `TrainStep` itself. ``mgwfbp``: the MG-WFBP plan
+    (`tuning.mgwfbp.plan_mgwfbp`) from a measured α-β fit of the group's
+    all-reduce (`utils.profiling.CommunicationProfiler`; kept as the
+    step's ``alpha_beta``) and the layers' estimated backward times.
+    ``extra`` goes to `parallel.dear.build_train_step`."""
+    from dear_pytorch_tpu_torch.parallel.dear import build_train_step
+
+    if mgwfbp and cfg.autotune:
+        raise SystemExit("--mgwfbp and --autotune are mutually exclusive: "
+                         "both own the fusion plan")
+    kwargs = dict(cfg.build_kwargs(), group=group, device=device,
+                  model_state_template=model_state, **extra)
+    if cfg.autotune:
+        from dear_pytorch_tpu_torch.tuning import AutoTuner
+
+        tuned = AutoTuner(
+            loss_fn, model,
+            strategy=cfg.autotune,
+            threshold_mb=cfg.threshold_mb or 25.0,
+            bound=cfg.bo_bound, max_trials=cfg.bo_trials,
+            interval=cfg.bo_interval, cycle_time_s=cfg.cycle_time_s,
+            log=log, **kwargs,
+        )
+        return tuned.ts, tuned
+
+    plan = fit = None
+    if mgwfbp:
+        import torch.distributed as dist
+
+        from dear_pytorch_tpu_torch.tuning import (
+            estimate_layer_backward_times,
+            plan_mgwfbp,
+        )
+        from dear_pytorch_tpu_torch.utils.profiling import (
+            CommunicationProfiler,
+        )
+
+        fit = CommunicationProfiler(group, device=device).fit(
+            sizes=[2 ** k for k in range(10, 21, 2)], repeats=3)
+        log(f"MG-WFBP: measured alpha={fit[0]:.2e}s beta={fit[1]:.2e}s/B")
+        plan = plan_mgwfbp(
+            model, dist.get_world_size(group),
+            layer_times=estimate_layer_backward_times(model),
+            alpha=fit[0], beta=fit[1])
+        log(f"MG-WFBP plan: {plan.num_buckets} buckets")
+
+    ts = build_train_step(
+        loss_fn, model,
+        threshold_mb=cfg.threshold_mb,
+        nearby_layers=cfg.nearby_layers,
+        flags=cfg.flags,
+        plan=plan,
+        **kwargs,
+    )
+    ts.alpha_beta = fit
+    return ts, ts
 
 
 def add_common_args(parser) -> None:
@@ -286,8 +474,30 @@ def add_common_args(parser) -> None:
                              "at the train-step level (a checkpoint around "
                              "the loss); the GPT CLI's --remat checkpoints "
                              "per block instead")
+    parser.add_argument("--mgwfbp", action="store_true", default=False,
+                        help="analytic MG-WFBP bucket sizing: measure the "
+                             "group's alpha-beta, estimate layer times, "
+                             "merge buckets per the INFOCOM'19 model "
+                             "(reference wfbp/dopt.py:380-486)")
+    parser.add_argument("--autotune", type=str, default=None,
+                        choices=["bo", "wait_time", "plan"],
+                        help="runtime fusion tuning: Bayesian optimization "
+                             "over the threshold (reference dopt_rsag_bo), "
+                             "wait-time split flags (dopt_rsag_wt), or "
+                             "'plan' — the plan-space search over fusion x "
+                             "compression x wire dtypes x mode x remat "
+                             "(restrict axes via DEAR_TUNE_* env)")
+    parser.add_argument("--tune-steps", type=int, default=None,
+                        help="drive the autotuner for this many steps "
+                             "BEFORE the timed protocol (tune-then-"
+                             "measure). Default: the tuner's full trial "
+                             "budget for --autotune plan, 0 for bo/"
+                             "wait_time (they tune while measuring)")
     parser.add_argument("--accum-steps", type=int, default=1,
                         help="gradient accumulation microbatches per step")
+    parser.add_argument("--scan-steps", type=int, default=1,
+                        help="run k train steps per call on one batch "
+                             "(TrainStep.multi_step); no --autotune")
     parser.add_argument("--base-lr", type=float, default=0.01)
     parser.add_argument("--momentum", type=float, default=0.9)
     parser.add_argument("--optimizer", type=str, default="sgd",
@@ -370,6 +580,7 @@ def config_from_args(args, *, world: Optional[int] = None):
             "warmup_steps": args.warmup_steps,
             "total_steps": args.total_steps,
             "remat": args.remat_policy,
+            "autotune": args.autotune,
         }.items() if v},
         comm_dtype=(torch.bfloat16 if args.fp16 and args.mode != "fsdp"
                     else None),

@@ -2,10 +2,10 @@
 ``dear_pytorch_tpu/config.py``.
 
 The same fields and the same ``DEAR_<FIELD>`` environment names as the JAX
-package's `DearConfig`. Fields of features the port does not carry yet are
-accepted (so one environment serves both packages), and `build_kwargs`
-raises ``NotImplementedError`` when such a field is set away from its
-default, naming the ROADMAP item that brings it.
+package's `DearConfig`. `build_kwargs` gives the train step's kwargs; the
+tuning fields (``autotune``, ``bo_bound``, ``bo_trials``, ``bo_interval``,
+``cycle_time_s``) are read by `benchmarks.runner.build_stepper`, which
+hands them to `tuning.autotune.AutoTuner`.
 """
 
 from __future__ import annotations
@@ -24,10 +24,6 @@ _COMM_DTYPES = {
     "f32": torch.float32, "float32": torch.float32,
     "f16": torch.float16, "float16": torch.float16,
 }
-
-#: field -> (its default, the ROADMAP item that ports it)
-_UNPORTED = {"autotune": (None, "Queue 1 item 8 (tuning)")}
-
 
 @dataclasses.dataclass
 class DearConfig:
@@ -177,14 +173,8 @@ class DearConfig:
                          nesterov=self.nesterov)
 
     def build_kwargs(self) -> dict:
-        """kwargs for `parallel.dear.build_train_step`; raises on a field
-        the port does not carry yet."""
-        for name, (default, item) in _UNPORTED.items():
-            value = getattr(self, name)
-            if value != default:
-                raise NotImplementedError(
-                    f"DearConfig.{name}={value!r} is not ported yet: "
-                    f"ROADMAP {item}")
+        """kwargs for `parallel.dear.build_train_step` (the bucketing and
+        tuning fields are the caller's: `benchmarks.runner.build_stepper`)."""
         return dict(
             mode=self.mode,
             exclude_parts=self.exclude_parts,

@@ -186,8 +186,30 @@ per step):
 counts the payload collectives; a LAMB step adds B to ``ar`` in the
 sharded modes at world > 1; an excluded leg counts 0.
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): the multi-slice ``dcn`` schedule and ``multi_step``.
+`TrainStep.multi_step` (JAX dear.py:1320-1358) returns ``fn(state,
+batch)``, which runs n steps on the one batch and returns the final state
+and the LAST step's metrics; the callable is cached per n. Where JAX
+compiles the n steps as one ``lax.scan`` program, here they are n eager
+`TrainStep.step` calls: every collective, launch and counter of n
+``step()`` calls, and the dropout generators of steps ``state.step`` to
+``state.step + n - 1``, so it equals n ``step()`` calls bit for bit.
+Capturing it as one CUDA graph is a performance item (ROADMAP Queue 2).
+
+Telemetry (`observability.tracer`, the JAX package's names): building a
+step counts ``dear.plan_builds`` (event ``dear.plan_built``); each step,
+when the tracer is on, counts ``dear.steps`` and ``dear.<leg>_bytes``
+(the per-step payload of each collective leg,
+`observability.counters.plan_comm_accounting`) and, in ``dear-fused``,
+``kernel.fused_rs_launches`` and ``kernel.ring_ag_launches`` (the K5
+ring's and K4's launches in the step, from `ops.collective_matmul`'s
+launch counts: none at world 1, whose short-cut runs no ring, nor on the
+CPU), and runs in a ``dear.step`` span (the host's enqueue time,
+not the card's); ``multi_step`` counts ``dear.multi_step_compiles`` once
+per n, when its callable is first built. With the tracer off (the
+default) a step does none of this.
+
+Not ported yet (raises ``NotImplementedError`` naming its ROADMAP item):
+the multi-slice ``dcn`` schedule.
 """
 
 from __future__ import annotations
@@ -205,6 +227,8 @@ from dear_pytorch_tpu_torch.comm import backend
 from dear_pytorch_tpu_torch.comm import collectives as C
 from dear_pytorch_tpu_torch.comm.ring import Ring
 from dear_pytorch_tpu_torch.models.bert import ProjDense
+from dear_pytorch_tpu_torch.observability import counters as CTR
+from dear_pytorch_tpu_torch.observability import tracer as _telemetry
 from dear_pytorch_tpu_torch.ops import collective_matmul as CM
 from dear_pytorch_tpu_torch.ops import compression as Z
 from dear_pytorch_tpu_torch.ops import fusion as F
@@ -604,6 +628,35 @@ class TrainStep:
         self._rs_next = 0
         self._rs_ready: set = set()
         self._state: Optional[DearState] = None
+        self._comm_dtype, self._multi = cdt, {}
+        self._leg_bytes_cache: Optional[dict] = None
+        tr = _telemetry.get_tracer()
+        if tr.enabled:
+            acct = self._accounting()
+            tr.count("dear.plan_builds")
+            tr.event("dear.plan_built", mode=mode, world=self.world,
+                     buckets=plan.num_buckets,
+                     total_elements=plan.total_size,
+                     payload_bytes_per_step=acct.payload_bytes_per_step)
+
+    # -- telemetry -----------------------------------------------------------
+
+    def _accounting(self) -> CTR.CommAccounting:
+        """The plan's static per-step communication accounting."""
+        itemsize = self._comm_dtype.itemsize
+        return CTR.plan_comm_accounting(
+            self.plan, mode=self.mode, comm_itemsize=itemsize,
+            gather_itemsize=self._gather_dtype.itemsize,
+            compressor=self.compressor.name if self.compressor else None,
+            density=self.density)
+
+    def _leg_bytes(self) -> dict:
+        if self._leg_bytes_cache is None:
+            acct = self._accounting()
+            self._leg_bytes_cache = {
+                leg: acct.leg_bytes_per_step(leg)
+                for leg in sorted({r.leg for r in acct.rows})}
+        return self._leg_bytes_cache
 
     # -- streams and collectives ---------------------------------------------
 
@@ -960,7 +1013,26 @@ class TrainStep:
         """One training step: forward and backward per microbatch, the
         per-bucket reduce-scatters under the backward, the update and the
         gathers. Returns ``(next_state, metrics)``; ``metrics["loss"]`` is
-        the mean over ranks (and microbatches), a device scalar."""
+        the mean over ranks (and microbatches), a device scalar. With the
+        tracer on, the step's counters and its ``dear.step`` span (module
+        docstring)."""
+        tr = _telemetry.get_tracer()
+        if not tr.enabled:
+            return self._step(state, batch)
+        tr.count("dear.steps")
+        for leg, nbytes in self._leg_bytes().items():
+            tr.count(f"dear.{leg}_bytes", nbytes)
+        rings = (CM.ring_rs_launches, CM.ring_ag_launches)
+        with tr.span("dear.step", mode=self.mode):
+            out = self._step(state, batch)
+        if self.fused:   # the wrappers' own launch counts
+            tr.count("kernel.fused_rs_launches",
+                     CM.ring_rs_launches - rings[0])
+            tr.count("kernel.ring_ag_launches",
+                     CM.ring_ag_launches - rings[1])
+        return out
+
+    def _step(self, state: DearState, batch) -> tuple:
         if not self._bound:
             raise RuntimeError("TrainStep.init() must run before step()")
         if self._acc is not None:
@@ -1193,5 +1265,28 @@ class TrainStep:
         self._full = []
         self.ring.close()
 
-    def multi_step(self, n: int):
-        raise _unported("multi_step (as CUDA-graph capture)", "7d")
+    def multi_step(self, n: int) -> Callable:
+        """``fn(state, batch) -> (state, metrics)`` running ``n`` steps on
+        the one batch and returning the final state and the LAST step's
+        metrics (the benchmark protocol; JAX dear.py:1320-1358); cached per
+        ``n``, and ``dear.multi_step_compiles`` counted when it is first
+        built. The steps are n eager `step` calls (module docstring)."""
+        n = int(n)
+        if n < 1:
+            raise ValueError(f"multi_step needs n >= 1, got {n}")
+        cached = self._multi.get(n)
+        if cached is not None:
+            return cached
+        tr = _telemetry.get_tracer()
+        if tr.enabled:
+            tr.count("dear.multi_step_compiles")
+            tr.event("dear.multi_step_compile", mode=self.mode, n=n)
+
+        def fn(state: DearState, batch) -> tuple:
+            metrics = None
+            for _ in range(n):
+                state, metrics = self.step(state, batch)
+            return state, metrics
+
+        self._multi[n] = fn
+        return fn

@@ -47,9 +47,10 @@ def test_config_from_env_and_unported_fields(monkeypatch):
     monkeypatch.setenv("DEAR_ACCUM_STEPS", "0")
     with pytest.raises(ValueError, match="DEAR_ACCUM_STEPS"):
         DearConfig.from_env()
-    # only autotune is left unported (ROADMAP Queue 1 item 8)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        DearConfig(autotune="bo").build_kwargs()
+    # autotune is ported since slice 15: the tuning fields are the
+    # runner's (build_stepper), not the train step's
+    kw = DearConfig(autotune="bo", bo_trials=3).build_kwargs()
+    assert "autotune" not in kw and "bo_trials" not in kw
     # ported: the ablations and bytescheduler's partition pass through, and
     # since slice 14 compression and remat
     kw = DearConfig(exclude_parts=("allgather",),
@@ -158,13 +159,15 @@ def test_cli_ring_projections_trains_on_the_cpu():
 
 
 def test_cli_unknown_flag_is_an_error():
-    """A JAX CLI flag the port does not carry (``--autotune``: ROADMAP
-    Queue 1 item 8; ``--compressor`` is carried since slice 14) is an
-    argparse error."""
+    """A JAX CLI flag the port does not carry (``--pipeline``: ROADMAP
+    Queue 1 item 6b; ``--compressor`` is carried since slice 14,
+    ``--autotune`` since slice 15) is an argparse error."""
     with pytest.raises(SystemExit):
-        cli.build_parser().parse_args(["--autotune", "bo"])
+        cli.build_parser().parse_args(["--pipeline", "none"])
     assert cli.build_parser().parse_args(
         ["--compressor", "eftopk"]).compressor == "eftopk"
+    assert cli.build_parser().parse_args(
+        ["--autotune", "bo"]).autotune == "bo"
 
 
 def test_cli_trains_on_the_cpu(capsys):
@@ -243,8 +246,7 @@ def test_imagenet_cli_refuses_what_it_does_not_run(argv, match):
         imagenet.main(argv + ["--device", "cpu"])
 
 
-@pytest.mark.parametrize("flag", ["--pipeline", "--scan-steps", "--mgwfbp",
-                                  "--profile-dir"])
+@pytest.mark.parametrize("flag", ["--pipeline", "--profile-dir"])
 def test_imagenet_cli_unported_flags_are_errors(flag):
     with pytest.raises(SystemExit):
         imagenet.build_parser().parse_args([flag])

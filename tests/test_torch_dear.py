@@ -394,8 +394,8 @@ def test_world2_fused_matches_port_dear(world2_results):
 
 def test_rejected_options_raise(group):
     """What is not ported raises NotImplementedError naming its ROADMAP
-    item: the multi-slice ``dcn`` schedule (item 9) and ``multi_step``
-    (item 7d). What is ported builds: ``model_state_template``, the
+    item: the multi-slice ``dcn`` schedule (item 9); ``multi_step`` runs
+    since slice 15. What is ported builds: ``model_state_template``, the
     baseline modes and ``fsdp``, the ``exclude_parts`` ablations, and since
     slice 14 compression, ``remat="full"`` (outside ``fsdp``) and LAMB;
     ``mode="dear-fused"`` builds, and refuses what the JAX package's
@@ -442,8 +442,10 @@ def test_rejected_options_raise(group):
             tdear.build_train_step(loss_fn, model, group=group,
                                    device="cpu", mode="dear-fused", **kw)
     ts = tdear.build_train_step(loss_fn, model, group=group, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7d"):
-        ts.multi_step(2)
+    # multi_step is ported (slice 15): one callable per n, n >= 1
+    assert ts.multi_step(2) is ts.multi_step(2)
+    with pytest.raises(ValueError, match="n >= 1"):
+        ts.multi_step(0)
     with pytest.raises(ValueError, match="mode must be one of"):
         tdear.build_train_step(loss_fn, model, group=group, device="cpu",
                                mode="zero3")
