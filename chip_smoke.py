@@ -184,7 +184,7 @@ non-zero and no result line is printed):
      without;
   5l. the baseline schedules: two ranks sharing the card (this script with
      ``--modes-rank R --out DIR``, one pair of processes and one gloo
-     group for every run) train GPT-2 as in 5b, 10 steps per run, with
+     group for every run) train GPT-2 as in 5b, 6 steps per run, with
      ``--mode fsdp``, ``allreduce``, ``rsag``, ``rb``, ``bytescheduler
      --partition 4`` and ``dear --exclude-parts reducescatter`` /
      ``allgather``: every step on each rank K1, K2 and K3 12 times each
@@ -192,8 +192,8 @@ non-zero and no result line is printed):
      replicated modes) and the schedule's collectives as the port's
      dear.py docstring tabulates; for the modes finite, falling losses
      equal on both ranks, gathered parameters bitwise equal on both ranks
-     and the step-10 loss within `_FUSED_VS_DEAR_RTOL` of 5b's dear run
-     at step 10; fsdp's peak memory below that dear run's by at least
+     and the step-6 loss within `_FUSED_VS_DEAR_RTOL` of 5b's dear run
+     at step 6; fsdp's peak memory below that dear run's by at least
      half of (the bf16 full buckets' bytes - the largest bucket's); then
      the `Communicator` over the two ranks' gloo group, every method's
      result equal to its definition. Then one rank on NCCL: dear and each
@@ -211,11 +211,11 @@ non-zero and no result line is printed):
      sum in another order); each ``compress`` timed. Then two ranks
      sharing the card (this script with ``--comp-rank R --out DIR``, one
      pair of processes): ResNet-50 the sweep's ``eftopk`` method (bf16,
-     B = 64, ``--mode allreduce --compressor eftopk --density 0.01``, 10
+     B = 64, ``--mode allreduce --compressor eftopk --density 0.01``, 6
      steps, without and with ``--momentum-correction 0.9``), GPT-2 with
      each compressor on ``--mode dear``, ``eftopk --gtopk`` on
      ``allreduce``, and topk at density 1 against dense ``allreduce``
-     (fp32 gradients: the losses within `_TOPK_D1_RTOL`), 5 steps each;
+     (fp32 gradients: the losses within `_TOPK_D1_RTOL`), 3 steps each;
      BERT-Large LAMB (``benchmarks/bert.py --model bert_large --fp16
      --optimizer lamb``, S = 128, B = 16, 5 steps) and the trust ratios of
      one more update on the shards against the gathered bucket's (within
@@ -250,6 +250,27 @@ non-zero and no result line is printed):
      against 10 ``step()`` calls on GPT-2 (B = 16, dropout) and ResNet-50
      (B = 64, cuDNN deterministic): last loss, masters and buffers
      bitwise, and the step ms of both;
+  5o. the input pipeline and the harness, one rank on NCCL unless said:
+     the native producer library built from the port's copy of
+     ``csrc/dear_runtime.cpp``; ResNet-50 (bf16, B = 64, 224²) through the
+     ImageNet CLI with ``--pipeline native`` (35 steps, every one launching
+     the K5 epilogue once per bucket; the driven object a native
+     ``Pipeline``), then ``--pipeline none``: step p50/p99, img/s, the
+     producers' own rate, the host cast and staging time, a traced idle
+     share of each, and which of them sets the pace; GPT-2 (B = 16, S =
+     1024, flash) with ``--pipeline numpy``: its first three staged
+     batches, read back, byte-identical to a ``NumpyPipeline`` of seed 0;
+     BERT-Base with ``--flash-attention --pipeline native`` (K1–K3 12 a
+     step each); the sweep driver over resnet50:64 x {dear, allreduce} at
+     one rank and {dear-fused} at two ranks sharing the card (their
+     ``TELEMETRY`` lines in ``reports.json``; the K4 and K5-ring launches
+     rank 0's); ``collectives`` at world 1 and ``scaling --worlds 1``; the
+     overlap report at two ranks sharing the card (its efficiency and
+     timeline shares); ResNet-50 ``--remat-policy full`` through the CLI
+     WITH its cuDNN settings (benchmark mode, after every earlier phase
+     timed convs in this process), bitwise against the run without; and
+     the bench line again with ``DEAR_TELEMETRY=0`` beside phase 5g's
+     default (counters on);
   6. trace steady bf16 decode ticks and training steps with
      ``torch.profiler`` (device ops, busy time and idle share, the top
      device ops of a step); time each kernel, its plain version and
@@ -269,10 +290,12 @@ non-zero and no result line is printed):
      at BERT-Large's shapes beside cuBLAS, the K5 epilogue at the zoo's
      largest shards (VGG-16's fc1) and at the replicated modes' whole
      buckets; phase 5l's step p50/p99, tokens/s and peak memory per run;
-     the kernels line's K1-K3 and K5-epilogue launches include 5m's.
+     the kernels line's K1-K3 and K5-epilogue launches include 5m's and
+     5o's (and K4's and the K5 ring's, 5o's driver cell's rank 0).
 
 ``python3 chip_smoke.py --kernels-only`` runs phases 1–3 and stops without
-a result line. In a full run the line before the last lists the kernels
+a result line; ``--phase 5o`` runs phases 1–2, the bench line and phase 5o,
+without one either. In a full run the line before the last lists the kernels
 as JSON (K1, K2, K3 and K4 once per route, each with its main path's
 launches; K6 and K7 with their launches by route, the K5 ring by width);
 the last line is ``{"ok":
@@ -2229,7 +2252,8 @@ def train_vit():
 _BENCH_FLOPS_RTOL = 0.02
 
 
-def run_bench(card: str, timeout: float = 600.0) -> dict:
+def run_bench(card: str, timeout: float = 600.0,
+              telemetry=None) -> dict:
     """``python -m dear_pytorch_tpu_torch.bench`` as a user runs it (a
     process of its own, the card, no ``DEAR_BENCH_*`` switch): it exits 0,
     its last line parses, all five metrics are there with bench.py's names
@@ -2237,7 +2261,9 @@ def run_bench(card: str, timeout: float = 600.0) -> dict:
     and each counted step within `_BENCH_FLOPS_RTOL` of its analytic
     count. Re-prints the line, then a line per model. Returns the line."""
     env = {k: v for k, v in os.environ.items()
-           if not k.startswith("DEAR_BENCH_")}
+           if not k.startswith("DEAR_BENCH_") and k != "DEAR_TELEMETRY"}
+    if telemetry is not None:             # else the bench's default
+        env["DEAR_TELEMETRY"] = telemetry
     t0 = time.perf_counter()
     out = subprocess.run([sys.executable, "-m", "dear_pytorch_tpu_torch.bench"],
                          cwd=_ROOT, env=env, capture_output=True, text=True,
@@ -2247,7 +2273,8 @@ def run_bench(card: str, timeout: float = 600.0) -> dict:
         print(f"  bench stderr: {line[:200]}")
     _check(out.returncode == 0, f"bench exited {out.returncode}")
     line = json.loads(out.stdout.strip().splitlines()[-1])
-    print(f"bench line ({wall:.1f} s, {card}): {json.dumps(line)}")
+    print(f"bench line ({wall:.1f} s, {card}, DEAR_TELEMETRY "
+          f"{telemetry or 'unset'}): {json.dumps(line)}")
     entries = [line] + line.get("extra_metrics", [])
     got = [(m.get("metric"), m.get("unit")) for m in entries]
     _check(got == list(port_bench.METRICS),
@@ -2839,10 +2866,10 @@ _MODES_RUNS = {
                               "reducescatter"],
     "dear-no-allgather": ["--mode", "dear", "--exclude-parts", "allgather"],
 }
-#: 10 steps each (5 warmup, 5 timed): phase 5b's arguments otherwise
-_MODES_STEPS = ["--num-warmup-batches", "5", "--num-batches-per-iter", "5",
+#: 6 steps each (3 warmup, 3 timed): phase 5b's arguments otherwise
+_MODES_STEPS = ["--num-warmup-batches", "3", "--num-batches-per-iter", "3",
                 "--num-iters", "1"]
-_MODES_STEP = 10
+_MODES_STEP = 6
 #: one rank on NCCL: ``dear`` and each new mode 5 steps through the CLI
 #: at B = 4 in bf16; at world 1 ``--fp16`` keeps fsdp's buckets in fp32
 #: under bf16 compute, so its backward casts every bucket it gathers again
@@ -3012,7 +3039,7 @@ def check_communicator(rank: int, world: int) -> None:
 def modes_rank_worker(rank: int, out: Path) -> None:
     """One of the two ranks of phase 5l (``--modes-rank R --out DIR``):
     every run of `_MODES_RUNS` in turn over one gloo group (phase 5b's
-    arguments, 10 steps each; `_run_mode` checks every step), then the
+    arguments, 6 steps each; `_run_mode` checks every step), then the
     `Communicator` over that group (`check_communicator`); the
     results into ``out/rank<r>.json``."""
     _join_two_ranks(rank, out)
@@ -3036,7 +3063,7 @@ def train_modes(dear_ranks) -> tuple:
     """Phase 5l on two ranks sharing the card: the runs of `_MODES_RUNS`
     (`modes_rank_worker`). For the modes: finite losses that fall, equal
     on both ranks; both ranks' gathered parameters bitwise equal; the
-    step-10 loss within `_FUSED_VS_DEAR_RTOL` of phase 5b's ``dear`` run
+    step-6 loss within `_FUSED_VS_DEAR_RTOL` of phase 5b's ``dear`` run
     (``dear_ranks``) at step 10. For the ablations: only that they ran,
     with their counts. fsdp's peak memory per rank below dear's by at
     least half of (the full buckets' bytes - the largest bucket's). Returns
@@ -3139,22 +3166,22 @@ _GPT_FP32_ARGS = [a for a in _TWO_RANK_ARGS if a != "--fp16"]
 #: compressors move every element by lr each step: lr 1e-3 (JAX's tests
 #: train them at a smaller lr too)
 _COMP_RUNS = {
-    "resnet50 eftopk": ("resnet", _RESNET_COMP_ARGS + _steps(10)),
-    "resnet50 eftopk mc": ("resnet", _RESNET_COMP_ARGS + _steps(10)
+    "resnet50 eftopk": ("resnet", _RESNET_COMP_ARGS + _steps(6)),
+    "resnet50 eftopk mc": ("resnet", _RESNET_COMP_ARGS + _steps(6)
                            + ["--momentum-correction", "0.9"]),
-    **{f"gpt2 dear {c}": ("gpt", _TWO_RANK_ARGS + _steps(5) + [
+    **{f"gpt2 dear {c}": ("gpt", _TWO_RANK_ARGS + _steps(3) + [
         "--mode", "dear", "--compressor", c, "--density",
         str(_COMP_DENSITY)] + (["--base-lr", "0.001"] if "sign" in c
                                else [])) for c in _COMP_NAMES},
-    "gpt2 allreduce eftopk gtopk": ("gpt", _TWO_RANK_ARGS + _steps(5) + [
+    "gpt2 allreduce eftopk gtopk": ("gpt", _TWO_RANK_ARGS + _steps(3) + [
         "--mode", "allreduce", "--compressor", "eftopk", "--density",
         str(_COMP_DENSITY), "--gtopk"]),
     # fp32 gradients: topk at density 1 sends every coordinate, so its
     # losses are the dense allreduce's (JAX's
     # test_sparse_allreduce_equals_dense_at_density_1, on the card)
-    "gpt2 allreduce topk d1 fp32": ("gpt", _GPT_FP32_ARGS + _steps(5) + [
+    "gpt2 allreduce topk d1 fp32": ("gpt", _GPT_FP32_ARGS + _steps(3) + [
         "--mode", "allreduce", "--compressor", "topk", "--density", "1.0"]),
-    "gpt2 allreduce fp32": ("gpt", _GPT_FP32_ARGS + _steps(5) + [
+    "gpt2 allreduce fp32": ("gpt", _GPT_FP32_ARGS + _steps(3) + [
         "--mode", "allreduce"]),
 }
 _TOPK_D1_RTOL = 1e-5
@@ -3962,6 +3989,462 @@ def tune_and_multi_step(card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 5o: the input pipeline, the harness and the overlap audit (slice 16)
+# ---------------------------------------------------------------------------
+
+_PIPE_RESNET_ARGS = ["--model", "resnet50", "--batch-size", "64", "--fp16",
+                     "--mode", "dear", "--threshold", "25",
+                     "--num-warmup-batches", "5", "--num-batches-per-iter",
+                     "10", "--num-iters", "3"]
+_PIPE_WARMUP = 5
+_PIPE_GPT_ARGS = _REMAT_ARGS[:-6] + _steps(4)
+_PIPE_BERT_ARGS = _BERT_FLASH_ARGS + ["--flash-attention"] + _steps(4)
+_DRIVER_STEPS = ["--warmup", "2", "--batches", "3", "--iters", "1"]
+
+
+def _idle_share(step_fn, n: int = 3) -> dict:
+    """``torch.profiler`` over ``n`` calls of ``step_fn``: the card's busy
+    ms per call against the wall under the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    step_fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step_fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / n
+    busy = sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / n
+    return {"busy_ms": busy, "wall_ms": wall,
+            "idle": 1 - busy / wall if busy > 0 else None}
+
+
+def check_native_build() -> str:
+    """The producer library is the port's own build: its source is the
+    package's ``csrc/dear_runtime.cpp`` and the loaded file is the one
+    named by that source's digest under ``build/runtime/``."""
+    from dear_pytorch_tpu_torch.runtime import build as RB
+
+    lib = RB.load()
+    _check(lib is not None, f"native pipeline library: {RB.load_error()}")
+    want_src = _ROOT / "dear_pytorch_tpu_torch" / "csrc" / "dear_runtime.cpp"
+    tag = hashlib.sha256(want_src.read_bytes()).hexdigest()[:12]
+    so = RB.library_path()
+    _check(RB.SOURCE.resolve() == want_src.resolve() and so.exists()
+           and Path(lib._name).resolve() == so.resolve()
+           and so.name == f"dear_runtime_{tag}.so",
+           f"native library {lib._name} is not the build of {want_src}")
+    print(f"phase 5o native producer library: {so.relative_to(_ROOT)} "
+          f"(g++ of {want_src.relative_to(_ROOT)}, sha256 tag {tag})")
+    return str(so)
+
+
+def _pipe_run(label, argv):
+    """One ImageNet CLI run of ResNet-50 (``_PIPE_RESNET_ARGS`` + argv),
+    every step's K5 epilogue launches checked. Returns (result, launches,
+    step ms after the warmup)."""
+    FS.fused_update_launches = 0
+    marks, prev = [], {}
+
+    def on_step(ts, state, metrics):
+        del state, metrics
+        now = FS.fused_update_launches
+        _check(now - prev.get("n", 0) == ts.plan.num_buckets,
+               f"{label} step {len(marks) + 1}: {now - prev.get('n', 0)} "
+               f"K5 epilogue launches, expected {ts.plan.num_buckets}")
+        prev["n"] = now
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append(ev)
+
+    res = imagenet_cli.main(_PIPE_RESNET_ARGS + argv + ["--device", _DEV],
+                            on_step=on_step)
+    torch.cuda.synchronize()
+    _check(all(np.isfinite(res.losses)), f"{label}: losses {res.losses}")
+    step_ms = [a.elapsed_time(b) for a, b in
+               zip(marks[_PIPE_WARMUP - 1:-1], marks[_PIPE_WARMUP:])]
+    return res, FS.fused_update_launches, step_ms
+
+
+def pipeline_resnet50(card: str) -> dict:
+    """Phase 5o (i): ResNet-50 on streamed native batches against the
+    constant batch, in one process."""
+    from dear_pytorch_tpu_torch.benchmarks import runner
+    from dear_pytorch_tpu_torch.runtime import pipeline as RP
+
+    spec = RP.image_spec(64)
+    # the producers' own rate: a fresh pipeline drained with nothing else
+    # running (each next() also copies the batch out of its slot)
+    with RP.Pipeline(spec) as pl:
+        pl.next()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            pl.next()
+        prod_s = (time.perf_counter() - t0) / 20
+        host = [pl.next() for _ in range(6)]
+    # the host cast to bf16 / int64 into pinned memory and the enqueued
+    # copy, per batch (the consumer's part of a streamed step)
+    stager = runner.PinnedStager(_DEV)
+    dtypes = {"image": torch.bfloat16, "label": torch.int64}
+    stager(host[0], dtypes)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for h in host[1:]:
+        stager(h, dtypes)
+    stage_s = (time.perf_counter() - t0) / (len(host) - 1)
+    torch.cuda.synchronize()
+    runs = {}
+    for label, argv in (("native", ["--pipeline", "native"]),
+                        ("none", ["--pipeline", "none"])):
+        res, launches, step_ms = _pipe_run(f"resnet50 --pipeline {label}",
+                                           argv)
+        ts, holder = res.train_step, {"state": res.state}
+        if label == "native":
+            _check(type(res.pipeline) is RP.Pipeline,
+                   f"--pipeline native drove {type(res.pipeline).__name__}")
+            produced = res.pipeline.produced
+            # a short trace of streamed steps, from a pipeline of its own
+            tl = RP.Pipeline(spec, seed=1)
+            st = runner.PinnedStager(_DEV)
+            bdt = {k: v.dtype for k, v in res.batch.items()}
+
+            def step(tl=tl, st=st, bdt=bdt, ts=ts, holder=holder):
+                b = runner.stage_global(tl.next(), st, bdt)
+                b["image"] = b["image"].permute(0, 3, 1, 2)
+                holder["state"], _ = ts.step(holder["state"], b)
+        else:
+            produced = None
+
+            def step(ts=ts, holder=holder, b=res.batch):
+                holder["state"], _ = ts.step(holder["state"], b)
+        idle = _idle_share(step)
+        if label == "native":
+            tl.close()
+        p50, p99 = (float(np.percentile(step_ms, q)) for q in (50, 99))
+        runs[label] = {"p50": p50, "p99": p99, "img_s": res.total_mean,
+                       "launches": launches, "idle": idle,
+                       "produced": produced, "steps": len(step_ms)}
+        print(f"phase 5o resnet50 --pipeline {label} (bf16, B=64, 224², "
+              f"{len(step_ms)} timed steps) on {card}: p50 {p50:.3f} ms "
+              f"p99 {p99:.3f} ms; {res.total_mean:.1f} img/s (the CLI's "
+              f"timed mean); traced idle {idle['idle']:.1%} (busy "
+              f"{idle['busy_ms']:.3f} of {idle['wall_ms']:.3f} ms a step "
+              f"under the profiler)"
+              + (f"; {produced} batches produced" if produced else ""))
+        ts.close()
+        del res, ts, holder, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    native, none = runs["native"], runs["none"]
+    prod_ms, stage_ms = prod_s * 1e3, stage_s * 1e3
+    slower = native["p50"] - none["p50"]
+    if prod_ms >= 0.9 * native["p50"]:
+        pace = "the producers"
+    elif slower > 0.05 * none["p50"] and slower >= 0.5 * stage_ms:
+        pace = "the host cast and staging (main thread)"
+    else:
+        pace = "the step"
+    print(f"phase 5o pipeline pace on {card}: producers {prod_ms:.3f} ms a "
+          f"batch ({1e3 / prod_ms:.1f} batches/s, 2 threads, drained alone; "
+          f"{64e3 / prod_ms:.1f} img/s), host cast + pinned staging "
+          f"{stage_ms:.3f} ms a batch, step p50 native {native['p50']:.3f} "
+          f"against none {none['p50']:.3f} ms ({slower:+.3f} ms): the pace "
+          f"is set by {pace}")
+    return {"runs": runs, "producer_ms": prod_ms, "stage_ms": stage_ms,
+            "pace": pace,
+            "launches": native["launches"] + none["launches"]}
+
+
+def pipeline_gpt2_numpy(card: str) -> dict:
+    """Phase 5o (ii): GPT-2 with ``--pipeline numpy``; its first three
+    staged batches, read back, byte-identical to a NumpyPipeline of the
+    same seed (int32 ids cast to the constant batch's int64)."""
+    from dear_pytorch_tpu_torch.benchmarks import runner
+    from dear_pytorch_tpu_torch.runtime import pipeline as RP
+
+    staged = []
+    orig = runner.stage_global
+
+    def recording(*a, **k):
+        out = orig(*a, **k)
+        if len(staged) < 3:
+            staged.append({n: t.cpu().numpy() for n, t in out.items()})
+        return out
+
+    runner.stage_global = recording
+    try:
+        r = _run_comp(train_cli.main, _PIPE_GPT_ARGS + ["--pipeline",
+                                                        "numpy"],
+                      "gpt2 --pipeline numpy", GPT2_SMALL.num_hidden_layers)
+    finally:
+        runner.stage_global = orig
+    r.pop("result").train_step.close()
+    ref = RP.NumpyPipeline(RP.gpt_spec(16, 1024, vocab=GPT2_SMALL.vocab_size),
+                           seed=0)
+    for i, got in enumerate(staged):
+        want = ref.next()["input_ids"].astype(np.int64)
+        _check(got["input_ids"].dtype == np.int64
+               and got["input_ids"].tobytes() == want.tobytes(),
+               f"gpt2 --pipeline numpy: staged batch {i} differs from "
+               "NumpyPipeline's")
+    _check(len(staged) == 3, f"gpt2 numpy: {len(staged)} batches staged")
+    print(f"phase 5o gpt2 --pipeline numpy on {card}: the first 3 staged "
+          f"batches (16 x 1024 int64, read back) byte-identical to "
+          f"NumpyPipeline(seed 0); step p50 "
+          f"{float(np.percentile(r['step_ms'], 50)):.3f} ms; losses "
+          f"{[round(x, 4) for x in r['losses']]}")
+    return r
+
+
+def pipeline_bert_flash(card: str) -> dict:
+    """Phase 5o (iii): BERT-Base with ``--flash-attention --pipeline
+    native``: K1-K3 12 a step each on their tensor-core routes."""
+    r = _run_comp(bert_cli.main, _PIPE_BERT_ARGS + ["--pipeline", "native"],
+                  "bert_base flash --pipeline native",
+                  BERT.BERT_BASE.num_hidden_layers)
+    res = r.pop("result")
+    from dear_pytorch_tpu_torch.runtime import pipeline as RP
+
+    _check(type(res.pipeline) is RP.Pipeline, "bert: not the native pipeline")
+    res.train_step.close()
+    print(f"phase 5o bert_base flash --pipeline native on {card}: step p50 "
+          f"{float(np.percentile(r['step_ms'], 50)):.3f} ms; launches "
+          f"{r['launches']}")
+    return r
+
+
+def run_driver(card: str, out: Path) -> dict:
+    """Phase 5o (iv): the sweep driver over resnet50:64 — dear and
+    allreduce at one rank (NCCL), dear-fused at two ranks sharing the card
+    (gloo and the ring kernels) — with ``DEAR_TELEMETRY=1`` in the cells'
+    environment: every cell's result and telemetry in its reports.json.
+    Returns the kernels' launches from the cells' telemetry (rank 0's)."""
+    env = dict(os.environ, DEAR_TELEMETRY="1")
+    got = {}
+    for sub, methods, n in (("one_rank", "dear,allreduce", "1"),
+                            ("two_ranks", "dear-fused", "2")):
+        logdir = out / sub
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "dear_pytorch_tpu_torch.benchmarks.driver",
+             "--logdir", str(logdir), "--tasks", "resnet50:64",
+             "--methods", methods, "--nworkers", n, "--timeout", "300",
+             "--extra-args=--fp16"] + _DRIVER_STEPS,
+            cwd=_ROOT, env=env, capture_output=True, text=True, timeout=700)
+        for line in proc.stdout.strip().splitlines():
+            print(f"  driver: {line[:200]}")
+        _check(proc.returncode == 0, f"driver exited {proc.returncode}: "
+               f"{proc.stderr[-2000:]}")
+        rep = json.loads((logdir / "reports.json").read_text())
+        tel = rep["telemetry"]
+        for m in methods.split(","):
+            tag = f"resnet50-bs64-{m}-n{n}"
+            cell = rep["resnet50"][m][n]
+            snap = tel["per_cell"].get(tag)
+            if cell is None or snap is None:
+                print((logdir / f"{tag}.log").read_text()[-3000:])
+            _check(cell is not None and snap is not None
+                   and snap["enabled"] is True,
+                   f"driver: cell {tag} has no result or no telemetry")
+            got[tag] = {"img_s": cell[0], "ci": cell[1],
+                        "counters": snap["counters"]}
+        _check(tel["cells_failed"] == 0, f"driver: failed cells {tel}")
+        print(f"phase 5o driver ({methods}, {n} rank(s)"
+              + (" sharing the card" if n == "2" else ", NCCL")
+              + f") on {card}: {time.perf_counter() - t0:.1f} s; "
+              + "; ".join(f"{t} {v['img_s']} +-{v['ci']} img/s"
+                          for t, v in got.items() if f"-n{n}" in t))
+    c = {t: v["counters"] for t, v in got.items()}
+    launches = {
+        "fused_update": sum(v.get("kernel.fused_update_launches", 0)
+                            for v in c.values()),
+        "ring_rs": c["resnet50-bs64-dear-fused-n2"].get(
+            "kernel.fused_rs_launches", 0),
+        "ring_ag": c["resnet50-bs64-dear-fused-n2"].get(
+            "kernel.ring_ag_launches", 0)}
+    _check(launches["ring_rs"] > 0 and launches["ring_ag"] > 0
+           and launches["fused_update"] > 0,
+           f"driver cells launched no kernel: {launches}")
+    print(f"phase 5o driver launches from the cells' telemetry (rank 0's): "
+          f"{launches}")
+    return {"cells": got, "launches": launches}
+
+
+def run_collectives_scaling(card: str) -> int:
+    """Phase 5o (v): ``collectives`` at world 1 on NCCL, and ``scaling
+    --worlds 1`` (ResNet-50, bf16, B = 64). Returns the K5 epilogue's
+    launches."""
+    from dear_pytorch_tpu_torch.benchmarks import collectives as BC
+    from dear_pytorch_tpu_torch.benchmarks import scaling as BS
+
+    out = BC.main(["--sizes-log2", "12:27:2", "--repeats", "5",
+                   "--collectives", "all_reduce,reduce_scatter,all_gather"])
+    _check(out["backend"] == "nccl" and out["world"] == 1,
+           f"collectives ran on {out['backend']} at {out['world']}")
+    for name, c in out["collectives"].items():
+        _check(all(r["time_s"] > 0 for r in c["rows"]), f"{name}: no time")
+        top = c["rows"][-1]
+        print(f"phase 5o collectives {name} (NCCL, world 1) on {card}: alpha "
+              f"{c['alpha_s']:.3e} s, beta {c['beta_s_per_byte']:.3e} s/B; "
+              f"{top['bytes']} B in {top['time_s'] * 1e6:.1f} us "
+              f"({top['bw_gbs']:.2f} GB/s)")
+    FS.fused_update_launches = 0
+    sc = BS.main(["--model", "resnet50", "--batch-size", "64", "--fp16",
+                  "--worlds", "1", "--num-warmup-batches", "3",
+                  "--num-batches-per-iter", "5", "--num-iters", "2"])
+    _check(sc["efficiency"] == {1: 1.0} and sc["per_device_img_sec"][1] > 0,
+           f"scaling: {sc}")
+    print(f"phase 5o scaling --worlds 1 on {card}: "
+          f"{sc['per_device_img_sec'][1]:.1f} img/s per rank")
+    return FS.fused_update_launches
+
+
+def run_report(card: str, out: Path) -> dict:
+    """Phase 5o (vi): the overlap report, dear and allreduce, at two ranks
+    sharing the card (gloo, host-staged): the efficiency and the timeline's
+    overlap shares."""
+    path = out / "overlap.json"
+    proc = subprocess.run(
+        [sys.executable, "-m", "dear_pytorch_tpu_torch.observability.report",
+         "--modes", "dear,allreduce", "--world", "2", "--layers", "4",
+         "--width", "1024", "--batch", "64", "--steps", "10",
+         "--json", str(path)],
+        cwd=_ROOT, capture_output=True, text=True, timeout=600)
+    for line in proc.stdout.strip().splitlines():
+        print(f"  report: {line[:200]}")
+    _check(proc.returncode == 0, f"report exited {proc.returncode}: "
+           f"{proc.stderr[-3000:]}")
+    doc = json.loads(path.read_text())
+    _check(doc["world"] == 2 and set(doc["modes"]) == {"dear", "allreduce"},
+           f"report: {doc.keys()}")
+    for mode, rep in doc["modes"].items():
+        tl = rep["timeline"]
+        _check(tl is not None and tl["collective_s_per_step"] > 0,
+               f"report {mode}: no traced collective")
+        eff = rep["overlap_efficiency"]
+        print(f"phase 5o overlap report {mode} (two ranks sharing the card, "
+              f"gloo; MLP 4 x 1024², B = 32 per rank) on {card}: measured "
+              f"{rep['measured_step_s'] * 1e3:.3f} ms, compute "
+              f"{rep['compute_time_s'] * 1e3:.3f} ms, comm (alpha-beta) "
+              f"{rep['comm_time_s'] * 1e3:.3f} ms, efficiency "
+              + ("n/a" if eff is None else f"{eff:.3f}")
+              + f"; timeline ({tl['source']}): collectives "
+              f"{tl['collective_s_per_step'] * 1e3:.3f} ms a step, overlap "
+              f"share {tl['overlap_share']}; by leg "
+              + ", ".join(f"{k} {v['overlap_share']}"
+                          for k, v in tl["legs"].items()))
+    launches = doc["telemetry"]["counters"].get(
+        "kernel.fused_update_launches", 0)
+    _check(launches > 0, "report: no K5 epilogue launch")
+    return {"doc": doc, "launches": launches}
+
+
+def check_resnet_remat_cli(card: str) -> dict:
+    """Phase 5o (vii): ResNet-50 ``--remat-policy full`` through the CLI
+    with the CLI's own cuDNN settings (benchmark mode on; convs timed by
+    earlier phases of this process), against the run without, and a
+    second run without: the losses, the BN buffers after steps 1 and 3 and
+    the parameters after step 3 bitwise equal."""
+    _check(torch.backends.cudnn.enabled, "cuDNN is off")
+    runs, bufs, params = {}, {}, {}
+    for key, policy in (("none", "none"), ("full", "full"),
+                        ("none again", "none")):
+        def first(ts, key=key):
+            bufs[key, 1] = {n: b.detach().clone() for n, b in
+                            ts.model.named_buffers()}
+
+        r = _run_comp(imagenet_cli.main, _RESNET_ARGS[:-6] + _steps(3)
+                      + ["--remat-policy", policy],
+                      f"one rank resnet50 --remat-policy {policy} (cuDNN "
+                      "benchmark)", on_first=first)
+        res = r.pop("result")
+        _check(torch.backends.cudnn.benchmark, "the CLI left benchmark off")
+        bufs[key, 3] = {n: b.detach().clone() for n, b in
+                        res.train_step.model.named_buffers()}
+        params[key] = res.train_step.gather_params(res.state)
+        res.train_step.close()
+        runs[key] = r
+
+    def same(a, b):
+        return all(torch.equal(a[n], x) for n, x in b.items())
+
+    checks = {"losses": runs["full"]["losses"] == runs["none"]["losses"],
+              "BN buffers after step 1": same(bufs["full", 1],
+                                              bufs["none", 1]),
+              "BN buffers after step 3": same(bufs["full", 3],
+                                              bufs["none", 3]),
+              "parameters after step 3": same(params["full"],
+                                              params["none"]),
+              "control (a second run without)": same(params["none again"],
+                                                     params["none"])}
+    print(f"phase 5o resnet50 --remat-policy full under the CLI's cuDNN "
+          f"settings (benchmark {torch.backends.cudnn.benchmark}, "
+          f"deterministic {torch.backends.cudnn.deterministic}) against the "
+          f"run without, bitwise: {checks}; losses {runs['full']['losses']}")
+    _check(all(checks.values()), "resnet50 remat under cuDNN benchmark mode "
+           f"is not the run without remat: {checks}")
+    return {k: v for k, v in runs.items()}
+
+
+def bench_telemetry(card: str, line_on: dict) -> dict:
+    """Phase 5o (viii): the bench line with ``DEAR_TELEMETRY=0`` beside
+    phase 5g's default (counters on): both telemetry blocks, and each
+    metric's value on and off."""
+    _check(line_on.get("telemetry", {}).get("enabled") is True
+           and line_on["telemetry"]["counters"].get("dear.steps", 0) > 0
+           and "spans" not in line_on["telemetry"],
+           f"bench: the default line's telemetry block {line_on.get('telemetry')}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    line_off = run_bench(card, telemetry="0")
+    _check(line_off["telemetry"] == {"enabled": False, "counters": {}},
+           f"bench DEAR_TELEMETRY=0: {line_off['telemetry']}")
+    on = {m["metric"]: m["value"] for m in [line_on]
+          + line_on["extra_metrics"]}
+    off = {m["metric"]: m["value"] for m in [line_off]
+           + line_off["extra_metrics"]}
+    for k in on:
+        print(f"phase 5o bench {k} on {card}: telemetry on (counters only) "
+              f"{on[k]}, off {off[k]} ({on[k] / off[k] - 1:+.2%})")
+    return {"on": on, "off": off}
+
+
+def harness_phase(card: str, bench_line: dict) -> dict:
+    """Phase 5o: (i)-(viii) above; returns the launches it made."""
+    out = _ROOT / "build" / "chip_smoke" / "harness"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    check_native_build()
+    FA.reset_launch_counts()
+    pipe = pipeline_resnet50(card)
+    gpt = pipeline_gpt2_numpy(card)
+    bert = pipeline_bert_flash(card)
+    drv = run_driver(card, out)
+    scaling_update = run_collectives_scaling(card)
+    rep = run_report(card, out)
+    remat = check_resnet_remat_cli(card)
+    tel = bench_telemetry(card, bench_line)
+    routes = {w: {route: gpt["routes"][w][route] + bert["routes"][w][route]
+                  for route in gpt["routes"][w]}
+              for w in ("fwd", "dq", "dkv")}
+    update = (pipe["launches"] + gpt["launches"]["fused_update"]
+              + bert["launches"]["fused_update"]
+              + drv["launches"]["fused_update"] + scaling_update
+              + rep["launches"]
+              + sum(r["launches"]["fused_update"] for r in remat.values()))
+    print(f"phase 5o launches: K1-K3 by route {routes}, the K5 epilogue "
+          f"{update}, K4 {drv['launches']['ring_ag']}, the K5 ring "
+          f"{drv['launches']['ring_rs']} (the driver cell's rank 0)")
+    return {"routes": routes, "update": update,
+            "ring_ag": drv["launches"]["ring_ag"],
+            "ring_rs": drv["launches"]["ring_rs"], "pipe": pipe,
+            "telemetry": tel}
+
+
+# ---------------------------------------------------------------------------
 # phase 6: timings
 # ---------------------------------------------------------------------------
 
@@ -4578,6 +5061,7 @@ def _kernel_entry(name, source, replaces, launches, err, row):
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     kernels_only = argv == ["--kernels-only"]
+    harness_only = argv == ["--phase", "5o"]
     worker = len(argv) == 6 and argv[0::2] == ["--train-rank", "--out",
                                                "--mode"]
     bert_worker = len(argv) == 6 and argv[0::2] == ["--bert-rank", "--out",
@@ -4587,8 +5071,8 @@ def main(argv=None) -> int:
     modes_worker = len(argv) == 4 and argv[0::2] == ["--modes-rank",
                                                      "--out"]
     comp_worker = len(argv) == 4 and argv[0::2] == ["--comp-rank", "--out"]
-    if argv and not (kernels_only or worker or bert_worker or probe_worker
-                     or modes_worker or comp_worker):
+    if argv and not (kernels_only or harness_only or worker or bert_worker
+                     or probe_worker or modes_worker or comp_worker):
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -4633,6 +5117,12 @@ def main(argv=None) -> int:
             elif "registers" in line or "spill" in line:
                 print("  ptxas " + line.strip())
 
+    if harness_only:             # phase 5o alone (with phase 5g's line)
+        t0 = time.perf_counter()
+        harness_phase(card, run_bench(card))
+        print(f"bench and phase 5o: {time.perf_counter() - t0:.1f} s")
+        backend.shutdown()
+        return 0
     t0 = time.perf_counter()
     fwd_err = check_kernel()
     bwd_err = check_bwd_kernels()
@@ -4739,6 +5229,10 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     bench_line = run_bench(card)
     print(f"bench phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    harness = harness_phase(card, bench_line)
+    print(f"input pipeline and harness phase (5o): "
+          f"{time.perf_counter() - t0:.1f} s")
     trace_decode_ticks(runs[-1][3].model)
 
     B, S = 16, 1024
@@ -4922,21 +5416,28 @@ def main(argv=None) -> int:
                              for r in fused + rp + bl_fused + bl_rp)
                       for k in fused[0]["launches"]}
     # K4 and the K5 ring also run on the probe's path (both transports)
+    # and in phase 5o's dear-fused driver cell (its rank 0's telemetry)
     ring_launches = {k: fused_launches[k] + probe_launches[k]
-                     + probe_ipc_launches[k] for k in ("ring_ag", "ring_rs")}
+                     + probe_ipc_launches[k] + harness[k]
+                     for k in ("ring_ag", "ring_rs")}
     # K4 by route, each with its own main path: direct the dear-fused
-    # steps (every one checked so in both ranks), slot the probe's (both
-    # transports); the K5 ring by width on the dear-fused steps
-    ag_by_route = {"direct": fused_launches["ring_ag_direct_all"],
+    # steps (every one checked so in both ranks; the driver cell's train
+    # step demands it too), slot the probe's (both transports); the K5
+    # ring by width on the dear-fused steps (the cell's are not split)
+    ag_by_route = {"direct": fused_launches["ring_ag_direct_all"]
+                   + harness["ring_ag"],
                    "slot": probe_launches["ring_ag_slot"]
                    + probe_ipc_launches["ring_ag_slot"]}
     _check(ag_by_route["direct"] == fused_launches["ring_ag"]
+           + harness["ring_ag"]
            and sum(ag_by_route.values()) == ring_launches["ring_ag"],
            f"K4 on the main paths by route: {ag_by_route}, all "
            f"{ring_launches['ring_ag']}")
     rs_by_width = {"vector": fused_launches["ring_rs_vector"],
                    "scalar": fused_launches["ring_rs"]
-                   - fused_launches["ring_rs_vector"]}
+                   - fused_launches["ring_rs_vector"],
+                   "phase 5o driver cell (by width not counted)":
+                   harness["ring_rs"]}
     print(f"K4 launches on the main paths by route: {ag_by_route}; the K5 "
           f"ring's on the dear-fused steps by width: {rs_by_width}")
     rp_launches = {k: sum(r["launches"][k] for r in rp + bl_rp)
@@ -4977,10 +5478,12 @@ def main(argv=None) -> int:
         "tensor_core": train_launches["flash_fwd_tc"]
         + fused_launches["flash_fwd_tc"] + bert_launches["flash_fwd_tc"]
         + modes_routes["fwd"]["tensor_core"]
-        + comp_routes["fwd"]["tensor_core"],
+        + comp_routes["fwd"]["tensor_core"]
+        + harness["routes"]["fwd"]["tensor_core"],
         "cuda_core": fp32_routes["fwd"]["cuda_core"]
         + modes_routes["fwd"]["cuda_core"]
-        + comp_routes["fwd"]["cuda_core"]}
+        + comp_routes["fwd"]["cuda_core"]
+        + harness["routes"]["fwd"]["cuda_core"]}
     print(f"K1 launches on the main paths by route: {k1_launches}")
     k1 = [_kernel_entry(f"flash_fwd ({route})", "flash_fwd.cu",
                         "dear_pytorch_tpu/ops/flash_attention.py:97",
@@ -4996,10 +5499,12 @@ def main(argv=None) -> int:
                     + fused_launches[kname + "_tc"]
                     + bert_launches[kname + "_tc"]
                     + modes_routes[which]["tensor_core"]
-                    + comp_routes[which]["tensor_core"],
+                    + comp_routes[which]["tensor_core"]
+                    + harness["routes"][which]["tensor_core"],
                     "cuda_core": fp32_routes[which]["cuda_core"]
                     + modes_routes[which]["cuda_core"]
-                    + comp_routes[which]["cuda_core"]}
+                    + comp_routes[which]["cuda_core"]
+                    + harness["routes"][which]["cuda_core"]}
         print(f"{kname} launches on the main paths by route: {launches}")
         for route, sfx in (("tensor_core", ""), ("cuda_core", "_f32")):
             k23.append(_kernel_entry(
@@ -5010,15 +5515,17 @@ def main(argv=None) -> int:
         # launches: GPT-2's train steps, ResNet-50's, BERT-Base's (flash
         # and with dropout), ViT-B/16's, the zoo's, the MNIST example's,
         # phase 5l's (whole buckets in the replicated modes), phase 5m's
-        # (the compressed buckets' dense means, the remat runs) and phase
-        # 5n's (every plan a tuner tried, and the multi_step runs)
+        # (the compressed buckets' dense means, the remat runs), phase
+        # 5n's (every plan a tuner tried, and the multi_step runs) and
+        # phase 5o's (streamed batches, the driver's cells, scaling, the
+        # overlap report's rank 0, the remat check)
         _kernel_entry("fused_update", "fused_update.cu",
                       "dear_pytorch_tpu/ops/collective_matmul.py:317",
                       train_launches["fused_update"] + rn_launches
                       + bert_launches["fused_update"] + vit_launches
                       + sum(z["launches"] for z in zoo.values())
                       + mnist_launches + modes_update + comp_update
-                      + tune["launches"], upd_err, upd),
+                      + tune["launches"] + harness["update"], upd_err, upd),
     ] + [
         _kernel_entry(f"ring_all_gather ({route})", "ring.cu",
                       "dear_pytorch_tpu/ops/collective_matmul.py:218",

@@ -33,7 +33,14 @@ Ported so far:
     tuners over live rebuilds with exact state repacking, MG-WFBP, ASC,
     MGS-SGD), the tracer, counters and cost model they read
     (`observability`, `utils.profiling`), and `TrainStep.multi_step` with
-    the CLIs' ``--scan-steps``.
+    the CLIs' ``--scan-steps``;
+  - slice 16: the input pipeline (`runtime`: the C++ producers of
+    ``csrc/dear_runtime.cpp``, built with g++ at first use, and the numpy
+    pipeline) streamed through pinned memory by the CLIs' ``--pipeline``,
+    `resilience.retry`, `utils.metrics`, the sweep driver, scaling and
+    collective sweeps (`benchmarks`), the bench line's telemetry block, and
+    the overlap audit with its report (`observability.overlap`,
+    `observability.report`).
 """
 
 from dear_pytorch_tpu_torch.comm.communicator import Communicator  # noqa: F401

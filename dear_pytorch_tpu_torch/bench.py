@@ -45,13 +45,17 @@ window (reset before it), null on the CPU, as is ``mfu`` (no known peak).
 ``DEAR_BENCH_SMOKE=1`` runs tiny shapes (CPU-safe); ``DEAR_BENCH_BERT_LARGE``,
 ``DEAR_BENCH_VIT`` and ``DEAR_BENCH_GPT`` set to 0 skip those metrics.
 
+The line carries bench.py's ``telemetry`` block (root bench.py:565-570,
+:629): the tracer's snapshot (`observability.tracer.snapshot`) after every
+model, on by default with counters only (``configure(memory=False)``: no
+span records, so the timed windows accumulate nothing); an explicit
+``DEAR_TELEMETRY`` — an explicit disable included — is honoured as it is.
+
 Left out, on purpose: bench.py's ``vs_baseline``, ``baseline_protocol``
 and ``baseline_config`` — its pins (``BASELINE_IMG_SEC`` 2304.13,
 ``BASELINE_GPT_TOK_SEC``) were measured on a TPU and may not stand as the
-port's baseline; the ``telemetry`` block (`observability.tracer` is
-ported, but the line does not carry its snapshot: a tracer on by default
-would add its per-step host work to the timed window) and the phase
-watchdog (resilience, ROADMAP Queue 1 item 9).
+port's baseline; and the phase watchdog (resilience, ROADMAP Queue 1 item
+9).
 """
 
 from __future__ import annotations
@@ -436,6 +440,25 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
     from dear_pytorch_tpu_torch._device import resolve_device
     from dear_pytorch_tpu_torch.comm import backend
+    from dear_pytorch_tpu_torch.observability import tracer
+
+    before = tracer._tracer       # put back on return (an embedding caller)
+    if os.environ.get(tracer.TELEMETRY_ENV) is None:
+        # default-on, counters only (memory=False: no span records — the
+        # timed loops must accumulate nothing) so the line always carries
+        # a telemetry block; an explicit DEAR_TELEMETRY value — including
+        # an explicit disable — is honoured as it is
+        tracer.configure(memory=False)
+    try:
+        return _main(args)
+    finally:
+        tracer.set_tracer(before)
+
+
+def _main(args) -> int:
+    from dear_pytorch_tpu_torch._device import resolve_device
+    from dear_pytorch_tpu_torch.comm import backend
+    from dear_pytorch_tpu_torch.observability import tracer
 
     proto = Protocol.from_env()
     owned = not backend.is_initialized()    # shut down only our own group
@@ -470,7 +493,8 @@ def main(argv=None) -> int:
         if on:
             extras.append(_secondary(metric, fn))
             _log(f"bench: {json.dumps(extras[-1])}")
-    print(json.dumps(dict(resnet, extra_metrics=extras)), flush=True)
+    print(json.dumps(dict(resnet, extra_metrics=extras,
+                          telemetry=tracer.snapshot())), flush=True)
     if owned:
         backend.shutdown()
     return 0

@@ -23,8 +23,11 @@ would be worse than changing the config. ``--ring-projections`` (with
 value and intermediate products through the ring collective matmul
 (`ops.collective_matmul.make_ring_projection_impl`: K6 forward, K7 and K8
 backward). ``--mfu`` counts one step's FLOPs (`runner.step_flops`) and
-logs the MFU. ``--sp-degree > 1`` and ``--sp-attention`` (sequence
-parallelism, ROADMAP Queue 1 item 10) are not ported yet and raise.
+logs the MFU. ``--pipeline {none,native,numpy}``, ``--profile-dir`` and
+``--metrics-file`` are the JAX CLI's (`runner.make_batch_source`; the
+streamed batch is JAX's ``bert_spec`` of the global batch).
+``--sp-degree > 1`` and ``--sp-attention`` (sequence parallelism, ROADMAP
+Queue 1 item 10) are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -46,6 +49,7 @@ from dear_pytorch_tpu_torch.ops.collective_matmul import (
 from dear_pytorch_tpu_torch.ops.flash_attention import (
     make_flash_attention_impl,
 )
+from dear_pytorch_tpu_torch.runtime import pipeline as RP
 
 _TITLES = {"bert": "BERT Large", "bert_large": "BERT Large",
            "bert_base": "BERT Base"}
@@ -142,9 +146,11 @@ def main(argv=None, on_step: Optional[Callable] = None
         return models.bert_pretraining_loss(
             logits, nsp, b["masked_lm_labels"], b["next_sentence_labels"])
 
+    spec = RP.bert_spec(global_bs, args.sentence_len,
+                        vocab=cfg.vocab_size)
     return runner.train_timed(
         args, model, batch, loss_fn, group=group, unit="sen",
-        on_step=on_step, header=[
+        on_step=on_step, spec=spec, header=[
             f"{_TITLES[args.model.lower()]} Pretraining, Sentence len: "
             f"{args.sentence_len}",
             f"Batch size: {args.batch_size} (per rank), {global_bs} global"])

@@ -19,8 +19,12 @@ ring collective matmul (K6 forward, K7 and K8 backward). ``--mfu``
 counts one step's FLOPs (`runner.step_flops`) and logs the MFU.
 ``--remat`` recomputes every block in the backward (``GptConfig.remat``;
 ``--remat-policy full`` recomputes the whole forward at the step's level
-instead). ``--sp-degree > 1`` and ``--num-experts`` are not ported yet and
-raise.
+instead). ``--pipeline {none,native,numpy}``, ``--profile-dir`` and
+``--metrics-file`` are the JAX CLI's (`runner.make_batch_source`; the
+streamed batch is JAX's ``gpt_spec`` of the global batch, its int32 ids
+cast to the constant batch's int64 on the host). ``--sp-degree > 1`` and
+``--num-experts`` are not ported yet and raise; ``--sp-attention`` is
+not registered.
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ from dear_pytorch_tpu_torch.models.gpt import (
 from dear_pytorch_tpu_torch.ops.collective_matmul import (
     make_ring_projection_impl,
 )
+from dear_pytorch_tpu_torch.runtime import pipeline as RP
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -132,9 +137,10 @@ def main(argv=None, on_step: Optional[Callable] = None
         return gpt_lm_loss(logits, b["input_ids"],
                            vocab_size=cfg.vocab_size)
 
+    spec = RP.gpt_spec(global_bs, args.sequence_len, vocab=cfg.vocab_size)
     result = runner.train_timed(
         args, model, batch, loss_fn, group=group, unit="sen",
-        on_step=on_step, header=[
+        on_step=on_step, spec=spec, header=[
             f"{args.model} causal-LM pretraining, sequence len: "
             f"{args.sequence_len}",
             f"Batch size: {args.batch_size} (per rank), {global_bs} global "

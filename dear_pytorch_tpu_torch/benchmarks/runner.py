@@ -18,7 +18,7 @@ counted by the mode itself). The MFU is against the card's dense bf16 peak
 the JAX package's ``perf_model.mfu`` is for an unknown device.
 
 Only the flags the port carries are registered: an unported flag of the
-JAX CLI (``--pipeline``, ``--profile-dir``, ...) is an argparse error, not
+JAX CLI (``--sp-attention`` on the GPT CLI, ...) is an argparse error, not
 silently ignored. Every ``--mode`` of the JAX CLI builds (the baselines
 and ``fsdp`` since slice 13, with ``--partition`` and ``--exclude-parts``),
 and so do ``--optimizer lamb``, the compression flags (``--compressor``,
@@ -37,12 +37,29 @@ call through `parallel.dear.TrainStep.multi_step` on the one batch
 `run_timed`'s ``steps_per_call`` keeps every reported time per step). The
 combinations JAX refuses are refused with its messages
 (`validate_scan_steps`, `build_stepper`).
+
+Since slice 16 the timed loop streams its batches (JAX runner.py:420-492):
+``--pipeline none`` re-feeds the one constant batch (the reference's
+fixed-fake-data protocol), ``native`` draws a fresh global batch per step
+from the C++ producers (`runtime.pipeline.Pipeline`; refused when the
+library cannot be built) and ``numpy`` from `runtime.pipeline.
+NumpyPipeline` (`make_batch_source`). Every rank draws the same global
+batch from the same stream and stages only its own slice
+(`stage_global`): cast to the constant batch's dtypes on the host, so
+under ``--fp16`` an fp32 image crosses as bf16, into pinned host memory
+and to the card without blocking (`PinnedStager`). ``--metrics-file``
+writes one JSONL record per timed run and a summary (`utils.metrics.
+MetricsLogger`), ``--profile-dir`` a ``torch.profiler`` trace of the timed
+runs, and with ``DEAR_TELEMETRY`` on `run_timed` prints the tracer's
+snapshot as one ``TELEMETRY {...}`` line (the sweep driver scrapes it) and
+logs it to the metrics file.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import time
 from typing import Any, Callable, Optional
 
@@ -51,11 +68,12 @@ import torch
 
 from dear_pytorch_tpu_torch.comm import backend
 
-__all__ = ["BenchResult", "PEAK_FLOPS", "add_common_args", "build_stepper",
-           "config_from_args", "device_name", "log", "log_mfu",
-           "make_step_source", "mfu", "parse_exclude_parts", "peak_flops",
-           "run_pretune", "run_timed", "step_flops", "threshold_mb",
-           "train_timed", "validate_scan_steps"]
+__all__ = ["BenchResult", "PEAK_FLOPS", "PinnedStager", "add_common_args",
+           "build_stepper", "config_from_args", "device_name", "log",
+           "log_mfu", "make_batch_source", "make_step_source",
+           "metrics_from_args", "mfu", "parse_exclude_parts", "peak_flops",
+           "run_pretune", "run_timed", "stage_global", "step_flops",
+           "threshold_mb", "train_timed", "validate_scan_steps"]
 
 #: dense bf16 peak FLOP/s of a card, by a part of its name (NVIDIA's data
 #: sheet: the H100 SXM); the PCIe card's is lower and not listed
@@ -155,8 +173,9 @@ def run_timed(step_fn: Callable[[], Any], *, batch_size: int,
               num_iters: int = 5, unit: str = "sen",
               sync: Optional[Callable[[], None]] = None,
               world: Optional[int] = None, device: Optional[str] = None,
-              count_flops: bool = False,
-              steps_per_call: int = 1) -> BenchResult:
+              count_flops: bool = False, steps_per_call: int = 1,
+              metrics=None,
+              profile_dir: Optional[str] = None) -> BenchResult:
     """The warmup + timed-iteration protocol around ``step_fn`` (one
     call, enqueued asynchronously on the card); ``sync`` blocks until the
     enqueued work is done (pass one: on the card,
@@ -165,7 +184,12 @@ def run_timed(step_fn: Callable[[], Any], *, batch_size: int,
     per call), so the reported step times stay per step. ``count_flops``:
     the first warmup call runs under `step_flops` (with no warmup, one
     extra untimed call does), and the result carries ``flops_per_step``
-    (the call's count over ``steps_per_call``)."""
+    (the call's count over ``steps_per_call``). ``metrics`` (a
+    `utils.metrics.MetricsLogger`) gets one record per timed run and a
+    summary; ``profile_dir`` gets a ``torch.profiler`` trace of the timed
+    runs (``trace_rank<r>.json``, the card's kernels too). With the tracer
+    on (``DEAR_TELEMETRY``), its snapshot is printed as one ``TELEMETRY
+    {...}`` line and logged to ``metrics`` (JAX runner.py:230-240)."""
     dev = device or device_name()
     world = backend.size() if world is None else world
     steps_per_call = max(int(steps_per_call), 1)
@@ -178,19 +202,27 @@ def run_timed(step_fn: Callable[[], Any], *, batch_size: int,
     if sync is not None:
         sync()
     log("Running benchmark...")
+    prof = _start_profile(profile_dir)
     per_iter, iter_times = [], []
-    for x in range(num_iters):
-        t0 = time.perf_counter()
-        for _ in range(num_batches_per_iter):
-            step_fn()
-        if sync is not None:
-            sync()
-        dt = time.perf_counter() - t0
-        thr = batch_size * num_batches_per_iter / dt
-        log(f"Iter #{x}: {thr:.1f} {unit}/sec per {dev}")
-        per_iter.append(thr)
-        # per training step, whatever the calls' shape
-        iter_times.append(dt / (num_batches_per_iter * steps_per_call))
+    try:
+        for x in range(num_iters):
+            t0 = time.perf_counter()
+            for _ in range(num_batches_per_iter):
+                step_fn()
+            if sync is not None:
+                sync()
+            dt = time.perf_counter() - t0
+            thr = batch_size * num_batches_per_iter / dt
+            log(f"Iter #{x}: {thr:.1f} {unit}/sec per {dev}")
+            per_iter.append(thr)
+            # per training step, whatever the calls' shape
+            step_time_s = dt / (num_batches_per_iter * steps_per_call)
+            iter_times.append(step_time_s)
+            if metrics is not None:
+                metrics.log(iter=x, **{f"{unit}_per_sec_per_device": thr},
+                            step_time_s=step_time_s)
+    finally:
+        _stop_profile(prof, profile_dir)
     res = BenchResult(
         unit=unit, device=dev, world=world,
         per_device_mean=float(np.mean(per_iter)),
@@ -203,12 +235,168 @@ def run_timed(step_fn: Callable[[], Any], *, batch_size: int,
         f"{res.per_device_mean:.1f} +-{res.per_device_conf:.1f}")
     log(f"Total {unit}/sec on {res.world} {dev}(s): "
         f"{res.total_mean:.1f} +-{res.total_conf:.1f}")
+    if metrics is not None:
+        metrics.log(summary=True, world=res.world, unit=unit,
+                    per_device_mean=res.per_device_mean,
+                    per_device_conf=res.per_device_conf,
+                    iter_time_mean=res.iter_time_mean)
+    # the telemetry block: one line the sweep driver scrapes into
+    # reports.json, and one JSONL record (the snapshot travels as a JSON
+    # string: metrics records hold scalars)
+    from dear_pytorch_tpu_torch.observability import tracer as _tracer
+
+    snap = _tracer.snapshot()
+    if snap["enabled"]:
+        log("TELEMETRY " + json.dumps(snap))
+        if metrics is not None:
+            metrics.log(kind="telemetry", telemetry=json.dumps(snap))
     return res
+
+
+def _start_profile(profile_dir: Optional[str]):
+    """A started ``torch.profiler`` session (the card's activity too when
+    there is one), or None without ``profile_dir``."""
+    if not profile_dir:
+        return None
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available() and backend.device().type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    prof = profile(activities=acts)
+    prof.start()
+    return prof
+
+
+def _stop_profile(prof, profile_dir: Optional[str]) -> None:
+    if prof is None:
+        return
+    prof.stop()
+    os.makedirs(profile_dir, exist_ok=True)
+    path = os.path.join(profile_dir, f"trace_rank{backend.rank()}.json")
+    prof.export_chrome_trace(path)
+    log(f"Profile: {path}")
+
+
+def metrics_from_args(args):
+    """`utils.metrics.MetricsLogger` for ``--metrics-file`` (None when
+    unset); the one construction point the CLIs share (JAX
+    runner.py:420)."""
+    if not getattr(args, "metrics_file", None):
+        return None
+    from dear_pytorch_tpu_torch.utils.metrics import MetricsLogger
+
+    return MetricsLogger(args.metrics_file)
+
+
+class PinnedStager:
+    """Host-to-device staging of host batches through pinned memory.
+
+    Each call fills one of ``slots`` sets of pinned host buffers (one per
+    field, cast to the field's target dtype by the copy into it) and
+    enqueues each buffer's copy to ``device`` with ``non_blocking=True``
+    on the current stream, into a fresh device tensor, then records an
+    event after the copies. A slot is filled again only once the event of
+    its previous copies has completed: refilling a pinned buffer while its
+    copy is in flight would hand the card another batch's bytes. On the
+    CPU the copies are plain (synchronous) copies into fresh tensors and
+    nothing is pinned. What a call returns never aliases a slot."""
+
+    def __init__(self, device, slots: int = 2):
+        self.device = torch.device(device)
+        self.slots = max(int(slots), 1)
+        self._cuda = self.device.type == "cuda"
+        self._bufs = [dict() for _ in range(self.slots)]
+        self._events = [None] * self.slots
+        self._next = 0
+
+    def _buffer(self, slot: int, name: str, shape, dtype) -> torch.Tensor:
+        buf = self._bufs[slot].get(name)
+        if buf is None or buf.shape != shape or buf.dtype != dtype:
+            buf = torch.empty(shape, dtype=dtype, pin_memory=self._cuda)
+            self._bufs[slot][name] = buf
+        return buf
+
+    def __call__(self, host: dict, dtypes: dict) -> dict:
+        """``{name: tensor on device}`` from ``{name: array}`` (numpy or
+        CPU tensors), each in ``dtypes[name]``."""
+        slot = self._next
+        self._next = (slot + 1) % self.slots
+        event = self._events[slot]
+        if event is not None:
+            event.synchronize()
+        out = {}
+        for name, arr in host.items():
+            src = arr if isinstance(arr, torch.Tensor) else \
+                torch.from_numpy(np.ascontiguousarray(arr))
+            buf = self._buffer(slot, name, src.shape, dtypes[name])
+            buf.copy_(src)              # the host cast, into pinned memory
+            dst = torch.empty(buf.shape, dtype=buf.dtype, device=self.device)
+            dst.copy_(buf, non_blocking=self._cuda)
+            out[name] = dst
+        if self._cuda:
+            event = torch.cuda.Event()
+            event.record()
+            self._events[slot] = event
+        return out
+
+
+def stage_global(host: dict, stager: PinnedStager, dtypes: dict, *,
+                 rank: int = 0, world: int = 1) -> dict:
+    """This rank's slice of a host-replicated GLOBAL batch, on the card:
+    rows ``[rank·B, (rank+1)·B)`` of every field (B = the global rows over
+    ``world``), staged by ``stager`` in ``dtypes`` — the torch form of JAX
+    runner.py:430's multi-host protocol, where every process holds the
+    same full array and materialises only its addressable shards."""
+    out = {}
+    for name, arr in host.items():
+        per = arr.shape[0] // world
+        out[name] = arr[rank * per:(rank + 1) * per]
+    return stager(out, dtypes)
+
+
+def make_batch_source(args, spec, template_batch: dict, *, rank: int = 0,
+                      world: int = 1, device=None,
+                      layout: Optional[Callable[[dict], dict]] = None):
+    """``(next_batch, pipeline, close)`` for the timed loop, honouring
+    ``--pipeline`` (JAX runner.py:452). 'none' returns ``template_batch``
+    (this rank's constant batch) every step, with no pipeline. 'native'
+    and 'numpy' draw a fresh global batch of ``spec`` per step from
+    `runtime.pipeline.Pipeline` (refused when the native library cannot
+    be built: JAX runner.py:469-474) or `NumpyPipeline`, seed 0, and stage
+    this rank's slice in the template's dtypes (`stage_global`);
+    ``layout`` then maps the staged fields to the model's layout on the
+    card (the ImageNet CLI's NHWC -> NCHW permute)."""
+    if args.pipeline == "none":
+        return (lambda: template_batch), None, (lambda: None)
+    from dear_pytorch_tpu_torch.runtime import build as RB
+    from dear_pytorch_tpu_torch.runtime import pipeline as RP
+
+    if args.pipeline == "native":
+        if not RP.native_available():
+            raise SystemExit(
+                "--pipeline native: the native runtime library is not "
+                f"available ({RB.load_error()})")
+        pl = RP.Pipeline(spec)
+    else:
+        pl = RP.NumpyPipeline(spec)
+    dtypes = {k: v.dtype for k, v in template_batch.items()}
+    stager = PinnedStager(device if device is not None else
+                          next(iter(template_batch.values())).device)
+
+    def next_batch():
+        batch = stage_global(pl.next(), stager, dtypes, rank=rank,
+                             world=world)
+        return layout(batch) if layout is not None else batch
+
+    return next_batch, pl, pl.close
 
 
 def train_timed(args, model, batch: dict, loss_fn: Callable, *, group,
                 unit: str, header: list,
-                on_step: Optional[Callable] = None) -> BenchResult:
+                on_step: Optional[Callable] = None, spec=None,
+                layout: Optional[Callable[[dict], dict]] = None,
+                metrics=None) -> BenchResult:
     """What the CLIs share once they have a model, the global ``batch`` and
     ``loss_fn(model, batch, generator)``: rank 0's parameters broadcast,
     this rank's slice of the batch, the train step from the flags
@@ -221,14 +409,23 @@ def train_timed(args, model, batch: dict, loss_fn: Callable, *, group,
     with the per-call losses (the last step's of each call; floats, read
     once after the run) as ``.losses``, the live train step as
     ``.train_step``, what the loop drove (the train step or the
-    autotuner) as ``.stepper``, its last state as ``.state`` and this
-    rank's batch as ``.batch``. ``on_step(train_step, state, metrics)`` is
-    called after every timed-protocol call (warmup included) with the
-    live train step."""
+    autotuner) as ``.stepper``, its last state as ``.state``, this
+    rank's constant batch as ``.batch`` and the input pipeline the loop
+    drew from (None under ``--pipeline none``) as ``.pipeline``.
+    ``on_step(train_step, state, metrics)`` is called after every
+    timed-protocol call (warmup included) with the live train step. The
+    steps stream their batches from `make_batch_source` (``spec``: the
+    pipeline's global batch; ``layout``: its map to the model's layout),
+    and run on ``group``, whose size is the world reported. ``metrics``:
+    a `utils.metrics.MetricsLogger` to log to (the caller closes it);
+    else one for ``--metrics-file``, closed here."""
+    import torch.distributed as dist
+
     from dear_pytorch_tpu_torch.api import broadcast_parameters
 
     scan_steps = validate_scan_steps(args)
-    dev, world, rank = backend.device(), backend.size(), backend.rank()
+    dev = backend.device()
+    world, rank = dist.get_world_size(group), dist.get_rank(group)
     broadcast_parameters(model, group=group)   # parameters and buffers
     B = args.batch_size
     batch = {k: v[rank * B:(rank + 1) * B] for k, v in batch.items()}
@@ -242,34 +439,41 @@ def train_timed(args, model, batch: dict, loss_fn: Callable, *, group,
             "bucket(s)"]:
         log(line)
 
-    def next_batch():
-        return batch
-
+    next_batch, pipeline, close = make_batch_source(
+        args, spec, batch, rank=rank, world=world, device=dev,
+        layout=layout)
     del ts   # the autotuner may replace it: keep only the live one
-    run_pretune(args, stepper, holder, next_batch)
-    call, protocol = make_step_source(args, scan_steps,
-                                      getattr(stepper, "ts", stepper),
-                                      stepper, holder, next_batch)
-    losses = []
+    metrics_log = metrics_from_args(args) if metrics is None else metrics
+    try:
+        run_pretune(args, stepper, holder, next_batch)
+        call, protocol = make_step_source(args, scan_steps,
+                                          getattr(stepper, "ts", stepper),
+                                          stepper, holder, next_batch)
+        losses = []
 
-    def step_fn():
-        call()
-        losses.append(holder["metrics"]["loss"])
-        if on_step is not None:
-            on_step(getattr(stepper, "ts", stepper), holder["state"],
-                    holder["metrics"])
+        def step_fn():
+            call()
+            losses.append(holder["metrics"]["loss"])
+            if on_step is not None:
+                on_step(getattr(stepper, "ts", stepper), holder["state"],
+                        holder["metrics"])
 
-    result = run_timed(
-        step_fn, unit=unit,
-        sync=torch.cuda.synchronize if dev.type == "cuda" else None,
-        world=world, device=device_name(dev), count_flops=args.mfu,
-        **protocol)
+        result = run_timed(
+            step_fn, unit=unit,
+            sync=torch.cuda.synchronize if dev.type == "cuda" else None,
+            world=world, device=device_name(dev), count_flops=args.mfu,
+            metrics=metrics_log, profile_dir=args.profile_dir, **protocol)
+    finally:
+        if metrics_log is not None and metrics is None:
+            metrics_log.close()
+        close()
     if args.mfu:
         log_mfu(result, dev)
     result.losses = [float(x) for x in losses]
     result.train_step = getattr(stepper, "ts", stepper)
     result.stepper, result.state, result.batch = (stepper, holder["state"],
                                                   batch)
+    result.pipeline = pipeline
     return result
 
 
@@ -446,6 +650,15 @@ def add_common_args(parser) -> None:
                         help="bytescheduler partition size in MB "
                              "(reference bytescheduler --partition, "
                              "imagenet_benchmark.py:37-38)")
+    parser.add_argument("--pipeline", type=str, default="none",
+                        choices=["none", "native", "numpy"],
+                        help="input pipeline: 'none' re-feeds one "
+                             "pre-generated batch (the reference's "
+                             "fixed-fake-data protocol); 'native' streams "
+                             "fresh batches from the C++ ring-buffer "
+                             "producers (csrc/dear_runtime.cpp, built at "
+                             "first use); 'numpy' from the pure-numpy "
+                             "pipeline; staged through pinned memory")
     parser.add_argument("--threshold", type=float, default=25.0,
                         help="tensor-fusion threshold in MB; <= 0: one "
                              "bucket")
@@ -513,6 +726,12 @@ def add_common_args(parser) -> None:
                         choices=["linear", "cosine", "multistep"])
     parser.add_argument("--warmup-steps", type=int, default=0)
     parser.add_argument("--total-steps", type=int, default=None)
+    parser.add_argument("--profile-dir", type=str, default=None,
+                        help="write a torch.profiler trace of the timed "
+                             "region here (trace_rank<r>.json)")
+    parser.add_argument("--metrics-file", type=str, default=None,
+                        help="write per-iteration + summary records as "
+                             "JSONL here (utils.metrics.MetricsLogger)")
     parser.add_argument("--mfu", action="store_true", default=False,
                         help="count one step's FLOPs (FlopCounterMode and "
                              "the attention kernels' counts; the first "

@@ -13,11 +13,25 @@ model's BatchNorm running statistics) are restored after the recompute
 too, so the recomputed forward does not update them a second time: JAX's
 functional model state is updated once.
 
-The recompute runs on autograd's device thread. cuDNN's pick of a conv's
-algorithm is cached per thread, so the recompute makes its own pick (by
-timing under ``torch.backends.cudnn.benchmark``, else by heuristics); where
-it differs from the forward's, the recomputed activations round apart from
-the forward's. With cuDNN off the recompute is the forward bit for bit.
+`checkpoint`'s recompute runs on autograd's device thread. cuDNN's pick
+of a conv's algorithm is cached per thread, so that recompute makes its
+own pick (by timing under ``torch.backends.cudnn.benchmark``, else by
+heuristics, or from a pick an earlier timed call left in that thread's
+cache); where it differs from the forward's, the recomputed activations
+round apart from the forward's. With cuDNN off the recompute is the
+forward bit for bit.
+
+`recompute_whole` is the train step's ``remat="full"``: the recompute of
+a WHOLE forward, whose first unpack in the backward would rebuild every
+activation at the backward's start anyway. It runs that recompute on the
+calling thread instead, before the backward: the forward once under
+``no_grad`` (keeping nothing), then again with the generators replayed
+and the buffers kept, building the graph the backward runs. Both passes
+and the forward of a run without remat then share one thread's cuDNN
+cache, so every conv takes the forward's algorithm, under any cuDNN
+setting: the result is the run without remat's, bit for bit. The work is
+`checkpoint`'s (two forwards, one backward) and so is the peak memory
+(the recompute's activations held through the backward).
 """
 
 from __future__ import annotations
@@ -28,15 +42,17 @@ from typing import Callable, Sequence
 import torch
 from torch.utils import checkpoint as _ckpt
 
-__all__ = ["checkpoint", "recomputing"]
+__all__ = ["checkpoint", "recompute_whole", "recomputing"]
 
 #: recomputes under way (nested checkpoints nest them)
 _depth = 0
 
 
 def recomputing() -> bool:
-    """Whether a checkpoint's recompute is running: a ring projection
-    counts the forward calls it makes again (`ops.collective_matmul`)."""
+    """Whether a forward pass whose activations no backward reads is
+    running (a checkpoint's recompute, or `recompute_whole`'s first
+    pass): a ring projection counts the forward calls it makes again
+    (`ops.collective_matmul`)."""
     return _depth > 0
 
 
@@ -76,3 +92,33 @@ def checkpoint(fn: Callable, *args,
         context_fn=lambda: (contextlib.nullcontext(),
                             _replaying(gens, states, bufs)),
         **kwargs)
+
+
+def recompute_whole(fn: Callable, *args,
+                    generators: Sequence[torch.Generator] = (),
+                    buffers: Sequence[torch.Tensor] = ()):
+    """``fn(*args)`` for a backward that recomputes the whole forward: a
+    first pass under ``no_grad`` (no activation kept; it updates
+    ``buffers`` and advances ``generators``, as the forward does), then
+    the recompute on this thread, from the generators' states at the
+    first pass's start and with ``buffers`` put back as the first pass
+    left them. Returns the recompute's output, whose graph the backward
+    runs (module docstring)."""
+    global _depth
+    gens = [g for g in generators if g is not None]
+    states = [g.get_state() for g in gens]
+    _depth += 1
+    try:
+        with torch.no_grad():
+            fn(*args)
+    finally:
+        _depth -= 1
+    kept = [b.detach().clone() for b in buffers]
+    for g, state in zip(gens, states):
+        g.set_state(state)
+    try:
+        return fn(*args)
+    finally:
+        with torch.no_grad():
+            for b, k in zip(buffers, kept):
+                b.copy_(k)

@@ -114,9 +114,11 @@ A saved cast of a parameter (``gather_dtype`` unlike the compute dtype:
 ``weight.to(dt)``), or a view of one, is not the bucket's storage; the
 pack saves it as a reference to the parameter and its dtype, and the
 unpack casts the re-gathered bucket again, as JAX's policy denies saving
-``convert_element_type`` (dear.py:680-689). A cast of a view of a
-parameter (a reshape before the cast) is saved as it is, and stays
-alive. With ``accum_steps`` every microbatch gathers again.
+``convert_element_type`` (dear.py:680-689). So is a cast of a view of a
+parameter (``weight.t().to(dt)``, a reshape, transpose or permute before
+the cast): the reference holds the view and the cast, and the unpack
+applies both to the re-gathered bucket. With ``accum_steps`` every
+microbatch gathers again.
 Freeing after the whole forward, not after each module, keeps a
 parameter that a later module reads again (GPT-2's tied ``wte`` in the
 head) alive; a training step's peak lies in the backward, after the
@@ -156,17 +158,21 @@ and a ``psum``: in the sharded modes at world > 1 an all-reduce of its two
 segment sums in one collective (counted in ``ar_launches``), else the
 identity.
 
-``remat="full"`` (JAX dear.py:694-698) recomputes the whole forward in the
-backward: the loss runs under a non-reentrant ``torch.utils.checkpoint``
-whose recompute replays the dropout generator from its state at the
-forward's start (checkpoint itself replays only the default generators)
-and leaves the model's buffers as the forward left them (BatchNorm's
-running statistics are updated once per microbatch, as JAX's functional
-state is). The gather waits run again in the recompute (they find nothing
-to wait for); each parameter's gradient hook still fires once. Under
+``remat="full"`` (JAX dear.py:694-698) recomputes the whole forward for
+the backward (`ops.remat.recompute_whole`): the loss runs once keeping no
+activation, then again on the same thread with the dropout generator
+replayed from its state at the first pass's start and the model's buffers
+left as the first pass left them (BatchNorm's running statistics are
+updated once per microbatch, as JAX's functional state is); the backward
+runs the second pass's graph. Running the recompute on the forward's
+thread, not on autograd's, makes every cuDNN conv take the forward's
+algorithm (cuDNN caches its picks per thread), so the result is the run
+without remat's bit for bit under the ImageNet CLI's benchmark mode too.
+The gather waits run again in the recompute (they find nothing to wait
+for); each parameter's gradient hook still fires once. Under
 ``dear-fused`` with ring projections the recompute issues K6 again, in
 the same order on every rank: a microbatch's K6 calls, less those its
-recomputes made (`ops.remat.recomputing`), pair with its K7 and K8
+first pass made (`ops.remat.recomputing`), pair with its K7 and K8
 calls. ``fsdp`` refuses remat, as JAX's does.
 
 Every schedule counts its collectives on the `TrainStep` (with B buckets,
@@ -203,7 +209,10 @@ when the tracer is on, counts ``dear.steps`` and ``dear.<leg>_bytes``
 ``kernel.fused_rs_launches`` and ``kernel.ring_ag_launches`` (the K5
 ring's and K4's launches in the step, from `ops.collective_matmul`'s
 launch counts: none at world 1, whose short-cut runs no ring, nor on the
-CPU), and runs in a ``dear.step`` span (the host's enqueue time,
+CPU), in every mode ``kernel.fused_update_launches`` (the K5 epilogue's)
+and ``kernel.flash_{fwd,bwd_dq,bwd_dkv}_launches`` (K1, K2 and K3's, from
+`ops.fused_sgd`'s and `ops.flash_attention`'s counts: what a process that
+ran the step reports to its driver), and runs in a ``dear.step`` span (the host's enqueue time,
 not the card's); ``multi_step`` counts ``dear.multi_step_compiles`` once
 per n, when its callable is first built. With the tracer off (the
 default) a step does none of this.
@@ -279,6 +288,26 @@ class _SavedView(NamedTuple):
     stride: tuple
     offset: int
     cast: Optional[tuple] = None
+
+
+#: the autograd nodes of the views `TrainStep._pack` sees through between a
+#: parameter and its cast (``t``, ``transpose``, ``permute``, ``view`` and
+#: a ``reshape`` that views)
+_VIEW_NODES = frozenset({"TBackward0", "TransposeBackward0",
+                         "PermuteBackward0", "ViewBackward0",
+                         "ReshapeAliasBackward0"})
+
+
+def _kernel_launches() -> dict:
+    """The K5 epilogue's and K1-K3's launch counts so far (the wrappers'
+    own counters)."""
+    from dear_pytorch_tpu_torch.ops import fused_sgd as FS
+    from dear_pytorch_tpu_torch.ops import flash_attention as FA
+
+    return {"fused_update_launches": FS.fused_update_launches,
+            "flash_fwd_launches": FA.flash_fwd_launches,
+            "flash_bwd_dq_launches": FA.flash_bwd_dq_launches,
+            "flash_bwd_dkv_launches": FA.flash_bwd_dkv_launches}
 
 
 def _allreduce(step, buf):
@@ -820,7 +849,11 @@ class TrainStep:
 
     def _pack(self, t: torch.Tensor):
         """Save a view of a full bucket, or a (view of a) cast of a
-        parameter, as a `_SavedView`; anything else as itself."""
+        parameter or of a view of one (`_VIEW_NODES` between them), as a
+        `_SavedView`; anything else as itself. A cast keeps its input's
+        strides (``preserve_format`` on a dense input, and every such view
+        of a contiguous parameter is dense), so the cast's own shape and
+        strides at the parameter's offset in the bucket are its input."""
         g = self._bucket_of(t)
         if g is not None:
             return _SavedView(g, tuple(t.shape), tuple(t.stride()),
@@ -829,11 +862,15 @@ class TrainStep:
         fn = copy.grad_fn
         if type(fn).__name__ != "ToCopyBackward0":
             return t
-        p = getattr(fn.next_functions[0][0], "variable", None)
+        node = fn.next_functions[0][0]
+        while type(node).__name__ in _VIEW_NODES:
+            node = node.next_functions[0][0]
+        p = getattr(node, "variable", None)
         g = None if p is None else self._bucket_of(p)
-        if g is None or copy.stride() != p.stride() or copy.storage_offset():
+        if (g is None or not p.is_contiguous()
+                or copy.numel() != p.numel() or copy.storage_offset()):
             return t
-        return _SavedView(g, tuple(p.shape), tuple(p.stride()),
+        return _SavedView(g, tuple(copy.shape), tuple(copy.stride()),
                           p.storage_offset(),
                           (copy.dtype, tuple(t.shape), tuple(t.stride()),
                            t.storage_offset()))
@@ -1023,6 +1060,7 @@ class TrainStep:
         for leg, nbytes in self._leg_bytes().items():
             tr.count(f"dear.{leg}_bytes", nbytes)
         rings = (CM.ring_rs_launches, CM.ring_ag_launches)
+        kernels = _kernel_launches()
         with tr.span("dear.step", mode=self.mode):
             out = self._step(state, batch)
         if self.fused:   # the wrappers' own launch counts
@@ -1030,6 +1068,8 @@ class TrainStep:
                      CM.ring_rs_launches - rings[0])
             tr.count("kernel.ring_ag_launches",
                      CM.ring_ag_launches - rings[1])
+        for name, n in _kernel_launches().items():
+            tr.count(f"kernel.{name}", n - kernels[name])
         return out
 
     def _step(self, state: DearState, batch) -> tuple:
@@ -1080,14 +1120,14 @@ class TrainStep:
                          state.comp_state), metrics
 
     def _loss(self, args):
-        """``loss_fn(*args)``; under ``remat="full"`` in a checkpoint whose
-        recompute replays the dropout generator and keeps the model's
-        buffers (module docstring)."""
+        """``loss_fn(*args)``; under ``remat="full"`` computed once keeping
+        nothing, then recomputed on this thread with the dropout generator
+        replayed and the model's buffers kept (module docstring)."""
         if self.remat != "full":
             return self.loss_fn(*args)
         gens = [a for a in args[2:] if isinstance(a, torch.Generator)]
-        return R.checkpoint(self.loss_fn, *args, generators=gens,
-                            buffers=list(self.model.buffers()))
+        return R.recompute_whole(self.loss_fn, *args, generators=gens,
+                                 buffers=list(self.model.buffers()))
 
     def _count_ring_matmuls(self, before: dict) -> None:
         """Every ring projection's forward call (K6) that no recompute made

@@ -43,7 +43,28 @@ def test_one_json_line(smoke):
     assert rc == 0 and len(lines) == 1
     line = json.loads(lines[0])
     assert line["metric"] == bench.PRIMARY_METRIC
-    assert "vs_baseline" not in line and "telemetry" not in line
+    assert "vs_baseline" not in line
+    # the telemetry block: on by default, counters only (no span records)
+    tel = line["telemetry"]
+    assert tel["enabled"] is True and "spans" not in tel
+    assert tel["counters"]["dear.steps"] > 0
+
+
+def test_telemetry_block_honours_an_explicit_disable(monkeypatch):
+    """``DEAR_TELEMETRY=0`` is honoured: the block says disabled and holds
+    no counter; the tracer the caller had is put back afterwards."""
+    from dear_pytorch_tpu_torch.observability import tracer
+
+    def stub(metric):
+        return lambda *a, **k: {"metric": metric, "value": 1.0}
+
+    monkeypatch.setattr(bench, "bench_resnet", stub(bench.PRIMARY_METRIC))
+    for name in ("bench_bert", "bench_vit", "bench_gpt"):
+        monkeypatch.setattr(bench, name, stub(name))
+    before = tracer._tracer
+    rc, out = _run(monkeypatch, DEAR_TELEMETRY="0")
+    assert rc == 0 and tracer._tracer is before
+    assert json.loads(out)["telemetry"] == {"enabled": False, "counters": {}}
 
 
 def test_names_units_and_order_are_the_root_benchs(smoke):

@@ -159,15 +159,18 @@ def test_cli_ring_projections_trains_on_the_cpu():
 
 
 def test_cli_unknown_flag_is_an_error():
-    """A JAX CLI flag the port does not carry (``--pipeline``: ROADMAP
-    Queue 1 item 6b; ``--compressor`` is carried since slice 14,
-    ``--autotune`` since slice 15) is an argparse error."""
+    """A JAX CLI flag the port does not carry (``--sp-attention``: ROADMAP
+    Queue 1 item 10; ``--compressor`` is carried since slice 14,
+    ``--autotune`` since slice 15, ``--pipeline`` since slice 16) is an
+    argparse error."""
     with pytest.raises(SystemExit):
-        cli.build_parser().parse_args(["--pipeline", "none"])
+        cli.build_parser().parse_args(["--sp-attention", "ring"])
     assert cli.build_parser().parse_args(
         ["--compressor", "eftopk"]).compressor == "eftopk"
     assert cli.build_parser().parse_args(
         ["--autotune", "bo"]).autotune == "bo"
+    assert cli.build_parser().parse_args(
+        ["--pipeline", "numpy"]).pipeline == "numpy"
 
 
 def test_cli_trains_on_the_cpu(capsys):
@@ -246,10 +249,28 @@ def test_imagenet_cli_refuses_what_it_does_not_run(argv, match):
         imagenet.main(argv + ["--device", "cpu"])
 
 
+#: per flag of slice 16: (argv argparse refuses, argv it takes, what it
+#: sets)
+_SLICE16_FLAGS = {
+    "--pipeline": (["--pipeline", "bogus"], ["--pipeline", "native"],
+                   {"pipeline": "native"}),
+    "--profile-dir": (["--profile-dir"],
+                      ["--profile-dir", "prof", "--metrics-file", "m.jsonl"],
+                      {"profile_dir": "prof", "metrics_file": "m.jsonl"}),
+}
+
+
 @pytest.mark.parametrize("flag", ["--pipeline", "--profile-dir"])
 def test_imagenet_cli_unported_flags_are_errors(flag):
+    """The JAX CLI's ``--pipeline``, ``--profile-dir`` and
+    ``--metrics-file``, ported in slice 16: a value outside ``--pipeline``'s
+    choices, or a path flag without its path, is an argparse error; the
+    flags' values parse."""
+    bad, good, want = _SLICE16_FLAGS[flag]
     with pytest.raises(SystemExit):
-        imagenet.build_parser().parse_args([flag])
+        imagenet.build_parser().parse_args(bad)
+    args = imagenet.build_parser().parse_args(good)
+    assert {k: getattr(args, k) for k in want} == want
 
 
 def _bert(*extra):
