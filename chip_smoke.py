@@ -90,7 +90,8 @@ non-zero and no result line is printed):
   5b. train it at world 2 as two processes sharing the card (this script
      with ``--train-rank R --out DIR --mode M``; the ``DEAR_*`` launcher
      variables, a ``file://`` store, card ``r % device_count``), 8
-     sequences per rank, 20 steps, with ``--mode dear-fused`` (every
+     sequences per rank, 10 steps (20 before slice 17 cut it for time),
+     with ``--mode dear-fused`` (every
      step on each rank: K1, K2 and K3 12 times each (tensor cores), K4
      once per bucket on its direct route and the K5 ring once per bucket
      on its vector width, no separate update), again with
@@ -100,7 +101,7 @@ non-zero and no result line is printed):
      step also launches K6, K7 and K8 48 times each, K6 and K7 all on the
      wgmma route) and with ``--mode
      dear``: losses finite, falling and equal on both ranks, both ranks'
-     gathered parameters bitwise equal, dear-fused's step-20 loss within
+     gathered parameters bitwise equal, dear-fused's step-10 loss within
      `_FUSED_VS_DEAR_RTOL` of dear's and the ring-projection run's within
      `_RP_VS_FUSED_RTOL` of dear-fused's; each rank records its peak
      memory (``max_memory_allocated``, reset before the run); a rank's
@@ -184,7 +185,8 @@ non-zero and no result line is printed):
      without;
   5l. the baseline schedules: two ranks sharing the card (this script with
      ``--modes-rank R --out DIR``, one pair of processes and one gloo
-     group for every run) train GPT-2 as in 5b, 6 steps per run, with
+     group for every run) train GPT-2 as in 5b, 4 steps per run (6 before
+     slice 17 cut it for time), with
      ``--mode fsdp``, ``allreduce``, ``rsag``, ``rb``, ``bytescheduler
      --partition 4`` and ``dear --exclude-parts reducescatter`` /
      ``allgather``: every step on each rank K1, K2 and K3 12 times each
@@ -192,8 +194,8 @@ non-zero and no result line is printed):
      replicated modes) and the schedule's collectives as the port's
      dear.py docstring tabulates; for the modes finite, falling losses
      equal on both ranks, gathered parameters bitwise equal on both ranks
-     and the step-6 loss within `_FUSED_VS_DEAR_RTOL` of 5b's dear run
-     at step 6; fsdp's peak memory below that dear run's by at least
+     and the step-4 loss within `_FUSED_VS_DEAR_RTOL` of 5b's dear run
+     at step 4; fsdp's peak memory below that dear run's by at least
      half of (the bf16 full buckets' bytes - the largest bucket's); then
      the `Communicator` over the two ranks' gloo group, every method's
      result equal to its definition. Then one rank on NCCL: dear and each
@@ -271,6 +273,31 @@ non-zero and no result line is printed):
      timed convs in this process), bitwise against the run without; and
      the bench line again with ``DEAR_TELEMETRY=0`` beside phase 5g's
      default (counters on);
+  5p. checkpoints and the guarded trainer (run after 5n, before the bench
+     line): (i) GPT-2 small at full width through the GPT CLI's builders
+     (bf16, flash, ``dear``, B = 16, one rank on NCCL): an async save
+     whose writer is held back while the next step updates the masters in
+     place (the file holds the saved step, bitwise), a sync save, a
+     restore and the sha256 manifest timed, then `GuardedTrainer` with
+     ``nan@6,exc@9,ckpt_corrupt@12,preempt@15`` and async checkpoints
+     every 4 attempts: every rollback's masters and momentum equal to the
+     step read back from disk, every dispatched step 12 tensor-core
+     launches each of K1–K3 and one K5 epilogue per bucket, the emergency
+     step verified and newest, and a second process (``--guard-resume``)
+     resumed from it bitwise equal to this one 3 steps later; step p50
+     bare and guarded; (ii) ResNet-50 (bf16, B = 64) through the ImageNet
+     CLI's builders: 3 steps, a checkpoint, a fresh model and step
+     restored from it, 3 more, bitwise equal to 6 uninterrupted steps
+     (masters, momentum, every BN buffer); (iii) GPT-2 at 2 layers, B = 4
+     per rank, ranks sharing the card over gloo (``--guard-rank``
+     children): ``nan@3:r1`` and, with per-host storage, rank 0's newest
+     step corrupted, each restoring the same step on both ranks with
+     equal master digests; at three ranks in ``allreduce`` with
+     ``DEAR_SDC=1``, ``flip@5:0:r0`` named as (rank 0, bucket 0) by every
+     rank's vote; (iv) the production example with JAX's flags and
+     ``DEAR_FAULTS=nan@6,exc@9`` stopping with the guard's
+     DivergenceError as JAX's does, then recovering with checkpoints every
+     4 steps and resuming;
   6. trace steady bf16 decode ticks and training steps with
      ``torch.profiler`` (device ops, busy time and idle share, the top
      device ops of a step); time each kernel, its plain version and
@@ -290,12 +317,13 @@ non-zero and no result line is printed):
      at BERT-Large's shapes beside cuBLAS, the K5 epilogue at the zoo's
      largest shards (VGG-16's fc1) and at the replicated modes' whole
      buckets; phase 5l's step p50/p99, tokens/s and peak memory per run;
-     the kernels line's K1-K3 and K5-epilogue launches include 5m's and
-     5o's (and K4's and the K5 ring's, 5o's driver cell's rank 0).
+     the kernels line's K1-K3 and K5-epilogue launches include 5m's, 5o's
+     and 5p's (and K4's and the K5 ring's, 5o's driver cell's rank 0).
 
 ``python3 chip_smoke.py --kernels-only`` runs phases 1–3 and stops without
 a result line; ``--phase 5o`` runs phases 1–2, the bench line and phase 5o,
-without one either. In a full run the line before the last lists the kernels
+and ``--phase 5p`` phases 1–2 and phase 5p, without one either. In a
+full run the line before the last lists the kernels
 as JSON (K1, K2, K3 and K4 once per route, each with its main path's
 launches; K6 and K7 with their launches by route, the K5 ring by width);
 the last line is ``{"ok":
@@ -1453,9 +1481,11 @@ def train_with_dropout():
 _TWO_RANK_ARGS = ["--model", "gpt2", "--fp16", "--flash-attention",
                   "--dropout0", "--batch-size", "8", "--sequence-len",
                   "1024", "--base-lr", "0.01", "--momentum", "0.9",
-                  "--threshold", "25", "--num-warmup-batches", "5",
-                  "--num-batches-per-iter", "5", "--num-iters", "3"]
-#: the step-20 loss of dear-fused against dear (relative): JAX's "fp32
+                  "--threshold", "25", "--num-warmup-batches", "2",
+                  "--num-batches-per-iter", "4", "--num-iters", "2"]
+#: phase 5b's steps, and its warmup (the steps before the timed ones)
+_TWO_RANK_STEPS, _TWO_RANK_WARMUP = 10, 2
+#: the last step's loss of dear-fused against dear (relative): JAX's "fp32
 #: ~1e-5 rel" (docs/KERNELS.md:119-124) widened for bf16 — the dear run
 #: rounds each reduced gradient to bf16 (2^-9 relative), the ring keeps
 #: the sum in fp32, and bf16 compute carries that into the loss
@@ -1468,7 +1498,7 @@ _TWO_RANK_MODES = {
     "dear": ["--mode", "dear"],
     "ring-projections": ["--mode", "dear-fused", "--ring-projections"],
 }
-#: the step-20 loss with ring projections against dear-fused without
+#: the last step's loss with ring projections against dear-fused without
 #: (relative): slice 3's limit, kept — K6-K8 sum bf16 products in fp32 in
 #: another order than cuBLAS, which bf16 compute carries into the loss
 _RP_VS_FUSED_RTOL = 1e-3
@@ -1497,13 +1527,13 @@ def _two_rank_counts(ts) -> dict:
             "update": ts.update_launches}
 
 
-def _join_two_ranks(rank: int, out: Path) -> None:
-    """The launcher variables of rank ``rank`` of two sharing card 0, their
-    group meeting at a FileStore in ``out``."""
+def _join_two_ranks(rank: int, out: Path, world: int = 2) -> None:
+    """The launcher variables of rank ``rank`` of ``world`` sharing card
+    0, their group meeting at a FileStore in ``out``."""
     os.environ.update(
-        DEAR_NUM_PROCESSES="2", DEAR_PROCESS_ID=str(rank),
+        DEAR_NUM_PROCESSES=str(world), DEAR_PROCESS_ID=str(rank),
         DEAR_COORDINATOR_ADDRESS=f"file://{out}/store",
-        DEAR_LOCAL_RANK=str(rank), DEAR_LOCAL_SIZE="2")
+        DEAR_LOCAL_RANK=str(rank), DEAR_LOCAL_SIZE=str(world))
 
 
 def _zero_two_rank_counts() -> None:
@@ -1626,12 +1656,13 @@ def rank_worker(rank: int, out: Path, mode: str) -> None:
     device_count``): in dear-fused, first `check_ring_two_ranks` (both K4
     routes on the IPC ring), with ring
     projections `check_ring_matmul_two_ranks` (their launches are not the
-    main path's); then 20 steps of the training CLI in ``mode`` (a key of
-    `_TWO_RANK_MODES`) over a gloo group that meets at a FileStore in
-    ``out``, every step's launches checked; in both dear-fused modes, a
-    ``torch.profiler`` trace of 3 more steps (both ranks; their ring calls
-    pair up); then the gathered parameters' digest, the losses, the
-    launches, the step times and the trace into ``out/rank<r>.json``."""
+    main path's); then `_TWO_RANK_STEPS` steps of the training CLI in
+    ``mode`` (a key of `_TWO_RANK_MODES`) over a gloo group that meets at a
+    FileStore in ``out``, every step's launches checked; in both
+    dear-fused modes, a ``torch.profiler`` trace of 3 more steps (both
+    ranks; their ring calls pair up); then the gathered parameters'
+    digest, the losses, the launches, the step times and the trace into
+    ``out/rank<r>.json``."""
     _join_two_ranks(rank, out)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1678,7 +1709,7 @@ def rank_worker(rank: int, out: Path, mode: str) -> None:
     launches = _two_rank_counts(ts)               # ... and ends here
     peak = torch.cuda.max_memory_allocated()
     step_ms = [a.elapsed_time(b) for a, b in
-               zip(marks[_TRAIN_WARMUP - 1:-1], marks[_TRAIN_WARMUP:])]
+               zip(marks[_TWO_RANK_WARMUP - 1:-1], marks[_TWO_RANK_WARMUP:])]
     # both ranks trace the same 3 further steps (their ring calls pair up)
     trace = (trace_train_steps(ts, res.state, res.batch,
                                float(np.percentile(step_ms, 50)),
@@ -1708,16 +1739,15 @@ def train_two_ranks(mode: str, timeout: float = 600.0) -> list:
                               "--mode", mode], timeout)
 
 
-def spawn_two_ranks(name: str, worker_args, timeout: float) -> list:
-    """Spawn two ranks of this script (argv ``worker_args(rank, out)``),
-    each writing ``out/rank<r>.json``, wait for both, and return their
-    results; any rank's failure, or the deadline, fails the run with both
-    ranks' logs."""
+def start_ranks(name: str, worker_args, world: int = 2) -> tuple:
+    """Start ``world`` ranks of this script (argv ``worker_args(rank,
+    out)``), each to write ``out/rank<r>.json``; returns the handle
+    `wait_ranks` takes."""
     out = _ROOT / "build" / "chip_smoke" / f"{name}-{os.getpid()}"
     shutil.rmtree(out, ignore_errors=True)
     out.mkdir(parents=True)
     torch.cuda.empty_cache()
-    logs = [out / f"rank{r}.log" for r in range(2)]
+    logs = [out / f"rank{r}.log" for r in range(world)]
     procs = []
     for r, log in enumerate(logs):
         with open(log, "w") as f:
@@ -1725,6 +1755,14 @@ def spawn_two_ranks(name: str, worker_args, timeout: float) -> list:
                 [sys.executable, str(Path(__file__).resolve()),
                  *worker_args(r, out)],
                 stdout=f, stderr=subprocess.STDOUT, cwd=_ROOT))
+    return name, out, procs, logs
+
+
+def wait_ranks(handle, timeout: float) -> list:
+    """Wait for the ranks `start_ranks` started and return their results;
+    any rank's failure, or the deadline, fails the run with every rank's
+    log."""
+    name, out, procs, logs = handle
     deadline = time.monotonic() + timeout
     try:
         while time.monotonic() < deadline:
@@ -1741,19 +1779,29 @@ def spawn_two_ranks(name: str, worker_args, timeout: float) -> list:
         for r, (p, log) in enumerate(zip(procs, logs)):
             print(f"--- rank {r} of {name} (exit {p.returncode}):\n"
                   + "\n".join(log.read_text().splitlines()[-40:]))
-        raise RuntimeError(f"chip_smoke: a rank of the two-rank {name} run "
-                           f"failed or passed the {timeout:.0f} s deadline")
+        raise RuntimeError(f"chip_smoke: a rank of the {len(procs)}-rank "
+                           f"{name} run failed or passed the {timeout:.0f} s "
+                           "deadline")
     return [json.loads((out / f"rank{r}.json").read_text())
-            for r in range(2)]
+            for r in range(len(procs))]
+
+
+def spawn_two_ranks(name: str, worker_args, timeout: float,
+                    world: int = 2) -> list:
+    """Spawn two (or ``world``) ranks of this script (argv
+    ``worker_args(rank, out)``), each writing ``out/rank<r>.json``, wait
+    for all, and return their results (`start_ranks`, `wait_ranks`)."""
+    return wait_ranks(start_ranks(name, worker_args, world), timeout)
 
 
 def train_dear_fused() -> tuple:
     """The main paths of slices 3 and 4: GPT-2 small at full width trained
-    20 steps with ``--mode dear-fused`` by two ranks sharing card 0 (two
+    `_TWO_RANK_STEPS` steps with ``--mode dear-fused`` by two ranks sharing
+    card 0 (two
     processes, one ring), again with ``--ring-projections``, then with
     ``--mode dear`` for the loss comparison. Checks: finite and falling
     losses, equal on both ranks; both ranks' gathered parameters bitwise
-    equal; every step's launches (in each rank); dear-fused's step-20
+    equal; every step's launches (in each rank); dear-fused's last
     loss within `_FUSED_VS_DEAR_RTOL` of dear's, and with ring projections
     within `_RP_VS_FUSED_RTOL` of dear-fused's. Returns the two ranks'
     results of each run: (dear-fused, ring projections, dear)."""
@@ -1772,7 +1820,8 @@ def train_dear_fused() -> tuple:
               f"{ranks[0]['backend']}, devices "
               f"{[r['device'] for r in ranks]}, card shared "
               f"{ranks[0]['card_shared']}")
-        _check(len(losses) == 20 and all(np.isfinite(losses)),
+        _check(len(losses) == _TWO_RANK_STEPS
+               and all(np.isfinite(losses)),
                f"two ranks {mode}: losses {losses}")
         _check(losses[-1] < losses[0], f"two ranks {mode}: no fall")
         _check(ranks[1]["losses"] == losses,
@@ -1786,7 +1835,8 @@ def train_dear_fused() -> tuple:
     lr = rp[0]["losses"][-1]
     rel = abs(lf - ld) / abs(ld)
     rel_rp = abs(lr - lf) / abs(lf)
-    print(f"step-20 loss: dear-fused {lf:.6f}, dear {ld:.6f}, relative "
+    print(f"step-{_TWO_RANK_STEPS} loss: dear-fused {lf:.6f}, dear "
+          f"{ld:.6f}, relative "
           f"difference {rel:.3e} (limit {_FUSED_VS_DEAR_RTOL:g}); with ring "
           f"projections {lr:.6f}, {rel_rp:.3e} from dear-fused (limit "
           f"{_RP_VS_FUSED_RTOL:g}); parameters of the two ranks bitwise "
@@ -2866,10 +2916,10 @@ _MODES_RUNS = {
                               "reducescatter"],
     "dear-no-allgather": ["--mode", "dear", "--exclude-parts", "allgather"],
 }
-#: 6 steps each (3 warmup, 3 timed): phase 5b's arguments otherwise
-_MODES_STEPS = ["--num-warmup-batches", "3", "--num-batches-per-iter", "3",
+#: 4 steps each (2 warmup, 2 timed): phase 5b's arguments otherwise
+_MODES_STEPS = ["--num-warmup-batches", "2", "--num-batches-per-iter", "2",
                 "--num-iters", "1"]
-_MODES_STEP = 6
+_MODES_STEP = 4
 #: one rank on NCCL: ``dear`` and each new mode 5 steps through the CLI
 #: at B = 4 in bf16; at world 1 ``--fp16`` keeps fsdp's buckets in fp32
 #: under bf16 compute, so its backward casts every bucket it gathers again
@@ -3039,7 +3089,7 @@ def check_communicator(rank: int, world: int) -> None:
 def modes_rank_worker(rank: int, out: Path) -> None:
     """One of the two ranks of phase 5l (``--modes-rank R --out DIR``):
     every run of `_MODES_RUNS` in turn over one gloo group (phase 5b's
-    arguments, 6 steps each; `_run_mode` checks every step), then the
+    arguments, 4 steps each; `_run_mode` checks every step), then the
     `Communicator` over that group (`check_communicator`); the
     results into ``out/rank<r>.json``."""
     _join_two_ranks(rank, out)
@@ -4445,6 +4495,555 @@ def harness_phase(card: str, bench_line: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 5p: checkpoints and the guarded trainer
+# ---------------------------------------------------------------------------
+
+#: GPT-2 small at full width through the GPT CLI's own builders (its
+#: parser, `runner.config_from_args`, `runner.build_stepper`): bf16,
+#: --flash-attention, dear, B = 16, S = 1024, SGD momentum 0.9
+_GUARD_GPT_ARGS = ["--model", "gpt2", "--fp16", "--flash-attention",
+                   "--dropout0", "--batch-size", "16", "--sequence-len",
+                   "1024", "--base-lr", "0.01", "--momentum", "0.9",
+                   "--threshold", "25"]
+_GUARD_FAULTS = "nan@6,exc@9,ckpt_corrupt@12,preempt@15"
+_GUARD_EVERY = 4
+#: both processes step the run this far past the emergency step
+_GUARD_ON = 3
+#: the smaller runs of (iii): two layers, B = 4 per rank
+_GUARD_SMALL = ["--num-hidden-layers", "2", "--batch-size", "4"]
+_GUARD_RANK_CASES = {
+    # name: (mode, faults, shared storage, DEAR_SDC, attempts)
+    "nan_r1": ("dear", "nan@3:r1", True, False, 5),
+    "per_host": ("dear", "ckpt_corrupt@5:r0,nan@5", False, False, 6),
+    # the vote needs three voters (resilience/sdc.py: two can only see a
+    # desync), and replicas to vote on: a replicated mode, the flip on
+    # rank 0's replica only
+    "flip": ("allreduce", "flip@5:0:r0", True, True, 8),
+}
+#: the spawns of (iii): (world, cases run in turn by every rank)
+_GUARD_SPAWNS = ((2, ("nan_r1", "per_host")), (3, ("flip",)))
+
+
+def _guard_gpt_step(extra=()):
+    """(train step, batch, model config) of the GPT CLI's builders over
+    ``_GUARD_GPT_ARGS`` + ``extra`` on this process's group."""
+    from dear_pytorch_tpu_torch.benchmarks import runner
+
+    args = train_cli.build_parser().parse_args(
+        _GUARD_GPT_ARGS + list(extra) + ["--device", _DEV])
+    group = backend.init(_DEV)
+    dev, world, rank = backend.device(), backend.size(), backend.rank()
+    cfg = dropout_free(gpt_config(args.model, dtype=torch.bfloat16))
+    if args.num_hidden_layers is not None:
+        cfg = dataclasses.replace(cfg,
+                                  num_hidden_layers=args.num_hidden_layers)
+    model = GptLmHeadModel(cfg, attention_impl=flash_causal_attention_impl(),
+                           device=dev, seed=0)
+    B = args.batch_size
+    batch = synthetic_gpt_batch(
+        torch.Generator(device=dev).manual_seed(0), B * world,
+        seq_len=args.sequence_len, vocab_size=cfg.vocab_size)
+    batch = {k: v[rank * B:(rank + 1) * B] for k, v in batch.items()}
+
+    def loss_fn(m, b, generator):
+        return gpt_lm_loss(m(b["input_ids"], train=True,
+                             generator=generator),
+                           b["input_ids"], vocab_size=cfg.vocab_size)
+
+    ts, _ = runner.build_stepper(runner.config_from_args(args, world=world),
+                                 loss_fn, model, group=group, device=dev)
+    return ts, batch, cfg
+
+
+def _state_digest(state) -> str:
+    """sha256 over the masters' and the per-element optimizer state's
+    bytes, bucket by bucket, and the step."""
+    h = hashlib.sha256()
+    tensors = list(state.shards) + [v for o in state.opt_state
+                                    for v in o.values() if torch.is_tensor(v)]
+    for t in tensors:
+        h.update(t.detach().reshape(-1).view(torch.uint8).cpu().numpy()
+                 .tobytes())
+    h.update(str(int(state.step)).encode())
+    return h.hexdigest()
+
+
+def _equal_to_disk(state, directory: str, step: int) -> bool:
+    """The live masters and optimizer state equal, bitwise, the blob of
+    step ``step`` read back from disk."""
+    from dear_pytorch_tpu_torch.utils import checkpoint as ckpt
+
+    saved = ckpt._read_rank(os.path.join(directory, f"step_{step:010d}"),
+                            backend.rank())
+    ok = int(saved["step"]) == int(state.step) == step
+    for g, s in enumerate(state.shards):
+        ok &= torch.equal(saved[f"shards.{g}"], s.cpu())
+        for k, v in state.opt_state[g].items():
+            if torch.is_tensor(v):
+                ok &= torch.equal(saved[f"opt.{g}.{k}"], v.cpu())
+    return bool(ok)
+
+
+def _wall(fn):
+    """(result, host ms) of ``fn()`` between two card synchronizations."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _step_ms(step, n):
+    """``n`` calls of ``step()`` timed by CUDA events: the ms of each."""
+    evs = [torch.cuda.Event(enable_timing=True) for _ in range(n + 1)]
+    evs[0].record()
+    for i in range(n):
+        step()
+        evs[i + 1].record()
+    torch.cuda.synchronize()
+    return [a.elapsed_time(b) for a, b in zip(evs[:-1], evs[1:])]
+
+
+def _guard_counts() -> dict:
+    return {"flash_fwd_tc": FA.flash_fwd_route_launches["tensor_core"],
+            "flash_bwd_dq_tc": FA.flash_bwd_route_launches["dq"][
+                "tensor_core"],
+            "flash_bwd_dkv_tc": FA.flash_bwd_route_launches["dkv"][
+                "tensor_core"],
+            "fused_update": FS.fused_update_launches}
+
+
+def guard_gpt2(card: str, work: Path) -> dict:
+    """(i): GPT-2 small at full width under `GuardedTrainer` with
+    ``_GUARD_FAULTS``, async checkpoints every ``_GUARD_EVERY`` attempts;
+    the timings; every rollback's masters against the step read back; an
+    async save held against the next step's in-place update; a second
+    process resumed from the emergency step against this
+    one. Returns the launches of the guarded run."""
+    from dear_pytorch_tpu_torch.resilience import inject as INJ
+    from dear_pytorch_tpu_torch.resilience.preempt import PreemptionHandler
+    from dear_pytorch_tpu_torch.utils import checkpoint as ckpt
+    from dear_pytorch_tpu_torch.utils.guard import GuardedTrainer
+
+    ts, batch, cfg = _guard_gpt_step()
+    layers, nb = cfg.num_hidden_layers, ts.plan.num_buckets
+    state = ts.init()
+    holder = {"state": state}
+
+    def bare():
+        holder["state"], _ = ts.step(holder["state"], batch)
+
+    bare_ms = _step_ms(bare, 8)
+    state = holder["state"]
+    # the async hazard on the card: the writer is held back while the next
+    # step updates the masters in place; the file holds step k's bytes
+    timing = work / "timing"
+    want = _state_digest(state)
+    k = int(state.step)
+    ac = ckpt._get_async_checkpointer()
+    ac.hold = __import__("threading").Event()
+    try:
+        _, async_ms = _wall(lambda: ckpt.save_checkpoint(
+            str(timing), state, ts, asynchronous=True))
+        state, _ = ts.step(state, batch)
+        torch.cuda.synchronize()
+    finally:
+        ac.hold.set()
+        ac.hold = None
+    ckpt.wait_for_checkpoints()
+    saved = ckpt._read_rank(str(timing / f"step_{k:010d}"), 0)
+    h = hashlib.sha256()
+    for g in range(nb):
+        h.update(saved[f"shards.{g}"].reshape(-1).view(torch.uint8)
+                 .numpy().tobytes())
+    for g in range(nb):
+        for key in ts.last_state.opt_state[g]:
+            if torch.is_tensor(ts.last_state.opt_state[g][key]):
+                h.update(saved[f"opt.{g}.{key}"].reshape(-1)
+                         .view(torch.uint8).numpy().tobytes())
+    h.update(str(k).encode())
+    _check(h.hexdigest() == want,
+           f"async save at step {k}: the file does not hold step {k}'s "
+           "masters after step k+1 updated them in place")
+    t0 = time.perf_counter()
+    _check(ckpt.write_manifest(str(timing), k), "manifest backfill")
+    sha_ms = (time.perf_counter() - t0) * 1e3
+    nbytes = sum(e["bytes"] for e in
+                 ckpt.read_sidecar(str(timing), k)["manifest"].values())
+    _, sync_ms = _wall(lambda: ckpt.save_checkpoint(str(timing), state, ts))
+    state, restore_ms = _wall(lambda: ckpt.restore_checkpoint(
+        str(timing), ts, step=int(state.step)))
+    _check(_equal_to_disk(state, str(timing), int(state.step)),
+           "restore: the masters differ from the step on disk")
+    print(f"phase 5p (i) checkpoint of GPT-2 small ({nbytes / 2**20:.1f} "
+          f"MiB: fp32 masters and momentum) on {card}: sync save "
+          f"{sync_ms:.1f} ms, async save's blocking part {async_ms:.1f} ms, "
+          f"restore {restore_ms:.1f} ms, sha256 manifest {sha_ms:.1f} ms")
+
+    # the guarded run, from a fresh step count of attempts
+    gdir = str(work / "guard")
+    restored, checks = [], []
+
+    def on_rollback(recoveries, at):
+        restored.append(at)
+
+    saves = []                          # (asynchronous, host ms) per save
+    plain_save = ckpt.save_checkpoint
+
+    def timed_save(*a, **kw):
+        t0 = time.perf_counter()
+        out = plain_save(*a, **kw)
+        saves.append((kw.get("asynchronous", False),
+                      (time.perf_counter() - t0) * 1e3))
+        return out
+
+    FA.reset_launch_counts()            # the guarded path starts here
+    FS.fused_update_launches = 0
+    dispatched, guard_ms, preempted = 0, [], None
+    ckpt.save_checkpoint = timed_save
+    with PreemptionHandler() as pre:
+        guard = GuardedTrainer(
+            ts, gdir, check_every=1, checkpoint_every=_GUARD_EVERY,
+            async_checkpoints=True, preemption=pre, on_rollback=on_rollback,
+            injector=INJ.FaultInjector(INJ.parse_faults(_GUARD_FAULTS)))
+        for _ in range(20):
+            before = FS.fused_update_launches
+            ev0 = torch.cuda.Event(enable_timing=True)
+            ev1 = torch.cuda.Event(enable_timing=True)
+            ev0.record()
+            state, m = guard.step(state, batch)
+            ev1.record()
+            ran = FS.fused_update_launches - before
+            dispatched += ran // nb
+            if m.get("rolled_back"):
+                checks.append(_equal_to_disk(state, gdir, restored[-1]))
+            elif ran:
+                torch.cuda.synchronize()
+                guard_ms.append(ev0.elapsed_time(ev1))
+            if m.get("preempted"):
+                preempted = m.get("preempt_checkpoint_step")
+                break
+        guard.finalize()
+    ckpt.save_checkpoint = plain_save
+    launches = _guard_counts()          # ... and ends here
+    want_launches = {"flash_fwd_tc": layers * dispatched,
+                     "flash_bwd_dq_tc": layers * dispatched,
+                     "flash_bwd_dkv_tc": layers * dispatched,
+                     "fused_update": nb * dispatched}
+    _check(launches == want_launches,
+           f"guarded run: launches {launches}, expected {want_launches} "
+           f"({dispatched} dispatched steps)")
+    _check(len(restored) == 2 and all(checks),
+           f"guarded run: restored {restored}, masters equal to the disk "
+           f"{checks}")
+    _check(preempted is not None and preempted == int(state.step)
+           and ckpt.verify_checkpoint(gdir, preempted),
+           f"preemption: emergency step {preempted}")
+    valid = ckpt.valid_steps(gdir)
+    _check(valid and valid[0] == preempted,
+           f"valid steps {valid}, emergency step {preempted}")
+    print(f"phase 5p (i) guarded run: restored steps {restored} (each "
+          f"equal to its step on disk), emergency step {preempted}, valid "
+          f"steps {valid}, {dispatched} dispatched steps; launches "
+          f"{launches}; its saves' host ms (async: the blocking part, "
+          f"which waits for the previous write): "
+          f"{[(('async' if a else 'sync'), round(ms, 1)) for a, ms in saves]}")
+    # this process on past the emergency step; a second process resumes
+    # from it (`finish_resume` holds the two)
+    n = preempted + _GUARD_ON
+    while int(state.step) < n:
+        state, _ = ts.step(state, batch)
+    mine = _state_digest(state)
+    del state, batch, guard
+    ts.close()
+    del ts
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = work / "resume.json"
+    log = open(work / "resume.log", "w")
+    proc = subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--guard-resume",
+         gdir, "--out", str(out), "--steps", str(n)], cwd=_ROOT,
+        stdout=log, stderr=subprocess.STDOUT)
+    log.close()
+    bp50, gp50 = (float(np.percentile(x, 50)) for x in (bare_ms, guard_ms))
+    print(f"phase 5p (i) GPT-2 small step (bf16, B=16, S=1024) on {card}: "
+          f"bare p50 {bp50:.3f} ms ({len(bare_ms)} steps), under the guard "
+          f"p50 {gp50:.3f} ms ({len(guard_ms)} steps that ran a train "
+          "step; check_every=1: one loss fetch a step)")
+    return launches, (proc, out, preempted, n, mine)
+
+
+def finish_resume(card: str, resume) -> None:
+    """(i)'s end: the second process, resumed from the emergency step,
+    reached step n bitwise equal to this process."""
+    proc, out, preempted, n, mine = resume
+    try:
+        proc.wait(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if proc.returncode:
+        print((out.parent / "resume.log").read_text()[-8000:])
+    _check(proc.returncode == 0, "the resumed process failed")
+    other = json.loads(out.read_text())
+    _check(other["from"] == preempted and other["digest"] == mine,
+           f"resumed process: from step {other['from']}, digest at step "
+           f"{n} {other['digest'][:16]} vs this process's {mine[:16]}")
+    print(f"phase 5p (i) resumed process on {card}: from the emergency step "
+          f"{preempted} to step {n}, masters and momentum bitwise equal to "
+          f"this process's at step {n}")
+
+
+def guard_resume_worker(directory: str, out: Path, n: int) -> None:
+    """The second process of (i) (``--guard-resume DIR --out FILE --steps
+    N``): the same train step, restored from the newest verified step in
+    DIR, on to step N; its start and digest into FILE."""
+    from dear_pytorch_tpu_torch.utils import checkpoint as ckpt
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ts, batch, _ = _guard_gpt_step()
+    step = ckpt.latest_valid_step(directory)
+    state = ckpt.restore_checkpoint(directory, ts, step=step,
+                                    template=ts.init())
+    while int(state.step) < n:
+        state, _ = ts.step(state, batch)
+    out.write_text(json.dumps({"from": step,
+                               "digest": _state_digest(state)}))
+    ts.close()
+    backend.shutdown()
+
+
+def guard_resnet50(card: str, work: Path) -> dict:
+    """(ii): ResNet-50 through the ImageNet CLI's builders (bf16, B = 64,
+    224², dear, its BN buffers): 3 steps, a checkpoint, 3 more; then a
+    fresh model and step restored from it, 3 steps: the masters, momentum
+    and every buffer bitwise equal. Returns the K5 epilogue's launches."""
+    from dear_pytorch_tpu_torch.benchmarks import runner
+    from dear_pytorch_tpu_torch.utils import checkpoint as ckpt
+
+    args = imagenet_cli.build_parser().parse_args(
+        _RESNET_ARGS + ["--device", _DEV])
+    group = backend.init(_DEV)
+    torch.backends.cudnn.benchmark = True
+
+    def build():
+        model, loss_fn, batch, *_ = imagenet_cli.setup_cnn(
+            args, 1, backend.device())
+        ts, _ = runner.build_stepper(runner.config_from_args(args, world=1),
+                                     loss_fn, model, group=group,
+                                     device=backend.device())
+        return ts, batch
+
+    def image(ts, state):
+        return _state_digest(state) + hashlib.sha256(b"".join(
+            b.detach().reshape(-1).view(torch.uint8).cpu().numpy()
+            .tobytes() for _, b in ts.model.named_buffers())).hexdigest()
+
+    d = str(work / "resnet")
+    FS.fused_update_launches = 0          # the path starts here
+    ts, batch = build()
+    state = ts.init()
+    for i in range(6):
+        state, _ = ts.step(state, batch)
+        if i == 2:
+            ckpt.save_checkpoint(d, state, ts)
+    want = image(ts, state)
+    nb = ts.plan.num_buckets
+    ts.close()
+    ts, batch = build()
+    state = ckpt.restore_checkpoint(d, ts, template=ts.init())
+    _check(int(state.step) == 3, f"resnet restore at {state.step}")
+    for _ in range(3):
+        state, _ = ts.step(state, batch)
+    got = image(ts, state)
+    n_bufs = sum(1 for _ in ts.model.buffers())
+    ts.close()
+    launches = FS.fused_update_launches   # ... and ends here
+    _check(launches == 9 * nb, f"resnet: {launches} K5 epilogue launches, "
+           f"expected {9 * nb}")
+    _check(got == want, "resnet: the resumed steps differ from the "
+           "uninterrupted ones")
+    print(f"phase 5p (ii) ResNet-50 (bf16, B=64, {nb} buckets, {n_bufs} "
+          f"buffers) on {card}: 3 steps, a checkpoint, a fresh step "
+          "restored from it and 3 more: masters, momentum and BN buffers "
+          "bitwise equal to 6 uninterrupted steps")
+    return {"fused_update": launches}
+
+
+def guard_rank_worker(rank: int, world: int, out: Path, cases) -> None:
+    """One rank of (iii) (``--guard-rank R --world W --out DIR --cases
+    C1,C2``): each case of `_GUARD_RANK_CASES` in turn, under
+    `GuardedTrainer`, over one gloo group of ranks sharing the card; per
+    case the restored steps, the vote and the digest of the gathered
+    masters into ``out/rank<r>.json``."""
+    from dear_pytorch_tpu_torch.resilience import inject as INJ
+    from dear_pytorch_tpu_torch.utils.guard import (
+        DivergenceError, GuardedTrainer)
+
+    _join_two_ranks(rank, out, world)
+    os.environ["DEAR_SDC_HOST"] = f"card0-rank{rank}"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    results = {}
+    for case in cases:
+        mode, faults, shared, sdc, attempts = _GUARD_RANK_CASES[case]
+        os.environ["DEAR_CKPT_SHARED"] = "1" if shared else "0"
+        os.environ["DEAR_SDC"] = "1" if sdc else ""
+        FA.reset_launch_counts()
+        FS.fused_update_launches = 0
+        ts, batch, _ = _guard_gpt_step(_GUARD_SMALL + ["--mode", mode])
+        state = ts.init()
+        restored, suspects, error = [], [], ""
+        d = out / case / ("ckpt" if shared else f"ckpt{rank}")
+        guard = GuardedTrainer(
+            ts, str(d), check_every=1, checkpoint_every=2, max_keep=10,
+            on_rollback=lambda c, s: restored.append(s),
+            injector=INJ.FaultInjector(INJ.parse_faults(faults)))
+        try:
+            for _ in range(attempts):
+                state, _ = guard.step(state, batch)
+                if guard._sdc is not None and guard._sdc.last_suspects:
+                    suspects.append(guard._sdc.last_suspects)
+        except DivergenceError as exc:
+            error = str(exc)
+        guard.finalize()
+        results[case] = {
+            "restored": restored, "suspects": suspects, "error": error,
+            "step": int(state.step),
+            "digest": _digest(ts.gather_params(state)),
+            "convicted": sorted(guard._sdc.convicted) if guard._sdc else [],
+            "launches": _guard_counts()}
+        ts.close()
+        del ts, state, guard
+        gc.collect()
+    (out / f"rank{rank}.json").write_text(json.dumps(results))
+    backend.shutdown()
+
+
+def start_guard_ranks() -> list:
+    """(iii)'s spawns of `_GUARD_SPAWNS`, started together."""
+    return [(world, cases, start_ranks(
+        f"guard-{world}", lambda r, out, w=world, c=cases: [
+            "--guard-rank", str(r), "--world", str(w), "--out", str(out),
+            "--cases", ",".join(c)], world))
+        for world, cases in _GUARD_SPAWNS]
+
+
+def finish_guard_ranks(card: str, started) -> dict:
+    """(iii): the cases of `_GUARD_RANK_CASES` on ranks sharing the card:
+    one rank's NaN rolls both back to the same step; a newest step
+    corrupted on rank 0 only (per-host storage) makes both restore the
+    newest common step; the vote names the flipped rank 0. Returns the
+    launches over every rank."""
+    totals: dict = {}
+    results = {}
+    for world, cases, handle in started:
+        ranks = wait_ranks(handle, 600.0)
+        shutil.rmtree(handle[1], ignore_errors=True)
+        for case in cases:
+            results[case] = [r[case] for r in ranks]
+            for r in results[case]:
+                for k, v in r["launches"].items():
+                    totals[k] = totals.get(k, 0) + v
+            print(f"phase 5p (iii) {case} at {world} ranks: restored "
+                  f"{[r['restored'] for r in results[case]]}, first vote "
+                  f"{results[case][0]['suspects'][:1]}, convicted "
+                  f"{results[case][0]['convicted']}")
+    nan, per_host, flip = (results[c] for c in ("nan_r1", "per_host", "flip"))
+    for case in (nan, per_host):
+        _check(case[0]["restored"] == case[1]["restored"] == [2]
+               and case[0]["digest"] == case[1]["digest"]
+               and case[0]["step"] == case[1]["step"],
+               f"two ranks: restored {[r['restored'] for r in case]}, "
+               f"digests equal {case[0]['digest'] == case[1]['digest']}")
+    first = flip[0]["suspects"][0] if flip[0]["suspects"] else None
+    _check(first is not None and [s[:2] for s in first] == [[0, 0]]
+           and all(r["suspects"] and r["suspects"][0] == first
+                   for r in flip),
+           f"the vote: {[r['suspects'][:1] for r in flip]}")
+    print(f"phase 5p (iii) on {card}: nan@3:r1 rolled both ranks back to "
+          f"step 2 (equal master digests); rank 0's corrupted newest step "
+          f"(per-host) made both restore step 2; at 3 ranks the vote named "
+          f"(rank, bucket) {first[0][:2]} on every rank")
+    return totals
+
+
+def guard_production(card: str, work: Path) -> dict:
+    """(iv): the ported production example as JAX configures it (its
+    flags and defaults) with ``DEAR_FAULTS="nan@6,exc@9"``: its first
+    checkpoint comes at step 20, so the NaN at step 6 (found at the check
+    of step 10) has nothing to restore, and the example stops with the
+    guard's DivergenceError — as the JAX example does on the CPU; then
+    with ``--checkpoint-every 4 --log-every 2`` it recovers, and a
+    relaunch resumes from its newest verified step. Returns the K5
+    epilogue's launches."""
+    from dear_pytorch_tpu_torch.examples import production
+    from dear_pytorch_tpu_torch.utils.guard import DivergenceError
+
+    FS.fused_update_launches = 0          # the path starts here
+    os.environ["DEAR_FAULTS"] = "nan@6,exc@9"
+    try:
+        try:
+            production.main(["--steps", "40", "--workdir",
+                             str(work / "prod-jax"), "--device", _DEV])
+            raised = ""
+        except DivergenceError as exc:
+            raised = str(exc)
+        _check("before the first checkpoint" in raised,
+               f"production as JAX configures it: {raised!r}")
+        loss = production.main(["--steps", "40", "--workdir",
+                                str(work / "prod"), "--checkpoint-every",
+                                "4", "--log-every", "2", "--device", _DEV])
+    finally:
+        del os.environ["DEAR_FAULTS"]
+    again = production.main(["--steps", "48", "--workdir", str(work / "prod"),
+                             "--checkpoint-every", "4", "--log-every", "2",
+                             "--device", _DEV])
+    launches = FS.fused_update_launches   # ... and ends here
+    _check(np.isfinite(loss) and np.isfinite(again),
+           f"production: losses {loss}, {again}")
+    print(f"phase 5p (iv) production example on {card}: JAX's flags with "
+          "nan@6,exc@9 stop before the first checkpoint (DivergenceError, "
+          f"as JAX's); with checkpoints every 4 it recovers (loss {loss:.4f} "
+          f"at step 40) and resumes to step 48 (loss {again:.4f})")
+    return {"fused_update": launches}
+
+
+def guard_phase(card: str) -> dict:
+    """Phase 5p: (i)-(iv); returns the launches of K1-K3 (tensor-core
+    routes) and the K5 epilogue on its paths. (i)'s second process and
+    (iii)'s ranks run beside (ii) and (iv): none of them is timed."""
+    work = _ROOT / "build" / "chip_smoke" / "guard"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    t0 = time.perf_counter()
+    gpt, resume = guard_gpt2(card, work)
+    print(f"phase 5p (i), this process: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    started = start_guard_ranks()
+    finish_resume(card, resume)
+    print(f"phase 5p (i), the second process: "
+          f"{time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    rn = guard_resnet50(card, work)
+    print(f"phase 5p (ii): {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    prod = guard_production(card, work)
+    print(f"phase 5p (iv): {time.perf_counter() - t1:.1f} s")
+    ranks = finish_guard_ranks(card, started)
+    print(f"phase 5p (iii), from its start: "
+          f"{time.perf_counter() - t0:.1f} s")
+    out = {k: gpt[k] + ranks.get(k, 0) for k in gpt}
+    out["fused_update"] += rn["fused_update"] + prod["fused_update"]
+    print(f"phase 5p launches: {out}")
+    shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 6: timings
 # ---------------------------------------------------------------------------
 
@@ -5071,8 +5670,14 @@ def main(argv=None) -> int:
     modes_worker = len(argv) == 4 and argv[0::2] == ["--modes-rank",
                                                      "--out"]
     comp_worker = len(argv) == 4 and argv[0::2] == ["--comp-rank", "--out"]
+    guard_only = argv == ["--phase", "5p"]
+    guard_worker = len(argv) == 8 and argv[0::2] == [
+        "--guard-rank", "--world", "--out", "--cases"]
+    resume_worker = len(argv) == 6 and argv[0::2] == [
+        "--guard-resume", "--out", "--steps"]
     if argv and not (kernels_only or harness_only or worker or bert_worker
-                     or probe_worker or modes_worker or comp_worker):
+                     or probe_worker or modes_worker or comp_worker
+                     or guard_only or guard_worker or resume_worker):
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -5093,6 +5698,13 @@ def main(argv=None) -> int:
         return 0
     if comp_worker:              # one rank of phase 5m, spawned below
         comp_rank_worker(int(argv[1]), Path(argv[3]))
+        return 0
+    if guard_worker:             # one rank of phase 5p (iii)
+        guard_rank_worker(int(argv[1]), int(argv[3]), Path(argv[5]),
+                          argv[7].split(","))
+        return 0
+    if resume_worker:            # the resumed process of phase 5p (i)
+        guard_resume_worker(argv[1], Path(argv[3]), int(argv[5]))
         return 0
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5117,6 +5729,12 @@ def main(argv=None) -> int:
             elif "registers" in line or "spill" in line:
                 print("  ptxas " + line.strip())
 
+    if guard_only:               # phase 5p alone
+        t0 = time.perf_counter()
+        guard_phase(card)
+        print(f"phase 5p: {time.perf_counter() - t0:.1f} s")
+        backend.shutdown()
+        return 0
     if harness_only:             # phase 5o alone (with phase 5g's line)
         t0 = time.perf_counter()
         harness_phase(card, run_bench(card))
@@ -5223,6 +5841,10 @@ def main(argv=None) -> int:
     tune = tune_and_multi_step(card)
     upd_err = max(upd_err, tune["upd_err"])
     print(f"tuning and multi_step phase (5n): "
+          f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    guard = guard_phase(card)
+    print(f"checkpoint and guard phase (5p): "
           f"{time.perf_counter() - t0:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()      # the bench's process needs the memory
@@ -5479,7 +6101,8 @@ def main(argv=None) -> int:
         + fused_launches["flash_fwd_tc"] + bert_launches["flash_fwd_tc"]
         + modes_routes["fwd"]["tensor_core"]
         + comp_routes["fwd"]["tensor_core"]
-        + harness["routes"]["fwd"]["tensor_core"],
+        + harness["routes"]["fwd"]["tensor_core"]
+        + guard["flash_fwd_tc"],
         "cuda_core": fp32_routes["fwd"]["cuda_core"]
         + modes_routes["fwd"]["cuda_core"]
         + comp_routes["fwd"]["cuda_core"]
@@ -5500,7 +6123,8 @@ def main(argv=None) -> int:
                     + bert_launches[kname + "_tc"]
                     + modes_routes[which]["tensor_core"]
                     + comp_routes[which]["tensor_core"]
-                    + harness["routes"][which]["tensor_core"],
+                    + harness["routes"][which]["tensor_core"]
+                    + guard[kname + "_tc"],
                     "cuda_core": fp32_routes[which]["cuda_core"]
                     + modes_routes[which]["cuda_core"]
                     + comp_routes[which]["cuda_core"]
@@ -5516,16 +6140,19 @@ def main(argv=None) -> int:
         # and with dropout), ViT-B/16's, the zoo's, the MNIST example's,
         # phase 5l's (whole buckets in the replicated modes), phase 5m's
         # (the compressed buckets' dense means, the remat runs), phase
-        # 5n's (every plan a tuner tried, and the multi_step runs) and
-        # phase 5o's (streamed batches, the driver's cells, scaling, the
-        # overlap report's rank 0, the remat check)
+        # 5n's (every plan a tuner tried, and the multi_step runs), phase
+        # 5o's (streamed batches, the driver's cells, scaling, the overlap
+        # report's rank 0, the remat check) and phase 5p's (the guarded,
+        # replayed and resumed steps, the ranks' runs, the production
+        # example)
         _kernel_entry("fused_update", "fused_update.cu",
                       "dear_pytorch_tpu/ops/collective_matmul.py:317",
                       train_launches["fused_update"] + rn_launches
                       + bert_launches["fused_update"] + vit_launches
                       + sum(z["launches"] for z in zoo.values())
                       + mnist_launches + modes_update + comp_update
-                      + tune["launches"] + harness["update"], upd_err, upd),
+                      + tune["launches"] + harness["update"]
+                      + guard["fused_update"], upd_err, upd),
     ] + [
         _kernel_entry(f"ring_all_gather ({route})", "ring.cu",
                       "dear_pytorch_tpu/ops/collective_matmul.py:218",

@@ -51,11 +51,17 @@ model, on by default with counters only (``configure(memory=False)``: no
 span records, so the timed windows accumulate nothing); an explicit
 ``DEAR_TELEMETRY`` — an explicit disable included — is honoured as it is.
 
+The phase watchdog is bench.py's (``_Watchdog``, root bench.py:490-560):
+each model's phase has ``DEAR_BENCH_WATCHDOG_SECS`` (default 2400; 0
+disables it) to finish; past it a daemon thread reports the open spans and
+every thread's stack (`resilience.watchdog.StepWatchdog`) and, once the
+primary metric exists, prints the partial line and exits 0, else the
+primary's error line and exits 3.
+
 Left out, on purpose: bench.py's ``vs_baseline``, ``baseline_protocol``
 and ``baseline_config`` — its pins (``BASELINE_IMG_SEC`` 2304.13,
 ``BASELINE_GPT_TOK_SEC``) were measured on a TPU and may not stand as the
-port's baseline; and the phase watchdog (resilience, ROADMAP Queue 1 item
-9).
+port's baseline.
 """
 
 from __future__ import annotations
@@ -431,6 +437,62 @@ def _secondary(metric: str, fn: Callable[[], dict]) -> dict:
             torch.cuda.empty_cache()
 
 
+class _Watchdog:
+    """Per-phase hang guard (root bench.py's ``_Watchdog``): built on
+    `resilience.watchdog.StepWatchdog` — a daemon thread and ``os._exit``
+    fire even while the main thread is blocked in a CUDA synchronize or a
+    gloo wait, which a signal handler would not; the firing report
+    carries the open spans and every thread's stack. Each phase gets its
+    own budget (``arm`` beats the clock), and once the primary metric
+    exists a late hang prints the partial line and exits 0.
+    ``DEAR_BENCH_WATCHDOG_SECS=0`` disables it."""
+
+    def __init__(self):
+        self.secs = float(os.environ.get("DEAR_BENCH_WATCHDOG_SECS", "2400"))
+        self.primary = None
+        self.extras: list = []  # completed secondary metrics so far
+        self._dog = None
+        self._phase = ""
+        self._metric = ""
+
+    def arm(self, phase: str, metric: str) -> None:
+        if self.secs <= 0:
+            return
+        self._phase, self._metric = phase, metric
+        if self._dog is None:
+            from dear_pytorch_tpu_torch.resilience.watchdog import (
+                StepWatchdog)
+
+            self._dog = StepWatchdog(self.secs, on_timeout=self._fire,
+                                     name="bench-watchdog").start()
+        self._dog.beat(phase=phase, metric=metric)
+
+    def disarm(self) -> None:
+        if self._dog is not None:
+            self._dog.stop()
+            self._dog = None
+
+    def _fire(self, report) -> None:
+        from dear_pytorch_tpu_torch.observability import tracer
+
+        phase, metric = self._phase, self._metric
+        _log(f"bench watchdog: phase {phase!r} still running after "
+             f"{report.waited_s:.0f}s; aborting")
+        err = {"metric": metric,
+               "error": f"watchdog: {phase} wedged after {self.secs:.0f}s"}
+        if self.primary is not None:
+            done = list(self.extras)
+            # a phase that finished right at the timeout is already in
+            # extras: don't also report it as wedged
+            if not any(m.get("metric") == metric for m in done):
+                done.append(err)
+            print(json.dumps(dict(self.primary, extra_metrics=done,
+                                  telemetry=tracer.snapshot())), flush=True)
+            os._exit(0)
+        print(json.dumps(dict(err, metric=PRIMARY_METRIC)), flush=True)
+        os._exit(3)
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(
         description="The port's headline benchmarks: one JSON line")
@@ -475,7 +537,14 @@ def _main(args) -> int:
     if dev.type == "cuda":
         torch.backends.cudnn.benchmark = True
     _log(f"bench: {'smoke ' if proto.smoke else ''}run on {dev}")
-    resnet = bench_resnet(group, dev, proto)
+    dog = _Watchdog()
+    dog.arm("resnet", PRIMARY_METRIC)
+    try:
+        resnet = bench_resnet(group, dev, proto)
+    except BaseException:
+        dog.disarm()
+        raise
+    dog.primary = resnet
     gc.collect()
     _log(f"bench: {json.dumps(resnet)}")
     runs = [("bert_base_sen_sec_per_chip", True,
@@ -488,11 +557,13 @@ def _main(args) -> int:
              lambda: bench_vit(group, dev, proto)),
             ("gpt2_s1024_tok_sec_per_chip", _env_enabled("DEAR_BENCH_GPT"),
              lambda: bench_gpt(group, dev, proto))]
-    extras = []
+    extras = dog.extras
     for metric, on, fn in runs:
         if on:
+            dog.arm(metric.split("_")[0], metric)
             extras.append(_secondary(metric, fn))
             _log(f"bench: {json.dumps(extras[-1])}")
+    dog.disarm()
     print(json.dumps(dict(resnet, extra_metrics=extras,
                           telemetry=tracer.snapshot())), flush=True)
     if owned:

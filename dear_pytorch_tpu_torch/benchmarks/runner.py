@@ -193,6 +193,34 @@ def run_timed(step_fn: Callable[[], Any], *, batch_size: int,
     dev = device or device_name()
     world = backend.size() if world is None else world
     steps_per_call = max(int(steps_per_call), 1)
+    # opt-in per-iteration hang guard (JAX runner.py:130-141):
+    # DEAR_STEP_WATCHDOG_SECS is the deadline one timed iteration must
+    # finish within; past it the watchdog dumps the open spans and every
+    # thread's stack and exits with the last completed iteration number.
+    # It arms at the first timed iteration's beat: the warmup (the
+    # kernels' first builds) stays under bench's phase watchdog.
+    dog_secs = float(os.environ.get("DEAR_STEP_WATCHDOG_SECS", "0"))
+    dog = None
+    if dog_secs > 0:
+        from dear_pytorch_tpu_torch.resilience.watchdog import StepWatchdog
+
+        dog = StepWatchdog(dog_secs, name="bench-step-watchdog").start()
+    try:
+        return _run_timed(step_fn, dog, batch_size=batch_size,
+                          num_warmup_batches=num_warmup_batches,
+                          num_batches_per_iter=num_batches_per_iter,
+                          num_iters=num_iters, unit=unit, sync=sync,
+                          world=world, dev=dev, count_flops=count_flops,
+                          steps_per_call=steps_per_call, metrics=metrics,
+                          profile_dir=profile_dir)
+    finally:
+        if dog is not None:
+            dog.stop()
+
+
+def _run_timed(step_fn, dog, *, batch_size, num_warmup_batches,
+               num_batches_per_iter, num_iters, unit, sync, world, dev,
+               count_flops, steps_per_call, metrics, profile_dir):
     log("Running warmup...")
     flops = (step_flops(step_fn) / steps_per_call if count_flops
              else None)
@@ -206,6 +234,8 @@ def run_timed(step_fn: Callable[[], Any], *, batch_size: int,
     per_iter, iter_times = [], []
     try:
         for x in range(num_iters):
+            if dog is not None:
+                dog.beat(phase="timed", iter=x)
             t0 = time.perf_counter()
             for _ in range(num_batches_per_iter):
                 step_fn()

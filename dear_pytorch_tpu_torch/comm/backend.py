@@ -22,14 +22,29 @@ host (`comm.collectives` stages CUDA tensors through host copies on such a
 group, and only there), and the data legs of ``mode="dear-fused"`` are the
 ring kernels alone (`comm.ring`), which need no collective library. At one
 card per rank, NCCL stays.
+
+`init` builds the c10d store the ranks rendezvous at explicitly (a
+``FileStore`` for a ``file://`` address, else a ``TCPStore``) and keeps it
+(`store()`): the cluster layer's store transport
+(`resilience.cluster.StoreTransport`) exchanges its health views through
+it. At world > 1 it also forms a second gloo group over the same ranks,
+`host_group()`, for the host-level collectives
+(`comm.collectives.allreduce`, `host_allgather`) and the checkpoint
+commit's barrier: the cluster layer runs them from a side thread with a
+deadline, where a collective on the training step's group would
+interleave with the step's own and could hang it. `shutdown` releases
+both.
 """
 
 from __future__ import annotations
 
+import atexit
+import datetime
 import os
 import socket
 import threading
 from typing import Optional
+from urllib.parse import urlparse
 
 import torch
 import torch.distributed as dist
@@ -37,13 +52,18 @@ import torch.distributed as dist
 from dear_pytorch_tpu_torch._device import resolve_device
 
 __all__ = [
-    "barriar", "barrier", "card_shared", "device", "group", "init",
-    "is_initialized", "launched_size", "local_rank", "local_size", "rank",
-    "shutdown", "size",
+    "barriar", "barrier", "card_shared", "device", "group", "host_group",
+    "init", "is_initialized", "launched_size", "local_rank", "local_size",
+    "rank", "shutdown", "size", "store",
 ]
 
 _lock = threading.Lock()
 _device: Optional[torch.device] = None
+_store = None
+_host_group = None
+#: the TCP store's rendezvous deadline (torch's default for a tcp://
+#: init_method)
+_TIMEOUT = datetime.timedelta(minutes=30)
 
 
 def _env_int(*names: str) -> Optional[int]:
@@ -80,6 +100,30 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
+@atexit.register
+def _release() -> None:
+    """Drop this module's references to the host group and the store
+    before the interpreter finalizes: a gloo group still referenced from a
+    module then is torn down during finalization, which now and then
+    aborts the process after its work is done (tests/
+    test_torch_spawn_teardown.py)."""
+    global _store, _host_group
+    _store = _host_group = None
+
+
+def _make_store(addr: str, rank_: int, world: int):
+    """The c10d store at ``addr``: a ``FileStore`` for ``file://<path>``,
+    else a ``TCPStore`` that rank 0 hosts at ``tcp://host:port``."""
+    url = urlparse(addr)
+    if url.scheme == "file":
+        return dist.FileStore(url.path, world)
+    if url.scheme != "tcp" or not url.hostname or not url.port:
+        raise ValueError(f"coordinator address {addr!r}: expected host:port, "
+                         "tcp://host:port or file://path")
+    return dist.TCPStore(url.hostname, url.port, world, rank_ == 0,
+                         timeout=_TIMEOUT)
+
+
 def init(device=None) -> dist.ProcessGroup:
     """Join (or form) the process group and return it; idempotent.
 
@@ -88,7 +132,7 @@ def init(device=None) -> dist.ProcessGroup:
     ``local_rank() % device_count``), ``"cpu"`` for a gloo group. With the
     launcher variables set, the world is ``DEAR_NUM_PROCESSES`` ranks
     meeting at ``DEAR_COORDINATOR_ADDRESS``; otherwise a single rank."""
-    global _device
+    global _device, _store, _host_group
     with _lock:
         dev = resolve_device(device)
         if dist.is_initialized():
@@ -116,8 +160,11 @@ def init(device=None) -> dist.ProcessGroup:
             backend = "gloo"
         else:
             raise RuntimeError(f"no process-group backend for {dev}")
-        dist.init_process_group(backend, init_method=addr, rank=rank_,
+        _store = _make_store(addr, rank_, world)
+        dist.init_process_group(backend, store=_store, rank=rank_,
                                 world_size=world)
+        _host_group = (dist.new_group(backend="gloo") if world > 1
+                       else None)
         _device = dev
         return dist.group.WORLD
 
@@ -127,17 +174,32 @@ def is_initialized() -> bool:
 
 
 def shutdown() -> None:
-    """Tear the group down; safe to call more than once."""
-    global _device
+    """Tear the group down (and the host group, and release the store);
+    safe to call more than once."""
+    global _device, _store, _host_group
     with _lock:
         if dist.is_initialized():
             dist.destroy_process_group()
-        _device = None
+        _device = _store = _host_group = None
 
 
 def group() -> dist.ProcessGroup:
     """The group (formed on the card if there is none yet)."""
     return dist.group.WORLD if dist.is_initialized() else init()
+
+
+def store():
+    """The c10d store the ranks rendezvoused at (forms the group first if
+    there is none yet)."""
+    group()
+    return _store
+
+
+def host_group() -> Optional[dist.ProcessGroup]:
+    """The gloo group of the host-level collectives (module docstring);
+    None at world 1, where they are the identity."""
+    group()
+    return _host_group
 
 
 def device() -> torch.device:

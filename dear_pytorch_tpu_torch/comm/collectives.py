@@ -21,6 +21,7 @@ from __future__ import annotations
 
 from typing import Callable, Optional, Sequence
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -29,7 +30,8 @@ from dear_pytorch_tpu_torch.ops.fusion import padded_length
 
 __all__ = [
     "StreamEvent", "all_gather", "all_reduce", "all_reduce_mean",
-    "all_reduce_rb", "all_reduce_rsag", "broadcast", "multi_bcast",
+    "all_reduce_rb", "all_reduce_rsag", "allreduce", "broadcast",
+    "host_allgather", "multi_bcast",
     "pad_to_multiple", "padded_length", "reduce", "reduce_scatter",
     "ring_shift", "send_recv",
 ]
@@ -330,3 +332,46 @@ def ring_shift(x: torch.Tensor, group=None) -> torch.Tensor:
     returns what rank i - 1 sent (mod the world)."""
     world = dist.get_world_size(_group(group))
     return send_recv(x, [(i + 1) % world for i in range(world)], group)
+
+
+# ---------------------------------------------------------------------------
+# Host-level collectives (JAX collectives.py:245, :264), over the host group
+# ---------------------------------------------------------------------------
+
+
+def _host_world() -> int:
+    return backend.size() if backend.is_initialized() else 1
+
+
+def allreduce(x, average: bool = True):
+    """Average (or, with ``average=False``, sum) a host-side metric over
+    the processes — the reference's blocking metric all-reduce
+    (dear/dear_dopt.py:546-549). The identity in a single process; across
+    processes it runs on `comm.backend.host_group`, never on the training
+    step's group."""
+    world = _host_world()
+    if world == 1:
+        return x
+    t = torch.as_tensor(np.asarray(x))
+    wide = torch.float64 if t.is_floating_point() else torch.int64
+    total = t.to(wide).clone()
+    dist.all_reduce(total, group=backend.host_group())
+    total = total.numpy()
+    return total / world if average else total
+
+
+def host_allgather(x) -> np.ndarray:
+    """Every process's ``x`` (a host array of the same shape and dtype on
+    every rank) stacked on a new leading axis of length ``world``,
+    index-ordered: ``x[None]`` in a single process. Across processes one
+    all-gather on `comm.backend.host_group` — the host collective the
+    cluster layer's `resilience.cluster.AllgatherTransport` builds its
+    exchanges on (from a side thread, with a deadline)."""
+    arr = np.ascontiguousarray(np.asarray(x))
+    world = _host_world()
+    if world == 1:
+        return arr[None, ...]
+    raw = torch.from_numpy(arr.reshape(-1).view(np.uint8).copy())
+    out = torch.empty((world * raw.numel(),), dtype=torch.uint8)
+    _all_gather(out, raw, group=backend.host_group())
+    return out.numpy().view(arr.dtype).reshape((world,) + arr.shape)

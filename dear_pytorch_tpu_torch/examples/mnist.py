@@ -19,8 +19,14 @@ synthetic`` trains on deterministic class-template images instead.
 Run (on the card; ``--device cpu`` runs the plain PyTorch path):
   python -m dear_pytorch_tpu_torch.examples.mnist --epochs 3 --batch-size 64
 
-``--checkpoint-dir`` and ``--resume`` wait for the port's checkpoints and
-raise ``NotImplementedError``.
+``--checkpoint-dir DIR`` saves a checkpoint after every epoch
+(`utils.checkpoint.save_checkpoint`: sha256-manifested, one blob per rank);
+with ``--resume`` the run first restores the newest step there, as the JAX
+example does (examples/mnist.py:128-136, 183-186):
+  python -m dear_pytorch_tpu_torch.examples.mnist --device cpu \
+      --data synthetic --epochs 1 --checkpoint-dir /tmp/mnist_ckpt
+  python -m dear_pytorch_tpu_torch.examples.mnist --device cpu \
+      --data synthetic --epochs 1 --checkpoint-dir /tmp/mnist_ckpt --resume
 """
 
 from __future__ import annotations
@@ -87,10 +93,6 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> float:
     """Train; returns the last held-out accuracy (averaged over ranks)."""
     args = build_parser().parse_args(argv)
-    if args.checkpoint_dir or args.resume:
-        raise NotImplementedError(
-            "--checkpoint-dir / --resume: the port's checkpoints are not "
-            "ported yet (ROADMAP Queue 1 item 9)")
     resolve_device(args.device)          # raises without a card
     group = backend.init(args.device)
     dev, world, rank = backend.device(), backend.size(), backend.rank()
@@ -134,6 +136,14 @@ def main(argv=None) -> float:
                           rng_seed=1234)
     state = ts.init()
 
+    if args.resume and args.checkpoint_dir:
+        from dear_pytorch_tpu_torch.utils import checkpoint as ckpt
+
+        if ckpt.latest_step(args.checkpoint_dir) is not None:
+            state = ckpt.restore_checkpoint(args.checkpoint_dir, ts,
+                                            template=state)
+            log(f"resumed from step {state.step}")
+
     def evaluate() -> float:
         correct = torch.zeros((), device=dev)
         with torch.no_grad():
@@ -164,6 +174,11 @@ def main(argv=None) -> float:
         acc = evaluate()
         log(f"epoch {epoch}: loss {epoch_loss:.4f}, test acc {acc:.4f}, "
             f"{time.perf_counter() - t0:.1f}s")
+        if args.checkpoint_dir:
+            from dear_pytorch_tpu_torch.utils import checkpoint as ckpt
+
+            path = ckpt.save_checkpoint(args.checkpoint_dir, state, ts)
+            log(f"saved checkpoint {path}")
     ts.close()
     return acc
 

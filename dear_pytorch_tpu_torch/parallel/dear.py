@@ -217,8 +217,24 @@ not the card's); ``multi_step`` counts ``dear.multi_step_compiles`` once
 per n, when its callable is first built. With the tracer off (the
 default) a step does none of this.
 
+SDC fingerprint (JAX dear.py:399-400, :964-980): with ``DEAR_SDC=1`` at
+build time, every step adds ``metrics["sdc_fp"]``, per bucket the uint32
+wraparound sum of the post-update fp32 masters' words (an int64 tensor on
+the device: the int32 view summed in int64, one all-reduce of the ranks'
+sums in the sharded modes, then ``& 0xFFFFFFFF``); `utils.guard` fetches
+it at its check cadence. Without ``DEAR_SDC`` the step adds no operation.
+
+Checkpoints (`utils.checkpoint`): a restore writes into the live step in
+place (`TrainStep.load_state`, after `TrainStep.quiesce` has waited for
+or dropped what a step left in flight; the gathers are issued again, as
+`init` issues them), and an asynchronous save's snapshot copy holds the
+next step's first in-place write of the masters, the optimizer or the
+compressor state (`TrainStep.hold_for_snapshot`: an event wait on the
+stream, not a host sync). `TrainStep.last_state` is the state the step
+last returned.
+
 Not ported yet (raises ``NotImplementedError`` naming its ROADMAP item):
-the multi-slice ``dcn`` schedule.
+the multi-slice ``dcn`` schedule (item 9b).
 """
 
 from __future__ import annotations
@@ -273,7 +289,7 @@ class DearState(NamedTuple):
 
 #: options of the JAX package's ``build_train_step`` that are not ported
 #: yet -> the ROADMAP Queue 1 item that brings them
-_UNPORTED = {"dcn": "9 (the multi-slice schedule)"}
+_UNPORTED = {"dcn": "9b (the multi-slice schedule)"}
 
 
 class _SavedView(NamedTuple):
@@ -518,15 +534,16 @@ def build_train_step(loss_fn: Callable, model: nn.Module, *,
                      momentum_correction=momentum_correction, remat=remat)
 
 
-def _model_state(model, template) -> list:
-    """The buffers that ``template`` names (None: every buffer)."""
+def _model_state(model, template) -> dict:
+    """``{name: buffer}`` of the buffers that ``template`` names (None:
+    every buffer)."""
     bufs = dict(model.named_buffers())
     names = list(bufs) if template is None else list(template)
     unknown = [n for n in names if n not in bufs]
     if unknown:
         raise ValueError(f"model_state_template names {unknown}, which are "
                          "not buffers of the model")
-    return [bufs[n] for n in names]
+    return {n: bufs[n] for n in names}
 
 
 def _ring_matmul_elems(model, world: int) -> int:
@@ -557,7 +574,7 @@ class TrainStep:
     def __init__(self, loss_fn, model, optimizer, group, plan, *,
                  comm_dtype, gather_dtype, has_aux, rng_seed, accum_steps,
                  clip_norm, mode="dear", exclude_parts=(), partition_mb=4.0,
-                 model_state=(), compressor=None, density=1.0, gtopk=False,
+                 model_state=None, compressor=None, density=1.0, gtopk=False,
                  momentum_correction=0.0, remat=None):
         self.loss_fn, self.model, self.optimizer = loss_fn, model, optimizer
         self.group, self.plan = group, plan
@@ -582,8 +599,20 @@ class TrainStep:
         self.rs_launches = self.ag_launches = self.update_launches = 0
         self.ar_launches = self.reduce_launches = self.bcast_launches = 0
         self.comp_launches = self.cm_calls = self.state_syncs = 0
-        self._mstate = list(model_state)
+        model_state = model_state or {}   # {name: buffer}
+        #: the names of the model-state buffers (what a checkpoint keeps)
+        self.model_state_names = list(model_state)
+        self._mstate = list(model_state.values())
         self._mstate_done = None
+        # SDC sentinel (resilience.sdc): the per-bucket fingerprint is
+        # added to the step's metrics only when DEAR_SDC is armed at build
+        # time — the disabled path adds no operation at all
+        from dear_pytorch_tpu_torch.resilience import sdc as _sdc
+        self.sdc_fp = _sdc.sdc_enabled()
+        #: an asynchronous checkpoint's snapshot copy in flight (a CUDA
+        #: event): the next in-place write of the masters, the optimizer
+        #: or the compressor state waits for it (`hold_for_snapshot`)
+        self._snapshot = None
 
         params = dict(model.named_parameters())
         for s in plan.leaves:
@@ -657,6 +686,9 @@ class TrainStep:
         self._rs_next = 0
         self._rs_ready: set = set()
         self._state: Optional[DearState] = None
+        #: the state most recently returned by `init`, `step` or
+        #: `load_state` (what a checkpoint restore overwrites in place)
+        self.last_state: Optional[DearState] = None
         self._comm_dtype, self._multi = cdt, {}
         self._leg_bytes_cache: Optional[dict] = None
         tr = _telemetry.get_tracer()
@@ -698,6 +730,8 @@ class TrainStep:
             return
         self._comm.wait_event(torch.cuda.current_stream(self.device)
                               .record_event())
+        if self._snapshot is not None:
+            self._comm.wait_event(self._snapshot)
         with torch.cuda.stream(self._comm):
             yield
 
@@ -985,7 +1019,9 @@ class TrainStep:
         if self.sharded:
             for g, shard in enumerate(shards):
                 self._gather(g, shard)
-        return DearState(tuple(shards), opt, 0, self._init_comp_state())
+        self.last_state = DearState(tuple(shards), opt, 0,
+                                    self._init_comp_state())
+        return self.last_state
 
     def _init_comp_state(self) -> tuple:
         """Per bucket this rank's compressor state: the residual over the
@@ -1112,12 +1148,30 @@ class TrainStep:
             self._fused_gathers(state)
         else:
             self._update_and_gather(state, metrics)
+        self._snapshot = None   # both streams have waited for it
+        if self.sdc_fp:
+            metrics["sdc_fp"] = self._fingerprint(state)
         loss = torch.stack(losses).mean()
         metrics["loss"] = self._mean_over_ranks(loss)
         if auxs:
             metrics["aux"] = self._mean_over_ranks(torch.stack(auxs).mean(0))
-        return DearState(state.shards, state.opt_state, state.step + 1,
-                         state.comp_state), metrics
+        self.last_state = DearState(state.shards, state.opt_state,
+                                    state.step + 1, state.comp_state)
+        return self.last_state, metrics
+
+    def _fingerprint(self, state: DearState) -> torch.Tensor:
+        """``metrics["sdc_fp"]`` (JAX dear.py:964-980): per bucket the
+        uint32 wraparound sum of the post-update fp32 masters' words, as an
+        int64 tensor on the device: the int32 view summed in int64 is
+        congruent to the unsigned sum mod 2^32; in the sharded modes one
+        all-reduce adds the ranks' sums. Exact and order-independent, so
+        replica-identical masters give identical fingerprints. Nothing is
+        fetched: the guard reads it at its check cadence."""
+        fps = torch.stack([torch.sum(s.view(torch.int32), dtype=torch.int64)
+                           for s in state.shards])
+        if self.sharded and self.world > 1:
+            fps = C.all_reduce(fps, self.group)
+        return fps & 0xFFFFFFFF
 
     def _loss(self, args):
         """``loss_fn(*args)``; under ``remat="full"`` computed once keeping
@@ -1162,6 +1216,7 @@ class TrainStep:
     def _update_and_gather(self, state: DearState, metrics: dict) -> None:
         """Wait for each bucket's reduction, clip, update each shard (or
         full bucket), and start each shard's gather."""
+        self.wait_snapshot()
         for g, works in enumerate(self._rs_work):
             for work in works:
                 if work is not None:
@@ -1280,6 +1335,85 @@ class TrainStep:
         if done is not None:
             done.wait()
         return F.unpack_all(bufs, self.plan)
+
+    # -- checkpoints: snapshots and in-place restores -------------------------
+
+    def hold_for_snapshot(self, event) -> None:
+        """An asynchronous checkpoint copies the masters, the optimizer and
+        the compressor state on a side stream behind ``event`` (a CUDA
+        event recorded when the copy is done): the next step's first
+        in-place write of any of them — the update, the K5 ring, the
+        compressed reduction — waits for it on its stream (an event wait,
+        not a host sync). JAX's arrays are immutable and never had this
+        hazard; this step updates its tensors in place."""
+        self._snapshot = event
+
+    def wait_snapshot(self) -> None:
+        """Make the current stream wait for an in-flight snapshot copy
+        (`hold_for_snapshot`), if any."""
+        if self._snapshot is not None:
+            torch.cuda.current_stream(self.device).wait_event(self._snapshot)
+
+    def quiesce(self) -> None:
+        """Wait for, or drop, whatever a step left in flight — an aborted
+        step's reduce-scatters, its pending-gradient counts and fired
+        hooks, the gathers and their events, the model state's sync and a
+        checkpoint snapshot's copy — so the tensors can be overwritten.
+        The parameters' leftover gradients are dropped too."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)   # the snapshot copy too
+        self._snapshot = None
+        for g, works in enumerate(self._rs_work):
+            for work in works:
+                if work is not None:
+                    work.wait()
+            self._rs_work[g] = []
+        self._pending = [len(b.leaf_ids) for b in self.plan.buckets]
+        self._fired = set()
+        self._rs_next, self._rs_ready = 0, set()
+        self._wait_gathers(range(len(self._ag_work)))
+        self._wait_model_state()
+        for p in self.model.parameters():
+            p.grad = None
+
+    def load_state(self, state: DearState, *, shards, opt_state,
+                   comp_state=(), buffers=None, step: int) -> DearState:
+        """Restore a checkpoint into this step, in place: `quiesce`, then
+        copy ``shards`` (per bucket this rank's fp32 master, in this
+        step's plan) into ``state.shards`` (in the replicated modes the
+        masters ARE the model's buffers), ``opt_state`` (per bucket a dict:
+        the tensors copied, the host scalars set) into
+        ``state.opt_state``, ``comp_state`` (per bucket a tensor, a
+        ``{"res", "vel"}`` dict or ``()``) into ``state.comp_state``, and
+        ``buffers`` (``{name: tensor}``) into the model's buffers; then
+        issue the gathers as `init` does, so the next forward sees the
+        restored parameters. Returns the state at ``step``."""
+        self.quiesce()
+        with torch.no_grad():
+            for dst, src in zip(state.shards, shards):
+                dst.copy_(src)
+            for dst, src in zip(state.opt_state, opt_state):
+                for k, v in src.items():
+                    if torch.is_tensor(dst.get(k)):
+                        dst[k].copy_(v)
+                    else:
+                        dst[k] = v
+            for dst, src in zip(state.comp_state, comp_state):
+                if torch.is_tensor(dst):
+                    dst.copy_(src)
+                elif isinstance(dst, dict):
+                    for k in dst:
+                        dst[k].copy_(src[k])
+            if buffers:
+                live = dict(self.model.named_buffers())
+                for n, b in buffers.items():
+                    live[n].copy_(b)
+            if self.sharded:
+                for g, shard in enumerate(state.shards):
+                    self._gather(g, shard)
+        self.last_state = DearState(state.shards, state.opt_state,
+                                    int(step), state.comp_state)
+        return self.last_state
 
     def close(self) -> None:
         """Release the model once every rank is done with the step (every

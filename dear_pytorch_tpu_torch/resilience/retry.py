@@ -10,7 +10,7 @@ ring-buffer batch fetches racing a slow producer — fails transiently in
 ways a bounded, deterministic retry absorbs for free. Device-side faults
 are explicitly OUT of scope: a failed collective or a NaN loss is
 `utils.guard.GuardedTrainer`'s job (rollback), not a retry's (the same
-poisoned input would fail again; the guard is ROADMAP Queue 1 item 9).
+poisoned input would fail again).
 
 Backoff uses **decorrelated jitter** (AWS-style:
 ``delay = uniform(base, prev_delay * 3)``, capped): a fixed exponential

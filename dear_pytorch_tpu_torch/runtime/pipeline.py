@@ -20,7 +20,7 @@ Deterministic resume and elastic resharding: both pipelines carry a
 generator seed so different shards draw disjoint streams) and expose
 ``state_dict()`` / ``load_state_dict()`` — step position, shard
 assignment, and (numpy backend) the exact PRNG state — for a checkpoint
-sidecar (the port's checkpoint is ROADMAP Queue 1 item 9), so a restore
+sidecar (`utils.checkpoint`; `utils.guard.GuardedTrainer`'s ``pipeline=``), so a restore
 resumes the data stream at the checkpointed position instead of silently
 replaying or skipping batches (``pipeline.resumes`` counter). On a
 membership change `reshard()` reassigns this consumer's slice of the data

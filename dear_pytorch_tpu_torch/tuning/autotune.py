@@ -569,7 +569,7 @@ class AutoTuner:
         change (JAX autotune.py:614): not ported yet."""
         raise NotImplementedError(
             "AutoTuner.rescale (elastic membership changes) is not ported "
-            "yet: ROADMAP Queue 1 item 9")
+            "yet: ROADMAP Queue 1 item 9b")
 
     # -- plan strategy -------------------------------------------------------
 

@@ -497,16 +497,13 @@ def test_mnist_example_learns_real_digits():
 
 
 def test_mnist_example_refusals(monkeypatch):
-    """No checkpoints yet (ROADMAP Queue 1 item 9); without scikit-learn
-    the real digits raise ImportError, never a silent switch to synthetic
-    data."""
+    """Without scikit-learn the real digits raise ImportError, never a
+    silent switch to synthetic data. (``--checkpoint-dir`` and
+    ``--resume`` work now: tests/test_torch_guard.py.)"""
     import sys
 
     from dear_pytorch_tpu_torch.examples import mnist
 
-    for flags in (["--checkpoint-dir", "/nonexistent"], ["--resume"]):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            mnist.main(["--device", "cpu"] + flags)
     monkeypatch.setitem(sys.modules, "sklearn", None)
     monkeypatch.setitem(sys.modules, "sklearn.datasets", None)
     with pytest.raises(ImportError, match="scikit-learn"):
