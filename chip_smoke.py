@@ -90,7 +90,8 @@ non-zero and no result line is printed):
   5b. train it at world 2 as two processes sharing the card (this script
      with ``--train-rank R --out DIR --mode M``; the ``DEAR_*`` launcher
      variables, a ``file://`` store, card ``r % device_count``), 8
-     sequences per rank, 10 steps (20 before slice 17 cut it for time),
+     sequences per rank, 6 steps (20 before slice 17, 10 before slice 18
+     cut it for time),
      with ``--mode dear-fused`` (every
      step on each rank: K1, K2 and K3 12 times each (tensor cores), K4
      once per bucket on its direct route and the K5 ring once per bucket
@@ -101,7 +102,7 @@ non-zero and no result line is printed):
      step also launches K6, K7 and K8 48 times each, K6 and K7 all on the
      wgmma route) and with ``--mode
      dear``: losses finite, falling and equal on both ranks, both ranks'
-     gathered parameters bitwise equal, dear-fused's step-10 loss within
+     gathered parameters bitwise equal, dear-fused's last loss within
      `_FUSED_VS_DEAR_RTOL` of dear's and the ring-projection run's within
      `_RP_VS_FUSED_RTOL` of dear-fused's; each rank records its peak
      memory (``max_memory_allocated``, reset before the run); a rank's
@@ -271,8 +272,9 @@ non-zero and no result line is printed):
      timeline shares); ResNet-50 ``--remat-policy full`` through the CLI
      WITH its cuDNN settings (benchmark mode, after every earlier phase
      timed convs in this process), bitwise against the run without; and
-     the bench line again with ``DEAR_TELEMETRY=0`` beside phase 5g's
-     default (counters on);
+     the bench line again with ``DEAR_TELEMETRY=0`` (2 timed iterations
+     of 10 steps per model since slice 18, for the time limit) beside
+     phase 5g's default (counters on);
   5p. checkpoints and the guarded trainer (run after 5n, before the bench
      line): (i) GPT-2 small at full width through the GPT CLI's builders
      (bf16, flash, ``dear``, B = 16, one rank on NCCL): an async save
@@ -298,6 +300,20 @@ non-zero and no result line is printed):
      ``DEAR_FAULTS=nan@6,exc@9`` stopping with the guard's
      DivergenceError as JAX's does, then recovering with checkpoints every
      4 steps and resuming;
+  5q. elastic membership (after 5p), two fleets side by side under the
+     port's supervisor (`scripts.chaos_check`): (i) GPT-2 small cut to 2
+     layers (full width, bf16, flash, ``dear``, B = 4 per rank, S =
+     1024), three ranks sharing the card over gloo, per-host checkpoints
+     (the whole state in every blob) every 2 steps; rank 2 SIGKILLs
+     itself before attempt 5, the survivors commit epoch 1 and regroup at
+     world 2, the relaunch rejoins at epoch 2 (world 3): lockstep final
+     step, loss and epoch, plan world 3 -> 2 -> 3 with the epoch stamped,
+     every rollback on the newest common checkpoint, one K5 epilogue per
+     bucket on every completed step of every rank, and the first
+     post-shrink losses bitwise equal to a fresh 2-rank run restored from
+     the same step; each transition's times printed; (ii) the MNIST net
+     through the autoscale drill (scale-up, SIGKILL and relaunch, drain
+     and backfill: epochs 1-5, then a cold start from the remote tier);
   6. trace steady bf16 decode ticks and training steps with
      ``torch.profiler`` (device ops, busy time and idle share, the top
      device ops of a step); time each kernel, its plain version and
@@ -317,12 +333,14 @@ non-zero and no result line is printed):
      at BERT-Large's shapes beside cuBLAS, the K5 epilogue at the zoo's
      largest shards (VGG-16's fc1) and at the replicated modes' whole
      buckets; phase 5l's step p50/p99, tokens/s and peak memory per run;
-     the kernels line's K1-K3 and K5-epilogue launches include 5m's, 5o's
-     and 5p's (and K4's and the K5 ring's, 5o's driver cell's rank 0).
+     the kernels line's K1-K3 and K5-epilogue launches include 5m's,
+     5o's, 5p's and 5q's (and K4's and the K5 ring's, 5o's driver cell's
+     rank 0).
 
 ``python3 chip_smoke.py --kernels-only`` runs phases 1–3 and stops without
 a result line; ``--phase 5o`` runs phases 1–2, the bench line and phase 5o,
-and ``--phase 5p`` phases 1–2 and phase 5p, without one either. In a
+``--phase 5p`` phases 1–2 and phase 5p, and ``--phase 5q`` phases 1–2
+and phase 5q, without one either. In a
 full run the line before the last lists the kernels
 as JSON (K1, K2, K3 and K4 once per route, each with its main path's
 launches; K6 and K7 with their launches by route, the K5 ring by width);
@@ -1482,9 +1500,9 @@ _TWO_RANK_ARGS = ["--model", "gpt2", "--fp16", "--flash-attention",
                   "--dropout0", "--batch-size", "8", "--sequence-len",
                   "1024", "--base-lr", "0.01", "--momentum", "0.9",
                   "--threshold", "25", "--num-warmup-batches", "2",
-                  "--num-batches-per-iter", "4", "--num-iters", "2"]
+                  "--num-batches-per-iter", "4", "--num-iters", "1"]
 #: phase 5b's steps, and its warmup (the steps before the timed ones)
-_TWO_RANK_STEPS, _TWO_RANK_WARMUP = 10, 2
+_TWO_RANK_STEPS, _TWO_RANK_WARMUP = 6, 2
 #: the last step's loss of dear-fused against dear (relative): JAX's "fp32
 #: ~1e-5 rel" (docs/KERNELS.md:119-124) widened for bf16 — the dear run
 #: rounds each reduced gradient to bf16 (2^-9 relative), the ring keeps
@@ -2303,17 +2321,21 @@ _BENCH_FLOPS_RTOL = 0.02
 
 
 def run_bench(card: str, timeout: float = 600.0,
-              telemetry=None) -> dict:
+              telemetry=None, iters=None) -> dict:
     """``python -m dear_pytorch_tpu_torch.bench`` as a user runs it (a
     process of its own, the card, no ``DEAR_BENCH_*`` switch): it exits 0,
     its last line parses, all five metrics are there with bench.py's names
     and units and a numeric value, MFU and peak memory, no error entry,
     and each counted step within `_BENCH_FLOPS_RTOL` of its analytic
-    count. Re-prints the line, then a line per model. Returns the line."""
+    count. ``iters``: the timed iterations of 10 steps per model
+    (``DEAR_BENCH_ITERS``; default the bench's 10). Re-prints the line,
+    then a line per model. Returns the line."""
     env = {k: v for k, v in os.environ.items()
            if not k.startswith("DEAR_BENCH_") and k != "DEAR_TELEMETRY"}
     if telemetry is not None:             # else the bench's default
         env["DEAR_TELEMETRY"] = telemetry
+    if iters is not None:
+        env["DEAR_BENCH_ITERS"] = str(iters)
     t0 = time.perf_counter()
     out = subprocess.run([sys.executable, "-m", "dear_pytorch_tpu_torch.bench"],
                          cwd=_ROOT, env=env, capture_output=True, text=True,
@@ -4439,17 +4461,23 @@ def check_resnet_remat_cli(card: str) -> dict:
     return {k: v for k, v in runs.items()}
 
 
+#: the telemetry-off line's timed iterations of 10 steps per model
+_BENCH_OFF_ITERS = 2
+
+
 def bench_telemetry(card: str, line_on: dict) -> dict:
     """Phase 5o (viii): the bench line with ``DEAR_TELEMETRY=0`` beside
     phase 5g's default (counters on): both telemetry blocks, and each
-    metric's value on and off."""
+    metric's value on and off. The off line times `_BENCH_OFF_ITERS`
+    iterations of 10 steps per model, not 10, for the script's time
+    limit; its values are means per step all the same."""
     _check(line_on.get("telemetry", {}).get("enabled") is True
            and line_on["telemetry"]["counters"].get("dear.steps", 0) > 0
            and "spans" not in line_on["telemetry"],
            f"bench: the default line's telemetry block {line_on.get('telemetry')}")
     gc.collect()
     torch.cuda.empty_cache()
-    line_off = run_bench(card, telemetry="0")
+    line_off = run_bench(card, telemetry="0", iters=_BENCH_OFF_ITERS)
     _check(line_off["telemetry"] == {"enabled": False, "counters": {}},
            f"bench DEAR_TELEMETRY=0: {line_off['telemetry']}")
     on = {m["metric"]: m["value"] for m in [line_on]
@@ -5657,6 +5685,160 @@ def _kernel_entry(name, source, replaces, launches, err, row):
     return entry
 
 
+# ---------------------------------------------------------------------------
+# phase 5q: elastic membership on the card
+# ---------------------------------------------------------------------------
+
+#: the drills' peer timeouts on the card (a collective of the data plane
+#: times out after a quarter of one): the GPT-2 storm's checkpoints gather
+#: ~430 MB a rank through the host, the MNIST net's a few KB
+_ELASTIC_TIMEOUT_S = 16
+_AUTOSCALE_TIMEOUT_S = 10
+
+
+def _drill_args(work: Path, model: str, **kw):
+    from dear_pytorch_tpu_torch.scripts import chaos_check as CK
+
+    argv = ["--workdir", str(work), "--device", _DEV, "--model", model,
+            "--checkpoint-every", "2", "--deadline", "240"]
+    for k, v in kw.items():
+        argv += [f"--{k.replace('_', '-')}"] + ([] if v is True else [str(v)])
+    return CK.build_parser().parse_args(argv)
+
+
+def _lost(transition: dict) -> str:
+    """A transition's steps lost, as the drill recorded them (none for a
+    move during the rank's own re-entry: it held no step yet)."""
+    n = transition["steps_lost"]
+    return "none (during its re-entry)" if n is None else str(n)
+
+
+def elastic_storm(card: str, work: Path) -> dict:
+    """Phase 5q (i): the elastic drill (`scripts.chaos_check --elastic`)
+    with GPT-2 small cut to 2 layers (full width, bf16, flash attention,
+    dear, B = 4 per rank, S = 1024), three ranks sharing the card under
+    the port's supervisor, per-host checkpoints every 2 steps: rank 2
+    SIGKILLs itself before attempt 5, the survivors regroup at epoch 1
+    (world 2), the relaunch rejoins at epoch 2 (world 3). JAX's verdicts
+    (lockstep final step, loss and epoch; plan world 3 -> 2 -> 3 with the
+    epoch stamped; every rollback on the newest common checkpoint), one
+    K5 epilogue per bucket on every completed step of every rank, and the
+    first post-shrink losses against a fresh 2-rank run restored from the
+    same step. Prints each transition's times on the card."""
+    from dear_pytorch_tpu_torch.scripts import chaos_check as CK
+
+    # --replay-shrink adds the peer timeout to the relaunch's delay, so
+    # the survivors train a few steps at world 2 before the rejoin
+    args = _drill_args(work, "gpt2", replay_shrink=True,
+                       peer_timeout=_ELASTIC_TIMEOUT_S)
+    summary = CK.run_elastic(args)
+    if not summary["passed"]:
+        print(summary.get("logs", "")[-12000:], file=sys.stderr)
+        raise RuntimeError(f"phase 5q (i) failed: {summary['failures']}")
+    v = summary["verdicts"]
+    death = json.loads((work / "death_rank2.json").read_text())["t"]
+    for r in (0, 1):
+        shrink, admit = v[r]["transitions"][:2]
+        print(f"phase 5q (i) rank {r} on {card}: death -> epoch-1 commit "
+              f"{shrink['t_commit'] - death:.3f} s (the peer timeout is "
+              f"{_ELASTIC_TIMEOUT_S} s); regroup {shrink['regroup_s']:.3f} "
+              f"s; rescale + restore {shrink['t_restored'] - shrink['t_hook']:.3f}"
+              f" s; steps lost {_lost(shrink)} (restored step "
+              f"{shrink['restored_step']})")
+        print(f"phase 5q (i) rank {r} on {card}: epoch-2 admission commit "
+              f"{admit['commit_s']:.3f} s; regroup {admit['regroup_s']:.3f} "
+              f"s; rescale + restore {admit['t_restored'] - admit['t_hook']:.3f}"
+              f" s; steps lost {_lost(admit)} (restored step "
+              f"{admit['restored_step']})")
+    print(f"phase 5q (i) rank 2 (relaunched) on {card}: rejoin request -> "
+          f"admission {v[2]['rejoin_s']:.3f} s; elastic resume "
+          f"{v[2]['resume_s']:.3f} s")
+    replay = summary["replay"]
+    print(f"phase 5q (i) the first {len(replay['losses'])} post-shrink "
+          f"losses {replay['survivor']} equal, bitwise, a fresh 2-rank run "
+          f"restored from step {replay['step']}")
+    out = {"fused_update": 0, "flash_fwd_tc": 0, "flash_bwd_dq_tc": 0,
+           "flash_bwd_dkv_tc": 0}
+    for r, verdict in v.items():
+        rows = [w for w in verdict["rows"] if not w["rolled_back"]]
+        c = verdict["counters"]
+        print(f"phase 5q (i) rank {r}: {len(rows)} completed steps, "
+              f"{sum(w['launches'] for w in rows)} K5-epilogue launches "
+              f"over {sum(w['buckets'] for w in rows)} buckets; K1-K3 "
+              f"launches {c.get('kernel.flash_fwd_launches', 0)}, "
+              f"{c.get('kernel.flash_bwd_dq_launches', 0)}, "
+              f"{c.get('kernel.flash_bwd_dkv_launches', 0)}")
+        out["fused_update"] += c.get("kernel.fused_update_launches", 0)
+        for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            out[k + "_tc"] += c.get(f"kernel.{k}_launches", 0)
+    print(f"phase 5q (i): {summary['elapsed_s']:.1f} s for the fleet")
+    return out
+
+
+def elastic_autoscale(card: str, work: Path) -> dict:
+    """Phase 5q (ii): `scripts.chaos_check --autoscale` with the MNIST
+    example's net on the card: 2 ranks, a scale-up to 3, a SIGKILL and
+    its relaunch, a drain and its backfill (epochs 1-5 with their signed
+    deltas), then a cold start from the remote tier alone, restored at
+    the newest upload and trained one step."""
+    from dear_pytorch_tpu_torch.scripts import chaos_check as CK
+
+    summary = CK.run_autoscale(_drill_args(
+        work, "mnistnet", peer_timeout=_AUTOSCALE_TIMEOUT_S))
+    if not summary["passed"]:
+        print(summary.get("logs", "")[-12000:], file=sys.stderr)
+        raise RuntimeError(f"phase 5q (ii) failed: {summary['failures']}")
+    fused = 0
+    for lives in summary["lives"].values():
+        for v in lives:
+            fused += v["counters"].get("kernel.fused_update_launches", 0)
+            for t in v["transitions"]:
+                if "t_restored" in t:
+                    print(f"phase 5q (ii) rank {v['rank']} epoch "
+                          f"{t['epoch']} ({t['kind']}, world {t['world']}) "
+                          f"on {card}: commit {t['commit_s']:.3f} s, "
+                          f"regroup {t.get('regroup_s', 0.0):.3f} s, "
+                          f"rescale + restore "
+                          f"{t['t_restored'] - t['t_hook']:.3f} s, steps "
+                          f"lost {_lost(t)}")
+    print(f"phase 5q (ii) on {card}: policy {summary['policy_decisions']}, "
+          f"epochs 1-5 committed, cold start at step "
+          f"{summary['cold']['restored_step']} (newest upload "
+          f"{summary['newest_uploaded']}), {summary['steps_per_hour']:.0f} "
+          f"steps/h over {summary['elapsed_s']:.1f} s")
+    return {"fused_update": fused}
+
+
+def elastic_phase(card: str) -> dict:
+    """Phase 5q: (i) the GPT-2 elastic storm and (ii) the MNIST autoscale
+    drill, side by side (two fleets of their own on the card, each with
+    its own store and peer timeout); returns the K1-K3 (tensor-core
+    routes) and K5-epilogue launches of every rank of both."""
+    import concurrent.futures
+
+    root = _ROOT / "build" / "chip_smoke" / "elastic"
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    done = {}
+
+    def timed(fn, key, work):
+        out = fn(card, work)
+        done[key] = time.perf_counter() - t0
+        return out
+
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        storm = pool.submit(timed, elastic_storm, "i", root / "storm")
+        auto = pool.submit(timed, elastic_autoscale, "ii",
+                           root / "autoscale")
+        out = storm.result()
+        out["fused_update"] += auto.result()["fused_update"]
+    print(f"phase 5q (i) done after {done['i']:.1f} s, (ii) after "
+          f"{done['ii']:.1f} s")
+    print(f"phase 5q launches: {out}")
+    shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     kernels_only = argv == ["--kernels-only"]
@@ -5671,13 +5853,15 @@ def main(argv=None) -> int:
                                                      "--out"]
     comp_worker = len(argv) == 4 and argv[0::2] == ["--comp-rank", "--out"]
     guard_only = argv == ["--phase", "5p"]
+    elastic_only = argv == ["--phase", "5q"]
     guard_worker = len(argv) == 8 and argv[0::2] == [
         "--guard-rank", "--world", "--out", "--cases"]
     resume_worker = len(argv) == 6 and argv[0::2] == [
         "--guard-resume", "--out", "--steps"]
     if argv and not (kernels_only or harness_only or worker or bert_worker
                      or probe_worker or modes_worker or comp_worker
-                     or guard_only or guard_worker or resume_worker):
+                     or guard_only or guard_worker or resume_worker
+                     or elastic_only):
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -5734,6 +5918,11 @@ def main(argv=None) -> int:
         guard_phase(card)
         print(f"phase 5p: {time.perf_counter() - t0:.1f} s")
         backend.shutdown()
+        return 0
+    if elastic_only:             # phase 5q alone
+        t0 = time.perf_counter()
+        elastic_phase(card)
+        print(f"phase 5q: {time.perf_counter() - t0:.1f} s")
         return 0
     if harness_only:             # phase 5o alone (with phase 5g's line)
         t0 = time.perf_counter()
@@ -5845,6 +6034,10 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     guard = guard_phase(card)
     print(f"checkpoint and guard phase (5p): "
+          f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    elastic = elastic_phase(card)
+    print(f"elastic membership phase (5q): "
           f"{time.perf_counter() - t0:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()      # the bench's process needs the memory
@@ -6102,7 +6295,7 @@ def main(argv=None) -> int:
         + modes_routes["fwd"]["tensor_core"]
         + comp_routes["fwd"]["tensor_core"]
         + harness["routes"]["fwd"]["tensor_core"]
-        + guard["flash_fwd_tc"],
+        + guard["flash_fwd_tc"] + elastic["flash_fwd_tc"],
         "cuda_core": fp32_routes["fwd"]["cuda_core"]
         + modes_routes["fwd"]["cuda_core"]
         + comp_routes["fwd"]["cuda_core"]
@@ -6124,7 +6317,7 @@ def main(argv=None) -> int:
                     + modes_routes[which]["tensor_core"]
                     + comp_routes[which]["tensor_core"]
                     + harness["routes"][which]["tensor_core"]
-                    + guard[kname + "_tc"],
+                    + guard[kname + "_tc"] + elastic[kname + "_tc"],
                     "cuda_core": fp32_routes[which]["cuda_core"]
                     + modes_routes[which]["cuda_core"]
                     + comp_routes[which]["cuda_core"]
@@ -6142,9 +6335,9 @@ def main(argv=None) -> int:
         # (the compressed buckets' dense means, the remat runs), phase
         # 5n's (every plan a tuner tried, and the multi_step runs), phase
         # 5o's (streamed batches, the driver's cells, scaling, the overlap
-        # report's rank 0, the remat check) and phase 5p's (the guarded,
+        # report's rank 0, the remat check), phase 5p's (the guarded,
         # replayed and resumed steps, the ranks' runs, the production
-        # example)
+        # example) and phase 5q's (every rank of both drills)
         _kernel_entry("fused_update", "fused_update.cu",
                       "dear_pytorch_tpu/ops/collective_matmul.py:317",
                       train_launches["fused_update"] + rn_launches
@@ -6152,7 +6345,8 @@ def main(argv=None) -> int:
                       + sum(z["launches"] for z in zoo.values())
                       + mnist_launches + modes_update + comp_update
                       + tune["launches"] + harness["update"]
-                      + guard["fused_update"], upd_err, upd),
+                      + guard["fused_update"] + elastic["fused_update"],
+                      upd_err, upd),
     ] + [
         _kernel_entry(f"ring_all_gather ({route})", "ring.cu",
                       "dear_pytorch_tpu/ops/collective_matmul.py:218",

@@ -44,6 +44,8 @@ window (reset before it), null on the CPU, as is ``mfu`` (no known peak).
 
 ``DEAR_BENCH_SMOKE=1`` runs tiny shapes (CPU-safe); ``DEAR_BENCH_BERT_LARGE``,
 ``DEAR_BENCH_VIT`` and ``DEAR_BENCH_GPT`` set to 0 skip those metrics.
+``DEAR_BENCH_ITERS=N`` times N iterations of 10 steps per model instead of
+bench.py's 10 (a shorter window, for a quick comparison of two settings).
 
 The line carries bench.py's ``telemetry`` block (root bench.py:565-570,
 :629): the tracer's snapshot (`observability.tracer.snapshot`) after every
@@ -121,7 +123,9 @@ class Protocol:
     @classmethod
     def from_env(cls) -> "Protocol":
         smoke = bool(os.environ.get("DEAR_BENCH_SMOKE"))
-        return cls(smoke, 2 if smoke else 10, 2 if smoke else 10,
+        iters = os.environ.get("DEAR_BENCH_ITERS", "").strip()
+        return cls(smoke, 2 if smoke else 10,
+                   int(iters) if iters else 2 if smoke else 10,
                    2 if smoke else 10)
 
     @property

@@ -34,6 +34,22 @@ commit's barrier: the cluster layer runs them from a side thread with a
 deadline, where a collective on the training step's group would
 interleave with the step's own and could hang it. `shutdown` releases
 both.
+
+Elastic membership (`regroup`): the JAX package rebuilds a mesh inside one
+process when the membership changes; here every rank is a process, a dead
+rank breaks the group, and a ``TCPStore`` hosted by rank 0 dies with rank
+0. So each committed membership epoch gets groups of its own: `regroup`
+releases the previous epoch's groups without a collective on them (an
+abort, then the destroy) and re-initialises the default group, and at
+world > 1 the host group, over the view's members — the rank is the
+member's index in ``view.members`` — at a ``PrefixStore`` scoped to the
+epoch over a store that outlives every rank (a ``FileStore`` under
+``DEAR_ELASTIC_DIR``, the supervisor's contract). The rendezvous may take
+as long as a rejoin, but each collective of an epoch's groups is bounded
+by a quarter of the membership's peer timeout
+(``DEAR_CLUSTER_TIMEOUT_SECS``): a collective stuck on a dead (or on a
+failed) peer ends as a step error well before the peers' health sync gives
+up on this rank.
 """
 
 from __future__ import annotations
@@ -52,9 +68,10 @@ import torch.distributed as dist
 from dear_pytorch_tpu_torch._device import resolve_device
 
 __all__ = [
-    "barriar", "barrier", "card_shared", "device", "group", "host_group",
-    "init", "is_initialized", "launched_size", "local_rank", "local_size",
-    "rank", "shutdown", "size", "store",
+    "barriar", "barrier", "card_shared", "data_plane_timeout", "device",
+    "elastic_store", "epoch", "group", "host_group", "init",
+    "is_initialized", "launched_size", "local_rank", "local_size", "rank",
+    "regroup", "shutdown", "size", "store",
 ]
 
 _lock = threading.Lock()
@@ -64,6 +81,10 @@ _host_group = None
 #: the TCP store's rendezvous deadline (torch's default for a tcp://
 #: init_method)
 _TIMEOUT = datetime.timedelta(minutes=30)
+#: the membership epoch of the current groups (None: `init`'s fixed world)
+_epoch: Optional[int] = None
+#: the store that outlives every rank (`elastic_store`), once opened
+_elastic_store = None
 
 
 def _env_int(*names: str) -> Optional[int]:
@@ -107,8 +128,8 @@ def _release() -> None:
     module then is torn down during finalization, which now and then
     aborts the process after its work is done (tests/
     test_torch_spawn_teardown.py)."""
-    global _store, _host_group
-    _store = _host_group = None
+    global _store, _host_group, _elastic_store
+    _store = _host_group = _elastic_store = None
 
 
 def _make_store(addr: str, rank_: int, world: int):
@@ -176,11 +197,142 @@ def is_initialized() -> bool:
 def shutdown() -> None:
     """Tear the group down (and the host group, and release the store);
     safe to call more than once."""
-    global _device, _store, _host_group
+    global _device, _store, _host_group, _epoch
     with _lock:
         if dist.is_initialized():
             dist.destroy_process_group()
-        _device = _store = _host_group = None
+        _device = _store = _host_group = _epoch = None
+
+
+# ---------------------------------------------------------------------------
+# elastic membership: one group per membership epoch
+# ---------------------------------------------------------------------------
+
+#: the supervisor's contract: the directory of the store that outlives
+#: every rank (`resilience.membership.ELASTIC_DIR_ENV`)
+_ELASTIC_DIR_ENV = "DEAR_ELASTIC_DIR"
+#: the membership's peer timeout (`resilience.cluster.TIMEOUT_ENV`, its
+#: default `resilience.cluster.DEFAULT_TIMEOUT_S`)
+_PEER_TIMEOUT_ENV = "DEAR_CLUSTER_TIMEOUT_SECS"
+_PEER_TIMEOUT_S = 120.0
+
+
+def _peer_timeout_s() -> float:
+    return float(os.environ.get(_PEER_TIMEOUT_ENV, "").strip()
+                 or _PEER_TIMEOUT_S)
+
+
+def data_plane_timeout() -> datetime.timedelta:
+    """The bound on each collective of an epoch's groups: a quarter of the
+    membership's peer timeout, within [1 s, 30 min]. A rank blocked on a
+    peer that failed (and moved on to the health sync) times out and
+    reaches the sync itself well inside the peers' deadline."""
+    secs = min(max(_peer_timeout_s() / 4.0, 1.0), _TIMEOUT.total_seconds())
+    return datetime.timedelta(seconds=secs)
+
+
+def _rendezvous_timeout() -> datetime.timedelta:
+    """How long an epoch's rendezvous may take: every member arrives once
+    its transition is done, a rejoiner after its admission (the JAX
+    package's rejoin window, ten peer timeouts and at least a minute)."""
+    return datetime.timedelta(seconds=max(10.0 * _peer_timeout_s(), 60.0))
+
+
+def elastic_store(root: Optional[str] = None):
+    """The store every epoch's groups rendezvous at: a ``FileStore`` in
+    ``root`` (default: ``DEAR_ELASTIC_DIR``), which outlives every rank.
+    Opened once per process."""
+    global _elastic_store
+    if _elastic_store is None:
+        root = root or os.environ.get(_ELASTIC_DIR_ENV, "").strip()
+        if not root:
+            raise RuntimeError(
+                f"regroup needs a store that outlives every rank: set "
+                f"{_ELASTIC_DIR_ENV} (the supervisor does) or pass store=")
+        os.makedirs(root, exist_ok=True)
+        _elastic_store = dist.FileStore(os.path.join(root, "c10d_store"),
+                                        -1)
+    return _elastic_store
+
+
+def _release_groups() -> None:
+    """Release the current groups without a collective on them: abort
+    each (under NCCL a dead peer would otherwise hang the communicator
+    until its timeout; under gloo it fails the queued work), then destroy
+    them. No barrier, no flush."""
+    global _host_group, _store
+    if dist.is_initialized():
+        for pg in (_host_group, dist.group.WORLD):
+            if pg is None:
+                continue
+            try:
+                pg.abort()
+            except Exception:   # a group its own error already tore down
+                pass
+        dist.destroy_process_group()
+    _host_group = _store = None
+
+
+def regroup(view, device=None, *, store=None) -> Optional[dist.ProcessGroup]:
+    """Form the groups of a committed membership view (a
+    `resilience.membership.MembershipView`: ``epoch``, ``members``,
+    ``rank``, ``world``) and return the data-plane group; idempotent per
+    epoch. The previous epoch's groups are released first, without a
+    collective on them. The rank is ``view.members.index(view.rank)``; the
+    groups rendezvous on a ``PrefixStore`` scoped to ``view.epoch`` over
+    ``store`` (default `elastic_store`); gloo where the ranks share a
+    card (`init`'s rule), NCCL otherwise, gloo on the CPU. A rank that is
+    not in ``view.members`` (it is leaving) only releases its groups and
+    gets None. Every member calls it, a rejoiner at its admitted epoch
+    included. Afterwards `group`, `host_group`, `store`, `rank`, `size`
+    and `epoch` report the new epoch's."""
+    global _device, _store, _host_group, _epoch
+    with _lock:
+        if (_epoch is not None and int(view.epoch) == _epoch
+                and dist.is_initialized()):
+            return dist.group.WORLD
+        if _device is not None and device is None:
+            dev = _device
+        else:
+            dev = resolve_device(device)
+        base = store if store is not None else elastic_store()
+        _release_groups()
+        _epoch = None
+        members = tuple(int(m) for m in view.members)
+        if int(view.rank) not in members:
+            _device = dev
+            return None
+        rank_, world = members.index(int(view.rank)), len(members)
+        if dev.type == "cuda":
+            if device is None or torch.device(device).index is None:
+                slot = (local_rank() if _env_int("DEAR_LOCAL_RANK",
+                                                 "LOCAL_RANK") is not None
+                        else int(view.rank))
+                dev = torch.device("cuda", slot % torch.cuda.device_count())
+            torch.cuda.set_device(dev)
+            backend = "gloo" if _shares_card(world) else "nccl"
+        elif dev.type == "cpu":
+            backend = "gloo"
+        else:
+            raise RuntimeError(f"no process-group backend for {dev}")
+        st = dist.PrefixStore(f"dear_epoch/{int(view.epoch)}/", base)
+        dist.init_process_group(backend, store=st, rank=rank_,
+                                world_size=world,
+                                timeout=_rendezvous_timeout())
+        _host_group = (dist.new_group(backend="gloo",
+                                      timeout=_rendezvous_timeout())
+                       if world > 1 else None)
+        for pg in (dist.group.WORLD, _host_group):
+            if pg is not None:
+                pg.set_timeout(data_plane_timeout())
+        _store, _device, _epoch = st, dev, int(view.epoch)
+        return dist.group.WORLD
+
+
+def epoch() -> Optional[int]:
+    """The membership epoch of the current groups (None when they are
+    `init`'s fixed world)."""
+    return _epoch
 
 
 def group() -> dist.ProcessGroup:

@@ -234,7 +234,7 @@ stream, not a host sync). `TrainStep.last_state` is the state the step
 last returned.
 
 Not ported yet (raises ``NotImplementedError`` naming its ROADMAP item):
-the multi-slice ``dcn`` schedule (item 9b).
+the multi-slice ``dcn`` schedule (item 9c).
 """
 
 from __future__ import annotations
@@ -289,7 +289,7 @@ class DearState(NamedTuple):
 
 #: options of the JAX package's ``build_train_step`` that are not ported
 #: yet -> the ROADMAP Queue 1 item that brings them
-_UNPORTED = {"dcn": "9b (the multi-slice schedule)"}
+_UNPORTED = {"dcn": "9c (the multi-slice schedule)"}
 
 
 class _SavedView(NamedTuple):
@@ -613,6 +613,9 @@ class TrainStep:
         #: event): the next in-place write of the masters, the optimizer
         #: or the compressor state waits for it (`hold_for_snapshot`)
         self._snapshot = None
+        #: a member of the group died (`abandon`): `quiesce` and `close`
+        #: drop what is in flight instead of waiting on the group
+        self.group_lost = False
 
         params = dict(model.named_parameters())
         for s in plan.leaves:
@@ -1111,6 +1114,11 @@ class TrainStep:
     def _step(self, state: DearState, batch) -> tuple:
         if not self._bound:
             raise RuntimeError("TrainStep.init() must run before step()")
+        if self.group_lost and self.world > 1:
+            raise RuntimeError(
+                "this step's group was abandoned (a member was lost, or a "
+                "rescale failed after releasing it): rebuild the step "
+                "(tuning.autotune.AutoTuner.rescale) or exit for relaunch")
         if self._acc is not None:
             for a in self._acc:
                 a.zero_()
@@ -1354,15 +1362,32 @@ class TrainStep:
         if self._snapshot is not None:
             torch.cuda.current_stream(self.device).wait_event(self._snapshot)
 
+    def abandon(self) -> None:
+        """Mark the step's group as lost — a member died, so no collective
+        of it may be issued or waited on again (an elastic membership
+        change, `tuning.autotune.AutoTuner.rescale`): `quiesce` and
+        `close` then drop the work the step left in flight unwaited, and
+        at world > 1 the step refuses to run."""
+        self.group_lost = True
+
+    def _drop_in_flight(self) -> None:
+        """Forget every collective handle of the step without waiting."""
+        self._rs_work = [[] for _ in self.plan.buckets]
+        self._ag_work = [None] * len(self.plan.buckets)
+        self._mstate_done = None
+
     def quiesce(self) -> None:
         """Wait for, or drop, whatever a step left in flight — an aborted
         step's reduce-scatters, its pending-gradient counts and fired
         hooks, the gathers and their events, the model state's sync and a
         checkpoint snapshot's copy — so the tensors can be overwritten.
-        The parameters' leftover gradients are dropped too."""
+        The parameters' leftover gradients are dropped too. After
+        `abandon`, the collectives are dropped unwaited."""
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)   # the snapshot copy too
         self._snapshot = None
+        if self.group_lost:
+            self._drop_in_flight()
         for g, works in enumerate(self._rs_work):
             for work in works:
                 if work is not None:
@@ -1424,12 +1449,19 @@ class TrainStep:
         dear-fused free the ring's buffers. The gather buffers die with the
         ring, so the model's parameters get memory of their own first.
         The last step's gathers are waited for first: they write the
-        updated parameters into the model."""
+        updated parameters into the model. After `abandon`, nothing of the
+        group is waited on (the ring's closing barrier included)."""
+        if self.group_lost:
+            self._drop_in_flight()
         self._wait_gathers(range(len(self._ag_work)))
         for hook in self._hooks:
             hook.remove()
         self._hooks = []
         if self.ring is None:
+            return
+        if self.group_lost:
+            self._full = []
+            self.ring = None
             return
         if (self._bound and not self.ring.closed
                 and self.device.type == "cuda" and self.world > 1):

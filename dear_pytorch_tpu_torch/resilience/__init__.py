@@ -11,10 +11,12 @@
   - `cluster`   — host-level consensus for multi-process recovery over the
                   c10d store (or the host gloo group, or a directory);
   - `sdc`       — the per-bucket fingerprint vote, the replay arbiter and
-                  the host-keyed quarantine ledger.
-
-Elastic membership and the capacity policy (``membership``, ``scale``)
-are ROADMAP Queue 1 item 9b.
+                  the host-keyed quarantine ledger;
+  - `membership` — elastic membership epochs: survivor shrink, rejoin,
+                  scale-up and drain over a store that outlives any rank
+                  (`comm.backend.regroup` forms each epoch's group);
+  - `scale`     — the capacity-driven supervisor policy
+                  (`launch.supervisor` executes its decisions).
 """
 
 from dear_pytorch_tpu_torch.resilience.cluster import (  # noqa: F401
@@ -27,6 +29,12 @@ from dear_pytorch_tpu_torch.resilience.cluster import (  # noqa: F401
     PeerTimeout,
     StoreTransport,
 )
+from dear_pytorch_tpu_torch.resilience.membership import (  # noqa: F401
+    ElasticCluster,
+    ElasticVerdict,
+    EvictedError,
+    MembershipView,
+)
 from dear_pytorch_tpu_torch.resilience.inject import (  # noqa: F401
     FAULT_ENV,
     Fault,
@@ -38,6 +46,12 @@ from dear_pytorch_tpu_torch.resilience.inject import (  # noqa: F401
 )
 from dear_pytorch_tpu_torch.resilience.preempt import (  # noqa: F401
     PreemptionHandler,
+)
+from dear_pytorch_tpu_torch.resilience.scale import (  # noqa: F401
+    CapacityHint,
+    ScaleDecision,
+    ScalePolicy,
+    read_capacity_file,
 )
 from dear_pytorch_tpu_torch.resilience.retry import (  # noqa: F401
     RetryError,

@@ -105,9 +105,14 @@ class PreemptionHandler:
 
     def install(self) -> "PreemptionHandler":
         if not self._installed:
-            # the elastic membership's epoch (resilience/membership.py,
-            # ROADMAP Queue 1 item 9b): none until it lands
-            self._epoch_fn = None
+            try:
+                from dear_pytorch_tpu_torch.resilience.membership import (
+                    current_epoch,
+                )
+
+                self._epoch_fn = current_epoch
+            except Exception:
+                self._epoch_fn = None
             for s in self._signals:
                 self._prev[s] = signal.signal(s, self._on_signal)
             self._installed = True

@@ -186,9 +186,13 @@ class StepWatchdog:
             env = _redaction.redact_env()
         except Exception:
             env = {}
-        # the elastic membership epoch: resilience/membership.py is ROADMAP
-        # Queue 1 item 9b, so until it lands there is none
-        mem_epoch = None
+        try:
+            from dear_pytorch_tpu_torch.resilience import (
+                membership as _membership)
+
+            mem_epoch = _membership.current_epoch()
+        except Exception:
+            mem_epoch = None
         return WatchdogReport(
             name=self.name, waited_s=waited, deadline_s=self.deadline_s,
             beat_info=info, live_spans=live,

@@ -52,6 +52,7 @@ from typing import Any, Callable, Optional, Sequence
 import torch
 import torch.distributed as dist
 
+from dear_pytorch_tpu_torch.comm import backend
 from dear_pytorch_tpu_torch.comm import collectives as C
 from dear_pytorch_tpu_torch.observability import tracer as _telemetry
 from dear_pytorch_tpu_torch.ops import fusion as F
@@ -220,6 +221,35 @@ def _adopt(old_ts: D.TrainStep, new_ts: D.TrainStep, saved: dict,
     old_ts.close()
     fresh = new_ts.init(saved["params"])
     return install_state(fresh, new_ts, saved, log=log)
+
+
+def _share_carried(saved: Optional[dict], group) -> Optional[dict]:
+    """An `export_state` image carried across a rescale, on every member
+    of the new ``group``: the lowest-ranked member that holds one (an old
+    member) broadcasts it over the host group to those that hold none (a
+    joiner). None when no member carries state. Every member calls it."""
+    world = dist.get_world_size(group)
+    if world == 1:
+        return saved
+    hg = backend.host_group()
+    flags = [None] * world
+    dist.all_gather_object(flags, saved is not None, group=hg)
+    if not any(flags):
+        return None
+    src = flags.index(True)
+    mine = None
+    if dist.get_rank(group) == src:
+        mine = {k: ({n: t.cpu() for n, t in v.items()} if k == "params"
+                    else v) for k, v in saved.items()}
+        mine["opt"] = {k: {n: t.cpu() for n, t in named.items()}
+                       for k, named in saved["opt"].items()}
+        mine["comp"] = {k: {n: t.cpu() for n, t in named.items()}
+                        for k, named in saved["comp"].items()}
+        mine["buffers"] = {n: t.cpu() for n, t in saved["buffers"].items()}
+    obj = [mine]
+    dist.broadcast_object_list(obj, src=dist.get_global_rank(hg, src),
+                               group=hg)
+    return saved if saved is not None else obj[0]
 
 
 def _plan_key(plan: F.FusionPlan) -> tuple:
@@ -407,7 +437,7 @@ class AutoTuner:
         if plan is not None:
             kw["plan"] = plan
         return D.build_train_step(self._loss_fn, self.model, **bucketing,
-                                  **kw, **self._build_kwargs)
+                                  **{**self._build_kwargs, **kw})
 
     def init(self, params: Optional[dict] = None) -> D.DearState:
         return self.ts.init(params)
@@ -564,12 +594,130 @@ class AutoTuner:
                              self._last_good_threshold, failed)
         return state
 
-    def rescale(self, view, *, state=None):
-        """Rebuild for a new replica count after an elastic membership
-        change (JAX autotune.py:614): not ported yet."""
-        raise NotImplementedError(
-            "AutoTuner.rescale (elastic membership changes) is not ported "
-            "yet: ROADMAP Queue 1 item 9b")
+    def rescale(self, view, *, state=None, store=None):
+        """Rebuild the train step for a new membership after an elastic
+        transition (JAX autotune.py:550; `utils.guard.GuardedTrainer`'s
+        ``on_membership_change`` hook calls it with the committed
+        `resilience.membership.MembershipView`): `comm.backend.regroup`
+        forms the view's groups (over ``store``, default the
+        ``DEAR_ELASTIC_DIR`` store), `ops.fusion.rescale_plan` keeps the
+        bucket grouping with the view's world and epoch stamped in, and a
+        new step is built over the same model on the new group and
+        initialized from the model's parameters. Returns the carried
+        state, or None.
+
+        Without ``state`` the guard's restore (after this hook) lands the
+        checkpoint in the new plan — JAX's order. With a live ``state``
+        every OLD member must call this (a scale-up, or a drain whose
+        leaver cooperates): the state is exported by parameter name on the
+        old group before it is released (`export_state` gathers the
+        shards), and across a world change the compressor residual of
+        every new rank is the mean of the old ranks' (JAX's
+        mass-preserving ``_repack_comp_state``). A rank outside
+        ``view.members`` only releases its groups and closes its step.
+
+        If the build raises, the failure is counted
+        (``autotune.rescale_failures``), the previous step stays installed
+        and the error propagates. At world 1 that step runs no collective
+        and stays usable (JAX's contract). At world > 1 its group is gone:
+        `comm.backend.regroup` released it before the build (the default
+        group is re-formed per epoch). The step is then abandoned and
+        refuses to run, so the rank must exit for relaunch and rejoin; the
+        guard lets the error propagate out of its step for that. A step
+        whose group lost a member (`TrainStep.abandon`) is closed without
+        any collective of that group."""
+        if not hasattr(view, "members"):
+            raise ValueError(
+                f"rescale needs the committed MembershipView (epoch, "
+                f"members, rank, world), got {view!r}: the port forms the "
+                "view's process group (comm.backend.regroup)")
+        world, epoch = int(view.world), int(getattr(view, "epoch", 0) or 0)
+        old_ts = self.ts
+        if self._build_kwargs.get("dcn") is not None:
+            raise NotImplementedError(
+                "AutoTuner.rescale of a hierarchical (dcn=) step is not "
+                "ported yet: ROADMAP Queue 1 item 9c (the multi-slice DCN "
+                "leg)")
+        if world == old_ts.plan.world and epoch == old_ts.plan.epoch:
+            return state
+        if old_ts.fused:
+            raise ValueError(
+                "mode='dear-fused' is not elastic: its ring transport is "
+                "bound to the group it was built on (JAX's fused step is "
+                "not rescaled either)")
+        tr = _telemetry.get_tracer()
+        plan = F.rescale_plan(old_ts.plan, world, epoch=epoch)
+        saved = None
+        if state is not None:
+            if old_ts.group_lost:
+                raise ValueError(
+                    "rescale(state=) carries the state over the old group, "
+                    "which lost a member; restore from a checkpoint instead")
+            saved = export_state(state, old_ts)
+            if world != old_ts.world and old_ts.world > 1 and saved["comp"]:
+                with torch.no_grad():
+                    for named in saved["comp"].values():
+                        for n, t in named.items():
+                            named[n] = C.all_reduce(
+                                t.to(old_ts.device),
+                                old_ts.group).cpu() / old_ts.world
+        if not old_ts.group_lost:
+            # the old group's last collectives, before it is released
+            old_ts._wait_gathers(range(len(old_ts._ag_work)))
+            old_ts._wait_model_state()
+        with tr.span("autotune.rescale", world=world, epoch=epoch,
+                     buckets=plan.num_buckets):
+            group = backend.regroup(view, device=old_ts.device, store=store)
+            if group is None:   # this rank left the membership
+                old_ts.abandon()
+                old_ts.close()
+                return None
+            kw = {}
+            if self.strategy == "plan":
+                kw = self._live_config.build_kwargs()
+                kw.pop("threshold_mb", None)   # the rescaled plan wins
+            try:
+                new_ts = self._build(dict(kw, group=group), plan)
+            except Exception as exc:
+                if tr.enabled:
+                    tr.count("autotune.rescale_failures")
+                    tr.event("autotune.rescale_failed", world=world,
+                             epoch=epoch,
+                             why=f"{type(exc).__name__}: {exc}"[:120])
+                if old_ts.world > 1:
+                    old_ts.abandon()   # its group was released above
+                logger.error(
+                    "autotune: rescale to world=%d (epoch %d) failed "
+                    "(%s: %s); previous plan still installed%s",
+                    world, epoch, type(exc).__name__, exc,
+                    "" if old_ts.world == 1 else
+                    " without its group: exit for relaunch")
+                raise
+            old_ts.abandon()   # its group is released: wait on nothing
+            if "group" in self._build_kwargs:   # later rebuilds use it
+                self._build_kwargs["group"] = group
+            saved = _share_carried(saved, group)
+            if saved is not None:
+                state = _adopt(old_ts, new_ts, saved, self._log)
+            else:
+                old_ts.close()
+                new_ts.init()
+        self.ts = new_ts
+        self.rebuilds += 1
+        if tr.enabled:
+            tr.count("autotune.rescales")
+            tr.event("autotune.rescaled", world=world, epoch=epoch,
+                     buckets=new_ts.plan.num_buckets)
+        if self.tuner is not None:
+            # a context change: timings of the old world are not
+            # comparable (JAX autotune.py:632-637)
+            self.tuner.notify_context(world=world, epoch=epoch)
+        if self.strategy == "plan":
+            self._trial_backup = None   # the snapshot predates the world
+            self._install_cost_model()
+        self._log(f"autotune: rescaled plan to world={world} (membership "
+                  f"epoch {epoch}, {new_ts.plan.num_buckets} buckets)")
+        return state
 
     # -- plan strategy -------------------------------------------------------
 

@@ -106,7 +106,7 @@ class PlanConfig:
     #: hierarchical schedule (None = the build default). A searched axis
     #: only on multi-slice spaces (`PlanSpace(num_slices > 1)`), which
     #: the port cannot build yet (the ``dcn`` schedule, ROADMAP Queue 1
-    #: item 9b).
+    #: item 9c).
     partition_mb: Optional[float] = None
 
     def key(self) -> tuple:

@@ -12,7 +12,8 @@ leaf's ``name`` (JAX's reader ignores the extra key).
 
 What a step holds, per rank (`save_checkpoint`): the rank's fp32 master
 shards (``shards.<g>``; the whole padded buckets in the replicated
-modes), the per-element optimizer state and its host scalars
+modes, and on per-host storage at world > 1, below), the per-element
+optimizer state and its host scalars
 (``opt.<g>.<key>``: SGD's ``initialized``, AdamW's and LAMB's ``t`` as
 0-dim tensors), the compressor state (``comp.<g>`` or
 ``comp.<g>.<key>``), the model state — the buffers that
@@ -32,16 +33,23 @@ Storage models (JAX :28-39):
     rename and writes the sidecar and the manifest.
   - **per-host** (``DEAR_CKPT_SHARED=0``): every rank owns its directory
     outright — it writes its blob, sidecar, manifest and retention — and
-    saves are synchronous (JAX :293-303). Per-host views can diverge (one
-    host's disk corrupts a step the others kept), which the cluster
+    saves are synchronous. As in the JAX package (:293-303: "this process
+    owns the whole directory, so it writes the whole state"), every rank's
+    blob holds the WHOLE state at world > 1: the sharded masters and
+    per-element optimizer state are gathered over the current epoch's
+    group into whole padded buckets before the write (the compressor
+    state stays this rank's). A lost host's shard then survives on every
+    other host, and `elastic_restore` reads a per-host step from the
+    rank's own directory alone, at any world. Per-host views can diverge
+    (one host's disk corrupts a step the others kept), which the cluster
     layer's consensus restore reconciles.
 
 Restores go into the live `parallel.dear.TrainStep`, in place
 (`restore_checkpoint` -> `TrainStep.load_state`): the step's tensors are
 updated in place by every step, and in the replicated modes the masters
 ARE the model's buffers. `elastic_restore` re-packs a step saved under
-another plan (another threshold, or another world on shared storage) by
-parameter name.
+another plan (another threshold, another world, another membership
+epoch) by parameter name.
 
 Asynchronous saves (``asynchronous=True``) snapshot the device tensors
 into pinned host buffers on a side stream, behind an event recorded after
@@ -53,10 +61,17 @@ once `wait_for_checkpoints` returns (`GuardedTrainer.finalize` does). At
 world > 1 on shared storage the commit (barrier and rename) happens at the
 next `wait_for_checkpoints`, on the main thread of every rank.
 
-Not ported yet (each raises ``NotImplementedError`` naming ROADMAP Queue 1
-item 9b): the object-store tier (`CheckpointStreamer`, `remote_steps`,
-`restore_from_object_store`) and the DCN exchanger's sidecar state
-(`read_dcn_state`, ``dcn_state=``).
+The object-store tier (JAX :880-1225): `CheckpointStreamer` uploads
+committed step dirs to a `utils.objectstore` store on a daemon thread
+(files, sidecar, then the manifest, the commit marker, under
+`resilience.retry`; an exhausted retry falls back to local-only retention
+for that step), `remote_steps` lists the committed uploads and
+`restore_from_object_store` materializes one locally, every file
+re-hashed against the remote manifest.
+
+Not ported yet (raises ``NotImplementedError`` naming ROADMAP Queue 1
+item 9c): the DCN exchanger's sidecar state (`read_dcn_state`,
+``dcn_state=``).
 """
 
 from __future__ import annotations
@@ -75,7 +90,7 @@ import torch.distributed as dist
 
 from dear_pytorch_tpu_torch.ops import fusion as F
 from dear_pytorch_tpu_torch.parallel import dear as D
-from dear_pytorch_tpu_torch.resilience.retry import retry_call
+from dear_pytorch_tpu_torch.resilience.retry import RetryError, retry_call
 
 logger = logging.getLogger("dear_pytorch_tpu_torch")
 
@@ -91,8 +106,8 @@ __all__ = [
     "verify_checkpoint", "wait_for_checkpoints", "write_manifest",
 ]
 
-_ITEM_9B = ("is not ported yet: ROADMAP Queue 1 item 9b (the object-store "
-            "tier and the multi-slice DCN state)")
+_ITEM_9C = ("is not ported yet: ROADMAP Queue 1 item 9c (the multi-slice "
+            "DCN state)")
 
 
 class PlanMismatchError(ValueError):
@@ -373,6 +388,27 @@ def _state_items(state: D.DearState, ts: D.TrainStep) -> list:
     return items
 
 
+def _whole_state_items(state: D.DearState, ts: D.TrainStep) -> list:
+    """`_state_items` with every sharded master and per-element optimizer
+    tensor gathered over ``ts``'s group into its whole padded bucket —
+    what a per-host blob holds at world > 1. Every rank calls it, in the
+    same order."""
+    from dear_pytorch_tpu_torch.comm import collectives as C
+
+    items = _state_items(state, ts)
+    if not ts.sharded or ts.world == 1:
+        return items
+    ts._wait_model_state()
+    out = []
+    for name, x in items:
+        if (torch.is_tensor(x) and x.dim() > 0
+                and (name.startswith("shards.")
+                     or name.startswith("opt."))):
+            x = C.all_gather(x.detach(), ts.group)
+        out.append((name, x))
+    return out
+
+
 def _rank_dir(step_dir: str, rank: int) -> str:
     """Where rank ``rank``'s blob lives in a committed (or temporary) step
     directory: ``rank_<r>/`` when the directory holds several ranks'
@@ -555,9 +591,11 @@ def save_checkpoint(
     enqueued (module docstring); call `wait_for_checkpoints` before
     reading the files or exiting. ``pipeline_state`` (a `runtime.pipeline`
     ``state_dict()``) and ``mem_epoch`` ride in the sidecar.
-    ``dcn_state`` raises (ROADMAP Queue 1 item 9b)."""
+    ``dcn_state`` raises (ROADMAP Queue 1 item 9c). On per-host storage
+    at world > 1 the blob holds the whole state, gathered over ``ts``'s
+    group first (module docstring)."""
     if dcn_state is not None:
-        raise NotImplementedError(f"dcn_state {_ITEM_9B}")
+        raise NotImplementedError(f"dcn_state {_ITEM_9C}")
     step = int(state.step)
     path = _ckpt_dir(directory, step)
     rank, world = ts.rank, ts.world
@@ -603,8 +641,10 @@ def save_checkpoint(
             _write_sidecar(directory, step, meta)
         return path
     # synchronous: plain copies to the host, in stream order
+    raw_items = (_whole_state_items(state, ts) if per_host and world > 1
+                 else _state_items(state, ts))
     items = [(n, x.detach().cpu() if torch.is_tensor(x) else _as_tensor(x))
-             for n, x in _state_items(state, ts)]
+             for n, x in raw_items]
     _write_local(mine, items)
     if world > 1 and not per_host:
         _host_barrier()   # every rank's blob is in the temporary dir
@@ -705,7 +745,7 @@ def read_pipeline_state(directory: str, step: int) -> Optional[dict]:
 
 def read_dcn_state(directory: str, step: int) -> Optional[dict]:
     """The cross-slice exchanger's sidecar state: not ported yet."""
-    raise NotImplementedError(f"read_dcn_state {_ITEM_9B}")
+    raise NotImplementedError(f"read_dcn_state {_ITEM_9C}")
 
 
 def read_mem_epoch(directory: str, step: int) -> Optional[int]:
@@ -954,8 +994,20 @@ def _image(saved: dict, state: D.DearState, ts: D.TrainStep) -> dict:
             "checkpoint leaves do not match the live step (restoring into a "
             f"different model/optimizer structure): missing {missing[:6]}, "
             f"unexpected {extra[:6]}")
-    shards = [saved[f"shards.{g}"] for g in range(len(state.shards))]
-    opt = [{k: _host_value(saved[f"opt.{g}.{k}"], v) for k, v in o.items()}
+    def mine(name: str, g: int, live):
+        # a per-host blob holds whole buckets (save_checkpoint): this
+        # rank's part of a sharded one
+        t = saved[name]
+        if (torch.is_tensor(live) and live.dim() > 0
+                and t.numel() != live.numel()
+                and t.numel() == ts.plan.buckets[g].padded_size):
+            n = ts.plan.buckets[g].shard_size
+            t = t.reshape(-1)[ts.rank * n:(ts.rank + 1) * n]
+        return t
+
+    shards = [mine(f"shards.{g}", g, s) for g, s in enumerate(state.shards)]
+    opt = [{k: _host_value(mine(f"opt.{g}.{k}", g, v), v)
+            for k, v in o.items()}
            for g, o in enumerate(state.opt_state)]
     comp = []
     for g, c in enumerate(state.comp_state):
@@ -1014,15 +1066,15 @@ def elastic_restore(
     template: Optional[D.DearState] = None,
 ) -> D.DearState:
     """Restore a checkpoint written under a DIFFERENT fusion plan — another
-    threshold at the same world, or (on shared storage, where every old
-    rank's blob is in the step dir) another world — into the live ``ts``,
-    in place. The sidecar's ``plan_desc`` rebuilds the old layout; the
-    masters, the per-element optimizer state and its host scalars are
-    carried by parameter name, as are the model state and the step. The
-    compressor state is carried at the same world and reset (with a log
-    line) across a world change. Per-host storage at another world needs
-    the elastic membership's views: it raises ``NotImplementedError``
-    naming ROADMAP Queue 1 item 9b. Every rank calls it."""
+    threshold, another world or another membership epoch — into the live
+    ``ts``, in place. The old buckets come from the step dir: every old
+    rank's blob on shared storage, or on per-host storage the rank's own
+    blob, which holds the whole state at world > 1. The sidecar's
+    ``plan_desc`` rebuilds the old layout; the masters, the per-element
+    optimizer state and its host scalars are carried by parameter name,
+    as are the model state and the step. The compressor state is carried
+    at the same world and reset (with a log line) across a world change
+    (JAX's rule). Every rank calls it."""
     if step is None:
         step = _default_step(directory)
         if step is None:
@@ -1121,9 +1173,10 @@ def elastic_restore(
 def _full_buckets(step_dir: str, old: F.FusionPlan, ts: D.TrainStep,
                   mine: dict) -> dict:
     """``{"shards.<g>" | "opt.<g>.<k>": the full padded old bucket}``: the
-    old ranks' shards concatenated (read from a shared step dir, or at the
-    same world gathered over the group from each rank's own blob), or the
-    blob's own buffers when they are whole (world 1, a replicated mode)."""
+    blob's own buffers when they are whole (world 1, a replicated mode, a
+    per-host blob at world > 1), else the old ranks' shards concatenated
+    (read from a shared step dir, or at the same world gathered over the
+    group from each rank's own blob)."""
     names = [k for k in mine if k.startswith("shards.")
              or (k.startswith("opt.") and mine[k].dim() > 0)]
     whole = all(mine[f"shards.{b.index}"].numel() == b.padded_size
@@ -1138,9 +1191,11 @@ def _full_buckets(step_dir: str, old: F.FusionPlan, ts: D.TrainStep,
         return {k: torch.cat([b[k].reshape(-1) for b in blobs])
                 for k in names}
     if old.world != ts.world:
-        raise NotImplementedError(
-            "elastic restore of a per-host checkpoint into another world "
-            "needs the elastic membership's views: ROADMAP Queue 1 item 9b")
+        raise ValueError(
+            f"checkpoint {step_dir} holds one rank's shards of a world-"
+            f"{old.world} plan and no other rank's blob: it cannot be "
+            f"restored at world {ts.world} (per-host saves hold the whole "
+            "state at world > 1)")
     from dear_pytorch_tpu_torch.comm import collectives as C
 
     return {k: C.all_gather(mine[k].reshape(-1).to(ts.device),
@@ -1148,24 +1203,349 @@ def _full_buckets(step_dir: str, old: F.FusionPlan, ts: D.TrainStep,
 
 
 # ---------------------------------------------------------------------------
-# the object-store tier: ROADMAP Queue 1 item 9b
+# the durable remote tier: checkpoint streaming to an object store
 # ---------------------------------------------------------------------------
+
+#: Remote key layout (under the store's root/prefix):
+#:   steps/<step:010d>/files/<relpath>   the step dir payload
+#:   steps/<step:010d>/sidecar.json      the local sidecar metadata
+#:   steps/<step:010d>/MANIFEST.json     written LAST — the commit marker
+#: A remote step EXISTS iff its manifest does (object stores have no
+#: rename; the last-written manifest is the atomic commit point).
+_REMOTE_STEPS = "steps"
+_REMOTE_MANIFEST = "MANIFEST.json"
+_REMOTE_SIDECAR = "sidecar.json"
+
+
+def _remote_step_key(step: int) -> str:
+    return f"{_REMOTE_STEPS}/{int(step):010d}"
 
 
 def remote_steps(store) -> list:
-    """Committed remote steps: not ported yet."""
-    raise NotImplementedError(f"remote_steps {_ITEM_9B}")
+    """Committed remote steps, newest first — a step counts only once its
+    ``MANIFEST.json`` landed (it is uploaded last, so a crash mid-upload
+    leaves an invisible partial, never a restorable-looking torn step)."""
+    out = set()
+    for key in store.list(_REMOTE_STEPS):
+        parts = key.split("/")
+        if (len(parts) >= 3 and parts[-1] == _REMOTE_MANIFEST
+                and parts[1].isdigit()):
+            out.add(int(parts[1]))
+    return sorted(out, reverse=True)
 
 
 class CheckpointStreamer:
-    """The background uploader of committed step dirs to an object store
-    (JAX checkpoint.py:911): not ported yet."""
+    """Background uploader: stream committed step dirs to an object store.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(f"CheckpointStreamer {_ITEM_9B}")
+    The durable-tier half of the multi-tier retention contract (the JAX
+    package's docs/RESILIENCE.md "Autoscaling"):
+
+      - **every-step local** — the checkpoint directory keeps what the
+        guard's ``max_keep`` retention decides; nothing here touches it.
+      - **every-Nth remote** — `enqueue` uploads steps on the
+        ``upload_every`` cadence (upload bandwidth is the scarce resource
+        on a training host; N spreads it).
+      - **last-K pinned** — remote retention always keeps the newest
+        ``pin_last`` uploads; older uploads survive only on the
+        ``keep_every`` archive cadence (0 = prune them), bounding remote
+        spend for the life of the service.
+
+    Uploads run on ONE daemon thread off the training path: `enqueue` is
+    a queue put, the worker waits for the step to commit locally (async
+    saves land late), verifies the checksum manifest, uploads files →
+    sidecar → manifest (commit marker last), all under
+    `resilience.retry` backoff. **An exhausted retry never raises into
+    training**: it counts ``ckpt.upload_errors``, logs the fallback to
+    local-only retention for that step, and the worker moves on — a dead
+    bucket degrades durability, not the run. ``ckpt.uploads`` counts
+    committed uploads.
+
+    A fully-lost fleet (or a scale-from-zero cold start) restores from
+    the remote tier alone via `restore_from_object_store` — zero loss of
+    progress past the newest uploaded step.
+    """
+
+    def __init__(
+        self,
+        directory: str,
+        store,
+        *,
+        upload_every: int = 1,
+        pin_last: int = 2,
+        keep_every: int = 0,
+        attempts: int = 4,
+        base_delay_s: float = 0.1,
+        max_delay_s: float = 2.0,
+        commit_wait_s: float = 60.0,
+    ):
+        import queue
+        import threading
+
+        self.directory = directory
+        self._store = store
+        self.upload_every = max(int(upload_every), 1)
+        self.pin_last = max(int(pin_last), 1)
+        self.keep_every = max(int(keep_every), 0)
+        self._attempts = max(int(attempts), 1)
+        self._base_delay_s = float(base_delay_s)
+        self._max_delay_s = float(max_delay_s)
+        self._commit_wait_s = float(commit_wait_s)
+        self.uploaded: list = []
+        self.failed: list = []
+        self._q: "queue.Queue" = queue.Queue()
+        self._pending = 0
+        self._cv = threading.Condition()
+        self._closed = False
+        self._thread = threading.Thread(
+            target=self._run, daemon=True, name="dear-ckpt-streamer")
+        self._thread.start()
+
+    # -- producer side (the training loop) -----------------------------------
+
+    def enqueue(self, step: int, *, force: bool = False) -> bool:
+        """Queue one committed (or committing) step for upload; returns
+        False when the step is off the remote cadence (``force=True``
+        bypasses the cadence — emergency saves must reach the durable
+        tier no matter where they land) or the streamer is closed. Never
+        blocks the training loop."""
+        step = int(step)
+        if self._closed or (not force and step % self.upload_every != 0):
+            return False
+        with self._cv:
+            self._pending += 1
+        self._q.put(step)
+        return True
+
+    def flush(self, timeout_s: Optional[float] = None) -> bool:
+        """Wait for every enqueued upload to finish (committed or given
+        up); True when the queue drained within the timeout."""
+        with self._cv:
+            return self._cv.wait_for(lambda: self._pending == 0,
+                                     timeout=timeout_s)
+
+    def close(self, timeout_s: float = 30.0) -> None:
+        """Drain and stop the worker (call at training end; `flush` first
+        if the last upload must be durable)."""
+        if self._closed:
+            return
+        self._closed = True
+        self.flush(timeout_s)
+        self._q.put(None)
+        self._thread.join(timeout=5.0)
+
+    def __enter__(self) -> "CheckpointStreamer":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    # -- worker side ---------------------------------------------------------
+
+    def _run(self) -> None:
+        while True:
+            item = self._q.get()
+            if item is None:
+                return
+            try:
+                self._upload(item)
+            except Exception:  # the worker must outlive any one upload
+                logger.exception(
+                    "checkpoint: unexpected streamer failure at step %s "
+                    "(local-only retention for it)", item)
+                self.failed.append(int(item))
+            finally:
+                with self._cv:
+                    self._pending -= 1
+                    self._cv.notify_all()
+
+    def _wait_local_commit(self, step: int) -> Optional[dict]:
+        """Block (bounded) until the step is committed AND verified
+        locally — an async save's dir appears only on commit, and an
+        unverifiable step must never become the durable tier's truth."""
+        import time
+
+        deadline = time.monotonic() + self._commit_wait_s
+        while True:
+            meta = read_sidecar(self.directory, step)
+            if (meta is not None
+                    and os.path.isdir(_ckpt_dir(self.directory, step))
+                    and verify_checkpoint(self.directory, step)):
+                return meta
+            if time.monotonic() >= deadline:
+                return None
+            time.sleep(0.1)
+
+    def _upload(self, step: int) -> None:
+        from dear_pytorch_tpu_torch.observability import tracer as _telemetry
+
+        tr = _telemetry.get_tracer()
+        meta = self._wait_local_commit(step)
+        if meta is None:
+            logger.error(
+                "checkpoint: step %d never committed/verified locally "
+                "within %.0fs; not uploaded", step, self._commit_wait_s)
+            if tr.enabled:
+                tr.count("ckpt.upload_errors")
+                tr.event("ckpt.upload_error", step=step,
+                         why="local_commit_timeout")
+            self.failed.append(step)
+            return
+        step_dir = _ckpt_dir(self.directory, step)
+        # the sidecar manifest was just re-verified by _wait_local_commit
+        # — reuse it instead of sha256-hashing the whole step dir a
+        # second time (manifest-less sidecars — async saves before their
+        # finalize backfill — hash here once)
+        files = meta.get("manifest") or _build_manifest(step_dir)
+        base = _remote_step_key(step)
+
+        def _put():
+            for rel in sorted(files):
+                self._store.put_file(f"{base}/files/{rel}",
+                                     os.path.join(step_dir, rel))
+            self._store.put_bytes(f"{base}/{_REMOTE_SIDECAR}",
+                                  json.dumps(meta).encode())
+            # the commit marker goes LAST: a reader that sees it can
+            # trust every byte above it is fully written
+            self._store.put_bytes(
+                f"{base}/{_REMOTE_MANIFEST}",
+                json.dumps({"step": step, "files": files}).encode())
+
+        try:
+            retry_call(_put, name="ckpt.upload", attempts=self._attempts,
+                       base_delay_s=self._base_delay_s,
+                       max_delay_s=self._max_delay_s,
+                       retry_on=(OSError, KeyError))
+        except RetryError as exc:
+            # the durable tier is best-effort from the run's point of
+            # view: training continues on local-only retention and the
+            # next cadence step tries the store again
+            logger.error(
+                "checkpoint: upload of step %d exhausted its retry "
+                "budget (%s); falling back to LOCAL-ONLY retention for "
+                "it", step, exc)
+            if tr.enabled:
+                tr.count("ckpt.upload_errors")
+                tr.event("ckpt.upload_error", step=step, why="retry_exhausted")
+            self.failed.append(step)
+            return
+        self.uploaded.append(step)
+        logger.info("checkpoint: step %d uploaded to the remote tier", step)
+        if tr.enabled:
+            tr.count("ckpt.uploads")
+            tr.event("ckpt.upload", step=step, files=len(files))
+        self._prune_remote(step)
+
+    def _prune_remote(self, uploaded_step: int) -> None:
+        """Remote retention: newest ``pin_last`` uploads are pinned;
+        older ones survive only on the ``keep_every`` archive cadence.
+        Remote steps NUMERICALLY NEWER than the one just uploaded are an
+        abandoned timeline (uploads are chronological on the one worker
+        thread, so a smaller step number after a larger one proves a
+        consensus rollback happened in between) — they are pruned
+        unconditionally, mirroring `prune_future_steps` locally; leaving
+        them would hand a cold start dead-timeline state newer than
+        anything the live fleet holds."""
+        try:
+            steps = remote_steps(self._store)
+        except Exception:
+            return  # a listing error must not fail the upload that ran
+        stale = [s for s in steps if s > uploaded_step]
+        if stale:
+            logger.warning(
+                "checkpoint: pruning %d abandoned-timeline remote step(s) "
+                "%s after upload of step %d (post-rollback)", len(stale),
+                stale, uploaded_step)
+        live = [s for s in steps if s <= uploaded_step]
+        for s in stale + live[self.pin_last:]:
+            if (s <= uploaded_step and self.keep_every
+                    and s % self.keep_every == 0):
+                continue
+            try:
+                self._store.delete_prefix(_remote_step_key(s))
+            except Exception:
+                pass  # retention is best-effort; retried next upload
 
 
-def restore_from_object_store(store, directory: str, *,
-                              step: Optional[int] = None) -> Optional[int]:
-    """Cold-start restore from the object-store tier: not ported yet."""
-    raise NotImplementedError(f"restore_from_object_store {_ITEM_9B}")
+def restore_from_object_store(store, directory: str,
+                              *, step: Optional[int] = None,
+                              ) -> Optional[int]:
+    """Cold-start restore: materialize the newest (or given) remote step
+    into ``directory`` so the ordinary local restore path
+    (`restore_checkpoint` / `elastic_restore` + sidecar reads) works on a
+    machine that has NEVER trained — a scale-from-zero start or a
+    fully-lost fleet. Every downloaded file is **re-hashed against the
+    remote manifest** (a bit-flip in the bucket or on the wire must not
+    become a poisoned restore); a corrupted remote step is walked past to
+    the next older one, exactly like the local corruption-fallback walk.
+    Returns the restored step (None when nothing restorable is remote).
+    Counts ``ckpt.remote_restores``."""
+    import shutil
+
+    from dear_pytorch_tpu_torch.observability import tracer as _telemetry
+
+    tr = _telemetry.get_tracer()
+    candidates = remote_steps(store)
+    if step is not None:
+        candidates = [s for s in candidates if s == int(step)]
+    os.makedirs(directory, exist_ok=True)
+    for s in candidates:
+        base = _remote_step_key(s)
+        try:
+            manifest = json.loads(
+                store.get_bytes(f"{base}/{_REMOTE_MANIFEST}"))
+            meta = json.loads(store.get_bytes(f"{base}/{_REMOTE_SIDECAR}"))
+        except (KeyError, ValueError) as exc:
+            logger.error(
+                "checkpoint: remote step %d unreadable (%s); walking to "
+                "the previous upload", s, exc)
+            continue
+        if not manifest.get("files"):
+            # a manifest listing no files is not a checkpoint (torn or
+            # rewritten remote object): corrupt, walk past it
+            logger.error(
+                "checkpoint: remote step %d manifest lists no files; "
+                "walking to the previous upload", s)
+            if tr.enabled:
+                tr.event("ckpt.remote_corrupt", step=s, file="<manifest>")
+            continue
+        step_dir = _ckpt_dir(directory, s)
+        tmp = step_dir + _LOCAL_TMP_MARK  # swept by prune_orphaned_tmp
+        if os.path.isdir(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp, exist_ok=True)
+        ok = True
+        for rel, ent in sorted(manifest.get("files", {}).items()):
+            dest = os.path.join(tmp, rel)
+            try:
+                store.get_file(f"{base}/files/{rel}", dest)
+            except KeyError:
+                ok = False
+            else:
+                ok = (os.path.getsize(dest) == ent["bytes"]
+                      and _file_digest(dest) == ent["sha256"])
+            if not ok:
+                logger.error(
+                    "checkpoint: remote step %d failed sha256 reverify on "
+                    "%s; walking to the previous upload", s, rel)
+                if tr.enabled:
+                    tr.event("ckpt.remote_corrupt", step=s, file=rel)
+                break
+        if not ok:
+            shutil.rmtree(tmp, ignore_errors=True)
+            continue
+        if os.path.isdir(step_dir):
+            shutil.rmtree(step_dir)
+        os.rename(tmp, step_dir)  # the local step dir appears atomically
+        if not meta.get("manifest"):
+            # an async save's sidecar may predate its manifest backfill;
+            # the remote manifest IS the verified truth now
+            meta["manifest"] = manifest.get("files", {})
+        _write_sidecar(directory, s, meta)
+        logger.warning(
+            "checkpoint: cold-start restored step %d from the remote "
+            "tier into %s", s, directory)
+        if tr.enabled:
+            tr.count("ckpt.remote_restores")
+            tr.event("ckpt.remote_restore", step=s)
+        return s
+    return None

@@ -33,11 +33,28 @@ desync sentinel, and under ``DEAR_SDC`` the per-bucket fingerprints
 the `observability.anomaly` detectors, and coordinated runs exchange
 `observability.aggregate` digests on the health sync.
 
-Not ported yet, each refused with ``NotImplementedError`` naming ROADMAP
-Queue 1 item 9b when the trainer is built: the elastic branches (a
-coordinator with ``supports_membership``, ``on_membership_change``,
-`GuardedTrainer.elastic_resume`, the pipeline's reshard), the DCN
-exchanger's state and the object-store ``streamer``.
+Elastic membership (JAX :259-281, :343-400, :470-620, :915-1010,
+:1159-1208): with a coordinator that ``supports_membership``
+(`resilience.membership.ElasticCluster`) the health sync runs at any
+world (it is where a sole survivor polls rejoin requests); a committed
+transition calls ``on_membership_change(view)`` BEFORE the consensus
+restore (the hook — `tuning.autotune.AutoTuner.rescale` — forms the new
+epoch's group and step, so the restore re-packs into the new plan), the
+pipeline is resharded AFTER it, and later sidecars carry the new epoch.
+In the port a rank's death also fails the survivors' dispatched step (its
+collectives lose a peer), and a local error mid-step leaves the peers'
+collectives to time out: with such a coordinator the step is abandoned
+and the error deferred to the health sync as unhealthy, where the peer
+timeout turns a death into the shrink, and with every member alive the
+members re-form the epoch at the same membership
+(`resilience.membership.ElasticCluster.reform`), a transition too. A SIGTERM (or an SDC quarantine) becomes a planned-shrink drain;
+`resilience.membership.EvictedError` propagates (exit for relaunch); a
+``streamer`` (`utils.checkpoint.CheckpointStreamer`) gets every committed
+save, and emergency saves are flushed to it inside the grace window;
+`elastic_resume` is a relaunched rank's re-entry.
+
+Not ported yet (refused with ``NotImplementedError`` naming ROADMAP Queue
+1 item 9c when the trainer is built): the DCN exchanger's state.
 """
 
 from __future__ import annotations
@@ -63,10 +80,10 @@ logger = logging.getLogger("dear_pytorch_tpu_torch")
 __all__ = ["DivergenceError", "GuardedTrainer", "PeerLostError"]
 
 
-def _item_9b(what: str) -> NotImplementedError:
+def _item_9c(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported yet: ROADMAP Queue 1 item 9b (elastic "
-        "membership, the multi-slice DCN leg and the object-store tier)")
+        f"{what} is not ported yet: ROADMAP Queue 1 item 9c (the "
+        "multi-slice DCN leg)")
 
 
 class DivergenceError(RuntimeError):
@@ -113,14 +130,8 @@ class GuardedTrainer:
         on_membership_change: Optional[Callable[[Any], None]] = None,
         streamer: Optional[Any] = None,
     ):
-        if getattr(coordinator, "supports_membership", False):
-            raise _item_9b("an elastic-membership coordinator")
-        if on_membership_change is not None:
-            raise _item_9b("on_membership_change")
-        if streamer is not None:
-            raise _item_9b("the object-store checkpoint streamer")
         if getattr(ts, "dcn", None) is not None:
-            raise _item_9b("the DCN exchanger's checkpoint state")
+            raise _item_9c("the DCN exchanger's checkpoint state")
         self.ts = ts
         self.directory = directory
         self.async_checkpoints = async_checkpoints
@@ -144,8 +155,14 @@ class GuardedTrainer:
             coordinator = _cluster.ClusterCoordinator(namespace="guard")
         self._coordinator = coordinator
         # a pipeline handed to the guard has its state_dict persisted in
-        # every checkpoint sidecar and restored on rollback
+        # every checkpoint sidecar, restored on rollback, and resharded on
+        # membership changes
         self._pipeline = pipeline
+        self.on_membership_change = on_membership_change
+        # the durable remote tier: every committed save is enqueued (the
+        # caller owns the streamer's lifecycle; `finalize` only flushes)
+        self._streamer = streamer
+        self._pending_reshard = False
         # SDC sentinel: armed by DEAR_SDC on coordinated runs only — the
         # vote needs peers
         self._sdc: Optional[_sdc.SdcSentinel] = None
@@ -154,6 +171,8 @@ class GuardedTrainer:
                                getattr(self._coordinator, "index", None))
             self._sdc = _sdc.SdcSentinel.from_env(rank=sdc_rank)
         self._sdc_drain = False
+        #: this rank's drain was acknowledged: its peers left the group
+        self._drained = False
         # run health: the flight ring (with the tracer, see `_flight`),
         # the anomaly detectors on the check cadence, and on coordinated
         # runs the digest exchange on the health sync
@@ -170,6 +189,9 @@ class GuardedTrainer:
         self._prev_step_t: Optional[float] = None
         self._last_loss: Optional[float] = None
         self._pending_error: Optional[BaseException] = None
+        #: a dispatched step of an elastic fleet raised: its group is out
+        #: of step, whoever is alive (reported at the next health sync)
+        self._group_failed = False
         self._peer_preempt = False
         self._preempt_handled = False
         self._preempt_saved_step: Optional[int] = None
@@ -195,13 +217,23 @@ class GuardedTrainer:
     @property
     def _coordinated(self) -> bool:
         """True when recovery decisions go through the cluster consensus
-        protocol (a coordinator over a real multi-process world)."""
-        return (self._coordinator is not None
-                and self._coordinator.process_count > 1)
+        protocol: a coordinator over a real multi-process world, or an
+        elastic membership (``supports_membership``) at ANY world — a
+        sole survivor keeps its health sync, where rejoin requests are
+        polled, or the fleet never grows back."""
+        if self._coordinator is None:
+            return False
+        return (self._coordinator.process_count > 1
+                or getattr(self._coordinator, "supports_membership", False))
+
+    @property
+    def _elastic(self) -> bool:
+        return bool(getattr(self._coordinator, "supports_membership", False))
 
     @property
     def _mem_epoch(self) -> Optional[int]:
-        """The elastic membership epoch (None: no elastic runs yet)."""
+        """The elastic membership epoch (None outside elastic runs),
+        stamped into every checkpoint sidecar."""
         return getattr(self._coordinator, "epoch", None)
 
     def _pipeline_state(self) -> Optional[dict]:
@@ -231,9 +263,27 @@ class GuardedTrainer:
                 "guard: pipeline state restore failed (%s); continuing "
                 "with the live stream position", exc)
 
+    def _reshard_pipeline(self) -> None:
+        """Reassign this rank's data slice after a committed membership
+        transition: the view's ``data_shard`` of ``data_world``."""
+        self._pending_reshard = False
+        view_fn = getattr(self._coordinator, "view", None)
+        if self._pipeline is None or view_fn is None:
+            return
+        view = view_fn()
+        shard = getattr(view, "data_shard", view.index)
+        world = getattr(view, "data_world", view.world)
+        try:
+            self._pipeline.reshard(shard, world, epoch=view.epoch)
+        except Exception as exc:
+            logger.error(
+                "guard: pipeline reshard to %d/%d (epoch %d) failed: %s",
+                shard, world, view.epoch, exc)
+
     def _restore_step(self, step: int):
         """Restore one step into the live step; a checkpoint packed under
-        a DIFFERENT plan re-packs through `ckpt.elastic_restore`."""
+        a DIFFERENT plan (another membership epoch or world) re-packs
+        through `ckpt.elastic_restore`."""
         try:
             return ckpt.restore_checkpoint(self.directory, self.ts,
                                            step=step)
@@ -246,6 +296,17 @@ class GuardedTrainer:
                 tr.event("guard.elastic_restore", step=step,
                          epoch=self._mem_epoch or 0)
             return ckpt.elastic_restore(self.directory, self.ts, step=step)
+
+    @property
+    def _drain_on_preempt(self) -> bool:
+        """Does a SIGTERM become this rank's planned-shrink drain instead
+        of a fleet-wide preemption? Only with a coordinator that speaks
+        the drain protocol; ``DEAR_PREEMPT_DRAIN=0`` keeps the fleet-wide
+        propagation."""
+        if not getattr(self._coordinator, "supports_draining", False):
+            return False
+        return os.environ.get("DEAR_PREEMPT_DRAIN", "").strip().lower() \
+            not in ("0", "false", "no", "off")
 
     @property
     def _preempt_requested(self) -> bool:
@@ -285,6 +346,9 @@ class GuardedTrainer:
         # async: the save's own temporary dir is legitimately alive
         self._prune(skip_tmp_step=(self._last_good_step
                                    if self.async_checkpoints else None))
+        if self._streamer is not None:
+            # a queue put: the streamer's worker waits for the commit
+            self._streamer.enqueue(step)
         return True
 
     def _prune(self, skip_tmp_step: Optional[int] = None) -> None:
@@ -313,12 +377,31 @@ class GuardedTrainer:
                     self.directory, limit=self._coordinator.max_candidates)
             else:
                 local = None  # defer to rank 0's verification
+            epoch_before = getattr(self._coordinator, "epoch", None)
             step = self._coordinator.consensus_restore_step(local)
             if step is None:
                 raise DivergenceError(
                     "no checkpoint step is verified on every host; "
                     "nothing commonly restorable (see the chained cause)"
                 ) from cause
+            if (epoch_before is not None
+                    and getattr(self._coordinator, "epoch",
+                                epoch_before) != epoch_before):
+                # a SECOND failure during the restore exchange moved the
+                # membership again: rebuild for the newest view before the
+                # restore lands
+                logger.critical(
+                    "guard: membership moved during the restore exchange "
+                    "(epoch %s -> %s); rebuilding for the newest view",
+                    epoch_before, self._coordinator.epoch)
+                self._pending_reshard = True
+                if self.on_membership_change is not None:
+                    self.on_membership_change(self._coordinator.view())
+                if tr.enabled:
+                    tr.count("guard.membership_changes")
+                    tr.event("guard.membership_change",
+                             epoch=self._coordinator.epoch,
+                             during="restore")
             # every rank is committed to this step: a restore failure here
             # must propagate (falling back locally would desynchronize)
             state = self._restore_step(step)
@@ -472,8 +555,34 @@ class GuardedTrainer:
                 self._attempt(state, batch, tr)
         except (FloatingPointError, RuntimeError) as exc:
             # (the JAX guard's DCN branches — self-eviction and a failed
-            # cross-slice leg — wait for the DCN leg, ROADMAP item 9b)
-            if self._coordinated:
+            # cross-slice leg — wait for the DCN leg, ROADMAP item 9c)
+            if self._coordinated and dispatched and self._elastic:
+                # an elastic fleet: a peer's death fails this rank's
+                # dispatched step (a collective lost its peer; the group's
+                # timeout bounds it, comm.backend.regroup), and so does a
+                # local error mid-step, which leaves the peers' collectives
+                # to time out. Either way the group is out of step: the
+                # step is abandoned (nothing of its group is waited on
+                # again) and the error deferred to the health sync as
+                # UNHEALTHY, as JAX's cross-slice leg does. There the peer
+                # timeout turns a death into a shrink, and with every
+                # member alive the members re-form the epoch
+                # (ElasticCluster.reform); the transition builds the step
+                # on the new group. The attempt counts, so every member
+                # reaches the sync at the same attempt.
+                if tr.enabled:
+                    tr.count("guard.step_errors")
+                    tr.event("guard.step_error", error=type(exc).__name__)
+                logger.error(
+                    "guard: dispatched step raised %s: %s — deferring to "
+                    "the elastic health sync", type(exc).__name__, exc)
+                self._pending_error = exc
+                self._group_failed = True
+                self.ts.abandon()
+                self.steps_seen += 1
+                healthy, new_state, metrics, error = False, None, None, exc
+                is_ckpt, is_check = False, True
+            elif self._coordinated:
                 # a LOCAL failure must not fork the SPMD program: raised
                 # before the step dispatched, this rank still runs the
                 # real step (peers' collectives need it) and defers the
@@ -545,6 +654,7 @@ class GuardedTrainer:
                     error = self._pending_error
                 healthy = False
             self._pending_error = None
+            self._group_failed = False
 
         if is_check:
             self._health_tick(tr, per_step_s)
@@ -552,7 +662,8 @@ class GuardedTrainer:
         if not healthy:
             return self._rollback(error, fl, tr)
 
-        if is_ckpt and not self._sdc_drain and self._save(new_state):
+        if (is_ckpt and not self._sdc_drain and not self._drained
+                and self._save(new_state)):
             # persisted healthy progress: a future rollback is a NEW
             # incident; a FAILED async save must not reset the count
             self.recoveries = 0
@@ -576,9 +687,10 @@ class GuardedTrainer:
 
     def _health_sync(self, healthy, metrics, tr) -> bool:
         """The per-check-interval consensus point: any-rank-unhealthy, the
-        loss fingerprint (the desync sentinel), the SDC fingerprints and
-        preemption propagation, in ONE bounded exchange. Returns the
-        verdict's ``ok``."""
+        loss fingerprint (the desync sentinel), the SDC fingerprints,
+        preemption propagation and — on an elastic fleet — the drain
+        announcement and the membership transitions, in ONE bounded
+        exchange. Returns the verdict's ``ok``."""
         local_ok = healthy and self._pending_error is None
         fp = ""
         if healthy and metrics is not None:
@@ -594,15 +706,32 @@ class GuardedTrainer:
         pre_req = (self._preemption is not None
                    and self._preemption.requested
                    and not self._preempt_handled)
+        # an elastic fleet turns a SIGTERM (or this host's SDC quarantine)
+        # into this rank's planned shrink; DEAR_PREEMPT_DRAIN=0 keeps the
+        # fleet-wide propagation. Only a coordinator that speaks the drain
+        # protocol is passed ``draining=`` (a fixed-world one only fences
+        # the quarantined host's saves)
+        drain = (pre_req and self._drain_on_preempt
+                 or self._sdc_drain and getattr(
+                     self._coordinator, "supports_draining", False))
         sync_kwargs = dict(ok=local_ok, fingerprint=fp, step=self.steps_seen,
-                           preempted=pre_req)
+                           preempted=pre_req and not drain)
         if self._sdc is not None:
             sync_kwargs["sdc_fingerprint"] = sfp
             sync_kwargs["host"] = self._sdc.host
+        if drain:
+            sync_kwargs["draining"] = True
+        if self._group_failed:
+            sync_kwargs["group_failed"] = True
         try:
             verdict = self._coordinator.health_check(**sync_kwargs)
-            if self._aggregator is not None:
-                # one lockstep digest exchange per health sync
+            membership_changed = bool(
+                getattr(verdict, "membership_changed", False))
+            if (self._aggregator is not None and not membership_changed
+                    and not getattr(verdict, "self_draining", False)):
+                # one lockstep digest exchange per health sync; skipped
+                # across a transition (the member set just changed) and by
+                # a drainer (the survivors never join it)
                 self.merged_health = self._aggregator.exchange()
         except _cluster.PeerTimeout:
             # dead-peer detection: forensics through the watchdog, then
@@ -640,12 +769,55 @@ class GuardedTrainer:
                     "guard: SDC conviction — host(s) %s quarantined in the "
                     "ledger", acts["convicted"])
             if self._sdc.drain_requested and not self._sdc_drain:
-                # THIS host was convicted: fence checkpoint saves (the
-                # planned-shrink drain itself is elastic, item 9b)
+                # THIS host was convicted: fence checkpoint saves and
+                # announce a planned-shrink drain at the next sync
                 self._sdc_drain = True
                 logger.critical(
-                    "guard: host %s is quarantined — checkpoint saves "
-                    "fenced", self._sdc.host)
+                    "guard: host %s is quarantined — draining via planned "
+                    "shrink; checkpoint saves fenced", self._sdc.host)
+        if getattr(verdict, "self_draining", False) and self._sdc_drain:
+            # the survivors committed the quarantine drain without me: no
+            # emergency save (this host's state is the suspect copy)
+            raise _sdc.SdcQuarantined(
+                f"host {self._sdc.host} is quarantined in the SDC ledger; "
+                "planned-shrink drain committed — exiting for backfill on "
+                "a fresh host")
+        if getattr(verdict, "self_draining", False):
+            # the fleet acknowledged my drain and commits the shrink
+            # without me: emergency-save and exit inside the grace window
+            self._peer_preempt = True
+            self._drained = True
+            rem = (self._preemption.remaining()
+                   if self._preemption is not None else None)
+            logger.warning(
+                "guard: drain acknowledged at step %d — planned shrink "
+                "committed by the survivors (grace remaining: %s)",
+                self.steps_seen,
+                "unknown" if rem is None else f"{rem:.1f}s")
+        if membership_changed:
+            # a committed transition: the hook rebuilds the step for the
+            # new members BEFORE the restore (the re-pack lands in the new
+            # plan), the pipeline is resharded after it, and every member
+            # rolls back to the newest step valid on all of them (the
+            # verdict is never ok)
+            self._pending_reshard = True
+            if tr.enabled:
+                tr.count("guard.membership_changes")
+                tr.event(
+                    "guard.membership_change",
+                    epoch=getattr(verdict, "epoch", -1),
+                    lost=",".join(map(str, getattr(verdict, "lost", ()))),
+                    admitted=",".join(
+                        map(str, getattr(verdict, "admitted", ()))))
+            logger.critical(
+                "guard: membership transition at step %d — epoch %s, "
+                "members %s (lost %s, admitted %s); coordinated rollback "
+                "+ reshard", self.steps_seen, getattr(verdict, "epoch", "?"),
+                list(getattr(verdict, "members", ())),
+                list(getattr(verdict, "lost", ())),
+                list(getattr(verdict, "admitted", ())))
+            if self.on_membership_change is not None:
+                self.on_membership_change(self._coordinator.view())
         return verdict.ok
 
     def _rollback(self, error, fl, tr):
@@ -668,6 +840,10 @@ class GuardedTrainer:
         self._last_good_step = at_step
         self._last_check_t = None
         self._prev_step_t = None
+        if self._pending_reshard:
+            # after the restore: the sidecar re-seated the stream at the
+            # checkpointed position, the reshard reassigns the slice
+            self._reshard_pipeline()
         if tr.enabled:
             tr.count("guard.rollbacks")
             tr.count("guard.steps_skipped")  # the bad batch is skipped
@@ -694,9 +870,48 @@ class GuardedTrainer:
         return restored, out
 
     def elastic_resume(self, context: Optional[dict] = None):
-        """Re-entry of a relaunched rank admitted by the elastic
-        membership: not ported yet."""
-        raise _item_9b("GuardedTrainer.elastic_resume")
+        """Re-entry of a relaunched rank just admitted through
+        `resilience.membership.ElasticCluster.rejoin`: the survivors are
+        inside their membership-change rollback, so this runs the SAME
+        consensus restore from this side (this rank's verified steps take
+        part), re-seats and reshards the pipeline, and aligns the attempt
+        cadence with the fleet through the admission ack's
+        ``steps_seen``. Returns ``(state, step)``."""
+        if context:
+            self.steps_seen = int(context.get("steps_seen",
+                                              self.steps_seen))
+        self._last_check_steps = self.steps_seen
+        self._last_check_t = None
+        self._prev_step_t = None
+        state, step = self._restore()
+        self._reshard_pipeline()
+        self._last_good_step = step
+        tr = _telemetry.get_tracer()
+        if tr.enabled:
+            tr.event("guard.elastic_resume", step=step,
+                     steps_seen=self.steps_seen,
+                     epoch=self._mem_epoch or 0)
+        logger.warning(
+            "guard: elastic resume at checkpoint step %d (attempt cadence "
+            "%d, membership epoch %s)", step, self.steps_seen,
+            self._mem_epoch)
+        return state, step
+
+    def _stream_emergency(self, step: int) -> None:
+        """Push an emergency save to the remote tier inside the grace
+        budget: enqueue (off the upload cadence), then flush bounded by
+        what remains of the SIGTERM->SIGKILL window."""
+        if self._streamer is None:
+            return
+        rem = (self._preemption.remaining()
+               if self._preemption is not None else None)
+        budget = 10.0 if rem is None else max(min(rem - 1.0, 10.0), 0.5)
+        self._streamer.enqueue(step, force=True)
+        if not self._streamer.flush(budget):
+            logger.error(
+                "guard: emergency upload of step %d did not finish inside "
+                "the %.1fs grace budget; the remote tier keeps the "
+                "previous upload", step, budget)
 
     def _emergency_save(self, state, metrics) -> Optional[int]:
         """Preemption checkpoint: synchronous, verified, at the current
@@ -720,6 +935,23 @@ class GuardedTrainer:
                 "durable step stays %s", self._last_good_step)
             return None
         step = int(state.step)
+        if self._drained and self.ts.world > 1:
+            # the survivors left this rank's group when they committed the
+            # drain; a save at world > 1 is a collective (the per-host
+            # blob gathers every shard, shared storage commits behind a
+            # barrier), so the newest durable step is the last periodic
+            # one (JAX's drainer holds the whole state and saves it here)
+            logger.warning(
+                "guard: drained at step %d; the peers left the group, so "
+                "the newest durable step stays %s", step,
+                self._last_good_step)
+            if tr.enabled:
+                tr.count("guard.preempt_saves")
+                tr.event("guard.preempt_save", step=self._last_good_step
+                         if self._last_good_step is not None else -1)
+            if self._last_good_step is not None:
+                self._stream_emergency(self._last_good_step)
+            return self._last_good_step
         if step == self._last_good_step:
             if not self.async_checkpoints:
                 logger.warning(
@@ -728,6 +960,7 @@ class GuardedTrainer:
                 if tr.enabled:
                     tr.count("guard.preempt_saves")
                     tr.event("guard.preempt_save", step=step)
+                self._stream_emergency(step)
                 return step
             # the newest async save may still be uncommitted: make it
             # durable before claiming it as the resume point
@@ -745,6 +978,7 @@ class GuardedTrainer:
                 if tr.enabled:
                     tr.count("guard.preempt_saves")
                     tr.event("guard.preempt_save", step=step)
+                self._stream_emergency(step)
                 return step
         else:
             try:
@@ -776,6 +1010,7 @@ class GuardedTrainer:
         if tr.enabled:
             tr.count("guard.preempt_saves")
             tr.event("guard.preempt_save", step=step)
+        self._stream_emergency(step)
         return step
 
     def finalize(self) -> None:
@@ -785,6 +1020,10 @@ class GuardedTrainer:
         ckpt.wait_for_checkpoints()
         if self.async_checkpoints and self._last_good_step is not None:
             ckpt.write_manifest(self.directory, self._last_good_step)
+        if self._streamer is not None and not self._streamer.flush(30.0):
+            logger.error(
+                "guard: remote-tier uploads still pending at finalize; the "
+                "newest local checkpoint may not be durable remotely")
 
     def __enter__(self):
         return self

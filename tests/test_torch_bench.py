@@ -144,6 +144,15 @@ def test_protocol_follows_bench_py(monkeypatch):
     assert (smoke.num_iters, smoke.batches_per_iter) == (2, 2)
 
 
+def test_protocol_iters_shortens_the_timed_window(monkeypatch):
+    """``DEAR_BENCH_ITERS`` changes the timed iterations only."""
+    monkeypatch.delenv("DEAR_BENCH_SMOKE", raising=False)
+    monkeypatch.setenv("DEAR_BENCH_ITERS", "2")
+    short = bench.Protocol.from_env()
+    assert (short.warmup_steps, short.num_iters, short.batches_per_iter) == (
+        10, 2, 10)
+
+
 def test_analytic_counts_at_full_size():
     """The full-size counts the card's counted steps are held against
     (PERF.md names them), reckoned by hand from the configs: ResNet-50 3 x
