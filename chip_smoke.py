@@ -88,7 +88,8 @@ non-zero and no result line is printed):
      against one with the dense attention core (2 layers, batch 2), and 3
      steps with the CLI's default dropout;
   5b. train it at world 2 as two processes sharing the card (this script
-     with ``--train-rank R --out DIR --mode M``; the ``DEAR_*`` launcher
+     with ``--train-rank R --out DIR --mode M[,M...]``, the three runs
+     below in one process per rank since slice 19; the ``DEAR_*`` launcher
      variables, a ``file://`` store, card ``r % device_count``), 8
      sequences per rank, 6 steps (20 before slice 17, 10 before slice 18
      cut it for time),
@@ -147,7 +148,9 @@ non-zero and no result line is printed):
      logits within `_VIT_CPU_RTOL`;
   5g. run the port's bench entry as a user runs it (``python -m
      dear_pytorch_tpu_torch.bench``, a process of its own; its timed
-     window runs through ``TrainStep.multi_step(10)``): exit 0, one
+     window runs through ``TrainStep.multi_step(10)``, `_BENCH_ITERS`
+     timed iterations of it per model, not the bench's 10, for the time
+     limit): exit 0, one
      parsable last line with bench.py's five metrics, names and units,
      each with a numeric value, MFU and peak memory and no error entry,
      each counted step within `_BENCH_FLOPS_RTOL` of its analytic count;
@@ -256,7 +259,7 @@ non-zero and no result line is printed):
   5o. the input pipeline and the harness, one rank on NCCL unless said:
      the native producer library built from the port's copy of
      ``csrc/dear_runtime.cpp``; ResNet-50 (bf16, B = 64, 224²) through the
-     ImageNet CLI with ``--pipeline native`` (35 steps, every one launching
+     ImageNet CLI with ``--pipeline native`` (25 steps, every one launching
      the K5 epilogue once per bucket; the driven object a native
      ``Pipeline``), then ``--pipeline none``: step p50/p99, img/s, the
      producers' own rate, the host cast and staging time, a traced idle
@@ -272,8 +275,8 @@ non-zero and no result line is printed):
      timeline shares); ResNet-50 ``--remat-policy full`` through the CLI
      WITH its cuDNN settings (benchmark mode, after every earlier phase
      timed convs in this process), bitwise against the run without; and
-     the bench line again with ``DEAR_TELEMETRY=0`` (2 timed iterations
-     of 10 steps per model since slice 18, for the time limit) beside
+     the bench line again with ``DEAR_TELEMETRY=0`` (`_BENCH_OFF_ITERS`
+     timed iterations of 10 steps per model, for the time limit) beside
      phase 5g's default (counters on);
   5p. checkpoints and the guarded trainer (run after 5n, before the bench
      line): (i) GPT-2 small at full width through the GPT CLI's builders
@@ -314,6 +317,21 @@ non-zero and no result line is printed):
      the same step; each transition's times printed; (ii) the MNIST net
      through the autoscale drill (scale-up, SIGKILL and relaunch, drain
      and backfill: epochs 1-5, then a cold start from the remote tier);
+  5r. the multi-slice DCN leg (after 5q), three parts side by side: (i)
+     GPT-2 small cut to 2 layers (as 5q's), four ranks sharing the card
+     over gloo, first flat ``dear`` at world 4, then the hierarchical
+     step at 2 slices x 2 ranks (`comm.backend.form_slice_groups`, a
+     `comm.dcn.DcnExchanger` over a `FileTransport` under ``build/``), 4
+     steps each from the same seeded initial state: the hierarchical
+     losses within 1e-3 of the flat run's (and equal on every rank), the
+     gathered parameters within 2e-4 of the largest, one K5 epilogue per
+     bucket per step on every rank, K1-K3 on tensor cores; the DCN leg's
+     time per step by part and its bytes printed; (ii) and (iii)
+     `scripts.chaos_check --multislice` and ``--multislice-flap`` with
+     the MNIST net, 2 slices x 2 ranks: JAX's verdicts, and per survivor
+     the time from death to the shrink's commit, the renorms, the
+     degraded steps, the time to readmission, the steps lost and the
+     `fit_dcn` α-β;
   6. trace steady bf16 decode ticks and training steps with
      ``torch.profiler`` (device ops, busy time and idle share, the top
      device ops of a step); time each kernel, its plain version and
@@ -334,13 +352,14 @@ non-zero and no result line is printed):
      largest shards (VGG-16's fc1) and at the replicated modes' whole
      buckets; phase 5l's step p50/p99, tokens/s and peak memory per run;
      the kernels line's K1-K3 and K5-epilogue launches include 5m's,
-     5o's, 5p's and 5q's (and K4's and the K5 ring's, 5o's driver cell's
-     rank 0).
+     5o's, 5p's, 5q's and 5r's (and K4's and the K5 ring's, 5o's driver
+     cell's rank 0).
 
 ``python3 chip_smoke.py --kernels-only`` runs phases 1–3 and stops without
 a result line; ``--phase 5o`` runs phases 1–2, the bench line and phase 5o,
-``--phase 5p`` phases 1–2 and phase 5p, and ``--phase 5q`` phases 1–2
-and phase 5q, without one either. In a
+``--phase 5p`` phases 1–2 and phase 5p, ``--phase 5q`` phases 1–2 and
+phase 5q, and ``--phase 5r`` phases 1–2 and phase 5r, without one
+either. In a
 full run the line before the last lists the kernels
 as JSON (K1, K2, K3 and K4 once per route, each with its main path's
 launches; K6 and K7 with their launches by route, the K5 ring by width);
@@ -1500,9 +1519,10 @@ _TWO_RANK_ARGS = ["--model", "gpt2", "--fp16", "--flash-attention",
                   "--dropout0", "--batch-size", "8", "--sequence-len",
                   "1024", "--base-lr", "0.01", "--momentum", "0.9",
                   "--threshold", "25", "--num-warmup-batches", "2",
-                  "--num-batches-per-iter", "4", "--num-iters", "1"]
-#: phase 5b's steps, and its warmup (the steps before the timed ones)
-_TWO_RANK_STEPS, _TWO_RANK_WARMUP = 6, 2
+                  "--num-batches-per-iter", "2", "--num-iters", "1"]
+#: phase 5b's steps, and its warmup (the steps before the timed ones):
+#: 4, for the script's time limit
+_TWO_RANK_STEPS, _TWO_RANK_WARMUP = 4, 2
 #: the last step's loss of dear-fused against dear (relative): JAX's "fp32
 #: ~1e-5 rel" (docs/KERNELS.md:119-124) widened for bf16 — the dear run
 #: rounds each reduced gradient to bf16 (2^-9 relative), the ring keeps
@@ -1669,21 +1689,37 @@ def check_ring_two_ranks(rank: int) -> tuple:
     return ag, rs
 
 
-def rank_worker(rank: int, out: Path, mode: str) -> None:
+def rank_worker(rank: int, out: Path, modes: str) -> None:
     """One of the two ranks (a process of its own, on card ``rank %
-    device_count``): in dear-fused, first `check_ring_two_ranks` (both K4
-    routes on the IPC ring), with ring
-    projections `check_ring_matmul_two_ranks` (their launches are not the
-    main path's); then `_TWO_RANK_STEPS` steps of the training CLI in
-    ``mode`` (a key of `_TWO_RANK_MODES`) over a gloo group that meets at a
-    FileStore in ``out``, every step's launches checked; in both
-    dear-fused modes, a ``torch.profiler`` trace of 3 more steps (both
-    ranks; their ring calls pair up); then the gathered parameters'
-    digest, the losses, the launches, the step times and the trace into
+    device_count``): `rank_run` for each of ``modes`` (comma-separated
+    keys of `_TWO_RANK_MODES`) in turn over one gloo group that meets at
+    a FileStore in ``out`` (one process start for all of them); the
+    results by mode, with each run's wall seconds, into
     ``out/rank<r>.json``."""
     _join_two_ranks(rank, out)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    results = {}
+    for mode in modes.split(","):
+        t0 = time.perf_counter()
+        results[mode] = rank_run(rank, mode)
+        results[mode]["wall_s"] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+    (out / f"rank{rank}.json").write_text(json.dumps(results))
+    backend.shutdown()
+
+
+def rank_run(rank: int, mode: str) -> dict:
+    """One run of `rank_worker`: in dear-fused, first
+    `check_ring_two_ranks` (both K4 routes on the IPC ring), with ring
+    projections `check_ring_matmul_two_ranks` (their launches are not the
+    main path's); then `_TWO_RANK_STEPS` steps of the training CLI in
+    ``mode`` (a key of `_TWO_RANK_MODES`), every step's launches checked
+    (its counts set to 0 just before); in both dear-fused modes, a
+    ``torch.profiler`` trace of 3 more steps (both ranks; their ring
+    calls pair up). Returns the gathered parameters' digest, the losses,
+    the launches, the step times and the trace."""
     ring_errs = check_ring_two_ranks(rank) if mode == "dear-fused" else None
     rp = mode == "ring-projections"
     cm_errs = check_ring_matmul_two_ranks(rank) if rp else None
@@ -1734,7 +1770,7 @@ def rank_worker(rank: int, out: Path, mode: str) -> None:
                                label=f"rank {rank} {mode}, 8 x 1024")
              if fused else None)
     params = ts.gather_params(res.state)          # dear-fused: through K4
-    (out / f"rank{rank}.json").write_text(json.dumps({
+    run = {
         "losses": res.losses, "launches": launches, "step_ms": step_ms,
         "tokens_per_s": res.total_mean * 1024, "params": _digest(params),
         "peak_bytes": peak,
@@ -1743,18 +1779,19 @@ def rank_worker(rank: int, out: Path, mode: str) -> None:
         "bucket_shards": [b.shard_size for b in ts.plan.buckets],
         "buckets": ts.plan.num_buckets,
         "device": str(backend.device()), "card_shared": backend.card_shared(),
-        "backend": torch.distributed.get_backend()}))
+        "backend": torch.distributed.get_backend()}
     ts.close()
-    backend.shutdown()
+    return run
 
 
-def train_two_ranks(mode: str, timeout: float = 600.0) -> list:
-    """Spawn the two ranks of ``mode`` (this script with ``--train-rank``),
-    wait for both, and return their results; any rank's failure, or the
-    deadline, fails the run with both ranks' logs."""
+def train_two_ranks(modes: str, timeout: float = 600.0) -> list:
+    """Spawn the two ranks of ``modes`` (comma-separated; this script with
+    ``--train-rank``), wait for both, and return their results (by mode);
+    any rank's failure, or the deadline, fails the run with both ranks'
+    logs."""
     return spawn_two_ranks(
-        mode, lambda r, out: ["--train-rank", str(r), "--out", str(out),
-                              "--mode", mode], timeout)
+        "two-rank", lambda r, out: ["--train-rank", str(r), "--out",
+                                    str(out), "--mode", modes], timeout)
 
 
 def start_ranks(name: str, worker_args, world: int = 2) -> tuple:
@@ -1822,14 +1859,14 @@ def train_dear_fused() -> tuple:
     equal; every step's launches (in each rank); dear-fused's last
     loss within `_FUSED_VS_DEAR_RTOL` of dear's, and with ring projections
     within `_RP_VS_FUSED_RTOL` of dear-fused's. Returns the two ranks'
-    results of each run: (dear-fused, ring projections, dear)."""
+    results of each run: (dear-fused, ring projections, dear). The three
+    runs share one process per rank, ``dear`` first (its peak memory, which
+    phase 5l holds fsdp's against, is a fresh process's)."""
     t0 = time.perf_counter()
-    fused = train_two_ranks("dear-fused")
-    t1 = time.perf_counter()
-    rp = train_two_ranks("ring-projections")
-    t2 = time.perf_counter()
-    dear = train_two_ranks("dear")
-    t3 = time.perf_counter()
+    ranks = train_two_ranks("dear,dear-fused,ring-projections")
+    wall = time.perf_counter() - t0
+    fused, rp, dear = ([r[mode] for r in ranks] for mode in
+                       ("dear-fused", "ring-projections", "dear"))
     for mode, ranks in (("dear-fused", fused), ("ring-projections", rp),
                         ("dear", dear)):
         losses = ranks[0]["losses"]
@@ -1858,8 +1895,9 @@ def train_dear_fused() -> tuple:
           f"difference {rel:.3e} (limit {_FUSED_VS_DEAR_RTOL:g}); with ring "
           f"projections {lr:.6f}, {rel_rp:.3e} from dear-fused (limit "
           f"{_RP_VS_FUSED_RTOL:g}); parameters of the two ranks bitwise "
-          f"equal in every run; wall {t1 - t0:.1f} s (dear-fused), "
-          f"{t2 - t1:.1f} s (ring projections), {t3 - t2:.1f} s (dear)")
+          f"equal in every run; wall {wall:.1f} s in one spawn (rank 0: "
+          f"{fused[0]['wall_s']:.1f} s dear-fused, {rp[0]['wall_s']:.1f} s "
+          f"ring projections, {dear[0]['wall_s']:.1f} s dear)")
     _check(rel <= _FUSED_VS_DEAR_RTOL, "dear-fused and dear losses differ")
     _check(rel_rp <= _RP_VS_FUSED_RTOL,
            "ring projections and dear-fused losses differ")
@@ -2318,12 +2356,17 @@ def train_vit():
 
 #: the bench's counted FLOPs against the analytic count
 _BENCH_FLOPS_RTOL = 0.02
+#: the bench phase's timed iterations of 10 steps per model (the bench's
+#: default is 10), cut for the script's time limit: each metric stays a
+#: mean over 20 timed steps
+_BENCH_ITERS = 2
 
 
 def run_bench(card: str, timeout: float = 600.0,
               telemetry=None, iters=None) -> dict:
     """``python -m dear_pytorch_tpu_torch.bench`` as a user runs it (a
-    process of its own, the card, no ``DEAR_BENCH_*`` switch): it exits 0,
+    process of its own, the card, no ``DEAR_BENCH_*`` switch but
+    ``iters``): it exits 0,
     its last line parses, all five metrics are there with bench.py's names
     and units and a numeric value, MFU and peak memory, no error entry,
     and each counted step within `_BENCH_FLOPS_RTOL` of its analytic
@@ -2539,8 +2582,10 @@ def train_zoo(name: str, B: int, size: int, card: str) -> dict:
         _check(bool(torch.isfinite(b).all()), f"{name}: {n} not finite")
         _check(bool((b != init).any()), f"{name}: {n} unmoved")
         moved += 1
-    fwd, stem = port_bench.conv_fc_flops(get_model(name, device="cpu"),
-                                         size)
+    # one CPU build serves the count and the reference below (VGG-16's
+    # init alone takes ~12 s on the host's cores)
+    cpu_model = get_model(name, device="cpu")
+    fwd, stem = port_bench.conv_fc_flops(cpu_model, size)
     want = B * (3 * fwd - stem)
     ratio = res.flops_per_step / want
     step_ms = [a.elapsed_time(b)
@@ -2606,7 +2651,8 @@ def train_zoo(name: str, B: int, size: int, card: str) -> dict:
     for train in ((True, False) if bn else (False,)):
         outs = {}
         for dev in (_DEV, "cpu"):
-            model = get_model(name, device=dev).train(train)
+            model = (get_model(name, device=dev) if dev != "cpu"
+                     else cpu_model).train(train)
             model.load_state_dict({k: v.to(dev) for k, v in sd.items()})
             with torch.no_grad():
                 logits = model(image.to(dev))
@@ -3237,23 +3283,25 @@ _GPT_FP32_ARGS = [a for a in _TWO_RANK_ARGS if a != "--fp16"]
 #: processes (``--comp-rank R --out DIR``): name -> (model, argv). The sign
 #: compressors move every element by lr each step: lr 1e-3 (JAX's tests
 #: train them at a smaller lr too)
+#: (few steps, for the script's time limit: the checks run on every step
+#: all the same)
 _COMP_RUNS = {
-    "resnet50 eftopk": ("resnet", _RESNET_COMP_ARGS + _steps(6)),
-    "resnet50 eftopk mc": ("resnet", _RESNET_COMP_ARGS + _steps(6)
+    "resnet50 eftopk": ("resnet", _RESNET_COMP_ARGS + _steps(4)),
+    "resnet50 eftopk mc": ("resnet", _RESNET_COMP_ARGS + _steps(4)
                            + ["--momentum-correction", "0.9"]),
-    **{f"gpt2 dear {c}": ("gpt", _TWO_RANK_ARGS + _steps(3) + [
+    **{f"gpt2 dear {c}": ("gpt", _TWO_RANK_ARGS + _steps(2) + [
         "--mode", "dear", "--compressor", c, "--density",
         str(_COMP_DENSITY)] + (["--base-lr", "0.001"] if "sign" in c
                                else [])) for c in _COMP_NAMES},
-    "gpt2 allreduce eftopk gtopk": ("gpt", _TWO_RANK_ARGS + _steps(3) + [
+    "gpt2 allreduce eftopk gtopk": ("gpt", _TWO_RANK_ARGS + _steps(2) + [
         "--mode", "allreduce", "--compressor", "eftopk", "--density",
         str(_COMP_DENSITY), "--gtopk"]),
     # fp32 gradients: topk at density 1 sends every coordinate, so its
     # losses are the dense allreduce's (JAX's
     # test_sparse_allreduce_equals_dense_at_density_1, on the card)
-    "gpt2 allreduce topk d1 fp32": ("gpt", _GPT_FP32_ARGS + _steps(3) + [
+    "gpt2 allreduce topk d1 fp32": ("gpt", _GPT_FP32_ARGS + _steps(2) + [
         "--mode", "allreduce", "--compressor", "topk", "--density", "1.0"]),
-    "gpt2 allreduce fp32": ("gpt", _GPT_FP32_ARGS + _steps(3) + [
+    "gpt2 allreduce fp32": ("gpt", _GPT_FP32_ARGS + _steps(2) + [
         "--mode", "allreduce"]),
 }
 _TOPK_D1_RTOL = 1e-5
@@ -3488,7 +3536,7 @@ def check_lamb_trust(ts, state, rank: int) -> float:
 def comp_rank_worker(rank: int, out: Path) -> None:
     """One of the two ranks of phase 5m (``--comp-rank R --out DIR``):
     every run of `_COMP_RUNS` in turn over one gloo group (`_run_comp`
-    checks every step), then LAMB on BERT-Large (5 steps, every step
+    checks every step), then LAMB on BERT-Large (3 steps, every step
     checked) and `check_lamb_trust`; the results into
     ``out/rank<r>.json``."""
     _join_two_ranks(rank, out)
@@ -3506,7 +3554,7 @@ def comp_rank_worker(rank: int, out: Path) -> None:
         run["wall_s"] = time.perf_counter() - t0
         results[name] = run
     t0 = time.perf_counter()
-    run = _run_comp(bert_cli.main, _LAMB_ARGS + _steps(5),
+    run = _run_comp(bert_cli.main, _LAMB_ARGS + _steps(3),
                     f"rank {rank} bert_large lamb")
     res = run.pop("result")
     run["trust_err"] = check_lamb_trust(res.train_step, res.state, rank)
@@ -3566,8 +3614,8 @@ def train_compressed_two_ranks() -> list:
 
 
 def train_compressed_one_rank(card: str) -> dict:
-    """Phase 5m at one rank (NCCL): ResNet-50 eftopk (5 steps, traced);
-    LAMB on BERT-Large (10 steps); GPT-2 without remat, with ``--remat``
+    """Phase 5m at one rank (NCCL): ResNet-50 eftopk (3 steps, traced);
+    LAMB on BERT-Large (5 steps); GPT-2 without remat, with ``--remat``
     and with ``--remat-policy full`` (5 steps each: K1 24 times per step
     under remat, the losses within `_REMAT_RTOL` of the run's without,
     ``--remat``'s peak memory below it); ResNet-50 with ``--remat-policy
@@ -3575,14 +3623,16 @@ def train_compressed_one_rank(card: str) -> dict:
     runs."""
     layers = GPT2_SMALL.num_hidden_layers
     runs = {}
-    r = _run_comp(imagenet_cli.main, _RESNET_COMP_ARGS + _steps(5),
+    r = _run_comp(imagenet_cli.main, _RESNET_COMP_ARGS + _steps(3),
                   "one rank resnet50 eftopk", trace=True)
     r.pop("result").train_step.close()
     _check(r["residual"] > 0, "one rank resnet50 eftopk: zero residual")
     runs["resnet50 eftopk"] = r
-    r = _run_comp(bert_cli.main, _LAMB_ARGS + _steps(10),
+    r = _run_comp(bert_cli.main, _LAMB_ARGS + _steps(5),
                   "one rank bert_large lamb")
-    r.pop("result").train_step.close()
+    ts = r.pop("result").train_step
+    r["segment_sums"] = time_lamb_segment_sums(ts, card)
+    ts.close()
     runs["bert_large lamb"] = r
     for name, flags, fwd in (("gpt2", [], 1), ("gpt2 --remat", ["--remat"],
                                                2),
@@ -3616,6 +3666,88 @@ def train_compressed_one_rank(card: str) -> dict:
               + f"; losses {[round(x, 4) for x in r['losses']]}")
     runs.update(check_resnet_remat())
     return runs
+
+
+def time_lamb_segment_sums(ts, card: str) -> dict:
+    """LAMB's two sums of squares per segment (``|w|^2`` and ``|u|^2``,
+    `ops.fused_sgd.fused_lamb`: the squares into one fp64 buffer, then
+    `_segment_sums` on its two rows) at the buckets of ``ts``'s plan, on
+    random values with each bucket's smallest segment zeroed: every sum
+    within 1e-6 of the CPU's fp64 sum of its segment, the zeroed ones
+    exactly 0. Timed (CUDA events, median of 5 after a warm call, ms per
+    step: every bucket once) against the two designs it replaced, from the
+    same fp32 values: one fp64 ``sum`` per segment, and differences of one
+    fp64 running sum over the bucket (the one that read a zero segment as
+    +-1e-13). Returns the three times."""
+    gen = torch.Generator(device=_DEV).manual_seed(45)
+    cases = []
+    for g in range(ts.plan.num_buckets):
+        lo, hi = ts._span(g)
+        lengths = ts._segment_lengths(g)
+        ab = torch.randn(2, hi - lo, generator=gen, device=_DEV)
+        ends = np.cumsum(lengths)
+        small = min((n, i) for i, n in enumerate(lengths) if n)[1]
+        ab[:, ends[small] - lengths[small]:ends[small]] = 0.0
+        cases.append((ab[0], ab[1], ts._segment_ids(g, lo, hi), len(lengths),
+                      lengths, ts._segment_pieces(g), small))
+
+    def pieces(a, b, seg, nseg, lengths, pc):
+        sq = a.new_empty((2, a.numel()), dtype=torch.float64)
+        torch.mul(a, a, out=sq[0])
+        torch.mul(b, b, out=sq[1])
+        return FS._segment_sums(sq, seg, nseg, pc).float()
+
+    def per_segment(a, b, seg, nseg, lengths, pc):
+        return torch.stack([torch.stack([p.sum(dtype=torch.float64)
+                                         for p in torch.split(x, lengths)])
+                            for x in (a * a, b * b)]).float()
+
+    def running_sum(a, b, seg, nseg, lengths, pc):
+        out = []
+        for x in (a * a, b * b):
+            run = torch.cumsum(x.double(), 0)
+            ids = torch.arange(nseg, dtype=seg.dtype, device=seg.device)
+            ends = torch.searchsorted(seg, ids, right=True)
+            upto = torch.cat([run.new_zeros((1,)), run])[ends]
+            out.append(torch.diff(upto, prepend=upto.new_zeros((1,))))
+        return torch.stack(out).float()
+
+    worst, nseg, npieces = 0.0, 0, 0
+    for a, b, seg, n, lengths, pc, small in cases:
+        got = pieces(a, b, seg, n, lengths, pc).double().cpu().numpy()
+        want = np.array([[p.double().square().sum().item()
+                          for p in torch.split(x.cpu(), lengths)]
+                         for x in (a, b)])
+        _check((got[:, small] == 0.0).all(), f"LAMB segment sums: a zero "
+               f"segment summed to {got[:, small]}")
+        worst = max(worst, float(np.max(np.abs(got - want)
+                                        / np.maximum(np.abs(want), 1e-30))))
+        nseg, npieces = nseg + n, npieces + (len(pc[0]) - 1) // 2
+    _check(worst <= 1e-6, f"LAMB segment sums off fp64 by {worst:.3e}")
+    times = {}
+    for name, fn in (("pieces", pieces), ("per_segment", per_segment),
+                     ("running_sum", running_sum)):
+        ms = []
+        for rep in range(6):
+            start, stop = (torch.cuda.Event(enable_timing=True)
+                           for _ in range(2))
+            start.record()
+            for case in cases:
+                fn(*case[:6])
+            stop.record()
+            torch.cuda.synchronize()
+            if rep:
+                ms.append(start.elapsed_time(stop))
+        times[name] = float(np.median(ms))
+    print(f"phase 5m LAMB segment sums on {card} ({ts.plan.num_buckets} "
+          f"buckets, {nseg} segments, {npieces} pieces of <= "
+          f"{FS._PIECE}; |w|^2 and |u|^2 of every bucket, as one step): "
+          f"within {worst:.3e} of fp64, the zeroed segments 0; ms per step: "
+          f"two segmented reductions over both rows "
+          f"{times['pieces']:.3f}, one sum per segment "
+          f"{times['per_segment']:.3f}, running-sum differences "
+          f"{times['running_sum']:.3f}")
+    return times
 
 
 def check_resnet_remat() -> dict:
@@ -4067,7 +4199,7 @@ def tune_and_multi_step(card: str) -> dict:
 _PIPE_RESNET_ARGS = ["--model", "resnet50", "--batch-size", "64", "--fp16",
                      "--mode", "dear", "--threshold", "25",
                      "--num-warmup-batches", "5", "--num-batches-per-iter",
-                     "10", "--num-iters", "3"]
+                     "10", "--num-iters", "2"]
 _PIPE_WARMUP = 5
 _PIPE_GPT_ARGS = _REMAT_ARGS[:-6] + _steps(4)
 _PIPE_BERT_ARGS = _BERT_FLASH_ARGS + ["--flash-attention"] + _steps(4)
@@ -4462,7 +4594,7 @@ def check_resnet_remat_cli(card: str) -> dict:
 
 
 #: the telemetry-off line's timed iterations of 10 steps per model
-_BENCH_OFF_ITERS = 2
+_BENCH_OFF_ITERS = 1
 
 
 def bench_telemetry(card: str, line_on: dict) -> dict:
@@ -5839,6 +5971,251 @@ def elastic_phase(card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 5r: the multi-slice DCN leg on the card
+# ---------------------------------------------------------------------------
+
+#: (i): steps of the flat and the hierarchical GPT-2 run, and the limits
+#: against each other: the loss (absolute) and each gathered parameter
+#: (relative to the largest |parameter|)
+_SLICE_STEPS = 4
+_SLICE_LOSS_ATOL = 1e-3
+_SLICE_PARAM_RTOL = 2e-4
+#: (ii): the drills' peer timeout on the card (their strict DCN deadline
+#: is 0.45 of it)
+_SLICE_TIMEOUT_S = 10
+
+
+def _slice_counts() -> dict:
+    return {"fused_update": FS.fused_update_launches,
+            "flash_fwd_tc": FA.flash_fwd_route_launches["tensor_core"],
+            "flash_bwd_dq_tc": FA.flash_bwd_route_launches["dq"][
+                "tensor_core"],
+            "flash_bwd_dkv_tc": FA.flash_bwd_route_launches["dkv"][
+                "tensor_core"]}
+
+
+def slice_rank_worker(rank: int, out: Path) -> None:
+    """One of the four ranks of phase 5r (i) (``--slice-rank R --out
+    DIR``), sharing the card over gloo: GPT-2 small at 2 layers (full
+    width, bf16, flash attention, B = 4 per rank, S = 1024, SGD momentum
+    0.9, 25 MB buckets) from the seed-0 initial state, first as flat
+    ``dear`` at world 4, then as the hierarchical step at 2 slices x 2
+    ranks (`comm.backend.form_slice_groups`; a `FileTransport` under
+    ``out`` for the DCN leg). Per run: the losses, the step times, the
+    K5-epilogue and K1-K3 launches; for the hierarchical one the DCN
+    leg's time per step by part and its host payload; the largest
+    difference of the gathered parameters from the flat run's."""
+    from dear_pytorch_tpu_torch.comm.dcn import DcnExchanger
+    from dear_pytorch_tpu_torch.ops.fused_sgd import fused_sgd
+    from dear_pytorch_tpu_torch.resilience.cluster import FileTransport
+    from dear_pytorch_tpu_torch.scripts import chaos_check as CK
+
+    _join_two_ranks(rank, out, 4)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    group = backend.init(_DEV)
+    res, flat_params = {}, None
+    for kind in ("flat", "hier"):
+        model, loss_fn, batch_at, _, thr = CK._workload("gpt2", _DEV)
+        kw = dict(optimizer=fused_sgd(lr=0.05, momentum=0.9),
+                  threshold_mb=thr, device=_DEV)
+        dcn = None
+        if kind == "hier":
+            backend.form_slice_groups(2)
+            dcn = DcnExchanger(FileTransport(str(out / "dcn")),
+                               local_slices=(backend.slice_id(),),
+                               slices=(0, 1), timeout_s=120.0)
+            ts = build_train_step(loss_fn, model, dcn=dcn, **kw)
+        else:
+            ts = build_train_step(loss_fn, model, group=group, **kw)
+        state = ts.init()
+        FA.reset_launch_counts()
+        FS.fused_update_launches = 0
+        losses, step_s, legs = [], [], []
+        for i in range(_SLICE_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = ts.step(state, batch_at(i, rank, 4))
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            if dcn is not None:
+                legs.append(dict(ts.dcn_times))
+        counts = _slice_counts()
+        params = {k: v.float().cpu() for k, v in
+                  ts.gather_params(state).items()}
+        res[kind] = {"losses": losses, "step_s": step_s, "legs": legs,
+                     "launches": counts, "buckets": ts.plan.num_buckets,
+                     "updates": ts.update_launches,
+                     "dcn_bytes": ts.dcn_bytes,
+                     "exchanges": None if dcn is None else dcn.exchanges,
+                     "dcn_fit": None if dcn is None else CK._fit_dcn(dcn)}
+        if flat_params is None:
+            flat_params = params
+        else:
+            res["param_diff"] = max(float((params[k] - v).abs().max())
+                                    for k, v in flat_params.items())
+            res["param_max"] = max(float(v.abs().max())
+                                   for v in flat_params.values())
+        ts.close()
+        del ts, state, model
+        gc.collect()
+    (out / f"rank{rank}.json").write_text(json.dumps(res))
+    backend.shutdown()
+
+
+def multislice_gpt2(card: str) -> dict:
+    """Phase 5r (i): `slice_rank_worker` on four ranks sharing the card.
+    The hierarchical losses within `_SLICE_LOSS_ATOL` of the flat run's
+    and equal on every rank, the gathered parameters within
+    `_SLICE_PARAM_RTOL` of the largest, one K5 epilogue per bucket per
+    step on every rank (both runs), K1-K3 on their tensor-core routes (2
+    launches each per step per rank: one per layer); prints the DCN leg's
+    time per step by part and its bytes. Returns the launches over every
+    rank and both runs."""
+    handle = start_ranks(
+        "slice", lambda r, out: ["--slice-rank", str(r), "--out", str(out)],
+        world=4)
+    ranks = wait_ranks(handle, 600.0)
+    shutil.rmtree(handle[1], ignore_errors=True)   # the DCN leg's chunks
+    out = {k: 0 for k in _slice_counts()}
+    for r, res in enumerate(ranks):
+        flat, hier = res["flat"], res["hier"]
+        worst = max(abs(a - b) for a, b in zip(flat["losses"],
+                                               hier["losses"]))
+        _check(worst <= _SLICE_LOSS_ATOL,
+               f"phase 5r (i) rank {r}: hierarchical losses {hier['losses']}"
+               f" against flat {flat['losses']} (largest |diff| {worst:.3g},"
+               f" limit {_SLICE_LOSS_ATOL})")
+        _check(res["param_diff"] <= _SLICE_PARAM_RTOL * res["param_max"],
+               f"phase 5r (i) rank {r}: gathered parameters' largest |diff| "
+               f"{res['param_diff']:.3g} against {_SLICE_PARAM_RTOL} x "
+               f"{res['param_max']:.4g}")
+        _check(hier["losses"] == ranks[0]["hier"]["losses"],
+               f"phase 5r (i) rank {r}: the exchanged loss mean is the same "
+               f"on every rank ({hier['losses']})")
+        for kind, run in (("flat", flat), ("hier", hier)):
+            n = _SLICE_STEPS * run["buckets"]
+            c = run["launches"]
+            _check(c["fused_update"] == n and run["updates"] == n,
+                   f"phase 5r (i) rank {r} {kind}: one K5 epilogue per "
+                   f"bucket per step ({c['fused_update']} launches, "
+                   f"{run['updates']} updates, want {n})")
+            _check(all(c[k] == 2 * _SLICE_STEPS for k in
+                       ("flash_fwd_tc", "flash_bwd_dq_tc",
+                        "flash_bwd_dkv_tc")),
+                   f"phase 5r (i) rank {r} {kind}: K1-K3 on tensor cores, "
+                   f"2 each per step ({c})")
+            for k in out:
+                out[k] += c[k]
+        _check(hier["exchanges"] == _SLICE_STEPS,
+               f"phase 5r (i) rank {r}: {hier['exchanges']} exchanges")
+    mb = ranks[0]["hier"]["dcn_bytes"] / 1e6
+    print(f"phase 5r (i) GPT-2 small at 2 layers (bf16, flash, B = 4 per "
+          f"rank, S = 1024, {ranks[0]['hier']['buckets']} buckets), 2 "
+          f"slices x 2 ranks on {card}: losses {ranks[0]['hier']['losses']}"
+          f" against flat world 4 {ranks[0]['flat']['losses']}; largest "
+          f"parameter |diff| {max(r['param_diff'] for r in ranks):.3g} "
+          f"(largest |parameter| {ranks[0]['param_max']:.4g})")
+    for r, res in enumerate(ranks):
+        legs = res["hier"]["legs"][1:]   # after the first step
+        mean = {k: sum(x[k] for x in legs) / len(legs) for k in legs[0]}
+        print(f"phase 5r (i) rank {r} on {card}: hierarchical step "
+              f"{np.median(res['hier']['step_s'][1:]) * 1e3:.1f} ms, flat "
+              f"{np.median(res['flat']['step_s'][1:]) * 1e3:.1f} ms "
+              f"(medians after the first step); the DCN leg per step (mean "
+              f"of steps 2-{_SLICE_STEPS}): the wait for the backward's "
+              f"reduce-scatters {mean['rs_wait_s'] * 1e3:.1f} ms, slice "
+              f"gathers {mean['gather_s'] * 1e3:.1f} ms, to the host "
+              f"{mean['to_host_s'] * 1e3:.1f} ms, exchange and agreement "
+              f"{mean['exchange_s'] * 1e3:.1f} ms, back to the card "
+              f"{mean['to_device_s'] * 1e3:.1f} ms; {mb:.1f} MB of fp32 "
+              f"gradient a slice per step, published as base64 text (4/3 "
+              f"of it, by every rank of the slice: the FileTransport "
+              f"stands in for a network, and the framing is its cost); "
+              f"fit_dcn over its 4 MB chunk fetches "
+              + ("n/a" if res["hier"]["dcn_fit"] is None else
+                 f"alpha {res['hier']['dcn_fit'][0]:.3e} s, beta "
+                 f"{res['hier']['dcn_fit'][1]:.3e} s/B"))
+    return out
+
+
+def multislice_drill(card: str, work: Path, flap: bool) -> dict:
+    """Phase 5r (ii) / (iii): `scripts.chaos_check --multislice` (or
+    ``--multislice-flap``) with the MNIST net on the card, 2 slices x 2
+    ranks, with JAX's verdicts; prints per survivor the time from the
+    victims' death to the shrink's commit, the renorms, the degraded
+    steps, the time to the readmission, the steps lost at each transition
+    and the `fit_dcn` α-β of its exchanger's samples. Returns the K5
+    epilogue's launches of every final life."""
+    from dear_pytorch_tpu_torch.scripts import chaos_check as CK
+
+    label = "--multislice-flap" if flap else "--multislice"
+    run = CK.run_multislice_flap if flap else CK.run_multislice
+    summary = run(_drill_args(work / label.strip("-"), "mnistnet",
+                              peer_timeout=_SLICE_TIMEOUT_S))
+    if not summary["passed"]:
+        print(summary.get("logs", "")[-12000:], file=sys.stderr)
+        raise RuntimeError(
+            f"phase 5r {label} failed: {summary['failures']}")
+    for r, st in sorted(summary["story"].items()):
+        if st["death_to_commit_s"] is not None:
+            print(f"phase 5r {label} rank {r} on {card}: death -> "
+                  f"shrink commit {st['death_to_commit_s']:.3f} s (DCN "
+                  f"deadline {0.45 * _SLICE_TIMEOUT_S:g} s, peer timeout "
+                  f"{_SLICE_TIMEOUT_S} s); {st['renorms']} renorms; "
+                  f"{st['degraded_steps']} degraded steps; shrink -> "
+                  f"readmission commit {st['readmit_s']:.3f} s; steps "
+                  f"lost {st['steps_lost']}")
+        _check(all(n is None or n >= 0 for n in st["steps_lost"]),
+               f"phase 5r {label} rank {r}: steps lost "
+               f"{st['steps_lost']}")
+        fit = st["dcn_fit"]
+        print(f"phase 5r {label} rank {r}: fit_dcn "
+              + ("n/a (too few samples)" if fit is None else
+                 f"alpha {fit[0]:.3e} s, beta {fit[1]:.3e} s/B")
+              + f"; {st['degraded_rounds']} degraded rounds; last "
+              f"step's DCN leg {st['dcn_times']}")
+    print(f"phase 5r {label} on {card}: passed in "
+          f"{summary['elapsed_s']:.1f} s")
+    return {"fused_update": sum(
+        v["counters"].get("kernel.fused_update_launches", 0)
+        for v in summary["finals"].values())}
+
+
+def multislice_phase(card: str) -> dict:
+    """Phase 5r: (i) the GPT-2 hierarchical check, (ii) the MNIST
+    ``--multislice`` drill and (iii) ``--multislice-flap``, side by side
+    (three fleets of four ranks on the card, each with its own store);
+    returns the K5-epilogue and K1-K3 (tensor-core) launches of all
+    three."""
+    import concurrent.futures
+
+    root = _ROOT / "build" / "chip_smoke" / "multislice"
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    done = {}
+
+    def timed(fn, key, *a):
+        result = fn(card, *a)
+        done[key] = time.perf_counter() - t0
+        return result
+
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        gpt = pool.submit(timed, multislice_gpt2, "i")
+        kill = pool.submit(timed, multislice_drill, "ii", root, False)
+        flap = pool.submit(timed, multislice_drill, "iii", root, True)
+        out = gpt.result()
+        out["fused_update"] += (kill.result()["fused_update"]
+                                + flap.result()["fused_update"])
+    print(f"phase 5r (i) done after {done['i']:.1f} s, (ii) after "
+          f"{done['ii']:.1f} s, (iii) after {done['iii']:.1f} s")
+    print(f"phase 5r launches: {out}")
+    shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     kernels_only = argv == ["--kernels-only"]
@@ -5854,6 +6231,8 @@ def main(argv=None) -> int:
     comp_worker = len(argv) == 4 and argv[0::2] == ["--comp-rank", "--out"]
     guard_only = argv == ["--phase", "5p"]
     elastic_only = argv == ["--phase", "5q"]
+    multislice_only = argv == ["--phase", "5r"]
+    slice_worker = len(argv) == 4 and argv[0::2] == ["--slice-rank", "--out"]
     guard_worker = len(argv) == 8 and argv[0::2] == [
         "--guard-rank", "--world", "--out", "--cases"]
     resume_worker = len(argv) == 6 and argv[0::2] == [
@@ -5861,7 +6240,7 @@ def main(argv=None) -> int:
     if argv and not (kernels_only or harness_only or worker or bert_worker
                      or probe_worker or modes_worker or comp_worker
                      or guard_only or guard_worker or resume_worker
-                     or elastic_only):
+                     or elastic_only or multislice_only or slice_worker):
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -5889,6 +6268,9 @@ def main(argv=None) -> int:
         return 0
     if resume_worker:            # the resumed process of phase 5p (i)
         guard_resume_worker(argv[1], Path(argv[3]), int(argv[5]))
+        return 0
+    if slice_worker:             # one rank of phase 5r (i)
+        slice_rank_worker(int(argv[1]), Path(argv[3]))
         return 0
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5924,9 +6306,14 @@ def main(argv=None) -> int:
         elastic_phase(card)
         print(f"phase 5q: {time.perf_counter() - t0:.1f} s")
         return 0
+    if multislice_only:          # phase 5r alone
+        t0 = time.perf_counter()
+        multislice_phase(card)
+        print(f"phase 5r: {time.perf_counter() - t0:.1f} s")
+        return 0
     if harness_only:             # phase 5o alone (with phase 5g's line)
         t0 = time.perf_counter()
-        harness_phase(card, run_bench(card))
+        harness_phase(card, run_bench(card, iters=_BENCH_ITERS))
         print(f"bench and phase 5o: {time.perf_counter() - t0:.1f} s")
         backend.shutdown()
         return 0
@@ -6039,10 +6426,13 @@ def main(argv=None) -> int:
     elastic = elastic_phase(card)
     print(f"elastic membership phase (5q): "
           f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    multislice = multislice_phase(card)
+    print(f"multi-slice DCN phase (5r): {time.perf_counter() - t0:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()      # the bench's process needs the memory
     t0 = time.perf_counter()
-    bench_line = run_bench(card)
+    bench_line = run_bench(card, iters=_BENCH_ITERS)
     print(f"bench phase: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     harness = harness_phase(card, bench_line)
@@ -6295,7 +6685,8 @@ def main(argv=None) -> int:
         + modes_routes["fwd"]["tensor_core"]
         + comp_routes["fwd"]["tensor_core"]
         + harness["routes"]["fwd"]["tensor_core"]
-        + guard["flash_fwd_tc"] + elastic["flash_fwd_tc"],
+        + guard["flash_fwd_tc"] + elastic["flash_fwd_tc"]
+        + multislice["flash_fwd_tc"],
         "cuda_core": fp32_routes["fwd"]["cuda_core"]
         + modes_routes["fwd"]["cuda_core"]
         + comp_routes["fwd"]["cuda_core"]
@@ -6317,7 +6708,8 @@ def main(argv=None) -> int:
                     + modes_routes[which]["tensor_core"]
                     + comp_routes[which]["tensor_core"]
                     + harness["routes"][which]["tensor_core"]
-                    + guard[kname + "_tc"] + elastic[kname + "_tc"],
+                    + guard[kname + "_tc"] + elastic[kname + "_tc"]
+                    + multislice[kname + "_tc"],
                     "cuda_core": fp32_routes[which]["cuda_core"]
                     + modes_routes[which]["cuda_core"]
                     + comp_routes[which]["cuda_core"]
@@ -6337,7 +6729,9 @@ def main(argv=None) -> int:
         # 5o's (streamed batches, the driver's cells, scaling, the overlap
         # report's rank 0, the remat check), phase 5p's (the guarded,
         # replayed and resumed steps, the ranks' runs, the production
-        # example) and phase 5q's (every rank of both drills)
+        # example), phase 5q's (every rank of both drills) and phase 5r's
+        # (every rank of the GPT-2 runs, flat and hierarchical, and every
+        # final life of the multi-slice drills)
         _kernel_entry("fused_update", "fused_update.cu",
                       "dear_pytorch_tpu/ops/collective_matmul.py:317",
                       train_launches["fused_update"] + rn_launches
@@ -6345,7 +6739,8 @@ def main(argv=None) -> int:
                       + sum(z["launches"] for z in zoo.values())
                       + mnist_launches + modes_update + comp_update
                       + tune["launches"] + harness["update"]
-                      + guard["fused_update"] + elastic["fused_update"],
+                      + guard["fused_update"] + elastic["fused_update"]
+                      + multislice["fused_update"],
                       upd_err, upd),
     ] + [
         _kernel_entry(f"ring_all_gather ({route})", "ring.cu",

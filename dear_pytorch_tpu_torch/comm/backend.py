@@ -50,6 +50,20 @@ by a quarter of the membership's peer timeout
 (``DEAR_CLUSTER_TIMEOUT_SECS``): a collective stuck on a dead (or on a
 failed) peer ends as a step error well before the peers' health sync gives
 up on this rank.
+
+Slices (the multi-slice schedule, `comm.dcn`): the JAX package's process
+holds a whole slice as a local mesh; here a process drives one card, so a
+slice is a group of processes. `form_slice_groups` creates one subgroup
+per slice over the current epoch's group — every rank creates every
+slice's group, in slice order (``new_group`` is collective over the
+epoch's group) — with the epoch's backend (gloo where the ranks share a
+card, else NCCL; gloo on the CPU). Under the supervisor's slice-aligned
+contract the slice of stable rank r is ``r // ranks_per_slice`` and its
+position in the slice (`ici_index`) is ``r % ranks_per_slice``.
+`regroup` forms them for a slice-granular view
+(``DEAR_ELASTIC_RANKS_PER_SLICE``); `slice_group` is this rank's. They
+are released with their epoch: `destroy_process_group` destroys every
+subgroup.
 """
 
 from __future__ import annotations
@@ -69,9 +83,10 @@ from dear_pytorch_tpu_torch._device import resolve_device
 
 __all__ = [
     "barriar", "barrier", "card_shared", "data_plane_timeout", "device",
-    "elastic_store", "epoch", "group", "host_group", "init",
-    "is_initialized", "launched_size", "local_rank", "local_size", "rank",
-    "regroup", "shutdown", "size", "store",
+    "elastic_store", "epoch", "form_slice_groups", "group", "host_group",
+    "ici_index", "init", "is_initialized", "launched_size", "local_rank",
+    "local_size", "rank", "regroup", "shutdown", "size", "slice_group",
+    "slice_id", "store",
 ]
 
 _lock = threading.Lock()
@@ -85,6 +100,10 @@ _TIMEOUT = datetime.timedelta(minutes=30)
 _epoch: Optional[int] = None
 #: the store that outlives every rank (`elastic_store`), once opened
 _elastic_store = None
+#: the current epoch's slice groups, by slice id (`form_slice_groups`)
+_slice_groups: dict = {}
+#: this rank's slice id and its position in the slice (None: no slices)
+_slice: Optional[tuple] = None
 
 
 def _env_int(*names: str) -> Optional[int]:
@@ -128,8 +147,9 @@ def _release() -> None:
     module then is torn down during finalization, which now and then
     aborts the process after its work is done (tests/
     test_torch_spawn_teardown.py)."""
-    global _store, _host_group, _elastic_store
-    _store = _host_group = _elastic_store = None
+    global _store, _host_group, _elastic_store, _slice
+    _store = _host_group = _elastic_store = _slice = None
+    _slice_groups.clear()
 
 
 def _make_store(addr: str, rank_: int, world: int):
@@ -197,11 +217,12 @@ def is_initialized() -> bool:
 def shutdown() -> None:
     """Tear the group down (and the host group, and release the store);
     safe to call more than once."""
-    global _device, _store, _host_group, _epoch
+    global _device, _store, _host_group, _epoch, _slice
     with _lock:
         if dist.is_initialized():
             dist.destroy_process_group()
-        _device = _store = _host_group = _epoch = None
+        _device = _store = _host_group = _epoch = _slice = None
+        _slice_groups.clear()
 
 
 # ---------------------------------------------------------------------------
@@ -260,9 +281,9 @@ def _release_groups() -> None:
     each (under NCCL a dead peer would otherwise hang the communicator
     until its timeout; under gloo it fails the queued work), then destroy
     them. No barrier, no flush."""
-    global _host_group, _store
+    global _host_group, _store, _slice
     if dist.is_initialized():
-        for pg in (_host_group, dist.group.WORLD):
+        for pg in (*_slice_groups.values(), _host_group, dist.group.WORLD):
             if pg is None:
                 continue
             try:
@@ -270,10 +291,25 @@ def _release_groups() -> None:
             except Exception:   # a group its own error already tore down
                 pass
         dist.destroy_process_group()
-    _host_group = _store = None
+    _host_group = _store = _slice = None
+    _slice_groups.clear()
 
 
-def regroup(view, device=None, *, store=None) -> Optional[dist.ProcessGroup]:
+def _view_rps(view) -> Optional[int]:
+    """The ranks per slice of a slice-granular view (None: rank-granular):
+    the supervisor's ``DEAR_ELASTIC_RANKS_PER_SLICE``."""
+    if getattr(view, "slice_id", None) is None:
+        return None
+    rps = _env_int("DEAR_ELASTIC_RANKS_PER_SLICE")
+    if not rps:
+        raise ValueError(
+            "a slice-granular view needs DEAR_ELASTIC_RANKS_PER_SLICE "
+            "(the supervisor's contract)")
+    return int(rps)
+
+
+def regroup(view, device=None, *, store=None
+            ) -> Optional[dist.ProcessGroup]:
     """Form the groups of a committed membership view (a
     `resilience.membership.MembershipView`: ``epoch``, ``members``,
     ``rank``, ``world``) and return the data-plane group; idempotent per
@@ -284,8 +320,11 @@ def regroup(view, device=None, *, store=None) -> Optional[dist.ProcessGroup]:
     card (`init`'s rule), NCCL otherwise, gloo on the CPU. A rank that is
     not in ``view.members`` (it is leaving) only releases its groups and
     gets None. Every member calls it, a rejoiner at its admitted epoch
-    included. Afterwards `group`, `host_group`, `store`, `rank`, `size`
-    and `epoch` report the new epoch's."""
+    included. A slice-granular view (one with a ``slice_id``) also gets
+    the epoch's slice groups (`form_slice_groups`, with the supervisor's
+    ``DEAR_ELASTIC_RANKS_PER_SLICE``). Afterwards `group`,
+    `host_group`, `store`, `rank`, `size`, `epoch` and `slice_group`
+    report the new epoch's."""
     global _device, _store, _host_group, _epoch
     with _lock:
         if (_epoch is not None and int(view.epoch) == _epoch
@@ -326,7 +365,65 @@ def regroup(view, device=None, *, store=None) -> Optional[dist.ProcessGroup]:
             if pg is not None:
                 pg.set_timeout(data_plane_timeout())
         _store, _device, _epoch = st, dev, int(view.epoch)
+        rps = _view_rps(view)
+        if rps is not None:
+            _form_slices(members, int(view.rank), rps, backend,
+                         data_plane_timeout())
         return dist.group.WORLD
+
+
+def _form_slices(members, stable_rank: int, rps: int, backend: str,
+                 timeout) -> None:
+    """Create every slice's group over the current default group (whose
+    rank i is ``members[i]``), in slice order, on every rank."""
+    global _slice
+    _slice_groups.clear()
+    by_slice: dict = {}
+    for i, m in enumerate(members):
+        by_slice.setdefault(int(m) // rps, []).append(i)
+    for sid in sorted(by_slice):
+        pg = dist.new_group(by_slice[sid], backend=backend, timeout=timeout)
+        _slice_groups[sid] = pg
+    sid = int(stable_rank) // rps
+    me = list(members).index(int(stable_rank))
+    _slice = (sid, by_slice[sid].index(me))
+
+
+def form_slice_groups(ranks_per_slice: int) -> dist.ProcessGroup:
+    """Create the slice groups over `init`'s fixed world (rank r in slice
+    ``r // ranks_per_slice``) and return this rank's; every rank calls it.
+    An elastic fleet gets them from `regroup` instead."""
+    rps = int(ranks_per_slice)
+    world = dist.get_world_size(group())
+    if rps < 1 or world % rps:
+        raise ValueError(f"ranks_per_slice={ranks_per_slice} does not "
+                         f"divide the world of {world} ranks into slices")
+    g = group()
+    with _lock:
+        _form_slices(range(world), rank(), rps, dist.get_backend(g),
+                     _TIMEOUT)
+    return slice_group()
+
+
+def slice_group() -> dist.ProcessGroup:
+    """This rank's slice group of the current epoch."""
+    if _slice is None:
+        raise RuntimeError(
+            "no slice groups: form them with comm.backend.form_slice_groups "
+            "(a fixed world) or regroup a slice-granular view")
+    return _slice_groups[_slice[0]]
+
+
+def slice_id() -> Optional[int]:
+    """This rank's slice (None when no slice groups are formed)."""
+    return None if _slice is None else _slice[0]
+
+
+def ici_index() -> Optional[int]:
+    """This rank's position in its slice group: ``rank %
+    ranks_per_slice`` when the slice is whole (None when no slice groups
+    are formed)."""
+    return None if _slice is None else _slice[1]
 
 
 def epoch() -> Optional[int]:

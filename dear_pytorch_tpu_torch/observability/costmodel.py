@@ -2,11 +2,13 @@
 ``dear_pytorch_tpu/observability/costmodel.py`` that `tuning.planspace`
 uses: `LinkFit` / `Calibration` (serializable fits, and
 `load_calibration`), `fit_allgather_sweep` (the normalization of
-`overlap.fit_interconnect`'s sweep) and `CostModel` (a configuration's
-predicted comm and its step-time floor). The serving cost model
-(``ServeCostModel``) waits for the serving tuner (ROADMAP Queue 1 item
-11); the multi-slice pieces (``fit_dcn``, degraded-round pricing) and the
-trace calibration wait for items 9 and 12.
+`overlap.fit_interconnect`'s sweep), `fit_dcn` (the cross-slice link's
+α-β from a `comm.dcn.DcnExchanger`'s fetch samples), `CostModel` (a
+configuration's predicted comm and its step-time floor) and
+`price_degraded_round` (one remote slice's cost in a degraded-mode DCN
+round). The serving cost model (``ServeCostModel``) waits for the
+serving tuner (ROADMAP Queue 1 item 11); the trace calibration waits for
+item 12.
 
 The JSON grammar of a calibration accepts both the flat shape
 ``{"alpha": ..., "beta": ...}`` and the two-level shape
@@ -22,7 +24,8 @@ import math
 from typing import Any, Callable, Optional, Sequence
 
 __all__ = ["CostModel", "Calibration", "DTYPE_ITEMSIZE", "LinkFit",
-           "fit_allgather_sweep", "load_calibration"]
+           "fit_allgather_sweep", "fit_dcn", "load_calibration",
+           "price_degraded_round"]
 
 #: wire itemsize per comm/gather dtype token (None = keep f32) — shared
 #: with `tuning.planspace`
@@ -112,7 +115,7 @@ def load_calibration(source) -> Calibration:
 
 
 # ---------------------------------------------------------------------------
-# fit plumbing (the math half of overlap.fit_interconnect)
+# fit plumbing (the math halves of overlap.fit_interconnect / fit_dcn)
 # ---------------------------------------------------------------------------
 
 
@@ -129,6 +132,28 @@ def fit_allgather_sweep(world: int, sizes_bytes: Sequence[float],
     per_round = [t / max(w - 1, 1) for t in times_s]
     round_bytes = [s / w for s in sizes_bytes]
     return perf_model.fit_alpha_beta(round_bytes, per_round)
+
+
+def fit_dcn(samples: Sequence[tuple[float, float]],
+            *, min_samples: int = 4) -> tuple[float, float]:
+    """(α, β) for the cross-slice DCN level from the exchanger's own
+    per-fetch timing samples (`comm.dcn.DcnExchanger.samples` —
+    ``(bytes, seconds)`` per remote chunk fetch). The per-level half of
+    the link-aware fit: `fit_allgather_sweep` normalizes the intra-slice
+    sweep, this one reuses the transfer timings the training run already
+    paid for. Raises ``ValueError`` below ``min_samples`` — a one-point
+    fit would hand the cost model a degenerate β and silently
+    mis-prune."""
+    from dear_pytorch_tpu_torch.utils import perf_model
+
+    pts = [(float(b), float(t)) for b, t in samples
+           if t > 0 and b >= 0]
+    if len(pts) < int(min_samples):
+        raise ValueError(
+            f"DCN fit needs >= {min_samples} (bytes, secs) samples, got "
+            f"{len(pts)} — run more exchanges or set DEAR_TUNE_FIT_DCN "
+            "to an explicit 'alpha,beta'")
+    return perf_model.fit_alpha_beta(*zip(*pts))
 
 
 # ---------------------------------------------------------------------------
@@ -231,3 +256,32 @@ class CostModel:
         if config.remat == "full":
             compute = compute * self.remat_factor
         return max(compute, self._scale * self.comm(config))
+
+
+# ---------------------------------------------------------------------------
+# degraded-mode DCN pricing (comm/dcn.py's escalation ladder)
+# ---------------------------------------------------------------------------
+
+
+def price_degraded_round(fit: LinkFit, wire_bytes: float, *,
+                         timeout_s: float,
+                         partition_mb: Optional[float] = None,
+                         outage: bool = False) -> float:
+    """Seconds the cross-slice leg charges for ONE remote slice in one
+    exchange round under the degraded-mode ladder (`comm.dcn`).
+
+    Healthy: the α-β price of the slice's chunked payload — one α per
+    chunk at ``partition_mb`` granularity plus β per wire byte, the same
+    per-message accounting `overlap.predict_leg_times` applies to 'dcn'
+    rows. Outage: rung 1 burns the slice's WHOLE retry budget
+    (``DEAR_DCN_TIMEOUT_SECS`` — retries spread inside it) before rung 2
+    skips, so the cost of deciding to skip is exactly ``timeout_s``,
+    bounded by construction."""
+    if outage:
+        return float(timeout_s)
+    wire = max(float(wire_bytes), 0.0)
+    if partition_mb is not None and partition_mb > 0:
+        chunks = max(int(math.ceil(wire / (partition_mb * 2**20))), 1)
+    else:
+        chunks = 1
+    return chunks * fit.alpha + wire * fit.beta

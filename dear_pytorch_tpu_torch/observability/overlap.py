@@ -55,7 +55,8 @@ from typing import Optional, Sequence
 from dear_pytorch_tpu_torch.observability import counters as CTR
 
 __all__ = ["BucketLegReport", "OverlapReport", "audit_train_step",
-           "fit_interconnect", "measure_step_time", "measure_timeline",
+           "fit_dcn", "fit_interconnect", "measure_step_time",
+           "measure_timeline",
            "predict_leg_times", "timeline_from_events"]
 
 
@@ -416,3 +417,12 @@ def fit_interconnect(group=None, *, sizes: Optional[Sequence[int]] = None,
     sizes_bytes, times = prof.benchmark(sizes=sizes, repeats=repeats,
                                         warmup=warmup)
     return CM.fit_allgather_sweep(prof.world, sizes_bytes, times)
+
+
+def fit_dcn(samples: Sequence[tuple[float, float]],
+            *, min_samples: int = 4) -> tuple[float, float]:
+    """(α, β) for the cross-slice DCN level — `costmodel.fit_dcn` (the
+    one α-β waist); kept at the JAX package's `overlap.fit_dcn` path."""
+    from dear_pytorch_tpu_torch.observability import costmodel as CM
+
+    return CM.fit_dcn(samples, min_samples=min_samples)

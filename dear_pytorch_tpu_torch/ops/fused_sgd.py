@@ -43,7 +43,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Any, Callable, NamedTuple, Optional, Union
+from typing import Any, Callable, NamedTuple, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -324,20 +324,57 @@ def _grad_of(rs_out, mean_world, clip_scale, device) -> torch.Tensor:
     return g if clip_scale is None else g * clip_scale
 
 
+#: the most elements one first-level sum of `_segment_sums` covers
+_PIECE = 1 << 14
+
+
+def segment_pieces(lengths: Sequence[int], device, rows: int = 1) -> tuple:
+    """`_segment_sums`'s host plan for segments of ``lengths`` elements,
+    ``rows`` times back to back (the rows of its ``x``): each segment cut
+    into pieces of at most `_PIECE` elements; ``(piece offsets, segment
+    offsets)``, int64 tensors on ``device``, the first into the elements,
+    the second into the pieces. Fixed per fusion plan and shard, so the
+    train step makes it once per bucket."""
+    pieces, per = [], []
+    for n in (int(n) for n in lengths):
+        k = -(-n // _PIECE)
+        pieces += [_PIECE] * (k - 1) + ([n - _PIECE * (k - 1)] if k else [])
+        per.append(k)
+    return tuple(torch.from_numpy(np.cumsum([0] + v * rows)).to(device)
+                 for v in (pieces, per))
+
+
 def _segment_sums(x: torch.Tensor, seg_ids: torch.Tensor,
-                  num_segments: int) -> torch.Tensor:
-    """``jax.ops.segment_sum`` for NONDECREASING ``seg_ids`` (a fusion
-    plan's: each parameter a contiguous run, the padding last): the fp64
-    running sum read at each segment's end, minus the one before. No
-    atomics (an ``index_add_`` into a few segments serialises on their
-    addresses: one 31M-element embedding took ~1 s on the card) and no
-    host sync; fp64, so the differences lose nothing an fp32 sum keeps."""
-    run = torch.cumsum(x.double(), 0)
-    ids = torch.arange(num_segments, dtype=seg_ids.dtype,
-                       device=seg_ids.device)
-    ends = torch.searchsorted(seg_ids, ids, right=True)
-    upto = torch.cat([run.new_zeros((1,)), run])[ends]
-    return torch.diff(upto, prepend=upto.new_zeros((1,))).to(x.dtype)
+                  num_segments: int, pieces: Optional[tuple] = None
+                  ) -> torch.Tensor:
+    """``jax.ops.segment_sum`` along the last axis of ``x`` (each row on
+    its own) for NONDECREASING ``seg_ids`` (a fusion plan's: each
+    parameter a contiguous run, the padding last), in fp64 and over each
+    segment's own elements only: two segmented reductions, the pieces of
+    `segment_pieces` (many pieces of one large parameter reduce in
+    parallel), then each segment's pieces; no host sync. ``pieces``: that
+    plan for ``x``'s rows (the train step passes it); without it the
+    segment lengths are read from ``seg_ids`` (one host sync). Returns
+    ``x``'s rows by ``num_segments`` in ``x``'s dtype. Not an
+    ``index_add_`` (it serialises on a few segments' addresses: one
+    31M-element embedding took ~1 s on the card), and not differences of
+    one running sum over the bucket: its rounding grows with the whole
+    prefix, and on the card a parallel scan rounds the prefix differently
+    at a segment's two ends, so a small parameter after a large one lost
+    its sum and a zero one (a key bias, whose gradient is zero) read
+    +-1e-13 instead of 0."""
+    rows = x.shape[:-1]
+    if pieces is None:
+        ids = torch.arange(num_segments, dtype=seg_ids.dtype,
+                           device=seg_ids.device)
+        ends = torch.searchsorted(seg_ids, ids, right=True)
+        lengths = torch.diff(ends, prepend=ends.new_zeros((1,))).tolist()
+        pieces = segment_pieces(lengths, x.device, int(np.prod(rows)))
+    piece_offs, seg_offs = pieces
+    part = torch.segment_reduce(x.reshape(-1).double(), "sum",
+                                offsets=piece_offs, unsafe=True)
+    sums = torch.segment_reduce(part, "sum", offsets=seg_offs, unsafe=True)
+    return sums.view(*rows, num_segments).to(x.dtype)
 
 
 def fused_lamb(lr, betas: tuple = (0.9, 0.999), eps: float = 1e-6,
@@ -351,7 +388,9 @@ def fused_lamb(lr, betas: tuple = (0.9, 0.999), eps: float = 1e-6,
         r    = ||w||_seg / ||u||_seg          (1 where either norm is 0)
         w   -= lr * r[seg] * u
 
-    ``seg_ids`` is nondecreasing, as a fusion plan's are (`_segment_sums`).
+    ``seg_ids`` is nondecreasing, as a fusion plan's are (`_segment_sums`);
+    ``seg_pieces`` (the train step's) is its `segment_pieces` for two
+    rows: both sums of squares reduce in one pair of launches.
     The two segment sums of squares go to ``psum`` as one ``[2,
     num_segments]`` tensor (one collective). Padding lives in the dummy
     trailing segment and never moves (w = 0, g = 0 -> u = 0). The state
@@ -367,7 +406,8 @@ def fused_lamb(lr, betas: tuple = (0.9, 0.999), eps: float = 1e-6,
                 "t": 0}
 
     def update(rs_out, state, param, seg_ids, num_segments, psum, *,
-               mean_world: int = 1, clip_scale=None, step: int = 0):
+               mean_world: int = 1, clip_scale=None, step: int = 0,
+               seg_pieces: Optional[tuple] = None):
         f32 = np.float32
         g = _grad_of(rs_out, mean_world, clip_scale, param.device)
         m, v = state["m"], state["v"]
@@ -379,10 +419,11 @@ def fused_lamb(lr, betas: tuple = (0.9, 0.999), eps: float = 1e-6,
         u = (m / bc1) / ((v / bc2).sqrt() + eps)
         if weight_decay:
             u = u + weight_decay * param
-        sums = torch.stack([_segment_sums(param * param, seg_ids,
-                                          num_segments),
-                            _segment_sums(u * u, seg_ids, num_segments)])
-        w_norm, u_norm = psum(sums).sqrt()
+        sq = param.new_empty((2, param.numel()), dtype=torch.float64)
+        torch.mul(param, param, out=sq[0])
+        torch.mul(u, u, out=sq[1])
+        sums = _segment_sums(sq, seg_ids, num_segments, seg_pieces)
+        w_norm, u_norm = psum(sums.float()).sqrt()
         trust = torch.where((w_norm > 0.0) & (u_norm > 0.0),
                             w_norm / torch.clamp(u_norm, min=1e-12),
                             torch.ones_like(w_norm))

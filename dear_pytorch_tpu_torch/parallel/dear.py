@@ -51,8 +51,8 @@ run on these legs. Every rank must issue its ring calls in the same order
 fixed order, descending bucket index (the order a backward over a
 module-order plan completes them): a bucket that completes early waits
 for its turn; the gathers run in ascending order. The mode takes the JAX
-package's build-time guards (dear.py:401-457): no ``clip_norm``, no
-`LayerwiseShardOptimizer` (LAMB), no compression and no ``dcn``, each a
+package's build-time guards (dear.py:401-457): no ``dcn``, no
+``clip_norm``, no `LayerwiseShardOptimizer` (LAMB) and no compression, each a
 ``ValueError`` with the JAX package's message. At world 1 both legs
 short-cut as in JAX: the update is the plain shard update, the gather the
 shard itself.
@@ -233,13 +233,40 @@ compressor state (`TrainStep.hold_for_snapshot`: an event wait on the
 stream, not a host sync). `TrainStep.last_state` is the state the step
 last returned.
 
-Not ported yet (raises ``NotImplementedError`` naming its ROADMAP item):
-the multi-slice ``dcn`` schedule (item 9c).
+The hierarchical (multi-slice) schedule (``dcn=``, a
+`comm.dcn.DcnExchanger`; JAX dear.py:335-358, :1155-1276): ``mode="dear"``
+over ``group`` = this rank's SLICE group (`comm.backend.slice_group`; the
+JAX package's intra-slice ICI axis), with the cross-slice leg on the host
+between the backward and the update. Per step: forward and backward with
+the per-bucket reduce-scatters on the slice group, as above;
+``dcn.prefetch(step)``; per bucket one all-gather of the reduced bucket
+over the slice group (every rank of the slice then holds the slice's
+whole reduced bucket), divided by the slice's world in fp32 (the JAX
+package's intra-slice mean) and copied to the host, so every rank of a
+slice publishes byte-identical payloads; ``dcn.exchange`` (the mean over
+the live slices, and of the slices' losses); ONE ``all_gather_object``
+over the slice group on which its ranks agree on the outcome — ok, or the
+lowest failing rank's exception, raised on every rank of the slice with
+its type and message, before any of them updates (a rank that went on
+alone would issue collectives its failed peer never joins); this rank's
+shard of each mean copied to the card; the K5 epilogue per bucket with no
+further division (the means are means); the gathers, as above.
+``metrics["loss"]`` is the exchanged loss mean. A slice's dropout
+streams fold ``slice * world + rank`` (JAX dear.py:614-620), so ranks at
+the same position of two slices draw different masks. The guards are the
+JAX package's (dear.py:401-406, :509-552) in its order, and its mesh
+guards become one: the exchanger has exactly one local slice and
+``group`` is that slice's group. ``multi_step`` raises, as JAX's does.
+`rebind` moves the step to the next membership epoch's slice group
+(`tuning.autotune.AutoTuner.rescale`) without touching its state. With
+B buckets a hierarchical step counts B reduce-scatters, 2B all-gathers
+(B of the reduced buckets, B of the updated shards) and B updates.
 """
 
 from __future__ import annotations
 
 import contextlib
+import time
 from typing import Callable, NamedTuple, Optional, Sequence
 
 import numpy as np
@@ -250,6 +277,7 @@ from torch import nn
 from dear_pytorch_tpu_torch._device import check_model_device
 from dear_pytorch_tpu_torch.comm import backend
 from dear_pytorch_tpu_torch.comm import collectives as C
+from dear_pytorch_tpu_torch.comm import dcn as DCN
 from dear_pytorch_tpu_torch.comm.ring import Ring
 from dear_pytorch_tpu_torch.models.bert import ProjDense
 from dear_pytorch_tpu_torch.observability import counters as CTR
@@ -261,6 +289,7 @@ from dear_pytorch_tpu_torch.ops import remat as R
 from dear_pytorch_tpu_torch.ops.fused_sgd import (
     LayerwiseShardOptimizer,
     fused_sgd,
+    segment_pieces,
 )
 
 __all__ = ["DearState", "EXCLUDABLE", "MODES", "TrainStep",
@@ -285,11 +314,6 @@ class DearState(NamedTuple):
     opt_state: tuple
     step: int
     comp_state: tuple = ()
-
-
-#: options of the JAX package's ``build_train_step`` that are not ported
-#: yet -> the ROADMAP Queue 1 item that brings them
-_UNPORTED = {"dcn": "9c (the multi-slice schedule)"}
 
 
 class _SavedView(NamedTuple):
@@ -359,16 +383,11 @@ _REDUCTIONS = {"allreduce": _allreduce, "rsag": _rsag, "rb": _rb,
                "bytescheduler": _bytescheduler}
 
 
-def _unported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported yet: ROADMAP Queue 1 item {item}")
-
-
-def _fused_guards(optimizer, clip_norm, unported) -> None:
+def _fused_guards(optimizer, clip_norm, dcn) -> None:
     """The JAX package's build-time guards of ``mode="dear-fused"`` that
     come before the others, in its order and with its messages
     (dear.py:401-457)."""
-    if unported.get("dcn") is not None:
+    if dcn is not None:
         raise ValueError(
             "multislice (dcn=) cannot ride mode='dear-fused': the "
             "Pallas ring kernels address devices by single-mesh axis "
@@ -387,6 +406,62 @@ def _fused_guards(optimizer, clip_norm, unported) -> None:
             "dear-fused cannot fuse LayerwiseShardOptimizer (LAMB) "
             "into the epilogue kernel: trust ratios need cross-shard "
             "psums — use mode='dear'")
+
+
+def _dcn_guards(dcn, mode, comp, clip_norm, model_state, has_aux,
+                exclude_parts, group) -> None:
+    """The JAX package's guards of the hierarchical schedule, in its order
+    and with its messages (dear.py:509-552); its nested-mesh guards
+    (:553-565) become the port's: one local slice, and ``group`` is that
+    slice's group (`comm.backend.slice_group`)."""
+    if mode != "dear":
+        raise ValueError(
+            "the hierarchical (dcn=) schedule is the two-level "
+            f"decoupled 'dear' mode; got mode={mode!r}")
+    if comp.name != "none":
+        raise ValueError(
+            "gradient compression on the hierarchical schedule is "
+            "unsupported: the cross-slice leg averages DENSE reduced "
+            "partials on the host — compress-on-DCN is a named "
+            "follow-up, not a silent fallback")
+    if clip_norm is not None:
+        raise ValueError(
+            "clip_norm needs the GLOBAL gradient norm, which crosses "
+            "the slice boundary inside the step — unsupported with "
+            "dcn= (the host leg averages per-bucket partials only)")
+    if model_state:
+        raise ValueError(
+            "model_state (BatchNorm stats etc.) syncs over the "
+            "intra-slice axes only and would silently diverge across "
+            "slices — unsupported with dcn=")
+    if has_aux:
+        raise ValueError(
+            "has_aux is unsupported with dcn=: only the loss travels "
+            "the cross-slice scalar path")
+    if exclude_parts:
+        raise ValueError(
+            "exclude_parts ablations assume the single-level "
+            "schedule; unsupported with dcn=")
+    local = tuple(getattr(dcn, "local_slices", ()))
+    if len(local) != 1:
+        raise ValueError(
+            f"dcn= needs an exchanger with exactly one local slice (a "
+            f"process of the port is one rank of one slice); got "
+            f"local_slices={local or None}")
+    if backend.slice_id() is None:
+        raise ValueError(
+            "dcn= runs its intra-slice legs over the slice's process "
+            "group: form the slice groups first (comm.backend."
+            "form_slice_groups, or regroup a slice-granular view)")
+    if local[0] != backend.slice_id():
+        raise ValueError(
+            f"the exchanger's local slice {local[0]} is not this rank's "
+            f"slice {backend.slice_id()}")
+    if group is not None and group is not backend.slice_group():
+        raise ValueError(
+            f"group must be slice {local[0]}'s group (comm.backend."
+            "slice_group()): the hierarchical step's reduce-scatters and "
+            "gathers run inside the slice")
 
 
 def _compression_guards(comp, mode, exclude_parts) -> None:
@@ -428,7 +503,8 @@ def build_train_step(loss_fn: Callable, model: nn.Module, *,
                      exclude_parts: Sequence[str] = (),
                      partition_mb: Optional[float] = 4.0,
                      remat: Optional[str] = None,
-                     **unported) -> "TrainStep":
+                     dcn=None, dcn_slice_axis: str = "slice"
+                     ) -> "TrainStep":
     """Build the eager DeAR (or baseline) train step over ``model``.
 
     ``loss_fn(model, batch) -> loss`` (``(loss, aux)`` with ``has_aux``);
@@ -457,11 +533,14 @@ def build_train_step(loss_fn: Callable, model: nn.Module, *,
     (module docstring). ``mode``: one of `MODES` (module docstring).
     ``exclude_parts``: a subset of `EXCLUDABLE`, the time-breakdown
     ablations of ``mode="dear"``. ``partition_mb``: ``bytescheduler``'s
-    chunk size in MB of the comm dtype (other modes ignore it). ``remat``:
-    None, ``"none"`` or ``"full"`` (recompute the forward in the backward;
-    ``fsdp`` refuses it). The JAX package's ``dcn`` is accepted at its
-    default and raises ``NotImplementedError`` otherwise. The guards are
-    the JAX package's, in its order and with its messages (dear.py:361-510)."""
+    chunk size in MB of the comm dtype, and under ``dcn`` the cross-slice
+    message size (other modes ignore it). ``remat``: None, ``"none"`` or
+    ``"full"`` (recompute the forward in the backward; ``fsdp`` refuses
+    it). ``dcn``: a `comm.dcn.DcnExchanger`, the hierarchical schedule
+    (module docstring); ``group`` then defaults to this rank's slice group.
+    ``dcn_slice_axis`` is the JAX package's mesh axis name, accepted and
+    unused: the slice is a process group here. The guards are the JAX
+    package's, in its order and with its messages (dear.py:361-565)."""
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
     for e in exclude_parts:
@@ -470,7 +549,7 @@ def build_train_step(loss_fn: Callable, model: nn.Module, *,
     if exclude_parts and mode != "dear":
         raise ValueError("exclude_parts is a 'dear'-mode ablation")
     if mode == "dear-fused":
-        _fused_guards(optimizer, clip_norm, unported)
+        _fused_guards(optimizer, clip_norm, dcn)
     if gather_dtype is not None and mode not in _SHARDED:
         raise ValueError("gather_dtype applies to the sharded ('dear'/'fsdp') "
                          "schedules only")
@@ -506,14 +585,13 @@ def build_train_step(loss_fn: Callable, model: nn.Module, *,
             "momentum_correction requires a sparse (top-k-family) "
             "compressor (reference wfbp/dopt.py:769: mc applies on the "
             "sparse path only)")
-    for name, value in unported.items():
-        if name not in _UNPORTED:
-            raise TypeError(f"build_train_step() got an unexpected keyword "
-                            f"argument {name!r}")
-        if value not in (None, "none", False, ()):
-            raise _unported(f"{name}={value!r}", _UNPORTED[name])
+    mstate = _model_state(model, model_state_template)
+    if dcn is not None:
+        _dcn_guards(dcn, mode, comp, clip_norm, mstate, has_aux,
+                    exclude_parts, group)
     dev = check_model_device(model.device, device)
-    group = backend.init(dev) if group is None else group
+    if group is None:
+        group = backend.slice_group() if dcn is not None else backend.init(dev)
     world = dist.get_world_size(group)
     if gtopk and world & (world - 1):
         raise ValueError(f"gtopk needs a power-of-two world, got {world}")
@@ -528,10 +606,10 @@ def build_train_step(loss_fn: Callable, model: nn.Module, *,
                      has_aux=has_aux, rng_seed=rng_seed,
                      accum_steps=int(accum_steps), clip_norm=clip_norm,
                      mode=mode, exclude_parts=exclude_parts,
-                     partition_mb=partition_mb,
-                     model_state=_model_state(model, model_state_template),
+                     partition_mb=partition_mb, model_state=mstate,
                      compressor=comp, density=density, gtopk=bool(gtopk),
-                     momentum_correction=momentum_correction, remat=remat)
+                     momentum_correction=momentum_correction, remat=remat,
+                     dcn=dcn)
 
 
 def _model_state(model, template) -> dict:
@@ -566,7 +644,12 @@ class TrainStep:
     bucket per step), ``cm_calls`` (ring-matmul calls, three per ring
     projection per step, and one more K6 call per recompute) and
     ``state_syncs`` (model-state collectives: one per step at world > 1
-    when the model has state, else none).
+    when the model has state, else none). ``dcn``: the hierarchical
+    schedule's exchanger (None on the single-level schedules), whose
+    per-step legs are timed in ``dcn_times`` (seconds of the last step:
+    the wait for the backward's reduce-scatters, the slice gathers, the
+    host copy, the exchange with its agreement, the copy back) and counted in ``dcn_bytes`` (the host payload of the last
+    step).
     In ``dear-fused`` mode ``ring`` is the step's `comm.ring.Ring` (holding
     no buffers at world 1; with a "cm" leg when the model has ring
     projections); `close` frees it once every rank is done."""
@@ -575,8 +658,13 @@ class TrainStep:
                  comm_dtype, gather_dtype, has_aux, rng_seed, accum_steps,
                  clip_norm, mode="dear", exclude_parts=(), partition_mb=4.0,
                  model_state=None, compressor=None, density=1.0, gtopk=False,
-                 momentum_correction=0.0, remat=None):
+                 momentum_correction=0.0, remat=None, dcn=None):
         self.loss_fn, self.model, self.optimizer = loss_fn, model, optimizer
+        self.dcn = dcn
+        #: the hierarchical step's leg times (seconds) and host payload
+        #: bytes, of the last step
+        self.dcn_times: dict = {}
+        self.dcn_bytes = 0
         self.group, self.plan = group, plan
         self.has_aux, self.rng_seed = has_aux, rng_seed
         self.accum_steps, self.clip_norm = accum_steps, clip_norm
@@ -670,6 +758,8 @@ class TrainStep:
         self._starts = ([torch.tensor(b.offsets, dtype=torch.int32,
                                       device=dev) for b in bks]
                         if self.layerwise else None)
+        #: LAMB: per bucket its `_segment_pieces`, made on first use
+        self._pieces: dict = {}
         self._acc = ([zeros(b.padded_size, torch.float32) for b in bks]
                      if accum_steps > 1 else None)
         self._slot = {}
@@ -708,11 +798,16 @@ class TrainStep:
     def _accounting(self) -> CTR.CommAccounting:
         """The plan's static per-step communication accounting."""
         itemsize = self._comm_dtype.itemsize
+        # hierarchical: the cross-slice host leg at the slice count the
+        # step was built (or rebound) at, as the JAX package states it
+        dcn = self.dcn
         return CTR.plan_comm_accounting(
             self.plan, mode=self.mode, comm_itemsize=itemsize,
             gather_itemsize=self._gather_dtype.itemsize,
             compressor=self.compressor.name if self.compressor else None,
-            density=self.density)
+            density=self.density,
+            num_slices=dcn.num_slices if dcn is not None else 1,
+            dcn_partition_mb=self.partition_mb if dcn is not None else None)
 
     def _leg_bytes(self) -> dict:
         if self._leg_bytes_cache is None:
@@ -1044,8 +1139,12 @@ class TrainStep:
         return tuple(out)
 
     def _generator(self, step: int, microbatch: int) -> torch.Generator:
+        # hierarchical: a globally unique index (JAX dear.py:614-620), so
+        # the same position in two slices draws different masks
+        idx = (self.rank if self.dcn is None
+               else self.dcn.local_slices[0] * self.world + self.rank)
         seed = np.random.SeedSequence(
-            [self.rng_seed, step, self.rank, microbatch]).generate_state(
+            [self.rng_seed, step, idx, microbatch]).generate_state(
                 1, np.uint64)[0]
         return torch.Generator(device=self.device).manual_seed(
             int(seed) & (2**63 - 1))
@@ -1152,15 +1251,18 @@ class TrainStep:
         self._finish_buckets()
         self._sync_model_state()
         metrics: dict = {}
-        if self.fused:
+        loss = torch.stack(losses).mean()
+        if self.dcn is not None:
+            self._dcn_update_and_gather(state, metrics, loss)
+        elif self.fused:
             self._fused_gathers(state)
         else:
             self._update_and_gather(state, metrics)
         self._snapshot = None   # both streams have waited for it
         if self.sdc_fp:
             metrics["sdc_fp"] = self._fingerprint(state)
-        loss = torch.stack(losses).mean()
-        metrics["loss"] = self._mean_over_ranks(loss)
+        if self.dcn is None:
+            metrics["loss"] = self._mean_over_ranks(loss)
         if auxs:
             metrics["aux"] = self._mean_over_ranks(torch.stack(auxs).mean(0))
         self.last_state = DearState(state.shards, state.opt_state,
@@ -1242,14 +1344,103 @@ class TrainStep:
             metrics["grad_norm"] = gnorm
         with torch.no_grad():
             for g, shard in enumerate(state.shards):
-                layer = self._segments(g) if self.layerwise else ()
+                layer, kw = (), {}
+                if self.layerwise:
+                    layer = self._segments(g)
+                    kw = {"seg_pieces": self._segment_pieces(g)}
                 self.optimizer.update(
                     self._reduced[g], state.opt_state[g], shard, *layer,
                     mean_world=self._mean_world, clip_scale=clip_scale,
-                    step=state.step)
+                    step=state.step, **kw)
                 self.update_launches += 1
                 if self.sharded:
                     self._gather(g, shard)
+
+    def _dcn_update_and_gather(self, state: DearState, metrics: dict,
+                               loss: torch.Tensor) -> None:
+        """The hierarchical step after backward (module docstring; JAX
+        dear.py:1228-1276): the slice's reduced buckets and mean loss to
+        the host, the cross-slice exchange, the slice's agreement on its
+        outcome, then the update from this rank's shard of each mean and
+        the gathers."""
+        dcn, step_no = self.dcn, int(state.step)
+        # bounded-stale mode: pull peers' partials while this rank gathers
+        dcn.prefetch(step_no)
+        self.wait_snapshot()
+        t0 = time.perf_counter()
+        for g, works in enumerate(self._rs_work):
+            for work in works:
+                if work is not None:
+                    work.wait()
+            self._rs_work[g] = []
+        tw = time.perf_counter()
+        with torch.no_grad():
+            fulls = [C.all_gather(r, self.group) for r in self._reduced]
+            self.ag_launches += len(fulls)
+            slice_loss = self._mean_over_ranks(loss.float())
+            t1 = time.perf_counter()
+            # the JAX package's intra-slice mean (fp32, then / world);
+            # the host copies are the leg's payload, a sync by design
+            host = [(f.float() / self.world).cpu().numpy() for f in fulls]
+            sid = dcn.local_slices[0]
+            scalar = float(slice_loss.cpu())
+        t2 = time.perf_counter()
+        err = None
+        try:
+            means, loss_mean = dcn.exchange(
+                step_no, {sid: host}, {sid: scalar},
+                partition_mb=self.partition_mb)
+        except Exception as exc:   # agreed below, then raised
+            err = exc
+        self._agree_on_exchange(err)
+        t3 = time.perf_counter()
+        with torch.no_grad():
+            grads = []
+            for g, b in enumerate(self.plan.buckets):
+                lo = self.rank * b.shard_size
+                grads.append(torch.from_numpy(
+                    means[g][lo:lo + b.shard_size]).to(self.device))
+            metrics["loss"] = torch.tensor(loss_mean, dtype=torch.float32,
+                                           device=self.device)
+            t4 = time.perf_counter()
+            for g, shard in enumerate(state.shards):
+                self.optimizer.update(grads[g], state.opt_state[g], shard,
+                                      mean_world=1, step=state.step)
+                self.update_launches += 1
+                self._gather(g, shard)
+        self.dcn_bytes = sum(h.nbytes for h in host)
+        self.dcn_times = {"rs_wait_s": tw - t0, "gather_s": t1 - tw,
+                          "to_host_s": t2 - t1,
+                          "exchange_s": t3 - t2, "to_device_s": t4 - t3}
+
+    def _agree_on_exchange(self, err: Optional[BaseException]) -> None:
+        """ONE collective on the slice group over the exchange's outcome:
+        when any rank of the slice failed, every rank raises one exception
+        of one class before any of them updates: the lowest failing rank's
+        when it is a `comm.dcn.DcnError` (its class and message), else a
+        `DcnError` wrapping it (a transport's `OSError`, a `RetryError`),
+        on that rank too, so the guard takes one branch on the whole
+        slice. Only the wrapping at world 1."""
+        mine = None if err is None else (type(err).__name__, str(err))
+        outs = [mine]
+        if self.world > 1:
+            outs = [None] * self.world
+            dist.all_gather_object(outs, mine, group=self.group)
+        first = next((o for o in outs if o is not None), None)
+        if first is None:
+            return
+        cls = getattr(DCN, first[0], None)
+        if mine == first and isinstance(err, DCN.DcnError):
+            raise err
+        if not (isinstance(cls, type) and issubclass(cls, DCN.DcnError)):
+            cls = DCN.DcnError
+            msg = f"{first[0]}: {first[1]}"
+        else:
+            msg = first[1]
+        if mine != first:
+            msg += (" (a peer rank's exchange failed; this slice stops "
+                    "before its update)")
+        raise cls(msg) from err
 
     def _segment_ids(self, g: int, lo: int, hi: int) -> torch.Tensor:
         """int32 ids of bucket g's elements ``[lo, hi)``: each element's
@@ -1263,15 +1454,41 @@ class TrainStep:
                                  out_int32=True) - 1
         return torch.where(pos < b.size, seg, len(b.leaf_ids))
 
+    def _span(self, g: int) -> tuple:
+        """This rank's buffer of bucket g, ``(lo, hi)`` in the bucket."""
+        b = self.plan.buckets[g]
+        return ((self.rank * b.shard_size, (self.rank + 1) * b.shard_size)
+                if self.sharded else (0, b.padded_size))
+
+    def _segment_lengths(self, g: int) -> list:
+        """Per segment of bucket g (its parameters, then the padding) the
+        number of this rank's elements in it, from the plan on the host
+        (`_segment_pieces`)."""
+        b = self.plan.buckets[g]
+        lo, hi = self._span(g)
+        spans = [(off, off + self.plan.leaves[i].size)
+                 for i, off in zip(b.leaf_ids, b.offsets)]
+        spans.append((b.size, b.padded_size))
+        return [max(0, min(e, hi) - max(s, lo)) for s, e in spans]
+
+    def _segment_pieces(self, g: int) -> tuple:
+        """`ops.fused_sgd.segment_pieces` of bucket g's `_segment_lengths`
+        for LAMB's two sums of squares, on the card, made on the first
+        step and kept (the plan, the rank and the bucketing stay fixed for
+        the step's life, `rebind` included): two small int64 tensors a
+        bucket."""
+        if g not in self._pieces:
+            self._pieces[g] = segment_pieces(self._segment_lengths(g),
+                                             self.device, rows=2)
+        return self._pieces[g]
+
     def _segments(self, g: int) -> tuple:
         """A `LayerwiseShardOptimizer`'s ``(seg_ids, num_segments, psum)``
         for bucket g (JAX dear.py:912-958): the segment ids of this rank's
         buffer (`_segment_ids`); ``psum`` an all-reduce over the group in
         the sharded modes at world > 1, else the identity."""
         b = self.plan.buckets[g]
-        lo, hi = ((self.rank * b.shard_size, (self.rank + 1) * b.shard_size)
-                  if self.sharded else (0, b.padded_size))
-        seg = self._segment_ids(g, lo, hi)
+        seg = self._segment_ids(g, *self._span(g))
         if not (self.sharded and self.world > 1):
             return seg, len(b.leaf_ids) + 1, lambda x: x
 
@@ -1471,12 +1688,42 @@ class TrainStep:
         self._full = []
         self.ring.close()
 
+    def rebind(self, group, plan: F.FusionPlan) -> None:
+        """Move the step to ``group`` (the next membership epoch's slice
+        group, of the same size, at the same rank) and ``plan`` (the same
+        bucketing, the epoch restamped): `tuning.autotune.AutoTuner.
+        rescale` of a hierarchical step, whose slice's process group
+        `comm.backend.regroup` released. Nothing is rebuilt: the masters,
+        the optimizer state, the full buffers and the model's binding stay
+        as they are; what the old group had in flight is dropped unwaited
+        (the caller waited for it while that group lived)."""
+        if (dist.get_world_size(group) != self.world
+                or dist.get_rank(group) != self.rank):
+            raise ValueError(
+                f"rebind to a group of {dist.get_world_size(group)} ranks "
+                f"(rank {dist.get_rank(group)}); the step's slice has "
+                f"{self.world} (rank {self.rank}): its shards stay in place")
+        if [b.leaf_ids for b in plan.buckets] != \
+                [b.leaf_ids for b in self.plan.buckets] \
+                or plan.world != self.plan.world:
+            raise ValueError("rebind keeps the bucketing and the world; "
+                             "rebuild the step for another plan")
+        self._drop_in_flight()
+        self.group, self.plan = group, plan
+        self.group_lost = False
+        self._leg_bytes_cache = None
+
     def multi_step(self, n: int) -> Callable:
         """``fn(state, batch) -> (state, metrics)`` running ``n`` steps on
         the one batch and returning the final state and the LAST step's
         metrics (the benchmark protocol; JAX dear.py:1320-1358); cached per
         ``n``, and ``dear.multi_step_compiles`` counted when it is first
         built. The steps are n eager `step` calls (module docstring)."""
+        if self.dcn is not None:
+            raise ValueError(
+                "multi_step is unavailable on the hierarchical (dcn=) "
+                "schedule: the cross-slice exchange is a host-level leg "
+                "and cannot ride inside a compiled lax.scan")
         n = int(n)
         if n < 1:
             raise ValueError(f"multi_step needs n >= 1, got {n}")

@@ -1,8 +1,8 @@
 """Chaos drills of the port's elastic membership — the port of the JAX
-package's ``scripts/chaos_check.py --elastic`` (JAX :421-666) and
-``--autoscale`` with its cold start (JAX :1241-1676), with JAX's
-scenarios and verdicts, over the port's supervisor
-(`launch.supervisor`):
+package's ``scripts/chaos_check.py --elastic`` (JAX :421-666),
+``--autoscale`` with its cold start (JAX :1241-1676) and the multi-slice
+drills (JAX :1677-2400), with JAX's scenarios and verdicts, over the
+port's supervisor (`launch.supervisor`):
 
   - ``--elastic``: 3 ranks train under the supervisor; rank 2 SIGKILLs
     itself before attempt 5; the survivors' health sync commits epoch 1
@@ -15,21 +15,38 @@ scenarios and verdicts, over the port's supervisor
     epoch 1), rank 1 is SIGKILLed (e2) and relaunched (e3), rank 0 is
     drained with a SIGTERM (a planned shrink, e4) and backfilled (e5);
     then a cold start restores from the remote tier alone.
+  - ``--multislice``, ``--multislice-flap``, ``--multislice-degraded``: 2
+    slices x 2 ranks (``DEAR_ELASTIC_RANKS_PER_SLICE=2``) train the
+    hierarchical schedule (`parallel.dear`, ``dcn=``) over a shared
+    `FileTransport` DCN exchanger (`comm.dcn`). JAX's drill runs 2 x 4
+    ranks, each a process holding a whole 2-device slice as its own mesh;
+    a port process drives one card, so here a slice is two processes, its
+    intra-slice peers over the slice's process group
+    (`comm.backend.slice_group`). The stories: the whole of slice 1 dies
+    before attempt 5 and the survivors commit ONE slice-shaped shrink,
+    renormalize the DCN leg, train degraded under a ``dcn_slow``
+    straggler and readmit the relaunched slice as ONE epoch; a sub-budget
+    ``dcn_flap`` under bounded staleness costs no rollback; a past-budget
+    ``dcn_partition`` makes the victim slice evict itself (exit 70) and
+    rejoin.
 
 Every rank is a process: checkpoints are per-host (``DEAR_CKPT_SHARED=0``:
 each blob holds the whole state), the membership runs over the
 supervisor's `FileTransport` and each epoch's group over a ``FileStore``
 in the same directory, both of which outlive every rank. The JAX gate's
-steps-per-hour SLO goes through its ``scripts/bench_gate.py --slo``,
-which is the JAX package's: that one check is left out; every other
-verdict stays. The other drills of the JAX script raise, naming their
-ROADMAP item.
+steps-per-hour SLO (``--autoscale``, ``--multislice-flap``) goes through
+its ``scripts/bench_gate.py --slo``, which is the JAX package's: that one
+check is left out; every other verdict stays. The other drills of the
+JAX script raise, naming their ROADMAP item.
 
 The workload is ``--model mlp`` (JAX's tiny MLP, a torch copy with its
 shapes), ``mnistnet`` (the MNIST example's net) or ``gpt2`` (GPT-2 small
 cut to 2 layers at full width, bf16, flash attention, dropout off,
 B = 4 per rank, S = 1024); ``--device cuda`` (the default)
-or ``cpu``. Beyond JAX's verdicts each worker records per attempt its
+or ``cpu``. The multi-slice drills' strict DCN deadline
+(``DEAR_DCN_TIMEOUT_SECS``) is 0.45 of the peer timeout (JAX's 20 s of
+45), so a dead slice fails the step well before the health sync gives
+up. Beyond JAX's verdicts each worker records per attempt its
 loss, the K5 epilogue's launches and the plan's buckets, and per
 transition its times (`chip_smoke.py`'s elastic phase prints them), and
 ``--elastic`` replays the first post-shrink steps in a fresh 2-rank run
@@ -37,6 +54,8 @@ restored from the same checkpoint.
 
     python -m dear_pytorch_tpu_torch.scripts.chaos_check --elastic \\
         [--device cpu] [--model mlp] [--workdir DIR]
+    python -m dear_pytorch_tpu_torch.scripts.chaos_check --multislice \\
+        [--device cpu] [--model mlp|mnistnet|gpt2]
 
 Prints one JSON summary line and ``CHAOS CHECK PASSED|FAILED``; exit 0
 iff every verdict held.
@@ -153,17 +172,18 @@ def _workload(name: str, device):
     raise ValueError(f"unknown --model {name!r} (mlp, mnistnet, gpt2)")
 
 
-def _tuner(args, group_device):
+def _tuner(args, group_device, **extra):
     """The worker's `AutoTuner` (JAX's: strategy bo, a tuning interval
     that never fires, SGD lr 0.05 momentum 0.9) over the workload, and
-    the workload's ``batch_at``."""
+    the workload's ``batch_at``; ``extra`` goes to the build (``dcn``)."""
     from dear_pytorch_tpu_torch.ops.fused_sgd import fused_sgd
     from dear_pytorch_tpu_torch.tuning.autotune import AutoTuner
 
     model, loss_fn, batch_at, kw, thr = _workload(args.model, group_device)
     tuner = AutoTuner(loss_fn, model, strategy="bo", threshold_mb=thr,
                       interval=10**9, device=group_device,
-                      optimizer=fused_sgd(lr=0.05, momentum=0.9), **kw)
+                      optimizer=fused_sgd(lr=0.05, momentum=0.9),
+                      **kw, **extra)
     return tuner, batch_at
 
 
@@ -1089,13 +1109,650 @@ def run_autoscale(args) -> dict:
     return summary
 
 
+# -- the multi-slice drills ------------------------------------------------------
+
+#: the multi-slice fleet: 2 slices x 2 ranks (module docstring)
+_NSLICES, _RPS = 2, 2
+
+
+def _slice_group(cluster, rank: int, device, rejoining: bool):
+    """The worker's first groups, with its slice's group: a first-launch
+    member forms epoch 0's; a relaunched rank forms a one-rank group (and
+    a one-rank slice group of its own slice) until its admission."""
+    import torch.distributed as dist
+
+    from dear_pytorch_tpu_torch.comm import backend
+    from dear_pytorch_tpu_torch.resilience.membership import MembershipView
+
+    if not rejoining:
+        return backend.regroup(cluster.view(), device=device)
+    sid = cluster.slice_of(rank)
+    solo = MembershipView(epoch=-1, members=(rank,), rank=rank, index=0,
+                          world=1, slices=(sid,), slice_id=sid)
+    return backend.regroup(solo, device=device, store=dist.HashStore())
+
+
+def _fit_dcn(dcn):
+    from dear_pytorch_tpu_torch.observability import costmodel as CMOD
+
+    try:
+        return list(CMOD.fit_dcn(dcn.samples()))
+    except ValueError:
+        return None
+
+
+def run_worker_multislice(args) -> dict:
+    """One rank of the multi-slice drills (JAX :1677-1899): a 2-slice x
+    2-rank fleet where every rank trains the hierarchical schedule — the
+    per-bucket reduce-scatter and gathers over its slice's process group
+    (`comm.backend.slice_group`), the cross-slice mean over a shared
+    `FileTransport` DCN exchanger between the backward and the update
+    (`comm.dcn`). Membership is slice-granular
+    (``DEAR_ELASTIC_RANKS_PER_SLICE``); the live slices shard the data,
+    and the ranks of a slice split their slice's rows.
+    ``DEAR_CHAOS_MULTI_MODE``: ``kill`` (the victim slice SIGKILLs its
+    ranks at one attempt; the survivors shrink, train degraded and
+    readmit it), ``flap`` (a fixed-step bounded-staleness run under a
+    sub-budget ``dcn_flap``: no rollback at all) or ``partition`` (a
+    past-budget ``dcn_partition`` makes the victim slice evict itself,
+    exit 70 and rejoin; its relaunch strips the outage fault)."""
+    os.environ["DEAR_CKPT_SHARED"] = "0"
+    import importlib
+
+    from dear_pytorch_tpu_torch.comm import backend
+    from dear_pytorch_tpu_torch.comm.dcn import DcnExchanger, DcnSelfEvict
+    from dear_pytorch_tpu_torch.observability import tracer as T
+    from dear_pytorch_tpu_torch.resilience import membership as M
+    from dear_pytorch_tpu_torch.resilience.cluster import FileTransport
+    from dear_pytorch_tpu_torch.resilience.inject import (
+        FaultInjector, parse_faults)
+    from dear_pytorch_tpu_torch.runtime import build as RB
+    from dear_pytorch_tpu_torch.runtime import pipeline as P
+    from dear_pytorch_tpu_torch.utils import checkpoint as ckpt
+    from dear_pytorch_tpu_torch.utils.guard import GuardedTrainer
+    from dear_pytorch_tpu_torch.utils.objectstore import LocalObjectStore
+
+    EH = importlib.import_module(
+        "dear_pytorch_tpu_torch.scripts.elastic_harness")
+    workdir = args.workdir
+    cluster = M.ElasticCluster.from_env(max_candidates=256)
+    rejoining = M.ElasticCluster.rejoining_by_env()
+    rank, my_slice = cluster.rank, cluster.slice_of(cluster.rank)
+    _redirect_output(workdir, rank)
+    mode = os.environ.get("DEAR_CHAOS_MULTI_MODE", "kill")
+    if mode == "kill":
+        ks, ka = os.environ["DEAR_CHAOS_MULTI_KILL"].split(":")
+        kill_slice, kill_at = int(ks), int(ka)
+    else:
+        kill_slice, kill_at = -1, 1
+    target_epoch = int(os.environ.get("DEAR_CHAOS_MULTI_EPOCHS", "2"))
+    post = int(os.environ.get("DEAR_CHAOS_MULTI_POST", "3"))
+    remote_root = os.environ["DEAR_CHAOS_REMOTE"]
+    ckpt_dir = os.path.join(workdir, f"rank{rank}", "ckpts")
+    tracer = T.get_tracer()
+
+    faults_spec = os.environ.get("DEAR_FAULTS", "").strip()
+    if rejoining and faults_spec:
+        # a relaunched life must not re-arm the one-shot outage that
+        # evicted it
+        faults_spec = ",".join(
+            f for f in faults_spec.split(",")
+            if f.split("@", 1)[0] not in ("dcn_flap", "dcn_partition"))
+    injector = (FaultInjector(parse_faults(faults_spec), own_rank=rank,
+                              own_slice=my_slice) if faults_spec else None)
+    # a rejoiner's exchanger starts at the INITIAL view; admission hands
+    # it the committed slice set through AutoTuner.rescale (reenter)
+    dcn = DcnExchanger(FileTransport(os.path.join(workdir, "dcn")),
+                       local_slices=(my_slice,), slices=cluster.slices,
+                       partition_mb=0.0005, injector=injector)
+    _slice_group(cluster, rank, args.device, rejoining)
+    tuner, batch_rows = _tuner(args, args.device, dcn=dcn)
+    view0 = cluster.view()
+    spec = P.SyntheticSpec((
+        P.Field("x", (_ROWS, 12), RB.KIND_NORMAL_F32, 0.0, 1.0),))
+    pipe = P.NumpyPipeline(spec, seed=123, shard=view0.data_shard,
+                           num_shards=view0.data_world)
+    store = LocalObjectStore(os.path.join(remote_root, f"rank{rank}"))
+    streamer = ckpt.CheckpointStreamer(ckpt_dir, store, upload_every=1,
+                                       pin_last=4)
+    guard = GuardedTrainer(
+        tuner.ts, ckpt_dir, check_every=1,
+        checkpoint_every=args.checkpoint_every, max_keep=1000,
+        max_recoveries=12, coordinator=cluster, pipeline=pipe,
+        streamer=streamer)
+    tl = _Timeline(cluster, guard)
+    base_hook = EH.attach_elastic(guard, tuner)
+    transitions = []
+
+    def on_change(view):
+        base_hook(view)
+        transitions.append({"epoch": view.epoch, "slices": list(view.slices),
+                            "steps_seen": guard.steps_seen})
+
+    guard.on_membership_change = tl.hook(on_change)
+    rollback_steps = []
+
+    def on_rollback(c, at):
+        rollback_steps.append(at)
+        tl.on_rollback(c, at)
+
+    guard.on_rollback = on_rollback
+
+    def batch_at(i):
+        # the GLOBAL batch, sliced to the CURRENT live slices: this
+        # slice's rows, split over its ranks; one live slice trains the
+        # whole batch
+        view, ts = cluster.view(), guard.ts
+        return batch_rows(i, view.data_shard * ts.world + ts.rank,
+                          max(view.data_world, 1) * ts.world)
+
+    resumed_at = last_epoch = None
+    if rejoining:
+        hydrate, _ = _newest_remote_store(remote_root, skip_rank=rank)
+        tl.last_step = None
+        state, resumed_at, last_epoch = EH.reenter(
+            cluster, tuner, guard, ckpt_dir, hydrate_store=hydrate)
+        tl.last_step = resumed_at
+    else:
+        state = tuner.init()
+    death = (os.path.join(workdir, f"death_rank{rank}.json")
+             if my_slice == kill_slice and not rejoining else None)
+    stepper = _Guarded(guard, tl, death)
+    m = {}
+    try:
+        if mode == "flap":
+            # fixed-step degraded-mode run: the sub-budget transient must
+            # be absorbed by the ladder's skip rung, with no rollback
+            steps = int(os.environ.get("DEAR_CHAOS_MULTI_STEPS", "12"))
+            while guard.steps_seen < steps:
+                i = guard.steps_seen
+                pipe.next()
+                state, m = stepper.step(state, batch_at(i))
+        else:
+            kill = ((rank, 0, kill_at - 1) if my_slice == kill_slice
+                    else (-1, 0, 0))
+            state, m = EH.run_autoscale_loop(
+                cluster, stepper, pipe, state, batch_at,
+                rejoining=rejoining, target_epoch=target_epoch, post=post,
+                kill=kill, deadline_s=args.deadline)
+    except DcnSelfEvict as exc:
+        # rung 3, local side: this slice is the partitioned one. Flush what
+        # is committed, leave a durable marker for the parent, release the
+        # groups and exit nonzero so the supervisor relaunches this rank
+        # through the slice-gated rejoin
+        streamer.flush(20.0)
+        streamer.close()
+        doc = {"rank": rank, "slice": my_slice, "pid": os.getpid(),
+               "steps_seen": guard.steps_seen, "reason": str(exc)}
+        _write_json(os.path.join(
+            workdir, f"selfevict_rank{rank}.{os.getpid()}.json"), doc)
+        print(f"CHAOS_MULTI rank={rank} SELF-EVICT " + json.dumps(doc),
+              flush=True)
+        tuner.ts.abandon()
+        _release(tuner)
+        raise SystemExit(70)
+    streamer.flush(20.0)
+    streamer.close()
+    counters = tracer.counters()
+    verdict = {
+        "rank": rank,
+        "slice": my_slice,
+        "pid": os.getpid(),
+        "rejoined": bool(rejoining),
+        "epoch": cluster.epoch,
+        "members": list(cluster.members),
+        "slices": list(cluster.slices),
+        "transitions": transitions,
+        "resumed_at": resumed_at,
+        "last_epoch": last_epoch,
+        "rollback_steps": rollback_steps,
+        "final_step": int(state.step),
+        "final_loss": float(m.get("loss", float("nan"))),
+        "steps_seen": guard.steps_seen,
+        "plan_world": guard.ts.plan.world,
+        "plan_epoch": guard.ts.plan.epoch,
+        "slice_group": [backend.slice_id(), backend.ici_index()],
+        "pipe_shard": [pipe.shard, pipe.num_shards],
+        "dcn_slices": list(dcn.slices),
+        "dcn_samples": len(dcn.samples()),
+        "dcn_fit": _fit_dcn(dcn),
+        "dcn_times": guard.ts.dcn_times,
+        "dcn_bytes": guard.ts.dcn_bytes,
+        "uploaded": sorted(streamer.uploaded),
+        "upload_failed": sorted(streamer.failed),
+        "counters": {k: v for k, v in counters.items()
+                     if k.startswith(("cluster.", "guard.", "pipeline.",
+                                      "autotune.", "ckpt.", "dcn.",
+                                      "faults.", "kernel."))},
+        "rows": tl.rows,
+        "timeline": tl.transitions,
+    }
+    # the lockstep verdict is itself a member-scoped collective
+    views = cluster.exchange("chaos.verdict", json.dumps(
+        [verdict["final_step"], round(verdict["final_loss"], 9),
+         verdict["epoch"], verdict["slices"]]))
+    verdict["lockstep"] = all(
+        json.loads(v) == json.loads(views[0]) for v in views)
+    _write_json(os.path.join(
+        workdir, f"verdict_rank{rank}.{os.getpid()}.json"), verdict)
+    print(f"CHAOS_MULTI rank={rank} " + json.dumps(
+        {k: v for k, v in verdict.items() if k != "rows"}), flush=True)
+    _release(tuner)
+    return verdict
+
+
+def _multislice_fleet(args, drill_env: dict, *, relaunches: int,
+                      deadline_s: float):
+    """Start the 2 x 2 supervised fleet of ``--multislice`` workers with
+    ``drill_env``; returns ``(sup, decided, rc, elapsed_s, remote_root)``."""
+    import tempfile
+
+    workdir = args.workdir = args.workdir or tempfile.mkdtemp(
+        prefix="dear_chaos_multi_")
+    os.makedirs(workdir, exist_ok=True)
+    elastic_dir = os.path.join(workdir, "elastic")
+    remote_root = os.path.join(workdir, "remote")
+    os.makedirs(remote_root, exist_ok=True)
+    sup_mod = CC.load_supervisor()
+    env = _supervisor_env(args, dict(drill_env, **{
+        "DEAR_CHAOS_REMOTE": remote_root,
+        "DEAR_LOCAL_SIZE": str(_NSLICES * _RPS)}))
+    sup = sup_mod.ElasticSupervisor(
+        _NSLICES * _RPS, _worker_argv(args, "--multislice"),
+        elastic_dir=elastic_dir, env=env, max_relaunches=relaunches,
+        relaunch_window_s=300.0, ranks_per_slice=_RPS).start()
+    decided = CC.decided_reader(elastic_dir)
+    rc, elapsed_s = CC.run_fleet(sup, deadline_s=deadline_s)
+    return sup, decided, rc, elapsed_s, remote_root
+
+
+def _dcn_timeout(args, frac: float) -> str:
+    """The drill's ``DEAR_DCN_TIMEOUT_SECS``: a fraction of the peer
+    timeout, so a dead slice fails the step (and hands recovery to the
+    membership) well before the health sync gives up (JAX: 20 s of 45)."""
+    peer = float(args.peer_timeout
+                 or os.environ.get("DEAR_CLUSTER_TIMEOUT_SECS", "") or 30)
+    return f"{frac * peer:g}"
+
+
+def _multislice_summary(args, rc, elapsed_s, failures):
+    lives, finals = CC.collect_verdicts(args.workdir)
+    summary = {"passed": False, "workdir": args.workdir, "rc": rc,
+               "elapsed_s": elapsed_s, "finals": finals,
+               "failures": failures}
+    n = _NSLICES * _RPS
+    if sorted(finals) != list(range(n)):
+        failures.append(f"expected final verdicts from ranks 0-{n - 1}, "
+                        f"got {sorted(finals)}")
+        summary["logs"] = _logs_tail(args.workdir)
+    return summary, finals
+
+
+def _check_updates(args, v: dict, failures: list) -> None:
+    """Every completed step of a final life ran the shard update once per
+    bucket: K5 epilogue launches on the card, its plain version on the
+    CPU."""
+    done = [w for w in v["rows"] if not w["rolled_back"]]
+    key = "launches" if args.device == "cuda" else "updates"
+    _check(all(w[key] == w["buckets"] for w in done),
+           f"rank {v['rank']}: every completed step ran the shard update "
+           f"once per bucket ({key}: {sum(w[key] for w in done)} over "
+           f"{len(done)} steps, {sum(w['buckets'] for w in done)} buckets)",
+           failures)
+
+
+def _transition_story(args, finals: dict, victims: list) -> dict:
+    """What the card's phase prints: per survivor the time from the
+    victims' death (or their exit) to the shrink's commit, the degraded
+    steps between the shrink and the readmission, the time between the
+    two commits, the steps lost at each transition, the renorms, and the
+    `fit_dcn` α-β from each rank's exchanger samples."""
+    deaths = []
+    for r in victims:
+        path = os.path.join(args.workdir, f"death_rank{r}.json")
+        if os.path.exists(path):
+            with open(path) as f:
+                deaths.append(json.load(f)["t"])
+    story = {}
+    for r, v in sorted(finals.items()):
+        tl = v.get("timeline") or []
+        shrink = next((t for t in tl if t["kind"] == "shrink"), None)
+        admit = next((t for t in tl if t["kind"] == "admit"), None)
+        tr = v["transitions"]
+        sh = next((t for t in tr if len(t["slices"]) == _NSLICES - 1), None)
+        rj = next((t for t in tr if len(t["slices"]) == _NSLICES), None)
+        story[r] = {
+            "death_to_commit_s": (shrink["t_commit"] - max(deaths)
+                                  if shrink and deaths else None),
+            "degraded_steps": (rj["steps_seen"] - sh["steps_seen"]
+                               if sh and rj else None),
+            "readmit_s": (admit["t_commit"] - shrink["t_commit"]
+                          if shrink and admit else None),
+            "steps_lost": [t.get("steps_lost") for t in tl],
+            "renorms": v["counters"].get("dcn.renorms", 0),
+            "degraded_rounds": v["counters"].get("dcn.degraded_rounds", 0),
+            "dcn_fit": v.get("dcn_fit"),
+            "dcn_times": v.get("dcn_times"),
+            "dcn_bytes": v.get("dcn_bytes"),
+        }
+    return story
+
+
+def run_multislice(args) -> dict:
+    """Parent of the multi-slice storm (JAX :1901-2089): a 2-slice x
+    2-rank supervised fleet trains the hierarchical schedule while
+    streaming checkpoints to per-rank object stores; the whole of slice 1
+    SIGKILLs itself before attempt 5 and must commit as exactly ONE
+    membership epoch (e1, ``slices.removed == [1]``); the surviving slice
+    renormalizes the DCN leg and trains degraded under a slice-targeted
+    ``dcn_slow`` straggler fault; the relaunches readmit as ONE epoch
+    (e2, ``slices.added == [1]``) hydrated from the remote tier; the fleet
+    finishes in lockstep with nothing lost past the newest upload. In the
+    JAX drill each of its 2 x 4 ranks holds a whole 2-device slice; here a
+    process drives one card, so the two ranks of a slice are its
+    intra-slice peers (module docstring)."""
+    kill_slice, kill_at, target_epoch, post = 1, 5, 2, 3
+    victims = list(range(kill_slice * _RPS, (kill_slice + 1) * _RPS))
+    sup, decided, rc, elapsed_s, remote_root = _multislice_fleet(args, {
+        "DEAR_CHAOS_MULTI_KILL": f"{kill_slice}:{kill_at}",
+        "DEAR_CHAOS_MULTI_EPOCHS": str(target_epoch),
+        "DEAR_CHAOS_MULTI_POST": str(post),
+        # the survivor slice gets an armed 30 ms DCN latency from its 6th
+        # exchange on: degraded and post-rejoin training absorb it
+        "DEAR_FAULTS": "dcn_slow@6:0.03:s0",
+        "DEAR_DCN_TIMEOUT_SECS": _dcn_timeout(args, 0.45)},
+        relaunches=1, deadline_s=args.deadline + 120)
+    failures: list = []
+    _check(rc == 0, f"supervisor fleet exits clean (got rc={rc})", failures)
+    _check(all(sup.relaunches.get(r, 0) == 1 for r in victims)
+           and all(sup.relaunches.get(r, 0) == 0 for r in range(_RPS)),
+           f"exactly the killed slice's ranks were relaunched "
+           f"({sup.relaunches})", failures)
+    rec1, rec2, rec3 = decided(1), decided(2), decided(3)
+    _check(isinstance(rec1, dict)
+           and rec1.get("delta", {}).get("removed") == victims
+           and rec1.get("delta", {}).get("slices")
+           == {"added": [], "removed": [kill_slice]},
+           f"e1 commits the WHOLE slice loss as one membership event "
+           f"(got {rec1})", failures)
+    _check(isinstance(rec2, dict)
+           and rec2.get("delta", {}).get("added") == victims
+           and rec2.get("delta", {}).get("slices")
+           == {"added": [kill_slice], "removed": []}
+           and rec2.get("members") == list(range(_NSLICES * _RPS)),
+           f"e2 readmits the relaunched slice as one epoch at full "
+           f"membership (got {rec2})", failures)
+    _check(rec3 is None, f"no spurious membership epochs past "
+           f"e{target_epoch} (e3 = {rec3})", failures)
+    summary, finals = _multislice_summary(args, rc, elapsed_s, failures)
+    if summary.get("logs"):
+        return summary
+    expect_restore = (kill_at - 1) - (kill_at - 1) % args.checkpoint_every
+    for r, v in sorted(finals.items()):
+        _check(v["epoch"] == target_epoch
+               and v["members"] == list(range(_NSLICES * _RPS))
+               and v["slices"] == [0, 1],
+               f"rank {r} ends at epoch {target_epoch}, both slices live "
+               f"(epoch {v['epoch']}, slices {v['slices']})", failures)
+        _check(v.get("lockstep"), f"rank {r} finished in lockstep",
+               failures)
+        _check(v["plan_world"] == _RPS and v["plan_epoch"] == target_epoch,
+               f"rank {r}'s plan keeps the FIXED intra-slice world and the "
+               f"committed epoch (world {v['plan_world']}, epoch "
+               f"{v['plan_epoch']})", failures)
+        _check(v["pipe_shard"][1] == _NSLICES
+               and v["pipe_shard"][0] == v["slice"],
+               f"rank {r} pipeline sharded at SLICE granularity "
+               f"({v['pipe_shard']})", failures)
+        _check(v["slice_group"] == [v["slice"], r % _RPS],
+               f"rank {r} ends in its slice's group at its position "
+               f"({v['slice_group']})", failures)
+        _check(v["dcn_slices"] == [0, 1],
+               f"rank {r}'s DCN leg ends renormalized to both slices "
+               f"({v['dcn_slices']})", failures)
+        _check(v["counters"].get("dcn.exchanges", 0) > 0,
+               f"rank {r} exchanged gradients over the DCN leg", failures)
+        _check(bool(v["uploaded"]) and not v["upload_failed"],
+               f"rank {r} streamed checkpoints to its remote tier "
+               f"({v['uploaded']}, failed {v['upload_failed']})", failures)
+        _check(all((t.get("steps_lost") or 0) >= 0
+                   for t in v.get("timeline") or []),
+               f"rank {r}: no transition restored it past the step it held",
+               failures)
+        _check_updates(args, v, failures)
+    survivors = [v for r, v in finals.items() if r not in victims]
+    for v in survivors:
+        c = v["counters"]
+        _check(c.get("cluster.slice_losses", 0) == 1
+               and c.get("cluster.slice_rejoins", 0) == 1
+               and c.get("cluster.reconfigs", 0) == 1,
+               f"rank {v['rank']} saw exactly one slice loss and one slice "
+               f"rejoin ({c})", failures)
+        _check(c.get("dcn.renorms", 0) >= 2,
+               f"rank {v['rank']} renormalized the DCN leg at both "
+               f"transitions (dcn.renorms={c.get('dcn.renorms', 0)})",
+               failures)
+        _check(bool(v["rollback_steps"])
+               and min(v["rollback_steps"]) >= expect_restore,
+               f"rank {v['rank']} rollbacks never went past the newest "
+               f"common checkpoint {expect_restore} ({v['rollback_steps']})",
+               failures)
+        shrink = [t for t in v["transitions"]
+                  if t["slices"] == [1 - kill_slice]]
+        rejoin = [t for t in v["transitions"] if t["slices"] == [0, 1]]
+        _check(bool(shrink) and bool(rejoin)
+               and rejoin[0]["steps_seen"] > shrink[0]["steps_seen"],
+               f"rank {v['rank']} trained DEGRADED on the surviving slice "
+               f"between shrink and rejoin ({v['transitions']})", failures)
+    rejoined = [v for r, v in finals.items() if r in victims]
+    _check(all(v["rejoined"] for v in rejoined),
+           "every relaunched rank of the lost slice came back through "
+           "rejoin", failures)
+    slow_fired = sum(v["counters"].get("faults.injected", 0)
+                     for v in survivors)
+    _check(slow_fired == _RPS,
+           f"dcn_slow fired on every surviving-slice rank "
+           f"(faults.injected={slow_fired}, want {_RPS})", failures)
+    _, newest_uploaded = _newest_remote_store(remote_root)
+    final_step = finals[0]["final_step"]
+    _check(newest_uploaded is not None and final_step >= newest_uploaded,
+           f"final step {final_step} >= newest uploaded checkpoint "
+           f"{newest_uploaded} (zero loss past the remote tier)", failures)
+    summary.update({"passed": not failures, "newest_uploaded":
+                    newest_uploaded, "story": _transition_story(
+                        args, finals, victims), "failures": failures})
+    if failures:
+        summary["logs"] = _logs_tail(args.workdir)
+    return summary
+
+
+def run_multislice_flap(args) -> dict:
+    """Parent of the DCN flap storm (JAX :2091-2235): the 2 x 2 fleet
+    trains 12 steps in bounded-staleness mode (``DEAR_DCN_STALENESS=2``)
+    while a sub-budget ``dcn_flap`` suppresses slice 1's publishes on
+    alternating exchanges and a ``dcn_slow`` straggler drags slice 0. The
+    gate: zero guard rollbacks on every rank, zero membership epochs and
+    relaunches, the ladder engaged (skips and degraded rounds everywhere,
+    the flapped slice's residual carried, no escalation), lockstep at the
+    exact step target. JAX's steps-per-hour SLO (its
+    ``scripts/bench_gate.py --slo``) is left out; steps per hour are
+    reported."""
+    steps, flap_slice = 12, 1
+    sup, decided, rc, elapsed_s, _ = _multislice_fleet(args, {
+        "DEAR_CHAOS_MULTI_MODE": "flap",
+        "DEAR_CHAOS_MULTI_STEPS": str(steps),
+        "DEAR_FAULTS": (f"dcn_flap@4:2:s{flap_slice},"
+                        f"dcn_slow@8:0.03:s{1 - flap_slice}"),
+        "DEAR_DCN_STALENESS": "2",
+        "DEAR_DCN_RETRIES": "1",
+        "DEAR_DCN_TIMEOUT_SECS": "3"},
+        relaunches=0, deadline_s=args.deadline + 60)
+    failures: list = []
+    _check(rc == 0, f"supervisor fleet exits clean (got rc={rc})", failures)
+    _check(all(n == 0 for n in sup.relaunches.values()),
+           f"no rank was relaunched under the sub-budget flap "
+           f"({sup.relaunches})", failures)
+    _check(decided(1) is None,
+           f"zero membership epochs: a sub-budget transient never reaches "
+           f"the eviction rung (e1 = {decided(1)})", failures)
+    summary, finals = _multislice_summary(args, rc, elapsed_s, failures)
+    if summary.get("logs"):
+        return summary
+    for r, v in sorted(finals.items()):
+        c = v["counters"]
+        _check(c.get("guard.rollbacks", 0) == 0 and not v["rollback_steps"],
+               f"rank {r}: ZERO guard rollbacks under the sub-budget flap "
+               f"(rollbacks={c.get('guard.rollbacks', 0)}, "
+               f"steps={v['rollback_steps']})", failures)
+        _check(v["steps_seen"] == steps and v["final_step"] == steps,
+               f"rank {r} finished the exact step target "
+               f"({v['steps_seen']}/{steps})", failures)
+        _check(v.get("lockstep"), f"rank {r} finished in lockstep",
+               failures)
+        _check(not v["transitions"],
+               f"rank {r} saw no membership transitions "
+               f"({v['transitions']})", failures)
+        _check(c.get("dcn.degraded_rounds", 0) > 0
+               and c.get("dcn.skips", 0) >= 1,
+               f"rank {r} trained through degraded rounds by SKIPPING the "
+               f"absent slice (degraded_rounds="
+               f"{c.get('dcn.degraded_rounds', 0)}, "
+               f"skips={c.get('dcn.skips', 0)})", failures)
+        _check(c.get("dcn.escalations", 0) == 0
+               and c.get("dcn.self_evicts", 0) == 0,
+               f"rank {r}: the ladder never escalated a SUB-budget "
+               f"transient ({c})", failures)
+        _check_updates(args, v, failures)
+    flapped = [v for v in finals.values() if v["slice"] == flap_slice]
+    _check(all(v["counters"].get("dcn.residual_carries", 0) >= 1
+               for v in flapped),
+           "the flapped slice carried its unmerged partial as an "
+           "error-feedback residual on every rank", failures)
+    flap_fired = sum(v["counters"].get("faults.injected", 0)
+                     for v in flapped)
+    _check(flap_fired >= _RPS,
+           f"dcn_flap armed on every flapped-slice rank "
+           f"(faults.injected={flap_fired}, want >= {_RPS})", failures)
+    final_step = finals[0]["final_step"]
+    summary.update({
+        "passed": not failures,
+        "steps_per_hour": final_step * 3600.0 / max(elapsed_s, 1e-9),
+        "story": _transition_story(args, finals, []),
+        "failures": failures})
+    if failures:
+        summary["logs"] = _logs_tail(args.workdir)
+    return summary
+
+
+def run_multislice_degraded(args) -> dict:
+    """Parent of the sustained-partition storm (JAX :2237-2399): the 2 x 2
+    fleet trains in bounded-staleness mode while a ``dcn_partition`` far
+    past the staleness budget starves slice 1. No SIGKILL: the victim's
+    own staleness clock trips ``DcnSelfEvict``, its ranks exit 70, the
+    survivors escalate the silent peer, commit the shrink as ONE
+    slice-shaped epoch, and the relaunches (which strip the partition
+    fault) readmit as one epoch. The gate: the whole ladder walked (skip,
+    escalate, self-evict, evict, rejoin), survivor rollbacks only at the
+    two transitions."""
+    part_slice, target_epoch, post = 1, 2, 3
+    victims = list(range(part_slice * _RPS, (part_slice + 1) * _RPS))
+    sup, decided, rc, elapsed_s, _ = _multislice_fleet(args, {
+        "DEAR_CHAOS_MULTI_MODE": "partition",
+        "DEAR_CHAOS_MULTI_EPOCHS": str(target_epoch),
+        "DEAR_CHAOS_MULTI_POST": str(post),
+        "DEAR_FAULTS": f"dcn_partition@3:600:s{part_slice}",
+        "DEAR_DCN_STALENESS": "1",
+        "DEAR_DCN_RETRIES": "1",
+        "DEAR_DCN_TIMEOUT_SECS": "2"},
+        relaunches=1, deadline_s=args.deadline + 120)
+    failures: list = []
+    _check(rc == 0, f"supervisor fleet exits clean (got rc={rc})", failures)
+    _check(all(sup.relaunches.get(r, 0) == 1 for r in victims)
+           and all(sup.relaunches.get(r, 0) == 0 for r in range(_RPS)),
+           f"exactly the partitioned slice's ranks were relaunched "
+           f"({sup.relaunches})", failures)
+    evicts = []
+    for name in sorted(os.listdir(args.workdir)):
+        if name.startswith("selfevict_rank") and name.endswith(".json"):
+            with open(os.path.join(args.workdir, name)) as f:
+                evicts.append(json.load(f))
+    _check(sorted(e["rank"] for e in evicts) == victims
+           and all(e["slice"] == part_slice for e in evicts),
+           f"every rank of the partitioned slice exited through "
+           f"DcnSelfEvict, nobody else did ({evicts})", failures)
+    rec1, rec2, rec3 = decided(1), decided(2), decided(3)
+    _check(isinstance(rec1, dict)
+           and rec1.get("delta", {}).get("removed") == victims
+           and rec1.get("delta", {}).get("slices")
+           == {"added": [], "removed": [part_slice]},
+           f"e1 commits the self-evicted slice as one membership event "
+           f"(got {rec1})", failures)
+    _check(isinstance(rec2, dict)
+           and rec2.get("delta", {}).get("added") == victims
+           and rec2.get("delta", {}).get("slices")
+           == {"added": [part_slice], "removed": []}
+           and rec2.get("members") == list(range(_NSLICES * _RPS)),
+           f"e2 readmits the relaunched slice as one epoch at full "
+           f"membership (got {rec2})", failures)
+    _check(rec3 is None, f"no spurious membership epochs past "
+           f"e{target_epoch} (e3 = {rec3})", failures)
+    summary, finals = _multislice_summary(args, rc, elapsed_s, failures)
+    if summary.get("logs"):
+        return summary
+    for r, v in sorted(finals.items()):
+        _check(v["epoch"] == target_epoch
+               and v["members"] == list(range(_NSLICES * _RPS))
+               and v["slices"] == [0, 1],
+               f"rank {r} ends at epoch {target_epoch}, both slices live "
+               f"(epoch {v['epoch']}, slices {v['slices']})", failures)
+        _check(v.get("lockstep"), f"rank {r} finished in lockstep",
+               failures)
+        _check(v["dcn_slices"] == [0, 1],
+               f"rank {r}'s DCN leg ends renormalized to both slices "
+               f"({v['dcn_slices']})", failures)
+    survivors = [v for r, v in finals.items() if r not in victims]
+    for v in survivors:
+        c = v["counters"]
+        _check(c.get("dcn.skips", 0) >= 1
+               and c.get("dcn.degraded_rounds", 0) >= 1,
+               f"rank {v['rank']} first SKIPPED the starved slice "
+               f"(skips={c.get('dcn.skips', 0)})", failures)
+        _check(c.get("dcn.escalations", 0) >= 1,
+               f"rank {v['rank']} escalated the past-budget peer "
+               f"(dcn.escalations={c.get('dcn.escalations', 0)})", failures)
+        _check(c.get("cluster.slice_losses", 0) == 1
+               and c.get("cluster.slice_rejoins", 0) == 1,
+               f"rank {v['rank']} saw exactly one slice loss and one slice "
+               f"rejoin ({c})", failures)
+        _check(len(v["rollback_steps"]) <= 2,
+               f"rank {v['rank']}: rollbacks ONLY at the membership "
+               f"transitions, never for the transient itself "
+               f"({v['rollback_steps']})", failures)
+        shrink = [t for t in v["transitions"]
+                  if t["slices"] == [1 - part_slice]]
+        rejoin = [t for t in v["transitions"] if t["slices"] == [0, 1]]
+        _check(bool(shrink) and bool(rejoin)
+               and rejoin[0]["steps_seen"] > shrink[0]["steps_seen"],
+               f"rank {v['rank']} trained DEGRADED between shrink and "
+               f"rejoin ({v['transitions']})", failures)
+    rejoined = [v for r, v in finals.items() if r in victims]
+    _check(all(v["rejoined"] for v in rejoined),
+           "every relaunched rank of the partitioned slice came back "
+           "through rejoin", failures)
+    _check(all(v["counters"].get("faults.injected", 0) == 0
+               for v in rejoined),
+           "the relaunched lives stripped the armed partition fault",
+           failures)
+    summary.update({"passed": not failures, "failures": failures})
+    if failures:
+        summary["logs"] = _logs_tail(args.workdir)
+    return summary
+
+
 # -- the command line ---------------------------------------------------------
 
 #: the JAX script's other drills, and the ROADMAP item each waits for
 _UNPORTED = {
-    "multislice": "9c (the multi-slice DCN leg)",
-    "multislice_flap": "9c (the multi-slice DCN leg)",
-    "multislice_degraded": "9c (the multi-slice DCN leg)",
     "serve": "11 (the rest of serving)",
     "online": "11 (online learning)",
     "sdc": "9a's SDC storm: tests/test_torch_resilience.py holds the vote",
@@ -1113,6 +1770,16 @@ def build_parser() -> argparse.ArgumentParser:
                     help="capacity-up to 3 ranks, SIGKILL shrink + "
                          "relaunch, spot-drain shrink + backfill, then a "
                          "cold start from the remote checkpoint tier")
+    ap.add_argument("--multislice", action="store_true",
+                    help="2 slices x 2 ranks train the hierarchical "
+                         "schedule; slice 1 dies, the survivors shrink, "
+                         "train degraded and readmit it")
+    ap.add_argument("--multislice-flap", action="store_true",
+                    help="a sub-budget DCN flap under bounded staleness: "
+                         "no rollback, no membership change")
+    ap.add_argument("--multislice-degraded", action="store_true",
+                    help="a past-budget DCN partition: the victim slice "
+                         "evicts itself and rejoins")
     for name in _UNPORTED:
         ap.add_argument("--" + name.replace("_", "-"), action="store_true",
                         help=argparse.SUPPRESS)
@@ -1155,8 +1822,12 @@ def main(argv=None) -> int:
         if not torch.cuda.is_available():
             raise RuntimeError("no CUDA device: pass --device cpu to run "
                                "the drill on the CPU")
+    multi = (args.multislice or args.multislice_flap
+             or args.multislice_degraded)
     if args.worker:
-        if args.replay:
+        if multi:
+            run_worker_multislice(args)
+        elif args.replay:
             run_worker_replay(args)
         elif args.cold_start:
             return 0 if run_cold_start(args)["passed"] else 1
@@ -1171,8 +1842,13 @@ def main(argv=None) -> int:
     elif args.elastic:
         summary = run_elastic(args)
         drop = ("verdicts", "logs")
+    elif multi:
+        summary = (run_multislice_flap(args) if args.multislice_flap
+                   else run_multislice_degraded(args)
+                   if args.multislice_degraded else run_multislice(args))
+        drop = ("finals", "logs")
     else:
-        raise SystemExit("pass --elastic or --autoscale")
+        raise SystemExit("pass --elastic, --autoscale or --multislice*")
     print(json.dumps({k: v for k, v in summary.items() if k not in drop}))
     if summary.get("logs"):
         print(summary["logs"], file=sys.stderr)

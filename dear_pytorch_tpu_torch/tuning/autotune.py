@@ -352,11 +352,17 @@ class AutoTuner:
                     "strategy='plan' searches the dear/dear-fused "
                     f"schedule family; start from one of those, not "
                     f"mode={base_mode!r}")
+            _dcn = self._build_kwargs.get("dcn")
             if space is not None:
                 self.space = space
             else:
                 ov = ({"threshold_bound": tuple(bound)}
                       if tuple(bound) != (1.0, 256.0) else {})
+                if _dcn is not None:
+                    # hierarchical build: the space searches the per-level
+                    # bucket partition too, and multislice-illegal combos
+                    # become infeasible arms (JAX autotune.py:322-351)
+                    ov["num_slices"] = _dcn.num_slices
                 self.space = PS.PlanSpace.from_env(**ov)
             base_comp = self._build_kwargs.pop("compressor", None)
             base_density = self._build_kwargs.pop("density", 1.0)
@@ -371,6 +377,8 @@ class AutoTuner:
                 gather_dtype=PS.dtype_token(
                     self._build_kwargs.pop("gather_dtype", None)),
                 remat=self._build_kwargs.pop("remat", None),
+                partition_mb=(self._build_kwargs.pop("partition_mb", None)
+                              if _dcn is not None else None),
             )
             kw = {} if clock is None else {"clock": clock}
             self.planner = PS.PlanTuner(
@@ -453,15 +461,50 @@ class AutoTuner:
 
     def _install_cost_model(self) -> None:
         """(Re)build the planner's analytic cost model for the current
-        world from the α-β fit, when there is one."""
+        world from the α-β fit, when there is one. On a hierarchical
+        build it is link-aware (JAX autotune.py:425-474): the cross-slice
+        'dcn' rows are priced with their own fit —
+        ``DEAR_TUNE_FIT_DCN="alpha,beta"``, or ``DEAR_TUNE_FIT_DCN=1`` to
+        fit it from the live exchanger's fetch samples
+        (`observability.overlap.fit_dcn`)."""
         if self.planner is None or self._alpha_beta is None:
             return
+        import os as _os
+
         from dear_pytorch_tpu_torch.tuning import planspace as PS
 
         world = self.ts.world
+        kw = {}
+        dcn = self._build_kwargs.get("dcn")
+        if dcn is not None:
+            kw["num_slices"] = dcn.num_slices
+            ab = getattr(self, "_dcn_alpha_beta", None)
+            if ab is None:
+                raw = _os.environ.get("DEAR_TUNE_FIT_DCN", "").strip()
+                if "," in raw:
+                    a, b = raw.split(",")
+                    ab = (float(a), float(b))
+                elif raw.lower() in ("1", "true", "yes", "on"):
+                    from dear_pytorch_tpu_torch.observability import (
+                        overlap as OV,
+                    )
+
+                    try:
+                        ab = OV.fit_dcn(dcn.samples())
+                        self._log(
+                            f"autotune: DCN link fit alpha={ab[0]:.3e}s "
+                            f"beta={ab[1]:.3e}s/B "
+                            f"({len(dcn.samples())} samples)")
+                    except ValueError as exc:
+                        logger.warning(
+                            "autotune: DCN link fit unavailable (%s); "
+                            "dcn rows priced at the ICI fit", exc)
+                self._dcn_alpha_beta = ab
+            if ab is not None:
+                kw["dcn_alpha"], kw["dcn_beta"] = ab
         self.planner.cost_model = PS.CostModel(
             lambda thr: self._make_plan(threshold_mb=thr, world=world),
-            *self._alpha_beta)
+            *self._alpha_beta, **kw)
 
     # -- rank consistency ----------------------------------------------------
 
@@ -547,6 +590,12 @@ class AutoTuner:
             if why is not None:
                 raise err if err is not None else RuntimeError(
                     f"autotune: the repack failed on another rank ({why})")
+        _dcn = self._build_kwargs.get("dcn")
+        if _dcn is not None:
+            # the degraded-DCN error-feedback residual lives in bucket rows
+            # of the OLD plan: carry it across the re-bucketing with the
+            # compressor state's mass-preserving algebra
+            _dcn.repack_residual(old_ts.plan, new_ts.plan)
         self.ts = new_ts
         self.rebuilds += 1
         if tr.enabled:
@@ -625,7 +674,17 @@ class AutoTuner:
         refuses to run, so the rank must exit for relaunch and rejoin; the
         guard lets the error propagate out of its step for that. A step
         whose group lost a member (`TrainStep.abandon`) is closed without
-        any collective of that group."""
+        any collective of that group.
+
+        A hierarchical (``dcn=``) step (JAX autotune.py:577-589): the slice
+        is not elastic, only the slice set is. The exchanger renormalizes
+        to ``view.slices`` at the view's epoch (``dcn.set_slices``), the
+        plan keeps its world with the epoch restamped, and the step is
+        rebound to the new epoch's slice group (`TrainStep.rebind`:
+        `comm.backend.regroup` released the old one; the masters, the
+        optimizer state and the shards stay in place). Only a step built
+        on a slice group of another size — a relaunched rank's own
+        one-rank group before its admission — is rebuilt, as above."""
         if not hasattr(view, "members"):
             raise ValueError(
                 f"rescale needs the committed MembershipView (epoch, "
@@ -634,10 +693,7 @@ class AutoTuner:
         world, epoch = int(view.world), int(getattr(view, "epoch", 0) or 0)
         old_ts = self.ts
         if self._build_kwargs.get("dcn") is not None:
-            raise NotImplementedError(
-                "AutoTuner.rescale of a hierarchical (dcn=) step is not "
-                "ported yet: ROADMAP Queue 1 item 9c (the multi-slice DCN "
-                "leg)")
+            return self._rescale_dcn(view, epoch, state, store)
         if world == old_ts.plan.world and epoch == old_ts.plan.epoch:
             return state
         if old_ts.fused:
@@ -702,6 +758,74 @@ class AutoTuner:
             else:
                 old_ts.close()
                 new_ts.init()
+        self._rescaled(new_ts, world, epoch)
+        return state
+
+    def _rescale_dcn(self, view, epoch: int, state, store):
+        """`rescale` of a hierarchical step (its docstring)."""
+        dcn = self._build_kwargs["dcn"]
+        old_ts = self.ts
+        if epoch == old_ts.plan.epoch:
+            if getattr(view, "slices", ()):
+                dcn.set_slices(view.slices, epoch=epoch)
+            return state
+        tr = _telemetry.get_tracer()
+        if not old_ts.group_lost:
+            # the old group's last collectives, before it is released
+            old_ts._wait_gathers(range(len(old_ts._ag_work)))
+        with tr.span("autotune.rescale", world=old_ts.world, epoch=epoch,
+                     buckets=old_ts.plan.num_buckets):
+            group = backend.regroup(view, device=old_ts.device, store=store)
+            if group is None:   # this rank left the membership
+                old_ts.abandon()
+                old_ts.close()
+                return None
+            new_ts = old_ts
+            try:
+                if getattr(view, "slices", ()):
+                    dcn.set_slices(view.slices, epoch=epoch)
+                sg = backend.slice_group()
+                world = dist.get_world_size(sg)
+                plan = F.rescale_plan(old_ts.plan, world, epoch=epoch)
+                if world == old_ts.world:
+                    old_ts.rebind(sg, plan)
+                else:
+                    if state is not None:
+                        raise ValueError(
+                            "rescale(state=) of a hierarchical step keeps "
+                            "its shards in place; a step on a slice of "
+                            f"another size ({old_ts.world} -> {world}) "
+                            "restores from a checkpoint instead")
+                    kw = {}
+                    if self.strategy == "plan":
+                        kw = self._live_config.build_kwargs()
+                        kw.pop("threshold_mb", None)
+                    new_ts = self._build(dict(kw, group=sg), plan)
+                    dcn.repack_residual(old_ts.plan, plan)
+            except Exception as exc:
+                if tr.enabled:
+                    tr.count("autotune.rescale_failures")
+                    tr.event("autotune.rescale_failed", world=old_ts.world,
+                             epoch=epoch,
+                             why=f"{type(exc).__name__}: {exc}"[:120])
+                old_ts.abandon()   # its group was released above
+                logger.error(
+                    "autotune: rescale of the hierarchical step to epoch %d "
+                    "failed (%s: %s); exit for relaunch", epoch,
+                    type(exc).__name__, exc)
+                raise
+            if "group" in self._build_kwargs:   # later rebuilds use it
+                self._build_kwargs["group"] = sg
+            if new_ts is not old_ts:
+                old_ts.abandon()
+                old_ts.close()
+                new_ts.init()
+        self._rescaled(new_ts, new_ts.world, epoch)
+        return state
+
+    def _rescaled(self, new_ts, world: int, epoch: int) -> None:
+        """Install the rescaled step and tell the tuner the context moved."""
+        tr = _telemetry.get_tracer()
         self.ts = new_ts
         self.rebuilds += 1
         if tr.enabled:
@@ -717,7 +841,6 @@ class AutoTuner:
             self._install_cost_model()
         self._log(f"autotune: rescaled plan to world={world} (membership "
                   f"epoch {epoch}, {new_ts.plan.num_buckets} buckets)")
-        return state
 
     # -- plan strategy -------------------------------------------------------
 

@@ -104,9 +104,8 @@ class PlanConfig:
     remat: Optional[str] = None     # None | 'full'
     #: per-level bucket partition: the cross-node message size of the
     #: hierarchical schedule (None = the build default). A searched axis
-    #: only on multi-slice spaces (`PlanSpace(num_slices > 1)`), which
-    #: the port cannot build yet (the ``dcn`` schedule, ROADMAP Queue 1
-    #: item 9c).
+    #: only on multi-slice spaces (`PlanSpace(num_slices > 1)`: an
+    #: `AutoTuner` over a ``dcn=`` step, `parallel.dear`).
     partition_mb: Optional[float] = None
 
     def key(self) -> tuple:

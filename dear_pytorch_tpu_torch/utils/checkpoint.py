@@ -69,9 +69,11 @@ for that step), `remote_steps` lists the committed uploads and
 `restore_from_object_store` materializes one locally, every file
 re-hashed against the remote manifest.
 
-Not ported yet (raises ``NotImplementedError`` naming ROADMAP Queue 1
-item 9c): the DCN exchanger's sidecar state (`read_dcn_state`,
-``dcn_state=``).
+The hierarchical schedule's exchanger state (``save_checkpoint(
+dcn_state=)``, `read_dcn_state`; JAX checkpoint.py:269-322, :409-418)
+rides the sidecar under ``"dcn"``, in the JAX package's JSON (a
+`comm.dcn.DcnExchanger` ``state_dict()``), so each package reads the
+other's.
 """
 
 from __future__ import annotations
@@ -105,10 +107,6 @@ __all__ = [
     "restore_from_object_store", "save_checkpoint", "valid_steps",
     "verify_checkpoint", "wait_for_checkpoints", "write_manifest",
 ]
-
-_ITEM_9C = ("is not ported yet: ROADMAP Queue 1 item 9c (the multi-slice "
-            "DCN state)")
-
 
 class PlanMismatchError(ValueError):
     """The checkpoint was packed under a different fusion plan than the
@@ -590,12 +588,12 @@ def save_checkpoint(
     ``asynchronous=True`` returns once the device tensors' snapshot is
     enqueued (module docstring); call `wait_for_checkpoints` before
     reading the files or exiting. ``pipeline_state`` (a `runtime.pipeline`
-    ``state_dict()``) and ``mem_epoch`` ride in the sidecar.
-    ``dcn_state`` raises (ROADMAP Queue 1 item 9c). On per-host storage
-    at world > 1 the blob holds the whole state, gathered over ``ts``'s
-    group first (module docstring)."""
-    if dcn_state is not None:
-        raise NotImplementedError(f"dcn_state {_ITEM_9C}")
+    ``state_dict()``) and ``mem_epoch`` ride in the sidecar, and so does
+    ``dcn_state`` (a `comm.dcn.DcnExchanger` ``state_dict()``: the
+    degraded-mode residuals and staleness clocks, which belong to THESE
+    parameters; `read_dcn_state` recovers it). On per-host storage at
+    world > 1 the blob holds the whole state, gathered over ``ts``'s group
+    first (module docstring)."""
     step = int(state.step)
     path = _ckpt_dir(directory, step)
     rank, world = ts.rank, ts.world
@@ -610,6 +608,8 @@ def save_checkpoint(
         meta["pipeline"] = pipeline_state
     if mem_epoch is not None:
         meta["mem_epoch"] = int(mem_epoch)
+    if dcn_state is not None:
+        meta["dcn"] = dcn_state
     tmp = path + _LOCAL_TMP_MARK
     mine = _layout_dir(tmp, rank, world)
     if os.path.isdir(mine):
@@ -744,8 +744,14 @@ def read_pipeline_state(directory: str, step: int) -> Optional[dict]:
 
 
 def read_dcn_state(directory: str, step: int) -> Optional[dict]:
-    """The cross-slice exchanger's sidecar state: not ported yet."""
-    raise NotImplementedError(f"read_dcn_state {_ITEM_9C}")
+    """The cross-slice exchanger ``state_dict()`` persisted with a
+    checkpoint (None when the save had none). Feed it to
+    `comm.dcn.DcnExchanger.load_state_dict` so a rollback re-seats the
+    error-feedback residual with the parameters it was deferred against —
+    without it a restore drops (or, after replay, double counts) the
+    skipped rounds' gradient mass."""
+    meta = read_sidecar(directory, step)
+    return meta.get("dcn") if meta else None
 
 
 def read_mem_epoch(directory: str, step: int) -> Optional[int]:

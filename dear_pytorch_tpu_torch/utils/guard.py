@@ -53,8 +53,15 @@ members re-form the epoch at the same membership
 save, and emergency saves are flushed to it inside the grace window;
 `elastic_resume` is a relaunched rank's re-entry.
 
-Not ported yet (refused with ``NotImplementedError`` naming ROADMAP Queue
-1 item 9c when the trainer is built): the DCN exchanger's state.
+A hierarchical step (``ts.dcn``, `comm.dcn.DcnExchanger`; JAX
+guard.py:103-119, :310-345, :770-800, :904): the exchanger's ladder
+state rides every checkpoint's sidecar and is re-seated with every
+restore; a `comm.dcn.DcnSelfEvict` propagates (exit for relaunch and
+rejoin); a failed cross-slice leg (`comm.dcn.DcnError`) after dispatch is
+deferred to the health sync as unhealthy, with no re-attempt and without
+abandoning the step — the step's agreement (`parallel.dear`) left every
+rank of the slice at the same point, with nothing of the slice group in
+flight; the committed include-set mean's checksum joins the SDC vote.
 """
 
 from __future__ import annotations
@@ -80,10 +87,22 @@ logger = logging.getLogger("dear_pytorch_tpu_torch")
 __all__ = ["DivergenceError", "GuardedTrainer", "PeerLostError"]
 
 
-def _item_9c(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: ROADMAP Queue 1 item 9c (the "
-        "multi-slice DCN leg)")
+def _is_dcn_error(exc: BaseException) -> bool:
+    """Is this a cross-slice (host DCN leg) failure? Lazy import: the
+    guard must not pull the hierarchical machinery into single-level
+    runs."""
+    from dear_pytorch_tpu_torch.comm.dcn import DcnError
+
+    return isinstance(exc, DcnError)
+
+
+def _is_self_evict(exc: BaseException) -> bool:
+    """Is this the degraded-DCN ladder's self-eviction verdict? Must NOT
+    be handled as a step error: a rollback cannot fix an outbound
+    partition — the rank exits for relaunch + rejoin instead."""
+    from dear_pytorch_tpu_torch.comm.dcn import DcnSelfEvict
+
+    return isinstance(exc, DcnSelfEvict)
 
 
 class DivergenceError(RuntimeError):
@@ -130,8 +149,6 @@ class GuardedTrainer:
         on_membership_change: Optional[Callable[[Any], None]] = None,
         streamer: Optional[Any] = None,
     ):
-        if getattr(ts, "dcn", None) is not None:
-            raise _item_9c("the DCN exchanger's checkpoint state")
         self.ts = ts
         self.directory = directory
         self.async_checkpoints = async_checkpoints
@@ -280,6 +297,38 @@ class GuardedTrainer:
                 "guard: pipeline reshard to %d/%d (epoch %d) failed: %s",
                 shard, world, view.epoch, exc)
 
+    def _dcn_state(self) -> Optional[dict]:
+        """The cross-slice exchanger's ladder state (error-feedback
+        residual + staleness clocks) for the checkpoint sidecar — None on
+        single-level schedules or when nothing is carried (the sidecar
+        stays as it was without it)."""
+        dcn = getattr(self.ts, "dcn", None)
+        if dcn is None or not hasattr(dcn, "state_dict"):
+            return None
+        try:
+            state = dcn.state_dict()
+        except Exception as exc:  # a ladder bug must not block the save
+            logger.error("guard: dcn.state_dict() failed: %s", exc)
+            return None
+        if not state.get("residual") and not state.get("staleness"):
+            return None
+        return state
+
+    def _restore_dcn(self, step: int) -> None:
+        """Re-seat the degraded-DCN error-feedback residual persisted with
+        the checkpoint being restored — the deferred gradient mass belongs
+        to THESE parameters; keeping the live residual across a rollback
+        would double-count every skipped round the replay re-earns."""
+        dcn = getattr(self.ts, "dcn", None)
+        if dcn is None or not hasattr(dcn, "load_state_dict"):
+            return
+        try:
+            dcn.load_state_dict(ckpt.read_dcn_state(self.directory, step))
+        except Exception as exc:  # a sidecar bug must not kill recovery
+            logger.error(
+                "guard: dcn ladder state restore failed (%s); continuing "
+                "with fresh (empty) residuals", exc)
+
     def _restore_step(self, step: int):
         """Restore one step into the live step; a checkpoint packed under
         a DIFFERENT plan (another membership epoch or world) re-packs
@@ -325,7 +374,8 @@ class GuardedTrainer:
             ckpt.save_checkpoint(self.directory, state, self.ts,
                                  asynchronous=self.async_checkpoints,
                                  pipeline_state=self._pipeline_state(),
-                                 mem_epoch=self._mem_epoch)
+                                 mem_epoch=self._mem_epoch,
+                                 dcn_state=self._dcn_state())
         except Exception as exc:
             if not self.async_checkpoints:
                 raise
@@ -406,6 +456,7 @@ class GuardedTrainer:
             # must propagate (falling back locally would desynchronize)
             state = self._restore_step(step)
             self._restore_pipeline(step)
+            self._restore_dcn(step)
             ckpt.prune_future_steps(self.directory, above=step)
             logger.warning(
                 "guard: consensus rollback to checkpoint step %d", step)
@@ -425,6 +476,7 @@ class GuardedTrainer:
             state = ckpt.restore_checkpoint(self.directory, self.ts,
                                             step=step)
             self._restore_pipeline(step)
+            self._restore_dcn(step)
             logger.warning("guard: rolled back to checkpoint step %d", step)
             return state, step
         # single process: walk newest -> oldest past corrupted payloads;
@@ -449,6 +501,7 @@ class GuardedTrainer:
                 step = ckpt.latest_valid_step(self.directory, below=step)
                 continue
             self._restore_pipeline(step)
+            self._restore_dcn(step)
             ckpt.prune_future_steps(self.directory, above=step)
             logger.warning("guard: rolled back to checkpoint step %d", step)
             if tr.enabled:
@@ -554,9 +607,44 @@ class GuardedTrainer:
             new_state, metrics, is_ckpt, is_check, healthy = \
                 self._attempt(state, batch, tr)
         except (FloatingPointError, RuntimeError) as exc:
-            # (the JAX guard's DCN branches — self-eviction and a failed
-            # cross-slice leg — wait for the DCN leg, ROADMAP item 9c)
-            if self._coordinated and dispatched and self._elastic:
+            if _is_self_evict(exc):
+                # the degraded-DCN ladder's last rung: the fleet's
+                # replica-identical participation view says THIS slice is
+                # unmerged past the staleness budget. A rollback cannot fix
+                # an outbound partition — re-raise so the rank exits like
+                # an `EvictedError` (supervisor relaunch → hydrate →
+                # slice-gated rejoin), while the survivors' membership sync
+                # books the slice loss. Every rank of the slice reaches the
+                # same verdict (the step's agreement, parallel.dear).
+                if tr.enabled:
+                    tr.count("guard.step_errors")
+                    tr.event("guard.step_error", error=type(exc).__name__)
+                logger.error(
+                    "guard: DCN ladder escalated to self-eviction: %s — "
+                    "exiting for relaunch + rejoin", exc)
+                raise
+            if self._coordinated and dispatched and _is_dcn_error(exc):
+                # hierarchical schedule: the CROSS-SLICE leg failed (dead
+                # slice, DCN partition, dropped publish). The step's
+                # agreement raised it on every rank of this slice before
+                # any of them updated, so nothing of the slice group is in
+                # flight: the step is NOT abandoned, and the error defers
+                # straight to the coordinated sync as UNHEALTHY. No
+                # re-attempt: retrying would burn another full peer
+                # deadline against a slice the membership layer is about
+                # to remove. The attempt counts, as on the elastic branch
+                # below, so every member reaches the sync at the same one.
+                if tr.enabled:
+                    tr.count("guard.step_errors")
+                    tr.event("guard.step_error", error=type(exc).__name__)
+                logger.error(
+                    "guard: cross-slice (DCN) leg failed: %s — deferring "
+                    "to the coordinated health sync", exc)
+                self._pending_error = exc
+                self.steps_seen += 1
+                healthy, new_state, metrics, error = False, None, None, exc
+                is_ckpt, is_check = False, True
+            elif self._coordinated and dispatched and self._elastic:
                 # an elastic fleet: a peer's death fails this rank's
                 # dispatched step (a collective lost its peer; the group's
                 # timeout bounds it, comm.backend.regroup), and so does a
@@ -699,10 +787,15 @@ class GuardedTrainer:
         sfp = ""
         if self._sdc is not None and healthy and metrics is not None:
             words = metrics.get("sdc_fp")
-            if words is not None:
+            # a hierarchical step's committed cross-slice mean is voted on
+            # too: the exchanger's checksum of it joins the fingerprint
+            dcn = getattr(self.ts, "dcn", None)
+            extra = getattr(dcn, "last_mean_fp", "") if dcn else ""
+            if words is not None or extra:
                 # the tiny per-bucket vector, fetched at check cadence
                 sfp = self._sdc.local_fingerprint(
-                    words.detach().cpu().numpy())
+                    None if words is None else words.detach().cpu().numpy(),
+                    extra)
         pre_req = (self._preemption is not None
                    and self._preemption.requested
                    and not self._preempt_handled)
@@ -991,7 +1084,8 @@ class GuardedTrainer:
             ckpt.save_checkpoint(self.directory, state, self.ts,
                                  asynchronous=False,
                                  pipeline_state=self._pipeline_state(),
-                                 mem_epoch=self._mem_epoch)
+                                 mem_epoch=self._mem_epoch,
+                                 dcn_state=self._dcn_state())
         except Exception as exc:
             # the grace window must still end in a clean preempted exit
             logger.error(

@@ -16,7 +16,7 @@ the JAX package's, on the CPU.
     correction; an asynchronous save at step k holds step k's masters
     although step k + 1 updated them in place before the writer ran (the
     writer held back with an event); `elastic_restore` across a threshold
-    change; the sidecar's pipeline state; the 9c refusals.
+    change; the sidecar's pipeline state and DCN state.
 """
 
 import json
@@ -408,16 +408,18 @@ def test_sidecar_carries_pipeline_state_and_epoch(tmp_path, group):
 
 def test_unported_tier_names_item_9b(tmp_path, group):
     """Item 9b ported the object-store tier (an empty store lists no step
-    and restores nothing); the DCN state still raises, naming item 9c."""
+    and restores nothing); item 9c the DCN state, which rides the sidecar
+    under ``"dcn"`` as JAX's does (None when a save had none)."""
     from dear_pytorch_tpu_torch.utils.objectstore import LocalObjectStore
 
     store = LocalObjectStore(str(tmp_path / "remote"))
     assert ckpt.remote_steps(store) == []
     assert ckpt.restore_from_object_store(store, str(tmp_path / "c")) is None
-    with pytest.raises(NotImplementedError, match="item 9c"):
-        ckpt.read_dcn_state(str(tmp_path), 0)
+    assert ckpt.read_dcn_state(str(tmp_path), 0) is None
     ts = bn_step(group)
-    with pytest.raises(NotImplementedError, match="item 9c"):
-        ckpt.save_checkpoint(str(tmp_path), ts.init(), ts,
-                             dcn_state={"residual": 1})
+    state = {"epoch": 1, "staleness": {"1": 2}, "residual": {}}
+    ckpt.save_checkpoint(str(tmp_path), ts.init(), ts, dcn_state=state)
+    assert ckpt.read_dcn_state(str(tmp_path), 0) == state
+    assert ckpt.read_sidecar(str(tmp_path), 0)["dcn"] == state
+    assert jckpt.read_dcn_state(str(tmp_path), 0) == state
     ts.close()

@@ -393,8 +393,10 @@ def test_world2_fused_matches_port_dear(world2_results):
 
 
 def test_rejected_options_raise(group):
-    """What is not ported raises NotImplementedError naming its ROADMAP
-    item: the multi-slice ``dcn`` schedule (item 9); ``multi_step`` runs
+    """The multi-slice ``dcn`` schedule is ported (item 9c): an exchanger
+    that is not one with one local slice, or a mode other than ``dear``,
+    is refused with a ValueError (tests/test_torch_multislice.py holds the
+    guards against JAX's); ``multi_step`` runs
     since slice 15. What is ported builds: ``model_state_template``, the
     baseline modes and ``fsdp``, the ``exclude_parts`` ablations, and since
     slice 14 compression, ``remat="full"`` (outside ``fsdp``) and LAMB;
@@ -406,8 +408,10 @@ def test_rejected_options_raise(group):
         return m(b).sum()
 
     lamb = topt.fused_lamb(lr=0.1)
-    for kw in (dict(dcn=object()), dict(mode="allreduce", dcn=object())):
-        with pytest.raises(NotImplementedError, match="item 9"):
+    for kw, match in ((dict(dcn=object()), "exactly one local slice"),
+                      (dict(mode="allreduce", dcn=object()),
+                       "hierarchical")):
+        with pytest.raises(ValueError, match=match):
             tdear.build_train_step(loss_fn, model, group=group,
                                    device="cpu", **kw)
     # model state is ported: a template naming no buffer is accepted

@@ -397,6 +397,8 @@ def test_lamb_segment_ids_are_the_plans(span):
                 assert nseg == len(b.leaf_ids) + 1
                 np.testing.assert_array_equal(seg.numpy(), want)
                 assert psum(seg) is seg
+                assert ts._segment_lengths(b.index) == np.bincount(
+                    want, minlength=nseg).tolist()
             else:
                 cuts = [b.padded_size * r // 3 for r in range(4)]
             for lo, hi in zip(cuts[:-1], cuts[1:]):
@@ -405,6 +407,54 @@ def test_lamb_segment_ids_are_the_plans(span):
                 np.testing.assert_array_equal(got.numpy(), want[lo:hi])
     finally:
         ts.close()
+
+
+@pytest.mark.parametrize("scale", [1e-6, 1e-8])
+def test_lamb_segment_sums_keep_a_small_parameter_after_a_large_one(scale):
+    """A bucket of a 2^20-element weight (0.02), a small bias (``scale``,
+    as early in training) and a zero one (a key bias: its gradient is
+    zero): every segment's sum within 1e-6 of its exact fp64 sum (the zero
+    one exactly 0), with and without the host's segment lengths, and
+    LAMB's trust ratios on two shards (the biases in the second, the
+    segment sums added as the all-reduce would) equal the whole bucket's.
+    Differences of one running sum lost the small bias to the weight's
+    prefix (relative errors of 5.6e-3 at 1e-6, ~1 at 1e-8), and on the
+    card read the zero one as +-1e-13."""
+    rng = np.random.default_rng(0)
+    n_w, n_b = 2**20, 1024
+    w = torch.from_numpy((rng.standard_normal(n_w) * 0.02).astype(np.float32))
+    b = torch.from_numpy((rng.standard_normal(n_b) * scale)
+                         .astype(np.float32))
+    x = torch.cat([w, b, torch.zeros(n_b + 4)])   # a zero bias, the padding
+    seg = torch.cat([torch.zeros(n_w, dtype=torch.int32),
+                     torch.ones(n_b, dtype=torch.int32),
+                     torch.full((n_b,), 2, dtype=torch.int32),
+                     torch.full((4,), 3, dtype=torch.int32)])
+    sq = x * x
+    sqn = sq.double().numpy()
+    want = np.array([sqn[:n_w].sum(), sqn[n_w:n_w + n_b].sum(), 0.0, 0.0])
+    for pieces in (None, topt.segment_pieces([n_w, n_b, n_b, 4], "cpu")):
+        got = topt._segment_sums(sq, seg, 4, pieces).double().numpy()
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=0)
+    # the trust ratios: the whole bucket against two shards, the second
+    # holding the bias and the weight's tail; rank 0's psum records its
+    # sums, rank 1's adds them (the all-reduce)
+    grad = torch.from_numpy(rng.standard_normal(x.numel())
+                            .astype(np.float32)) * 1e-3
+    grad[-4:] = 0.0
+    lamb = topt.fused_lamb(lr=0.01)
+    full = lamb.init(x.clone())
+    grad[n_w + n_b:] = 0.0    # the zero bias stays zero: trust 1
+    lamb.update(grad, full, x.clone(), seg, 4, lambda v: v)
+    cut, rank0 = n_w - 100, {}
+    lamb.update(grad[:cut], lamb.init(x[:cut].clone()), x[:cut].clone(),
+                seg[:cut], 4, lambda v: rank0.setdefault("sums", v))
+    st1 = lamb.init(x[cut:].clone())
+    lamb.update(grad[cut:], st1, x[cut:].clone(), seg[cut:], 4,
+                lambda v: rank0["sums"] + v)
+    assert float(full["trust"][2]) == 1.0
+    np.testing.assert_allclose(st1["trust"].numpy(), full["trust"].numpy(),
+                               rtol=1e-6)
 
 
 # ---------------------------------------------------------------------------
