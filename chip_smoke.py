@@ -332,6 +332,23 @@ non-zero and no result line is printed):
      the time from death to the shrink's commit, the renorms, the
      degraded steps, the time to readmission, the steps lost and the
      `fit_dcn` α-β;
+  5s. sequence parallelism (after 5r): (i) K1, K2 and K3 through ring
+     attention's pair wrappers (bf16 in, fp32 out: the CUDA-core routes)
+     at SP's shapes — GPT-2's causal aligned pair, a full pair with a key
+     mask and the zigzag half-q and half-k pairs at S/sp = 512 (B = 4, H
+     = 12), BERT-Base's padded pair at S = 128, sp = 2 — each held
+     against its plain version and timed beside it, SDPA and the bound
+     (rows of the kernels line); then four ranks sharing the card over
+     gloo (`--sp-rank` children): rank 0 trains the one-rank references,
+     ranks 0 and 1 (dp 1 x sp 2) GPT-2 small at full width (12 layers, S
+     = 1024, fp32, B = 4) with ring, ring_flash, ulysses and zigzag and
+     ring_flash in bf16, BERT-Base (S = 128, B = 8) with ring_flash and
+     ulysses, and all four GPT-2 at 2 layers with ring_flash at dp 2 x sp
+     2, 3 steps each from the seed-0 weights: the losses within 2e-4 of
+     one rank's on the same global batch (bf16 within 1e-2), K1-K3's
+     launches equal to the ring's branch map, one K5 epilogue per bucket
+     per step; the step p50 per scheme, the ring's exposed p2p time and
+     the launches printed;
   6. trace steady bf16 decode ticks and training steps with
      ``torch.profiler`` (device ops, busy time and idle share, the top
      device ops of a step); time each kernel, its plain version and
@@ -352,14 +369,14 @@ non-zero and no result line is printed):
      largest shards (VGG-16's fc1) and at the replicated modes' whole
      buckets; phase 5l's step p50/p99, tokens/s and peak memory per run;
      the kernels line's K1-K3 and K5-epilogue launches include 5m's,
-     5o's, 5p's, 5q's and 5r's (and K4's and the K5 ring's, 5o's driver
-     cell's rank 0).
+     5o's, 5p's, 5q's, 5r's and 5s's (and K4's and the K5 ring's, 5o's
+     driver cell's rank 0).
 
 ``python3 chip_smoke.py --kernels-only`` runs phases 1–3 and stops without
 a result line; ``--phase 5o`` runs phases 1–2, the bench line and phase 5o,
 ``--phase 5p`` phases 1–2 and phase 5p, ``--phase 5q`` phases 1–2 and
-phase 5q, and ``--phase 5r`` phases 1–2 and phase 5r, without one
-either. In a
+phase 5q, ``--phase 5r`` phases 1–2 and phase 5r, and ``--phase 5s``
+phases 1–2 and phase 5s, without one either. In a
 full run the line before the last lists the kernels
 as JSON (K1, K2, K3 and K4 once per route, each with its main path's
 launches; K6 and K7 with their launches by route, the K5 ring by width);
@@ -6216,6 +6233,554 @@ def multislice_phase(card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 5s: sequence parallelism on the card
+# ---------------------------------------------------------------------------
+
+#: (ii)-(iv): 3 steps of SGD (lr 0.05, momentum 0.9: JAX's SP test's) from
+#: the seed-0 weights, dropout off
+_SP_STEPS = 3
+_SP_LR = 0.05
+#: the losses against one rank's (JAX's SP tolerance,
+#: tests/test_sp_training.py:207), and the bf16 run against the fp32 one
+_SP_LOSS_RTOL = 2e-4
+_SP_BF16_RTOL = 1e-2
+#: the parameters after the steps against one rank's, over the largest
+#: entry of each one's reference update (`_sp_param_errs`): fp32 runs, and
+#: the bf16 run against the fp32 reference; the update's floor, a share of
+#: the model's largest. On an H100 the fp32 runs read up to 1.2e-3 and the
+#: bf16 run 2.0e-2 (PERF.md): the fp32 limit lies between them
+_SP_PARAM_RTOL = 5e-3
+_SP_BF16_PARAM_RTOL = 0.1
+_SP_UPDATE_FLOOR = 1e-3
+#: GPT-2 small at full width: B = 4 sequences of 1024; BERT-Base: 8 of 128
+_SP_GPT_B, _SP_GPT_S = 4, 1024
+_SP_BERT_B, _SP_BERT_S = 8, 128
+_SP_GPT_SCHEMES = ("ring", "ring_flash", "ulysses", "zigzag")
+_SP_BERT_SCHEMES = ("ring_flash", "ulysses")
+#: (iv)'s depth: GPT-2 at 2 layers, dp 2 x sp 2
+_SP_2X2_LAYERS = 2
+
+
+def _sp_shapes(gen):
+    """(i)'s shapes: (label, folded q, k, v, mask, dO, causal), each pair
+    of phase 5s's runs in bf16 and in fp32 in: GPT-2's at S/sp = 512 (B =
+    4, H = 12: 48 folded rows; the causal aligned pair, the full pair with
+    a key mask, the zigzag half-q and half-k pairs at 256) and
+    BERT-Base's at S = 128, sp = 2 (B = 8: 96 rows, a padding mask)."""
+    out = []
+    B, S, c = _SP_GPT_B, _SP_GPT_S // 2, _SP_GPT_S // 4
+    Bb, Sb = _SP_BERT_B, _SP_BERT_S // 2
+    lengths = [max(1, Sb - (13 * b) % Sb) for b in range(Bb)]
+
+    def folded(*case):
+        return [_fold(x) if x.dim() == 4 else x.repeat_interleave(_H, 0)
+                for x in case]
+
+    for dt, name in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+        q, k, v, m = folded(*_case(gen, B, S, S, dt, True))
+        do = torch.randn(q.shape, generator=gen, device=_DEV).to(dt)
+        hq, hk, hv, hm = folded(*_case(gen, B, S, S, dt, False, holey=True))
+        bq, bk, bv, bm = folded(*_case(gen, Bb, Sb, Sb, dt, False,
+                                       lengths=lengths))
+        bdo = torch.randn(bq.shape, generator=gen, device=_DEV).to(dt)
+        out += [
+            (f"gpt2 causal aligned pair, {name} in", q, k, v, m, do, True),
+            (f"gpt2 full pair, key mask, {name} in", hq, hk, hv, hm, do,
+             False),
+            (f"gpt2 zigzag half-q pair, {name} in", q[:, c:], k, v, m,
+             do[:, c:], False),
+            (f"gpt2 zigzag half-k pair, {name} in", q, k[:, :c], v[:, :c],
+             m[:, :c], do, False),
+            (f"bert-base full pair, padding mask, {name} in", bq, bk, bv, bm,
+             bdo, False)]
+    return out
+
+
+def sp_kernel_rows(hbm) -> dict:
+    """Phase 5s (i): K1, K2 and K3 through the ring's wrappers
+    (`flash_pair_fwd` / `flash_pair_dq` / `flash_pair_dkv`, fp32 out) at
+    SP's pair shapes (`_sp_shapes`, bf16 and fp32 in), each call
+    route-checked (CUDA cores), held against its plain version (K1 within
+    2e-5 of the fp32 plain output and 2e-4 in lse, K2/K3 within 1e-4 of the
+    largest |plain value|: `time_shape`'s and `check_bwd_kernels`'
+    tolerances for fp32 out), then timed beside the plain versions, SDPA on
+    the same operands (the forward, or its backward for dq + dk + dv; it
+    has no fp32-out form for bf16 inputs), for bf16 inputs the same call
+    with bf16 out (the tensor-core routes, held within 2e-2: the yardstick
+    of ROADMAP Queue 2 item 1), and the card's bound (bytes over the
+    card's memory rate; operations over 989 TF/s bf16 or 67 TF/s fp32).
+    The inputs are one set, warm in L2 (3-6 MB a pair). Returns the rows
+    by (kernel, label), each with its own largest error."""
+    gen = torch.Generator(device=_DEV).manual_seed(21)
+    rows = {}
+    for label, q, k, v, m, do, causal in _sp_shapes(gen):
+        t_case = time.perf_counter()
+        scale = q.shape[-1] ** -0.5
+        BH, Sq, D = q.shape
+        Sk = k.shape[1]
+        dt, es = q.dtype, q.element_size()
+        o, lse = _routed(f"phase 5s {label}", "cuda_core",
+                         lambda: FA.flash_pair_fwd(
+                             q, k, v, m, scale, causal,
+                             out_dtype=torch.float32))
+        ref, ref_lse = FA.flash_pair_fwd_reference(
+            q, k, v, m, scale, causal, out_dtype=torch.float32)
+        delta = (do.float() * ref).sum(-1)
+        args = (q, k, v, m, do, ref_lse, delta, scale, causal)
+        got = _bwd_routed(f"phase 5s {label}", "cuda_core", lambda: (
+            FA.flash_pair_dq(*args, out_dtype=torch.float32),
+            *FA.flash_pair_dkv(*args, out_dtype=torch.float32)))
+        want = (FA.flash_pair_dq_reference(*args, out_dtype=torch.float32),
+                *FA.flash_pair_dkv_reference(*args,
+                                             out_dtype=torch.float32))
+        torch.cuda.synchronize()
+        e_fwd = float((o - ref).abs().max())
+        e_lse = float((lse - ref_lse).abs().max())
+        e_bwd = [_rel(g, w) for g, w in zip(got, want)]
+        _check(bool(torch.isfinite(o).all()) and e_fwd <= 2e-5
+               and e_lse <= 2e-4,
+               f"phase 5s {label}: K1 disagrees with its plain version "
+               f"(|o| {e_fwd:.3e}, lse {e_lse:.3e})")
+        _check(all(bool(torch.isfinite(g).all()) and r <= 1e-4
+                   for g, (_, r) in zip(got, e_bwd)),
+               f"phase 5s {label}: K2/K3 disagree with their plain "
+               f"versions {e_bwd}")
+        errs = {"flash_fwd": e_fwd, "flash_bwd_dq": e_bwd[0][0],
+                "flash_bwd_dkv": max(e_bwd[1][0], e_bwd[2][0])}
+        bf = torch.bfloat16
+        if dt == bf:
+            # the yardstick of ROADMAP Queue 2 item 1: the same calls with
+            # bf16 out take the tensor-core routes; held at 2e-2
+            o_tc, _ = _routed(f"phase 5s {label} bf16 out", "tensor_core",
+                              lambda: FA.flash_pair_fwd(
+                                  q, k, v, m, scale, causal, out_dtype=bf))
+            tc = _bwd_routed(f"phase 5s {label} bf16 out", "tensor_core",
+                             lambda: (FA.flash_pair_dq(*args, out_dtype=bf),
+                                      *FA.flash_pair_dkv(*args,
+                                                         out_dtype=bf)))
+            torch.cuda.synchronize()
+            _check(float((o_tc.float() - ref).abs().max()) <= 2e-2
+                   and all(_rel(g, w)[1] <= 2e-2 for g, w in zip(tc, want)),
+                   f"phase 5s {label}: the tensor-core routes (bf16 out) "
+                   "disagree with the plain versions")
+            del o_tc, tc
+        print(f"phase 5s (i) {label} [{BH}, {Sq}/{Sk}, {D}], fp32 out: "
+              f"max|o - plain| {e_fwd:.3e}, lse {e_lse:.3e}; dq, dk, dv rel "
+              f"{[round(r, 9) for _, r in e_bwd]}")
+        del o, lse, got
+        sets = [(q, k, v, m, do, ref_lse, delta)]
+        # SDPA on the same operands ([B*H, 1, S, D]; a key mask as a
+        # boolean attn_mask): its forward, and its backward (dq, dk, dv)
+        sq, sk, sv = (t[:, None] for t in (q, k, v))
+        amask = None if causal else m.bool()[:, None, None, :]
+        sdpa_fwd = device_ms(lambda *_: F.scaled_dot_product_attention(
+            sq, sk, sv, attn_mask=amask, is_causal=causal), sets, 50)
+        xs = [t.detach().clone().requires_grad_() for t in (sq, sk, sv)]
+        out = F.scaled_dot_product_attention(*xs, attn_mask=amask,
+                                             is_causal=causal)
+        sdpa_bwd = device_ms(lambda *_: torch.autograd.grad(
+            out, xs, do[:, None], retain_graph=True), sets, 20)
+        del xs, out
+        pairs = BH * (Sq * (Sq + 1) // 2 if causal else Sq * Sk)
+        ctx = {"shape": f"{label} [{BH}, {Sq}, {Sk}, {D}]",
+               "dtype": f"{str(dt).replace('torch.', '')} in, float32 out",
+               "route": "cuda_core", "Sq": Sq, "Sk": Sk, "causal": causal,
+               "in_dtype": str(dt).replace("torch.", "")}
+        for name, fn, plain, flops, nbytes, lib, scope, tc_fn in (
+                ("flash_fwd",
+                 lambda *a: FA.flash_pair_fwd(a[0], a[1], a[2], a[3], scale,
+                                              causal,
+                                              out_dtype=torch.float32),
+                 lambda *a: FA.flash_pair_fwd_reference(
+                     a[0], a[1], a[2], a[3], scale, causal,
+                     out_dtype=torch.float32),
+                 4 * D * pairs,
+                 BH * (Sq * D * (es + 4) + 2 * Sk * D * es + Sq * 4 + Sk * 4),
+                 sdpa_fwd, "forward",
+                 lambda *a: FA.flash_pair_fwd(a[0], a[1], a[2], a[3], scale,
+                                              causal, out_dtype=bf)),
+                ("flash_bwd_dq",
+                 lambda *a: FA.flash_pair_dq(*a, scale, causal,
+                                             out_dtype=torch.float32),
+                 lambda *a: FA.flash_pair_dq_reference(
+                     *a, scale, causal, out_dtype=torch.float32),
+                 6 * D * pairs,
+                 BH * (Sq * D * (es + es + 4) + 2 * Sk * D * es + 2 * Sq * 4
+                       + Sk * 4),
+                 sdpa_bwd, "dq+dk+dv",
+                 lambda *a: FA.flash_pair_dq(*a, scale, causal,
+                                             out_dtype=bf)),
+                ("flash_bwd_dkv",
+                 lambda *a: FA.flash_pair_dkv(*a, scale, causal,
+                                              out_dtype=torch.float32),
+                 lambda *a: FA.flash_pair_dkv_reference(
+                     *a, scale, causal, out_dtype=torch.float32),
+                 8 * D * pairs,
+                 BH * (Sq * D * (es + es) + 2 * Sk * D * (es + 4)
+                       + 2 * Sq * 4 + Sk * 4),
+                 sdpa_bwd, "dq+dk+dv",
+                 lambda *a: FA.flash_pair_dkv(*a, scale, causal,
+                                              out_dtype=bf))):
+            if name == "flash_fwd":
+                k_sets = [s_[:4] for s_ in sets]
+            else:
+                k_sets = sets
+            ms = device_ms(fn, k_sets, 20)
+            plain_ms = device_ms(plain, k_sets, 4)
+            tc_ms = device_ms(tc_fn, k_sets, 20) if dt == bf else None
+            bytes_ms = nbytes / hbm * 1e3
+            ops_ms = flops / _PEAK_FLOPS[dt] * 1e3
+            row = ctx | {
+                "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                "bytes": nbytes, "flops": flops, "tflops": flops / ms / 1e9,
+                "max_abs_err": errs[name],
+                "library_ms": lib, "library_scope": scope,
+                "library_note": "SDPA on the same operands, in their dtype",
+                "tensor_core_bf16_out_ms": tc_ms}
+            rows[name, label] = row
+            print("kernel time " + json.dumps({"kernel": name} | row))
+        print(f"phase 5s (i) {label}: {time.perf_counter() - t_case:.1f} s")
+    return rows
+
+
+def _sp_expected(scheme: str, causal: bool, sp: int, sp_rank: int,
+                 layers: int) -> int:
+    """K1 launches per step of one rank (and as many of K2 and of K3) by
+    `parallel.ring_attention`'s branch map: the flash ring runs one pair a
+    hop, but a causal sequential ring skips the later blocks (sp rank i
+    runs i + 1 pairs); the zigzag ring runs one (half) pair every hop; the
+    dense ring and Ulysses launch none."""
+    if scheme == "zigzag":
+        per_layer = sp
+    elif scheme == "ring_flash":
+        per_layer = sp_rank + 1 if causal else sp
+    else:
+        per_layer = 0
+    return per_layer * layers
+
+
+def _sp_run(model, loss_fn, batch, group, ref=None, reference=False, **kw):
+    """`_SP_STEPS` steps of ``model`` on ``batch`` over ``group``, counts
+    zeroed just before the steps. Returns the results and, for a
+    ``reference`` run, its (initial, final) parameters by name (else
+    None): losses, step seconds, K1-K3 launches by
+    route and by shape, the K5 epilogue's, the ring's hops, exposed p2p
+    seconds, the plan's buckets; with ``ref`` (a reference run's initial
+    and final parameters) also the parameter check (`_sp_param_errs`)."""
+    from dear_pytorch_tpu_torch.ops.fused_sgd import fused_sgd
+    from dear_pytorch_tpu_torch.parallel import ring_attention as RA
+
+    t_run = time.perf_counter()
+    ts = build_train_step(loss_fn, model, group=group, device=_DEV,
+                          optimizer=fused_sgd(lr=_SP_LR, momentum=0.9), **kw)
+    state = ts.init()
+    first = ts.gather_params(state) if reference else None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    FA.reset_launch_counts()
+    FS.fused_update_launches = 0
+    RA.reset_counts()
+    losses, step_s = [], []
+    for _ in range(_SP_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = ts.step(state, batch)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    res = {"losses": losses, "step_s": step_s,
+           "fwd": dict(FA.flash_fwd_route_launches),
+           "dq": dict(FA.flash_bwd_route_launches["dq"]),
+           "dkv": dict(FA.flash_bwd_route_launches["dkv"]),
+           "shapes": [list(k) + [n]
+                      for k, n in FA.flash_shape_launches.items()],
+           "fused_update": FS.fused_update_launches,
+           "updates": ts.update_launches, "buckets": ts.plan.num_buckets,
+           "mean_world": ts.mean_world, "hops": RA.ring_hops,
+           "p2p_s": RA.ring_p2p_s,
+           "peak_bytes": torch.cuda.max_memory_allocated()}
+    final = ts.gather_params(state)     # collective: every rank gathers
+    if ref is not None:
+        res["params"] = _sp_param_errs(final, *ref)
+    ts.close()
+    del ts, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["wall_s"] = time.perf_counter() - t_run
+    return res, ((first, final) if reference else None)
+
+
+def _sp_param_errs(got: dict, first: dict, final: dict) -> dict:
+    """``got``'s parameters against a reference run's ``final`` ones, by
+    name: the largest |got - final| of each over the largest entry of that
+    parameter's reference update |final - first|, floored at
+    `_SP_UPDATE_FLOOR` of the largest update in the model; the worst, and
+    where. (3 steps move the weights by far less than their size, so
+    relative to the weights a wrong gradient would read small; and a
+    parameter's own update can be 0, as the key bias's is: softmax ignores
+    a per-query constant.)"""
+    _check(sorted(got) == sorted(final), "phase 5s: the SP model's "
+           "parameter names differ from the one-rank model's")
+    step = {n: float((ref - first[n]).abs().max())
+            for n, ref in final.items()}
+    floor = _SP_UPDATE_FLOOR * max(step.values())
+    err = {n: float((got[n] - ref).abs().max()) / max(step[n], floor)
+           for n, ref in final.items()}
+    at = max(err, key=err.get)
+    return {"of_update": err[at], "at": at, "update": step[at]}
+
+
+def sp_rank_worker(rank: int, out: Path) -> None:
+    """One of the four ranks of phase 5s (``--sp-rank R --out DIR``),
+    sharing the card over gloo, fp32 (no TF32), dropout off:
+
+      - rank 0 alone (a one-rank group) trains the references: GPT-2 small
+        (12 layers, B = 4, S = 1024) and at 2 layers, BERT-Base (B = 8, S
+        = 128, rows padded), the dense models;
+      - ranks 0 and 1 (dp 1 x sp 2, `comm.backend.form_sp_groups(2,
+        ranks=[0, 1])`) train GPT-2 small with each of `_SP_GPT_SCHEMES`
+        and ring_flash in bf16, BERT-Base with `_SP_BERT_SCHEMES`;
+      - all four (dp 2 x sp 2) train GPT-2 at 2 layers with ring_flash.
+
+    Every run holds the same global batch, the seed-0 weights and
+    ``mean_axes=("dp",)`` (the references: one rank). Rank 0 keeps the
+    references' initial and final parameters on the card and holds each
+    SP run's gathered parameters against them (`_sp_param_errs`; the
+    gather is an all-gather, so every rank of a run holds the same ones).
+    Writes each run's `_sp_run` results."""
+    import torch.distributed as dist
+
+    from dear_pytorch_tpu_torch.parallel import sp as SP
+    from dear_pytorch_tpu_torch.parallel.ring_attention import (
+        zigzag_permutation,
+    )
+
+    _join_two_ranks(rank, out, 4)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    backend.init(_DEV)
+    pair, one = dist.new_group([0, 1]), dist.new_group([0])
+    gen = torch.Generator(device=_DEV)
+    cfg = dropout_free(gpt_config("gpt2", dtype=torch.float32))
+    cfg2 = dataclasses.replace(cfg, num_hidden_layers=_SP_2X2_LAYERS)
+    bcfg = dropout_free(BERT.BERT_BASE)
+    gpt_batch = synthetic_gpt_batch(gen.manual_seed(0), _SP_GPT_B,
+                                    seq_len=_SP_GPT_S,
+                                    vocab_size=cfg.vocab_size)
+    bert_batch = synthetic_bert_batch(gen.manual_seed(0), _SP_BERT_B,
+                                      seq_len=_SP_BERT_S,
+                                      vocab_size=bcfg.vocab_size,
+                                      device=_DEV)
+    # padded rows: sentence b keeps its first 128 - 9 b tokens
+    keep = (torch.arange(_SP_BERT_S, device=_DEV)[None, :]
+            < (_SP_BERT_S - 9 * torch.arange(_SP_BERT_B, device=_DEV))[
+                :, None])
+    bert_batch["attention_mask"] = keep.to(
+        bert_batch["attention_mask"].dtype)
+
+    def gpt_loss(m, b):
+        return gpt_lm_loss(m(b["input_ids"], train=True), b["input_ids"],
+                           vocab_size=cfg.vocab_size)
+
+    def bert_loss(m, b):
+        logits, nsp = m(b["input_ids"], b["token_type_ids"],
+                        b["attention_mask"], train=True)
+        return BERT.bert_pretraining_loss(logits, nsp, b["masked_lm_labels"],
+                                          b["next_sentence_labels"])
+
+    res, refs = {}, {}
+    if rank == 0:
+        for key, model, loss in (
+                ("gpt", GptLmHeadModel(cfg, device=_DEV, seed=0), gpt_loss),
+                ("bert", BERT.BertForPreTraining(bcfg, device=_DEV, seed=0),
+                 bert_loss),
+                ("gpt2x2", GptLmHeadModel(cfg2, device=_DEV, seed=0),
+                 gpt_loss)):
+            batch = bert_batch if key == "bert" else gpt_batch
+            res[f"ref.{key}"], refs[key] = _sp_run(model, loss, batch, one,
+                                                   reference=True)
+            del model
+    backend.barrier()
+
+    def gpt_sp(c, scheme, group, ref):
+        model = SP.sp_gpt_model(c, attention=scheme, device=_DEV, seed=0)
+        zigzag = scheme == "zigzag"
+        batch = gpt_batch
+        if zigzag:
+            perm = torch.as_tensor(zigzag_permutation(_SP_GPT_S,
+                                                      backend.sp_size()),
+                                   device=_DEV)
+            batch = {"input_ids": batch["input_ids"][:, perm]}
+        loss_fn = SP.make_sp_gpt_loss_fn(model, vocab_size=c.vocab_size,
+                                         zigzag=zigzag)
+        return _sp_run(model, loss_fn, SP.shard_sp_batch(batch), group,
+                       ref=refs.get(ref), mean_axes=("dp",))[0]
+
+    backend.form_sp_groups(2, ranks=[0, 1])
+    if rank < 2:
+        for scheme in _SP_GPT_SCHEMES:
+            res[f"gpt.{scheme}"] = gpt_sp(cfg, scheme, pair, "gpt")
+        res["gpt.ring_flash_bf16"] = gpt_sp(
+            dataclasses.replace(cfg, dtype=torch.bfloat16), "ring_flash",
+            pair, "gpt")
+        for scheme in _SP_BERT_SCHEMES:
+            model = SP.sp_bert_model(bcfg, attention=scheme, device=_DEV,
+                                     seed=0)
+            res[f"bert.{scheme}"] = _sp_run(
+                model, SP.make_sp_bert_loss_fn(model),
+                SP.shard_sp_batch(bert_batch), pair, ref=refs.get("bert"),
+                mean_axes=("dp",))[0]
+    backend.barrier()
+    backend.form_sp_groups(2)
+    res["gpt2x2.ring_flash"] = gpt_sp(cfg2, "ring_flash", None, "gpt2x2")
+    refs.clear()
+    res["layout"] = [backend.dp_rank(), backend.sp_rank()]
+    (out / f"rank{rank}.json").write_text(json.dumps(res))
+    backend.shutdown()
+
+
+def _sp_check_run(label, run, ref, r, sp_rank, scheme, causal, layers,
+                  rtol=_SP_LOSS_RTOL, prtol=_SP_PARAM_RTOL, dp=1) -> None:
+    """One rank's run against the one-rank reference: its losses within
+    ``rtol``, its parameters (rank 0 holds the check) within ``prtol`` of
+    the reference's update (`_sp_param_errs`), its launches against the
+    branch map's count, one K5 epilogue per bucket per step."""
+    worst = max(abs(a - b) / abs(b) for a, b in zip(run["losses"],
+                                                    ref["losses"]))
+    _check(all(np.isfinite(run["losses"])) and worst <= rtol,
+           f"phase 5s {label} rank {r}: losses {run['losses']} against one "
+           f"rank's {ref['losses']} (largest relative |diff| {worst:.3g}, "
+           f"limit {rtol})")
+    p = run.get("params")
+    _check((p is not None) == (r == 0),
+           f"phase 5s {label} rank {r}: the parameter check ran "
+           f"{'nowhere' if p is None else 'off rank 0'}")
+    if p is not None:
+        _check(p["of_update"] <= prtol,
+               f"phase 5s {label}: parameters against one rank's "
+               f"{p['of_update']:.3g} of the update, at {p['at']} (limit "
+               f"{prtol})")
+    want = _sp_expected(scheme, causal, 2, sp_rank, layers) * _SP_STEPS
+    for w in ("fwd", "dq", "dkv"):
+        c = run[w]
+        _check(c["cuda_core"] == want and sum(c.values()) == want,
+               f"phase 5s {label} rank {r}: {w} launches by route {c}, "
+               f"predicted {want} on CUDA cores")
+    n = _SP_STEPS * run["buckets"]
+    _check(run["fused_update"] == n and run["updates"] == n
+           and run["mean_world"] == dp,
+           f"phase 5s {label} rank {r}: {run['fused_update']} K5 epilogue "
+           f"launches, {run['updates']} updates (want {n}), mean_world "
+           f"{run['mean_world']} (want {dp})")
+    print(f"phase 5s {label} rank {r}: losses {run['losses']} (one rank "
+          f"{ref['losses']}; largest relative |diff| {worst:.3g})"
+          f"; K1/K2/K3 launches {run['fwd']['cuda_core']}/"
+          f"{run['dq']['cuda_core']}/{run['dkv']['cuda_core']} on CUDA "
+          f"cores, predicted {want} each; K5 epilogue {run['fused_update']}")
+
+
+def sp_phase(card: str) -> dict:
+    """Phase 5s: (i) `sp_kernel_rows` in this process, then
+    `sp_rank_worker` on four ranks sharing the card: every SP run's losses
+    within `_SP_LOSS_RTOL` of one rank's on the same global batch (the bf16
+    ring_flash run within `_SP_BF16_RTOL` of the fp32 one) and its
+    parameters within `_SP_PARAM_RTOL` (`_SP_BF16_PARAM_RTOL`), the same
+    losses on both ranks, K1-K3 launches equal to the branch map's
+    prediction and all at shapes that (i) holds, one K5 epilogue per
+    bucket per step; prints the step p50 per scheme beside the one-rank
+    step, the ring's transfer time per step and the launches. Returns the
+    kernel rows, each with its launches in the runs, and the launches over
+    every rank and run."""
+    t0 = time.perf_counter()
+    hbm = probe.memory_rate(torch.cuda.get_device_name(0))
+    rows = sp_kernel_rows(hbm)
+    print(f"phase 5s (i): {time.perf_counter() - t0:.1f} s")
+    handle = start_ranks(
+        "sp", lambda r, out: ["--sp-rank", str(r), "--out", str(out)],
+        world=4)
+    ranks = wait_ranks(handle, 600.0)
+    shutil.rmtree(handle[1], ignore_errors=True)
+    ref = ranks[0]
+    L = GPT2_SMALL.num_hidden_layers
+    for key, run in ref.items():         # every reading before any check
+        if isinstance(run, dict) and "params" in run:
+            p = run["params"]
+            print(f"phase 5s {key}: parameters against one rank's, largest "
+                  f"|diff| {p['of_update']:.3g} of the update at {p['at']} "
+                  f"(its update {p['update']:.3g})")
+    for r in (0, 1):
+        res = ranks[r]
+        for scheme in _SP_GPT_SCHEMES:
+            _sp_check_run(f"(ii) GPT-2 {scheme}", res[f"gpt.{scheme}"],
+                          ref["ref.gpt"], r, r, scheme, True, L)
+        bf16 = res["gpt.ring_flash_bf16"]
+        _sp_check_run("(ii) GPT-2 ring_flash bf16", bf16, ref["ref.gpt"], r,
+                      r, "ring_flash", True, L, rtol=_SP_BF16_RTOL,
+                      prtol=_SP_BF16_PARAM_RTOL)
+        for scheme in _SP_BERT_SCHEMES:
+            _sp_check_run(f"(iii) BERT-Base {scheme}",
+                          res[f"bert.{scheme}"], ref["ref.bert"], r, r,
+                          scheme, False, BERT.BERT_BASE.num_hidden_layers)
+        for key in [k for k in res if "." in k and not k.startswith("ref")]:
+            _check(res[key]["losses"] == ranks[0][key]["losses"],
+                   f"phase 5s {key}: rank {r}'s losses differ from rank 0's")
+    for r, res in enumerate(ranks):
+        _check(res["layout"] == [r // 2, r % 2],
+               f"phase 5s (iv) rank {r}: dp, sp index {res['layout']}")
+        _sp_check_run("(iv) GPT-2 2 layers 2x2 ring_flash",
+                      res["gpt2x2.ring_flash"], ref["ref.gpt2x2"], r, r % 2,
+                      "ring_flash", True, _SP_2X2_LAYERS, dp=2)
+    runs = [(f"rank {r} {key}", run) for r, res in enumerate(ranks)
+            for key, run in res.items() if isinstance(run, dict)]
+    for label, run in runs:
+        steps = len(run["step_s"])
+        print(f"phase 5s {label} on {card}: step p50 "
+              f"{np.median(run['step_s']) * 1e3:.1f} ms (all "
+              f"{[round(x * 1e3, 1) for x in run['step_s']]}); ring hops "
+              f"{run['p2p_s'] / steps * 1e3:.1f} ms a step blocked in "
+              f"{run['hops'] // steps} hops after the card drained (the "
+              f"transfer through the host and the wait for the peer; "
+              f"synchronous, so no overlap with the kernels)"
+              + (" (the forward's: the backward's hops run inside "
+                 "autograd, untimed)" if label.endswith(".ring") else "")
+              + f"; K5 epilogue "
+              f"{run['fused_update']} launches over {run['buckets']} "
+              f"buckets; peak memory {run['peak_bytes'] / 2**30:.2f} GiB; "
+              f"the run {run['wall_s']:.1f} s from its build")
+    launches = {"fused_update": 0}
+    shapes: dict = {}
+    for w in ("fwd", "dq", "dkv"):
+        launches[w] = sum(run[w]["cuda_core"] for _, run in runs)
+        _check(sum(sum(v for k, v in run[w].items() if k != "cuda_core")
+                   for _, run in runs) == 0,
+               f"phase 5s: {w} launches off the CUDA-core route")
+    for _, run in runs:
+        launches["fused_update"] += run["fused_update"]
+        for *key, n in run["shapes"]:
+            shapes[tuple(key)] = shapes.get(tuple(key), 0) + n
+    which = {"flash_fwd": "fwd", "flash_bwd_dq": "dq",
+             "flash_bwd_dkv": "dkv"}
+    for (kname, _), row in rows.items():
+        row["launches"] = shapes.get((which[kname], row["route"], row["Sq"],
+                                      row["Sk"], row["causal"],
+                                      row["in_dtype"]), 0)
+    for kname, w in which.items():
+        in_rows = sum(r_["launches"] for (kn, _), r_ in rows.items()
+                      if kn == kname)
+        _check(in_rows == launches[w],
+               f"phase 5s: {launches[w]} {kname} launches in the runs, "
+               f"{in_rows} at the shapes (i) holds: "
+               f"{sorted(k_ for k_ in shapes if k_[0] == w)}")
+    print(f"phase 5s launches over every rank and run: K1 {launches['fwd']}, "
+          f"K2 {launches['dq']}, K3 {launches['dkv']} (CUDA cores), the K5 "
+          f"epilogue {launches['fused_update']}; by (kernel, route, Sq, Sk, "
+          f"causal, input dtype): {sorted(shapes.items())}")
+    return {"rows": rows, "launches": launches}
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     kernels_only = argv == ["--kernels-only"]
@@ -6233,6 +6798,8 @@ def main(argv=None) -> int:
     elastic_only = argv == ["--phase", "5q"]
     multislice_only = argv == ["--phase", "5r"]
     slice_worker = len(argv) == 4 and argv[0::2] == ["--slice-rank", "--out"]
+    sp_only = argv == ["--phase", "5s"]
+    sp_worker = len(argv) == 4 and argv[0::2] == ["--sp-rank", "--out"]
     guard_worker = len(argv) == 8 and argv[0::2] == [
         "--guard-rank", "--world", "--out", "--cases"]
     resume_worker = len(argv) == 6 and argv[0::2] == [
@@ -6240,7 +6807,8 @@ def main(argv=None) -> int:
     if argv and not (kernels_only or harness_only or worker or bert_worker
                      or probe_worker or modes_worker or comp_worker
                      or guard_only or guard_worker or resume_worker
-                     or elastic_only or multislice_only or slice_worker):
+                     or elastic_only or multislice_only or slice_worker
+                     or sp_only or sp_worker):
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -6271,6 +6839,9 @@ def main(argv=None) -> int:
         return 0
     if slice_worker:             # one rank of phase 5r (i)
         slice_rank_worker(int(argv[1]), Path(argv[3]))
+        return 0
+    if sp_worker:                # one rank of phase 5s (ii)-(iv)
+        sp_rank_worker(int(argv[1]), Path(argv[3]))
         return 0
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -6310,6 +6881,11 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         multislice_phase(card)
         print(f"phase 5r: {time.perf_counter() - t0:.1f} s")
+        return 0
+    if sp_only:                  # phase 5s alone
+        t0 = time.perf_counter()
+        sp_phase(card)
+        print(f"phase 5s: {time.perf_counter() - t0:.1f} s")
         return 0
     if harness_only:             # phase 5o alone (with phase 5g's line)
         t0 = time.perf_counter()
@@ -6429,6 +7005,9 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     multislice = multislice_phase(card)
     print(f"multi-slice DCN phase (5r): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    sp = sp_phase(card)
+    print(f"sequence-parallel phase (5s): {time.perf_counter() - t0:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()      # the bench's process needs the memory
     t0 = time.perf_counter()
@@ -6690,7 +7269,8 @@ def main(argv=None) -> int:
         "cuda_core": fp32_routes["fwd"]["cuda_core"]
         + modes_routes["fwd"]["cuda_core"]
         + comp_routes["fwd"]["cuda_core"]
-        + harness["routes"]["fwd"]["cuda_core"]}
+        + harness["routes"]["fwd"]["cuda_core"]
+        + sp["launches"]["fwd"]}
     print(f"K1 launches on the main paths by route: {k1_launches}")
     k1 = [_kernel_entry(f"flash_fwd ({route})", "flash_fwd.cu",
                         "dear_pytorch_tpu/ops/flash_attention.py:97",
@@ -6713,7 +7293,8 @@ def main(argv=None) -> int:
                     "cuda_core": fp32_routes[which]["cuda_core"]
                     + modes_routes[which]["cuda_core"]
                     + comp_routes[which]["cuda_core"]
-                    + harness["routes"][which]["cuda_core"]}
+                    + harness["routes"][which]["cuda_core"]
+                    + sp["launches"][which]}
         print(f"{kname} launches on the main paths by route: {launches}")
         for route, sfx in (("tensor_core", ""), ("cuda_core", "_f32")):
             k23.append(_kernel_entry(
@@ -6740,7 +7321,8 @@ def main(argv=None) -> int:
                       + mnist_launches + modes_update + comp_update
                       + tune["launches"] + harness["update"]
                       + guard["fused_update"] + elastic["fused_update"]
-                      + multislice["fused_update"],
+                      + multislice["fused_update"]
+                      + sp["launches"]["fused_update"],
                       upd_err, upd),
     ] + [
         _kernel_entry(f"ring_all_gather ({route})", "ring.cu",
@@ -6765,7 +7347,17 @@ def main(argv=None) -> int:
         _kernel_entry("overhead_probe", "overhead_probe.cu",
                       "scripts/pallas_overhead_probe.py:33",
                       probe_launches["overhead_probe"], k9_err,
-                      k9_rows[2048, 8])]}))
+                      k9_rows[2048, 8])] + [
+        # phase 5s: K1-K3 on CUDA cores at SP's pair shapes; launches =
+        # the launches at that shape and input dtype in 5s's runs
+        _kernel_entry(
+            f"{kname} (cuda_core, sp: {label})",
+            "flash_fwd.cu" if kname == "flash_fwd" else "flash_bwd.cu",
+            "dear_pytorch_tpu/ops/flash_attention.py:"
+            + {"flash_fwd": "97", "flash_bwd_dq": "152",
+               "flash_bwd_dkv": "195"}[kname],
+            row["launches"], row["max_abs_err"], row)
+        for (kname, label), row in sp["rows"].items()]}))
     backend.shutdown()
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

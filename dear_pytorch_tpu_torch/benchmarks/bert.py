@@ -1,5 +1,5 @@
 """Synthetic BERT pre-training benchmark — the port of
-``dear_pytorch_tpu/benchmarks/bert.py`` at ``sp=1``: `BertForPreTraining`
+``dear_pytorch_tpu/benchmarks/bert.py``: `BertForPreTraining`
 (Base or Large) trained with the DeAR schedule (`parallel.dear`) on one
 fixed seeded batch of random tokens with the MLM + NSP criterion, printing
 sentences/s.
@@ -26,8 +26,15 @@ backward). ``--mfu`` counts one step's FLOPs (`runner.step_flops`) and
 logs the MFU. ``--pipeline {none,native,numpy}``, ``--profile-dir`` and
 ``--metrics-file`` are the JAX CLI's (`runner.make_batch_source`; the
 streamed batch is JAX's ``bert_spec`` of the global batch).
-``--sp-degree > 1`` and ``--sp-attention`` (sequence parallelism, ROADMAP
-Queue 1 item 10) are not ported yet and raise.
+
+``--sp-degree N`` (slice 20) trains with sequence parallelism, as the GPT
+CLI does (`benchmarks.gpt`): a dp x N layout, each rank's dp rows and sp
+columns of the global batch (its ``[B]`` labels by dp rows), attention
+over the sp group (``--sp-attention ring``, the default, with attention
+dropout; ``ring_flash``, also ``--flash-attention``; ``ulysses``; the
+kernel schemes zero the attention-probability dropout first), the CLS
+token pooled from sp rank 0 and the loss normalised globally
+(`parallel.sp`), gradients summed over sp and averaged over dp.
 """
 
 from __future__ import annotations
@@ -49,6 +56,7 @@ from dear_pytorch_tpu_torch.ops.collective_matmul import (
 from dear_pytorch_tpu_torch.ops.flash_attention import (
     make_flash_attention_impl,
 )
+from dear_pytorch_tpu_torch.parallel import sp as SP
 from dear_pytorch_tpu_torch.runtime import pipeline as RP
 
 _TITLES = {"bert": "BERT Large", "bert_large": "BERT Large",
@@ -69,10 +77,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="flash-attention kernels (forward and backward) "
                         "instead of the dense core")
     p.add_argument("--sp-degree", type=int, default=1,
-                   help="sequence parallelism (not ported yet: > 1 raises)")
+                   help="sequence-parallel degree: dp x sp layout with the "
+                        "sequence dim split over sp and ring attention "
+                        "(or ring-flash with --flash-attention) inside the "
+                        "model; DeAR gradients reduce over both")
     p.add_argument("--sp-attention", type=str, default=None,
                    choices=["ring", "ring_flash", "ulysses"],
-                   help="sequence-parallel attention (not ported yet)")
+                   help="sequence-parallel attention scheme (default: "
+                        "ring, or ring_flash with --flash-attention)")
     p.add_argument("--ring-projections", action="store_true", default=False,
                    help="route the QKV/intermediate projections through the "
                         "ring collective matmul (requires --mode "
@@ -98,19 +110,21 @@ def main(argv=None, on_step: Optional[Callable] = None
                                   or args.sp_degree > 1):
         raise SystemExit("--ring-projections requires --mode dear-fused "
                          "on a pure dp mesh (no --sp-degree)")
-    unported = [flag for flag, on in (
-        ("--sp-degree > 1", args.sp_degree > 1),
-        ("--sp-attention", args.sp_attention is not None)) if on]
-    if unported:
-        raise NotImplementedError(
-            f"{', '.join(unported)}: not ported yet (ROADMAP Queue 1 item "
-            "10 (sequence parallelism))")
+    sp = max(int(args.sp_degree), 1)
+    if args.sp_attention and sp == 1:
+        raise SystemExit("--sp-attention requires --sp-degree > 1")
+    if (args.flash_attention and args.sp_attention
+            and args.sp_attention != "ring_flash"):
+        raise SystemExit("--flash-attention conflicts with "
+                         f"--sp-attention {args.sp_attention}; pass one")
     if not models.is_bert(args.model):
         raise SystemExit(f"--model {args.model}: one of "
                          f"{models.bert_names()}")
     resolve_device(args.device)          # raises without a card
     group = backend.init(args.device)    # "cuda" or None: this rank's card
-    dev, world = backend.device(), backend.size()
+    if sp > 1:
+        runner.build_sp_groups(sp, args.sentence_len, args.pipeline)
+    dev, world = backend.device(), backend.size() // sp
 
     dtype = torch.bfloat16 if args.fp16 else torch.float32
     cfg = models.bert_config(args.model, dtype=dtype)
@@ -123,37 +137,51 @@ def main(argv=None, on_step: Optional[Callable] = None
         raise SystemExit(f"--sentence-len {args.sentence_len} exceeds "
                          f"max_position_embeddings "
                          f"{cfg.max_position_embeddings}")
-    if args.flash_attention and cfg.attention_probs_dropout_prob:
+    # impls with no attention-prob-dropout path: dropout > 0 would silently
+    # measure their dense fallback instead of the requested kernel
+    kernel_attn = (args.flash_attention
+                   or args.sp_attention in ("ring_flash", "ulysses"))
+    if kernel_attn and cfg.attention_probs_dropout_prob:
         runner.log("kernel attention: attention_probs_dropout_prob "
                    f"{cfg.attention_probs_dropout_prob} -> 0.0 "
                    "(no prob-dropout path in the requested impl)")
         cfg = dataclasses.replace(cfg, attention_probs_dropout_prob=0.0)
-    model = models.BertForPreTraining(
-        cfg, attention_impl=(make_flash_attention_impl()
-                             if args.flash_attention else None),
-        projection_impl=(make_ring_projection_impl()
-                         if args.ring_projections else None),
-        device=dev, seed=0)
+    if sp > 1:
+        # the dense twin's weights: the seeded init does not depend on
+        # the attention impl
+        model = SP.sp_bert_model(cfg, flash=args.flash_attention,
+                                 attention=args.sp_attention, device=dev,
+                                 seed=0)
+        loss_fn = SP.make_sp_bert_loss_fn(model, train=True)
+    else:
+        model = models.BertForPreTraining(
+            cfg, attention_impl=(make_flash_attention_impl()
+                                 if args.flash_attention else None),
+            projection_impl=(make_ring_projection_impl()
+                             if args.ring_projections else None),
+            device=dev, seed=0)
+
+        def loss_fn(m, b, generator):
+            logits, nsp = m(b["input_ids"], b["token_type_ids"],
+                            b["attention_mask"], train=True,
+                            generator=generator)
+            return models.bert_pretraining_loss(
+                logits, nsp, b["masked_lm_labels"],
+                b["next_sentence_labels"])
     global_bs = args.batch_size * world
     batch = data.synthetic_bert_batch(
         torch.Generator(device=dev).manual_seed(0), global_bs,
         seq_len=args.sentence_len, vocab_size=cfg.vocab_size)
 
-    def loss_fn(m, b, generator):
-        logits, nsp = m(b["input_ids"], b["token_type_ids"],
-                        b["attention_mask"], train=True,
-                        generator=generator)
-        return models.bert_pretraining_loss(
-            logits, nsp, b["masked_lm_labels"], b["next_sentence_labels"])
-
     spec = RP.bert_spec(global_bs, args.sentence_len,
                         vocab=cfg.vocab_size)
     return runner.train_timed(
         args, model, batch, loss_fn, group=group, unit="sen",
-        on_step=on_step, spec=spec, header=[
+        on_step=on_step, spec=spec, sp=sp, header=[
             f"{_TITLES[args.model.lower()]} Pretraining, Sentence len: "
             f"{args.sentence_len}",
-            f"Batch size: {args.batch_size} (per rank), {global_bs} global"])
+            f"Batch size: {args.batch_size} (per "
+            f"{'dp rank' if sp > 1 else 'rank'}), {global_bs} global"])
 
 
 if __name__ == "__main__":

@@ -1,7 +1,6 @@
 """Synthetic GPT causal-LM pre-training benchmark — the port of
-``dear_pytorch_tpu/benchmarks/gpt.py`` at ``sp=1``: GPT-2 trained with the
-DeAR schedule (`parallel.dear`) on one fixed seeded batch, printing
-tokens/s.
+``dear_pytorch_tpu/benchmarks/gpt.py``: GPT-2 trained with the DeAR
+schedule (`parallel.dear`) on one fixed seeded batch, printing tokens/s.
 
 Example (on the card; ``--device cpu`` runs the plain PyTorch path):
   python -m dear_pytorch_tpu_torch.benchmarks.gpt \\
@@ -22,9 +21,23 @@ counts one step's FLOPs (`runner.step_flops`) and logs the MFU.
 instead). ``--pipeline {none,native,numpy}``, ``--profile-dir`` and
 ``--metrics-file`` are the JAX CLI's (`runner.make_batch_source`; the
 streamed batch is JAX's ``gpt_spec`` of the global batch, its int32 ids
-cast to the constant batch's int64 on the host). ``--sp-degree > 1`` and
-``--num-experts`` are not ported yet and raise; ``--sp-attention`` is
-not registered.
+cast to the constant batch's int64 on the host). ``--num-experts`` is not
+ported yet and raises (ROADMAP Queue 1 item 10b).
+
+``--sp-degree N`` (slice 20) trains with sequence parallelism: the world
+is dp x N (`runner.build_sp_groups`: N consecutive ranks per sp group),
+each rank holds its dp row block and sp column block of the global batch
+of ``batch_size x dp`` sequences, attention runs over the sp group
+(``--sp-attention ring`` by default, ``ring_flash`` with
+``--flash-attention``; ``ulysses``; ``zigzag``: the load-balanced causal
+ring flash over a striped layout, the batch's columns pre-permuted with
+`parallel.ring_attention.zigzag_permutation`), and the step sums
+gradients over sp and averages them over dp (``mean_axes=("dp",)``). The
+model's weights are its dense twin's (the same seed); tokens/s counts the
+global batch. On the CPU: ``DEAR_NUM_PROCESSES=2 DEAR_PROCESS_ID=r
+DEAR_COORDINATOR_ADDRESS=file:///tmp/store python -m
+dear_pytorch_tpu_torch.benchmarks.gpt --device cpu --sp-degree 2 ...``
+for r in 0 and 1.
 """
 
 from __future__ import annotations
@@ -46,6 +59,10 @@ from dear_pytorch_tpu_torch.models.gpt import (
 )
 from dear_pytorch_tpu_torch.ops.collective_matmul import (
     make_ring_projection_impl,
+)
+from dear_pytorch_tpu_torch.parallel import sp as SP
+from dear_pytorch_tpu_torch.parallel.ring_attention import (
+    zigzag_permutation,
 )
 from dear_pytorch_tpu_torch.runtime import pipeline as RP
 
@@ -73,7 +90,15 @@ def build_parser() -> argparse.ArgumentParser:
                    help="causal flash-attention kernels (forward and "
                         "backward) instead of the dense core")
     p.add_argument("--sp-degree", type=int, default=1,
-                   help="sequence parallelism (not ported yet: > 1 raises)")
+                   help="sequence-parallel degree: dp x sp layout, causal "
+                        "ring attention (or ring-flash with "
+                        "--flash-attention) over global positions")
+    p.add_argument("--sp-attention", type=str, default=None,
+                   choices=["ring", "ring_flash", "ulysses", "zigzag"],
+                   help="sequence-parallel attention scheme (default: ring, "
+                        "or ring_flash with --flash-attention; zigzag = "
+                        "load-balanced causal ring flash over a striped "
+                        "shard layout)")
     runner.add_common_args(p)
     p.set_defaults(batch_size=8, base_lr=1e-4, momentum=0.0)
     return p
@@ -92,16 +117,27 @@ def main(argv=None, on_step: Optional[Callable] = None
                                   or args.sp_degree > 1):
         raise SystemExit("--ring-projections requires --mode dear-fused "
                          "on a pure dp mesh (no --sp-degree)")
-    unported = [flag for flag, on in (
-        ("--sp-degree > 1", args.sp_degree > 1),
-        ("--num-experts", args.num_experts > 0)) if on]
-    if unported:
+    if args.num_experts > 0:
         raise NotImplementedError(
-            f"{', '.join(unported)}: not ported yet (ROADMAP Queue 1 item "
-            "10)")
+            "--num-experts: not ported yet (ROADMAP Queue 1 item 10b: TP, "
+            "ring-TP decode and EP)")
+    sp = max(int(args.sp_degree), 1)
+    if args.sp_attention and sp == 1:
+        raise SystemExit("--sp-attention requires --sp-degree > 1")
+    if (args.flash_attention and args.sp_attention
+            and args.sp_attention != "ring_flash"):
+        raise SystemExit("--flash-attention conflicts with "
+                         f"--sp-attention {args.sp_attention}; pass one")
+    if args.sp_attention == "zigzag" and args.sequence_len % (2 * sp):
+        raise SystemExit(
+            f"--sp-attention zigzag needs --sequence-len divisible by "
+            f"2*sp-degree ({2 * sp}), got {args.sequence_len}")
     resolve_device(args.device)          # raises without a card
     group = backend.init(args.device)    # "cuda" or None: this rank's card
-    dev, world = backend.device(), backend.size()
+    if sp > 1:
+        runner.build_sp_groups(sp, args.sequence_len, args.pipeline,
+                               seq_flag="--sequence-len")
+    dev, world = backend.device(), backend.size() // sp
 
     dtype = torch.bfloat16 if args.fp16 else torch.float32
     cfg = models.gpt_config(args.model, dtype=dtype)
@@ -116,34 +152,52 @@ def main(argv=None, on_step: Optional[Callable] = None
         raise SystemExit(f"--sequence-len {args.sequence_len} exceeds "
                          f"max_position_embeddings "
                          f"{cfg.max_position_embeddings}")
-    if args.flash_attention and cfg.attention_probs_dropout_prob:
+    kernel_attn = (args.flash_attention
+                   or args.sp_attention in ("ring_flash", "ulysses",
+                                            "zigzag"))
+    if kernel_attn and cfg.attention_probs_dropout_prob:
         runner.log("kernel attention: attention_probs_dropout_prob "
                    f"{cfg.attention_probs_dropout_prob} -> 0.0 "
                    "(no prob-dropout path in the requested impl)")
         cfg = dataclasses.replace(cfg, attention_probs_dropout_prob=0.0)
-    model = models.GptLmHeadModel(
-        cfg, attention_impl=(flash_causal_attention_impl()
-                             if args.flash_attention else None),
-        projection_impl=(make_ring_projection_impl()
-                         if args.ring_projections else None),
-        device=dev, seed=0)
     global_bs = args.batch_size * world
     batch = data.synthetic_gpt_batch(
         torch.Generator(device=dev).manual_seed(0), global_bs,
         seq_len=args.sequence_len, vocab_size=cfg.vocab_size)
+    if sp > 1:
+        zigzag = args.sp_attention == "zigzag"
+        # the dense twin's weights: the seeded init does not depend on
+        # the attention impl
+        model = SP.sp_gpt_model(cfg, flash=args.flash_attention,
+                                attention=args.sp_attention, device=dev,
+                                seed=0)
+        if zigzag:
+            perm = torch.as_tensor(zigzag_permutation(args.sequence_len,
+                                                      sp), device=dev)
+            batch = {"input_ids": batch["input_ids"][:, perm]}
+        loss_fn = SP.make_sp_gpt_loss_fn(model, vocab_size=cfg.vocab_size,
+                                         train=True, zigzag=zigzag)
+    else:
+        model = models.GptLmHeadModel(
+            cfg, attention_impl=(flash_causal_attention_impl()
+                                 if args.flash_attention else None),
+            projection_impl=(make_ring_projection_impl()
+                             if args.ring_projections else None),
+            device=dev, seed=0)
 
-    def loss_fn(m, b, generator):
-        logits = m(b["input_ids"], train=True, generator=generator)
-        return gpt_lm_loss(logits, b["input_ids"],
-                           vocab_size=cfg.vocab_size)
+        def loss_fn(m, b, generator):
+            logits = m(b["input_ids"], train=True, generator=generator)
+            return gpt_lm_loss(logits, b["input_ids"],
+                               vocab_size=cfg.vocab_size)
 
     spec = RP.gpt_spec(global_bs, args.sequence_len, vocab=cfg.vocab_size)
     result = runner.train_timed(
         args, model, batch, loss_fn, group=group, unit="sen",
-        on_step=on_step, spec=spec, header=[
+        on_step=on_step, spec=spec, sp=sp, header=[
             f"{args.model} causal-LM pretraining, sequence len: "
             f"{args.sequence_len}",
-            f"Batch size: {args.batch_size} (per rank), {global_bs} global "
+            f"Batch size: {args.batch_size} (per "
+            f"{'dp rank' if sp > 1 else 'rank'}), {global_bs} global "
             f"({global_bs * args.sequence_len} tokens/step)"])
     runner.log(f"Tokens/sec on {result.world} {result.device}(s): "
                f"{result.total_mean * args.sequence_len:.0f}")

@@ -18,9 +18,10 @@ counted by the mode itself). The MFU is against the card's dense bf16 peak
 the JAX package's ``perf_model.mfu`` is for an unknown device.
 
 Only the flags the port carries are registered: an unported flag of the
-JAX CLI (``--sp-attention`` on the GPT CLI, ...) is an argparse error, not
-silently ignored. Every ``--mode`` of the JAX CLI builds (the baselines
-and ``fsdp`` since slice 13, with ``--partition`` and ``--exclude-parts``),
+JAX CLI would be an argparse error, not silently ignored (every flag of
+the JAX CLIs is carried since slice 20). Every ``--mode`` of the JAX CLI
+builds (the baselines and ``fsdp`` since slice 13, with ``--partition``
+and ``--exclude-parts``),
 and so do ``--optimizer lamb``, the compression flags (``--compressor``,
 ``--density``, ``--momentum-correction``, ``--gtopk``: on ``allreduce``
 and ``dear``, the JAX runner's rule and warnings) and ``--remat-policy``
@@ -53,6 +54,15 @@ MetricsLogger`), ``--profile-dir`` a ``torch.profiler`` trace of the timed
 runs, and with ``DEAR_TELEMETRY`` on `run_timed` prints the tracer's
 snapshot as one ``TELEMETRY {...}`` line (the sweep driver scrapes it) and
 logs it to the metrics file.
+
+Since slice 20 the GPT and BERT CLIs train with sequence parallelism
+(``--sp-degree``): `build_sp_groups` lays the world out as dp x sp (the
+JAX runner's `build_sp_mesh`, runner.py:393-417, with its three
+refusals), and `train_timed` with ``sp > 1`` gives each rank its rows (by
+dp index) and columns (by sp index) of the global batch
+(`parallel.sp.shard_sp_batch`), builds the step with ``mean_axes=("dp",)``
+and reports sequences per rank as the global batch over the world (JAX's
+``batch_size / sp``: each sequence spans sp ranks).
 """
 
 from __future__ import annotations
@@ -69,7 +79,8 @@ import torch
 from dear_pytorch_tpu_torch.comm import backend
 
 __all__ = ["BenchResult", "PEAK_FLOPS", "PinnedStager", "add_common_args",
-           "build_stepper", "config_from_args", "device_name", "log",
+           "build_sp_groups", "build_stepper", "config_from_args",
+           "device_name", "log",
            "log_mfu", "make_batch_source", "make_step_source",
            "metrics_from_args", "mfu", "parse_exclude_parts", "peak_flops",
            "run_pretune", "run_timed", "stage_global", "step_flops",
@@ -422,11 +433,30 @@ def make_batch_source(args, spec, template_batch: dict, *, rank: int = 0,
     return next_batch, pl, pl.close
 
 
+def build_sp_groups(sp: int, seq_len: int, pipeline: str,
+                    seq_flag: str = "--sentence-len"):
+    """The dp x sp layout of a sequence-parallel CLI run over the world
+    (`comm.backend.form_sp_groups`), after the JAX runner's refusals and
+    messages (`build_sp_mesh`, runner.py:393-417); returns this rank's sp
+    group. The group must exist (`comm.backend.init`)."""
+    world = backend.size()
+    if world % sp:
+        raise SystemExit(f"--sp-degree {sp} does not divide the "
+                         f"{world}-device world")
+    if seq_len % sp:
+        raise SystemExit(f"{seq_flag} {seq_len} must divide by "
+                         f"--sp-degree {sp}")
+    if pipeline != "none":
+        raise SystemExit("--pipeline streaming is dp-only; use "
+                         "--pipeline none with --sp-degree")
+    return backend.form_sp_groups(sp)
+
+
 def train_timed(args, model, batch: dict, loss_fn: Callable, *, group,
                 unit: str, header: list,
                 on_step: Optional[Callable] = None, spec=None,
                 layout: Optional[Callable[[dict], dict]] = None,
-                metrics=None) -> BenchResult:
+                metrics=None, sp: int = 1) -> BenchResult:
     """What the CLIs share once they have a model, the global ``batch`` and
     ``loss_fn(model, batch, generator)``: rank 0's parameters broadcast,
     this rank's slice of the batch, the train step from the flags
@@ -448,7 +478,10 @@ def train_timed(args, model, batch: dict, loss_fn: Callable, *, group,
     pipeline's global batch; ``layout``: its map to the model's layout),
     and run on ``group``, whose size is the world reported. ``metrics``:
     a `utils.metrics.MetricsLogger` to log to (the caller closes it);
-    else one for ``--metrics-file``, closed here."""
+    else one for ``--metrics-file``, closed here. ``sp > 1``: the run is
+    sequence-parallel over `build_sp_groups`' layout (module docstring):
+    this rank's rows and columns of the batch, ``mean_axes=("dp",)``, the
+    world in the group-size line as ``dp x sp``."""
     import torch.distributed as dist
 
     from dear_pytorch_tpu_torch.api import broadcast_parameters
@@ -458,13 +491,21 @@ def train_timed(args, model, batch: dict, loss_fn: Callable, *, group,
     world, rank = dist.get_world_size(group), dist.get_rank(group)
     broadcast_parameters(model, group=group)   # parameters and buffers
     B = args.batch_size
-    batch = {k: v[rank * B:(rank + 1) * B] for k, v in batch.items()}
-    dear_cfg = config_from_args(args, world=world)
+    extra = {}
+    if sp > 1:
+        from dear_pytorch_tpu_torch.parallel.sp import shard_sp_batch
+
+        batch = shard_sp_batch(batch)
+        extra = {"mean_axes": (backend.DP_AXIS,)}
+    else:
+        batch = {k: v[rank * B:(rank + 1) * B] for k, v in batch.items()}
+    dear_cfg = config_from_args(args, world=world // sp)
     ts, stepper = build_stepper(dear_cfg, loss_fn, model, group=group,
-                                device=dev, mgwfbp=args.mgwfbp)
+                                device=dev, mgwfbp=args.mgwfbp, **extra)
     holder = {"state": stepper.init(), "metrics": None, "batch": batch}
     for line in header + [
-            f"Number of {device_name(dev)}s: {world}",
+            f"Number of {device_name(dev)}s: {world}"
+            + (f" (dp {world // sp} x sp {sp})" if sp > 1 else ""),
             f"Schedule: {args.mode}; fusion: {ts.plan.num_buckets} "
             "bucket(s)"]:
         log(line)
@@ -479,6 +520,8 @@ def train_timed(args, model, batch: dict, loss_fn: Callable, *, group,
         call, protocol = make_step_source(args, scan_steps,
                                           getattr(stepper, "ts", stepper),
                                           stepper, holder, next_batch)
+        # sequences per RANK per step: with sp, each spans sp ranks
+        protocol["batch_size"] = protocol["batch_size"] / sp
         losses = []
 
         def step_fn():

@@ -64,6 +64,22 @@ position in the slice (`ici_index`) is ``r % ranks_per_slice``.
 (``DEAR_ELASTIC_RANKS_PER_SLICE``); `slice_group` is this rank's. They
 are released with their epoch: `destroy_process_group` destroys every
 subgroup.
+
+Sequence parallelism (`parallel.sp`): the JAX package lays a dp x sp mesh
+out as ``devices.reshape(ndev // sp, sp)`` with the axes `DP_AXIS` and
+`SP_AXIS`; here the mesh is process groups. `form_sp_groups` splits a
+list of ranks (default: the world's) into consecutive blocks of ``sp``:
+the i-th rank of the list sits at dp index ``i // sp`` and sp index ``i
+% sp``, and its sp group is its block's ``sp`` ranks. Every rank creates
+every block's group, in block order (``new_group`` is collective), a new
+group even where a block spans the whole world, so the ring's
+point-to-point traffic never shares a communicator with the train step's
+bucket collectives. The
+DeAR buckets still reduce over the whole group (the ZeRO shard degree is
+dp x sp); `dp_size`, `sp_size`, `sp_rank`, `dp_rank` and `sp_group`
+report the layout. Forming it again replaces it; it may cover a subset of
+the world's ranks (every rank still calls it). Elastic `regroup` with
+an sp layout raises `NotImplementedError` (ROADMAP Queue 1 item 10d).
 """
 
 from __future__ import annotations
@@ -73,7 +89,7 @@ import datetime
 import os
 import socket
 import threading
-from typing import Optional
+from typing import NamedTuple, Optional
 from urllib.parse import urlparse
 
 import torch
@@ -82,12 +98,18 @@ import torch.distributed as dist
 from dear_pytorch_tpu_torch._device import resolve_device
 
 __all__ = [
-    "barriar", "barrier", "card_shared", "data_plane_timeout", "device",
-    "elastic_store", "epoch", "form_slice_groups", "group", "host_group",
+    "DP_AXIS", "SP_AXIS", "SpLayout", "barriar", "barrier", "card_shared",
+    "data_plane_timeout", "device", "dp_rank", "dp_size", "elastic_store",
+    "epoch", "form_slice_groups", "form_sp_groups", "group", "host_group",
     "ici_index", "init", "is_initialized", "launched_size", "local_rank",
     "local_size", "rank", "regroup", "shutdown", "size", "slice_group",
-    "slice_id", "store",
+    "slice_id", "sp_group", "sp_layout", "sp_rank", "sp_size", "store",
 ]
+
+#: the JAX package's mesh axis names (comm/backend.py:39-41): data and
+#: sequence parallelism
+DP_AXIS = "dp"
+SP_AXIS = "sp"
 
 _lock = threading.Lock()
 _device: Optional[torch.device] = None
@@ -104,6 +126,22 @@ _elastic_store = None
 _slice_groups: dict = {}
 #: this rank's slice id and its position in the slice (None: no slices)
 _slice: Optional[tuple] = None
+#: the dp x sp layout (`form_sp_groups`; None: none formed)
+_sp: Optional["SpLayout"] = None
+
+
+class SpLayout(NamedTuple):
+    """A dp x sp layout over ``base`` (the global ranks of the group the
+    train step reduces over): ``sp`` consecutive ranks of ``base`` per sp
+    group; this rank's sp group ``group``, its index in it ``sp_rank`` and
+    its block's index ``dp_rank``."""
+
+    base: tuple
+    sp: int
+    dp: int
+    group: object
+    sp_rank: int
+    dp_rank: int
 
 
 def _env_int(*names: str) -> Optional[int]:
@@ -147,8 +185,8 @@ def _release() -> None:
     module then is torn down during finalization, which now and then
     aborts the process after its work is done (tests/
     test_torch_spawn_teardown.py)."""
-    global _store, _host_group, _elastic_store, _slice
-    _store = _host_group = _elastic_store = _slice = None
+    global _store, _host_group, _elastic_store, _slice, _sp
+    _store = _host_group = _elastic_store = _slice = _sp = None
     _slice_groups.clear()
 
 
@@ -217,11 +255,11 @@ def is_initialized() -> bool:
 def shutdown() -> None:
     """Tear the group down (and the host group, and release the store);
     safe to call more than once."""
-    global _device, _store, _host_group, _epoch, _slice
+    global _device, _store, _host_group, _epoch, _slice, _sp
     with _lock:
         if dist.is_initialized():
             dist.destroy_process_group()
-        _device = _store = _host_group = _epoch = _slice = None
+        _device = _store = _host_group = _epoch = _slice = _sp = None
         _slice_groups.clear()
 
 
@@ -330,6 +368,10 @@ def regroup(view, device=None, *, store=None
         if (_epoch is not None and int(view.epoch) == _epoch
                 and dist.is_initialized()):
             return dist.group.WORLD
+        if _sp is not None:
+            raise NotImplementedError(
+                "elastic membership with a sequence-parallel layout is not "
+                "ported yet (ROADMAP Queue 1 item 10d)")
         if _device is not None and device is None:
             dev = _device
         else:
@@ -424,6 +466,82 @@ def ici_index() -> Optional[int]:
     ranks_per_slice`` when the slice is whole (None when no slice groups
     are formed)."""
     return None if _slice is None else _slice[1]
+
+
+def form_sp_groups(sp: int, ranks=None) -> Optional[dist.ProcessGroup]:
+    """Lay ``ranks`` (global ranks, default the whole world, in order) out
+    as dp x sp (module docstring: the i-th of them at dp index ``i // sp``,
+    sp index ``i % sp``) and return this rank's sp group; EVERY rank of the
+    world calls it (``new_group`` is collective over the world), and a rank
+    outside ``ranks`` gets None and no layout. The train step that sums
+    over sp runs over the group of exactly ``ranks``. The JAX package's
+    `build_sp_mesh` refusals are the CLIs' (`benchmarks.runner.
+    build_sp_groups`); here ``sp`` must divide ``len(ranks)``. Replaces a
+    layout formed before."""
+    global _sp
+    sp = int(sp)
+    if _epoch is not None:
+        raise NotImplementedError(
+            "a sequence-parallel layout over an elastic membership epoch "
+            "is not ported yet (ROADMAP Queue 1 item 10d)")
+    world_group = group()
+    ranks = (tuple(range(dist.get_world_size(world_group))) if ranks is None
+             else tuple(int(r) for r in ranks))
+    if sp < 1 or len(ranks) % sp:
+        raise ValueError(f"--sp-degree {sp} does not divide the "
+                         f"{len(ranks)}-rank group")
+    me = rank()
+    backend_name = dist.get_backend(world_group)
+    with _lock:
+        _sp = None
+        mine = None
+        for block in range(len(ranks) // sp):
+            members = list(ranks[block * sp:(block + 1) * sp])
+            pg = dist.new_group(members, backend=backend_name)
+            if me in members:
+                mine = pg
+        if me in ranks:
+            i = ranks.index(me)
+            _sp = SpLayout(ranks, sp, len(ranks) // sp, mine, i % sp,
+                           i // sp)
+    return mine
+
+
+def sp_layout() -> Optional[SpLayout]:
+    """The dp x sp layout (`form_sp_groups`), or None."""
+    return _sp
+
+
+def sp_group() -> dist.ProcessGroup:
+    """This rank's sp group (`form_sp_groups`)."""
+    if _sp is None:
+        raise RuntimeError(
+            "no sequence-parallel layout: form it with "
+            "comm.backend.form_sp_groups(sp) on every rank")
+    return _sp.group
+
+
+def sp_size() -> int:
+    """The sp degree (1 with no layout)."""
+    return 1 if _sp is None else _sp.sp
+
+
+def sp_rank() -> int:
+    """This rank's index in its sp group (0 with no layout)."""
+    return 0 if _sp is None else _sp.sp_rank
+
+
+def dp_size() -> int:
+    """The data-parallel degree: the group's ranks over the sp degree (the
+    JAX package's ``dp_size``, comm/backend.py:319)."""
+    if _sp is not None:
+        return _sp.dp
+    return size()
+
+
+def dp_rank() -> int:
+    """This rank's dp index (its rank with no layout)."""
+    return rank() if _sp is None else _sp.dp_rank
 
 
 def epoch() -> Optional[int]:

@@ -15,6 +15,16 @@ runs each collective on host copies of its CUDA tensors: the copy to the
 host waits for the stream's work so far, and the copy back is on the
 current stream, where ``work.wait()`` (a `StreamEvent`) makes the caller's
 stream wait for it. A CUDA tensor on any other gloo group raises.
+
+Sequence parallelism adds `permute` (JAX's ``lax.ppermute``) and the
+tiled `all_to_all` (``lax.all_to_all(..., tiled=True)``), and the
+differentiable forms the ring and Ulysses attention and the sp losses
+take gradients through (`ad_permute`, `ad_all_to_all`, `ad_psum`,
+`ad_all_gather`). Their backward is the transpose JAX takes under
+``shard_map(check_vma=False)``, the JAX package's setting: a permutation's
+is the reverse permutation, a tiled all-to-all's the reverse all-to-all,
+a sum's (``psum``) the sum of the cotangents, an all-gather's the
+reduce-scatter of the cotangent (``psum_scatter``).
 """
 
 from __future__ import annotations
@@ -29,11 +39,12 @@ from dear_pytorch_tpu_torch.comm import backend
 from dear_pytorch_tpu_torch.ops.fusion import padded_length
 
 __all__ = [
-    "StreamEvent", "all_gather", "all_reduce", "all_reduce_mean",
-    "all_reduce_rb", "all_reduce_rsag", "allreduce", "broadcast",
-    "host_allgather", "multi_bcast",
-    "pad_to_multiple", "padded_length", "reduce", "reduce_scatter",
-    "ring_shift", "send_recv",
+    "StreamEvent", "ad_all_gather", "ad_all_to_all", "ad_permute",
+    "ad_psum", "all_gather", "all_reduce", "all_reduce_mean",
+    "all_reduce_rb", "all_reduce_rsag", "all_to_all", "allreduce",
+    "broadcast", "host_allgather", "multi_bcast", "on_host",
+    "pad_to_multiple", "padded_length", "permute", "reduce",
+    "reduce_scatter", "ring_shift", "send_recv",
 ]
 
 # torch 2.13 renamed the single-tensor collectives; older builds have only
@@ -48,9 +59,11 @@ def _group(group):
     return backend.group() if group is None else group
 
 
-def _on_host(x: torch.Tensor, group) -> bool:
+def on_host(x: torch.Tensor, group) -> bool:
     """Whether ``x`` must go through the host: a CUDA tensor on the gloo
-    group of ranks that share a card. Any other CUDA tensor on gloo
+    group of ranks that share a card, where each collective runs
+    synchronously (the copy to the host waits for the stream) and an
+    ``async_op`` handle is already done. Any other CUDA tensor on gloo
     raises."""
     if not (x.is_cuda and dist.get_backend(group) == "gloo"):
         return False
@@ -138,7 +151,7 @@ def all_reduce(x: torch.Tensor, group=None, *, async_op: bool = False,
         out = x.clone()
     elif out is not x:
         out.copy_(x)
-    if _on_host(out, g):
+    if on_host(out, g):
         return _staged(lambda o, h: (o.copy_(h), dist.all_reduce(o, group=g)),
                        out, out, async_op=async_op)
     work = dist.all_reduce(out, group=g, async_op=async_op)
@@ -155,7 +168,7 @@ def broadcast(x: torch.Tensor, root: int = 0, group=None, *,
     elif out is not x:
         out.copy_(x)
     src = dist.get_global_rank(g, root)
-    if _on_host(out, g):
+    if on_host(out, g):
         return _staged(lambda o, h: (o.copy_(h),
                                      dist.broadcast(o, src, group=g)),
                        out, out, async_op=async_op)
@@ -184,7 +197,7 @@ def reduce(x: torch.Tensor, root: int = 0, group=None, *,
         dist.reduce(tmp, dst, group=g)
         o.copy_(tmp if is_root else h)
 
-    if _on_host(out, g):
+    if on_host(out, g):
         return _staged(into_copy, out, out, async_op=async_op)
     if dist.get_backend(g) != "gloo":
         work = dist.reduce(out, dst, group=g, async_op=async_op)
@@ -212,7 +225,7 @@ def reduce_scatter(x: torch.Tensor, group=None, *, async_op: bool = False,
                          f"divide by world {world}")
     if out is None:
         out = x.new_empty((x.shape[0] // world,) + tuple(x.shape[1:]))
-    if _on_host(x, g):
+    if on_host(x, g):
         return _staged(lambda o, h: _reduce_scatter(o, h, group=g), out, x,
                        async_op=async_op)
     work = _reduce_scatter(out, x, group=g, async_op=async_op)
@@ -226,7 +239,7 @@ def all_gather(x: torch.Tensor, group=None, *, async_op: bool = False,
     world = dist.get_world_size(g)
     if out is None:
         out = x.new_empty((x.shape[0] * world,) + tuple(x.shape[1:]))
-    if _on_host(x, g):
+    if on_host(x, g):
         return _staged(lambda o, h: _all_gather(o, h, group=g), out, x,
                        async_op=async_op)
     work = _all_gather(out, x, group=g, async_op=async_op)
@@ -307,24 +320,12 @@ def send_recv(x: torch.Tensor, peer_of: Sequence[int], group=None, *,
     """Pairwise exchange (the JAX package's `send_recv`, collectives.py:156):
     rank i sends ``x`` to ``peer_of[i]`` and receives, as a new tensor, from
     the rank that names it as its peer. ``peer_of`` is a permutation of the
-    ranks."""
-    g = _group(group)
-    world, rank = dist.get_world_size(g), dist.get_rank(g)
+    ranks; the exchange is the `permute` of its pairs."""
+    world = dist.get_world_size(_group(group))
     if len(peer_of) != world or len(set(peer_of)) != world:
         raise ValueError(f"send_recv: peer_of must name each of the {world} "
                          f"ranks once, got {list(peer_of)}")
-    if _on_host(x, g):
-        return _staged(lambda o, h: o.copy_(send_recv(h, peer_of, g)),
-                       torch.empty_like(x), x, async_op=async_op)
-    dst = peer_of[rank]
-    src = list(peer_of).index(rank)
-    if dst == rank:
-        return _finish(x.clone(), None, async_op)
-    out = torch.empty_like(x)
-    reqs = [dist.isend(x.contiguous(), dist.get_global_rank(g, dst),
-                       group=g),
-            dist.irecv(out, dist.get_global_rank(g, src), group=g)]
-    return _finish(out, _Then(reqs[1], reqs[0].wait), async_op)
+    return permute(x, list(enumerate(peer_of)), group, async_op=async_op)
 
 
 def ring_shift(x: torch.Tensor, group=None) -> torch.Tensor:
@@ -332,6 +333,152 @@ def ring_shift(x: torch.Tensor, group=None) -> torch.Tensor:
     returns what rank i - 1 sent (mod the world)."""
     world = dist.get_world_size(_group(group))
     return send_recv(x, [(i + 1) % world for i in range(world)], group)
+
+
+def _check_perm(perm, world: int) -> list:
+    pairs = [(int(a), int(b)) for a, b in perm]
+    srcs, dsts = [a for a, _ in pairs], [b for _, b in pairs]
+    if (len(set(srcs)) != len(srcs) or len(set(dsts)) != len(dsts)
+            or not all(0 <= r < world for r in srcs + dsts)):
+        raise ValueError(f"permute: perm {pairs} must name each source and "
+                         f"each destination at most once, in [0, {world})")
+    return pairs
+
+
+def permute(x: torch.Tensor, perm: Sequence[tuple], group=None, *,
+            async_op: bool = False):
+    """Point-to-point as a collective permute (JAX collectives.py:142,
+    ``lax.ppermute``): ``perm`` lists ``(source, destination)`` group ranks;
+    each rank sends ``x`` to its destination and returns, as a new tensor,
+    what its source sent; a rank that no pair names as a destination gets
+    zeros. Send and receive go out as one batch (``batch_isend_irecv``: one
+    NCCL group call), so a ring of them cannot deadlock."""
+    g = _group(group)
+    world, rank = dist.get_world_size(g), dist.get_rank(g)
+    pairs = _check_perm(perm, world)
+    if on_host(x, g):
+        return _staged(lambda o, h: o.copy_(permute(h, pairs, g)),
+                       torch.empty_like(x), x, async_op=async_op)
+    dst = next((b for a, b in pairs if a == rank), None)
+    src = next((a for a, b in pairs if b == rank), None)
+    if src == rank:       # a fixed point of the permutation
+        return _finish(x.clone(), None, async_op)
+    out = torch.empty_like(x) if src is not None else torch.zeros_like(x)
+    ops = []
+    if dst is not None:
+        ops.append(dist.P2POp(dist.isend, x.contiguous(),
+                              dist.get_global_rank(g, dst), g))
+    if src is not None:
+        ops.append(dist.P2POp(dist.irecv, out,
+                              dist.get_global_rank(g, src), g))
+    if not ops:
+        return _finish(out, None, async_op)
+    reqs = dist.batch_isend_irecv(ops)
+    # the receive, then the send: a gloo work waited on twice never returns
+    return _finish(out, _Then(reqs[-1], lambda: [r.wait() for r in reqs[:-1]]),
+                   async_op)
+
+
+def all_to_all(x: torch.Tensor, split_dim: int, concat_dim: int,
+               group=None) -> torch.Tensor:
+    """The tiled all-to-all (``lax.all_to_all(x, axis, split_dim,
+    concat_dim, tiled=True)``): ``x`` splits along ``split_dim`` into one
+    chunk per rank, chunk j goes to rank j, and each rank concatenates the
+    chunks it receives along ``concat_dim`` in rank order. One
+    ``all_to_all_single`` (gloo in torch 2.13 runs it on CPU tensors) over
+    the chunks stacked on a new leading dim."""
+    g = _group(group)
+    world = dist.get_world_size(g)
+    if x.shape[split_dim] % world:
+        raise ValueError(f"all_to_all: dim {split_dim} of {tuple(x.shape)} "
+                         f"does not divide by world {world}")
+    if world == 1:
+        return x.clone()
+    send = torch.stack(x.chunk(world, dim=split_dim))
+    recv = torch.empty_like(send)
+    if on_host(x, g):
+        host = torch.empty(recv.shape, dtype=recv.dtype)
+        dist.all_to_all_single(host, send.cpu(), group=g)
+        recv.copy_(host)
+    else:
+        dist.all_to_all_single(recv, send, group=g)
+    return torch.cat(recv.unbind(0), dim=concat_dim)
+
+
+class _Permute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, pairs, group):
+        ctx.pairs, ctx.group = pairs, group
+        return permute(x, pairs, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return permute(g.contiguous(), [(b, a) for a, b in ctx.pairs],
+                       ctx.group), None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, split_dim, concat_dim, group):
+        ctx.dims, ctx.group = (split_dim, concat_dim), group
+        return all_to_all(x, split_dim, concat_dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_dim, concat_dim = ctx.dims
+        return (all_to_all(g.contiguous(), concat_dim, split_dim, ctx.group),
+                None, None, None)
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.contiguous(), ctx.group), None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_gather(x.contiguous(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter(g.contiguous(), ctx.group), None
+
+
+def ad_permute(x: torch.Tensor, perm: Sequence[tuple],
+               group=None) -> torch.Tensor:
+    """`permute`, differentiable: the cotangent goes back along the
+    reverse pairs (JAX's ``ppermute`` transpose)."""
+    g = _group(group)
+    return _Permute.apply(x, _check_perm(perm, dist.get_world_size(g)), g)
+
+
+def ad_all_to_all(x: torch.Tensor, split_dim: int, concat_dim: int,
+                  group=None) -> torch.Tensor:
+    """`all_to_all`, differentiable: the cotangent takes the reverse
+    all-to-all (``concat_dim`` split, ``split_dim`` concatenated)."""
+    return _AllToAll.apply(x, split_dim, concat_dim, _group(group))
+
+
+def ad_psum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The sum over the group (``lax.psum``), differentiable: the
+    cotangent is summed over the group too (psum's transpose under
+    ``check_vma=False``)."""
+    return _Psum.apply(x, _group(group))
+
+
+def ad_all_gather(x: torch.Tensor, group=None) -> torch.Tensor:
+    """`all_gather` along dim 0 (``lax.all_gather(tiled=True)``),
+    differentiable: the cotangent is reduce-scattered (summed over the
+    group, each rank keeping its own rows)."""
+    return _AllGather.apply(x, _group(group))
 
 
 # ---------------------------------------------------------------------------

@@ -385,7 +385,7 @@ class BertForPreTraining(nn.Module):
     def forward(self, input_ids, token_type_ids=None, attention_mask=None, *,
                 train: bool = False, generator=None, causal: bool = False,
                 decode: bool = False, position_offset=0, cache=None,
-                prefill_lengths=None):
+                prefill_lengths=None, pool_fn=None):
         """``train=True`` turns the dropouts on, with masks from
         ``generator`` (a ``torch.Generator`` on the model's device; required
         when any dropout rate is > 0). ``token_type_ids`` default to 0 and
@@ -398,7 +398,10 @@ class BertForPreTraining(nn.Module):
         `models.gpt.GptLmHeadModel.forward` — ``position_offset`` is each
         row's global position (a scalar or ``[B]``), ``[B, 1]`` input a
         decode tick, ``[B, C]`` with ``prefill_lengths`` ``[B]`` a chunked
-        prefill tick; position ids are clamped to the table."""
+        prefill tick; position ids are clamped to the table.
+        ``pool_fn(x)`` replaces the NSP head's ``x[:, 0]`` CLS pooling (JAX
+        models/bert.py:269-277: under sequence parallelism the CLS token
+        lives on sp rank 0 only, `parallel.sp.sp_cls_pool`)."""
         cfg = self.config
         decode = decode or cache is not None
         if decode and cache is None:
@@ -462,7 +465,8 @@ class BertForPreTraining(nn.Module):
         y = self.mlm_ln(y)
         logits = F.linear(y, self.word_embeddings.weight.to(dt)).float() \
             + self.mlm_bias
-        pooled = torch.tanh(self.pooler(x[:, 0]))
+        pooled = torch.tanh(self.pooler(
+            x[:, 0] if pool_fn is None else pool_fn(x)))
         nsp = self.nsp_classifier(pooled)
         return logits, nsp.float()
 

@@ -36,7 +36,9 @@ decode; the recompute replays the block's dropout masks from
 recomputes only the dense core's probabilities, and has no dropout path.
 
 Not ported yet (raises ``NotImplementedError``): mixture of experts
-(``num_experts > 0``).
+(``num_experts > 0``; ROADMAP Queue 1 item 10b, with tensor parallelism).
+Sequence parallelism builds this model with an sp attention impl
+(`parallel.sp.sp_gpt_model`) and per-token position offsets.
 """
 
 from __future__ import annotations
@@ -265,7 +267,8 @@ class GptLmHeadModel(nn.Module):
         super().__init__()
         if config.num_experts > 0:
             raise NotImplementedError(
-                "num_experts > 0 (mixture of experts) is not ported yet")
+                "num_experts > 0 (mixture of experts) is not ported yet "
+                "(ROADMAP Queue 1 item 10b: TP, ring-TP decode and EP)")
         dev = resolve_device(device)
         cfg = config
         self.config = cfg
@@ -317,9 +320,12 @@ class GptLmHeadModel(nn.Module):
     def forward(self, input_ids, *, train: bool = False, generator=None,
                 position_offset=0, cache=None, prefill_lengths=None):
         """``cache=None``: a full causal forward over ``input_ids``
-        ``[B, S]`` starting at ``position_offset``. ``train=True`` turns the
-        dropouts on, with masks from ``generator`` (a ``torch.Generator``
-        on the model's device; required when any dropout rate is > 0).
+        ``[B, S]`` starting at ``position_offset`` (a scalar, per-row
+        ``[B]``, or per-token ``[1, S]`` / ``[B, S]``: the positions are
+        ``position_offset + arange(S)``, JAX models/gpt.py:350-382).
+        ``train=True`` turns the dropouts on, with masks from
+        ``generator`` (a ``torch.Generator`` on the model's device;
+        required when any dropout rate is > 0).
 
         ``cache=`` (decode mode): ``position_offset`` is each row's global
         position — a scalar or a per-row ``[B]`` tensor (a
@@ -345,12 +351,18 @@ class GptLmHeadModel(nn.Module):
             position_offset = torch.as_tensor(position_offset)
         per_row = torch.is_tensor(position_offset) and position_offset.ndim
         if per_row:
-            if position_offset.ndim != 1:
-                raise ValueError(
-                    "position_offset must be a scalar or per-row [B], got "
-                    f"shape {tuple(position_offset.shape)}")
             offset = position_offset.to(device=dev, dtype=torch.long)
-            pos = offset[:, None] + ar[None, :]
+            if offset.ndim == 1:
+                pos = offset[:, None] + ar[None, :]
+            elif offset.ndim == 2 and cache is None:
+                # a per-token [1, S] or [B, S] offset (the zigzag
+                # sequence-parallel layout, `parallel.sp`)
+                pos = offset + ar[None, :]
+            else:
+                raise ValueError(
+                    "position_offset must be a scalar, per-row [B] or (not "
+                    "in decode mode) per-token [1 or B, S], got shape "
+                    f"{tuple(position_offset.shape)}")
         else:
             offset = int(position_offset)
             pos = (ar + offset)[None, :]

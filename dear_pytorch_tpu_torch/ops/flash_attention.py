@@ -43,7 +43,8 @@ bf16 training step; TMA and ``wgmma``, P and dS rounded to bf16 before the
 second products) and ``"cuda_core"`` (fp32 inputs, bf16 inputs with an fp32
 output, other head dims: the first design on CUDA cores).
 ``flash_bwd_route_launches["dq"]`` and ``["dkv"]`` count each kernel's
-launches by route. A
+launches by route, and ``flash_shape_launches`` every kernel's by route,
+shape, causality and input dtype. A
 ``torch.autograd.Function`` around the forward saves ``q, k, v, mask, o,
 lse``; its backward computes ``delta = rowsum(dO * O)`` in fp32 with plain
 PyTorch (the JAX package does it in XLA, ``_flash_bwd``) and launches the
@@ -96,6 +97,9 @@ flash_fwd_route_launches = dict.fromkeys(FWD_ROUTES, 0)
 BWD_ROUTES = ("tensor_core", "cuda_core")
 flash_bwd_route_launches = {
     which: dict.fromkeys(BWD_ROUTES, 0) for which in ("dq", "dkv")}
+#: launches by (kernel "fwd" / "dq" / "dkv", route, Sq, Sk, causal, input
+#: dtype name): which of a path's shapes each kernel ran
+flash_shape_launches: dict = {}
 #: the plain versions' FLOPs of every launch so far (`plain_flops`)
 flash_flops = 0
 
@@ -121,6 +125,13 @@ def reset_launch_counts() -> None:
     for counts in flash_bwd_route_launches.values():
         for route in BWD_ROUTES:
             counts[route] = 0
+    flash_shape_launches.clear()
+
+
+def _count_shape(which, route, Sq, Sk, causal, dtype) -> None:
+    key = (which, route, Sq, Sk, bool(causal),
+           str(dtype).replace("torch.", ""))
+    flash_shape_launches[key] = flash_shape_launches.get(key, 0) + 1
 
 
 # ---------------------------------------------------------------------------
@@ -391,6 +402,7 @@ def _launch(q, k, v, mask, scale, causal, out_dtype):
             + lib.flash_fwd_error_string(err).decode())
     flash_fwd_launches += 1
     flash_fwd_route_launches[route] += 1
+    _count_shape("fwd", route, Sq, Sk, causal, q.dtype)
     flash_flops += plain_flops("fwd", B, H, Sq, Sk, D)
     return o, lse
 
@@ -455,6 +467,7 @@ def _launch_bwd(which, q, k, v, mask, do, lse, delta, scale, causal,
     else:
         flash_bwd_dkv_launches += 1
     flash_bwd_route_launches[which][route] += 1
+    _count_shape(which, route, Sq, Sk, causal, q.dtype)
     flash_flops += plain_flops(which, B, H, Sq, Sk, D)
     return out
 

@@ -383,7 +383,7 @@ _REDUCTIONS = {"allreduce": _allreduce, "rsag": _rsag, "rb": _rb,
                "bytescheduler": _bytescheduler}
 
 
-def _fused_guards(optimizer, clip_norm, dcn) -> None:
+def _fused_guards(optimizer, clip_norm, dcn, axes) -> None:
     """The JAX package's build-time guards of ``mode="dear-fused"`` that
     come before the others, in its order and with its messages
     (dear.py:401-457)."""
@@ -395,6 +395,11 @@ def _fused_guards(optimizer, clip_norm, dcn) -> None:
             "remote copies to devices outside this slice's ICI mesh "
             "— use mode='dear' (hierarchical RS+AG over ICI + host "
             "DCN exchange)")
+    if len(axes) != 1:
+        raise ValueError(
+            "dear-fused rings address devices by LOGICAL mesh id and "
+            "currently support a single data-parallel axis; got "
+            f"{axes}")
     if clip_norm is not None:
         raise ValueError(
             "dear-fused applies the optimizer inside the per-bucket "
@@ -409,7 +414,7 @@ def _fused_guards(optimizer, clip_norm, dcn) -> None:
 
 
 def _dcn_guards(dcn, mode, comp, clip_norm, model_state, has_aux,
-                exclude_parts, group) -> None:
+                exclude_parts, group, axes, mean_axes) -> None:
     """The JAX package's guards of the hierarchical schedule, in its order
     and with its messages (dear.py:509-552); its nested-mesh guards
     (:553-565) become the port's: one local slice, and ``group`` is that
@@ -442,6 +447,15 @@ def _dcn_guards(dcn, mode, comp, clip_norm, model_state, has_aux,
         raise ValueError(
             "exclude_parts ablations assume the single-level "
             "schedule; unsupported with dcn=")
+    if mean_axes != axes:
+        raise ValueError(
+            "mean_axes != axis_name is unsupported with dcn=: the "
+            "intra-slice legs average over every local axis and the "
+            "host leg averages over slices")
+    if backend.sp_layout() is not None:
+        raise NotImplementedError(
+            "sequence parallelism on the hierarchical (dcn=) schedule is "
+            "not ported yet (ROADMAP Queue 1 item 10d)")
     local = tuple(getattr(dcn, "local_slices", ()))
     if len(local) != 1:
         raise ValueError(
@@ -503,7 +517,8 @@ def build_train_step(loss_fn: Callable, model: nn.Module, *,
                      exclude_parts: Sequence[str] = (),
                      partition_mb: Optional[float] = 4.0,
                      remat: Optional[str] = None,
-                     dcn=None, dcn_slice_axis: str = "slice"
+                     dcn=None, dcn_slice_axis: str = "slice",
+                     mean_axes: Optional[Sequence[str]] = None
                      ) -> "TrainStep":
     """Build the eager DeAR (or baseline) train step over ``model``.
 
@@ -539,8 +554,19 @@ def build_train_step(loss_fn: Callable, model: nn.Module, *,
     it). ``dcn``: a `comm.dcn.DcnExchanger`, the hierarchical schedule
     (module docstring); ``group`` then defaults to this rank's slice group.
     ``dcn_slice_axis`` is the JAX package's mesh axis name, accepted and
-    unused: the slice is a process group here. The guards are the JAX
-    package's, in its order and with its messages (dear.py:361-565)."""
+    unused: the slice is a process group here. ``mean_axes``: the JAX
+    package's (dear.py:326-331), the axes over which the ranks' losses are
+    independent equal-weight samples — gradients are AVERAGED over these
+    and summed over the rest. The axes are ``("dp",)``, or ``("dp",
+    "sp")`` when ``group``'s ranks carry a dp x sp layout
+    (`comm.backend.form_sp_groups` over them); the default is all of them.
+    For sequence parallelism pass ``("dp",)``: an sp group computes ONE
+    loss (its ranks hold partial gradients, which sum), dp replicas hold
+    different samples (theirs average). The update then divides by ``dp =
+    world // sp`` instead of the world, on every bucket (the K5 epilogue's
+    ``mean_world``); the buckets still reduce over the whole group. The
+    guards are the JAX package's, in its order and with its messages
+    (dear.py:361-565)."""
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
     for e in exclude_parts:
@@ -548,8 +574,14 @@ def build_train_step(loss_fn: Callable, model: nn.Module, *,
             raise ValueError(f"exclude_parts entries must be in {EXCLUDABLE}")
     if exclude_parts and mode != "dear":
         raise ValueError("exclude_parts is a 'dear'-mode ablation")
+    on_layout = _on_sp_layout(group, dcn)
+    axes = ((backend.DP_AXIS, backend.SP_AXIS) if on_layout
+            else (backend.DP_AXIS,))
+    mean_axes = tuple(mean_axes) if mean_axes is not None else axes
+    if not set(mean_axes) <= set(axes):
+        raise ValueError(f"mean_axes {mean_axes} not a subset of {axes}")
     if mode == "dear-fused":
-        _fused_guards(optimizer, clip_norm, dcn)
+        _fused_guards(optimizer, clip_norm, dcn, axes)
     if gather_dtype is not None and mode not in _SHARDED:
         raise ValueError("gather_dtype applies to the sharded ('dear'/'fsdp') "
                          "schedules only")
@@ -568,6 +600,12 @@ def build_train_step(loss_fn: Callable, model: nn.Module, *,
         raise ValueError(
             "'fsdp' owns its rematerialization policy (the re-gather-in-"
             "backward checkpoint); remat applies to the other schedules")
+    if comp.name != "none" and mean_axes != axes:
+        raise ValueError(
+            "compressed reductions divide by the full axis product and do "
+            "not support mean_axes != axis_name (e.g. sequence-parallel "
+            "partial-gradient sums); use dense schedules on multi-axis "
+            "meshes with mean_axes")
     if gtopk and comp.name not in Z.SPARSE:
         raise ValueError("gtopk requires a top-k-family compressor")
     if int(accum_steps) != accum_steps or accum_steps < 1:
@@ -588,7 +626,7 @@ def build_train_step(loss_fn: Callable, model: nn.Module, *,
     mstate = _model_state(model, model_state_template)
     if dcn is not None:
         _dcn_guards(dcn, mode, comp, clip_norm, mstate, has_aux,
-                    exclude_parts, group)
+                    exclude_parts, group, axes, mean_axes)
     dev = check_model_device(model.device, device)
     if group is None:
         group = backend.slice_group() if dcn is not None else backend.init(dev)
@@ -601,6 +639,9 @@ def build_train_step(loss_fn: Callable, model: nn.Module, *,
     if plan.world != world:
         raise ValueError(f"plan was built for world={plan.world} but the "
                          f"group has {world} ranks")
+    sizes = {backend.DP_AXIS: world // backend.sp_size() if on_layout
+             else world, backend.SP_AXIS: backend.sp_size()}
+    mean_world = int(np.prod([sizes[a] for a in mean_axes]))
     return TrainStep(loss_fn, model, optimizer or fused_sgd(lr=0.01), group,
                      plan, comm_dtype=comm_dtype, gather_dtype=gather_dtype,
                      has_aux=has_aux, rng_seed=rng_seed,
@@ -609,7 +650,18 @@ def build_train_step(loss_fn: Callable, model: nn.Module, *,
                      partition_mb=partition_mb, model_state=mstate,
                      compressor=comp, density=density, gtopk=bool(gtopk),
                      momentum_correction=momentum_correction, remat=remat,
-                     dcn=dcn)
+                     dcn=dcn, mean_world=mean_world)
+
+
+def _on_sp_layout(group, dcn) -> bool:
+    """Whether the step's group (``group``, or the world when None and
+    there is no ``dcn``) is the one a dp x sp layout was formed over."""
+    layout = backend.sp_layout()
+    if layout is None or (group is None and dcn is not None):
+        return False
+    ranks = (tuple(range(dist.get_world_size())) if group is None
+             else tuple(dist.get_process_group_ranks(group)))
+    return ranks == layout.base
 
 
 def _model_state(model, template) -> dict:
@@ -658,7 +710,8 @@ class TrainStep:
                  comm_dtype, gather_dtype, has_aux, rng_seed, accum_steps,
                  clip_norm, mode="dear", exclude_parts=(), partition_mb=4.0,
                  model_state=None, compressor=None, density=1.0, gtopk=False,
-                 momentum_correction=0.0, remat=None, dcn=None):
+                 momentum_correction=0.0, remat=None, dcn=None,
+                 mean_world=None):
         self.loss_fn, self.model, self.optimizer = loss_fn, model, optimizer
         self.dcn = dcn
         #: the hierarchical step's leg times (seconds) and host payload
@@ -752,8 +805,12 @@ class TrainStep:
         else:
             self._reduced = ([zeros(b.shard_size, cdt) for b in bks]
                              if self.sharded else self._gbuf)
-        # the divisor of the update: the compressed means are means already
-        self._mean_world = 1 if self.compressor is not None else self.world
+        # the divisor of the update: the compressed means are means
+        # already; under sequence parallelism the dp degree (`mean_axes`)
+        #: the ranks the gradients are averaged over (the rest are summed)
+        self.mean_world = self.world if mean_world is None else mean_world
+        self._mean_world = (1 if self.compressor is not None
+                            else self.mean_world)
         #: LAMB: per bucket its parameters' offsets (the segment starts)
         self._starts = ([torch.tensor(b.offsets, dtype=torch.int32,
                                       device=dev) for b in bks]
@@ -921,7 +978,7 @@ class TrainStep:
             with self._on_comm():
                 CM.fused_reduce_scatter_update(
                     self._gbuf[g], state.shards[g], state.opt_state[g],
-                    self.optimizer, self.ring, mean_world=self.world,
+                    self.optimizer, self.ring, mean_world=self.mean_world,
                     step=state.step)
             self._rs_next += 1
             self.rs_launches += 1
@@ -1140,7 +1197,9 @@ class TrainStep:
 
     def _generator(self, step: int, microbatch: int) -> torch.Generator:
         # hierarchical: a globally unique index (JAX dear.py:614-620), so
-        # the same position in two slices draws different masks
+        # the same position in two slices draws different masks; on a dp x
+        # sp layout the group rank is dp index * sp + sp index, so every
+        # (dp, sp) rank draws its own stream (JAX folds the same index)
         idx = (self.rank if self.dcn is None
                else self.dcn.local_slices[0] * self.world + self.rank)
         seed = np.random.SeedSequence(
@@ -1334,7 +1393,7 @@ class TrainStep:
             self._rs_work[g] = []
         clip_scale = None
         if self.clip_norm is not None:
-            mw = torch.tensor(float(self.world), device=self.device)
+            mw = torch.tensor(float(self.mean_world), device=self.device)
             sumsq = sum((r.float() / mw).square().sum() for r in self._reduced)
             if self.sharded and self.world > 1:   # replicated: already global
                 sumsq = C.all_reduce(sumsq, self.group)

@@ -115,11 +115,12 @@ def test_cli_dtype_rules():
 
 
 @pytest.mark.parametrize("flags", [
-    ["--sp-degree", "2"], ["--remat", "--num-experts", "4"],
-    ["--num-experts", "4"]])
+    ["--sp-degree", "2", "--num-experts", "4"],
+    ["--remat", "--num-experts", "4"], ["--num-experts", "4"]])
 def test_cli_unported_flags_raise(flags):
     """What is left unported raises, naming only itself (``--remat`` is
-    ported since slice 14)."""
+    ported since slice 14, ``--sp-degree`` since slice 20: MoE is what is
+    left, and it raises before the sp layout is formed)."""
     with pytest.raises(NotImplementedError, match="not ported") as err:
         cli.main(flags + ["--device", "cpu"])
     assert "--remat" not in str(err.value)
@@ -159,12 +160,14 @@ def test_cli_ring_projections_trains_on_the_cpu():
 
 
 def test_cli_unknown_flag_is_an_error():
-    """A JAX CLI flag the port does not carry (``--sp-attention``: ROADMAP
-    Queue 1 item 10; ``--compressor`` is carried since slice 14,
-    ``--autotune`` since slice 15, ``--pipeline`` since slice 16) is an
-    argparse error."""
+    """A value the JAX CLI does not take is an argparse error (every JAX
+    flag is carried: ``--compressor`` since slice 14, ``--autotune`` since
+    slice 15, ``--pipeline`` since slice 16, ``--sp-attention`` since
+    slice 20, with JAX's four schemes)."""
     with pytest.raises(SystemExit):
-        cli.build_parser().parse_args(["--sp-attention", "ring"])
+        cli.build_parser().parse_args(["--sp-attention", "striped"])
+    assert cli.build_parser().parse_args(
+        ["--sp-attention", "zigzag"]).sp_attention == "zigzag"
     assert cli.build_parser().parse_args(
         ["--compressor", "eftopk"]).compressor == "eftopk"
     assert cli.build_parser().parse_args(
@@ -324,11 +327,15 @@ def test_bert_cli_flash_attention_matches_dense_on_the_cpu(capsys):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--sp-degree", "2"], "item 10"),
-    (["--sp-attention", "ring"], "item 10"),
+    pytest.param(["--sp-degree", "2"], "does not divide the 1-device world",
+                 id="flags0-item 10"),
+    pytest.param(["--sp-attention", "ring"], "requires --sp-degree > 1",
+                 id="flags1-item 10"),
 ])
 def test_bert_cli_unported_flags_raise(flags, match):
-    with pytest.raises(NotImplementedError, match=match):
+    """Sequence parallelism is ported (slice 20, ROADMAP Queue 1 item 10a):
+    what these flags raise now is JAX's refusal of them at world 1."""
+    with pytest.raises(SystemExit, match=match):
         _bert(*flags)
 
 
@@ -508,3 +515,69 @@ def test_mnist_example_refusals(monkeypatch):
     monkeypatch.setitem(sys.modules, "sklearn.datasets", None)
     with pytest.raises(ImportError, match="scikit-learn"):
         mnist.main(["--device", "cpu", "--epochs", "1"])
+
+
+_SP_CLI_COMMON = ["--device", "cpu", "--num-hidden-layers", "1",
+                  "--batch-size", "1", "--dropout0", "--base-lr", "0.01",
+                  "--num-warmup-batches", "0", "--num-batches-per-iter",
+                  "2", "--num-iters", "1"]
+#: every scheme trains in tests/test_torch_sp.py; here the CLIs' own path
+#: (its batch split, ``mean_axes``, the zigzag permutation) at full width,
+#: where each run's gloo collectives move the whole model's gradients
+_SP_CLI_RUNS = (
+    [("gpt", s, ["--sequence-len", "16"]) for s in ("ring_flash", "zigzag")]
+    + [("bert", "ring", ["--model", "bert_base", "--sentence-len", "16"])])
+
+_SP_CLI_WORKER = """
+import json, os, sys
+sys.path.insert(0, {root!r})
+from dear_pytorch_tpu_torch.benchmarks import bert, gpt
+from dear_pytorch_tpu_torch.comm import backend
+rank, world, out = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+os.environ.update(DEAR_NUM_PROCESSES=str(world), DEAR_PROCESS_ID=str(rank),
+                  DEAR_COORDINATOR_ADDRESS="file://" + out + "/store")
+results = {{}}
+for cli, scheme, extra in {runs!r}:
+    res = (gpt if cli == "gpt" else bert).main(
+        {common!r} + extra + ["--sp-degree", "2", "--sp-attention", scheme])
+    results[cli + "." + scheme] = {{
+        "losses": res.losses, "world": res.world,
+        "mean_world": res.train_step.mean_world,
+        "seq_local": int(res.batch["input_ids"].shape[1])}}
+    res.train_step.close()
+backend.shutdown()
+json.dump(results, open(f"{{out}}/rank{{rank}}.json", "w"))
+"""
+
+
+def test_sp_clis_train_at_world2(tmp_path):
+    """``--sp-degree 2`` through both CLIs at world 2 (two jax-free ranks
+    over gloo, dp 1 x sp 2): each rank holds half of every
+    sequence, the step sums over sp (``mean_world`` 1), and every step's
+    loss equals the one-rank dense CLI's on the same global batch from the
+    same seeded weights within JAX's SP tolerance (rtol 2e-4)."""
+    import json
+    import os
+
+    from dear_pytorch_tpu_torch.benchmarks import bert
+    from tests.test_torch_dear import ROOT, spawn_ranks
+
+    spawn_ranks(_SP_CLI_WORKER.format(root=ROOT, runs=_SP_CLI_RUNS,
+                                      common=_SP_CLI_COMMON),
+                2, str(tmp_path))
+    ranks = [json.load(open(os.path.join(tmp_path, f"rank{r}.json")))
+             for r in range(2)]
+    dense = {"gpt": cli.main(_SP_CLI_COMMON + _SP_CLI_RUNS[0][2]),
+             "bert": bert.main(_SP_CLI_COMMON + _SP_CLI_RUNS[-1][2])}
+    for res in dense.values():
+        res.train_step.close()
+    for kind, scheme, _ in _SP_CLI_RUNS:
+        for r in ranks:
+            run = r[f"{kind}.{scheme}"]
+            assert run["world"] == 2 and run["mean_world"] == 1
+            assert run["seq_local"] == 8
+            np.testing.assert_allclose(run["losses"], dense[kind].losses,
+                                       rtol=2e-4, atol=2e-5,
+                                       err_msg=f"{kind} {scheme}")
+        assert ranks[0][f"{kind}.{scheme}"]["losses"] == \
+            ranks[1][f"{kind}.{scheme}"]["losses"]

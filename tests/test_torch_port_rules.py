@@ -76,7 +76,9 @@ def test_importing_the_port_and_chip_smoke_loads_no_jax():
                  "dear_pytorch_tpu_torch.models.vgg",
                  "dear_pytorch_tpu_torch.models.mnist",
                  "dear_pytorch_tpu_torch.models.convert",
-                 "dear_pytorch_tpu_torch.examples.mnist"):
+                 "dear_pytorch_tpu_torch.examples.mnist",
+                 "dear_pytorch_tpu_torch.parallel.ring_attention",
+                 "dear_pytorch_tpu_torch.parallel.sp"):
         assert ring in modules and ring in loaded
 
 
@@ -115,6 +117,24 @@ def test_entry_points_need_the_card_unless_told_otherwise(monkeypatch):
         tgpt.generate(model, [[1, 2]], 2)
     assert tgpt.generate(model, [[1, 2]], 2, device="cpu").shape == (1, 4)
     assert DecodeEngine(model, device="cpu").device == torch.device("cpu")
+
+
+def test_sp_entry_points_need_the_card_unless_told_otherwise(monkeypatch):
+    """Sequence parallelism's model builders (`parallel.sp`) take the card
+    unless told otherwise, as the dense models do."""
+    from dear_pytorch_tpu_torch.models import bert as tbert
+    from dear_pytorch_tpu_torch.parallel import sp as TSP
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = _small_config()
+    bcfg = tbert.BertConfig(vocab_size=61, hidden_size=32,
+                            num_hidden_layers=1, num_attention_heads=2,
+                            intermediate_size=64, max_position_embeddings=32)
+    for build, c in ((TSP.sp_gpt_model, cfg), (TSP.sp_bert_model, bcfg)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build(c, attention="ulysses")
+        assert build(c, attention="ulysses", device="cpu").device == \
+            torch.device("cpu")
 
 
 def test_training_entry_points_need_the_card_unless_told_otherwise(
